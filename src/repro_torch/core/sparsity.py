@@ -1,0 +1,103 @@
+"""Stack dimensions, Eq. 4 effective sparsity and op counting (Eq. 7
+numerator): the part of :mod:`repro.core.sparsity` the Eq. 5-8 model and
+the engine need, ported to plain Python arithmetic.
+
+``Gamma`` (Γ) is the fraction of zeros in delta vectors; the effective
+sparsity weights Γ_Δx and Γ_Δh by the number of parameters each gates.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+# Rows of the RWKV6 decay LoRA down-projection (repro.core.deltarwkv).
+DECAY_LORA = 64
+
+
+@dataclass(frozen=True)
+class GruDims:
+    """Dimensions of an L-layer delta-RNN stack (uniform hidden size).
+
+    ``gates`` is the number of stacked gate rows per weight column (3 for
+    GRU, 4 for LSTM). Cells whose gated projections are not gate rows over
+    ``[I+H]`` columns pass the gated volumes as ``x_weights`` /
+    ``h_weights`` (stack totals).
+    """
+
+    input_size: int   # I
+    hidden_size: int  # H
+    num_layers: int   # L
+    gates: int = 3
+    x_weights: int | None = None
+    h_weights: int | None = None
+
+    @property
+    def x_weight_volume(self) -> int:
+        """Parameters gated by the Δx streams: ``gHI + gH^2(L-1)``."""
+        if self.x_weights is not None:
+            return self.x_weights
+        i, h, l, g = (self.input_size, self.hidden_size, self.num_layers,
+                      self.gates)
+        return g * h * i + g * h * h * (l - 1)
+
+    @property
+    def h_weight_volume(self) -> int:
+        """Parameters gated by the Δh streams: ``gH^2 L``."""
+        if self.h_weights is not None:
+            return self.h_weights
+        h, l, g = self.hidden_size, self.num_layers, self.gates
+        return g * h * h * l
+
+    @property
+    def params_per_timestep_ops(self) -> int:
+        """Eq. 7 'Op': 2 * (x_weight_volume + h_weight_volume)."""
+        return 2 * (self.x_weight_volume + self.h_weight_volume)
+
+    @property
+    def n_params(self) -> int:
+        """Delta-gated weight parameter count (biases excluded)."""
+        return self.x_weight_volume + self.h_weight_volume
+
+
+# Gate rows per weight column, per cell family.
+CELL_GATES = {"gru": 3, "lstm": 4}
+
+
+def _rwkv6_volumes(i: int, h: int, l: int) -> tuple[int, int]:
+    """RWKV6 time-mix volumes: 3·D² (W_r/W_k/W_v) and D·DECAY_LORA per layer."""
+    return 3 * h * h * l, h * DECAY_LORA * l
+
+
+def _rglru_volumes(i: int, h: int, l: int) -> tuple[int, int]:
+    """RG-LRU volumes: 2·D·W (w_in, w_in_gate) and 2·W² (w_rg, w_ig) per layer."""
+    return 2 * i * h * l, 2 * h * h * l
+
+
+# Cell families priced by explicit projection volumes rather than gate rows.
+CELL_PROJ_VOLUMES = {"rwkv6": _rwkv6_volumes, "rglru": _rglru_volumes}
+
+
+def cell_dims(cell: str, input_size: int, hidden_size: int,
+              num_layers: int) -> GruDims:
+    """Dims of an L-layer delta-RNN stack of the given cell family."""
+    if cell in CELL_GATES:
+        return GruDims(input_size, hidden_size, num_layers,
+                       gates=CELL_GATES[cell])
+    if cell in CELL_PROJ_VOLUMES:
+        xw, hw = CELL_PROJ_VOLUMES[cell](input_size, hidden_size, num_layers)
+        return GruDims(input_size, hidden_size, num_layers, gates=1,
+                       x_weights=xw, h_weights=hw)
+    raise ValueError(f"unknown cell family {cell!r}; known gate "
+                     f"counts: {CELL_GATES}, known projection-volume "
+                     f"cells: {sorted(CELL_PROJ_VOLUMES)}")
+
+
+def effective_sparsity(dims: GruDims, gamma_dx: float, gamma_dh: float) -> float:
+    """Eq. 4 Γ_eff: parameter-weighted average of input/hidden sparsity."""
+    if dims.x_weights is None and dims.h_weights is None:
+        i, h, l = dims.input_size, dims.hidden_size, dims.num_layers
+        num = (i + h * (l - 1)) * gamma_dx + h * l * gamma_dh
+        den = i + h * (l - 1) + h * l
+        return num / den
+    xw, hw = dims.x_weight_volume, dims.h_weight_volume
+    return (xw * gamma_dx + hw * gamma_dh) / (xw + hw)
+

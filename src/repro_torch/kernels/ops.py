@@ -1,0 +1,119 @@
+"""Device resolution, kernel dispatch by tensor device, and launch counts.
+
+The counterpart of :mod:`repro.kernels.ops`. The JAX package picks a Pallas
+mode from the default backend (compiled on a TPU, interpreted or the jnp
+oracle elsewhere) and has a global ``set_force_ref`` switch. Here the rule
+is the tensor's device, and nothing else:
+
+* operands on the CPU run the kernel's plain PyTorch version;
+* operands on a CUDA device launch the hand-written kernel, or raise.
+
+There is no fallback from a failed launch to the plain version and no
+global switch that reroutes the main path; callers that want the plain
+version on the card call it by name (``*_ref``).
+
+Every kernel wrapper adds one to its :class:`KernelInfo` ``launches`` count
+where it launches its kernel, so a run can show that the main path went
+through the kernels.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``"cuda"`` unless the caller
+    names another. Raises when CUDA is asked for (or defaulted to) and no
+    card is present — the port never quietly runs on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: repro_torch runs on the GPU by "
+            "default; pass device='cpu' to run the plain PyTorch versions "
+            "on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type == "cuda" and dev.index is None:
+        # tensors report an indexed device: "cuda" means the current one
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def launches_kernel(*tensors: torch.Tensor) -> bool:
+    """Dispatch rule: True when every operand lies on one CUDA device
+    (launch the kernel), False when every operand lies on the CPU (run the
+    plain version). Mixed or other devices raise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"kernel operands on several devices: {devices}")
+    dev = devices.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {dev}")
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+            shape: tuple) -> torch.Tensor:
+    """Check a kernel operand (device, dtype, shape, contiguity, 16-byte
+    alignment) before its pointer is handed to CUDA; raise on anything the
+    kernel does not take."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.numel() and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    return t
+
+
+def cuda_stream(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream, for a kernel launched on
+    ``t``'s device. A launch goes to the calling thread's current device,
+    so ``t`` must live there."""
+    current = torch.cuda.current_device()
+    if t.device.index != current:
+        raise ValueError(f"operands on {t.device} but the current CUDA "
+                         f"device is cuda:{current}; call "
+                         "torch.cuda.set_device first")
+    return torch.cuda.current_stream().cuda_stream
+
+
+@dataclass
+class KernelInfo:
+    """One hand-written kernel: where its source lives, which TPU kernel
+    it replaces, and how many times the wrapper launched it."""
+
+    name: str
+    source: str
+    replaces: str
+    launches: int = 0
+
+
+DELTAGRU_SEQ_F32 = KernelInfo(
+    "deltagru_seq_f32", "src/repro_torch/csrc/deltagru_seq.cu",
+    "src/repro/kernels/deltagru_seq.py:111")
+DELTA_Q8_GRU_I8 = KernelInfo(
+    "delta_q8_gru_i8", "src/repro_torch/csrc/delta_q8.cu",
+    "src/repro/kernels/delta_q8.py:407")
+DELTA_Q8_GRU_I4 = KernelInfo(
+    "delta_q8_gru_i4", "src/repro_torch/csrc/delta_q8.cu",
+    "src/repro/kernels/delta_q8.py:407")
+KERNELS = (DELTAGRU_SEQ_F32, DELTA_Q8_GRU_I8, DELTA_Q8_GRU_I4)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}

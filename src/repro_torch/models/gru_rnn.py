@@ -1,0 +1,121 @@
+"""The paper's own networks: multi-layer (Delta)GRU stacks with a CTC
+classifier head (TIDIGITS) or a regression head (SensorsGas). The PyTorch
+port of :mod:`repro.models.gru_rnn` (the QAT argument of
+``gru_model_forward`` waits for the training slice).
+
+A model is a dict ``{"gru": [GruLayerParams, ...], "head": [H, O],
+"head_b": [O]}`` of tensors on one device. :func:`init_gru_model` draws one
+from a seeded ``torch.Generator``; :func:`model_from_numpy` carries the JAX
+package's model (as numpy arrays) across, so both packages compute from the
+same weights.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.core.deltagru import (GruLayerParams, deltagru_sequence,
+                                       gru_sequence, init_gru_stack)
+from repro_torch.kernels.ops import resolve_device
+from repro_torch.models.common import dense_init
+
+
+@dataclass(frozen=True)
+class GruTaskConfig:
+    input_size: int
+    hidden_size: int
+    num_layers: int
+    output_size: int          # CTC classes (incl. blank) or regression dims
+    task: str = "ctc"         # ctc | regression
+    theta_x: float = 0.0
+    theta_h: float = 0.0
+
+
+# Paper network sizes (Table II) on TIDIGITS features (40-d log filter bank).
+PAPER_NETWORKS = {
+    "1L-256H": GruTaskConfig(40, 256, 1, 12),
+    "2L-256H": GruTaskConfig(40, 256, 2, 12),
+    "1L-512H": GruTaskConfig(40, 512, 1, 12),
+    "2L-512H": GruTaskConfig(40, 512, 2, 12),
+    "1L-768H": GruTaskConfig(40, 768, 1, 12),
+    "2L-768H": GruTaskConfig(40, 768, 2, 12),
+    # SensorsGas regression (14 sensors -> 1 concentration)
+    "2L-256H-GAS": GruTaskConfig(14, 256, 2, 1, task="regression"),
+    # AMPRO prosthetic control network (Fig. 15)
+    "2L-128H-AMPRO": GruTaskConfig(8, 128, 2, 4, task="regression"),
+}
+
+
+def init_gru_model(generator, cfg: GruTaskConfig, dtype=torch.float32,
+                   device=None) -> dict:
+    """Random model from a ``torch.Generator`` (or an int seed): Glorot
+    GRU weights, zero biases, a truncated-normal head. Drawn on the CPU and
+    moved to ``device`` (default ``"cuda"``; raises without a card unless
+    ``device="cpu"``). The numbers differ from the JAX package's for the
+    same seed; use :func:`model_from_numpy` to share weights."""
+    dev = resolve_device(device)
+    if not isinstance(generator, torch.Generator):
+        generator = torch.Generator().manual_seed(int(generator))
+    stack = init_gru_stack(generator, cfg.input_size, cfg.hidden_size,
+                           cfg.num_layers, dtype)
+    head = dense_init(generator, cfg.hidden_size, cfg.output_size, dtype)
+    return {"gru": [p.to(dev) for p in stack], "head": head.to(dev),
+            "head_b": torch.zeros((cfg.output_size,), dtype=dtype,
+                                  device=dev)}
+
+
+def model_from_numpy(tree: dict, device=None) -> dict:
+    """The port's model from a model dict of numpy arrays, e.g.
+    ``jax.tree_util.tree_map(np.asarray, init_gru_model(key, cfg))`` of the
+    JAX package: ``{"gru": [(w_x, w_h, b), ...], "head", "head_b"}``.
+    Values are copied bit for bit (as float32) onto ``device`` (default
+    ``"cuda"``; raises without a card unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    return {"gru": [GruLayerParams(t(w_x), t(w_h), t(b))
+                    for (w_x, w_h, b) in tree["gru"]],
+            "head": t(tree["head"]), "head_b": t(tree["head_b"])}
+
+
+def gru_model_forward(params, cfg: GruTaskConfig, xs: torch.Tensor, *,
+                      use_delta: bool = True,
+                      collect_sparsity: bool = False,
+                      backend: str | None = None,
+                      layouts=None,
+                      program=None):
+    """``xs: [T, B, I]`` -> (outputs ``[T, B, O]``, sparsity stats dict).
+
+    ``use_delta=False`` runs the plain-GRU oracle. ``program=`` (a
+    :func:`repro_torch.core.program.compile_deltagru` result) runs the
+    compiled delta path with its packed weights and head (or
+    ``params``'s head, for a program compiled from a bare stack); the
+    ``backend=`` / ``layouts=`` kwargs are the ad-hoc spelling.
+    """
+    if program is not None:
+        if backend is not None or layouts is not None:
+            raise ValueError(
+                "backend=/layouts= conflict with program= — the compiled "
+                f"program already fixes both (its backend: "
+                f"{program.backend!r}); drop the legacy kwargs")
+        if not use_delta:
+            raise ValueError("program= compiles the DeltaGRU path; use the "
+                             "legacy kwargs for the plain-GRU oracle")
+        ys, _, stats = program.sequence(xs, cfg.theta_x, cfg.theta_h,
+                                        collect_sparsity=collect_sparsity)
+        if program.head is not None:
+            return program.apply_head(ys), stats
+        return ys @ params["head"] + params["head_b"], stats
+    stats = {}
+    if use_delta:
+        ys, _, stats = deltagru_sequence(
+            params["gru"], xs, cfg.theta_x, cfg.theta_h,
+            collect_sparsity=collect_sparsity, backend=backend or "dense",
+            layouts=layouts)
+    else:
+        ys = gru_sequence(params["gru"], xs)
+    return ys @ params["head"] + params["head_b"], stats

@@ -1,0 +1,161 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
+it imports where JAX is absent, its entry points refuse to fall back to the
+CPU without being asked, and kernel dispatch follows the tensor's device.
+"""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.program import compile_delta_program
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels.delta_q8 import deltagru_q8_step, pack_delta_weights_q8
+from repro_torch.kernels.deltagru_seq import deltagru_seq_step, pack_gru_layer
+from repro_torch.models.gru_rnn import (GruTaskConfig, init_gru_model,
+                                        model_from_numpy)
+from repro_torch.quant.export import quantize_delta_model
+from repro_torch.serve.engine import DeltaStreamEngine
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_neither_jax_nor_repro(path):
+    # "repro_torch" is the port itself; only the exact top-level names
+    # "jax", "jaxlib" and "repro" are forbidden
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+    text = path.read_text()
+    assert "__import__(\"jax" not in text and "import_module(\"jax" not in text
+
+
+def test_port_imports_with_jax_and_repro_blocked():
+    modules = sorted(
+        "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+        for p in PORT.rglob("*.py") if p.name != "__init__.py")
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import importlib\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert not any(k == 'jax' or k.startswith('jax.') "
+            "for k, v in sys.modules.items() if v is not None)\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def _small_model():
+    return init_gru_model(0, GruTaskConfig(40, 48, 2, 12), device="cpu")
+
+
+def _np_tree(model):
+    return {"gru": [tuple(t.numpy() for t in p) for p in model["gru"]],
+            "head": model["head"].numpy(), "head_b": model["head_b"].numpy()}
+
+
+@pytest.mark.parametrize("entry", [
+    "compile_delta_program", "quantize_delta_model", "init_gru_model",
+    "model_from_numpy", "DeltaStreamEngine"])
+def test_default_device_without_cuda_raises(entry, monkeypatch):
+    model = _small_model()
+    cfg = GruTaskConfig(40, 48, 2, 12)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "compile_delta_program": lambda: compile_delta_program(model),
+        "quantize_delta_model": lambda: quantize_delta_model(model),
+        "init_gru_model": lambda: init_gru_model(0, cfg),
+        "model_from_numpy": lambda: model_from_numpy(_np_tree(model)),
+        "DeltaStreamEngine": lambda: DeltaStreamEngine(
+            compile_delta_program(model, device="cpu"), cfg),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
+def test_explicit_cpu_device_runs_plain_versions():
+    model = _small_model()
+    prog = compile_delta_program(model, "fused_q8", device="cpu")
+    assert prog.device.type == "cpu"
+    eng = DeltaStreamEngine(prog, GruTaskConfig(40, 48, 2, 12), device="cpu")
+    ops.reset_launch_counts()
+    out = eng.step_many(np.ones((3, 40), np.float32))
+    assert out.shape == (3, 12) and torch.isfinite(out).all()
+    assert ops.launch_counts() == {k.name: 0 for k in ops.KERNELS}
+
+
+def test_cpu_tensors_run_the_plain_version_and_count_nothing():
+    g = torch.Generator().manual_seed(0)
+    w_x, w_h = torch.randn(144, 40, generator=g), torch.randn(144, 48,
+                                                              generator=g)
+    m, h = torch.zeros(2, 192), torch.zeros(2, 48)
+    dx, dh = torch.ones(2, 40), torch.zeros(2, 48)
+    ops.reset_launch_counts()
+    deltagru_seq_step(pack_gru_layer(w_x, w_h), m, h, dx, dh)
+    deltagru_q8_step(pack_delta_weights_q8(w_x, w_h), m, h, dx, dh)
+    assert sum(ops.launch_counts().values()) == 0
+
+
+def test_dispatch_rule():
+    cpu = torch.zeros(2)
+    assert ops.launches_kernel(cpu, cpu) is False
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.launches_kernel(torch.zeros(2, device="meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        ops.launches_kernel(cpu, torch.zeros(2, device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.require(cpu, "x", torch.float32, (2,))
+
+
+def test_build_is_keyed_by_source_hash_and_lazy():
+    for src in _build.SOURCES:
+        assert (_build.CSRC / src).is_file()
+        path = _build.library_path(src)
+        assert path.parent == _build.BUILD_DIR
+        assert path == _build.library_path(src)        # deterministic
+        assert path.name.startswith(Path(src).stem + "-")
+    assert not _build._LIBS                            # nothing loaded here
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_refuses_without_a_card(where, tmp_path):
+    script = ROOT / "chip_smoke.py"
+    if where == "alone":
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script = tmp_path / "chip_smoke.py"
+    r = subprocess.run([sys.executable, str(script)], capture_output=True,
+                       text=True, timeout=300, cwd=script.parent)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
