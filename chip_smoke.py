@@ -198,7 +198,8 @@ def layer_inputs(rng, b, i_dim, h_dim, block_k, ip, fire, quant):
     """Random kernel inputs for one layer: deltas fired in a random subset
     of the k-blocks (``fire`` of them per stream, at least one unless
     ``fire == 0``), dense inside a fired block. On the Q8.8 grid when
-    ``quant``. Returns numpy arrays and the union fired-block count."""
+    ``quant``. Returns numpy arrays and the real (unpadded) x and h
+    columns of the blocks fired in any stream."""
     import numpy as np
     k = ip + h_dim + (-h_dim) % block_k
     nbk = k // block_k
@@ -211,6 +212,9 @@ def layer_inputs(rng, b, i_dim, h_dim, block_k, ip, fire, quant):
     d[:, i_dim:ip] = 0.0
     d[:, ip + h_dim:] = 0.0
     union = np.any(d.reshape(b, nbk, block_k) != 0, axis=(0, 2))
+    cols = np.concatenate([np.arange(ip) < i_dim,
+                           np.arange(k - ip) < h_dim])
+    fired_cols = int((cols.reshape(nbk, block_k).sum(1) * union).sum())
     m = rng.normal(0, 1.0, (b, 4 * h_dim)).astype(np.float32)
     h = rng.uniform(-1, 1, (b, h_dim)).astype(np.float32)
     if quant:
@@ -220,7 +224,7 @@ def layer_inputs(rng, b, i_dim, h_dim, block_k, ip, fire, quant):
     dx = np.ascontiguousarray(d[:, :i_dim])
     dh = np.ascontiguousarray(d[:, ip:ip + h_dim])
     return (m.astype(np.float32), h.astype(np.float32),
-            dx.astype(np.float32), dh.astype(np.float32), int(union.sum()))
+            dx.astype(np.float32), dh.astype(np.float32), fired_cols)
 
 
 def main() -> int:
@@ -445,7 +449,7 @@ def main() -> int:
             row = {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0,
                    "library_ms": 0.0, "bytes": 0}
             for li, lay in enumerate(prog.layouts):
-                m, h, dx, dh, n_union = layer_inputs(
+                m, h, dx, dh, fired_cols = layer_inputs(
                     rng, 1, lay.input_size, lay.hidden_size, lay.block_k,
                     lay.ip, fire, be != "fused")
                 gpu = [torch.from_numpy(a).to(dev) for a in (m, h, dx, dh)]
@@ -460,8 +464,10 @@ def main() -> int:
                     lambda: torch.addmm(acc, d_cat, w2.T))
                 wbytes = {"fused": 4.0, "fused_q8": 1.0,
                           "fused_q4": 0.5}[be]
-                fired_w = 3 * lay.hp * lay.block_k * n_union * wbytes
-                side = 0 if be == "fused" else (3 + 4) * lay.hp * 4
+                # the weights the function needs: the real rows and columns
+                # of the fired blocks, not the block padding of the layout
+                fired_w = 3 * lay.hidden_size * fired_cols * wbytes
+                side = 0 if be == "fused" else (3 + 4) * lay.hidden_size * 4
                 io = 4 * (4 * lay.hidden_size * 2 + lay.hidden_size * 2
                           + lay.input_size + lay.hidden_size)
                 row["bytes"] += int(fired_w + side + io)

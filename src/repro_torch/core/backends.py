@@ -4,9 +4,8 @@
 A :class:`BackendSpec` captures how a layer's weights are packed for the
 kernel (``pack``), how one timestep executes (``step``), which delta-memory
 init convention its state uses (``m_init``), the weight width it streams
-(``weight_bits``, priced by the Eq. 6/7 model), whether user activations
-are honoured, and whether one weight fetch serves one stream or a whole
-stream tile (``weight_fetch``).
+(``weight_bits``, priced by the Eq. 6/7 model), and whether one weight
+fetch serves one stream or a whole stream tile (``weight_fetch``).
 
 The registry is keyed on ``(cell, name)``. The GRU backends register when
 :mod:`repro_torch.core.deltagru` imports; the LSTM and LM cells are not yet
@@ -30,17 +29,16 @@ class BackendSpec:
 
     Attributes:
       name: registry key (``"dense" | "fused" | "fused_batch" | ...``).
-      pack: ``pack(layer_params, block) -> (layers, layouts, packs)``.
+      pack: ``pack(layer_params, block) -> (layers, layouts)``.
       step: one timestep::
 
-          step(params, state, x, theta_x, theta_h, *, sigmoid, tanh,
-               matvec, layout, packed) -> DeltaGruStepOut
+          step(params, state, x, theta_x, theta_h, *, layout)
+              -> DeltaGruStepOut
 
       cell: recurrent cell family.
       m_init: ``"bias"`` folds biases into M; ``"zero"`` is the unscaled
         code-domain accumulator whose bias lives in the packed layout.
       weight_bits: width of one streamed weight in bits.
-      supports_custom_acts: whether ``sigmoid=`` / ``tanh=`` are honoured.
       weight_fetch: ``"stream"`` (one fetch per stream per step) or
         ``"tile"`` (one fetch per ``[B, ...]`` stream tile, compacted on
         the union of fired columns).
@@ -52,7 +50,6 @@ class BackendSpec:
     cell: str = "gru"
     m_init: str = "bias"
     weight_bits: int = 32
-    supports_custom_acts: bool = True
     weight_fetch: str = "stream"
 
 

@@ -36,10 +36,6 @@ from repro_torch.core.delta import DeltaState, delta_encode, init_delta_state
 from repro_torch.core.thresholds import layer_theta
 
 
-def _default_acts(sigmoid: Callable, tanh: Callable) -> bool:
-    return sigmoid is torch.sigmoid and tanh is torch.tanh
-
-
 class GruLayerParams(NamedTuple):
     w_x: torch.Tensor  # [3H, I]   gates (r,u,c) stacked on axis 0
     w_h: torch.Tensor  # [3H, H]
@@ -83,17 +79,16 @@ def init_gru_stack(generator: torch.Generator, input_size: int,
 # Reference GRU (Eq. 1)
 # ---------------------------------------------------------------------------
 
-def gru_step(params: GruLayerParams, h_prev: torch.Tensor, x: torch.Tensor,
-             sigmoid: Callable = torch.sigmoid,
-             tanh: Callable = torch.tanh) -> torch.Tensor:
+def gru_step(params: GruLayerParams, h_prev: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
     """Standard GRU cell update (Eq. 1). ``x: [..., I]``, ``h: [..., H]``."""
     zx = x @ params.w_x.T + params.b            # [..., 3H]
     zh = h_prev @ params.w_h.T                  # [..., 3H]
     rx, ux, cx = torch.chunk(zx, 3, dim=-1)
     rh, uh, ch = torch.chunk(zh, 3, dim=-1)
-    r = sigmoid(rx + rh)
-    u = sigmoid(ux + uh)
-    c = tanh(cx + r * ch)
+    r = torch.sigmoid(rx + rh)
+    u = torch.sigmoid(ux + uh)
+    c = torch.tanh(cx + r * ch)
     return (1.0 - u) * c + u * h_prev
 
 
@@ -159,13 +154,15 @@ def _kernel_layer_step(kernel_step, layout, params: GruLayerParams,
                            delta_x=dx_out.delta, delta_h=dh_out.delta)
 
 
-def _accumulate_step(state: DeltaGruLayerState, dx_out, dh_out,
-                     mv_x: Callable, mv_h: Callable,
-                     sigmoid: Callable, tanh: Callable) -> DeltaGruStepOut:
-    """Shared Eq. 3 accumulate + activation path over two matvec thunks."""
+# -- per-backend step implementations (registered BackendSpec.step fns) -----
+
+def _step_dense(params, state, x, theta_x, theta_h, *, layout):
+    """Eq. 3 with plain matmuls (zeros in the deltas are multiplied)."""
+    dx_out = delta_encode(x, state.x_mem, theta_x)
+    dh_out = delta_encode(state.h, state.h_mem, theta_h)
     dx, dh = dx_out.delta, dh_out.delta
-    zx = mv_x(dx)                               # [..., 3H] = W_x @ dx
-    zh = mv_h(dh)                               # [..., 3H] = W_h @ dh
+    zx = dx @ params.w_x.T                      # [..., 3H] = W_x @ dx
+    zh = dh @ params.w_h.T                      # [..., 3H] = W_h @ dh
     m_r, m_u, m_xc, m_hc = torch.chunk(state.m, 4, dim=-1)
     zxr, zxu, zxc = torch.chunk(zx, 3, dim=-1)
     zhr, zhu, zhc = torch.chunk(zh, 3, dim=-1)
@@ -173,9 +170,9 @@ def _accumulate_step(state: DeltaGruLayerState, dx_out, dh_out,
     m_u = m_u + zxu + zhu
     m_xc = m_xc + zxc
     m_hc = m_hc + zhc
-    r = sigmoid(m_r)
-    u = sigmoid(m_u)
-    c = tanh(m_xc + r * m_hc)
+    r = torch.sigmoid(m_r)
+    u = torch.sigmoid(m_u)
+    c = torch.tanh(m_xc + r * m_hc)
     h = (1.0 - u) * c + u * state.h
     new_state = DeltaGruLayerState(
         h=h, x_mem=dx_out.state, h_mem=dh_out.state,
@@ -183,33 +180,8 @@ def _accumulate_step(state: DeltaGruLayerState, dx_out, dh_out,
     return DeltaGruStepOut(h=h, state=new_state, delta_x=dx, delta_h=dh)
 
 
-# -- per-backend step implementations (registered BackendSpec.step fns) -----
-
-def _step_dense(params, state, x, theta_x, theta_h, *, sigmoid, tanh,
-                matvec, layout, packed):
-    dx_out = delta_encode(x, state.x_mem, theta_x)
-    dh_out = delta_encode(state.h, state.h_mem, theta_h)
-    mv = matvec if matvec is not None else (lambda w, v: v @ w.T)
-    return _accumulate_step(state, dx_out, dh_out,
-                            lambda v: mv(params.w_x, v),
-                            lambda v: mv(params.w_h, v), sigmoid, tanh)
-
-
-def _step_fused(params, state, x, theta_x, theta_h, *, sigmoid, tanh,
-                matvec, layout, packed):
+def _step_fused(params, state, x, theta_x, theta_h, *, layout):
     from repro_torch.kernels import deltagru_seq as _seq
-    if matvec is not None:
-        # a matvec= override takes precedence over the fused kernel
-        dx_out = delta_encode(x, state.x_mem, theta_x)
-        dh_out = delta_encode(state.h, state.h_mem, theta_h)
-        return _accumulate_step(state, dx_out, dh_out,
-                                lambda v: matvec(params.w_x, v),
-                                lambda v: matvec(params.w_h, v),
-                                sigmoid, tanh)
-    if not _default_acts(sigmoid, tanh):
-        raise ValueError("fused backend hard-codes the Fig. 7 activation "
-                         "pipeline; pass backend='dense' (or matvec=) "
-                         "for custom/QAT activations")
     if layout is None:
         layout = _seq.pack_gru_layer(params.w_x, params.w_h)
     dx_out = delta_encode(x, state.x_mem, theta_x)
@@ -218,17 +190,9 @@ def _step_fused(params, state, x, theta_x, theta_h, *, sigmoid, tanh,
                               dx_out, dh_out)
 
 
-def _step_fused_quant(name: str, bits: int, params, state, x, theta_x,
-                      theta_h, *, sigmoid, tanh, matvec, layout):
+def _step_fused_quant(bits: int, params, state, x, theta_x, theta_h, *,
+                      layout):
     from repro_torch.kernels import delta_q8 as _q8
-    if matvec is not None:
-        raise ValueError(f"{name} carries code-domain delta memories; "
-                         "a matvec= override cannot preserve its state "
-                         "semantics (use backend='dense' instead)")
-    if not _default_acts(sigmoid, tanh):
-        raise ValueError(f"{name} hard-codes the Q8.8/Q1.n LUT "
-                         "activation pipeline; pass backend='dense' "
-                         "with QAT act fns for training-time emulation")
     if layout is None:
         layout = _q8.pack_delta_weights_q8(params.w_x, params.w_h,
                                            b=params.b, weight_bits=bits)
@@ -241,20 +205,16 @@ def _step_fused_quant(name: str, bits: int, params, state, x, theta_x,
                               dx_out, dh_out)
 
 
-def _step_fused_q8(params, state, x, theta_x, theta_h, *, sigmoid, tanh,
-                   matvec, layout, packed):
-    return _step_fused_quant("fused_q8", 8, params, state, x, theta_x,
-                             theta_h, sigmoid=sigmoid, tanh=tanh,
-                             matvec=matvec, layout=layout)
+def _step_fused_q8(params, state, x, theta_x, theta_h, *, layout):
+    return _step_fused_quant(8, params, state, x, theta_x, theta_h,
+                             layout=layout)
 
 
-def _step_fused_q4(params, state, x, theta_x, theta_h, *, sigmoid, tanh,
-                   matvec, layout, packed):
+def _step_fused_q4(params, state, x, theta_x, theta_h, *, layout):
     """The int4 twin of :func:`_step_fused_q8`; the kernel dispatches on
     ``layout.weight_bits``."""
-    return _step_fused_quant("fused_q4", 4, params, state, x, theta_x,
-                             theta_h, sigmoid=sigmoid, tanh=tanh,
-                             matvec=matvec, layout=layout)
+    return _step_fused_quant(4, params, state, x, theta_x, theta_h,
+                             layout=layout)
 
 
 def _batched(name: str, parent: Callable) -> Callable:
@@ -262,9 +222,9 @@ def _batched(name: str, parent: Callable) -> Callable:
     stream axis, then run the same kernel (it already compacts on the union
     of fired columns across the tile, and a stream that did not fire a
     fired block adds exact zeros)."""
-    def step(params, state, x, theta_x, theta_h, **kw):
+    def step(params, state, x, theta_x, theta_h, *, layout):
         require_stream_tile(x, name)
-        return parent(params, state, x, theta_x, theta_h, **kw)
+        return parent(params, state, x, theta_x, theta_h, layout=layout)
     step.__name__ = f"_step_{name}"
     return step
 
@@ -277,65 +237,59 @@ _step_fused_q4_batch = _batched("fused_q4_batch", _step_fused_q4)
 # -- per-backend stack packers (registered BackendSpec.pack fns) ------------
 
 def _pack_none(params, block):
-    return params, None, None
+    return params, None
 
 
 def _pack_fused(params, block):
     from repro_torch.kernels.deltagru_seq import pack_gru_layer
     return params, [pack_gru_layer(p.w_x, p.w_h, block_h=block,
                                    block_k=block)
-                    for p in params], None
+                    for p in params]
 
 
 def _pack_fused_q8(params, block):
     # quantize-and-pack: the returned stack is the dequantized fake-quant
     # view, so plain versions / state init see the grids the kernel streams.
     from repro_torch.quant.export import quantize_stack
-    qparams, layouts = quantize_stack(params, block=block)
-    return qparams, layouts, None
+    return quantize_stack(params, block=block)
 
 
 def _pack_fused_q4(params, block):
     from repro_torch.quant.export import quantize_stack
-    qparams, layouts = quantize_stack(params, block=block, bits=4)
-    return qparams, layouts, None
+    return quantize_stack(params, block=block, bits=4)
 
 
 register_backend(BackendSpec(
     name="dense", cell="gru", pack=_pack_none, step=_step_dense,
-    m_init="bias", weight_bits=32, supports_custom_acts=True))
+    m_init="bias", weight_bits=32))
 register_backend(BackendSpec(
     name="fused", cell="gru", pack=_pack_fused, step=_step_fused,
-    m_init="bias", weight_bits=32, supports_custom_acts=False))
+    m_init="bias", weight_bits=32))
 register_backend(BackendSpec(
     name="fused_q8", cell="gru", pack=_pack_fused_q8, step=_step_fused_q8,
-    m_init="zero", weight_bits=8, supports_custom_acts=False))
+    m_init="zero", weight_bits=8))
 # Batched tiles share their parent's pack fn (and so its layouts and m_init),
 # so DeltaProgram.with_backend swaps between the pair without repacking.
 register_backend(BackendSpec(
     name="fused_batch", cell="gru", pack=_pack_fused,
     step=_step_fused_batch, m_init="bias", weight_bits=32,
-    supports_custom_acts=False, weight_fetch="tile"))
+    weight_fetch="tile"))
 register_backend(BackendSpec(
     name="fused_q8_batch", cell="gru", pack=_pack_fused_q8,
     step=_step_fused_q8_batch, m_init="zero", weight_bits=8,
-    supports_custom_acts=False, weight_fetch="tile"))
+    weight_fetch="tile"))
 register_backend(BackendSpec(
     name="fused_q4", cell="gru", pack=_pack_fused_q4, step=_step_fused_q4,
-    m_init="zero", weight_bits=4, supports_custom_acts=False))
+    m_init="zero", weight_bits=4))
 register_backend(BackendSpec(
     name="fused_q4_batch", cell="gru", pack=_pack_fused_q4,
     step=_step_fused_q4_batch, m_init="zero", weight_bits=4,
-    supports_custom_acts=False, weight_fetch="tile"))
+    weight_fetch="tile"))
+
 
 def deltagru_step(params: GruLayerParams, state: DeltaGruLayerState,
-                  x: torch.Tensor, theta_x, theta_h,
-                  sigmoid: Callable = torch.sigmoid,
-                  tanh: Callable = torch.tanh,
-                  matvec: Callable | None = None,
-                  backend: str = "dense",
-                  layout=None,
-                  packed=None) -> DeltaGruStepOut:
+                  x: torch.Tensor, theta_x, theta_h, backend: str = "dense",
+                  layout=None) -> DeltaGruStepOut:
     """One DeltaGRU timestep (Eq. 3) through the backend registry.
 
     ``state`` must follow the backend's ``m_init`` convention (``"zero"``
@@ -343,8 +297,7 @@ def deltagru_step(params: GruLayerParams, state: DeltaGruLayerState,
     ``layout`` is the pre-packed layer (packed on the fly otherwise).
     """
     spec = get_backend(backend, cell="gru")
-    return spec.step(params, state, x, theta_x, theta_h, sigmoid=sigmoid,
-                     tanh=tanh, matvec=matvec, layout=layout, packed=packed)
+    return spec.step(params, state, x, theta_x, theta_h, layout=layout)
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +323,8 @@ def stack_m_init(backend: str) -> str:
 
 def deltagru_stack_step(params: Sequence[GruLayerParams],
                         state: DeltaGruStackState, x: torch.Tensor,
-                        theta_x, theta_h, layouts=None, packs=None, **kw):
+                        theta_x, theta_h, backend: str = "dense",
+                        layouts=None):
     """One timestep through all layers. The input threshold of layers >= 2
     applies to the previous layer's output stream. ``theta_x`` /
     ``theta_h`` are scalars, 0-d tensors or per-layer tuples."""
@@ -380,8 +334,8 @@ def deltagru_stack_step(params: Sequence[GruLayerParams],
     for li, (p, st) in enumerate(zip(params, state.layers)):
         out = deltagru_step(
             p, st, inp, layer_theta(theta_x, li), layer_theta(theta_h, li),
-            layout=layouts[li] if layouts is not None else None,
-            packed=packs[li] if packs is not None else None, **kw)
+            backend=backend,
+            layout=layouts[li] if layouts is not None else None)
         new_layers.append(out.state)
         deltas.append((out.delta_x, out.delta_h))
         inp = out.h
@@ -390,20 +344,18 @@ def deltagru_stack_step(params: Sequence[GruLayerParams],
 
 def pack_stack(params: Sequence[GruLayerParams], backend: str,
                block: int = 128):
-    """Pre-pack every layer for a kernel backend, once; returns
-    ``(layouts, packs)``. Prefer
+    """Pre-pack every layer for a kernel backend, once; returns the
+    per-layer layouts (``None`` for ``dense``). Prefer
     :func:`repro_torch.core.program.compile_deltagru`, which also keeps the
     rewritten stack and the state convention."""
-    _, layouts, packs = get_backend(backend, cell="gru").pack(params, block)
-    return layouts, packs
+    return get_backend(backend, cell="gru").pack(params, block)[1]
 
 
 def deltagru_sequence(params: Sequence[GruLayerParams], xs: torch.Tensor,
                       theta_x, theta_h,
                       init_state: DeltaGruStackState | None = None,
                       collect_sparsity: bool = True,
-                      backend: str = "dense",
-                      layouts=None, packs=None, **kw):
+                      backend: str = "dense", layouts=None):
     """Run a DeltaGRU stack over ``xs: [T, B, I]`` (a Python loop over T).
 
     Kernel backends get their weights packed once here, or take pre-packed
@@ -414,16 +366,15 @@ def deltagru_sequence(params: Sequence[GruLayerParams], xs: torch.Tensor,
         init_state = init_deltagru_stack_state(params, xs.shape[1:-1],
                                                xs.dtype,
                                                m_init=stack_m_init(backend))
-    if layouts is None and packs is None:
-        layouts, packs = pack_stack(params, backend)
+    if layouts is None:
+        layouts = pack_stack(params, backend)
     state = init_state
     ys = []
     per_layer = [([], []) for _ in params]
     for x in xs:
         y, state, deltas = deltagru_stack_step(params, state, x, theta_x,
                                                theta_h, backend=backend,
-                                               layouts=layouts, packs=packs,
-                                               **kw)
+                                               layouts=layouts)
         ys.append(y)
         if collect_sparsity:
             for (gx, gh), (dx, dh) in zip(per_layer, deltas):
@@ -439,7 +390,7 @@ def deltagru_sequence(params: Sequence[GruLayerParams], xs: torch.Tensor,
                        "per_layer": stats}
 
 
-def gru_sequence(params: Sequence[GruLayerParams], xs: torch.Tensor, **kw):
+def gru_sequence(params: Sequence[GruLayerParams], xs: torch.Tensor):
     """Reference multi-layer GRU over ``xs: [T, B, I]`` (Eq. 1 oracle)."""
     batch_shape = xs.shape[1:-1]
     hs = [torch.zeros((*batch_shape, p.hidden_size), dtype=xs.dtype,
@@ -448,7 +399,7 @@ def gru_sequence(params: Sequence[GruLayerParams], xs: torch.Tensor, **kw):
     for x in xs:
         inp = x
         for li, p in enumerate(params):
-            hs[li] = gru_step(p, hs[li], inp, **kw)
+            hs[li] = gru_step(p, hs[li], inp)
             inp = hs[li]
         ys.append(inp)
     return torch.stack(ys)

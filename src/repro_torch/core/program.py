@@ -72,7 +72,6 @@ class DeltaProgram:
 
     layers: tuple
     layouts: tuple | None
-    packs: tuple | None
     head: torch.Tensor | None
     head_b: torch.Tensor | None
     backend: str
@@ -140,7 +139,7 @@ class DeltaProgram:
         self.check_state(state)
         y, stack, deltas = _cell_ops(self.cell)["step"](
             self.layers, state.stack, x, theta_x, theta_h,
-            backend=self.backend, layouts=self.layouts, packs=self.packs)
+            backend=self.backend, layouts=self.layouts)
         return y, DeltaProgramState(stack=stack, backend=self.backend,
                                     cell=self.cell), deltas
 
@@ -155,7 +154,7 @@ class DeltaProgram:
         ys, final, stats = _cell_ops(self.cell)["sequence"](
             self.layers, xs, theta_x, theta_h,
             init_state=init_state.stack, collect_sparsity=collect_sparsity,
-            backend=self.backend, layouts=self.layouts, packs=self.packs)
+            backend=self.backend, layouts=self.layouts)
         return ys, DeltaProgramState(stack=final, backend=self.backend,
                                      cell=self.cell), stats
 
@@ -199,7 +198,7 @@ def _to(obj, device):
 
 
 def compile_delta_program(params, backend: str = "fused", *,
-                          cell: str = "gru", layouts=None, packs=None,
+                          cell: str = "gru", layouts=None,
                           block: int = 128, device=None) -> DeltaProgram:
     """Compile a delta-RNN stack (or model dict) into a program.
 
@@ -209,7 +208,7 @@ def compile_delta_program(params, backend: str = "fused", *,
         params dict (``{"gru", "head", "head_b"}``; the head is carried).
       backend: any backend name registered for ``cell``.
       cell: the cell family (only ``"gru"`` is ported).
-      layouts / packs: optional pre-packed per-layer kernel operands.
+      layouts: optional pre-packed per-layer kernel layouts.
       block: kernel block size used when packing.
       device: where the program runs; default ``"cuda"``, and without a
         card this raises unless ``device="cpu"`` is given.
@@ -234,21 +233,19 @@ def compile_delta_program(params, backend: str = "fused", *,
                         f"layer-params stack; got {type(params).__name__}")
     # Pack on the CPU (device-independent bytes), then move to the device.
     stack = [p.to("cpu") for p in stack]
-    if layouts is None and packs is None:
-        stack, layouts, packs = spec.pack(stack, block)
+    if layouts is None:
+        stack, layouts = spec.pack(stack, block)
     return DeltaProgram(
         layers=tuple(p.to(dev) for p in stack),
         layouts=(tuple(_to(l, dev) for l in layouts)
                  if layouts is not None else None),
-        packs=tuple(packs) if packs is not None else None,
         head=_to(head, dev), head_b=_to(head_b, dev), backend=backend,
         cell=cell)
 
 
 def compile_deltagru(params, backend: str = "fused", *, layouts=None,
-                     packs=None, block: int = 128,
-                     device=None) -> DeltaProgram:
+                     block: int = 128, device=None) -> DeltaProgram:
     """GRU-pinned alias of :func:`compile_delta_program`."""
     return compile_delta_program(params, backend, cell="gru",
-                                 layouts=layouts, packs=packs, block=block,
+                                 layouts=layouts, block=block,
                                  device=device)

@@ -112,13 +112,15 @@ __global__ void __launch_bounds__(kWarps * 32) deltagru_seq_kernel(
           const float m_hc = m_prev[mb + 3 * H + o] + acc_hc[bb];
           const float r = sigmoid_f(m_r);
           const float u = sigmoid_f(m_u);
-          const float c = tanhf(m_xc + r * m_hc);
+          // no FMA contraction: round each product as the plain version does
+          const float c = tanhf(__fadd_rn(m_xc, __fmul_rn(r, m_hc)));
           const float hp = h_prev[(size_t)(b0 + bb) * H + o];
           m_out[mb + o] = m_r;
           m_out[mb + H + o] = m_u;
           m_out[mb + 2 * H + o] = m_xc;
           m_out[mb + 3 * H + o] = m_hc;
-          h_out[(size_t)(b0 + bb) * H + o] = (1.0f - u) * c + u * hp;
+          h_out[(size_t)(b0 + bb) * H + o] =
+              __fadd_rn(__fmul_rn(__fsub_rn(1.0f, u), c), __fmul_rn(u, hp));
         }
       }
     }

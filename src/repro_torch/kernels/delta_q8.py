@@ -4,15 +4,15 @@
 * :class:`_GruBlockGeometry` — the Fig. 6 block/pad/seam arithmetic every
   packed layout must agree on;
 * :func:`pack_cat_volume` — the concatenated-column ``[G, Hp, Ip+Hk]`` pack;
-* :func:`_prep_step_operands` — the Delta Unit prologue (pad, x/h concat,
-  fired-block compaction) as plain tensor code; the CUDA kernels do the
-  same compaction themselves on the device;
 * :class:`QuantDeltaLayout` and :func:`pack_delta_weights_q8` /
   :func:`pack_delta_weights_q4` — int8 codes, or nibble-packed int4 codes
   (:func:`pack_nibbles`), per-gate-row scales and the activation-grid bias;
 * :func:`deltagru_q8_step` — the int8/int4 GRU layer step: the CUDA kernel
   in ``csrc/delta_q8.cu`` for CUDA tensors, its plain version
-  :func:`deltagru_q8_step_ref` for CPU tensors.
+  :func:`deltagru_q8_step_ref` for CPU tensors. The kernel compacts the
+  fired column blocks itself, on the device (the JAX package's
+  ``_prep_step_operands`` prologue); the plain version multiplies every
+  column, and the unfired ones add exact zeros.
 
 Fixed-point semantics: deltas arrive on the Q8.8 grid, so every
 ``delta x code`` product and every partial sum is an exact fp32 value; the
@@ -95,25 +95,6 @@ def pack_cat_volume(w_x: torch.Tensor, w_h: torch.Tensor, gates: int,
     whg = F.pad(w_h.reshape(gates, h_dim, h_dim),
                 (0, hk - h_dim, 0, hp - h_dim))
     return torch.cat([wxg, whg], dim=2)
-
-
-def _prep_step_operands(lay: _GruBlockGeometry, m_prev, h_prev, dx, dh):
-    """The Delta Unit prologue as plain tensor code: pad the operands to
-    the block grid, concatenate the deltas across the x/h seam, and compact
-    the fired column blocks (the union over the stream tile). Uses
-    ``torch.nonzero_static``, which does not synchronise the host."""
-    b = dx.shape[0]
-    h_dim, hp = lay.hidden_size, lay.hp
-    d_cat = torch.cat([F.pad(dx, (0, lay.ip - lay.input_size)),
-                       F.pad(dh, (0, lay.hk - h_dim))], dim=1)
-    m4 = F.pad(m_prev.reshape(b, N_MEM, h_dim), (0, hp - h_dim))
-    hprev = F.pad(h_prev, (0, hp - h_dim))
-    fired = torch.any(d_cat.reshape(b, lay.nbk, lay.block_k) != 0, dim=2)
-    fired = torch.any(fired, dim=0)
-    n_active = torch.sum(fired).to(torch.int32).reshape(1)
-    active_ids = torch.nonzero_static(fired, size=lay.nbk,
-                                      fill_value=0)[:, 0].to(torch.int32)
-    return d_cat, m4, hprev, n_active, active_ids
 
 
 def pack_nibbles(codes: torch.Tensor, block_k: int) -> torch.Tensor:

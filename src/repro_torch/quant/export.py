@@ -93,7 +93,7 @@ def quantize_delta_model(params: dict, cell: str | None = None,
     qstack, layouts = quantize_delta_stack(stack, cell=cell, bits=bits, **kw)
     head, head_b = params.get("head"), params.get("head_b")
     return DeltaProgram(
-        layers=tuple(qstack), layouts=tuple(layouts), packs=None,
+        layers=tuple(qstack), layouts=tuple(layouts),
         head=head.to(dev) if head is not None else None,
         head_b=head_b.to(dev) if head_b is not None else None,
         backend="fused_q8" if bits == 8 else "fused_q4", cell=cell)

@@ -152,7 +152,7 @@ class DeltaStreamEngine:
                     f"program's backend {program.backend!r}; drop the kwarg")
             if layouts is not None:
                 raise ValueError("layouts= is meaningless with a compiled "
-                                 "program — it already holds its packs")
+                                 "program — it already holds its layouts")
             if program.device != self.device:
                 raise ValueError(
                     f"the program lives on {program.device} but the engine "

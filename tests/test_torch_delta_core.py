@@ -194,8 +194,7 @@ def test_registry_lists_the_seven_gru_backends_in_order():
     assert len(tbackends.list_backends("gru")) == 7
     for name in tbackends.list_backends("gru"):
         js, ts = jbackends.get_backend(name), tbackends.get_backend(name)
-        for attr in ("m_init", "weight_bits", "supports_custom_acts",
-                     "weight_fetch", "cell"):
+        for attr in ("m_init", "weight_bits", "weight_fetch", "cell"):
             assert getattr(js, attr) == getattr(ts, attr), (name, attr)
 
 

@@ -16,6 +16,8 @@ JAX package, on the CPU.
 The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
 them against these plain versions there.
 """
+from dataclasses import replace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -133,15 +135,35 @@ def test_pack_validation():
 
 @pytest.mark.parametrize("h", HIDDEN)
 @pytest.mark.parametrize("fire", [0.0, 0.05, 1.0])
-def test_prep_step_operands_match(h, fire):
-    w_x, w_h, _ = _weights(h)
-    jl = jseq.pack_gru_layer(jnp.asarray(w_x), jnp.asarray(w_h))
-    tl = tseq.pack_gru_layer(torch.from_numpy(w_x), torch.from_numpy(w_h))
-    args = _step_inputs(h, 4, 3, fire, quant=False)
-    jo = jq8._prep_step_operands(jl, *map(jnp.asarray, args))
-    to = tq8._prep_step_operands(tl, *map(torch.from_numpy, args))
-    for a, b in zip(jo, to):
-        _eq(a, b.numpy())
+def test_unfired_blocks_do_not_reach_the_sum(h, fire):
+    # The CUDA kernels read only the column blocks that the JAX package's
+    # compaction (_prep_step_operands) marks as fired in some stream of the
+    # tile. Garbage weights in every other block must leave the plain
+    # versions' bits unchanged: those columns multiply exact zeros.
+    block = 32
+    w_x, w_h, b = _weights(h)
+    jl = jseq.pack_gru_layer(jnp.asarray(w_x), jnp.asarray(w_h), block, block)
+    args = _step_inputs(h, 2, 5, fire, quant=True)
+    _, _, _, n_active, ids = jq8._prep_step_operands(
+        jl, *map(jnp.asarray, args))
+    unfired = np.ones(jl.nbk, bool)
+    unfired[np.asarray(ids)[:int(n_active[0])]] = False
+    cols = np.repeat(unfired, block)
+    targs = list(map(torch.from_numpy, args))
+    fl = tseq.pack_gru_layer(torch.from_numpy(w_x), torch.from_numpy(w_h),
+                             block, block)
+    ql = tq8.pack_delta_weights_q8(torch.from_numpy(w_x),
+                                   torch.from_numpy(w_h), torch.from_numpy(b),
+                                   block_h=block, block_k=block)
+    junk_w = fl.w.clone()
+    junk_w[:, :, cols] = 1e3
+    junk_c = ql.w_codes_f32.clone()
+    junk_c[:, :, cols] = 99.0
+    for ref, lay, junk in (
+            (tseq.deltagru_seq_step_ref, fl, replace(fl, w=junk_w)),
+            (tq8.deltagru_q8_step_ref, ql, replace(ql, w_codes_f32=junk_c))):
+        for x, y in zip(ref(lay, *targs), ref(junk, *targs)):
+            _eq(x.numpy(), y.numpy())
 
 
 # -- the int8 / int4 step -------------------------------------------------------
