@@ -10,32 +10,39 @@ traceback and a non-zero exit):
 
 1. environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions; TF32 is switched off for matmuls and cuDNN
-   (the plain int8/int4 version is exact only in full fp32);
+   (the plain int8/int4 versions are exact only in full fp32);
 2. build: every kernel source compiled with ``nvcc``, all at once;
 3. kernels against their plain versions at the two layer shapes of the
-   paper's 2L-768H network (k = 896 and 1536), B in {1, 8}, with 0 %,
-   about 10 % and 100 % of the column blocks fired: fp32 within
-   ``TOL_F32``; int8 and int4 bitwise equal to the plain version on the
-   card and on the CPU;
-4. the int8/int4 kernel's own activation stage over every Q8.8 input,
+   paper's 2L-768H network (k = 896 and 1536), for both cells (GRU and
+   LSTM), B in {1, 8}, with 0 %, about 10 % and 100 % of the column blocks
+   fired: fp32 within ``TOL_F32``; int8 and int4 bitwise equal to the plain
+   version on the card and on the CPU; the double-buffered int8/int4
+   instances (``buffered=True``) bitwise equal to the plain kernels; and an
+   LSTM step whose cell state saturates at the Q8.8 rail;
+4. the int8/int4 kernels' own activation stage over every Q8.8 input,
    bitwise against ``torch.sigmoid`` / ``torch.tanh`` on the CPU after the
    LUT rounding;
-5. the main path, per backend (``fused``, ``fused_q8``, ``fused_q4``):
-   ``compile_deltagru`` from seeded random 2L-768H weights, a 1-stream
+5. the main path, per cell (``gru``: ``compile_deltagru`` of
+   ``init_gru_model``; ``lstm``: ``compile_delta_program(cell="lstm")`` of
+   ``init_lstm_model``) and backend (``fused``, ``fused_q8``,
+   ``fused_q4``), from seeded random 2L-768H weights: a 1-stream
    ``DeltaStreamEngine.step_many`` over smooth synthetic frames at
    θx = θh = 0.25 under ``torch.cuda.set_sync_debug_mode("error")``, then a
    ``GruStreamBatcher`` over an 8-slot engine draining 16 requests of mixed
-   lengths. Launch counts must equal steps × layers in each run; the
-   results must match the same program compiled with ``device="cpu"``;
-6. times on the card: each kernel at B = 1 and its plain version (device
-   time from CUDA-graph replay between CUDA events, and the kernel's time
-   per call launched from Python), the dense ``torch.addmm`` over the fp32
-   volume as a yardstick the port never calls, and the engine's wall time
-   per step with its kernels per step and idle share (``torch.profiler``),
-   the per-frame latency of ``step`` (median and p95 over the frames) and
-   the batcher's frames per second.
+   lengths. Launch counts must equal steps × layers of that path's kernel,
+   and no other kernel may launch, in each run; the results must match the
+   same program compiled with ``device="cpu"``;
+6. times on the card: each kernel instance at B = 1 and its plain version
+   (device time from CUDA-graph replay between CUDA events, and the
+   kernel's time per call launched from Python), the dense ``torch.addmm``
+   over the cell's fp32 volume as a yardstick the port never calls, and
+   per path the engine's wall time per step with its kernels per step and
+   idle share (``torch.profiler``), the per-frame latency of ``step``
+   (median and p95 over the frames) and the batcher's frames per second.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}`` (every kernel instance;
+a buffered instance's ``launches`` are those of phases 3 and 6, and its
+``path`` names the ``buffered=True`` entry); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -194,13 +201,15 @@ def engine_profile(eng, frames) -> dict:
             "idle_share": 1.0 - busy_us / (1e6 * wall) if kernels else None}
 
 
-def layer_inputs(rng, b, i_dim, h_dim, block_k, ip, fire, quant):
+def layer_inputs(rng, b, lay, fire, quant):
     """Random kernel inputs for one layer: deltas fired in a random subset
     of the k-blocks (``fire`` of them per stream, at least one unless
     ``fire == 0``), dense inside a fired block. On the Q8.8 grid when
-    ``quant``. Returns numpy arrays and the real (unpadded) x and h
-    columns of the blocks fired in any stream."""
+    ``quant``. Returns numpy arrays ``(m, h, c, dx, dh)`` and the real
+    (unpadded) x and h columns of the blocks fired in any stream."""
     import numpy as np
+    i_dim, h_dim, block_k, ip = (lay.input_size, lay.hidden_size,
+                                 lay.block_k, lay.ip)
     k = ip + h_dim + (-h_dim) % block_k
     nbk = k // block_k
     d = np.zeros((b, k), np.float32)
@@ -215,19 +224,45 @@ def layer_inputs(rng, b, i_dim, h_dim, block_k, ip, fire, quant):
     cols = np.concatenate([np.arange(ip) < i_dim,
                            np.arange(k - ip) < h_dim])
     fired_cols = int((cols.reshape(nbk, block_k).sum(1) * union).sum())
-    m = rng.normal(0, 1.0, (b, 4 * h_dim)).astype(np.float32)
-    h = rng.uniform(-1, 1, (b, h_dim)).astype(np.float32)
+    m = rng.normal(0, 1.0, (b, 4 * h_dim))
+    h = rng.uniform(-1, 1, (b, h_dim))
+    c = rng.uniform(-3, 3, (b, h_dim))
     if quant:
         d = np.round(d * 256) / 256
         m = np.round(m * 256 * 32) / 256
         h = np.round(h * 256) / 256
+        c = np.round(c * 256) / 256
     dx = np.ascontiguousarray(d[:, :i_dim])
     dh = np.ascontiguousarray(d[:, ip:ip + h_dim])
-    return (m.astype(np.float32), h.astype(np.float32),
-            dx.astype(np.float32), dh.astype(np.float32), fired_cols)
+    return [a.astype(np.float32) for a in (m, h, c, dx, dh)], fired_cols
+
+
+def run_step(cell, fn, lay, ins):
+    """One layer step of ``cell`` on ``ins = (m, h, c, dx, dh)``: the GRU
+    step takes no cell state. Returns ``(m, h)`` or ``(m, h, c)``."""
+    m, h, c, dx, dh = ins
+    if cell == "gru":
+        return fn(lay, m, h, dx, dh)
+    return fn(lay, m, h, c, dx, dh)
+
+
+def step_bytes(cell, be, lay, fired_cols) -> int:
+    """Bytes one layer step must move: the real rows and columns of the
+    fired blocks once (not the block padding of the layout), the
+    per-row scales and biases of the int8/int4 layouts, and the operands in
+    and out once."""
+    gates = 3 if cell == "gru" else 4
+    h, i = lay.hidden_size, lay.input_size
+    wbytes = {"fused": 4.0, "fused_q8": 1.0, "fused_q4": 0.5}[be]
+    side = 0 if be == "fused" else (gates + 4) * h * 4
+    # m in and out, h in and out (GRU) or c in, h and c out (LSTM), dx, dh
+    io = 4 * (4 * h * 2 + h * (2 if cell == "gru" else 3) + i + h)
+    return int(gates * h * fired_cols * wbytes + side + io)
 
 
 def main() -> int:
+    import functools
+
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -240,15 +275,21 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
 
     from repro_torch.configs.edgedrnn import CONFIG_2L768H
-    from repro_torch.core.program import compile_deltagru
+    from repro_torch.core.program import (compile_delta_program,
+                                          compile_deltagru)
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.delta_q8 import (deltagru_q8_step,
                                               deltagru_q8_step_ref,
+                                              deltalstm_q8_step,
+                                              deltalstm_q8_step_ref,
                                               lut_activation_grid,
                                               lut_activation_grid_ref)
     from repro_torch.kernels.deltagru_seq import (deltagru_seq_step,
                                                   deltagru_seq_step_ref)
-    from repro_torch.models.gru_rnn import GruTaskConfig, init_gru_model
+    from repro_torch.kernels.deltalstm_seq import (deltalstm_seq_step,
+                                                   deltalstm_seq_step_ref)
+    from repro_torch.models.gru_rnn import (GruTaskConfig, init_gru_model,
+                                            init_lstm_model)
     from repro_torch.serve.engine import DeltaStreamEngine
     from repro_torch.serve.scheduler import GruStreamBatcher
 
@@ -272,59 +313,124 @@ def main() -> int:
                 log(f"  {src}: {line.strip()}")
 
     cfg = CONFIG_2L768H
-    model = init_gru_model(SEED, cfg, device="cuda")
-    model_cpu = init_gru_model(SEED, cfg, device="cpu")
-    progs = {be: compile_deltagru(model, be)
-             for be in ("fused", "fused_q8", "fused_q4")}
-    cpu_progs = {be: compile_deltagru(model_cpu, be, device="cpu")
-                 for be in progs}
-    kernel_of = {"fused": ops.DELTAGRU_SEQ_F32,
-                 "fused_q8": ops.DELTA_Q8_GRU_I8,
-                 "fused_q4": ops.DELTA_Q8_GRU_I4}
-    step_of = {"fused": (deltagru_seq_step, deltagru_seq_step_ref),
-               "fused_q8": (deltagru_q8_step, deltagru_q8_step_ref),
-               "fused_q4": (deltagru_q8_step, deltagru_q8_step_ref)}
+    backends = ("fused", "fused_q8", "fused_q4")
+    models = {"gru": init_gru_model(SEED, cfg, device="cuda"),
+              "lstm": init_lstm_model(SEED, cfg, device="cuda")}
+    models_cpu = {"gru": init_gru_model(SEED, cfg, device="cpu"),
+                  "lstm": init_lstm_model(SEED, cfg, device="cpu")}
+    # the main paths: the GRU through compile_deltagru, the LSTM through
+    # compile_delta_program(cell="lstm")
+    progs = {("gru", be): compile_deltagru(models["gru"], be)
+             for be in backends}
+    progs.update({("lstm", be): compile_delta_program(models["lstm"], be,
+                                                      cell="lstm")
+                  for be in backends})
+    cpu_progs = {(cell, be): compile_delta_program(models_cpu[cell], be,
+                                                   cell=cell, device="cpu")
+                 for cell, be in progs}
+    kernel_of = {("gru", "fused"): ops.DELTAGRU_SEQ_F32,
+                 ("gru", "fused_q8"): ops.DELTA_Q8_GRU_I8,
+                 ("gru", "fused_q4"): ops.DELTA_Q8_GRU_I4,
+                 ("lstm", "fused"): ops.DELTALSTM_SEQ_F32,
+                 ("lstm", "fused_q8"): ops.DELTA_Q8_LSTM_I8,
+                 ("lstm", "fused_q4"): ops.DELTA_Q8_LSTM_I4}
+    gru_q8 = (deltagru_q8_step, deltagru_q8_step_ref)
+    lstm_q8 = (deltalstm_q8_step, deltalstm_q8_step_ref)
+    step_of = {("gru", "fused"): (deltagru_seq_step, deltagru_seq_step_ref),
+               ("gru", "fused_q8"): gru_q8, ("gru", "fused_q4"): gru_q8,
+               ("lstm", "fused"): (deltalstm_seq_step,
+                                   deltalstm_seq_step_ref),
+               ("lstm", "fused_q8"): lstm_q8, ("lstm", "fused_q4"): lstm_q8}
+    # the double-buffered instances: (cell, backend) of their unbuffered twin
+    buffered = {(cell, be): ops.q8_kernel(3 if cell == "gru" else 4,
+                                          8 if be == "fused_q8" else 4, True)
+                for cell, be in progs if be != "fused"}
+    buffered_path = {"gru": "repro_torch.kernels.delta_q8.deltagru_q8_step"
+                            "(buffered=True)",
+                     "lstm": "repro_torch.kernels.delta_q8.deltalstm_q8_step"
+                             "(buffered=True)"}
 
     # -- 3. kernels against their plain versions --------------------------
     rng = np.random.default_rng(SEED)
-    max_err = {be: 0.0 for be in progs}
-    for be, prog in progs.items():
-        kern, ref = step_of[be]
+    max_err = {k.name: 0.0 for k in ops.KERNELS}
+
+    def check(name, ok, err, what):
+        max_err[name] = max(max_err[name], err)
+        log(f"kernel {name} {what}: max|kernel-plain|={err:.3e} "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"({what})")
+
+    def max_diff(xs, ys):
+        return max(float((x.cpu() - y.cpu()).abs().max())
+                   for x, y in zip(xs, ys))
+
+    def same(xs, ys):
+        return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(xs, ys))
+
+    for (cell, be), prog in progs.items():
+        kern, ref = step_of[(cell, be)]
         quant = be != "fused"
         for li, lay in enumerate(prog.layouts):
-            lay_cpu = cpu_progs[be].layouts[li]
+            lay_cpu = cpu_progs[(cell, be)].layouts[li]
             for b in (1, 8):
                 for fire in (0.0, 0.1, 1.0):
-                    m, h, dx, dh, _ = layer_inputs(
-                        rng, b, lay.input_size, lay.hidden_size,
-                        lay.block_k, lay.ip, fire, quant)
-                    args = [torch.from_numpy(a) for a in (m, h, dx, dh)]
+                    ins, _ = layer_inputs(rng, b, lay, fire, quant)
+                    args = [torch.from_numpy(a) for a in ins]
                     gpu = [a.to(dev) for a in args]
-                    km, kh = kern(lay, *gpu)
-                    rm, rh = ref(lay, *gpu)
-                    cm, ch = ref(lay_cpu, *args)
+                    k = run_step(cell, kern, lay, gpu)
+                    r = run_step(cell, ref, lay, gpu)
+                    c = run_step(cell, ref, lay_cpu, args)
                     torch.cuda.synchronize()
-                    err = max(float((km - rm).abs().max()),
-                              float((kh - rh).abs().max()))
-                    max_err[be] = max(max_err[be], err)
+                    what = f"layer {li} B={b} fire={fire}"
+                    err = max_diff(k, r)
                     if quant:
-                        ok = (torch.equal(km, rm) and torch.equal(kh, rh)
-                              and torch.equal(km.cpu(), cm)
-                              and torch.equal(kh.cpu(), ch))
+                        check(kernel_of[(cell, be)].name,
+                              same(k, r) and same(k, c), err, what)
+                        kb = run_step(cell, functools.partial(
+                            kern, buffered=True), lay, gpu)
+                        torch.cuda.synchronize()
+                        check(buffered[(cell, be)].name,
+                              same(kb, k) and same(kb, r), max_diff(kb, r),
+                              what)
                     else:
-                        err_cpu = max(float((km.cpu() - cm).abs().max()),
-                                      float((kh.cpu() - ch).abs().max()))
-                        ok = err <= TOL_F32 and err_cpu <= TOL_F32
-                    log(f"kernel {be} layer {li} B={b} fire={fire}: "
-                        f"max|kernel-plain|={err:.3e} "
-                        f"{'ok' if ok else 'MISMATCH'}")
-                    if not ok:
-                        raise AssertionError(
-                            f"{be} kernel disagrees with its plain version "
-                            f"(layer {li}, B={b}, fire={fire})")
+                        check(kernel_of[(cell, be)].name,
+                              err <= TOL_F32 and max_diff(k, c) <= TOL_F32,
+                              err, what)
+
+    # the LSTM cell state at the Q8.8 rail: gates i, f, g driven to 1.0 by
+    # their delta memories, c_prev one step below the rail in stream 0 (it
+    # must clip to act_max, never wrap) and near the other rail in stream 1.
+    # M = 1.5 * 2**14 in the code domain dequantizes to about 8 (int8) or
+    # 150 (int4) and keeps every sum with the Q8.8 products exact in fp32.
+    for be in ("fused_q8", "fused_q4"):
+        lay = progs[("lstm", be)].layouts[0]
+        lay_cpu = cpu_progs[("lstm", be)].layouts[0]
+        ins, _ = layer_inputs(rng, 2, lay, 0.1, True)
+        h_dim = lay.hidden_size
+        ins[0][:, :3 * h_dim] = 24576.0
+        ins[2][0], ins[2][1] = 255.5, -255.5
+        args = [torch.from_numpy(a) for a in ins]
+        gpu = [a.to(dev) for a in args]
+        k = deltalstm_q8_step(lay, *gpu)
+        kb = deltalstm_q8_step(lay, *gpu, buffered=True)
+        r = deltalstm_q8_step_ref(lay, *gpu)
+        c = deltalstm_q8_step_ref(lay_cpu, *args)
+        torch.cuda.synchronize()
+        at_rail = bool((k[2][0] == lay.act_max).all())
+        log(f"saturating cell state {be}: c[0] max {float(k[2][0].max())} "
+            f"(act_max {lay.act_max}), all at the rail {at_rail}, "
+            f"c[1] min {float(k[2][1].min())}")
+        check(kernel_of[("lstm", be)].name,
+              at_rail and same(k, r) and same(k, c), max_diff(k, r),
+              "saturating c")
+        check(buffered[("lstm", be)].name, same(kb, k) and same(kb, c),
+              max_diff(kb, r), "saturating c")
+    phase3 = ops.launch_counts()
 
     # -- 4. exhaustive activation grid ------------------------------------
-    lay_q = progs["fused_q8"].layouts[0]
+    lay_q = progs[("gru", "fused_q8")].layouts[0]
     sig, tnh = lut_activation_grid(lay_q, dev)
     rsig, rtnh = lut_activation_grid_ref(lay_q)
     n_bad = int((sig.cpu() != rsig).sum()) + int((tnh.cpu() != rtnh).sum())
@@ -343,8 +449,9 @@ def main() -> int:
     launches = {}
     wall_us = {}
     batch_fps = {}
-    for be, prog in progs.items():
-        kinfo = kernel_of[be]
+    for (cell, be), prog in progs.items():
+        path = f"{cell} {be}"
+        kinfo = kernel_of[(cell, be)]
         # warm-up (cuBLAS handle, allocator), then the counted runs
         DeltaStreamEngine(prog, task).step_many(frames[:4])
         torch.cuda.synchronize()
@@ -359,11 +466,11 @@ def main() -> int:
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        wall_us[be] = 1e6 * (time.perf_counter() - t0) / N_FRAMES
+        wall_us[path] = 1e6 * (time.perf_counter() - t0) / N_FRAMES
         n1 = ops.launch_counts()
         want = N_FRAMES * cfg.num_layers
         if n1[kinfo.name] != want or sum(n1.values()) != want:
-            raise AssertionError(f"{be}: launches {n1}, want {want} of "
+            raise AssertionError(f"{path}: launches {n1}, want {want} of "
                                  f"{kinfo.name}")
 
         eng8 = DeltaStreamEngine(prog, task, n_streams=8)
@@ -374,22 +481,22 @@ def main() -> int:
         t0 = time.perf_counter()
         done = batcher.run_until_drained()
         torch.cuda.synchronize()
-        batch_fps[be] = sum(len(fr) for fr in requests) / (
+        batch_fps[path] = sum(len(fr) for fr in requests) / (
             time.perf_counter() - t0)
         n8 = ops.launch_counts()
         want8 = batcher.counters["ticks"] * cfg.num_layers
         if n8[kinfo.name] != want8 or sum(n8.values()) != want8:
-            raise AssertionError(f"{be} batcher: launches {n8}, want "
+            raise AssertionError(f"{path} batcher: launches {n8}, want "
                                  f"{want8}")
-        launches[be] = n1[kinfo.name] + n8[kinfo.name]
-        log(f"main path {be}: 1 stream {N_FRAMES} steps -> "
+        launches[kinfo.name] = n1[kinfo.name] + n8[kinfo.name]
+        log(f"main path {path}: 1 stream {N_FRAMES} steps -> "
             f"{n1[kinfo.name]} launches; 8-slot batcher {len(done)} "
             f"requests in {batcher.counters['ticks']} ticks -> "
-            f"{n8[kinfo.name]} launches; {wall_us[be]:.1f} us/step wall; "
+            f"{n8[kinfo.name]} launches; {wall_us[path]:.1f} us/step wall; "
             f"report {eng.report()['gamma_dx']:.4f} gamma_dx")
 
         # the same program on the CPU
-        cpu_prog = cpu_progs[be]
+        cpu_prog = cpu_progs[(cell, be)]
         if be == "fused":
             # θ = 0: no threshold decision can flip, so the engines agree
             # within the fp32 bound over a whole run
@@ -411,10 +518,10 @@ def main() -> int:
                 for a, bb in zip(tree_leaves(st_g), tree_leaves(st_c)):
                     errs = max(errs, float((a.cpu() - bb).abs().max()))
                 st = st_g
-            log(f"  fp32 vs cpu: theta=0 outputs {err0:.3e}, "
+            log(f"  {path} vs cpu: theta=0 outputs {err0:.3e}, "
                 f"theta={THETA} lockstep state {errs:.3e}")
             if err0 > TOL_F32 or errs > TOL_F32:
-                raise AssertionError("fp32 main path disagrees with the "
+                raise AssertionError(f"{path} main path disagrees with the "
                                      "CPU program")
         else:
             ce = DeltaStreamEngine(cpu_prog, task, device="cpu")
@@ -431,67 +538,77 @@ def main() -> int:
             b_err = max(float(np.abs(np.stack(r.outputs)
                                      - np.stack(c_done[r.uid].outputs)).max())
                         for r in done)
-            log(f"  {be} vs cpu: final state bitwise {same_state}, "
+            log(f"  {path} vs cpu: final state bitwise {same_state}, "
                 f"outputs {head_err:.3e}, batcher outputs {b_err:.3e}")
             if not same_state or head_err > TOL_HEAD or b_err > TOL_HEAD:
-                raise AssertionError(f"{be} main path disagrees with the "
+                raise AssertionError(f"{path} main path disagrees with the "
                                      "CPU program")
         if not torch.isfinite(outs).all():
-            raise AssertionError(f"{be}: non-finite outputs")
+            raise AssertionError(f"{path}: non-finite outputs")
 
     # -- 6. times on the card ---------------------------------------------
-    entries = []
-    for be, prog in progs.items():
-        kern, ref = step_of[be]
-        kinfo = kernel_of[be]
-        fp32 = progs["fused"].layouts
+    ops.reset_launch_counts()
+    instances = [(kernel_of[key], key, *step_of[key]) for key in progs]
+    instances += [(kinfo, key,
+                   functools.partial(step_of[key][0], buffered=True),
+                   step_of[key][1]) for key, kinfo in buffered.items()]
+    rows = {}
+    for kinfo, (cell, be), kern, ref in instances:
+        fp32 = progs[(cell, "fused")].layouts
         for fire in (0.1, 1.0):
             row = {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0,
                    "library_ms": 0.0, "bytes": 0}
-            for li, lay in enumerate(prog.layouts):
-                m, h, dx, dh, fired_cols = layer_inputs(
-                    rng, 1, lay.input_size, lay.hidden_size, lay.block_k,
-                    lay.ip, fire, be != "fused")
-                gpu = [torch.from_numpy(a).to(dev) for a in (m, h, dx, dh)]
-                row["ms"] += device_ms(lambda: kern(lay, *gpu))
-                row["eager_ms"] += eager_ms(lambda: kern(lay, *gpu))
-                row["plain_ms"] += device_ms(lambda: ref(lay, *gpu))
+            for li, lay in enumerate(progs[(cell, be)].layouts):
+                ins, fired_cols = layer_inputs(rng, 1, lay, fire,
+                                               be != "fused")
+                gpu = [torch.from_numpy(a).to(dev) for a in ins]
+                row["ms"] += device_ms(lambda: run_step(cell, kern, lay, gpu))
+                row["eager_ms"] += eager_ms(
+                    lambda: run_step(cell, kern, lay, gpu))
+                row["plain_ms"] += device_ms(
+                    lambda: run_step(cell, ref, lay, gpu))
                 wf = fp32[li].w
                 w2 = wf.reshape(-1, wf.shape[-1])
                 d_cat = torch.zeros((1, wf.shape[-1]), device=dev)
                 acc = torch.zeros((1, w2.shape[0]), device=dev)
                 row["library_ms"] += device_ms(
                     lambda: torch.addmm(acc, d_cat, w2.T))
-                wbytes = {"fused": 4.0, "fused_q8": 1.0,
-                          "fused_q4": 0.5}[be]
-                # the weights the function needs: the real rows and columns
-                # of the fired blocks, not the block padding of the layout
-                fired_w = 3 * lay.hidden_size * fired_cols * wbytes
-                side = 0 if be == "fused" else (3 + 4) * lay.hidden_size * 4
-                io = 4 * (4 * lay.hidden_size * 2 + lay.hidden_size * 2
-                          + lay.input_size + lay.hidden_size)
-                row["bytes"] += int(fired_w + side + io)
-            bound = 1e3 * row["bytes"] / HBM_BYTES_PER_S
-            log(f"time {be} B=1 fire={fire} per 2-layer step: kernel "
+                row["bytes"] += step_bytes(cell, be, lay, fired_cols)
+            row["bound_ms"] = 1e3 * row["bytes"] / HBM_BYTES_PER_S
+            log(f"time {kinfo.name} B=1 fire={fire} per 2-layer step: kernel "
                 f"{row['ms']:.5f} ms on the device ({row['eager_ms']:.4f} ms "
                 f"launched from Python), plain {row['plain_ms']:.5f} ms, "
-                f"addmm {row['library_ms']:.5f} ms, bound {bound:.5f} ms "
-                f"({row['bytes']} B) [{smi}]")
-        per = row                            # the 100 % firing row
-        entries.append({
-            "name": kinfo.name, "route": "cuda", "source": kinfo.source,
-            "replaces": kinfo.replaces, "launches": launches[be],
-            "max_abs_err": max_err[be], "ms": per["ms"],
-            "plain_ms": per["plain_ms"],
-            "bound_ms": 1e3 * per["bytes"] / HBM_BYTES_PER_S,
-            "bound_by": "bytes", "library_ms": per["library_ms"]})
+                f"addmm {row['library_ms']:.5f} ms, bound "
+                f"{row['bound_ms']:.5f} ms ({row['bytes']} B) [{smi}]")
+        rows[kinfo.name] = row               # the 100 % firing row
+    phase6 = ops.launch_counts()
+    for kinfo in buffered.values():
+        launches[kinfo.name] = phase3[kinfo.name] + phase6[kinfo.name]
+
+    for (cell, be), prog in progs.items():
+        path = f"{cell} {be}"
         prof = engine_profile(DeltaStreamEngine(prog, task), frames[:50])
         lat = step_latencies_us(DeltaStreamEngine(prog, task), frames)
-        log(f"engine {be}: frame-to-output latency at 1 stream over "
+        log(f"engine {path}: frame-to-output latency at 1 stream over "
             f"{len(lat)} frames: median {np.median(lat):.1f} us, p95 "
-            f"{np.percentile(lat, 95):.1f} us; step_many {wall_us[be]:.1f} "
-            f"us/step; 8-slot batcher {batch_fps[be]:.0f} frames/s; "
+            f"{np.percentile(lat, 95):.1f} us; step_many {wall_us[path]:.1f} "
+            f"us/step; 8-slot batcher {batch_fps[path]:.0f} frames/s; "
             f"profiled: {json.dumps(prof)} [{smi}]")
+
+    entries = []
+    for kinfo, (cell, _), _, _ in instances:
+        row = rows[kinfo.name]
+        entry = {"name": kinfo.name, "route": "cuda", "source": kinfo.source,
+                 "replaces": kinfo.replaces,
+                 "launches": launches[kinfo.name],
+                 "max_abs_err": max_err[kinfo.name], "ms": row["ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": "bytes", "library_ms": row["library_ms"],
+                 "eager_ms": row["eager_ms"]}
+        if kinfo in buffered.values():
+            entry["path"] = buffered_path[cell]
+        entries.append(entry)
+    log(smi)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

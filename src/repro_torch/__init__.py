@@ -3,9 +3,9 @@
 The package mirrors ``repro`` module for module (``repro/core/deltagru.py``
 is ``repro_torch/core/deltagru.py``) and imports neither JAX nor anything
 of ``repro``. Its main path is the paper's deployment: compile a DeltaGRU
-stack once (:func:`repro_torch.core.program.compile_delta_program`), then
-stream it frame by frame through
-:class:`repro_torch.serve.engine.DeltaStreamEngine`.
+or DeltaLSTM stack once
+(:func:`repro_torch.core.program.compile_delta_program`), then stream it
+frame by frame through :class:`repro_torch.serve.engine.DeltaStreamEngine`.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU with ``device="cpu"``; with no card and no ``device="cpu"`` they

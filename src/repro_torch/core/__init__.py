@@ -1,2 +1,2 @@
 """Delta encoding, thresholds, the performance model, the backend registry,
-the DeltaGRU stack and compiled programs."""
+the DeltaGRU and DeltaLSTM stacks and compiled programs."""

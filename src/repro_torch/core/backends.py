@@ -7,9 +7,10 @@ init convention its state uses (``m_init``), the weight width it streams
 (``weight_bits``, priced by the Eq. 6/7 model), and whether one weight
 fetch serves one stream or a whole stream tile (``weight_fetch``).
 
-The registry is keyed on ``(cell, name)``. The GRU backends register when
-:mod:`repro_torch.core.deltagru` imports; the LSTM and LM cells are not yet
-ported and raise saying so.
+The registry is keyed on ``(cell, name)``. The GRU and LSTM backends
+register when :mod:`repro_torch.core.deltagru` and
+:mod:`repro_torch.core.deltalstm` import; the LM cells are not yet ported
+and raise saying so.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import Callable
 _REGISTRY: dict = {}
 
 # Cell families of the JAX package this port does not carry yet.
-UNPORTED_CELLS = ("lstm", "rwkv6", "rglru")
+UNPORTED_CELLS = ("rwkv6", "rglru")
 
 
 @dataclass(frozen=True)
@@ -33,7 +34,7 @@ class BackendSpec:
       step: one timestep::
 
           step(params, state, x, theta_x, theta_h, *, layout)
-              -> DeltaGruStepOut
+              -> DeltaGruStepOut / DeltaLstmStepOut
 
       cell: recurrent cell family.
       m_init: ``"bias"`` folds biases into M; ``"zero"`` is the unscaled
@@ -74,12 +75,13 @@ def require_ported_cell(cell: str) -> None:
     if cell in UNPORTED_CELLS:
         raise NotImplementedError(
             f"cell {cell!r} is not yet ported to repro_torch (the JAX "
-            f"package serves it; ported cells: ('gru',))")
+            f"package serves it; ported cells: ('gru', 'lstm'))")
 
 
 def _ensure_builtins() -> None:
     """Import the builtin cell modules so their specs self-register."""
     import repro_torch.core.deltagru  # noqa: F401  (registers gru backends)
+    import repro_torch.core.deltalstm  # noqa: F401  (registers lstm backends)
 
 
 def require_stream_tile(x, name: str) -> None:
@@ -91,6 +93,18 @@ def require_stream_tile(x, name: str) -> None:
             f"weight pass serves the whole tile); got a {getattr(x, 'ndim', 0)}-D "
             f"input — add a leading stream axis, or use the per-stream "
             f"{name.removesuffix('_batch')!r} backend")
+
+
+def batched_step(name: str, parent: Callable) -> Callable:
+    """The ``*_batch`` tile contract over a per-stream step: require the
+    stream axis, then run the same kernel (it already compacts on the union
+    of fired columns across the tile, and a stream that did not fire a
+    fired block adds exact zeros)."""
+    def step(params, state, x, theta_x, theta_h, *, layout):
+        require_stream_tile(x, name)
+        return parent(params, state, x, theta_x, theta_h, layout=layout)
+    step.__name__ = f"_step_{name}"
+    return step
 
 
 # (cell, name) -> replacement: backends that were deliberately retired.

@@ -26,12 +26,12 @@ synchronises the host.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
-from repro_torch.core.backends import (BackendSpec, get_backend,
-                                       register_backend, require_stream_tile)
+from repro_torch.core.backends import (BackendSpec, batched_step, get_backend,
+                                       register_backend)
 from repro_torch.core.delta import DeltaState, delta_encode, init_delta_state
 from repro_torch.core.thresholds import layer_theta
 
@@ -217,21 +217,9 @@ def _step_fused_q4(params, state, x, theta_x, theta_h, *, layout):
                              layout=layout)
 
 
-def _batched(name: str, parent: Callable) -> Callable:
-    """The ``*_batch`` tile contract over a per-stream step: require the
-    stream axis, then run the same kernel (it already compacts on the union
-    of fired columns across the tile, and a stream that did not fire a
-    fired block adds exact zeros)."""
-    def step(params, state, x, theta_x, theta_h, *, layout):
-        require_stream_tile(x, name)
-        return parent(params, state, x, theta_x, theta_h, layout=layout)
-    step.__name__ = f"_step_{name}"
-    return step
-
-
-_step_fused_batch = _batched("fused_batch", _step_fused)
-_step_fused_q8_batch = _batched("fused_q8_batch", _step_fused_q8)
-_step_fused_q4_batch = _batched("fused_q4_batch", _step_fused_q4)
+_step_fused_batch = batched_step("fused_batch", _step_fused)
+_step_fused_q8_batch = batched_step("fused_q8_batch", _step_fused_q8)
+_step_fused_q4_batch = batched_step("fused_q4_batch", _step_fused_q4)
 
 
 # -- per-backend stack packers (registered BackendSpec.pack fns) ------------

@@ -18,8 +18,9 @@ Typical use::
     logits = prog.apply_head(y)
 
 or hand the program to :class:`repro_torch.serve.engine.DeltaStreamEngine`.
-Only the GRU cell is ported; the other cells of the JAX package raise
-``NotImplementedError``.
+The GRU and LSTM cells are ported (``cell="lstm"`` compiles an
+``init_lstm_model`` dict the same way); the LM cells of the JAX package
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -41,6 +42,12 @@ def _cell_ops(cell: str) -> dict:
                 "step": m.deltagru_stack_step,
                 "sequence": m.deltagru_sequence,
                 "params_key": "gru"}
+    if cell == "lstm":
+        from repro_torch.core import deltalstm as m
+        return {"init": m.init_deltalstm_stack_state,
+                "step": m.deltalstm_stack_step,
+                "sequence": m.deltalstm_sequence,
+                "params_key": "lstm"}
     raise ValueError(f"unknown cell family {cell!r}; known: "
                      f"('gru', 'lstm', 'rwkv6', 'rglru')")
 
@@ -204,10 +211,12 @@ def compile_delta_program(params, backend: str = "fused", *,
 
     Args:
       params: a sequence of per-layer params
-        (:class:`~repro_torch.core.deltagru.GruLayerParams`) or a model
-        params dict (``{"gru", "head", "head_b"}``; the head is carried).
+        (:class:`~repro_torch.core.deltagru.GruLayerParams` /
+        :class:`~repro_torch.core.deltalstm.LstmLayerParams`) or a model
+        params dict (``{"gru" | "lstm", "head", "head_b"}``; the head is
+        carried).
       backend: any backend name registered for ``cell``.
-      cell: the cell family (only ``"gru"`` is ported).
+      cell: the cell family (``"gru"`` or ``"lstm"``).
       layouts: optional pre-packed per-layer kernel layouts.
       block: kernel block size used when packing.
       device: where the program runs; default ``"cuda"``, and without a

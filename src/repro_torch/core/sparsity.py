@@ -91,6 +91,11 @@ def cell_dims(cell: str, input_size: int, hidden_size: int,
                      f"cells: {sorted(CELL_PROJ_VOLUMES)}")
 
 
+def lstm_dims(input_size: int, hidden_size: int, num_layers: int) -> GruDims:
+    """Dims of an L-layer (Delta)LSTM stack: the 4-gate weight volume."""
+    return cell_dims("lstm", input_size, hidden_size, num_layers)
+
+
 def effective_sparsity(dims: GruDims, gamma_dx: float, gamma_dh: float) -> float:
     """Eq. 4 Γ_eff: parameter-weighted average of input/hidden sparsity."""
     if dims.x_weights is None and dims.h_weights is None:

@@ -56,23 +56,24 @@ __device__ __forceinline__ void warp_sum(float (&acc)[kMaxB]) {
 }
 
 // Size a launch: the number of streams per pass (at most kMaxB) whose
-// staged deltas fit the device's shared memory, the dynamic shared memory
-// it needs, and that size allowed on `kernel`. Returns a CUDA error code.
+// staged deltas fit the device's shared memory beside `extra` bytes the
+// kernel keeps for itself, the dynamic shared memory it needs, and that size
+// allowed on `kernel`. Returns a CUDA error code.
 template <typename Kernel>
 cudaError_t size_launch(Kernel kernel, int B, int K, int block_k, int* chunk,
-                        size_t* smem) {
+                        size_t* smem, size_t extra = 0) {
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  const size_t ids_bytes = 2 * (size_t)(K / block_k) * sizeof(int);
+  const size_t fixed = 2 * (size_t)(K / block_k) * sizeof(int) + extra;
   int c = B < kMaxB ? B : kMaxB;
-  while (c > 1 && (size_t)c * K * sizeof(float) + ids_bytes > (size_t)max_smem)
+  while (c > 1 && (size_t)c * K * sizeof(float) + fixed > (size_t)max_smem)
     --c;
   *chunk = c;
-  *smem = (size_t)c * K * sizeof(float) + ids_bytes;
+  *smem = (size_t)c * K * sizeof(float) + fixed;
   if (*smem > (size_t)max_smem) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,5 +1,5 @@
-"""Quantized delta-kernel core (paper Sec. IV-A, Figs. 6/7), the GRU part of
-:mod:`repro.kernels.delta_q8` ported to PyTorch and CUDA.
+"""Quantized delta-kernel core (paper Sec. IV-A, Figs. 6/7), the PyTorch and
+CUDA port of :mod:`repro.kernels.delta_q8` (both cells).
 
 * :class:`_GruBlockGeometry` — the Fig. 6 block/pad/seam arithmetic every
   packed layout must agree on;
@@ -7,19 +7,23 @@
 * :class:`QuantDeltaLayout` and :func:`pack_delta_weights_q8` /
   :func:`pack_delta_weights_q4` — int8 codes, or nibble-packed int4 codes
   (:func:`pack_nibbles`), per-gate-row scales and the activation-grid bias;
-* :func:`deltagru_q8_step` — the int8/int4 GRU layer step: the CUDA kernel
-  in ``csrc/delta_q8.cu`` for CUDA tensors, its plain version
-  :func:`deltagru_q8_step_ref` for CPU tensors. The kernel compacts the
-  fired column blocks itself, on the device (the JAX package's
-  ``_prep_step_operands`` prologue); the plain version multiplies every
-  column, and the unfired ones add exact zeros.
+* :func:`deltagru_q8_step` / :func:`deltalstm_q8_step` — the int8/int4
+  GRU (3 gate rows) and LSTM (4 gate rows, saturating Q8.8 cell state)
+  layer steps: the CUDA kernels in ``csrc/delta_q8.cu`` for CUDA tensors,
+  their plain versions :func:`deltagru_q8_step_ref` /
+  :func:`deltalstm_q8_step_ref` for CPU tensors. ``buffered=True`` launches
+  the double-buffered twin of either kernel (the same bits). The kernels
+  compact the fired column blocks themselves, on the device (the JAX
+  package's ``_prep_step_operands`` prologue); the plain versions multiply
+  every column, and the unfired ones add exact zeros.
 
 Fixed-point semantics: deltas arrive on the Q8.8 grid, so every
 ``delta x code`` product and every partial sum is an exact fp32 value; the
 delta memories ``M`` hold unscaled code-domain sums, so any summation order
 (the kernel's, the plain version's, the JAX package's) gives the same bits.
 The activation stage dequantizes (``b + scale * M``) and walks the Q8.8
-input / Q1.4 output LUT grid, rounding ``h`` back onto Q8.8.
+input / Q1.4 output LUT grid, rounding ``h`` (and the LSTM's ``c``) back
+onto Q8.8.
 
 Packing runs on the CPU whatever the device of the weights, and the result
 is moved to that device: CUDA divides by a scalar through its reciprocal,
@@ -34,8 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ops import (DELTA_Q8_GRU_I4, DELTA_Q8_GRU_I8,
-                                     cuda_stream, launches_kernel, require)
+from repro_torch.kernels.ops import (cuda_stream, launches_kernel,
+                                     q8_kernel, require)
 
 # Delta memories per layer: the GRU splits its candidate gate across the
 # x/h seam (M_r, M_u, M_xc, M_hc — 3 gate rows, 4 memories).
@@ -172,16 +176,22 @@ class QuantDeltaLayout(_GruBlockGeometry):
         return _grid_round(x, self.act_scale, self.act_min, self.act_max)
 
     def dequantized(self):
-        """The matching fp32 fused layout carrying the same quantized values."""
-        if self.gates != 3:
-            raise NotImplementedError(
-                f"no fused fp32 layout ported for gates={self.gates} (the "
-                "LSTM family is not yet ported)")
-        from repro_torch.kernels.deltagru_seq import FusedGruLayout
+        """The matching fp32 fused layout carrying the same quantized
+        values (:class:`~repro_torch.kernels.deltagru_seq.FusedGruLayout`
+        for ``gates=3``, :class:`~repro_torch.kernels.deltalstm_seq.\
+FusedLstmLayout` for ``gates=4``)."""
+        if self.gates == 3:
+            from repro_torch.kernels.deltagru_seq import FusedGruLayout as Lay
+        elif self.gates == 4:
+            from repro_torch.kernels.deltalstm_seq import \
+                FusedLstmLayout as Lay
+        else:
+            raise ValueError(f"no fused fp32 layout registered for "
+                             f"gates={self.gates}")
         w = _layout_codes_f32(self) * self.scales[:, :, None]
-        return FusedGruLayout(w=w, input_size=self.input_size,
-                              hidden_size=self.hidden_size,
-                              block_h=self.block_h, block_k=self.block_k)
+        return Lay(w=w, input_size=self.input_size,
+                   hidden_size=self.hidden_size,
+                   block_h=self.block_h, block_k=self.block_k)
 
     def to(self, device) -> "QuantDeltaLayout":
         return layout_to(self, device)
@@ -280,63 +290,103 @@ def _ref_code_slices(layout: QuantDeltaLayout):
 
 
 # ---------------------------------------------------------------------------
-# GRU layer step (gates=3, seam-routed split-candidate memories)
+# Launching the kernels of csrc/delta_q8.cu
 # ---------------------------------------------------------------------------
 
-def deltagru_q8_step(layout: QuantDeltaLayout, m_prev: torch.Tensor,
-                     h_prev: torch.Tensor, dx: torch.Tensor,
-                     dh: torch.Tensor):
-    """One int8 / int4 fused GRU layer step on encoded deltas.
-
-    ``m_prev: [B, 4H]`` (code-domain accumulator), ``h_prev: [B, H]``,
-    ``dx: [B, I]``, ``dh: [B, H]`` -> ``(m_new, h_new)``. CUDA operands
-    launch the kernel of ``csrc/delta_q8.cu`` (int8 or int4 by
-    ``layout.weight_bits``); CPU operands run :func:`deltagru_q8_step_ref`.
-    """
-    if not launches_kernel(layout.w_q, m_prev, h_prev, dx, dh):
-        return deltagru_q8_step_ref(layout, m_prev, h_prev, dx, dh)
-    return _launch_q8(layout, m_prev, h_prev, dx, dh)
-
-
-def _q8_fn():
-    fn = _build.load("delta_q8.cu").delta_q8_gru_step
+def _q8_fn(cell: str):
+    """The ``extern "C"`` entry of one cell (``delta_q8_gru_step`` takes
+    ``h_prev`` and writes ``m, h``; ``delta_q8_lstm_step`` takes ``c_prev``
+    and writes ``m, h, c``)."""
+    fn = getattr(_build.load("delta_q8.cu"), f"delta_q8_{cell}_step")
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+        n_ptr = 9 if cell == "gru" else 10
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9
                        + [ctypes.c_float] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_q8(layout: QuantDeltaLayout, m_prev, h_prev, dx, dh):
+def _launch_q8(layout: QuantDeltaLayout, gates: int, buffered: bool, m_prev,
+               s_prev, dx, dh):
+    """Launch the int8 / int4 step of a ``gates``-row layout. ``s_prev`` is
+    ``h_prev`` (GRU) or ``c_prev`` (LSTM). Returns ``(m, h)`` or
+    ``(m, h, c)``."""
+    cell = "gru" if gates == 3 else "lstm"
+    if layout.gates != gates:
+        raise ValueError(f"the {cell} step needs a {gates}-gate layout, got "
+                         f"gates={layout.gates}")
     b, h_dim, i_dim = dx.shape[0], layout.hidden_size, layout.input_size
-    if layout.gates != 3:
-        raise ValueError("deltagru_q8_step needs a 3-gate (GRU) layout")
     k = layout.ip + layout.hk
     wk = k // 2 if layout.weight_bits == 4 else k
+    if buffered:
+        # the cp.async ring copies 16 bytes a thread: every row stride and
+        # every fired block's offset must be a multiple of 16 bytes
+        wbk = layout.block_k // 2 if layout.weight_bits == 4 else layout.block_k
+        if wk % 16 or wbk % 16:
+            raise ValueError(
+                f"buffered=True streams weight blocks in 16-byte copies; the "
+                f"row stride ({wk} B) and the block width ({wbk} B) must be "
+                f"multiples of 16")
     f32 = torch.float32
-    require(layout.w_q, "w_q", torch.int8, (3, layout.hp, wk))
-    require(layout.scales, "scales", f32, (3, layout.hp))
+    require(layout.w_q, "w_q", torch.int8, (gates, layout.hp, wk))
+    require(layout.scales, "scales", f32, (gates, layout.hp))
     require(layout.b4, "b4", f32, (N_MEM, layout.hp))
     require(m_prev, "m_prev", f32, (b, N_MEM * h_dim))
-    require(h_prev, "h_prev", f32, (b, h_dim))
+    require(s_prev, "h_prev" if gates == 3 else "c_prev", f32, (b, h_dim))
     require(dx, "dx", f32, (b, i_dim))
     require(dh, "dh", f32, (b, h_dim))
-    m_out = torch.empty_like(m_prev)
-    h_out = torch.empty_like(h_prev)
-    err = _q8_fn()(
+    outs = [torch.empty_like(m_prev), torch.empty_like(s_prev)]
+    if gates == 4:
+        outs.append(torch.empty_like(s_prev))
+    err = _q8_fn(cell)(
         layout.w_q.data_ptr(), layout.scales.data_ptr(),
-        layout.b4.data_ptr(), m_prev.data_ptr(), h_prev.data_ptr(),
-        dx.data_ptr(), dh.data_ptr(), m_out.data_ptr(), h_out.data_ptr(),
+        layout.b4.data_ptr(), m_prev.data_ptr(), s_prev.data_ptr(),
+        dx.data_ptr(), dh.data_ptr(), *(o.data_ptr() for o in outs),
         b, i_dim, h_dim, layout.hp, k, layout.ip, layout.block_k,
-        layout.weight_bits, layout.act_scale, layout.act_min,
+        layout.weight_bits, int(buffered), layout.act_scale, layout.act_min,
         layout.act_max, layout.lut_scale, layout.lut_min, layout.lut_max,
         cuda_stream(m_prev))
     if err:
-        raise RuntimeError(f"delta_q8_gru_step launch failed: CUDA error "
+        raise RuntimeError(f"delta_q8_{cell}_step launch failed: CUDA error "
                            f"{err}")
-    counter = DELTA_Q8_GRU_I4 if layout.weight_bits == 4 else DELTA_Q8_GRU_I8
-    counter.launches += 1
-    return m_out, h_out
+    q8_kernel(gates, layout.weight_bits, buffered).launches += 1
+    return tuple(outs)
+
+
+def _act_stage(layout: QuantDeltaLayout):
+    """The activation stage's two grid roundings: ``q88`` onto the Q8.8
+    activation grid, ``lut`` onto the Q1.n LUT output grid."""
+    def q88(v):
+        return _grid_round(v, layout.act_scale, layout.act_min,
+                           layout.act_max)
+
+    def lut(v):
+        return _grid_round(v, layout.lut_scale, layout.lut_min,
+                           layout.lut_max)
+
+    return q88, lut
+
+
+# ---------------------------------------------------------------------------
+# GRU layer step (gates=3, seam-routed split-candidate memories)
+# ---------------------------------------------------------------------------
+
+def deltagru_q8_step(layout: QuantDeltaLayout, m_prev: torch.Tensor,
+                     h_prev: torch.Tensor, dx: torch.Tensor,
+                     dh: torch.Tensor, *, buffered: bool = False):
+    """One int8 / int4 fused GRU layer step on encoded deltas.
+
+    ``m_prev: [B, 4H]`` (code-domain accumulator), ``h_prev: [B, H]``,
+    ``dx: [B, I]``, ``dh: [B, H]`` -> ``(m_new, h_new)``. CUDA operands
+    launch the kernel of ``csrc/delta_q8.cu`` (int8 or int4 by
+    ``layout.weight_bits``); ``buffered=True`` launches its double-buffered
+    twin, which streams the fired weight blocks through a two-slot
+    shared-memory ring and gives the same bits. CPU operands run
+    :func:`deltagru_q8_step_ref` either way (the function is the same).
+    """
+    if not launches_kernel(layout.w_q, m_prev, h_prev, dx, dh):
+        return deltagru_q8_step_ref(layout, m_prev, h_prev, dx, dh)
+    return _launch_q8(layout, 3, buffered, m_prev, h_prev, dx, dh)
 
 
 def deltagru_q8_step_ref(layout: QuantDeltaLayout, m_prev: torch.Tensor,
@@ -363,15 +413,7 @@ def deltagru_q8_step_ref(layout: QuantDeltaLayout, m_prev: torch.Tensor,
     m_u = m[:, 1] + (px[:, 1] + ph[:, 1])
     m_xc = m[:, 2] + px[:, 2]
     m_hc = m[:, 3] + ph[:, 2]
-
-    def q88(v):
-        return _grid_round(v, layout.act_scale, layout.act_min,
-                           layout.act_max)
-
-    def lut(v):
-        return _grid_round(v, layout.lut_scale, layout.lut_min,
-                           layout.lut_max)
-
+    q88, lut = _act_stage(layout)
     s = layout.scales[:, :h_dim]
     b4 = layout.b4[:, :h_dim]
     sc_r = b4[0] + m_r * s[0]
@@ -384,6 +426,57 @@ def deltagru_q8_step_ref(layout: QuantDeltaLayout, m_prev: torch.Tensor,
     h_new = q88((1.0 - u) * c + u * h_prev.to(torch.float32))
     m_new = torch.stack([m_r, m_u, m_xc, m_hc], 1).reshape(b, N_MEM * h_dim)
     return m_new.to(m_prev.dtype), h_new.to(h_prev.dtype)
+
+
+# ---------------------------------------------------------------------------
+# LSTM layer step (gates=4, no seam routing, saturating Q8.8 cell state)
+# ---------------------------------------------------------------------------
+
+def deltalstm_q8_step(layout: QuantDeltaLayout, m_prev: torch.Tensor,
+                      h_prev: torch.Tensor, c_prev: torch.Tensor,
+                      dx: torch.Tensor, dh: torch.Tensor, *,
+                      buffered: bool = False):
+    """One int8 / int4 fused LSTM layer step on encoded deltas.
+
+    ``m_prev: [B, 4H]`` (code-domain accumulator), ``c_prev: [B, H]`` (on
+    the Q8.8 grid), ``dx: [B, I]``, ``dh: [B, H]`` ->
+    ``(m_new, h_new, c_new)``. ``h_prev`` keeps the JAX signature: the
+    update ``h = o * tanh(c)`` never reads it, so the kernel is not handed
+    it. CUDA operands launch the LSTM kernel of ``csrc/delta_q8.cu``
+    (``buffered=True``: its double-buffered twin, the same bits); CPU
+    operands run :func:`deltalstm_q8_step_ref`.
+    """
+    if not launches_kernel(layout.w_q, m_prev, h_prev, c_prev, dx, dh):
+        return deltalstm_q8_step_ref(layout, m_prev, h_prev, c_prev, dx, dh)
+    return _launch_q8(layout, 4, buffered, m_prev, c_prev, dx, dh)
+
+
+def deltalstm_q8_step_ref(layout: QuantDeltaLayout, m_prev: torch.Tensor,
+                          h_prev: torch.Tensor, c_prev: torch.Tensor,
+                          dx: torch.Tensor, dh: torch.Tensor):
+    """Plain PyTorch version of the int8 / int4 LSTM step (the port of the
+    JAX oracle ``deltalstm_q8_step_ref``): exact code-domain sums, then
+    ``i, f, o = lut(sigmoid(q88(b + s·M)))``, ``g = lut(tanh(q88(·)))``,
+    ``c = q88(f·c_prev + i·g)`` (saturating at the Q8.8 rails) and
+    ``h = q88(o·lut(tanh(c)))``. Bit-identical to the kernel, under the
+    same TF32 condition as :func:`deltagru_q8_step_ref`."""
+    b = dx.shape[0]
+    h_dim = layout.hidden_size
+    cx, ch = _ref_code_slices(layout)
+    px = torch.einsum("bi,ghi->bgh", dx.to(torch.float32), cx)
+    ph = torch.einsum("bi,ghi->bgh", dh.to(torch.float32), ch)
+    m = m_prev.reshape(b, N_MEM, h_dim).to(torch.float32) + (px + ph)
+    q88, lut = _act_stage(layout)
+    s = layout.scales[:, :h_dim]
+    b4 = layout.b4[:, :h_dim]
+    gi = lut(torch.sigmoid(q88(b4[0] + m[:, 0] * s[0])))
+    gf = lut(torch.sigmoid(q88(b4[1] + m[:, 1] * s[1])))
+    gg = lut(torch.tanh(q88(b4[2] + m[:, 2] * s[2])))
+    go = lut(torch.sigmoid(q88(b4[3] + m[:, 3] * s[3])))
+    c_new = q88(gf * c_prev.to(torch.float32) + gi * gg)
+    h_new = q88(go * lut(torch.tanh(c_new)))
+    return (m.reshape(b, N_MEM * h_dim).to(m_prev.dtype),
+            h_new.to(h_prev.dtype), c_new.to(c_prev.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -426,9 +519,5 @@ def lut_activation_grid_ref(layout: QuantDeltaLayout):
     of :func:`deltagru_q8_step_ref` over the whole input grid)."""
     lo, n = _act_grid_codes(layout)
     x = torch.arange(lo, lo + n, dtype=torch.float32) / layout.act_scale
-
-    def lut(v):
-        return _grid_round(v, layout.lut_scale, layout.lut_min,
-                           layout.lut_max)
-
+    _, lut = _act_stage(layout)
     return lut(torch.sigmoid(x)), lut(torch.tanh(x))

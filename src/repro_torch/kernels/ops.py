@@ -107,7 +107,40 @@ DELTA_Q8_GRU_I8 = KernelInfo(
 DELTA_Q8_GRU_I4 = KernelInfo(
     "delta_q8_gru_i4", "src/repro_torch/csrc/delta_q8.cu",
     "src/repro/kernels/delta_q8.py:407")
-KERNELS = (DELTAGRU_SEQ_F32, DELTA_Q8_GRU_I8, DELTA_Q8_GRU_I4)
+DELTALSTM_SEQ_F32 = KernelInfo(
+    "deltalstm_seq_f32", "src/repro_torch/csrc/deltalstm_seq.cu",
+    "src/repro/kernels/deltalstm_seq.py:119")
+DELTA_Q8_LSTM_I8 = KernelInfo(
+    "delta_q8_lstm_i8", "src/repro_torch/csrc/delta_q8.cu",
+    "src/repro/kernels/delta_q8.py:749")
+DELTA_Q8_LSTM_I4 = KernelInfo(
+    "delta_q8_lstm_i4", "src/repro_torch/csrc/delta_q8.cu",
+    "src/repro/kernels/delta_q8.py:749")
+# the double-buffered instances, reached through buffered=True
+DELTA_Q8_GRU_DBUF_I8 = KernelInfo(
+    "delta_q8_gru_dbuf_i8", "src/repro_torch/csrc/delta_q8.cu",
+    "src/repro/kernels/delta_q8.py:600")
+DELTA_Q8_GRU_DBUF_I4 = KernelInfo(
+    "delta_q8_gru_dbuf_i4", "src/repro_torch/csrc/delta_q8.cu",
+    "src/repro/kernels/delta_q8.py:600")
+DELTA_Q8_LSTM_DBUF_I8 = KernelInfo(
+    "delta_q8_lstm_dbuf_i8", "src/repro_torch/csrc/delta_q8.cu",
+    "src/repro/kernels/delta_q8.py:874")
+DELTA_Q8_LSTM_DBUF_I4 = KernelInfo(
+    "delta_q8_lstm_dbuf_i4", "src/repro_torch/csrc/delta_q8.cu",
+    "src/repro/kernels/delta_q8.py:874")
+KERNELS = (DELTAGRU_SEQ_F32, DELTA_Q8_GRU_I8, DELTA_Q8_GRU_I4,
+           DELTALSTM_SEQ_F32, DELTA_Q8_LSTM_I8, DELTA_Q8_LSTM_I4,
+           DELTA_Q8_GRU_DBUF_I8, DELTA_Q8_GRU_DBUF_I4,
+           DELTA_Q8_LSTM_DBUF_I8, DELTA_Q8_LSTM_DBUF_I4)
+
+
+def q8_kernel(gates: int, weight_bits: int, buffered: bool) -> KernelInfo:
+    """The int8 / int4 kernel instance of a cell (3 gate rows: GRU, 4:
+    LSTM), a weight width and the buffered flag."""
+    cell = "gru" if gates == 3 else "lstm"
+    name = f"delta_q8_{cell}{'_dbuf' if buffered else ''}_i{weight_bits}"
+    return next(k for k in KERNELS if k.name == name)
 
 
 def reset_launch_counts() -> None:

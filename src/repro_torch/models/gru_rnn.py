@@ -4,10 +4,11 @@ port of :mod:`repro.models.gru_rnn` (the QAT argument of
 ``gru_model_forward`` waits for the training slice).
 
 A model is a dict ``{"gru": [GruLayerParams, ...], "head": [H, O],
-"head_b": [O]}`` of tensors on one device. :func:`init_gru_model` draws one
-from a seeded ``torch.Generator``; :func:`model_from_numpy` carries the JAX
-package's model (as numpy arrays) across, so both packages compute from the
-same weights.
+"head_b": [O]}`` of tensors on one device (``"lstm"`` and
+``LstmLayerParams`` for the LSTM twin). :func:`init_gru_model` /
+:func:`init_lstm_model` draw one from a seeded ``torch.Generator``;
+:func:`model_from_numpy` carries the JAX package's model (as numpy arrays)
+across, so both packages compute from the same weights.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.core.deltagru import (GruLayerParams, deltagru_sequence,
                                        gru_sequence, init_gru_stack)
+from repro_torch.core.deltalstm import LstmLayerParams, init_lstm_stack
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.common import dense_init
 
@@ -48,6 +50,19 @@ PAPER_NETWORKS = {
 }
 
 
+def _init_model(cell: str, init_stack, generator, cfg: GruTaskConfig,
+                dtype, device) -> dict:
+    dev = resolve_device(device)
+    if not isinstance(generator, torch.Generator):
+        generator = torch.Generator().manual_seed(int(generator))
+    stack = init_stack(generator, cfg.input_size, cfg.hidden_size,
+                       cfg.num_layers, dtype)
+    head = dense_init(generator, cfg.hidden_size, cfg.output_size, dtype)
+    return {cell: [p.to(dev) for p in stack], "head": head.to(dev),
+            "head_b": torch.zeros((cfg.output_size,), dtype=dtype,
+                                  device=dev)}
+
+
 def init_gru_model(generator, cfg: GruTaskConfig, dtype=torch.float32,
                    device=None) -> dict:
     """Random model from a ``torch.Generator`` (or an int seed): Glorot
@@ -55,30 +70,38 @@ def init_gru_model(generator, cfg: GruTaskConfig, dtype=torch.float32,
     moved to ``device`` (default ``"cuda"``; raises without a card unless
     ``device="cpu"``). The numbers differ from the JAX package's for the
     same seed; use :func:`model_from_numpy` to share weights."""
-    dev = resolve_device(device)
-    if not isinstance(generator, torch.Generator):
-        generator = torch.Generator().manual_seed(int(generator))
-    stack = init_gru_stack(generator, cfg.input_size, cfg.hidden_size,
-                           cfg.num_layers, dtype)
-    head = dense_init(generator, cfg.hidden_size, cfg.output_size, dtype)
-    return {"gru": [p.to(dev) for p in stack], "head": head.to(dev),
-            "head_b": torch.zeros((cfg.output_size,), dtype=dtype,
-                                  device=dev)}
+    return _init_model("gru", init_gru_stack, generator, cfg, dtype, device)
+
+
+def init_lstm_model(generator, cfg: GruTaskConfig, dtype=torch.float32,
+                    device=None) -> dict:
+    """The LSTM twin of :func:`init_gru_model` (the paper's Table VII
+    workload family): a DeltaLSTM stack (forget-gate bias 1) under the same
+    task config and head shapes, as ``{"lstm", "head", "head_b"}``. Compile
+    it with ``compile_delta_program(model, cell="lstm", ...)`` and serve it
+    through ``DeltaStreamEngine`` like the GRU models. Same device rule as
+    :func:`init_gru_model`."""
+    return _init_model("lstm", init_lstm_stack, generator, cfg, dtype,
+                       device)
 
 
 def model_from_numpy(tree: dict, device=None) -> dict:
     """The port's model from a model dict of numpy arrays, e.g.
     ``jax.tree_util.tree_map(np.asarray, init_gru_model(key, cfg))`` of the
-    JAX package: ``{"gru": [(w_x, w_h, b), ...], "head", "head_b"}``.
-    Values are copied bit for bit (as float32) onto ``device`` (default
-    ``"cuda"``; raises without a card unless ``device="cpu"``)."""
+    JAX package: ``{"gru": [(w_x, w_h, b), ...], "head", "head_b"}``, or
+    the same with an ``"lstm"`` stack (``init_lstm_model``), which becomes
+    :class:`~repro_torch.core.deltalstm.LstmLayerParams`. Values are copied
+    bit for bit (as float32) onto ``device`` (default ``"cuda"``; raises
+    without a card unless ``device="cpu"``)."""
     dev = resolve_device(device)
+    cell = "lstm" if "lstm" in tree else "gru"
+    layer = LstmLayerParams if cell == "lstm" else GruLayerParams
 
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
-    return {"gru": [GruLayerParams(t(w_x), t(w_h), t(b))
-                    for (w_x, w_h, b) in tree["gru"]],
+    return {cell: [layer(t(w_x), t(w_h), t(b))
+                   for (w_x, w_h, b) in tree[cell]],
             "head": t(tree["head"]), "head_b": t(tree["head_b"])}
 
 

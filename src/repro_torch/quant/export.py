@@ -1,5 +1,6 @@
-"""Export trained DeltaGRU stacks into the packed int8 / int4 runtime format,
-the PyTorch port of :mod:`repro.quant.export` (``cell="gru"``).
+"""Export trained delta-RNN stacks (``cell="gru"`` or ``"lstm"``) into the
+packed int8 / int4 runtime format, the PyTorch port of
+:mod:`repro.quant.export`.
 
 :func:`quantize_delta_stack` converts a trained fp32 or QAT layer stack into
 per-layer :class:`~repro_torch.kernels.delta_q8.QuantDeltaLayout` packs

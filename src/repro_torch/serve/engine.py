@@ -167,7 +167,8 @@ class DeltaStreamEngine:
         if program.head is None:
             raise ValueError(
                 "DeltaStreamEngine needs a program with a classifier head; "
-                "compile from an init_gru_model params dict")
+                "compile from an init_gru_model or init_lstm_model params "
+                "dict")
         # A tile of streams pays ONE weight fetch per step: swap onto the
         # pack-compatible "*_batch" sibling when one is registered.
         if n_streams > 1 and program.spec.weight_fetch != "tile":

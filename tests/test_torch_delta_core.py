@@ -203,7 +203,7 @@ def test_registry_rejections():
         tbackends.get_backend("blocksparse")
     with pytest.raises(ValueError, match="unknown gru backend"):
         tbackends.get_backend("nope")
-    for cell in ("lstm", "rwkv6", "rglru"):
+    for cell in ("rwkv6", "rglru"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tbackends.get_backend("fused", cell=cell)
     spec = tbackends.get_backend("dense")

@@ -218,7 +218,7 @@ def test_program_state_conventions_and_checks():
     bare = tprogram.compile_deltagru(tp["gru"], "fused", device="cpu")
     with pytest.raises(ValueError, match="bare layer stack"):
         bare.apply_head(torch.zeros(1, 48))
-    for cell in ("lstm", "rwkv6", "rglru"):
+    for cell in ("rwkv6", "rglru"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tprogram.compile_delta_program(tp, cell=cell, device="cpu")
     with pytest.raises(ValueError, match="unknown cell"):

@@ -18,7 +18,7 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels.delta_q8 import deltagru_q8_step, pack_delta_weights_q8
 from repro_torch.kernels.deltagru_seq import deltagru_seq_step, pack_gru_layer
 from repro_torch.models.gru_rnn import (GruTaskConfig, init_gru_model,
-                                        model_from_numpy)
+                                        init_lstm_model, model_from_numpy)
 from repro_torch.quant.export import quantize_delta_model
 from repro_torch.serve.engine import DeltaStreamEngine
 
@@ -81,10 +81,12 @@ def _np_tree(model):
 
 @pytest.mark.parametrize("entry", [
     "compile_delta_program", "quantize_delta_model", "init_gru_model",
-    "model_from_numpy", "DeltaStreamEngine"])
+    "model_from_numpy", "DeltaStreamEngine", "init_lstm_model",
+    "compile_delta_program_lstm", "DeltaStreamEngine_lstm"])
 def test_default_device_without_cuda_raises(entry, monkeypatch):
     model = _small_model()
     cfg = GruTaskConfig(40, 48, 2, 12)
+    lstm = init_lstm_model(0, cfg, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
         "compile_delta_program": lambda: compile_delta_program(model),
@@ -93,6 +95,11 @@ def test_default_device_without_cuda_raises(entry, monkeypatch):
         "model_from_numpy": lambda: model_from_numpy(_np_tree(model)),
         "DeltaStreamEngine": lambda: DeltaStreamEngine(
             compile_delta_program(model, device="cpu"), cfg),
+        "init_lstm_model": lambda: init_lstm_model(0, cfg),
+        "compile_delta_program_lstm": lambda: compile_delta_program(
+            lstm, cell="lstm"),
+        "DeltaStreamEngine_lstm": lambda: DeltaStreamEngine(
+            compile_delta_program(lstm, cell="lstm", device="cpu"), cfg),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
