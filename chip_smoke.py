@@ -40,10 +40,23 @@ traceback and a non-zero exit):
    idle share (``torch.profiler``), the per-frame latency of ``step``
    (median and p95 over the frames) and the batcher's frames per second.
 
+The delta-ized LM cells run through the same phases: in phase 3
+``delta_spmv`` (the LM layer shapes, an unpacked ragged edge, 0 / ~10 /
+100 % of the column blocks fired), ``rwkv6_scan``, ``rglru_scan``,
+``deltagru_act`` and ``ops.deltagru_cell_fused`` (against the dense GRU
+step) against their plain versions; in phase 5 ``rwkv6 fused`` (RWKV6 at
+D = 2048, 24 layers) and ``rglru fused`` (RG-LRU at D = W = 4096, 4
+layers) from seeded random weights over the smooth stream ``c <- 0.9 c +
+0.35 n``, with exact launch counts of ``delta_spmv`` (4 per layer step)
+and of the cell's scan (1 per layer step) and no other kernel, against
+the CPU program at θ = 0 over 50 frames and layer by layer in lockstep at
+θ = 0.25; in phase 6 their kernels' times at the main path's shapes,
+``delta_spmv`` also with a cold L2, and the engine profile of both paths.
+
 The line before the last is ``{"kernels": [...]}`` (every kernel instance;
-a buffered instance's ``launches`` are those of phases 3 and 6, and its
-``path`` names the ``buffered=True`` entry); the last line is
-``{"ok": true, "device": {...}}``.
+the ``launches`` of an instance on no main path, a buffered one or
+``deltagru_act``, are those of phases 3 and 6, and its ``path`` names the
+entry that reaches it); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -62,13 +75,36 @@ SRC = ROOT / "src"
 # CPU suite (k <= 288, the JAX package's own batch-against-solo bound), and
 # 1e-4 at k <= 1536 keeps a factor of four over that sqrt(k) scaling.
 TOL_F32 = 1e-4
+# The LM-path kernels are held to TOL_F32 times the magnitude of the plain
+# result, max(1, max|plain|). delta_spmv at k = 4096 sums 4096 products per
+# output: a random-sign sum's rounding error grows like sqrt(k) ulps of its
+# own magnitude, 64 * 6e-8 = 3.8e-6 of it, and 1e-4 keeps a factor of 26
+# over that. The scans sum 64 products (WKV) or none (RG-LRU) per step, but
+# their state carries the error of every earlier step over T <= 128 steps.
 # The head is a plain fp32 matmul (768 x 12) left to the library on each
 # device; the order of its sum differs between the card and the CPU.
 TOL_HEAD = 1e-5
+# The LM paths against the CPU program, per state tensor and output, scaled
+# the same way: the error of one layer (matvecs over 2048 or 4096 products,
+# the WKV sum, group norm, which divides by a head's standard deviation and
+# so amplifies a head's absolute error) passes on to the next, through 24
+# layers of group norm in RWKV6. On the CPU, fp32 against fp64 at D = 512
+# the scaled error stayed at 1e-6 or less in every layer; 1e-3 keeps a
+# factor of ten over TOL_F32 for what 24 layers add.
+TOL_LM = 1e-3
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12        # H100 SXM data sheet, fp32 outside the tensor cores
+L2_BYTES = 50 * 2 ** 20
 THETA = 0.25                  # Q8.8 64
 N_FRAMES = 300
 SEED = 0
+# The delta-ized LM cells at full width: RWKV6 at rwkv6-1.6b's d_model and
+# depth (configs/rwkv6_1_6b.py); RG-LRU at recurrentgemma-9b's width with 4
+# of its 26 recurrent layers (configs/recurrentgemma_9b.py): all 26 would be
+# 15.7 GB on the card and again on the host for the CPU program. The head
+# maps to 48 outputs, OUTPUT_SIZE of benchmarks/lm_delta_bench.py.
+LM_OUTPUT = 48
+RGLRU_LAYERS = 4
 
 
 def log(*a):
@@ -260,6 +296,117 @@ def step_bytes(cell, be, lay, fired_cols) -> int:
     return int(gates * h * fired_cols * wbytes + side + io)
 
 
+def device_ms_cold(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` (captured in a CUDA graph) with a
+    cold L2: before each replay a reduction reads a buffer of twice the L2,
+    then the card sleeps while the host enqueues the timed replay, so
+    neither the host's launch cost nor the flush is between the events."""
+    import torch
+    flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.float32, device="cuda")
+    flush.fill_(1.0)
+    sink = torch.empty((), dtype=torch.float32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        torch.sum(flush, dim=0, out=sink)
+        torch.cuda._sleep(2_000_000)        # ~1 ms at the H100's clock
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        events.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
+
+
+def lm_stream(rng, t: int, d: int):
+    """The smooth stream of ``benchmarks/lm_delta_bench.py``: a first-order
+    low-pass ``c <- 0.9 c + 0.35 n`` over white noise, ``[t, d]``."""
+    import numpy as np
+    noise = rng.normal(size=(t, d))
+    out = np.zeros((t, d))
+    c = np.zeros(d)
+    for i in range(t):
+        c = 0.9 * c + 0.35 * noise[i]
+        out[i] = c
+    return out.astype(np.float32)
+
+
+def scaled_err(a, b) -> float:
+    """max|a - b| over max(1, max|b|), on the host."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.numel() == 0:
+        return 0.0
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def spmv_case(rng, i_dim, o_dim, b, fire):
+    """Random ``delta_spmv`` operands: weights ``[o_dim, i_dim]``, deltas
+    fired in ``fire`` of the 128-wide column blocks of each stream (at
+    least one unless 0, dense inside a fired block) and an accumulator.
+    Returns numpy ``(w, dx, acc)`` and the real columns of the blocks fired
+    in any stream."""
+    import numpy as np
+    nbk = -(-i_dim // 128)
+    w = rng.normal(0, i_dim ** -0.5, (o_dim, i_dim)).astype(np.float32)
+    d = np.zeros((b, nbk * 128), np.float32)
+    n_fire = 0 if fire == 0 else max(1, round(fire * nbk))
+    for s in range(b):
+        for blk in rng.choice(nbk, n_fire, replace=False):
+            d[s, blk * 128:(blk + 1) * 128] = rng.uniform(-1, 1, 128)
+    union = (d.reshape(b, nbk, 128) != 0).any(axis=(0, 2))
+    cols = np.minimum(128, i_dim - 128 * np.arange(nbk))
+    acc = rng.normal(0, 1, (b, o_dim)).astype(np.float32)
+    return (w, np.ascontiguousarray(d[:, :i_dim]), acc,
+            int((cols * union).sum()))
+
+
+def lm_layer_lockstep(prog, cpu_prog, frames, theta, tree_to, tree_leaves):
+    """Layer by layer, feed the card's and the CPU's copies of the program
+    the same layer input and state (the card's), for every frame, and
+    compare the layer output and new state scaled by magnitude. A layer
+    step whose firing masks differ (one ulp moved a value across θ) is
+    counted and not compared. Returns ``(max scaled error, flips, layer
+    steps)``."""
+    import torch
+    step = prog.spec.step
+    state = prog.init_state((1,))
+    layers = list(state.stack.layers)
+    err, flips, n = 0.0, 0, 0
+    in_max = [0.0] * prog.num_layers
+    for x in frames:
+        inp = torch.from_numpy(x[None]).to(prog.device)
+        for li in range(prog.num_layers):
+            in_max[li] = max(in_max[li], float(inp.abs().max()))
+            g = step(prog.layers[li], layers[li], inp, theta, theta,
+                     layout=prog.layouts[li])
+            c = step(cpu_prog.layers[li], tree_to(layers[li], "cpu"),
+                     inp.cpu(), theta, theta, layout=cpu_prog.layouts[li])
+            n += 1
+            same_fire = all(torch.equal((a.cpu() != 0), (bb != 0)) for a, bb
+                            in ((g.delta_x, c.delta_x),
+                                (g.delta_h, c.delta_h)))
+            if not same_fire:
+                flips += 1
+            else:
+                for a, bb in zip([g.h] + tree_leaves(g.state),
+                                 [c.h] + tree_leaves(c.state)):
+                    err = max(err, scaled_err(a, bb))
+            layers[li] = g.state
+            inp = g.h
+    return err, flips, n, in_max
+
+
 def main() -> int:
     import functools
 
@@ -275,9 +422,22 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
 
     from repro_torch.configs.edgedrnn import CONFIG_2L768H
+    from repro_torch.configs.recurrentgemma_9b import CONFIG as RGLRU_CONFIG
+    from repro_torch.configs.rwkv6_1_6b import CONFIG as RWKV6_CONFIG
+    from repro_torch.core.delta import DeltaState, delta_encode
+    from repro_torch.core.deltagru import deltagru_step, init_deltagru_state
+    from repro_torch.core.deltarglru import init_deltarglru_model
+    from repro_torch.core.deltarwkv import init_deltarwkv_model
     from repro_torch.core.program import (compile_delta_program,
                                           compile_deltagru)
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.delta_spmv import (delta_spmv, delta_spmv_ref,
+                                                pack_spmv_weights)
+    from repro_torch.kernels.deltagru_cell import deltagru_act, deltagru_act_ref
+    from repro_torch.kernels.rglru_scan import (rglru_scan,
+                                                rglru_scan_batched_ref)
+    from repro_torch.kernels.rwkv6_scan import (rwkv6_scan,
+                                                rwkv6_scan_batched_ref)
     from repro_torch.kernels.delta_q8 import (deltagru_q8_step,
                                               deltagru_q8_step_ref,
                                               deltalstm_q8_step,
@@ -427,6 +587,96 @@ def main() -> int:
               "saturating c")
         check(buffered[("lstm", be)].name, same(kb, k) and same(kb, c),
               max_diff(kb, r), "saturating c")
+
+    # the LM-path kernels: delta_spmv at the RWKV6 and RG-LRU layer shapes
+    # ([I -> O]; the decay LoRA's 64 rows in a 128-padded layout) and two
+    # unpacked ragged edges (16-byte and 4-byte row loads)
+    spmv_shapes = [("2048->2048", 2048, 2048, True),
+                   ("2048->64", 2048, 64, True),
+                   ("4096->4096", 4096, 4096, True),
+                   ("1000->999 unpacked", 1000, 999, False),
+                   ("999->1000 unpacked", 999, 1000, False)]
+    for label, i_dim, o_dim, packed in spmv_shapes:
+        for b in (1, 8):
+            for fire in (0.0, 0.1, 1.0):
+                w, dx, acc, _ = spmv_case(rng, i_dim, o_dim, b, fire)
+                w, dx, acc = (torch.from_numpy(a) for a in (w, dx, acc))
+                w_op = pack_spmv_weights(w) if packed else w
+                gpu = [a.to(dev) for a in (w_op, dx, acc)]
+                k = delta_spmv(*gpu, packed=packed,
+                               out_dim=o_dim if packed else None)
+                r = delta_spmv_ref(w.to(dev), gpu[1], gpu[2])
+                c = delta_spmv_ref(w, dx, acc)
+                torch.cuda.synchronize()
+                check(ops.DELTA_SPMV_F32.name,
+                      scaled_err(k, r) <= TOL_F32
+                      and scaled_err(k, c) <= TOL_F32,
+                      max_diff([k], [r]), f"[{label}] B={b} fire={fire}")
+    for b in (1, 8):
+        for t in (1, 37, 128):
+            shape = (b, 32, t, 64)
+            wkv = [rng.normal(0, 1, shape), rng.normal(0, 1, shape),
+                   rng.normal(0, 1, shape),
+                   np.exp(-np.exp(rng.normal(-3, 1.5, shape))),
+                   rng.normal(0, 0.1, (32, 64)),
+                   rng.normal(0, 1, (b, 32, 64, 64))]
+            wkv = [torch.from_numpy(a.astype(np.float32)) for a in wkv]
+            gpu = [a.to(dev) for a in wkv]
+            k = rwkv6_scan(*gpu)
+            r = rwkv6_scan_batched_ref(*gpu)
+            c = rwkv6_scan_batched_ref(*wkv)
+            torch.cuda.synchronize()
+            err = max(scaled_err(a, bb) for a, bb in zip(k + k, r + c))
+            check(ops.RWKV6_SCAN_F32.name, err <= TOL_F32, max_diff(k, r),
+                  f"[{b}, 32, {t}, 64] with s0")
+            shape = (b, t, 4096)
+            lru = [rng.normal(0, 1, shape),
+                   1 / (1 + np.exp(-rng.normal(2, 1, shape))),
+                   rng.normal(0, 1, (b, 4096))]
+            lru = [torch.from_numpy(a.astype(np.float32)) for a in lru]
+            gpu = [a.to(dev) for a in lru]
+            k = rglru_scan(*gpu)
+            r = rglru_scan_batched_ref(*gpu)
+            c = rglru_scan_batched_ref(*lru)
+            torch.cuda.synchronize()
+            err = max(scaled_err(a, bb) for a, bb in zip(k + k, r + c))
+            check(ops.RGLRU_SCAN_F32.name, err <= TOL_F32, max_diff(k, r),
+                  f"[{b}, {t}, 4096] with h0")
+    h_dim = cfg.hidden_size
+    for b in (1, 8):
+        act = [rng.normal(0, 2, (b, 4 * h_dim)),
+               rng.normal(0, 1, (b, 3 * h_dim)),
+               rng.normal(0, 1, (b, 3 * h_dim)),
+               rng.uniform(-1, 1, (b, h_dim))]
+        act = [torch.from_numpy(a.astype(np.float32)) for a in act]
+        gpu = [a.to(dev) for a in act]
+        k = deltagru_act(*gpu)
+        r = deltagru_act_ref(*gpu)
+        c = deltagru_act_ref(*act)
+        torch.cuda.synchronize()
+        check(ops.DELTAGRU_ACT_F32.name,
+              max_diff(k, r) <= TOL_F32 and max_diff(k, c) <= TOL_F32,
+              max_diff(k, r), f"[{b}, 4*{h_dim}]")
+    # ops.deltagru_cell_fused (two unpacked spmvs, I = 40 with its ragged
+    # edge and I = 768, then deltagru_act) against the dense GRU step
+    for li, p in enumerate(models["gru"]["gru"]):
+        st = init_deltagru_state(p, (8,))
+        st = st._replace(
+            h=torch.from_numpy(rng.uniform(-1, 1, (8, h_dim)).astype(
+                np.float32)).to(dev),
+            h_mem=DeltaState(torch.from_numpy(rng.uniform(
+                -1, 1, (8, h_dim)).astype(np.float32)).to(dev)))
+        x = torch.from_numpy(rng.normal(0, 1, (8, p.input_size)).astype(
+            np.float32)).to(dev)
+        want = deltagru_step(p, st, x, THETA, THETA, backend="dense")
+        dx = delta_encode(x, st.x_mem, THETA).delta
+        dh = delta_encode(st.h, st.h_mem, THETA).delta
+        got = ops.deltagru_cell_fused(p.w_x, p.w_h, st.m, st.h, dx, dh)
+        torch.cuda.synchronize()
+        err = max_diff(got, (want.state.m, want.h))
+        check(ops.DELTAGRU_ACT_F32.name, err <= TOL_F32, err,
+              f"ops.deltagru_cell_fused layer {li} (I={p.input_size}) "
+              "against the dense GRU step")
     phase3 = ops.launch_counts()
 
     # -- 4. exhaustive activation grid ------------------------------------
@@ -546,6 +796,101 @@ def main() -> int:
         if not torch.isfinite(outs).all():
             raise AssertionError(f"{path}: non-finite outputs")
 
+    # -- 5b. main path of the delta-ized LM cells -------------------------
+    lm_specs = {"rwkv6": (init_deltarwkv_model, RWKV6_CONFIG.d_model,
+                          RWKV6_CONFIG.n_layers, ops.RWKV6_SCAN_F32),
+                "rglru": (init_deltarglru_model, RGLRU_CONFIG.d_model,
+                          RGLRU_LAYERS, ops.RGLRU_SCAN_F32)}
+    spmv = ops.DELTA_SPMV_F32
+    launches[spmv.name] = 0
+    lm = {}
+    for cell, (init, d, n_layers, scan) in lm_specs.items():
+        path = f"{cell} fused"
+        t0 = time.perf_counter()
+        lm_model = init(SEED, d, n_layers, LM_OUTPUT, device="cpu")
+        lm_prog = compile_delta_program(lm_model, "fused", cell=cell)
+        lm_cpu = compile_delta_program(lm_model, "fused", cell=cell,
+                                       device="cpu")
+        torch.cuda.synchronize()
+        n_w = sum(t.numel() for p in lm_model[cell] for t in p)
+        n_pack = sum(t.numel() for lay in lm_prog.layouts for t in lay)
+        log(f"{path}: D={d}, {n_layers} layers, {n_w} weights "
+            f"({4 * n_w / 1e9:.3f} GB) + {4 * n_pack / 1e9:.3f} GB packed, "
+            f"built and compiled in {time.perf_counter() - t0:.1f} s")
+        lm_task = GruTaskConfig(d, d, n_layers, LM_OUTPUT, theta_x=THETA,
+                                theta_h=THETA)
+        frames_lm = lm_stream(rng, N_FRAMES, d)
+        requests_lm = [lm_stream(rng, int(t), d)
+                       for t in rng.integers(20, 61, 16)]
+        DeltaStreamEngine(lm_prog, lm_task).step_many(frames_lm[:4])
+        torch.cuda.synchronize()
+
+        lm_eng = DeltaStreamEngine(lm_prog, lm_task)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            lm_outs = lm_eng.step_many(frames_lm)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall_us[path] = 1e6 * (time.perf_counter() - t0) / N_FRAMES
+        n1 = {k: v for k, v in ops.launch_counts().items() if v}
+        want = {spmv.name: 4 * N_FRAMES * n_layers,
+                scan.name: N_FRAMES * n_layers}
+        if n1 != want:
+            raise AssertionError(f"{path}: launches {n1}, want {want}")
+
+        lm_batcher = GruStreamBatcher(DeltaStreamEngine(lm_prog, lm_task,
+                                                     n_streams=8))
+        for fr in requests_lm:
+            lm_batcher.submit(fr)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        lm_done = lm_batcher.run_until_drained()
+        torch.cuda.synchronize()
+        batch_fps[path] = sum(len(fr) for fr in requests_lm) / (
+            time.perf_counter() - t0)
+        ticks = lm_batcher.counters["ticks"]
+        n8 = {k: v for k, v in ops.launch_counts().items() if v}
+        want8 = {spmv.name: 4 * ticks * n_layers, scan.name: ticks * n_layers}
+        if n8 != want8 or len(lm_done) != len(requests_lm):
+            raise AssertionError(f"{path} batcher: launches {n8}, want "
+                                 f"{want8}; {len(lm_done)} requests done")
+        launches[spmv.name] += n1[spmv.name] + n8[spmv.name]
+        launches[scan.name] = n1[scan.name] + n8[scan.name]
+        lm_rep = lm_eng.report()
+        log(f"main path {path}: 1 stream {N_FRAMES} steps -> {n1}; 8-slot "
+            f"batcher {len(lm_done)} requests in {ticks} ticks -> {n8}; "
+            f"{wall_us[path]:.1f} us/step wall; report gamma_dx "
+            f"{lm_rep['gamma_dx']:.4f} gamma_dh {lm_rep['gamma_dh']:.4f}")
+        if not torch.isfinite(lm_outs).all():
+            raise AssertionError(f"{path}: non-finite outputs")
+
+        # the same program on the CPU: θ = 0 over 50 frames (nothing can
+        # flip), then layer by layer in lockstep at θ = 0.25
+        lm_task0 = GruTaskConfig(d, d, n_layers, LM_OUTPUT)
+        ge = DeltaStreamEngine(lm_prog, lm_task0)
+        ce = DeltaStreamEngine(lm_cpu, lm_task0, device="cpu")
+        g = ge.step_many(frames_lm[:50])
+        c = ce.step_many(frames_lm[:50])
+        err0 = max([scaled_err(g, c)] + [
+            scaled_err(a, bb) for a, bb in zip(tree_leaves(ge.state),
+                                               tree_leaves(ce.state))])
+        err_ls, flips, n_ls, in_max = lm_layer_lockstep(
+            lm_prog, lm_cpu, frames_lm[:20], THETA, tree_to, tree_leaves)
+        log(f"  {path} vs cpu: theta=0 outputs and final state {err0:.3e} "
+            f"(scaled), theta={THETA} lockstep {err_ls:.3e} over "
+            f"{n_ls - flips} layer steps, {flips} with a flipped firing "
+            f"decision; max |layer input| per layer "
+            f"{[float(f'{v:.3g}') for v in in_max]}")
+        if err0 > TOL_LM or err_ls > TOL_LM or flips > n_ls // 100:
+            raise AssertionError(f"{path} main path disagrees with the CPU "
+                                 "program")
+        lm[cell] = (lm_prog, lm_task, frames_lm)
+        del lm_cpu, ge, ce
+
     # -- 6. times on the card ---------------------------------------------
     ops.reset_launch_counts()
     instances = [(kernel_of[key], key, *step_of[key]) for key in progs]
@@ -581,9 +926,93 @@ def main() -> int:
                 f"addmm {row['library_ms']:.5f} ms, bound "
                 f"{row['bound_ms']:.5f} ms ({row['bytes']} B) [{smi}]")
         rows[kinfo.name] = row               # the 100 % firing row
+    def bound(row):
+        t_bytes = 1e3 * row["bytes"] / HBM_BYTES_PER_S
+        t_ops = 1e3 * row["ops"] / FP32_OPS_PER_S
+        row["bound_ms"] = max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+
+    def f32(*shape, lo=None):
+        a = (rng.normal(0, 1, shape) if lo is None
+             else rng.uniform(lo, 1.0, shape))
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    # delta_spmv: the four calls of one layer step of each LM cell, warm
+    # (CUDA-graph replay) and with the L2 flushed before each call
+    lm_shapes = {"rwkv6": [(2048, 2048)] * 3 + [(2048, 64)],
+                 "rglru": [(4096, 4096)] * 4}
+    spmv_row = {"ms": 0.0, "cold_ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0,
+                "library_ms": 0.0, "bytes": 0, "ops": 0}
+    for cell, shapes in lm_shapes.items():
+        for fire in (0.1, 1.0):
+            row = dict.fromkeys(spmv_row, 0.0)
+            for i_dim, o_dim in shapes:
+                w, dx, acc, fired_cols = spmv_case(rng, i_dim, o_dim, 1, fire)
+                wp = pack_spmv_weights(torch.from_numpy(w)).to(dev)
+                w, dx, acc = (torch.from_numpy(a).to(dev)
+                              for a in (w, dx, acc))
+
+                def kern():
+                    return delta_spmv(wp, dx, acc, packed=True, out_dim=o_dim)
+
+                row["ms"] += device_ms(kern)
+                row["cold_ms"] += device_ms_cold(kern)
+                row["eager_ms"] += eager_ms(kern)
+                row["plain_ms"] += device_ms(
+                    lambda: delta_spmv_ref(w, dx, acc))
+                row["library_ms"] += device_ms(lambda: torch.addmm(acc, dx,
+                                                                   w.T))
+                row["bytes"] += 4 * (o_dim * fired_cols + i_dim + 2 * o_dim)
+                row["ops"] += 2 * o_dim * fired_cols
+            bound(row)
+            log(f"time delta_spmv_f32 {cell} layer step (4 calls) B=1 "
+                f"fire={fire}: kernel {row['ms']:.5f} ms warm, "
+                f"{row['cold_ms']:.5f} ms with a cold L2 "
+                f"({row['eager_ms']:.4f} ms launched from Python), plain "
+                f"{row['plain_ms']:.5f} ms, addmm {row['library_ms']:.5f} "
+                f"ms, bound {row['bound_ms']:.5f} ms ({int(row['bytes'])} B, "
+                f"{row['bound_by']}) [{smi}]")
+        for key in spmv_row:                 # the 100 % firing rows, summed
+            spmv_row[key] += row[key]
+    bound(spmv_row)
+    rows[spmv.name] = spmv_row
+
+    # the scans and the activation at the main path's shapes, B = 1; no
+    # single PyTorch call computes any of the three (library_ms null)
+    lm_calls = {
+        ops.RWKV6_SCAN_F32.name: (
+            rwkv6_scan, rwkv6_scan_batched_ref,
+            [f32(1, 32, 1, 64), f32(1, 32, 1, 64), f32(1, 32, 1, 64),
+             f32(1, 32, 1, 64, lo=0.9), f32(32, 64) * 0.1,
+             f32(1, 32, 64, 64)],
+            4 * (6 * 32 * 64 + 2 * 32 * 64 * 64), 7 * 32 * 64 * 64),
+        ops.RGLRU_SCAN_F32.name: (
+            rglru_scan, rglru_scan_batched_ref,
+            [f32(1, 1, 4096), f32(1, 1, 4096, lo=0.5), f32(1, 4096)],
+            4 * 5 * 4096, 6 * 4096),
+        ops.DELTAGRU_ACT_F32.name: (
+            deltagru_act, deltagru_act_ref,
+            [f32(1, 4 * h_dim), f32(1, 3 * h_dim), f32(1, 3 * h_dim),
+             f32(1, h_dim)],
+            4 * 16 * h_dim, 30 * h_dim),
+    }
+    for name, (kern, ref, args, nbytes, nops) in lm_calls.items():
+        row = {"ms": device_ms(lambda: kern(*args)),
+               "eager_ms": eager_ms(lambda: kern(*args)),
+               "plain_ms": device_ms(lambda: ref(*args)),
+               "library_ms": None, "bytes": nbytes, "ops": nops}
+        bound(row)
+        rows[name] = row
+        log(f"time {name} B=1: kernel {row['ms']:.5f} ms on the device "
+            f"({row['eager_ms']:.4f} ms launched from Python), plain "
+            f"{row['plain_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
+            f"({nbytes} B, {row['bound_by']}) [{smi}]")
+
     phase6 = ops.launch_counts()
     for kinfo in buffered.values():
         launches[kinfo.name] = phase3[kinfo.name] + phase6[kinfo.name]
+    act = ops.DELTAGRU_ACT_F32.name
+    launches[act] = phase3[act] + phase6[act]
 
     for (cell, be), prog in progs.items():
         path = f"{cell} {be}"
@@ -593,6 +1022,19 @@ def main() -> int:
             f"{len(lat)} frames: median {np.median(lat):.1f} us, p95 "
             f"{np.percentile(lat, 95):.1f} us; step_many {wall_us[path]:.1f} "
             f"us/step; 8-slot batcher {batch_fps[path]:.0f} frames/s; "
+            f"profiled: {json.dumps(prof)} [{smi}]")
+
+    for cell, (lm_prog, lm_task, frames_lm) in lm.items():
+        path = f"{cell} fused"
+        # 10 steps: the LM paths issue thousands of kernels per step
+        prof = engine_profile(DeltaStreamEngine(lm_prog, lm_task),
+                              frames_lm[:10])
+        lat = step_latencies_us(DeltaStreamEngine(lm_prog, lm_task),
+                                frames_lm)
+        log(f"engine {path}: frame-to-output latency at 1 stream over "
+            f"{len(lat)} frames: median {np.median(lat):.1f} us, p95 "
+            f"{np.percentile(lat, 95):.1f} us; step_many {wall_us[path]:.1f} "
+            f"us/step; 8-slot batcher {batch_fps[path]:.1f} frames/s; "
             f"profiled: {json.dumps(prof)} [{smi}]")
 
     entries = []
@@ -608,6 +1050,26 @@ def main() -> int:
         if kinfo in buffered.values():
             entry["path"] = buffered_path[cell]
         entries.append(entry)
+    for kinfo in (ops.DELTA_SPMV_F32, ops.RGLRU_SCAN_F32, ops.RWKV6_SCAN_F32,
+                  ops.DELTAGRU_ACT_F32):
+        row = rows[kinfo.name]
+        entry = {"name": kinfo.name, "route": "cuda", "source": kinfo.source,
+                 "replaces": kinfo.replaces,
+                 "launches": launches[kinfo.name],
+                 "max_abs_err": max_err[kinfo.name], "ms": row["ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"],
+                 "library_ms": row["library_ms"],
+                 "eager_ms": row["eager_ms"]}
+        if kinfo is ops.DELTA_SPMV_F32:
+            entry["cold_ms"] = row["cold_ms"]
+        if kinfo is ops.DELTAGRU_ACT_F32:
+            entry["path"] = "repro_torch.kernels.ops.deltagru_cell_fused"
+        entries.append(entry)
+    if len(entries) != len(ops.KERNELS) or not all(
+            e["launches"] > 0 for e in entries):
+        got = [(e["name"], e["launches"]) for e in entries]
+        raise AssertionError(f"kernel line incomplete: {got}")
     log(smi)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 The package mirrors ``repro`` module for module (``repro/core/deltagru.py``
 is ``repro_torch/core/deltagru.py``) and imports neither JAX nor anything
 of ``repro``. Its main path is the paper's deployment: compile a DeltaGRU
-or DeltaLSTM stack once
+or DeltaLSTM stack, or a delta-ized RWKV6 or RG-LRU stack, once
 (:func:`repro_torch.core.program.compile_delta_program`), then stream it
 frame by frame through :class:`repro_torch.serve.engine.DeltaStreamEngine`.
 

@@ -7,10 +7,11 @@ init convention its state uses (``m_init``), the weight width it streams
 (``weight_bits``, priced by the Eq. 6/7 model), and whether one weight
 fetch serves one stream or a whole stream tile (``weight_fetch``).
 
-The registry is keyed on ``(cell, name)``. The GRU and LSTM backends
-register when :mod:`repro_torch.core.deltagru` and
-:mod:`repro_torch.core.deltalstm` import; the LM cells are not yet ported
-and raise saying so.
+The registry is keyed on ``(cell, name)``. Each cell family's backends
+register when its module imports: :mod:`repro_torch.core.deltagru`
+(``"gru"``), :mod:`repro_torch.core.deltalstm` (``"lstm"``),
+:mod:`repro_torch.core.deltarwkv` (``"rwkv6"``) and
+:mod:`repro_torch.core.deltarglru` (``"rglru"``).
 """
 from __future__ import annotations
 
@@ -19,9 +20,6 @@ from typing import Callable
 
 # (cell, name) -> BackendSpec
 _REGISTRY: dict = {}
-
-# Cell families of the JAX package this port does not carry yet.
-UNPORTED_CELLS = ("rwkv6", "rglru")
 
 
 @dataclass(frozen=True)
@@ -70,18 +68,12 @@ def unregister_backend(name: str, cell: str = "gru") -> None:
     _REGISTRY.pop((cell, name), None)
 
 
-def require_ported_cell(cell: str) -> None:
-    """Raise for a cell family the JAX package has and this port has not."""
-    if cell in UNPORTED_CELLS:
-        raise NotImplementedError(
-            f"cell {cell!r} is not yet ported to repro_torch (the JAX "
-            f"package serves it; ported cells: ('gru', 'lstm'))")
-
-
 def _ensure_builtins() -> None:
     """Import the builtin cell modules so their specs self-register."""
     import repro_torch.core.deltagru  # noqa: F401  (registers gru backends)
     import repro_torch.core.deltalstm  # noqa: F401  (registers lstm backends)
+    import repro_torch.core.deltarglru  # noqa: F401  (registers rglru backends)
+    import repro_torch.core.deltarwkv  # noqa: F401  (registers rwkv6 backends)
 
 
 def require_stream_tile(x, name: str) -> None:
@@ -116,7 +108,6 @@ REMOVED_BACKENDS = {
 def get_backend(name: str, cell: str = "gru") -> BackendSpec:
     """Look up a registered spec; unknown names raise with the known set,
     retired ones name their replacement."""
-    require_ported_cell(cell)
     _ensure_builtins()
     spec = _REGISTRY.get((cell, name))
     if spec is None:
@@ -134,13 +125,11 @@ def get_backend(name: str, cell: str = "gru") -> BackendSpec:
 
 def list_backends(cell: str = "gru") -> tuple:
     """Registered backend names for a cell, in registration order."""
-    require_ported_cell(cell)
     _ensure_builtins()
     return tuple(n for (c, n) in _REGISTRY if c == cell)
 
 
 def registered_backends(cell: str = "gru") -> tuple:
     """All registered specs for a cell, in registration order."""
-    require_ported_cell(cell)
     _ensure_builtins()
     return tuple(s for (c, _), s in _REGISTRY.items() if c == cell)

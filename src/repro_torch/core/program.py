@@ -18,9 +18,10 @@ Typical use::
     logits = prog.apply_head(y)
 
 or hand the program to :class:`repro_torch.serve.engine.DeltaStreamEngine`.
-The GRU and LSTM cells are ported (``cell="lstm"`` compiles an
-``init_lstm_model`` dict the same way); the LM cells of the JAX package
-raise ``NotImplementedError``.
+All four cell families of the JAX package compile the same way:
+``cell="lstm"`` an ``init_lstm_model`` dict, ``cell="rwkv6"`` an
+``init_deltarwkv_model`` dict and ``cell="rglru"`` an
+``init_deltarglru_model`` dict.
 """
 from __future__ import annotations
 
@@ -28,14 +29,12 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from repro_torch.core.backends import (BackendSpec, get_backend,
-                                       require_ported_cell)
+from repro_torch.core.backends import BackendSpec, get_backend
 from repro_torch.kernels.ops import resolve_device
 
 
 def _cell_ops(cell: str) -> dict:
     """Per-cell stack drivers (init / step / sequence)."""
-    require_ported_cell(cell)
     if cell == "gru":
         from repro_torch.core import deltagru as m
         return {"init": m.init_deltagru_stack_state,
@@ -48,6 +47,18 @@ def _cell_ops(cell: str) -> dict:
                 "step": m.deltalstm_stack_step,
                 "sequence": m.deltalstm_sequence,
                 "params_key": "lstm"}
+    if cell == "rwkv6":
+        from repro_torch.core import deltarwkv as m
+        return {"init": m.init_deltarwkv_stack_state,
+                "step": m.deltarwkv_stack_step,
+                "sequence": m.deltarwkv_sequence,
+                "params_key": "rwkv6"}
+    if cell == "rglru":
+        from repro_torch.core import deltarglru as m
+        return {"init": m.init_deltarglru_stack_state,
+                "step": m.deltarglru_stack_step,
+                "sequence": m.deltarglru_sequence,
+                "params_key": "rglru"}
     raise ValueError(f"unknown cell family {cell!r}; known: "
                      f"('gru', 'lstm', 'rwkv6', 'rglru')")
 
@@ -104,7 +115,7 @@ class DeltaProgram:
 
     @property
     def device(self) -> torch.device:
-        return self.layers[0].w_x.device
+        return self.layers[0][0].device     # the first tensor of a layer
 
     # -- states -----------------------------------------------------------
 
@@ -212,11 +223,14 @@ def compile_delta_program(params, backend: str = "fused", *,
     Args:
       params: a sequence of per-layer params
         (:class:`~repro_torch.core.deltagru.GruLayerParams` /
-        :class:`~repro_torch.core.deltalstm.LstmLayerParams`) or a model
-        params dict (``{"gru" | "lstm", "head", "head_b"}``; the head is
-        carried).
+        :class:`~repro_torch.core.deltalstm.LstmLayerParams`,
+        :class:`~repro_torch.core.deltarwkv.RwkvLayerParams`,
+        :class:`~repro_torch.core.deltarglru.RglruLayerParams`) or a model
+        params dict (``{"gru" | "lstm" | "rwkv6" | "rglru", "head",
+        "head_b"}``; the head is carried).
       backend: any backend name registered for ``cell``.
-      cell: the cell family (``"gru"`` or ``"lstm"``).
+      cell: the cell family (``"gru"``, ``"lstm"``, ``"rwkv6"`` or
+        ``"rglru"``).
       layouts: optional pre-packed per-layer kernel layouts.
       block: kernel block size used when packing.
       device: where the program runs; default ``"cuda"``, and without a

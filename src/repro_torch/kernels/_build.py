@@ -24,7 +24,9 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "build"
-SOURCES = ("deltagru_seq.cu", "deltalstm_seq.cu", "delta_q8.cu")
+SOURCES = ("deltagru_seq.cu", "deltalstm_seq.cu", "delta_q8.cu",
+           "delta_spmv.cu", "rwkv6_scan.cu", "rglru_scan.cu",
+           "deltagru_cell.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

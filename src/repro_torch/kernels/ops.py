@@ -129,10 +129,24 @@ DELTA_Q8_LSTM_DBUF_I8 = KernelInfo(
 DELTA_Q8_LSTM_DBUF_I4 = KernelInfo(
     "delta_q8_lstm_dbuf_i4", "src/repro_torch/csrc/delta_q8.cu",
     "src/repro/kernels/delta_q8.py:874")
+# the kernels of the delta-ized LM cells and the composed GRU step
+DELTA_SPMV_F32 = KernelInfo(
+    "delta_spmv_f32", "src/repro_torch/csrc/delta_spmv.cu",
+    "src/repro/kernels/delta_spmv.py:33")
+RGLRU_SCAN_F32 = KernelInfo(
+    "rglru_scan_f32", "src/repro_torch/csrc/rglru_scan.cu",
+    "src/repro/kernels/rglru_scan.py:20")
+RWKV6_SCAN_F32 = KernelInfo(
+    "rwkv6_scan_f32", "src/repro_torch/csrc/rwkv6_scan.cu",
+    "src/repro/kernels/rwkv6_scan.py:24")
+DELTAGRU_ACT_F32 = KernelInfo(
+    "deltagru_act_f32", "src/repro_torch/csrc/deltagru_cell.cu",
+    "src/repro/kernels/deltagru_cell.py:24")
 KERNELS = (DELTAGRU_SEQ_F32, DELTA_Q8_GRU_I8, DELTA_Q8_GRU_I4,
            DELTALSTM_SEQ_F32, DELTA_Q8_LSTM_I8, DELTA_Q8_LSTM_I4,
            DELTA_Q8_GRU_DBUF_I8, DELTA_Q8_GRU_DBUF_I4,
-           DELTA_Q8_LSTM_DBUF_I8, DELTA_Q8_LSTM_DBUF_I4)
+           DELTA_Q8_LSTM_DBUF_I8, DELTA_Q8_LSTM_DBUF_I4,
+           DELTA_SPMV_F32, RGLRU_SCAN_F32, RWKV6_SCAN_F32, DELTAGRU_ACT_F32)
 
 
 def q8_kernel(gates: int, weight_bits: int, buffered: bool) -> KernelInfo:
@@ -150,3 +164,66 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
+
+
+# -- the public kernel ops of the JAX package (repro.kernels.ops) ------------
+# Each dispatches by the operands' device inside its kernel module; the
+# modules import this one, so they are imported here at call time.
+
+def delta_spmv(w: torch.Tensor, dx: torch.Tensor,
+               acc: torch.Tensor | None = None, *, block_k: int = 128,
+               packed: bool = False,
+               out_dim: int | None = None) -> torch.Tensor:
+    """Block-column-skipping ``acc + dx @ w.T`` (the paper's sparse MxV);
+    :func:`repro_torch.kernels.delta_spmv.delta_spmv`."""
+    from repro_torch.kernels.delta_spmv import delta_spmv as _spmv
+    return _spmv(w, dx, acc, block_k=block_k, packed=packed,
+                 out_dim=out_dim)
+
+
+def deltagru_act(m_prev: torch.Tensor, zx: torch.Tensor, zh: torch.Tensor,
+                 h_prev: torch.Tensor):
+    """Fused DeltaGRU pointwise pipeline (paper Fig. 7);
+    :func:`repro_torch.kernels.deltagru_cell.deltagru_act`."""
+    from repro_torch.kernels.deltagru_cell import deltagru_act as _act
+    return _act(m_prev, zx, zh, h_prev)
+
+
+def rwkv6_scan(r, k, v, w, u, s0=None):
+    """WKV6 recurrence over ``[B, H, T, D]``;
+    :func:`repro_torch.kernels.rwkv6_scan.rwkv6_scan`."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _scan
+    return _scan(r, k, v, w, u, s0)
+
+
+def rwkv6_chunked(r, k, v, w, u, s0=None, *, chunk: int = 16):
+    """Chunk-parallel WKV6 (matmul form, differentiable, plain PyTorch on
+    any device): the same function as :func:`rwkv6_scan`. Pads T to a chunk
+    multiple with ``w = 1`` and ``k = 0``, which freeze the state."""
+    from repro_torch.kernels.ref import rwkv6_chunked_ref
+    t = r.shape[2]
+    pad = (-t) % chunk
+    if pad:
+        pd = (0, 0, 0, pad)
+        r, k, v = (torch.nn.functional.pad(z, pd) for z in (r, k, v))
+        w = torch.nn.functional.pad(w, pd, value=1.0)
+    y, s_t = rwkv6_chunked_ref(r, k, v, w, u, s0, chunk=chunk)
+    return y[:, :, :t], s_t
+
+
+def rglru_scan(x, a, h0=None):
+    """RG-LRU diagonal recurrence over ``[B, T, D]``;
+    :func:`repro_torch.kernels.rglru_scan.rglru_scan`."""
+    from repro_torch.kernels.rglru_scan import rglru_scan as _scan
+    return _scan(x, a, h0)
+
+
+def deltagru_cell_fused(w_x: torch.Tensor, w_h: torch.Tensor,
+                        m_prev: torch.Tensor, h_prev: torch.Tensor,
+                        dx: torch.Tensor, dh: torch.Tensor):
+    """The full DeltaGRU step as the FPGA runs it: two sparse MxVs
+    (``w_x: [3H, I]``, ``w_h: [3H, H]``, unpacked) and the activation
+    pipeline, three launches on a CUDA device."""
+    zx = delta_spmv(w_x, dx)
+    zh = delta_spmv(w_h, dh)
+    return deltagru_act(m_prev, zx, zh, h_prev)

@@ -5,7 +5,9 @@ port of :mod:`repro.models.gru_rnn` (the QAT argument of
 
 A model is a dict ``{"gru": [GruLayerParams, ...], "head": [H, O],
 "head_b": [O]}`` of tensors on one device (``"lstm"`` and
-``LstmLayerParams`` for the LSTM twin). :func:`init_gru_model` /
+``LstmLayerParams`` for the LSTM twin; the delta-ized LM cells build theirs
+with :func:`repro_torch.core.deltarwkv.init_deltarwkv_model` and
+:func:`repro_torch.core.deltarglru.init_deltarglru_model`). :func:`init_gru_model` /
 :func:`init_lstm_model` draw one from a seeded ``torch.Generator``;
 :func:`model_from_numpy` carries the JAX package's model (as numpy arrays)
 across, so both packages compute from the same weights.
@@ -20,6 +22,9 @@ import torch
 from repro_torch.core.deltagru import (GruLayerParams, deltagru_sequence,
                                        gru_sequence, init_gru_stack)
 from repro_torch.core.deltalstm import LstmLayerParams, init_lstm_stack
+from repro_torch.core.deltarglru import RglruLayerParams
+from repro_torch.core.deltarwkv import RwkvLayerParams
+from repro_torch.core.program import infer_cell
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.common import dense_init
 
@@ -88,21 +93,35 @@ def init_lstm_model(generator, cfg: GruTaskConfig, dtype=torch.float32,
 def model_from_numpy(tree: dict, device=None) -> dict:
     """The port's model from a model dict of numpy arrays, e.g.
     ``jax.tree_util.tree_map(np.asarray, init_gru_model(key, cfg))`` of the
-    JAX package: ``{"gru": [(w_x, w_h, b), ...], "head", "head_b"}``, or
-    the same with an ``"lstm"`` stack (``init_lstm_model``), which becomes
-    :class:`~repro_torch.core.deltalstm.LstmLayerParams`. Values are copied
-    bit for bit (as float32) onto ``device`` (default ``"cuda"``; raises
-    without a card unless ``device="cpu"``)."""
+    JAX package. The stack key names the cell: ``"gru"`` or ``"lstm"``
+    layers are ``(w_x, w_h, b)`` triples; ``"rwkv6"`` and ``"rglru"`` layers
+    are the JAX package's layer NamedTuples (``init_deltarwkv_model``,
+    ``init_deltarglru_model``), matched field by field, or its models-module
+    dicts (``init_rwkv_time_mix``, ``init_rglru_block``, where the RG-LRU
+    ``lam`` field is spelled ``"lambda"``). Values are copied bit for bit
+    (as float32) onto ``device`` (default ``"cuda"``; raises without a card
+    unless ``device="cpu"``)."""
     dev = resolve_device(device)
-    cell = "lstm" if "lstm" in tree else "gru"
-    layer = LstmLayerParams if cell == "lstm" else GruLayerParams
+    cell = infer_cell(tree)
+    layer = {"gru": GruLayerParams, "lstm": LstmLayerParams,
+             "rwkv6": RwkvLayerParams, "rglru": RglruLayerParams}[cell]
 
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
-    return {cell: [layer(t(w_x), t(w_h), t(b))
-                   for (w_x, w_h, b) in tree[cell]],
-            "head": t(tree["head"]), "head_b": t(tree["head_b"])}
+    def fields(p) -> dict:
+        if isinstance(p, dict):
+            return {("lam" if k == "lambda" else k): v for k, v in p.items()}
+        if hasattr(p, "_fields"):
+            return p._asdict()
+        return dict(zip(layer._fields, p))
+
+    stack = []
+    for p in tree[cell]:
+        f = fields(p)
+        stack.append(layer(**{name: t(f[name]) for name in layer._fields}))
+    return {cell: stack, "head": t(tree["head"]),
+            "head_b": t(tree["head_b"])}
 
 
 def gru_model_forward(params, cfg: GruTaskConfig, xs: torch.Tensor, *,

@@ -11,7 +11,6 @@ ready-to-run program from a model params dict (the head stays fp32).
 """
 from __future__ import annotations
 
-from repro_torch.core.backends import require_ported_cell
 from repro_torch.core.sparsity import CELL_GATES
 from repro_torch.kernels.delta_q8 import (QuantDeltaLayout, _layout_codes_f32,
                                           pack_delta_weights_q8)
@@ -32,7 +31,6 @@ def quantize_delta_stack(params, cell: str = "gru", block: int = 128,
     on the CPU, see :func:`pack_delta_weights_q8`). ``bits`` is 8 (int8
     codes) or 4 (nibble-packed int4).
     """
-    require_ported_cell(cell)
     if cell not in CELL_GATES:
         raise ValueError(f"unknown cell family {cell!r}; known gate "
                          f"counts: {CELL_GATES}")
@@ -83,7 +81,6 @@ def quantize_delta_model(params: dict, cell: str | None = None,
     dev = resolve_device(device)
     if cell is None:
         cell = infer_cell(params)
-    require_ported_cell(cell)
     if not isinstance(params, dict) or cell not in params:
         keys = sorted(params) if isinstance(params, dict) else type(params)
         raise ValueError(

@@ -9,7 +9,10 @@ quantize_delta_model`): ``DeltaStreamEngine(program, task)``. With
 ``n_streams > 1`` a ``fused`` / ``fused_q8`` / ``fused_q4`` program is
 routed onto its ``*_batch`` sibling (same packed weights, bit-identical
 outputs), so one weight pass per layer step serves the whole stream tile,
-and :meth:`report` adds the tile terms priced on the union firing.
+and :meth:`report` adds the tile terms priced on the union firing. The LM
+cells (``rwkv6``, ``rglru``) have no ``*_batch`` sibling and keep
+``fused``, whose ``delta_spmv`` kernel already compacts on the union of
+fired blocks across the tile, as in the JAX engine.
 
 The hot loop does not synchronise the host: the firing statistics, the
 Eq. 7 terms, the dynamic-Θ controller and the resilience counters are
@@ -167,8 +170,9 @@ class DeltaStreamEngine:
         if program.head is None:
             raise ValueError(
                 "DeltaStreamEngine needs a program with a classifier head; "
-                "compile from an init_gru_model or init_lstm_model params "
-                "dict")
+                "compile from a model params dict (init_gru_model, "
+                "init_lstm_model, init_deltarwkv_model or "
+                "init_deltarglru_model)")
         # A tile of streams pays ONE weight fetch per step: swap onto the
         # pack-compatible "*_batch" sibling when one is registered.
         if n_streams > 1 and program.spec.weight_fetch != "tile":

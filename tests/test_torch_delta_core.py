@@ -204,8 +204,10 @@ def test_registry_rejections():
     with pytest.raises(ValueError, match="unknown gru backend"):
         tbackends.get_backend("nope")
     for cell in ("rwkv6", "rglru"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tbackends.get_backend("fused", cell=cell)
+        assert tbackends.list_backends(cell) == ("dense", "fused")
+        assert tbackends.get_backend("fused", cell=cell).cell == cell
+    with pytest.raises(ValueError, match="unknown mamba backend"):
+        tbackends.get_backend("fused", cell="mamba")
     spec = tbackends.get_backend("dense")
     with pytest.raises(ValueError, match="already registered"):
         tbackends.register_backend(spec)

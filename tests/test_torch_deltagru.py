@@ -218,8 +218,18 @@ def test_program_state_conventions_and_checks():
     bare = tprogram.compile_deltagru(tp["gru"], "fused", device="cpu")
     with pytest.raises(ValueError, match="bare layer stack"):
         bare.apply_head(torch.zeros(1, 48))
-    for cell in ("rwkv6", "rglru"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    # the LM cells compile (from their own stacks) and resolve backends
+    from repro_torch.core.deltarglru import init_deltarglru_model
+    from repro_torch.core.deltarwkv import init_deltarwkv_model
+    for cell, init in (("rwkv6", init_deltarwkv_model),
+                       ("rglru", init_deltarglru_model)):
+        lm = init(0, 64, 1, 12, device="cpu")
+        for be in ("dense", "fused"):
+            prog = tprogram.compile_delta_program(lm, be, cell=cell,
+                                                  device="cpu")
+            assert (prog.cell, prog.spec.name, prog.spec.cell) == (
+                cell, be, cell)
+        with pytest.raises(ValueError, match=f"compile from a {cell!r}"):
             tprogram.compile_delta_program(tp, cell=cell, device="cpu")
     with pytest.raises(ValueError, match="unknown cell"):
         tprogram.compile_delta_program(tp, cell="mamba", device="cpu")

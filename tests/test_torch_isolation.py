@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.rwkv6_1_6b import reduced_delta_recipe
+from repro_torch.core.deltarglru import init_deltarglru_model
+from repro_torch.core.deltarwkv import init_deltarwkv_model
 from repro_torch.core.program import compile_delta_program
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.delta_q8 import deltagru_q8_step, pack_delta_weights_q8
@@ -28,6 +31,19 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def test_the_scan_covers_every_port_module_and_kernel_source():
+    names = {str(p.relative_to(PORT)) for p in PORT_FILES if PORT in p.parents}
+    for mod in ("core/deltarwkv.py", "core/deltarglru.py",
+                "models/rwkv.py", "models/rglru.py", "configs/base.py",
+                "configs/rwkv6_1_6b.py", "configs/recurrentgemma_9b.py",
+                "kernels/delta_spmv.py", "kernels/rwkv6_scan.py",
+                "kernels/rglru_scan.py", "kernels/deltagru_cell.py",
+                "kernels/ref.py"):
+        assert mod in names, mod
+    assert sorted(_build.SOURCES) == sorted(
+        p.name for p in (PORT / "csrc").glob("*.cu"))
 
 
 def _imported_modules(path: Path):
@@ -82,11 +98,17 @@ def _np_tree(model):
 @pytest.mark.parametrize("entry", [
     "compile_delta_program", "quantize_delta_model", "init_gru_model",
     "model_from_numpy", "DeltaStreamEngine", "init_lstm_model",
-    "compile_delta_program_lstm", "DeltaStreamEngine_lstm"])
+    "compile_delta_program_lstm", "DeltaStreamEngine_lstm",
+    "init_deltarwkv_model", "init_deltarglru_model",
+    "compile_delta_program_rwkv6", "DeltaStreamEngine_rglru",
+    "reduced_delta_recipe"])
 def test_default_device_without_cuda_raises(entry, monkeypatch):
     model = _small_model()
     cfg = GruTaskConfig(40, 48, 2, 12)
     lstm = init_lstm_model(0, cfg, device="cpu")
+    rwkv = init_deltarwkv_model(0, 64, 1, 12, device="cpu")
+    rglru = init_deltarglru_model(0, 64, 1, 12, device="cpu")
+    lm_cfg = GruTaskConfig(64, 64, 1, 12)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
         "compile_delta_program": lambda: compile_delta_program(model),
@@ -100,6 +122,14 @@ def test_default_device_without_cuda_raises(entry, monkeypatch):
             lstm, cell="lstm"),
         "DeltaStreamEngine_lstm": lambda: DeltaStreamEngine(
             compile_delta_program(lstm, cell="lstm", device="cpu"), cfg),
+        "init_deltarwkv_model": lambda: init_deltarwkv_model(0, 64, 1, 12),
+        "init_deltarglru_model": lambda: init_deltarglru_model(0, 64, 1, 12),
+        "compile_delta_program_rwkv6": lambda: compile_delta_program(
+            rwkv, cell="rwkv6"),
+        "DeltaStreamEngine_rglru": lambda: DeltaStreamEngine(
+            compile_delta_program(rglru, cell="rglru", device="cpu"),
+            lm_cfg),
+        "reduced_delta_recipe": lambda: reduced_delta_recipe(0),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -125,6 +155,10 @@ def test_cpu_tensors_run_the_plain_version_and_count_nothing():
     ops.reset_launch_counts()
     deltagru_seq_step(pack_gru_layer(w_x, w_h), m, h, dx, dh)
     deltagru_q8_step(pack_delta_weights_q8(w_x, w_h), m, h, dx, dh)
+    ops.deltagru_cell_fused(w_x, w_h, m, h, dx, dh)
+    r = torch.ones(1, 2, 3, 64)
+    ops.rwkv6_scan(r, r, r, r * 0.5, torch.zeros(2, 64))
+    ops.rglru_scan(torch.ones(1, 3, 8), torch.full((1, 3, 8), 0.5))
     assert sum(ops.launch_counts().values()) == 0
 
 
