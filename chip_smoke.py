@@ -11,14 +11,22 @@ traceback and a non-zero exit):
 1. environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions; TF32 is switched off for matmuls and cuDNN
    (the plain int8/int4 versions are exact only in full fp32);
-2. build: every kernel source compiled with ``nvcc``, all at once;
+2. build: every kernel source compiled with ``nvcc``, all at once; the
+   registers, spills and static shared memory of every kernel instance
+   (``-Xptxas -v``);
 3. kernels against their plain versions at the two layer shapes of the
    paper's 2L-768H network (k = 896 and 1536), for both cells (GRU and
-   LSTM), B in {1, 8}, with 0 %, about 10 % and 100 % of the column blocks
-   fired: fp32 within ``TOL_F32``; int8 and int4 bitwise equal to the plain
-   version on the card and on the CPU; the double-buffered int8/int4
-   instances (``buffered=True``) bitwise equal to the plain kernels; and an
-   LSTM step whose cell state saturates at the Q8.8 rail;
+   LSTM). fp32, B in {1, 8} with 0 %, about 10 % and 100 % of the column
+   blocks fired: within ``TOL_F32``. int8 and int4, B in {1, 2, 8, 9} (the
+   one-stream instance, the tile instance, two tile passes) with exactly
+   0, 1, U - 1, U, U + 1 and all column blocks fired (U: the fired blocks
+   one unrolled group of the walk covers), a group across the x/h seam
+   and, at B > 1, every block fired by one stream other than stream 0:
+   bitwise equal to the plain version on the card and on the CPU, and each
+   buffered instance (``buffered=True``) bitwise equal to its unbuffered
+   twin; an LSTM step whose cell state saturates at the Q8.8 rail; and a
+   narrow layout (``block_k = 8``) through the narrow-load instance, which
+   the buffered form refuses;
 4. the int8/int4 kernels' own activation stage over every Q8.8 input,
    bitwise against ``torch.sigmoid`` / ``torch.tanh`` on the CPU after the
    LUT rounding;
@@ -33,8 +41,10 @@ traceback and a non-zero exit):
    and no other kernel may launch, in each run; the results must match the
    same program compiled with ``device="cpu"``;
 6. times on the card: each kernel instance at B = 1 and its plain version
-   (device time from CUDA-graph replay between CUDA events, and the
-   kernel's time per call launched from Python), the dense ``torch.addmm``
+   (device time from CUDA-graph replay between CUDA events, also with the
+   L2 flushed before each call, and the kernel's time per call launched
+   from Python), the floor under a launch (an empty kernel of the q8
+   build, two launches), the dense ``torch.addmm``
    over the cell's fp32 volume as a yardstick the port never calls, and
    per path the engine's wall time per step with its kernels per step and
    idle share (``torch.profiler``), the per-frame latency of ``step``
@@ -60,6 +70,7 @@ entry that reaches it); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -117,6 +128,44 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
+
+
+def ptxas_summary(text: str) -> list:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its registers,
+    spill stores and loads, and static shared memory (names demangled by
+    ``c++filt`` where the host has it)."""
+    import re
+    import shutil
+    entries, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            entries[cur] = {"regs": None, "spill": (0, 0), "smem": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entries[cur]["spill"] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entries[cur]["regs"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            entries[cur]["smem"] = int(sm.group(1)) if sm else 0
+    names = list(entries)
+    shown = dict(zip(names, names))
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        plain = out.stdout.splitlines()
+        if out.returncode == 0 and len(plain) == len(names):
+            shown = {n: re.sub(r"\(anonymous namespace\)::|^void |\(.*$",
+                               "", p) for n, p in zip(names, plain)}
+    return [f"{shown[n]}: {e['regs']} registers, spill stores "
+            f"{e['spill'][0]} B / loads {e['spill'][1]} B, static smem "
+            f"{e['smem']} B" for n, e in entries.items()]
 
 
 def smooth_frames(rng, t: int, n: int, i: int):
@@ -273,6 +322,37 @@ def layer_inputs(rng, b, lay, fire, quant):
     return [a.astype(np.float32) for a in (m, h, c, dx, dh)], fired_cols
 
 
+def fired_inputs(rng, b, lay, fired, solo=False):
+    """Kernel inputs for one layer whose deltas fire exactly the column
+    blocks ``fired`` in the union of the streams, dense inside a fired
+    block, on the Q8.8 grid. Each block has an owner, a stream drawn at
+    random, that fires it; every other stream fires it with odds of one
+    half, or, with ``solo``, none does and the owner is never stream 0 (at
+    ``b > 1``), so only the union over the streams finds the block.
+    Returns numpy arrays ``(m, h, c, dx, dh)``."""
+    import numpy as np
+    i_dim, h_dim, bk, ip = (lay.input_size, lay.hidden_size, lay.block_k,
+                            lay.ip)
+    k = ip + lay.hk
+    d = np.zeros((b, k))
+    for blk in fired:
+        owner = int(rng.integers(1 if solo and b > 1 else 0, b))
+        for s in range(b):
+            if s == owner or (not solo and rng.uniform() < 0.5):
+                d[s, blk * bk:(blk + 1) * bk] = rng.uniform(-1, 1, bk)
+    d[:, i_dim:ip] = 0.0
+    d[:, ip + h_dim:] = 0.0
+    d = np.round(d * 256) / 256
+    union = np.flatnonzero(d.reshape(b, k // bk, bk).any(axis=(0, 2)))
+    if tuple(union) != tuple(fired):
+        raise AssertionError(f"inputs fire {list(union)}, want {fired}")
+    m = np.round(rng.normal(0, 1.0, (b, 4 * h_dim)) * 256 * 32) / 256
+    h = np.round(rng.uniform(-1, 1, (b, h_dim)) * 256) / 256
+    c = np.round(rng.uniform(-3, 3, (b, h_dim)) * 256) / 256
+    return [a.astype(np.float32) for a in
+            (m, h, c, d[:, :i_dim], d[:, ip:ip + h_dim])]
+
+
 def run_step(cell, fn, lay, ins):
     """One layer step of ``cell`` on ``ins = (m, h, c, dx, dh)``: the GRU
     step takes no cell state. Returns ``(m, h)`` or ``(m, h, c)``."""
@@ -282,17 +362,17 @@ def run_step(cell, fn, lay, ins):
     return fn(lay, m, h, c, dx, dh)
 
 
-def step_bytes(cell, be, lay, fired_cols) -> int:
-    """Bytes one layer step must move: the real rows and columns of the
-    fired blocks once (not the block padding of the layout), the
-    per-row scales and biases of the int8/int4 layouts, and the operands in
-    and out once."""
+def step_bytes(cell, be, lay, fired_cols, b: int = 1) -> int:
+    """Bytes one layer step of ``b`` streams must move: the real rows and
+    columns of the blocks fired in any stream once (not the block padding
+    of the layout), the per-row scales and biases of the int8/int4
+    layouts, and each stream's operands in and out once."""
     gates = 3 if cell == "gru" else 4
     h, i = lay.hidden_size, lay.input_size
     wbytes = {"fused": 4.0, "fused_q8": 1.0, "fused_q4": 0.5}[be]
     side = 0 if be == "fused" else (gates + 4) * h * 4
     # m in and out, h in and out (GRU) or c in, h and c out (LSTM), dx, dh
-    io = 4 * (4 * h * 2 + h * (2 if cell == "gru" else 3) + i + h)
+    io = 4 * b * (4 * h * 2 + h * (2 if cell == "gru" else 3) + i + h)
     return int(gates * h * fired_cols * wbytes + side + io)
 
 
@@ -443,7 +523,9 @@ def main() -> int:
                                               deltalstm_q8_step,
                                               deltalstm_q8_step_ref,
                                               lut_activation_grid,
-                                              lut_activation_grid_ref)
+                                              lut_activation_grid_ref,
+                                              pack_delta_weights_q8,
+                                              q8_launch_plan)
     from repro_torch.kernels.deltagru_seq import (deltagru_seq_step,
                                                   deltagru_seq_step_ref)
     from repro_torch.kernels.deltalstm_seq import (deltalstm_seq_step,
@@ -467,10 +549,9 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs)}")
-    for src, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line.lower():
-                log(f"  {src}: {line.strip()}")
+    for src, text in sorted(logs.items()):
+        for line in ptxas_summary(text):
+            log(f"  {src}: {line}")
 
     cfg = CONFIG_2L768H
     backends = ("fused", "fused_q8", "fused_q4")
@@ -530,34 +611,89 @@ def main() -> int:
         return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(xs, ys))
 
     for (cell, be), prog in progs.items():
+        if be != "fused":
+            continue
         kern, ref = step_of[(cell, be)]
-        quant = be != "fused"
         for li, lay in enumerate(prog.layouts):
             lay_cpu = cpu_progs[(cell, be)].layouts[li]
             for b in (1, 8):
                 for fire in (0.0, 0.1, 1.0):
-                    ins, _ = layer_inputs(rng, b, lay, fire, quant)
+                    ins, _ = layer_inputs(rng, b, lay, fire, False)
                     args = [torch.from_numpy(a) for a in ins]
                     gpu = [a.to(dev) for a in args]
                     k = run_step(cell, kern, lay, gpu)
                     r = run_step(cell, ref, lay, gpu)
                     c = run_step(cell, ref, lay_cpu, args)
                     torch.cuda.synchronize()
-                    what = f"layer {li} B={b} fire={fire}"
                     err = max_diff(k, r)
-                    if quant:
-                        check(kernel_of[(cell, be)].name,
-                              same(k, r) and same(k, c), err, what)
-                        kb = run_step(cell, functools.partial(
-                            kern, buffered=True), lay, gpu)
-                        torch.cuda.synchronize()
-                        check(buffered[(cell, be)].name,
-                              same(kb, k) and same(kb, r), max_diff(kb, r),
-                              what)
-                    else:
-                        check(kernel_of[(cell, be)].name,
-                              err <= TOL_F32 and max_diff(k, c) <= TOL_F32,
-                              err, what)
+                    check(kernel_of[(cell, be)].name,
+                          err <= TOL_F32 and max_diff(k, c) <= TOL_F32,
+                          err, f"layer {li} B={b} fire={fire}")
+
+    def q8_cases(cell, kern, ref, lay, lay_cpu, b, fired_sets):
+        """The unbuffered and buffered step on each fired set, against the
+        plain version on the card and on the CPU: ``(unbuffered ok,
+        buffered ok, max|kernel - plain|, max|buffered - plain|)``.
+        ``fired_sets`` holds ``(fired blocks, solo)`` pairs
+        (``fired_inputs``)."""
+        ok = ok_b = True
+        err = err_b = 0.0
+        for fired, solo in fired_sets:
+            args = [torch.from_numpy(a)
+                    for a in fired_inputs(rng, b, lay, fired, solo)]
+            gpu = [a.to(dev) for a in args]
+            k = run_step(cell, kern, lay, gpu)
+            kb = run_step(cell, functools.partial(kern, buffered=True), lay,
+                          gpu)
+            r = run_step(cell, ref, lay, gpu)
+            c = run_step(cell, ref, lay_cpu, args)
+            torch.cuda.synchronize()
+            ok = ok and same(k, r) and same(k, c)
+            ok_b = ok_b and same(kb, k) and same(kb, c)
+            err = max(err, max_diff(k, r))
+            err_b = max(err_b, max_diff(kb, r))
+        return ok, ok_b, err, err_b
+
+    # int8 / int4: exactly 0, 1, U - 1, U, U + 1 and all column blocks
+    # fired, U the fired blocks one unrolled group of the walk covers (the
+    # tails of the unroll and of the int4 two-blocks-a-load split), and a
+    # group across the x/h seam; B = 1 (one-stream instance), 2, 8 (tile)
+    # and 9 (two tile passes). At B > 1 one more set fires every block,
+    # each in one stream other than stream 0 alone: the fired list is the
+    # union over the streams of a pass, not stream 0's blocks
+    n_q8 = 0
+    for (cell, be), prog in progs.items():
+        if be == "fused":
+            continue
+        kern, ref = step_of[(cell, be)]
+        gates = 3 if cell == "gru" else 4
+        for li, lay in enumerate(prog.layouts):
+            lay_cpu = cpu_progs[(cell, be)].layouts[li]
+            nbk = lay.nbk
+            seam = tuple(range(max(0, lay.nbk_x - 2),
+                               min(nbk, lay.nbk_x + 2)))
+            for b in (1, 2, 8, 9):
+                plan = q8_launch_plan(gates, lay.weight_bits, lay.block_k,
+                                      lay.ip, lay.ip + lay.hk,
+                                      lay.hidden_size, b, False)
+                u = plan.blocks_per_group
+                counts = sorted({n for n in (0, 1, u - 1, u, u + 1, nbk)
+                                 if n <= nbk})
+                sets = [(tuple(sorted(rng.choice(nbk, n, replace=False))),
+                         False) for n in counts] + [(seam, False)]
+                if b > 1:
+                    sets.append((tuple(range(nbk)), True))
+                ok, ok_b, err, err_b = q8_cases(cell, kern, ref, lay,
+                                                lay_cpu, b, sets)
+                n_q8 += len(sets)
+                solo = ", every block in one stream > 0" if b > 1 else ""
+                what = (f"layer {li} B={b} ({plan.instance}, U={u}): fired "
+                        f"blocks {counts} of {nbk}, {list(seam)} across "
+                        f"the seam{solo}, bitwise on the card and the CPU")
+                check(kernel_of[(cell, be)].name, ok, err, what)
+                check(buffered[(cell, be)].name, ok_b, err_b,
+                      what + ", and equal to the unbuffered kernel")
+    log(f"int8/int4 walk cases: {n_q8} fired sets, each through both forms")
 
     # the LSTM cell state at the Q8.8 rail: gates i, f, g driven to 1.0 by
     # their delta memories, c_prev one step below the rail in stream 0 (it
@@ -587,6 +723,49 @@ def main() -> int:
               "saturating c")
         check(buffered[("lstm", be)].name, same(kb, k) and same(kb, c),
               max_diff(kb, r), "saturating c")
+
+    # a narrow layout: block_k = 8 (block rows of 8 bytes at int8, 4 at
+    # int4) at the first layer's shape runs the narrow-load instance, and
+    # the buffered form refuses it (its tensor copies move 16-byte rows)
+    for cell in ("gru", "lstm"):
+        gates = 3 if cell == "gru" else 4
+        kern, ref = step_of[(cell, "fused_q8")]
+        p0 = models_cpu[cell][cell][0]
+        for bits in (8, 4):
+            lay_cpu = pack_delta_weights_q8(p0.w_x, p0.w_h, p0.b,
+                                            gates=gates, block_k=8,
+                                            weight_bits=bits)
+            lay = lay_cpu.to(dev)
+            nbk = lay.nbk
+            counts = (0, 1, 5, nbk)
+            ok, err = True, 0.0
+            for b in (1, 9):
+                plan = q8_launch_plan(gates, bits, 8, lay.ip,
+                                      lay.ip + lay.hk, lay.hidden_size, b,
+                                      False)
+                for n in counts:
+                    fired = tuple(sorted(rng.choice(nbk, n, replace=False)))
+                    args = [torch.from_numpy(a)
+                            for a in fired_inputs(rng, b, lay, fired)]
+                    gpu = [a.to(dev) for a in args]
+                    k = run_step(cell, kern, lay, gpu)
+                    r = run_step(cell, ref, lay, gpu)
+                    c = run_step(cell, ref, lay_cpu, args)
+                    torch.cuda.synchronize()
+                    ok = (ok and plan.instance == "narrow" and same(k, r)
+                          and same(k, c))
+                    err = max(err, max_diff(k, r))
+            try:
+                run_step(cell, functools.partial(kern, buffered=True), lay,
+                         gpu)
+                refused = False
+            except ValueError:
+                refused = True
+            check(ops.q8_kernel(gates, bits, False).name, ok and refused, err,
+                  f"narrow layout block_k=8 ({plan.vector_bytes}-byte "
+                  f"loads), B in (1, 9), fired blocks {list(counts)} of "
+                  f"{nbk}: bitwise on the card and the CPU; buffered "
+                  f"refused {refused}")
 
     # the LM-path kernels: delta_spmv at the RWKV6 and RG-LRU layer shapes
     # ([I -> O]; the decay LoRA's 64 rows in a 128-padded layout) and two
@@ -898,16 +1077,38 @@ def main() -> int:
                    functools.partial(step_of[key][0], buffered=True),
                    step_of[key][1]) for key, kinfo in buffered.items()]
     rows = {}
+    # the floor under a launch: an empty kernel of the q8 build at the main
+    # path's grid (the LSTM int8 step at B = 1), two launches a 2-layer step
+    lay_f = progs[("lstm", "fused_q8")].layouts[1]
+    plan_f = q8_launch_plan(4, 8, lay_f.block_k, lay_f.ip,
+                            lay_f.ip + lay_f.hk, lay_f.hidden_size, 1, False)
+    empty = _build.load("delta_q8.cu").delta_q8_empty
+    empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    empty.restype = ctypes.c_int
+
+    def empty_launch():
+        if empty(plan_f.grid, plan_f.threads,
+                 torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("delta_q8_empty launch failed")
+
+    floor = {"ms": 2 * device_ms(empty_launch),
+             "cold_ms": 2 * device_ms_cold(empty_launch)}
+    log(f"launch floor: two launches of an empty kernel of delta_q8.cu "
+        f"({plan_f.grid} blocks of {plan_f.threads} threads): "
+        f"{floor['ms']:.5f} ms warm, {floor['cold_ms']:.5f} ms timed as "
+        f"the cold rows are [{smi}]")
     for kinfo, (cell, be), kern, ref in instances:
         fp32 = progs[(cell, "fused")].layouts
         for fire in (0.1, 1.0):
-            row = {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0,
-                   "library_ms": 0.0, "bytes": 0}
+            row = {"ms": 0.0, "cold_ms": 0.0, "eager_ms": 0.0,
+                   "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0}
             for li, lay in enumerate(progs[(cell, be)].layouts):
                 ins, fired_cols = layer_inputs(rng, 1, lay, fire,
                                                be != "fused")
                 gpu = [torch.from_numpy(a).to(dev) for a in ins]
                 row["ms"] += device_ms(lambda: run_step(cell, kern, lay, gpu))
+                row["cold_ms"] += device_ms_cold(
+                    lambda: run_step(cell, kern, lay, gpu))
                 row["eager_ms"] += eager_ms(
                     lambda: run_step(cell, kern, lay, gpu))
                 row["plain_ms"] += device_ms(
@@ -921,11 +1122,29 @@ def main() -> int:
                 row["bytes"] += step_bytes(cell, be, lay, fired_cols)
             row["bound_ms"] = 1e3 * row["bytes"] / HBM_BYTES_PER_S
             log(f"time {kinfo.name} B=1 fire={fire} per 2-layer step: kernel "
-                f"{row['ms']:.5f} ms on the device ({row['eager_ms']:.4f} ms "
-                f"launched from Python), plain {row['plain_ms']:.5f} ms, "
-                f"addmm {row['library_ms']:.5f} ms, bound "
-                f"{row['bound_ms']:.5f} ms ({row['bytes']} B) [{smi}]")
+                f"{row['ms']:.5f} ms warm, {row['cold_ms']:.5f} ms with a "
+                f"cold L2 ({row['eager_ms']:.4f} ms launched from Python), "
+                f"plain {row['plain_ms']:.5f} ms, addmm "
+                f"{row['library_ms']:.5f} ms, bound {row['bound_ms']:.5f} ms "
+                f"({row['bytes']} B), launch floor {floor['ms']:.5f} ms "
+                f"[{smi}]")
         rows[kinfo.name] = row               # the 100 % firing row
+        if be == "fused":
+            continue
+        # the tile instance (8 streams a pass), as the 8-slot batcher
+        # launches it: each stream fires ``fire`` of the blocks on its own
+        for fire in (0.1, 1.0):
+            tile = {"ms": 0.0, "bytes": 0}
+            for lay in progs[(cell, be)].layouts:
+                ins, fired_cols = layer_inputs(rng, 8, lay, fire, True)
+                gpu = [torch.from_numpy(a).to(dev) for a in ins]
+                tile["ms"] += device_ms(lambda: run_step(cell, kern, lay, gpu))
+                tile["bytes"] += step_bytes(cell, be, lay, fired_cols, 8)
+            log(f"time {kinfo.name} B=8 (tile) fire={fire} per 2-layer "
+                f"step: kernel {tile['ms']:.5f} ms warm, bound "
+                f"{1e3 * tile['bytes'] / HBM_BYTES_PER_S:.5f} ms "
+                f"({tile['bytes']} B) [{smi}]")
+        row["tile_ms"] = tile["ms"]
     def bound(row):
         t_bytes = 1e3 * row["bytes"] / HBM_BYTES_PER_S
         t_ops = 1e3 * row["ops"] / FP32_OPS_PER_S
@@ -1038,7 +1257,7 @@ def main() -> int:
             f"profiled: {json.dumps(prof)} [{smi}]")
 
     entries = []
-    for kinfo, (cell, _), _, _ in instances:
+    for kinfo, (cell, be), _, _ in instances:
         row = rows[kinfo.name]
         entry = {"name": kinfo.name, "route": "cuda", "source": kinfo.source,
                  "replaces": kinfo.replaces,
@@ -1046,7 +1265,10 @@ def main() -> int:
                  "max_abs_err": max_err[kinfo.name], "ms": row["ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": "bytes", "library_ms": row["library_ms"],
-                 "eager_ms": row["eager_ms"]}
+                 "eager_ms": row["eager_ms"], "cold_ms": row["cold_ms"]}
+        if be != "fused":
+            entry["launch_floor_ms"] = floor["ms"]
+            entry["tile_ms"] = row["tile_ms"]
         if kinfo in buffered.values():
             entry["path"] = buffered_path[cell]
         entries.append(entry)

@@ -1,5 +1,5 @@
 // int8 / int4 fused delta-RNN layer steps for Hopper (sm_90a): the GRU and the
-// LSTM cell, each in a plain and a double-buffered form.
+// LSTM cell, each in a plain and a buffered form.
 //
 // Replaces: the Pallas TPU kernels of src/repro/kernels/delta_q8.py at
 // weight_bits 8 and 4:
@@ -32,34 +32,81 @@
 // 2L-768H with every block fired a GRU step streams 5.6 MB (int8) or 2.8 MB
 // (int4), an LSTM step 7.5 MB or 3.7 MB: 1.7 / 0.84 us and 2.2 / 1.1 us at
 // 3.35 TB/s. The operations (2 per code per stream) are far below any compute
-// rate at batch 1.
+// rate at batch 1. Those bytes take less time than the fixed cost of a
+// launch, so at batch 1 what sets the time is latency: the chain of dependent
+// round trips between a launch's first load and its last store.
 //
-// What the design does about it: the walk of deltagru_seq.cu (one warp per
-// output row, fired blocks compacted by each thread block on the device,
-// deltas staged in shared memory: delta_walk.cuh), with each lane reading
-// 4 code bytes (int8) or 2 packed bytes (int4) of a gate row, so a warp reads
-// 128 or 64 contiguous bytes per gate row and block. The TPU's double-buffered
-// kernels keep the weights in HBM and overlap the DMA of fired block j+1 with
-// the sum over block j through a two-slot VMEM ring. Here the buffered form
-// does the same with cp.async: every thread of the block copies 16 bytes of
-// block j+1's rows (kWarps rows x G gates x block_k bytes) into the other slot
-// of a two-slot shared-memory ring while the warps sum block j from theirs;
-// commit_group / wait_group and a barrier per block order the slots, and no
-// copy is issued when nothing fired. The sums are exact, so both forms give
-// the same bits. The stage after the sum keeps the JAX package's op order and
-// rounding exactly: no FMA contraction on the dequant, the candidate sum or the
-// blends (__fmul_rn / __fadd_rn), IEEE expf / tanhf / division (no fast math),
-// and rintf (half to even) for every grid rounding.
+// What the design does about it (one warp per output row, kRows rows per
+// thread block, so the 2L-768H grid is one wave of 96 blocks; every block
+// compacts the fired blocks itself; no host sync):
+// - Prologue of one round trip (delta_walk.cuh, stage_deltas and
+//   warp_fired_blocks): each thread issues its 16-byte loads of
+//   [dx | 0 | dh | 0] before it stores any; fired flags are warp votes, one
+//   word per 32 slots; after the one barrier each warp compacts the fired
+//   block ids itself by ballot and popcount, so no thread loops over the
+//   blocks and no second barrier is needed.
+// - A walk with many bytes in flight: the 8 lanes of a gate row read
+//   16 bytes each, so one warp load covers a whole 128-column block of all
+//   four LSTM gates (int8) or two fired blocks (int4, 64 bytes a gate row);
+//   the walk issues kUnroll such loads per lane before the first product, so
+//   the 12 fired blocks of a 1536-column layer cost 3 round trips, not 12.
+//   The partial sums reduce over the 8 lanes of a gate (3 shuffles), and
+//   the GRU's candidate row still routes by the block's side of the seam.
+// - Accumulators sized to the streams: a one-stream instance (NB = 1: one
+//   accumulator per lane, two for the GRU candidate) beside the tile
+//   instance (NB = kMaxB streams a pass); the host picks by B. The operands
+//   of the activation stage are loaded before the walk, so the tail adds no
+//   round trip, and each gate's activation runs on its own lanes (lane
+//   8 g + bb: gate g of stream bb), the blend on one of them, so the four
+//   gates' sigmoid / tanh chains do not run one after another.
+// - The buffered form is a pipeline: one producer lane fills a ring of
+//   stages in shared memory, each stage one fired block's codes for every
+//   row and gate of the thread block ([G][kRows][wbk]), with one tensor copy
+//   (TMA) a block over w_q viewed as [G][Hp][row / box][box] bytes, which
+//   completes on the stage's mbarrier (expect-tx bytes); the consumer warps
+//   run the same walk on shared memory, wait on each stage's parity and
+//   release it through a second mbarrier. The ring holds two unrolled groups
+//   of the walk, so the copies of the next group fly while the warps sum the
+//   current one. Nothing is copied when nothing fired. The tensor copies
+//   need 16-byte rows and blocks (the host refuses others). On the H100 with
+//   the weights in L2 they arrive later than the plain walk's loads, at low
+//   and at full firing (PERF.md); the form is kept for parity with the JAX
+//   package's buffered kernels.
+// - Layouts whose block row is not a multiple of 16 bytes (int8 block_k 8 or
+//   4, int4 block_k below 32 or not a multiple of 32) run a narrow-load
+//   instance of the same template: 4 bytes (int8) or 2 bytes (int4) a lane.
+// Codes decode to floats exactly without a conversion instruction: a byte u
+// (biased to unsigned) placed under the exponent bits 0x4B00 is 2^23 + u, and
+// one add takes the bias off. The stage after the sum keeps the JAX package's
+// op order and rounding exactly: no FMA contraction on the dequant, the
+// candidate sum or the blends (__fmul_rn / __fadd_rn), IEEE expf / tanhf /
+// division (no fast math), and rintf (half to even) for every grid rounding.
+// Launch plans (instance, streams a pass, ring stages, shared memory) come
+// from the host (repro_torch/kernels/delta_q8.py, q8_launch_plan); the entry
+// points check them against what the kernel lays out, so a plan whose
+// shared memory is not exactly smem_layout's total is refused.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
 
 #include "delta_walk.cuh"
 
 namespace {
 
+using delta_walk::dpos;
 using delta_walk::kMaxB;
-using delta_walk::kWarps;
+
+constexpr int kRows = 8;            // output rows (consumer warps) a block
+constexpr int kUnroll = 4;          // walk steps a lane has in flight
+constexpr int kMaxDevices = 64;
+constexpr unsigned kFull = 0xffffffffu;
+// exact decode biases: 2^23 plus the code's offset to unsigned
+constexpr float kBias8 = 8388736.0f;  // 2^23 + 128
+constexpr float kBias4 = 8388616.0f;  // 2^23 + 8
+
+enum Instance { kOneStream = 0, kTile = 1, kNarrow = 2 };
 
 struct Grid {  // a Qm.n grid: round(v * scale) / scale, clipped to [lo, hi]
   float scale, lo, hi;
@@ -83,230 +130,469 @@ __device__ __forceinline__ float lut_tanh(float x, Grid act, Grid lut) {
   return grid_round(tanhf(grid_round(x, act)), lut);
 }
 
-__device__ __forceinline__ float nib(int p) { return (float)(((p & 15) ^ 8) - 8); }
-
 // The operands of one layer step. s_prev is h_prev (GRU) or c_prev (LSTM);
-// c_out is written by the LSTM only.
+// c_out is written by the LSTM only. chunk and stages come from the plan.
 struct StepArgs {
   const int8_t* w_q;
   const float *scales, *b4, *m_prev, *s_prev, *dx, *dh;
   float *m_out, *h_out, *c_out;
-  int B, I, H, Hp, K, ip, block_k, chunk;
+  int B, I, H, Hp, K, ip, block_k, chunk, stages;
+  int box;  // bytes of a tensor copy's box row (buffered form)
   Grid act, lut;
 };
 
-template <bool SMEM, typename T>
-__device__ __forceinline__ T load(const int8_t* p) {
-  if constexpr (SMEM) return *reinterpret_cast<const T*>(p);
-  else return __ldg(reinterpret_cast<const T*>(p));
+// Bytes of one ring stage: a fired block's [G][kRows][wbk] codes, rounded up
+// to the 128-byte alignment of a tensor copy's destination.
+__host__ __device__ inline int stage_bytes(int G, int wbk) {
+  return (G * kRows * wbk + 127) / 128 * 128;
 }
 
-// Add one fired block to the accumulators of this warp's output row.
-// rows[g] points at gate row g's bytes of the block (in device memory, or in
-// the shared-memory ring when SMEM); kbase is the block's first column.
-// acc[0..3] are M_r, M_u, M_xc, M_hc (GRU: the candidate row goes to M_xc left
-// of the x/h seam, to M_hc right of it) or M_i, M_f, M_g, M_o (LSTM).
-template <int G, int BITS, bool SMEM>
-__device__ __forceinline__ void accumulate_block(
-    const int8_t* const (&rows)[G], const float* d_s, int K, int kbase,
-    int block_k, int bc, int lane, bool is_x, float (&acc)[4][kMaxB]) {
-  if constexpr (BITS == 8) {
-    for (int c = lane * 4; c < block_k; c += 128) {
-      char4 w[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) w[g] = load<SMEM, char4>(rows[g] + c);
-#pragma unroll
-      for (int bb = 0; bb < kMaxB; ++bb) {
-        if (bb < bc) {
-          const float4 d =
-              *reinterpret_cast<const float4*>(d_s + bb * K + kbase + c);
-#pragma unroll
-          for (int g = 0; g < G; ++g) {
-            const float p =
-                d.x * w[g].x + d.y * w[g].y + d.z * w[g].z + d.w * w[g].w;
-            if (G == 3 && g == 2 && !is_x) acc[3][bb] += p;
-            else acc[g][bb] += p;
-          }
-        }
-      }
-    }
+// Where the dynamic shared memory of a launch goes, in bytes from its start:
+// the ring of stages (buffered only), the full and empty mbarriers of each
+// stage, the staged deltas [chunk][kpad(K)], the vote words and each warp's
+// list of fired block ids. Mirrored by q8_smem_bytes in
+// repro_torch/kernels/delta_q8.py; dispatch holds the two equal.
+struct SmemLayout {
+  size_t bars, deltas, mask, ids, total;
+};
+
+__host__ __device__ inline SmemLayout smem_layout(int G, int wbk, int K,
+                                                  int block_k, int chunk,
+                                                  int stages, int warps) {
+  SmemLayout s;
+  size_t off = (size_t)stages * stage_bytes(G, wbk);
+  s.bars = off;
+  off += (size_t)stages * 16;
+  s.deltas = off;
+  off += (size_t)chunk * delta_walk::kpad(K) * sizeof(float);
+  s.mask = off;
+  off += (size_t)((chunk * (K / 4) + 31) / 32) * sizeof(unsigned);
+  s.ids = off;
+  off += (size_t)warps * (K / block_k) * sizeof(int);
+  s.total = off;
+  return s;
+}
+
+// Fired blocks one unrolled group of the buffered walk may hold at once
+// (8 * kUnroll vectors of a gate row, L vectors a block): the ring needs at
+// least that many stages, or the producer would wait on a block the
+// consumers cannot release yet.
+__host__ __device__ inline int blocks_per_group(int L) {
+  return (8 * kUnroll + L - 1) / L + ((8 * kUnroll) % L != 0);
+}
+
+// -- shared-memory barriers and tensor copies -------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One tensor copy of the box at coordinates (x0, x1, x2, x3) of the
+// tensor map into shared memory at dst, completing on mbarrier bar.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map, int x0,
+                                            int x1, int x2, int x3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x0), "r"(x1), "r"(x2),
+      "r"(x3), "r"(bar)
+      : "memory");
+}
+
+// -- the walk -----------------------------------------------------------------
+
+// Words a lane's vector of VW code bytes takes (VW = 16, 4 or 2).
+template <int VW>
+struct Vec {
+  static constexpr int words = VW >= 4 ? VW / 4 : 1;
+};
+
+template <int VW, bool SMEM>
+__device__ __forceinline__ void load_vec(const int8_t* p,
+                                         uint32_t (&r)[Vec<VW>::words]) {
+  if constexpr (VW == 16) {
+    const uint4 v = SMEM ? *reinterpret_cast<const uint4*>(p)
+                         : __ldg(reinterpret_cast<const uint4*>(p));
+    r[0] = v.x;
+    r[1] = v.y;
+    r[2] = v.z;
+    r[3] = v.w;
+  } else if constexpr (VW == 4) {
+    r[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
   } else {
-    const int half = block_k / 2;
-    for (int jj = lane * 2; jj < half; jj += 64) {
-      // columns kbase+jj, +jj+1 (low nibbles), +half+jj, +half+jj+1 (high)
-      float w[G][4];
+    r[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+}
+
+// Byte t of w, an unsigned code u, as the float 2^23 + u - bias (exact).
+__device__ __forceinline__ float byte_f(uint32_t w, int t, float bias) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540u | t)) - bias;
+}
+
+// The codes of one vector as floats: int8, column i at wf[i]; int4, byte i's
+// low nibble at wf[i] and its high nibble at wf[VW + i].
+template <int BITS, int VW>
+__device__ __forceinline__ void decode(const uint32_t (&r)[Vec<VW>::words],
+                                       float (&wf)[BITS == 8 ? VW : 2 * VW]) {
+  constexpr int per = VW >= 4 ? 4 : VW;  // code bytes a word holds
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const char2 p = load<SMEM, char2>(rows[g] + jj);
-        w[g][0] = nib(p.x);
-        w[g][1] = nib(p.y);
-        w[g][2] = nib(p.x >> 4);
-        w[g][3] = nib(p.y >> 4);
-      }
+  for (int q = 0; q < Vec<VW>::words; ++q) {
+    if constexpr (BITS == 8) {
+      const uint32_t u = r[q] ^ 0x80808080u;
 #pragma unroll
-      for (int bb = 0; bb < kMaxB; ++bb) {
-        if (bb < bc) {
-          const float2 dl =
-              *reinterpret_cast<const float2*>(d_s + bb * K + kbase + jj);
-          const float2 dhi = *reinterpret_cast<const float2*>(
-              d_s + bb * K + kbase + half + jj);
+      for (int t = 0; t < per; ++t) wf[4 * q + t] = byte_f(u, t, kBias8);
+    } else {
+      const uint32_t lo = (r[q] & 0x0F0F0F0Fu) ^ 0x08080808u;
+      const uint32_t hi = ((r[q] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
 #pragma unroll
-          for (int g = 0; g < G; ++g) {
-            const float p = dl.x * w[g][0] + dl.y * w[g][1] +
-                            dhi.x * w[g][2] + dhi.y * w[g][3];
-            if (G == 3 && g == 2 && !is_x) acc[3][bb] += p;
-            else acc[g][bb] += p;
-          }
-        }
+      for (int t = 0; t < per; ++t) {
+        wf[4 * q + t] = byte_f(lo, t, kBias4);
+        wf[VW + 4 * q + t] = byte_f(hi, t, kBias4);
       }
     }
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Issue the copies of fired block kb's rows for this thread block's kWarps
-// output rows into one ring slot laid out [kWarps][G][wbk], 16 bytes per
-// thread and copy; rows past H are not copied (no warp reads them).
-template <int G>
-__device__ __forceinline__ void copy_block(int8_t* slot, const StepArgs& a,
-                                           int kb, int wbk, size_t row) {
-  const int per_row = wbk / 16;
-  const int o0 = blockIdx.x * kWarps;
-  for (int q = threadIdx.x; q < kWarps * G * per_row; q += blockDim.x) {
-    const int rg = q / per_row;
-    const int part = q - rg * per_row;
-    const int w = rg / G;
-    const int g = rg - w * G;
-    if (o0 + w < a.H)
-      cp_async16(slot + (size_t)rg * wbk + part * 16,
-                 a.w_q + ((size_t)g * a.Hp + o0 + w) * row +
-                     (size_t)kb * wbk + part * 16);
+// Sum over one vector's columns of delta * code for one stream's staged
+// deltas d: the columns from p_lo (and, at int4, the high nibbles' columns
+// from p_hi), both dpos positions.
+template <int BITS, int VW>
+__device__ __forceinline__ float vec_dot(const float (&wf)[BITS == 8 ? VW
+                                                                     : 2 * VW],
+                                         const float* d, int p_lo, int p_hi) {
+  float s = 0.0f;
+  if constexpr (VW >= 4) {
+#pragma unroll
+    for (int q = 0; q < VW / 4; ++q) {
+      const float4 x = *reinterpret_cast<const float4*>(d + p_lo + 4 * q);
+      s = fmaf(x.x, wf[4 * q], s);
+      s = fmaf(x.y, wf[4 * q + 1], s);
+      s = fmaf(x.z, wf[4 * q + 2], s);
+      s = fmaf(x.w, wf[4 * q + 3], s);
+    }
+    if constexpr (BITS == 4) {
+#pragma unroll
+      for (int q = 0; q < VW / 4; ++q) {
+        const float4 x = *reinterpret_cast<const float4*>(d + p_hi + 4 * q);
+        s = fmaf(x.x, wf[VW + 4 * q], s);
+        s = fmaf(x.y, wf[VW + 4 * q + 1], s);
+        s = fmaf(x.z, wf[VW + 4 * q + 2], s);
+        s = fmaf(x.w, wf[VW + 4 * q + 3], s);
+      }
+    }
+  } else {  // int4, 2 bytes: columns p_lo, p_lo + 1 and p_hi, p_hi + 1
+    const float2 x = *reinterpret_cast<const float2*>(d + p_lo);
+    const float2 y = *reinterpret_cast<const float2*>(d + p_hi);
+    s = fmaf(x.x, wf[0], s);
+    s = fmaf(x.y, wf[1], s);
+    s = fmaf(y.x, wf[2], s);
+    s = fmaf(y.y, wf[3], s);
   }
-  cp_async_commit();
+  return s;
 }
 
-template <int G, int BITS, bool BUF>
-__global__ void __launch_bounds__(kWarps * 32) delta_q8_kernel(StepArgs a) {
-  extern __shared__ float4 smem4[];
-  const int K = a.K, H = a.H, Hp = a.Hp, block_k = a.block_k;
-  const int wbk = BITS == 8 ? block_k : block_k / 2;  // row bytes per block
-  const size_t row = BITS == 8 ? (size_t)K : (size_t)K / 2;
-  const int slot_bytes = kWarps * G * wbk;
-  int8_t* ring = reinterpret_cast<int8_t*>(smem4);  // [2][kWarps][G][wbk]
-  float* d_s =
-      reinterpret_cast<float*>(ring + (BUF ? 2 * slot_bytes : 0));  // [chunk][K]
-  int* fired = reinterpret_cast<int*>(d_s + a.chunk * K);           // [nbk]
-  int* ids = fired + K / block_k;                                   // [nbk]
-  __shared__ int n_active;
+// The ring of the buffered form, as the consumers and the producer see it.
+struct Ring {
+  const int8_t* base;  // stage 0; stage s at base + s * stage_bytes
+  int stage_bytes, stages, qbase;  // qbase: blocks through the ring so far
+  uint32_t full, empty;            // mbarrier of stage 0; stage s at + 8 s
+};
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int o = blockIdx.x * kWarps + warp;
-  const int nbk_x = a.ip / block_k;
+// Add this warp's fired blocks to its output row o: lane l walks gate
+// g = l / 8 (lanes past G * 8 idle), the 8 lanes of a gate stepping over the
+// (fired block, vector) pairs of the gate row 8 vectors at a time, kUnroll
+// steps a group: all loads of a group are issued before its first product.
+// acc[bb] is this lane's gate memory for stream bb; acc_h[bb] takes the GRU
+// candidate row's blocks right of the x/h seam (M_hc). BUF reads the ring
+// (a stage holds [G][kRows][wbk]): each group waits for the stages of the
+// blocks it touches and releases those it has finished.
+template <int G, int BITS, int VW, int NB, bool BUF>
+__device__ __forceinline__ void walk(const StepArgs& a, const Ring& ring,
+                                     int warp, const int* ids, int n,
+                                     const float* d_s, int stride, int bc,
+                                     int o, int lane, float (&acc)[NB],
+                                     float (&acc_h)[NB]) {
+  constexpr int kCols = BITS == 8 ? VW : 2 * VW;
+  const int g = lane >> 3, sub = lane & 7;
+  const bool active = g < G;
+  const int wbk = BITS == 8 ? a.block_k : a.block_k >> 1;
+  const int L = wbk / VW;  // vectors a gate row has in a block
+  const int lsh = (L & (L - 1)) == 0 ? __ffs(L) - 1 : -1;
+  const int half = a.block_k >> 1;
+  const int nbk_x = a.ip / a.block_k;
+  const size_t row = BITS == 8 ? (size_t)a.K : (size_t)a.K / 2;
+  const int8_t* src =
+      BUF ? ring.base + (g * kRows + warp) * wbk
+          : a.w_q + ((size_t)(active ? g : 0) * a.Hp + o) * row;
+  const int total = n * L;
+  int waited = 0, released = 0;
+  for (int u0 = 0; u0 < total; u0 += 8 * kUnroll) {
+    if constexpr (BUF) {
+      const int last = min(n, (u0 + 8 * kUnroll + L - 1) / L);
+      for (; waited < last; ++waited) {
+        const int q = ring.qbase + waited;
+        mbar_wait(ring.full + 8 * (q % ring.stages), (q / ring.stages) & 1);
+      }
+    }
+    uint32_t raw[kUnroll][Vec<VW>::words];
+    int kbs[kUnroll], vs[kUnroll];
+    bool on[kUnroll];
+#pragma unroll
+    for (int t = 0; t < kUnroll; ++t) {
+      const int u = u0 + 8 * t + sub;
+      on[t] = active && u < total;
+      kbs[t] = 0;
+      vs[t] = 0;
+      if (on[t]) {
+        const int j = lsh >= 0 ? u >> lsh : u / L;
+        const int v = u - j * L;
+        const int kb = ids[j];
+        const int8_t* p =
+            BUF ? src + (size_t)((ring.qbase + j) % ring.stages) *
+                            ring.stage_bytes + v * VW
+                : src + (size_t)kb * wbk + v * VW;
+        load_vec<VW, BUF>(p, raw[t]);
+        kbs[t] = kb;
+        vs[t] = v;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kUnroll; ++t) {
+      if (on[t]) {
+        float wf[kCols];
+        decode<BITS, VW>(raw[t], wf);
+        const int c = kbs[t] * a.block_k + vs[t] * VW;
+        const int p_lo = dpos(c), p_hi = dpos(c + half);
+        const bool to_h = G == 3 && g == 2 && kbs[t] >= nbk_x;
+#pragma unroll
+        for (int bb = 0; bb < NB; ++bb) {
+          if (bb < bc) {
+            const float s =
+                vec_dot<BITS, VW>(wf, d_s + bb * stride, p_lo, p_hi);
+            if (to_h) acc_h[bb] += s;
+            else acc[bb] += s;
+          }
+        }
+      }
+    }
+    if constexpr (BUF) {
+      const int done = min(n, (u0 + 8 * kUnroll) / L);
+      __syncwarp();
+      if (lane == 0)
+        for (int j = released; j < done; ++j)
+          mbar_arrive(ring.empty + 8 * ((ring.qbase + j) % ring.stages));
+      released = done;
+    }
+  }
+  if constexpr (BUF) {
+    __syncwarp();
+    if (lane == 0)
+      for (int j = released; j < n; ++j)
+        mbar_arrive(ring.empty + 8 * ((ring.qbase + j) % ring.stages));
+  }
+}
+
+// The producer of the buffered form (lane 0 of the last warp): for each
+// fired block in order, wait until its stage is free, announce the stage's
+// bytes on its full barrier and copy the block's [G][kRows][wbk] codes with
+// one tensor copy (rows past Hp arrive as zeros and are never read).
+template <int G, int BITS>
+__device__ __forceinline__ void produce(const StepArgs& a,
+                                        const CUtensorMap* map,
+                                        const Ring& ring, const int* ids,
+                                        int n, int o0) {
+  const int wbk = BITS == 8 ? a.block_k : a.block_k >> 1;
+  const int parts = wbk / a.box;  // box-wide parts of a block row
+  const uint32_t base = smem_u32(ring.base);
+  for (int j = 0; j < n; ++j) {
+    const int q = ring.qbase + j, s = q % ring.stages;
+    if (q >= ring.stages)
+      mbar_wait(ring.empty + 8 * s, ((q / ring.stages) - 1) & 1);
+    mbar_arrive_expect_tx(ring.full + 8 * s, G * kRows * wbk);
+    tma_load_4d(base + s * ring.stage_bytes, map, 0, ids[j] * parts, o0, 0,
+                ring.full + 8 * s);
+  }
+}
+
+template <int G, int BITS, int VW, int NB, bool BUF>
+__global__ void __launch_bounds__((kRows + BUF) * 32)
+    delta_q8_kernel(const StepArgs a, const __grid_constant__ CUtensorMap map) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int K = a.K, H = a.H, Hp = a.Hp;
+  const int wbk = BITS == 8 ? a.block_k : a.block_k / 2;
+  const int nbk = K / a.block_k;
+  const int stride = delta_walk::kpad(K);
+  const SmemLayout ly = smem_layout(G, wbk, K, a.block_k, a.chunk,
+                                    BUF ? a.stages : 0, kRows + BUF);
+  float* d_s = reinterpret_cast<float*>(smem + ly.deltas);
+  unsigned* vmask = reinterpret_cast<unsigned*>(smem + ly.mask);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 3, sub = lane & 7;
+  int* ids = reinterpret_cast<int*>(smem + ly.ids) + warp * nbk;
+  const int o0 = blockIdx.x * kRows;
+  const int o = o0 + warp;
+  const int n_rows = min(kRows, H - o0);
+  const bool consumer = warp < n_rows;  // a warp of an output row < H
+
+  Ring ring{};
+  if constexpr (BUF) {
+    ring.base = reinterpret_cast<const int8_t*>(smem);
+    ring.stage_bytes = stage_bytes(G, wbk);
+    ring.stages = a.stages;
+    ring.full = smem_u32(smem + ly.bars);
+    ring.empty = ring.full + 8 * a.stages;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < a.stages; ++s) {
+        mbar_init(ring.full + 8 * s, 1);
+        mbar_init(ring.empty + 8 * s, n_rows);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    // the tensor map's fetch overlaps the prologue
+    if (warp == kRows && lane == 0)
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&map))
+                   : "memory");
+    // the prologue's barrier publishes the barriers
+  }
 
   for (int b0 = 0; b0 < a.B; b0 += a.chunk) {
     const int bc = min(a.chunk, a.B - b0);
-    delta_walk::stage_fired_blocks(a.dx, a.dh, d_s, fired, ids, &n_active,
-                                   b0, bc, a.I, H, K, a.ip, block_k);
-    const int n = n_active;
-    float acc[4][kMaxB];
+    // Lane 8 g + bb finishes gate g of stream b0 + bb; its operands of the
+    // activation stage are loaded before anything waits on them. The GRU's
+    // candidate lanes also take M_hc; the lanes that blend (LSTM: gate 0,
+    // GRU: the candidate) read the previous state.
+    const bool gate_lane = consumer && g < G && sub < bc;
+    const bool blender = gate_lane && g == (G == 3 ? 2 : 0);
+    const size_t mb = (size_t)(b0 + sub) * 4 * H;
+    const size_t hb = (size_t)(b0 + sub) * H + o;
+    float mp = 0.0f, mp_h = 0.0f, sv = 0.0f, bv = 0.0f, bv_h = 0.0f;
+    float sp = 0.0f;
+    if (gate_lane) {
+      mp = __ldg(a.m_prev + mb + g * H + o);
+      sv = __ldg(a.scales + g * Hp + o);  // M_hc too takes the candidate's
+      bv = __ldg(a.b4 + g * Hp + o);
+      if (G == 3 && g == 2) {
+        mp_h = __ldg(a.m_prev + mb + 3 * H + o);
+        bv_h = __ldg(a.b4 + 3 * Hp + o);
+      }
+    }
+    if (blender) sp = __ldg(a.s_prev + hb);
+
+    delta_walk::stage_deltas<4>(a.dx, a.dh, d_s, vmask, b0, bc, a.I, H, K,
+                                a.ip);
+    __syncthreads();  // d_s, vmask (and the ring's barriers) visible to all
+    const int n =
+        delta_walk::warp_fired_blocks(vmask, ids, bc, K, a.block_k, lane);
+
+    float acc[NB], acc_h[NB];
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int bb = 0; bb < kMaxB; ++bb) acc[m][bb] = 0.0f;
+    for (int bb = 0; bb < NB; ++bb) acc[bb] = acc_h[bb] = 0.0f;
     if constexpr (BUF) {
-      // every thread copies and waits; the warps of rows < H also sum
-      if (n > 0) copy_block<G>(ring, a, ids[0], wbk, row);
-      for (int j = 0; j < n; ++j) {
-        if (j + 1 < n) {
-          copy_block<G>(ring + ((j + 1) & 1) * slot_bytes, a, ids[j + 1], wbk,
-                        row);
-          cp_async_wait<1>();  // block j has landed, j + 1 may be in flight
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();  // block j visible to every warp
-        if (o < H) {
-          const int8_t* mine = ring + (j & 1) * slot_bytes + warp * G * wbk;
-          const int8_t* rows[G];
-#pragma unroll
-          for (int g = 0; g < G; ++g) rows[g] = mine + g * wbk;
-          accumulate_block<G, BITS, true>(rows, d_s, K, ids[j] * block_k,
-                                          block_k, bc, lane, ids[j] < nbk_x,
-                                          acc);
-        }
-        __syncthreads();  // slot j & 1 is free for block j + 2
+      if (warp == kRows) {
+        if (lane == 0) produce<G, BITS>(a, &map, ring, ids, n, o0);
+      } else if (consumer) {
+        walk<G, BITS, VW, NB, true>(a, ring, warp, ids, n, d_s, stride, bc,
+                                    o, lane, acc, acc_h);
       }
-    } else if (o < H) {
-      for (int j = 0; j < n; ++j) {
-        const int kb = ids[j];
-        const int8_t* rows[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          rows[g] = a.w_q + ((size_t)g * Hp + o) * row + (size_t)kb * wbk;
-        accumulate_block<G, BITS, false>(rows, d_s, K, kb * block_k, block_k,
-                                         bc, lane, kb < nbk_x, acc);
-      }
+      ring.qbase += n;
+    } else if (consumer) {
+      walk<G, BITS, VW, NB, false>(a, ring, warp, ids, n, d_s, stride, bc, o,
+                                   lane, acc, acc_h);
     }
-    if (o < H) {
+
+    if (consumer) {
+      // each gate's memory over its 8 lanes; lane 8 g + bb keeps stream bb's
+      float mine = 0.0f, mine_h = 0.0f;
 #pragma unroll
-      for (int m = 0; m < 4; ++m) delta_walk::warp_sum(acc[m]);
-      // activation: lane bb finishes stream b0 + bb
+      for (int bb = 0; bb < NB; ++bb) {
+        if (bb < bc) {
 #pragma unroll
-      for (int bb = 0; bb < kMaxB; ++bb) {
-        if (bb == lane && bb < bc) {
-          const size_t mb = (size_t)(b0 + bb) * 4 * H;
-          const size_t hb = (size_t)(b0 + bb) * H + o;
-          float m[4], sc[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            m[q] = a.m_prev[mb + q * H + o] + acc[q][bb];  // exact sums
-            // GRU: M_hc dequantizes with the candidate row's scale
-            const float s = a.scales[(G == 3 && q == 3 ? 2 : q) * Hp + o];
-            sc[q] = __fadd_rn(a.b4[q * Hp + o], __fmul_rn(m[q], s));
-            a.m_out[mb + q * H + o] = m[q];
+          for (int off = 4; off > 0; off >>= 1) {
+            acc[bb] += __shfl_xor_sync(kFull, acc[bb], off);
+            if (G == 3) acc_h[bb] += __shfl_xor_sync(kFull, acc_h[bb], off);
           }
-          if constexpr (G == 3) {
-            const float r = lut_sigmoid(sc[0], a.act, a.lut);
-            const float u = lut_sigmoid(sc[1], a.act, a.lut);
-            const float c = lut_tanh(__fadd_rn(sc[2], __fmul_rn(r, sc[3])),
-                                     a.act, a.lut);
-            a.h_out[hb] = grid_round(
-                __fadd_rn(__fmul_rn(__fsub_rn(1.0f, u), c),
-                          __fmul_rn(u, a.s_prev[hb])),
-                a.act);
-          } else {
-            const float gi = lut_sigmoid(sc[0], a.act, a.lut);
-            const float gf = lut_sigmoid(sc[1], a.act, a.lut);
-            const float gg = lut_tanh(sc[2], a.act, a.lut);
-            const float go = lut_sigmoid(sc[3], a.act, a.lut);
-            // the saturating Q8.8 cell state; on the grid, so lut_tanh's own
-            // rounding onto it changes nothing
-            const float c = grid_round(
-                __fadd_rn(__fmul_rn(gf, a.s_prev[hb]), __fmul_rn(gi, gg)),
-                a.act);
-            a.c_out[hb] = c;
-            a.h_out[hb] =
-                grid_round(__fmul_rn(go, lut_tanh(c, a.act, a.lut)), a.act);
+          if (sub == bb) {
+            mine = acc[bb];
+            mine_h = acc_h[bb];
           }
         }
       }
+      // activation, each gate on its own lanes: the same operations and
+      // roundings on the same values as the JAX package's stage
+      const float m = mp + mine;  // exact sums
+      const float sc = __fadd_rn(bv, __fmul_rn(m, sv));
+      if (gate_lane) a.m_out[mb + g * H + o] = m;
+      if constexpr (G == 3) {
+        // r and u on their lanes; the candidate lanes take M_hc (with the
+        // candidate row's scale), then c and h
+        const float m_h = mp_h + mine_h;  // exact sums
+        const float sc_h = __fadd_rn(bv_h, __fmul_rn(m_h, sv));
+        if (gate_lane && g == 2) a.m_out[mb + 3 * H + o] = m_h;
+        const float ru = g < 2 ? lut_sigmoid(sc, a.act, a.lut) : 0.0f;
+        const float r = __shfl_sync(kFull, ru, sub);
+        const float u = __shfl_sync(kFull, ru, 8 + sub);
+        if (blender) {
+          const float c =
+              lut_tanh(__fadd_rn(sc, __fmul_rn(r, sc_h)), a.act, a.lut);
+          a.h_out[hb] = grid_round(
+              __fadd_rn(__fmul_rn(__fsub_rn(1.0f, u), c), __fmul_rn(u, sp)),
+              a.act);
+        }
+      } else {
+        const float act = g == 2 ? lut_tanh(sc, a.act, a.lut)
+                                 : lut_sigmoid(sc, a.act, a.lut);
+        const float gi = __shfl_sync(kFull, act, sub);
+        const float gf = __shfl_sync(kFull, act, 8 + sub);
+        const float gg = __shfl_sync(kFull, act, 16 + sub);
+        const float go = __shfl_sync(kFull, act, 24 + sub);
+        if (blender) {
+          // the saturating Q8.8 cell state; on the grid, so lut_tanh's own
+          // rounding onto it changes nothing
+          const float c = grid_round(
+              __fadd_rn(__fmul_rn(gf, sp), __fmul_rn(gi, gg)), a.act);
+          a.c_out[hb] = c;
+          a.h_out[hb] =
+              grid_round(__fmul_rn(go, lut_tanh(c, a.act, a.lut)), a.act);
+        }
+      }
     }
-    __syncthreads();  // the next pass overwrites the staged deltas
+    if (b0 + a.chunk < a.B) __syncthreads();  // the next pass restages d_s
   }
 }
 
@@ -319,94 +605,179 @@ __global__ void act_grid_kernel(float* sig, float* tnh, int n, int lo_code,
   tnh[i] = lut_tanh(x, act, lut);
 }
 
-template <int G, int BITS, bool BUF>
-int launch(StepArgs a, cudaStream_t stream) {
-  const int wbk = BITS == 8 ? a.block_k : a.block_k / 2;
-  const int row = BITS == 8 ? a.K : a.K / 2;
-  // the ring copies 16 bytes a thread: row strides and block offsets in
-  // multiples of 16 bytes
-  if (BUF && (wbk % 16 || row % 16)) return (int)cudaErrorInvalidValue;
-  const size_t ring = BUF ? 2 * (size_t)kWarps * G * wbk : 0;
-  size_t smem = 0;
-  const cudaError_t err = delta_walk::size_launch(
-      delta_q8_kernel<G, BITS, BUF>, a.B, a.K, a.block_k, &a.chunk, &smem,
-      ring);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.H + kWarps - 1) / kWarps);
-  delta_q8_kernel<G, BITS, BUF><<<grid, kWarps * 32, smem, stream>>>(a);
+__global__ void empty_kernel() {}
+
+template <int G, int BITS, int VW, int NB, bool BUF>
+int launch(const StepArgs& a, const CUtensorMap& map, int smem, int device,
+           cudaStream_t stream) {
+  // the dynamic shared memory this instance may take, raised once per
+  // device as plans ask for more (no CUDA API call on a launch that fits)
+  static int allowed[kMaxDevices] = {};
+  auto kernel = delta_q8_kernel<G, BITS, VW, NB, BUF>;
+  if (smem > 48 * 1024) {
+    if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidValue;
+    if (smem > allowed[device]) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      allowed[device] = smem;
+    }
+  }
+  const dim3 grid((a.H + kRows - 1) / kRows);
+  kernel<<<grid, (kRows + BUF) * 32, smem, stream>>>(a, map);
   return (int)cudaGetLastError();
 }
 
+template <int G, int BITS>
+int launch_bits(const StepArgs& a, const CUtensorMap& map, int instance,
+                int buffered, int smem, int device, cudaStream_t s) {
+  constexpr int narrow = BITS == 8 ? 4 : 2;
+  if (instance == kNarrow)
+    return launch<G, BITS, narrow, kMaxB, false>(a, map, smem, device, s);
+  if (instance == kOneStream)
+    return buffered ? launch<G, BITS, 16, 1, true>(a, map, smem, device, s)
+                    : launch<G, BITS, 16, 1, false>(a, map, smem, device, s);
+  return buffered ? launch<G, BITS, 16, kMaxB, true>(a, map, smem, device, s)
+                  : launch<G, BITS, 16, kMaxB, false>(a, map, smem, device, s);
+}
+
+// The widest box of a tensor copy (at most 256 bytes, a multiple of 16) that
+// divides a block row of wbk bytes.
+int box_bytes(int wbk) {
+  for (int b = 256; b > 16; b -= 16)
+    if (wbk % b == 0) return b;
+  return 16;
+}
+
+// The tensor map of the buffered form: w_q as [G][Hp][row / box][box] bytes,
+// its box one fired block of kRows rows and every gate, [G][kRows][wbk].
+// The encoder comes from the driver once per process.
+int encode_map(CUtensorMap* map, const StepArgs& a, int G, int wbk) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t row = (cuuint64_t)a.K * wbk / a.block_k;
+  const cuuint64_t box = (cuuint64_t)a.box;
+  const cuuint64_t dims[4] = {box, row / box, (cuuint64_t)a.Hp,
+                              (cuuint64_t)G};
+  const cuuint64_t strides[3] = {box, row, row * a.Hp};
+  const cuuint32_t boxes[4] = {(cuuint32_t)box, (cuuint32_t)(wbk / box),
+                               (cuuint32_t)kRows, (cuuint32_t)G};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<int8_t*>(a.w_q),
+      dims, strides, boxes, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Check a launch plan against the layout and what the kernel lays out, then
+// launch the instance it names.
 template <int G>
-int dispatch(const StepArgs& a, int weight_bits, int buffered,
-             void* stream) {
+int dispatch(StepArgs a, int weight_bits, int buffered, int instance,
+             int smem, int device, void* stream) {
   if (a.B <= 0 || a.H <= 0) return 0;
-  if (a.block_k % 4 || a.K % a.block_k || a.ip % a.block_k)
+  if (a.block_k % 4 || a.K % a.block_k || a.ip % a.block_k ||
+      (weight_bits != 8 && weight_bits != 4))
     return (int)cudaErrorInvalidValue;
+  const int wbk = weight_bits == 8 ? a.block_k : a.block_k / 2;
+  const bool wide = wbk % 16 == 0;
+  if ((instance == kNarrow) == wide || instance < 0 || instance > kNarrow)
+    return (int)cudaErrorInvalidValue;
+  if (instance == kOneStream ? a.chunk != 1
+                             : (a.chunk < 1 || a.chunk > kMaxB))
+    return (int)cudaErrorInvalidValue;
+  if (buffered ? (!wide || a.stages < 3 ||
+                  a.stages < blocks_per_group(wbk / 16))
+               : a.stages != 0)
+    return (int)cudaErrorInvalidValue;
+  const SmemLayout ly = smem_layout(G, wbk, a.K, a.block_k, a.chunk,
+                                    a.stages, kRows + (buffered ? 1 : 0));
+  if ((size_t)smem != ly.total) return (int)cudaErrorInvalidValue;
+  CUtensorMap map{};
+  if (buffered) {
+    a.box = box_bytes(wbk);
+    const int err = encode_map(&map, a, G, wbk);
+    if (err) return err;
+  }
   const cudaStream_t s = (cudaStream_t)stream;
-  if (weight_bits == 8)
-    return buffered ? launch<G, 8, true>(a, s) : launch<G, 8, false>(a, s);
-  if (weight_bits == 4)
-    return buffered ? launch<G, 4, true>(a, s) : launch<G, 4, false>(a, s);
-  return (int)cudaErrorInvalidValue;
+  return weight_bits == 8
+             ? launch_bits<G, 8>(a, map, instance, buffered, smem, device, s)
+             : launch_bits<G, 4>(a, map, instance, buffered, smem, device, s);
 }
 
 StepArgs step_args(const void* w_q, const void* scales, const void* b4,
                    const void* m_prev, const void* s_prev, const void* dx,
                    const void* dh, void* m_out, void* h_out, void* c_out,
                    int B, int I, int H, int Hp, int K, int ip, int block_k,
-                   float act_scale, float act_min, float act_max,
-                   float lut_scale, float lut_min, float lut_max) {
+                   int chunk, int stages, float act_scale, float act_min,
+                   float act_max, float lut_scale, float lut_min,
+                   float lut_max) {
   return StepArgs{(const int8_t*)w_q, (const float*)scales, (const float*)b4,
                   (const float*)m_prev, (const float*)s_prev,
                   (const float*)dx, (const float*)dh, (float*)m_out,
                   (float*)h_out, (float*)c_out, B, I, H, Hp, K, ip, block_k,
-                  0, Grid{act_scale, act_min, act_max},
+                  chunk, stages, 0, Grid{act_scale, act_min, act_max},
                   Grid{lut_scale, lut_min, lut_max}};
 }
 
 }  // namespace
 
 // One int8 (weight_bits 8) or int4 (weight_bits 4) fused GRU layer step;
-// buffered != 0 runs the double-buffered form (the same bits).
+// buffered != 0 runs the buffered form (the same bits).
 //   w_q int8 [3, Hp, K] or [3, Hp, K/2] (nibble-packed), scales f32 [3, Hp],
 //   b4 f32 [4, Hp], m_prev/m_out f32 [B, 4H] (code domain), h_prev/h_out f32
 //   [B, H], dx f32 [B, I], dh f32 [B, H]; contiguous, 16-byte aligned.
-// Requires block_k % 4 == 0 and K % block_k == 0; buffered also needs row
-// strides and block widths in bytes that are multiples of 16. Returns
-// cudaGetLastError().
+//   instance (0 one-stream, 1 tile, 2 narrow), chunk (streams a pass),
+//   stages (0 unless buffered), smem (dynamic shared memory, bytes)
+//   and device (the current device's index) are the host's launch plan.
+// Requires block_k % 4 == 0 and K % block_k == 0; buffered also needs block
+// widths in bytes that are multiples of 16. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a plan the kernel cannot run.
 extern "C" int delta_q8_gru_step(
     const void* w_q, const void* scales, const void* b4, const void* m_prev,
     const void* h_prev, const void* dx, const void* dh, void* m_out,
     void* h_out, int B, int I, int H, int Hp, int K, int ip, int block_k,
-    int weight_bits, int buffered, float act_scale, float act_min,
+    int weight_bits, int buffered, int instance, int chunk, int stages,
+    int smem, int device, float act_scale, float act_min,
     float act_max, float lut_scale, float lut_min, float lut_max,
     void* stream) {
   return dispatch<3>(
       step_args(w_q, scales, b4, m_prev, h_prev, dx, dh, m_out, h_out,
-                nullptr, B, I, H, Hp, K, ip, block_k, act_scale, act_min,
-                act_max, lut_scale, lut_min, lut_max),
-      weight_bits, buffered, stream);
+                nullptr, B, I, H, Hp, K, ip, block_k, chunk, stages,
+                act_scale, act_min, act_max, lut_scale, lut_min, lut_max),
+      weight_bits, buffered, instance, smem, device, stream);
 }
 
-// One int8 / int4 fused LSTM layer step; buffered != 0 runs the
-// double-buffered form (the same bits).
+// One int8 / int4 fused LSTM layer step; buffered != 0 runs the buffered
+// form (the same bits).
 //   w_q int8 [4, Hp, K] or [4, Hp, K/2], scales f32 [4, Hp], b4 f32 [4, Hp],
 //   m_prev/m_out f32 [B, 4H] (code domain), c_prev/c_out/h_out f32 [B, H]
 //   (the cell state on the Q8.8 grid), dx f32 [B, I], dh f32 [B, H];
-//   contiguous, 16-byte aligned. Same requirements as delta_q8_gru_step.
+//   contiguous, 16-byte aligned. The plan and the requirements are those of
+//   delta_q8_gru_step.
 extern "C" int delta_q8_lstm_step(
     const void* w_q, const void* scales, const void* b4, const void* m_prev,
     const void* c_prev, const void* dx, const void* dh, void* m_out,
     void* h_out, void* c_out, int B, int I, int H, int Hp, int K, int ip,
-    int block_k, int weight_bits, int buffered, float act_scale,
+    int block_k, int weight_bits, int buffered, int instance, int chunk,
+    int stages, int smem, int device, float act_scale,
     float act_min, float act_max, float lut_scale, float lut_min,
     float lut_max, void* stream) {
   return dispatch<4>(
       step_args(w_q, scales, b4, m_prev, c_prev, dx, dh, m_out, h_out, c_out,
-                B, I, H, Hp, K, ip, block_k, act_scale, act_min, act_max,
-                lut_scale, lut_min, lut_max),
-      weight_bits, buffered, stream);
+                B, I, H, Hp, K, ip, block_k, chunk, stages, act_scale,
+                act_min, act_max, lut_scale, lut_min, lut_max),
+      weight_bits, buffered, instance, smem, device, stream);
 }
 
 // The kernels' own activation stage over every point of the activation grid:
@@ -421,5 +792,12 @@ extern "C" int delta_q8_act_grid(void* sig, void* tnh, int n, int lo_code,
   const Grid lut{lut_scale, lut_min, lut_max};
   act_grid_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       (float*)sig, (float*)tnh, n, lo_code, act, lut);
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel of this build, launched as blocks x threads: the floor
+// under any launch of the steps above, for timing.
+extern "C" int delta_q8_empty(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

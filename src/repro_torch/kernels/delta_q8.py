@@ -12,10 +12,13 @@ CUDA port of :mod:`repro.kernels.delta_q8` (both cells).
   layer steps: the CUDA kernels in ``csrc/delta_q8.cu`` for CUDA tensors,
   their plain versions :func:`deltagru_q8_step_ref` /
   :func:`deltalstm_q8_step_ref` for CPU tensors. ``buffered=True`` launches
-  the double-buffered twin of either kernel (the same bits). The kernels
-  compact the fired column blocks themselves, on the device (the JAX
-  package's ``_prep_step_operands`` prologue); the plain versions multiply
-  every column, and the unfired ones add exact zeros.
+  the buffered twin of either kernel (the same bits). The kernels compact
+  the fired column blocks themselves, on the device (the JAX package's
+  ``_prep_step_operands`` prologue); the plain versions multiply every
+  column, and the unfired ones add exact zeros;
+* :func:`q8_launch_plan` — how a step launches (instance, streams a pass,
+  ring stages, shared memory), computed on the host once per geometry and
+  cached.
 
 Fixed-point semantics: deltas arrive on the Q8.8 grid, so every
 ``delta x code`` product and every partial sum is an exact fp32 value; the
@@ -32,6 +35,7 @@ which would change the scales' last bit and with it the packed codes.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass, fields, replace
 
 import torch
@@ -293,6 +297,114 @@ def _ref_code_slices(layout: QuantDeltaLayout):
 # Launching the kernels of csrc/delta_q8.cu
 # ---------------------------------------------------------------------------
 
+# What one thread block of an sm_90 card (the kernels' only target) may opt
+# in to: 227 KB of dynamic shared memory.
+SMEM_OPTIN_BYTES = 232_448
+# Constants of csrc/delta_q8.cu and csrc/delta_walk.cuh the plan mirrors.
+# The kernel lays out its shared memory itself and refuses a plan whose
+# ``smem`` is not exactly its own total, so the two cannot drift apart
+# unseen.
+Q8_ROWS = 8            # output rows (consumer warps) a block: kRows
+Q8_MAX_STREAMS = 8     # streams a pass of the tile instance: kMaxB
+Q8_UNROLL = 4          # walk steps a lane has in flight: kUnroll
+Q8_INSTANCES = ("one_stream", "tile", "narrow")   # their codes: the index
+
+
+@dataclass(frozen=True)
+class Q8LaunchPlan:
+    """How one int8 / int4 step launches (``q8_launch_plan``).
+
+    ``instance``: ``"one_stream"`` (B = 1, one accumulator a lane),
+    ``"tile"`` (up to ``Q8_MAX_STREAMS`` streams a pass) or ``"narrow"``
+    (block rows that are not a multiple of 16 bytes: 4-byte (int8) or
+    2-byte (int4) loads, any B). ``chunk``: streams a pass.
+    ``blocks_per_group``: the fired blocks one unrolled group of the walk
+    covers (``Q8_UNROLL`` steps a lane, each 8 vectors of a gate row).
+    ``stages``: the buffered form's ring (0 unbuffered), one tensor copy a
+    stage. ``smem``: dynamic shared memory in bytes. ``device``: the CUDA
+    device index (-1 for none)."""
+
+    instance: str
+    chunk: int
+    stages: int
+    smem: int
+    grid: int
+    threads: int
+    vector_bytes: int
+    blocks_per_group: int
+    device: int
+
+
+def _kpad(k: int) -> int:
+    """Floats one staged stream takes: 4 of padding after every 16 columns
+    (``delta_walk::kpad``)."""
+    return k + ((k + 15) >> 4) * 4
+
+
+def q8_smem_bytes(gates: int, wbk: int, k: int, block_k: int, chunk: int,
+                  stages: int, warps: int) -> int:
+    """Dynamic shared memory of one launch, laid out as ``smem_layout`` of
+    ``csrc/delta_q8.cu``: the ring (stages of a fired block's codes for
+    every row and gate, each rounded up to 128 bytes), two mbarriers a
+    stage, the staged deltas, the vote words and each warp's fired-block
+    list."""
+    stage = -(-Q8_ROWS * gates * wbk // 128) * 128
+    return (stages * stage + 16 * stages
+            + 4 * chunk * _kpad(k) + 4 * ((chunk * (k // 4) + 31) // 32)
+            + 4 * warps * (k // block_k))
+
+
+@functools.lru_cache(maxsize=512)
+def q8_launch_plan(gates: int, weight_bits: int, block_k: int, ip: int,
+                   k: int, hidden: int, b: int, buffered: bool,
+                   device: int = -1) -> Q8LaunchPlan:
+    """The launch plan of one int8 / int4 layer step of ``gates`` gate rows
+    over ``k = ip + hk`` packed columns, ``b`` streams; computed once per
+    geometry, ``b``, ``buffered`` and device and cached, so a launch makes
+    no CUDA API query. Raises ``ValueError`` for what no instance takes:
+    ``block_k`` not a multiple of 4, a buffered layout whose row stride or
+    block width is not a multiple of 16 bytes (the tensor copies of the
+    ring), or deltas of one stream that do not fit ``SMEM_OPTIN_BYTES``."""
+    if block_k % 4 or k % block_k or ip % block_k:
+        raise ValueError(f"the int8/int4 kernels take block_k a multiple of "
+                         f"4 dividing ip={ip} and k={k}; got {block_k}")
+    wk = k // 2 if weight_bits == 4 else k
+    wbk = block_k // 2 if weight_bits == 4 else block_k
+    wide = wbk % 16 == 0
+    if buffered and (wk % 16 or wbk % 16):
+        raise ValueError(
+            f"buffered=True streams weight blocks in 16-byte copies; the "
+            f"row stride ({wk} B) and the block width ({wbk} B) must be "
+            f"multiples of 16")
+    vector = 16 if wide else (4 if weight_bits == 8 else 2)
+    per_block = wbk // vector          # vectors a gate row has in a block
+    span = 8 * Q8_UNROLL               # vectors a gate's lanes walk a group
+    if wide:
+        instance = "one_stream" if b == 1 else "tile"
+    else:
+        instance = "narrow"
+    stages = 0
+    if buffered:
+        need = -(-span // per_block) + (span % per_block != 0)
+        stages = max(3, 2 * need)
+    warps = Q8_ROWS + int(buffered)
+    chunk = 1 if instance == "one_stream" else min(b, Q8_MAX_STREAMS)
+    while True:
+        smem = q8_smem_bytes(gates, wbk, k, block_k, chunk, stages, warps)
+        if smem <= SMEM_OPTIN_BYTES or chunk == 1:
+            break
+        chunk -= 1
+    if smem > SMEM_OPTIN_BYTES:
+        raise ValueError(f"one stream's deltas at k={k} need {smem} B of "
+                         f"shared memory, more than {SMEM_OPTIN_BYTES}")
+    return Q8LaunchPlan(instance=instance, chunk=chunk, stages=stages,
+                        smem=smem,
+                        grid=-(-hidden // Q8_ROWS), threads=32 * warps,
+                        vector_bytes=vector,
+                        blocks_per_group=max(1, span // per_block),
+                        device=device)
+
+
 def _q8_fn(cell: str):
     """The ``extern "C"`` entry of one cell (``delta_q8_gru_step`` takes
     ``h_prev`` and writes ``m, h``; ``delta_q8_lstm_step`` takes ``c_prev``
@@ -300,7 +412,7 @@ def _q8_fn(cell: str):
     fn = getattr(_build.load("delta_q8.cu"), f"delta_q8_{cell}_step")
     if fn.argtypes is None:
         n_ptr = 9 if cell == "gru" else 10
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 14
                        + [ctypes.c_float] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -317,16 +429,11 @@ def _launch_q8(layout: QuantDeltaLayout, gates: int, buffered: bool, m_prev,
                          f"gates={layout.gates}")
     b, h_dim, i_dim = dx.shape[0], layout.hidden_size, layout.input_size
     k = layout.ip + layout.hk
+    index = dx.device.index
+    plan = q8_launch_plan(gates, layout.weight_bits, layout.block_k,
+                          layout.ip, k, h_dim, b, bool(buffered),
+                          -1 if index is None else index)
     wk = k // 2 if layout.weight_bits == 4 else k
-    if buffered:
-        # the cp.async ring copies 16 bytes a thread: every row stride and
-        # every fired block's offset must be a multiple of 16 bytes
-        wbk = layout.block_k // 2 if layout.weight_bits == 4 else layout.block_k
-        if wk % 16 or wbk % 16:
-            raise ValueError(
-                f"buffered=True streams weight blocks in 16-byte copies; the "
-                f"row stride ({wk} B) and the block width ({wbk} B) must be "
-                f"multiples of 16")
     f32 = torch.float32
     require(layout.w_q, "w_q", torch.int8, (gates, layout.hp, wk))
     require(layout.scales, "scales", f32, (gates, layout.hp))
@@ -343,9 +450,10 @@ def _launch_q8(layout: QuantDeltaLayout, gates: int, buffered: bool, m_prev,
         layout.b4.data_ptr(), m_prev.data_ptr(), s_prev.data_ptr(),
         dx.data_ptr(), dh.data_ptr(), *(o.data_ptr() for o in outs),
         b, i_dim, h_dim, layout.hp, k, layout.ip, layout.block_k,
-        layout.weight_bits, int(buffered), layout.act_scale, layout.act_min,
-        layout.act_max, layout.lut_scale, layout.lut_min, layout.lut_max,
-        cuda_stream(m_prev))
+        layout.weight_bits, int(buffered), Q8_INSTANCES.index(plan.instance),
+        plan.chunk, plan.stages, plan.smem, plan.device,
+        layout.act_scale, layout.act_min, layout.act_max, layout.lut_scale,
+        layout.lut_min, layout.lut_max, cuda_stream(m_prev))
     if err:
         raise RuntimeError(f"delta_q8_{cell}_step launch failed: CUDA error "
                            f"{err}")
@@ -379,9 +487,9 @@ def deltagru_q8_step(layout: QuantDeltaLayout, m_prev: torch.Tensor,
     ``m_prev: [B, 4H]`` (code-domain accumulator), ``h_prev: [B, H]``,
     ``dx: [B, I]``, ``dh: [B, H]`` -> ``(m_new, h_new)``. CUDA operands
     launch the kernel of ``csrc/delta_q8.cu`` (int8 or int4 by
-    ``layout.weight_bits``); ``buffered=True`` launches its double-buffered
-    twin, which streams the fired weight blocks through a two-slot
-    shared-memory ring and gives the same bits. CPU operands run
+    ``layout.weight_bits``); ``buffered=True`` launches its buffered twin,
+    which streams the fired weight blocks through a ring of shared-memory
+    stages filled by bulk copies and gives the same bits. CPU operands run
     :func:`deltagru_q8_step_ref` either way (the function is the same).
     """
     if not launches_kernel(layout.w_q, m_prev, h_prev, dx, dh):
@@ -443,7 +551,7 @@ def deltalstm_q8_step(layout: QuantDeltaLayout, m_prev: torch.Tensor,
     ``(m_new, h_new, c_new)``. ``h_prev`` keeps the JAX signature: the
     update ``h = o * tanh(c)`` never reads it, so the kernel is not handed
     it. CUDA operands launch the LSTM kernel of ``csrc/delta_q8.cu``
-    (``buffered=True``: its double-buffered twin, the same bits); CPU
+    (``buffered=True``: its buffered twin, the same bits); CPU
     operands run :func:`deltalstm_q8_step_ref`.
     """
     if not launches_kernel(layout.w_q, m_prev, h_prev, c_prev, dx, dh):

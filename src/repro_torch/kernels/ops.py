@@ -116,7 +116,8 @@ DELTA_Q8_LSTM_I8 = KernelInfo(
 DELTA_Q8_LSTM_I4 = KernelInfo(
     "delta_q8_lstm_i4", "src/repro_torch/csrc/delta_q8.cu",
     "src/repro/kernels/delta_q8.py:749")
-# the double-buffered instances, reached through buffered=True
+# the buffered instances (the TPU's double-buffered kernels), reached
+# through buffered=True
 DELTA_Q8_GRU_DBUF_I8 = KernelInfo(
     "delta_q8_gru_dbuf_i8", "src/repro_torch/csrc/delta_q8.cu",
     "src/repro/kernels/delta_q8.py:600")

@@ -18,6 +18,7 @@ buffered entries of both cells against the JAX package, on the CPU.
 The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
 them against these plain versions there.
 """
+import functools
 from dataclasses import replace
 
 import jax.numpy as jnp
@@ -199,12 +200,95 @@ def test_lstm_q8_needs_a_four_gate_layout():
 
 @pytest.mark.parametrize("bits", [8, 4])
 def test_buffered_launch_refuses_unaligned_blocks(bits):
-    # the cp.async ring copies 16 bytes a thread: an 8-column block (8 or 4
-    # bytes a row) cannot be streamed through it
+    # the ring's tensor copies move 16-byte multiples: an 8-column block (8
+    # or 4 bytes a row) cannot be streamed through it
     _, tl = _q8_layouts(48, bits, block=8)
     args = list(map(torch.from_numpy, _step_inputs(48, 1, 0, 0.3, True)))
     with pytest.raises(ValueError, match="multiples of 16"):
         tq8._launch_q8(tl, 4, True, args[0], args[2], args[3], args[4])
+
+
+# -- the fired patterns of the CUDA walk ---------------------------------------
+# At I = 600, H = 200 and block_k = 128 a layer has 5 x-blocks and 2 h-blocks
+# (the x/h seam between blocks 4 and 5). The CUDA walk issues its loads in
+# groups of 4 fired blocks (int8) or 8 (int4, two blocks a warp load), so
+# these patterns cover an empty walk, one block, both sides of a group's
+# tail, every block, and a group that crosses the seam (the GRU routes the
+# candidate row by it); B = 9 takes two passes of the kernels' tile
+# instance. "solo" fires every block, each in one stream other than stream
+# 0 alone (at B > 1), so only the union over the streams finds it.
+# chip_smoke.py runs the same counts on the card at 2L-768H.
+WALK_I, WALK_H = 600, 200
+WALK_FIRED = {"none": (), "one": (6,), "three": (0, 2, 5),
+              "four": (1, 2, 3, 6), "five": (0, 1, 3, 4, 6),
+              "all": tuple(range(7)), "seam": (3, 4, 5, 6),
+              "solo": tuple(range(7))}
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_layouts(gates, bits):
+    rng = np.random.default_rng(gates + bits)
+    s = (6.0 / (WALK_I + gates * WALK_H)) ** 0.5
+    w_x = rng.uniform(-s, s, (gates * WALK_H, WALK_I)).astype(np.float32)
+    w_h = rng.uniform(-s, s, (gates * WALK_H, WALK_H)).astype(np.float32)
+    b = rng.normal(0, 0.3, gates * WALK_H).astype(np.float32)
+    kw = dict(gates=gates, weight_bits=bits)
+    jl = jq8.pack_delta_weights_q8(jnp.asarray(w_x), jnp.asarray(w_h),
+                                   jnp.asarray(b), **kw)
+    tl = tq8.pack_delta_weights_q8(torch.from_numpy(w_x),
+                                   torch.from_numpy(w_h), torch.from_numpy(b),
+                                   **kw)
+    return jl, tl
+
+
+def _fired_block_inputs(tl, b, fired, seed, solo=False):
+    """``(m, h_prev, c_prev, dx, dh)`` on the Q8.8 grid whose deltas fire
+    exactly the column blocks ``fired`` in the union of the streams: each
+    block in a random owner stream and, unless ``solo``, in each other
+    stream with odds of one half; with ``solo`` (and ``b > 1``) the owner
+    is never stream 0 and no other stream fires the block."""
+    rng = np.random.default_rng(seed)
+    bk, ip = tl.block_k, tl.ip
+    d = np.zeros((b, ip + tl.hk))
+    for blk in fired:
+        owner = int(rng.integers(1 if solo and b > 1 else 0, b))
+        for s in range(b):
+            if s == owner or (not solo and rng.uniform() < 0.5):
+                d[s, blk * bk:(blk + 1) * bk] = rng.uniform(-1, 1, bk)
+    d[:, WALK_I:ip] = 0.0
+    d[:, ip + WALK_H:] = 0.0
+    d = np.round(d * 256) / 256
+    union = np.flatnonzero(d.reshape(b, tl.nbk, bk).any(axis=(0, 2)))
+    assert tuple(union) == tuple(fired)
+    m = np.round(rng.normal(0, 1, (b, 4 * WALK_H)) * 256 * 16) / 256
+    hp = np.round(rng.uniform(-1, 1, (b, WALK_H)) * 256) / 256
+    cp = np.round(rng.uniform(-3, 3, (b, WALK_H)) * 256) / 256
+    return [a.astype(np.float32) for a in
+            (m, hp, cp, d[:, :WALK_I], d[:, ip:ip + WALK_H])]
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("b", [1, 9])
+@pytest.mark.parametrize("pattern", sorted(WALK_FIRED))
+def test_q8_step_ref_bitwise_vs_jax_on_the_walk_patterns(cell, bits, b,
+                                                         pattern):
+    gates = 4 if cell == "lstm" else 3
+    jl, tl = _walk_layouts(gates, bits)
+    fired = WALK_FIRED[pattern]
+    m, hp, cp, dx, dh = _fired_block_inputs(tl, b, fired, len(fired) + b,
+                                            solo=pattern == "solo")
+    args = [m, hp, cp, dx, dh] if cell == "lstm" else [m, hp, dx, dh]
+    step = {"lstm": (tq8.deltalstm_q8_step_ref, jq8.deltalstm_q8_step),
+            "gru": (tq8.deltagru_q8_step_ref, jq8.deltagru_q8_step)}[cell]
+    want = step[0](tl, *map(torch.from_numpy, args))
+    jargs = list(map(jnp.asarray, args))
+    for buffered in (False, True):
+        for a, t in zip(step[1](jl, *jargs, interpret=True,
+                                buffered=buffered), want):
+            _eq(a, t.numpy())
+    if not fired:          # nothing fired: M unchanged
+        _eq(want[0].numpy(), m)
 
 
 # -- the buffered GRU step ----------------------------------------------------
