@@ -16,17 +16,17 @@ traceback and a non-zero exit):
    (``-Xptxas -v``);
 3. kernels against their plain versions at the two layer shapes of the
    paper's 2L-768H network (k = 896 and 1536), for both cells (GRU and
-   LSTM). fp32, B in {1, 8} with 0 %, about 10 % and 100 % of the column
-   blocks fired: within ``TOL_F32``. int8 and int4, B in {1, 2, 8, 9} (the
-   one-stream instance, the tile instance, two tile passes) with exactly
-   0, 1, U - 1, U, U + 1 and all column blocks fired (U: the fired blocks
-   one unrolled group of the walk covers), a group across the x/h seam
-   and, at B > 1, every block fired by one stream other than stream 0:
-   bitwise equal to the plain version on the card and on the CPU, and each
-   buffered instance (``buffered=True``) bitwise equal to its unbuffered
-   twin; an LSTM step whose cell state saturates at the Q8.8 rail; and a
-   narrow layout (``block_k = 8``) through the narrow-load instance, which
-   the buffered form refuses;
+   LSTM), B in {1, 2, 8, 9} (the one-stream instance, the tile instance,
+   two tile passes) with exactly 0, 1, U - 1, U, U + 1 and all column
+   blocks fired (U: the fired blocks one unrolled group of the walk
+   covers), a group across the x/h seam and, at B > 1, every block fired
+   by one stream other than stream 0: fp32 within ``TOL_F32``; int8 and
+   int4 bitwise equal to the plain version on the card and on the CPU, and
+   each buffered instance (``buffered=True``) bitwise equal to its
+   unbuffered twin; an LSTM step whose cell state saturates at the Q8.8
+   rail; and narrow layouts (int8 ``block_k`` 8 and 4, int4 16 and 4)
+   through the narrow-load instance, their buffered form (a ring filled by
+   ``cp.async`` or 2-byte copies) bitwise equal to it;
 4. the int8/int4 kernels' own activation stage over every Q8.8 input,
    bitwise against ``torch.sigmoid`` / ``torch.tanh`` on the CPU after the
    LUT rounding;
@@ -43,16 +43,20 @@ traceback and a non-zero exit):
 6. times on the card: each kernel instance at B = 1 and its plain version
    (device time from CUDA-graph replay between CUDA events, also with the
    L2 flushed before each call, and the kernel's time per call launched
-   from Python), the floor under a launch (an empty kernel of the q8
-   build, two launches), the dense ``torch.addmm``
+   from Python), each GRU/LSTM step also at B = 8 (the tile instance), the
+   floor under a launch (an empty kernel of the q8 build, two launches),
+   the dense ``torch.addmm``
    over the cell's fp32 volume as a yardstick the port never calls, and
    per path the engine's wall time per step with its kernels per step and
    idle share (``torch.profiler``), the per-frame latency of ``step``
    (median and p95 over the frames) and the batcher's frames per second.
 
 The delta-ized LM cells run through the same phases: in phase 3
-``delta_spmv`` (the LM layer shapes, an unpacked ragged edge, 0 / ~10 /
-100 % of the column blocks fired), ``rwkv6_scan``, ``rglru_scan``,
+``delta_spmv`` with fp32 and with bf16 operands (the LM layer shapes, the
+64-row decay call whose k blocks a cluster splits, unpacked ragged edges,
+``ldw % 4 != 0``; B in {1, 2, 8, 9} on the walk's tails as above; every
+case launched twice and the two results bitwise equal), ``rwkv6_scan``,
+``rglru_scan``,
 ``deltagru_act`` and ``ops.deltagru_cell_fused`` (against the dense GRU
 step) against their plain versions; in phase 5 ``rwkv6 fused`` (RWKV6 at
 D = 2048, 24 layers) and ``rglru fused`` (RG-LRU at D = W = 4096, 4
@@ -61,12 +65,14 @@ layers) from seeded random weights over the smooth stream ``c <- 0.9 c +
 and of the cell's scan (1 per layer step) and no other kernel, against
 the CPU program at θ = 0 over 50 frames and layer by layer in lockstep at
 θ = 0.25; in phase 6 their kernels' times at the main path's shapes,
-``delta_spmv`` also with a cold L2, and the engine profile of both paths.
+``delta_spmv`` (fp32 and bf16) per layer step at 0 %, ~10 % and 100 %
+fired, also with a cold L2, and the engine profile of both paths.
 
 The line before the last is ``{"kernels": [...]}`` (every kernel instance;
-the ``launches`` of an instance on no main path, a buffered one or
-``deltagru_act``, are those of phases 3 and 6, and its ``path`` names the
-entry that reaches it); the last line is ``{"ok": true, "device": {...}}``.
+the ``launches`` of an instance on no main path, a buffered one,
+``delta_spmv_bf16`` or ``deltagru_act``, are those of phases 3 and 6, and
+its ``path`` names the entry that reaches it); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -95,6 +101,11 @@ TOL_F32 = 1e-4
 # The head is a plain fp32 matmul (768 x 12) left to the library on each
 # device; the order of its sum differs between the card and the CPU.
 TOL_HEAD = 1e-5
+# bf16 delta_spmv against its plain version: the same exact fp32 products
+# (of bf16 values) summed in other orders, then one rounding to bf16 each,
+# so the two may land one bf16 step apart: at most 2**-7 of the result's
+# magnitude, held against max(1, max|plain|) like TOL_F32.
+TOL_BF16 = 2.0 ** -7
 # The LM paths against the CPU program, per state tensor and output, scaled
 # the same way: the error of one layer (matvecs over 2048 or 4096 products,
 # the WKV sum, group norm, which divides by a head's standard deviation and
@@ -322,14 +333,15 @@ def layer_inputs(rng, b, lay, fire, quant):
     return [a.astype(np.float32) for a in (m, h, c, dx, dh)], fired_cols
 
 
-def fired_inputs(rng, b, lay, fired, solo=False):
+def fired_inputs(rng, b, lay, fired, solo=False, quant=True):
     """Kernel inputs for one layer whose deltas fire exactly the column
     blocks ``fired`` in the union of the streams, dense inside a fired
-    block, on the Q8.8 grid. Each block has an owner, a stream drawn at
-    random, that fires it; every other stream fires it with odds of one
-    half, or, with ``solo``, none does and the owner is never stream 0 (at
-    ``b > 1``), so only the union over the streams finds the block.
-    Returns numpy arrays ``(m, h, c, dx, dh)``."""
+    block, on the Q8.8 grid (``m`` in the code domain) when ``quant``. Each
+    block has an owner, a stream drawn at random, that fires it; every
+    other stream fires it with odds of one half, or, with ``solo``, none
+    does and the owner is never stream 0 (at ``b > 1``), so only the union
+    over the streams finds the block. Returns numpy arrays
+    ``(m, h, c, dx, dh)``."""
     import numpy as np
     i_dim, h_dim, bk, ip = (lay.input_size, lay.hidden_size, lay.block_k,
                             lay.ip)
@@ -342,13 +354,17 @@ def fired_inputs(rng, b, lay, fired, solo=False):
                 d[s, blk * bk:(blk + 1) * bk] = rng.uniform(-1, 1, bk)
     d[:, i_dim:ip] = 0.0
     d[:, ip + h_dim:] = 0.0
-    d = np.round(d * 256) / 256
+    m = rng.normal(0, 1.0, (b, 4 * h_dim))
+    h = rng.uniform(-1, 1, (b, h_dim))
+    c = rng.uniform(-3, 3, (b, h_dim))
+    if quant:
+        d = np.round(d * 256) / 256
+        m = np.round(m * 256 * 32) / 256
+        h = np.round(h * 256) / 256
+        c = np.round(c * 256) / 256
     union = np.flatnonzero(d.reshape(b, k // bk, bk).any(axis=(0, 2)))
     if tuple(union) != tuple(fired):
         raise AssertionError(f"inputs fire {list(union)}, want {fired}")
-    m = np.round(rng.normal(0, 1.0, (b, 4 * h_dim)) * 256 * 32) / 256
-    h = np.round(rng.uniform(-1, 1, (b, h_dim)) * 256) / 256
-    c = np.round(rng.uniform(-3, 3, (b, h_dim)) * 256) / 256
     return [a.astype(np.float32) for a in
             (m, h, c, d[:, :i_dim], d[:, ip:ip + h_dim])]
 
@@ -451,6 +467,23 @@ def spmv_case(rng, i_dim, o_dim, b, fire):
             int((cols * union).sum()))
 
 
+def spmv_fired(rng, i_dim, o_dim, b, fired, solo=False):
+    """``delta_spmv`` deltas ``[b, i_dim]`` that fire exactly the 128-wide
+    column blocks ``fired`` in the union of the streams (owners drawn as in
+    ``fired_inputs``; the last block may be ragged), and an accumulator
+    ``[b, o_dim]``. Returns numpy ``(dx, acc)``."""
+    import numpy as np
+    d = np.zeros((b, -(-i_dim // 128) * 128))
+    for blk in fired:
+        owner = int(rng.integers(1 if solo and b > 1 else 0, b))
+        for s in range(b):
+            if s == owner or (not solo and rng.uniform() < 0.5):
+                d[s, blk * 128:(blk + 1) * 128] = rng.uniform(-1, 1, 128)
+    d = d[:, :i_dim]
+    acc = rng.normal(0, 1, (b, o_dim))
+    return d.astype(np.float32), acc.astype(np.float32)
+
+
 def lm_layer_lockstep(prog, cpu_prog, frames, theta, tree_to, tree_leaves):
     """Layer by layer, feed the card's and the CPU's copies of the program
     the same layer input and state (the card's), for every frame, and
@@ -512,7 +545,9 @@ def main() -> int:
                                           compile_deltagru)
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.delta_spmv import (delta_spmv, delta_spmv_ref,
-                                                pack_spmv_weights)
+                                                pack_spmv_weights,
+                                                spmv_launch_plan)
+    from repro_torch.kernels.delta_step_f32 import f32_step_plan
     from repro_torch.kernels.deltagru_cell import deltagru_act, deltagru_act_ref
     from repro_torch.kernels.rglru_scan import (rglru_scan,
                                                 rglru_scan_batched_ref)
@@ -610,25 +645,56 @@ def main() -> int:
     def same(xs, ys):
         return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(xs, ys))
 
+    def walk_sets(lay, u, b):
+        """The fired sets of the walk's tails: exactly 0, 1, U - 1, U, U + 1
+        and all column blocks (U: the blocks one unrolled group of the walk
+        covers), a group across the x/h seam and, at B > 1, every block
+        fired by one stream other than stream 0 alone. Returns the counts,
+        the seam group and ``(fired blocks, solo)`` pairs."""
+        nbk = lay.nbk
+        seam = tuple(range(max(0, lay.nbk_x - 2), min(nbk, lay.nbk_x + 2)))
+        counts = sorted({n for n in (0, 1, u - 1, u, u + 1, nbk)
+                         if 0 <= n <= nbk})
+        sets = [(tuple(sorted(rng.choice(nbk, n, replace=False))), False)
+                for n in counts] + [(seam, False)]
+        if b > 1:
+            sets.append((tuple(range(nbk)), True))
+        return counts, seam, sets
+
+    # fp32: the same tails, B = 1 (one-stream instance), 2, 8 (tile) and 9
+    # (two tile passes), within TOL_F32 of the plain version on the card
+    # and on the CPU
+    n_f32 = 0
     for (cell, be), prog in progs.items():
         if be != "fused":
             continue
         kern, ref = step_of[(cell, be)]
         for li, lay in enumerate(prog.layouts):
             lay_cpu = cpu_progs[(cell, be)].layouts[li]
-            for b in (1, 8):
-                for fire in (0.0, 0.1, 1.0):
-                    ins, _ = layer_inputs(rng, b, lay, fire, False)
-                    args = [torch.from_numpy(a) for a in ins]
+            for b in (1, 2, 8, 9):
+                plan = f32_step_plan(lay.block_k, lay.ip, lay.ip + lay.hk,
+                                     lay.hidden_size, b)
+                counts, seam, sets = walk_sets(lay, plan.blocks_per_group, b)
+                err = err_c = 0.0
+                for fired, solo in sets:
+                    args = [torch.from_numpy(a) for a in fired_inputs(
+                        rng, b, lay, fired, solo, quant=False)]
                     gpu = [a.to(dev) for a in args]
                     k = run_step(cell, kern, lay, gpu)
                     r = run_step(cell, ref, lay, gpu)
                     c = run_step(cell, ref, lay_cpu, args)
                     torch.cuda.synchronize()
-                    err = max_diff(k, r)
-                    check(kernel_of[(cell, be)].name,
-                          err <= TOL_F32 and max_diff(k, c) <= TOL_F32,
-                          err, f"layer {li} B={b} fire={fire}")
+                    err = max(err, max_diff(k, r))
+                    err_c = max(err_c, max_diff(k, c))
+                n_f32 += len(sets)
+                solo = ", every block in one stream > 0" if b > 1 else ""
+                check(kernel_of[(cell, be)].name,
+                      err <= TOL_F32 and err_c <= TOL_F32, err,
+                      f"layer {li} B={b} ({plan.instance}, "
+                      f"U={plan.blocks_per_group}): fired blocks {counts} of "
+                      f"{lay.nbk}, {list(seam)} across the seam{solo}, "
+                      f"within {TOL_F32} on the card and the CPU")
+    log(f"fp32 walk cases: {n_f32} fired sets")
 
     def q8_cases(cell, kern, ref, lay, lay_cpu, b, fired_sets):
         """The unbuffered and buffered step on each fired set, against the
@@ -670,19 +736,12 @@ def main() -> int:
         for li, lay in enumerate(prog.layouts):
             lay_cpu = cpu_progs[(cell, be)].layouts[li]
             nbk = lay.nbk
-            seam = tuple(range(max(0, lay.nbk_x - 2),
-                               min(nbk, lay.nbk_x + 2)))
             for b in (1, 2, 8, 9):
                 plan = q8_launch_plan(gates, lay.weight_bits, lay.block_k,
                                       lay.ip, lay.ip + lay.hk,
                                       lay.hidden_size, b, False)
                 u = plan.blocks_per_group
-                counts = sorted({n for n in (0, 1, u - 1, u, u + 1, nbk)
-                                 if n <= nbk})
-                sets = [(tuple(sorted(rng.choice(nbk, n, replace=False))),
-                         False) for n in counts] + [(seam, False)]
-                if b > 1:
-                    sets.append((tuple(range(nbk)), True))
+                counts, seam, sets = walk_sets(lay, u, b)
                 ok, ok_b, err, err_b = q8_cases(cell, kern, ref, lay,
                                                 lay_cpu, b, sets)
                 n_q8 += len(sets)
@@ -724,73 +783,112 @@ def main() -> int:
         check(buffered[("lstm", be)].name, same(kb, k) and same(kb, c),
               max_diff(kb, r), "saturating c")
 
-    # a narrow layout: block_k = 8 (block rows of 8 bytes at int8, 4 at
-    # int4) at the first layer's shape runs the narrow-load instance, and
-    # the buffered form refuses it (its tensor copies move 16-byte rows)
+    # narrow layouts at the first layer's shape: block rows that are not a
+    # multiple of 16 bytes run the narrow-load instance, and the buffered
+    # form fills its ring without tensor copies: cp.async of 8 bytes (int8
+    # block_k 8, int4 block_k 16), of 4 bytes (int8 block_k 4) or 2-byte
+    # copies (int4 block_k 4). Each bitwise against the plain version on
+    # the card and the CPU, the buffered form against the unbuffered one
+    narrow = {8: (8, 4), 4: (16, 4)}
     for cell in ("gru", "lstm"):
         gates = 3 if cell == "gru" else 4
         kern, ref = step_of[(cell, "fused_q8")]
         p0 = models_cpu[cell][cell][0]
-        for bits in (8, 4):
-            lay_cpu = pack_delta_weights_q8(p0.w_x, p0.w_h, p0.b,
-                                            gates=gates, block_k=8,
-                                            weight_bits=bits)
-            lay = lay_cpu.to(dev)
-            nbk = lay.nbk
-            counts = (0, 1, 5, nbk)
-            ok, err = True, 0.0
-            for b in (1, 9):
-                plan = q8_launch_plan(gates, bits, 8, lay.ip,
-                                      lay.ip + lay.hk, lay.hidden_size, b,
-                                      False)
-                for n in counts:
-                    fired = tuple(sorted(rng.choice(nbk, n, replace=False)))
-                    args = [torch.from_numpy(a)
-                            for a in fired_inputs(rng, b, lay, fired)]
-                    gpu = [a.to(dev) for a in args]
-                    k = run_step(cell, kern, lay, gpu)
-                    r = run_step(cell, ref, lay, gpu)
-                    c = run_step(cell, ref, lay_cpu, args)
-                    torch.cuda.synchronize()
-                    ok = (ok and plan.instance == "narrow" and same(k, r)
-                          and same(k, c))
-                    err = max(err, max_diff(k, r))
-            try:
-                run_step(cell, functools.partial(kern, buffered=True), lay,
-                         gpu)
-                refused = False
-            except ValueError:
-                refused = True
-            check(ops.q8_kernel(gates, bits, False).name, ok and refused, err,
-                  f"narrow layout block_k=8 ({plan.vector_bytes}-byte "
-                  f"loads), B in (1, 9), fired blocks {list(counts)} of "
-                  f"{nbk}: bitwise on the card and the CPU; buffered "
-                  f"refused {refused}")
+        for bits, block_ks in narrow.items():
+            for block_k in block_ks:
+                lay_cpu = pack_delta_weights_q8(p0.w_x, p0.w_h, p0.b,
+                                                gates=gates, block_k=block_k,
+                                                weight_bits=bits)
+                lay = lay_cpu.to(dev)
+                nbk = lay.nbk
+                counts = (0, 1, 5, nbk)
+                sets = [(tuple(sorted(rng.choice(nbk, n, replace=False))),
+                         False) for n in counts]
+                ok = ok_b = True
+                err = err_b = 0.0
+                for b in (1, 9):
+                    plan = q8_launch_plan(gates, bits, block_k, lay.ip,
+                                          lay.ip + lay.hk, lay.hidden_size,
+                                          b, True)
+                    o, o_b, e, e_b = q8_cases(cell, kern, ref, lay, lay_cpu,
+                                              b, sets)
+                    ok = ok and o and plan.instance == "narrow"
+                    ok_b = ok_b and o_b
+                    err, err_b = max(err, e), max(err_b, e_b)
+                what = (f"narrow layout block_k={block_k} "
+                        f"({plan.vector_bytes}-byte loads), B in (1, 9), "
+                        f"fired blocks {list(counts)} of {nbk}: bitwise on "
+                        f"the card and the CPU")
+                check(ops.q8_kernel(gates, bits, False).name, ok, err, what)
+                check(ops.q8_kernel(gates, bits, True).name, ok_b, err_b,
+                      f"{what}, the ring filled by {plan.fill} "
+                      f"({plan.copy_bytes} B), equal to the unbuffered "
+                      f"kernel")
 
     # the LM-path kernels: delta_spmv at the RWKV6 and RG-LRU layer shapes
-    # ([I -> O]; the decay LoRA's 64 rows in a 128-padded layout) and two
-    # unpacked ragged edges (16-byte and 4-byte row loads)
+    # ([I -> O]; the decay LoRA's 64 rows in a 128-padded layout, whose k
+    # blocks the plan splits over a cluster), two unpacked ragged edges
+    # (I = 1000: 16-byte loads, the last block masked; I = 999: ldw % 4 != 0,
+    # the narrow instance) and a narrow split (I = 1002 -> 130), fp32 and
+    # bf16, B in {1, 2, 8, 9}, on exactly 0, 1, U - 1, U, U + 1 and all
+    # fired blocks (U: the blocks one unrolled group of the walk covers)
+    # and, at B > 1, every block fired by one stream other than stream 0
+    # alone; every case launched twice, the two results bitwise equal
     spmv_shapes = [("2048->2048", 2048, 2048, True),
                    ("2048->64", 2048, 64, True),
                    ("4096->4096", 4096, 4096, True),
                    ("1000->999 unpacked", 1000, 999, False),
-                   ("999->1000 unpacked", 999, 1000, False)]
+                   ("999->1000 unpacked", 999, 1000, False),
+                   ("1002->130 unpacked", 1002, 130, False)]
+    spmv_kinfo = {torch.float32: (ops.DELTA_SPMV_F32, TOL_F32),
+                  torch.bfloat16: (ops.DELTA_SPMV_BF16, TOL_BF16)}
+    spmv_kinfo_all = [k for k, _ in spmv_kinfo.values()]
+    n_spmv = 0
     for label, i_dim, o_dim, packed in spmv_shapes:
-        for b in (1, 8):
-            for fire in (0.0, 0.1, 1.0):
-                w, dx, acc, _ = spmv_case(rng, i_dim, o_dim, b, fire)
-                w, dx, acc = (torch.from_numpy(a) for a in (w, dx, acc))
-                w_op = pack_spmv_weights(w) if packed else w
-                gpu = [a.to(dev) for a in (w_op, dx, acc)]
-                k = delta_spmv(*gpu, packed=packed,
-                               out_dim=o_dim if packed else None)
-                r = delta_spmv_ref(w.to(dev), gpu[1], gpu[2])
-                c = delta_spmv_ref(w, dx, acc)
-                torch.cuda.synchronize()
-                check(ops.DELTA_SPMV_F32.name,
-                      scaled_err(k, r) <= TOL_F32
-                      and scaled_err(k, c) <= TOL_F32,
-                      max_diff([k], [r]), f"[{label}] B={b} fire={fire}")
+        w32 = torch.from_numpy(rng.normal(0, i_dim ** -0.5, (
+            o_dim, i_dim)).astype(np.float32))
+        nbk = -(-i_dim // 128)
+        for dtype, (kinfo, tol) in spmv_kinfo.items():
+            w = w32.to(dtype)
+            w_op = (pack_spmv_weights(w) if packed else w).to(dev)
+            w_dev = w.to(dev)
+            for b in (1, 2, 8, 9):
+                plan = spmv_launch_plan(o_dim, i_dim, w_op.shape[1], 128, b,
+                                        dtype)
+                u = plan.blocks_per_group
+                counts = sorted({n for n in (0, 1, u - 1, u, u + 1, nbk)
+                                 if 0 <= n <= nbk})
+                sets = [(tuple(sorted(rng.choice(nbk, n, replace=False))),
+                         False) for n in counts]
+                if b > 1:
+                    sets.append((tuple(range(nbk)), True))
+                err = err_c = err_abs = 0.0
+                twice = True
+                for fired, solo in sets:
+                    dx, acc = (torch.from_numpy(a).to(dtype) for a in
+                               spmv_fired(rng, i_dim, o_dim, b, fired, solo))
+                    gpu = [w_op, dx.to(dev), acc.to(dev)]
+                    kw = dict(packed=packed, out_dim=o_dim if packed else None)
+                    k = delta_spmv(*gpu, **kw)
+                    k2 = delta_spmv(*gpu, **kw)
+                    r = delta_spmv_ref(w_dev, gpu[1], gpu[2])
+                    c = delta_spmv_ref(w, dx, acc)
+                    torch.cuda.synchronize()
+                    err = max(err, scaled_err(k.float(), r.float()))
+                    err_c = max(err_c, scaled_err(k.float(), c.float()))
+                    err_abs = max(err_abs, max_diff([k.float()], [r.float()]))
+                    twice = (twice and torch.equal(k, k2)
+                             and k.dtype == r.dtype == c.dtype)
+                n_spmv += len(sets)
+                solo = ", every block in one stream > 0" if b > 1 else ""
+                check(kinfo.name, err <= tol and err_c <= tol and twice,
+                      err_abs,
+                      f"[{label}] B={b} ({plan.instance}, split "
+                      f"{plan.split}, U={u}): fired blocks {counts} of "
+                      f"{nbk}{solo}, within {tol:.3g} of max(1, |plain|) on "
+                      f"the card and the CPU (scaled {max(err, err_c):.3e}), "
+                      f"two launches bitwise equal {twice}")
+    log(f"delta_spmv walk cases: {n_spmv} fired sets, each launched twice")
     for b in (1, 8):
         for t in (1, 37, 128):
             shape = (b, 32, t, 64)
@@ -1129,14 +1227,13 @@ def main() -> int:
                 f"({row['bytes']} B), launch floor {floor['ms']:.5f} ms "
                 f"[{smi}]")
         rows[kinfo.name] = row               # the 100 % firing row
-        if be == "fused":
-            continue
         # the tile instance (8 streams a pass), as the 8-slot batcher
         # launches it: each stream fires ``fire`` of the blocks on its own
         for fire in (0.1, 1.0):
             tile = {"ms": 0.0, "bytes": 0}
             for lay in progs[(cell, be)].layouts:
-                ins, fired_cols = layer_inputs(rng, 8, lay, fire, True)
+                ins, fired_cols = layer_inputs(rng, 8, lay, fire,
+                                               be != "fused")
                 gpu = [torch.from_numpy(a).to(dev) for a in ins]
                 tile["ms"] += device_ms(lambda: run_step(cell, kern, lay, gpu))
                 tile["bytes"] += step_bytes(cell, be, lay, fired_cols, 8)
@@ -1156,45 +1253,59 @@ def main() -> int:
              else rng.uniform(lo, 1.0, shape))
         return torch.from_numpy(a.astype(np.float32)).to(dev)
 
-    # delta_spmv: the four calls of one layer step of each LM cell, warm
-    # (CUDA-graph replay) and with the L2 flushed before each call
+    # delta_spmv: the four calls of one layer step of each LM cell at 0 %,
+    # ~10 % and 100 % fired, warm (CUDA-graph replay) and with the L2
+    # flushed before each call; fp32 (the main path's) and bf16 weights,
+    # deltas and accumulator (its addmm in bf16 as library_ms, 2 bytes a
+    # weight in the bound)
     lm_shapes = {"rwkv6": [(2048, 2048)] * 3 + [(2048, 64)],
                  "rglru": [(4096, 4096)] * 4}
-    spmv_row = {"ms": 0.0, "cold_ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0,
-                "library_ms": 0.0, "bytes": 0, "ops": 0}
-    for cell, shapes in lm_shapes.items():
-        for fire in (0.1, 1.0):
-            row = dict.fromkeys(spmv_row, 0.0)
-            for i_dim, o_dim in shapes:
-                w, dx, acc, fired_cols = spmv_case(rng, i_dim, o_dim, 1, fire)
-                wp = pack_spmv_weights(torch.from_numpy(w)).to(dev)
-                w, dx, acc = (torch.from_numpy(a).to(dev)
-                              for a in (w, dx, acc))
+    for dtype, (kinfo, _) in spmv_kinfo.items():
+        size = dtype.itemsize
+        spmv_row = {"ms": 0.0, "cold_ms": 0.0, "eager_ms": 0.0,
+                    "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
+        for cell, shapes in lm_shapes.items():
+            for fire in (0.0, 0.1, 1.0):
+                row = dict.fromkeys(spmv_row, 0.0)
+                calls = []
+                for i_dim, o_dim in shapes:
+                    w, dx, acc, fired_cols = spmv_case(rng, i_dim, o_dim, 1,
+                                                       fire)
+                    wp = pack_spmv_weights(torch.from_numpy(w)).to(
+                        dtype=dtype, device=dev)
+                    w, dx, acc = (torch.from_numpy(a).to(dtype=dtype,
+                                                         device=dev)
+                                  for a in (w, dx, acc))
 
-                def kern():
-                    return delta_spmv(wp, dx, acc, packed=True, out_dim=o_dim)
+                    def kern():
+                        return delta_spmv(wp, dx, acc, packed=True,
+                                          out_dim=o_dim)
 
-                row["ms"] += device_ms(kern)
-                row["cold_ms"] += device_ms_cold(kern)
-                row["eager_ms"] += eager_ms(kern)
-                row["plain_ms"] += device_ms(
-                    lambda: delta_spmv_ref(w, dx, acc))
-                row["library_ms"] += device_ms(lambda: torch.addmm(acc, dx,
-                                                                   w.T))
-                row["bytes"] += 4 * (o_dim * fired_cols + i_dim + 2 * o_dim)
-                row["ops"] += 2 * o_dim * fired_cols
-            bound(row)
-            log(f"time delta_spmv_f32 {cell} layer step (4 calls) B=1 "
-                f"fire={fire}: kernel {row['ms']:.5f} ms warm, "
-                f"{row['cold_ms']:.5f} ms with a cold L2 "
-                f"({row['eager_ms']:.4f} ms launched from Python), plain "
-                f"{row['plain_ms']:.5f} ms, addmm {row['library_ms']:.5f} "
-                f"ms, bound {row['bound_ms']:.5f} ms ({int(row['bytes'])} B, "
-                f"{row['bound_by']}) [{smi}]")
-        for key in spmv_row:                 # the 100 % firing rows, summed
-            spmv_row[key] += row[key]
-    bound(spmv_row)
-    rows[spmv.name] = spmv_row
+                    calls.append(device_ms(kern))
+                    row["ms"] += calls[-1]
+                    row["cold_ms"] += device_ms_cold(kern)
+                    row["eager_ms"] += eager_ms(kern)
+                    row["plain_ms"] += device_ms(
+                        lambda: delta_spmv_ref(w, dx, acc))
+                    row["library_ms"] += device_ms(
+                        lambda: torch.addmm(acc, dx, w.T))
+                    row["bytes"] += size * (o_dim * fired_cols + i_dim
+                                            + 2 * o_dim)
+                    row["ops"] += 2 * o_dim * fired_cols
+                bound(row)
+                log(f"time {kinfo.name} {cell} layer step (4 calls) B=1 "
+                    f"fire={fire}: kernel {row['ms']:.5f} ms warm "
+                    f"(calls {', '.join(f'{c:.5f}' for c in calls)} ms), "
+                    f"{row['cold_ms']:.5f} ms with a cold L2 "
+                    f"({row['eager_ms']:.4f} ms launched from Python), plain "
+                    f"{row['plain_ms']:.5f} ms, addmm "
+                    f"{row['library_ms']:.5f} ms, bound "
+                    f"{row['bound_ms']:.5f} ms ({int(row['bytes'])} B, "
+                    f"{row['bound_by']}) [{smi}]")
+            for key in spmv_row:             # the 100 % firing rows, summed
+                spmv_row[key] += row[key]
+        bound(spmv_row)
+        rows[kinfo.name] = spmv_row
 
     # the scans and the activation at the main path's shapes, B = 1; no
     # single PyTorch call computes any of the three (library_ms null)
@@ -1228,10 +1339,9 @@ def main() -> int:
             f"({nbytes} B, {row['bound_by']}) [{smi}]")
 
     phase6 = ops.launch_counts()
-    for kinfo in buffered.values():
-        launches[kinfo.name] = phase3[kinfo.name] + phase6[kinfo.name]
-    act = ops.DELTAGRU_ACT_F32.name
-    launches[act] = phase3[act] + phase6[act]
+    for name in ([k.name for k in buffered.values()]
+                 + [ops.DELTA_SPMV_BF16.name, ops.DELTAGRU_ACT_F32.name]):
+        launches[name] = phase3[name] + phase6[name]
 
     for (cell, be), prog in progs.items():
         path = f"{cell} {be}"
@@ -1266,14 +1376,13 @@ def main() -> int:
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": "bytes", "library_ms": row["library_ms"],
                  "eager_ms": row["eager_ms"], "cold_ms": row["cold_ms"]}
-        if be != "fused":
-            entry["launch_floor_ms"] = floor["ms"]
-            entry["tile_ms"] = row["tile_ms"]
+        entry["launch_floor_ms"] = floor["ms"]
+        entry["tile_ms"] = row["tile_ms"]
         if kinfo in buffered.values():
             entry["path"] = buffered_path[cell]
         entries.append(entry)
-    for kinfo in (ops.DELTA_SPMV_F32, ops.RGLRU_SCAN_F32, ops.RWKV6_SCAN_F32,
-                  ops.DELTAGRU_ACT_F32):
+    for kinfo in (ops.DELTA_SPMV_F32, ops.DELTA_SPMV_BF16, ops.RGLRU_SCAN_F32,
+                  ops.RWKV6_SCAN_F32, ops.DELTAGRU_ACT_F32):
         row = rows[kinfo.name]
         entry = {"name": kinfo.name, "route": "cuda", "source": kinfo.source,
                  "replaces": kinfo.replaces,
@@ -1283,8 +1392,11 @@ def main() -> int:
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"],
                  "eager_ms": row["eager_ms"]}
-        if kinfo is ops.DELTA_SPMV_F32:
+        if kinfo in spmv_kinfo_all:
             entry["cold_ms"] = row["cold_ms"]
+        if kinfo is ops.DELTA_SPMV_BF16:
+            entry["path"] = ("repro_torch.kernels.delta_spmv.delta_spmv on "
+                             "bf16 weights")
         if kinfo is ops.DELTAGRU_ACT_F32:
             entry["path"] = "repro_torch.kernels.ops.deltagru_cell_fused"
         entries.append(entry)

@@ -67,14 +67,20 @@
 //   run the same walk on shared memory, wait on each stage's parity and
 //   release it through a second mbarrier. The ring holds two unrolled groups
 //   of the walk, so the copies of the next group fly while the warps sum the
-//   current one. Nothing is copied when nothing fired. The tensor copies
-//   need 16-byte rows and blocks (the host refuses others). On the H100 with
-//   the weights in L2 they arrive later than the plain walk's loads, at low
-//   and at full firing (PERF.md); the form is kept for parity with the JAX
-//   package's buffered kernels.
+//   current one. Nothing is copied when nothing fired. On the H100 with the
+//   weights in L2 the tensor copies arrive later than the plain walk's
+//   loads, at low and at full firing (PERF.md); the form is kept for parity
+//   with the JAX package's buffered kernels.
 // - Layouts whose block row is not a multiple of 16 bytes (int8 block_k 8 or
 //   4, int4 block_k below 32 or not a multiple of 32) run a narrow-load
 //   instance of the same template: 4 bytes (int8) or 2 bytes (int4) a lane.
+//   Their buffered form cannot use tensor copies (16-byte rows); the whole
+//   producer warp fills the same ring with cp.async copies of the widest of
+//   8 or 4 bytes that divides the block row and the row stride, each lane's
+//   copies completing on the stage's mbarrier (cp.async.mbarrier.arrive.
+//   noinc), or, where a block row is 2 bytes wide (int4 block_k 4), with
+//   plain loads and shared stores before a plain arrive. The consumers run
+//   the narrow walk on the ring.
 // Codes decode to floats exactly without a conversion instruction: a byte u
 // (biased to unsigned) placed under the exponent bits 0x4B00 is 2^23 + u, and
 // one add takes the bias off. The stage after the sum keeps the JAX package's
@@ -107,6 +113,8 @@ constexpr float kBias8 = 8388736.0f;  // 2^23 + 128
 constexpr float kBias4 = 8388616.0f;  // 2^23 + 8
 
 enum Instance { kOneStream = 0, kTile = 1, kNarrow = 2 };
+// how the producer of the buffered form fills a ring stage
+enum Fill { kFillTensor = 0, kFillAsync = 1, kFillCopy = 2 };
 
 struct Grid {  // a Qm.n grid: round(v * scale) / scale, clipped to [lo, hi]
   float scale, lo, hi;
@@ -137,7 +145,9 @@ struct StepArgs {
   const float *scales, *b4, *m_prev, *s_prev, *dx, *dh;
   float *m_out, *h_out, *c_out;
   int B, I, H, Hp, K, ip, block_k, chunk, stages;
-  int box;  // bytes of a tensor copy's box row (buffered form)
+  int box;         // bytes of a tensor copy's box row (kFillTensor)
+  int fill;        // Fill of the buffered form
+  int copy_bytes;  // bytes of one copy (kFillAsync: 8 or 4; kFillCopy: 2)
   Grid act, lut;
 };
 
@@ -220,6 +230,26 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
+// One 8- or 4-byte copy from global to shared memory, asynchronous.
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int bytes) {
+  if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+}
+
+// Arrive on mbarrier bar once this thread's earlier cp.async copies have
+// landed (the arrival is one of the barrier's expected count).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
 // One tensor copy of the box at coordinates (x0, x1, x2, x3) of the
 // tensor map into shared memory at dst, completing on mbarrier bar.
 __device__ __forceinline__ void tma_load_4d(uint32_t dst,
@@ -253,9 +283,11 @@ __device__ __forceinline__ void load_vec(const int8_t* p,
     r[2] = v.z;
     r[3] = v.w;
   } else if constexpr (VW == 4) {
-    r[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+    r[0] = SMEM ? *reinterpret_cast<const unsigned int*>(p)
+                : __ldg(reinterpret_cast<const unsigned int*>(p));
   } else {
-    r[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+    r[0] = SMEM ? *reinterpret_cast<const unsigned short*>(p)
+                : __ldg(reinterpret_cast<const unsigned short*>(p));
   }
 }
 
@@ -449,6 +481,45 @@ __device__ __forceinline__ void produce(const StepArgs& a,
   }
 }
 
+// The producer of a narrow buffered layout (the whole last warp): for each
+// fired block in order, wait until its stage is free, copy the block's
+// [G][kRows][wbk] codes in copy_bytes pieces spread over the lanes (cp.async,
+// or loads and shared stores at 2 bytes), and arrive on the stage's full
+// barrier, whose count is the warp's 32 lanes (rows past Hp are not read).
+template <int G, int BITS>
+__device__ __forceinline__ void produce_copies(const StepArgs& a,
+                                               const Ring& ring,
+                                               const int* ids, int n, int o0,
+                                               int lane) {
+  const int wbk = BITS == 8 ? a.block_k : a.block_k >> 1;
+  const size_t row = BITS == 8 ? (size_t)a.K : (size_t)a.K / 2;
+  const int cw = a.copy_bytes;
+  const int parts = wbk / cw;  // copies a block row takes
+  const int total = G * kRows * parts;
+  int8_t* ring_base = const_cast<int8_t*>(ring.base);
+  for (int j = 0; j < n; ++j) {
+    const int q = ring.qbase + j, s = q % ring.stages;
+    if (q >= ring.stages)
+      mbar_wait(ring.empty + 8 * s, ((q / ring.stages) - 1) & 1);
+    const int8_t* blk = a.w_q + (size_t)ids[j] * wbk;
+    int8_t* stage = ring_base + (size_t)s * ring.stage_bytes;
+    for (int e = lane; e < total; e += 32) {
+      const int r = e / parts, part = e - r * parts;  // r = g * kRows + row
+      const int g = r / kRows, o = o0 + (r - g * kRows);
+      if (o >= a.Hp) continue;
+      const int8_t* src = blk + ((size_t)g * a.Hp + o) * row + part * cw;
+      int8_t* dst = stage + r * wbk + part * cw;
+      if (a.fill == kFillAsync)
+        cp_async(smem_u32(dst), src, cw);
+      else
+        *reinterpret_cast<unsigned short*>(dst) =
+            __ldg(reinterpret_cast<const unsigned short*>(src));
+    }
+    if (a.fill == kFillAsync) cp_async_arrive(ring.full + 8 * s);
+    else mbar_arrive(ring.full + 8 * s);
+  }
+}
+
 template <int G, int BITS, int VW, int NB, bool BUF>
 __global__ void __launch_bounds__((kRows + BUF) * 32)
     delta_q8_kernel(const StepArgs a, const __grid_constant__ CUtensorMap map) {
@@ -478,13 +549,13 @@ __global__ void __launch_bounds__((kRows + BUF) * 32)
     ring.empty = ring.full + 8 * a.stages;
     if (threadIdx.x == 0) {
       for (int s = 0; s < a.stages; ++s) {
-        mbar_init(ring.full + 8 * s, 1);
+        mbar_init(ring.full + 8 * s, a.fill == kFillTensor ? 1 : 32);
         mbar_init(ring.empty + 8 * s, n_rows);
       }
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     // the tensor map's fetch overlaps the prologue
-    if (warp == kRows && lane == 0)
+    if (a.fill == kFillTensor && warp == kRows && lane == 0)
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                        reinterpret_cast<uint64_t>(&map))
                    : "memory");
@@ -525,7 +596,10 @@ __global__ void __launch_bounds__((kRows + BUF) * 32)
     for (int bb = 0; bb < NB; ++bb) acc[bb] = acc_h[bb] = 0.0f;
     if constexpr (BUF) {
       if (warp == kRows) {
-        if (lane == 0) produce<G, BITS>(a, &map, ring, ids, n, o0);
+        if (a.fill != kFillTensor)
+          produce_copies<G, BITS>(a, ring, ids, n, o0, lane);
+        else if (lane == 0)
+          produce<G, BITS>(a, &map, ring, ids, n, o0);
       } else if (consumer) {
         walk<G, BITS, VW, NB, true>(a, ring, warp, ids, n, d_s, stride, bc,
                                     o, lane, acc, acc_h);
@@ -633,7 +707,10 @@ int launch_bits(const StepArgs& a, const CUtensorMap& map, int instance,
                 int buffered, int smem, int device, cudaStream_t s) {
   constexpr int narrow = BITS == 8 ? 4 : 2;
   if (instance == kNarrow)
-    return launch<G, BITS, narrow, kMaxB, false>(a, map, smem, device, s);
+    return buffered
+               ? launch<G, BITS, narrow, kMaxB, true>(a, map, smem, device, s)
+               : launch<G, BITS, narrow, kMaxB, false>(a, map, smem, device,
+                                                       s);
   if (instance == kOneStream)
     return buffered ? launch<G, BITS, 16, 1, true>(a, map, smem, device, s)
                     : launch<G, BITS, 16, 1, false>(a, map, smem, device, s);
@@ -696,8 +773,8 @@ int dispatch(StepArgs a, int weight_bits, int buffered, int instance,
   if (instance == kOneStream ? a.chunk != 1
                              : (a.chunk < 1 || a.chunk > kMaxB))
     return (int)cudaErrorInvalidValue;
-  if (buffered ? (!wide || a.stages < 3 ||
-                  a.stages < blocks_per_group(wbk / 16))
+  const int vw = wide ? 16 : (weight_bits == 8 ? 4 : 2);
+  if (buffered ? (a.stages < 3 || a.stages < blocks_per_group(wbk / vw))
                : a.stages != 0)
     return (int)cudaErrorInvalidValue;
   const SmemLayout ly = smem_layout(G, wbk, a.K, a.block_k, a.chunk,
@@ -705,9 +782,23 @@ int dispatch(StepArgs a, int weight_bits, int buffered, int instance,
   if ((size_t)smem != ly.total) return (int)cudaErrorInvalidValue;
   CUtensorMap map{};
   if (buffered) {
-    a.box = box_bytes(wbk);
-    const int err = encode_map(&map, a, G, wbk);
-    if (err) return err;
+    // tensor copies for 16-byte block rows; else the widest cp.async that
+    // divides the block row and the row stride, else 2-byte plain copies
+    const int row = weight_bits == 8 ? a.K : a.K / 2;
+    a.fill = kFillCopy;
+    a.copy_bytes = 2;
+    for (int cw = 16; cw >= 4; cw /= 2) {
+      if (wbk % cw == 0 && row % cw == 0) {
+        a.fill = cw == 16 ? kFillTensor : kFillAsync;
+        a.copy_bytes = cw;
+        break;
+      }
+    }
+    if (a.fill == kFillTensor) {
+      a.box = box_bytes(wbk);
+      const int err = encode_map(&map, a, G, wbk);
+      if (err) return err;
+    }
   }
   const cudaStream_t s = (cudaStream_t)stream;
   return weight_bits == 8
@@ -726,7 +817,7 @@ StepArgs step_args(const void* w_q, const void* scales, const void* b4,
                   (const float*)m_prev, (const float*)s_prev,
                   (const float*)dx, (const float*)dh, (float*)m_out,
                   (float*)h_out, (float*)c_out, B, I, H, Hp, K, ip, block_k,
-                  chunk, stages, 0, Grid{act_scale, act_min, act_max},
+                  chunk, stages, 0, 0, 0, Grid{act_scale, act_min, act_max},
                   Grid{lut_scale, lut_min, lut_max}};
 }
 
@@ -740,9 +831,9 @@ StepArgs step_args(const void* w_q, const void* scales, const void* b4,
 //   instance (0 one-stream, 1 tile, 2 narrow), chunk (streams a pass),
 //   stages (0 unless buffered), smem (dynamic shared memory, bytes)
 //   and device (the current device's index) are the host's launch plan.
-// Requires block_k % 4 == 0 and K % block_k == 0; buffered also needs block
-// widths in bytes that are multiples of 16. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a plan the kernel cannot run.
+// Requires block_k % 4 == 0 and K % block_k == 0. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a plan the kernel cannot
+// run.
 extern "C" int delta_q8_gru_step(
     const void* w_q, const void* scales, const void* b4, const void* m_prev,
     const void* h_prev, const void* dx, const void* dh, void* m_out,

@@ -320,8 +320,13 @@ class Q8LaunchPlan:
     2-byte (int4) loads, any B). ``chunk``: streams a pass.
     ``blocks_per_group``: the fired blocks one unrolled group of the walk
     covers (``Q8_UNROLL`` steps a lane, each 8 vectors of a gate row).
-    ``stages``: the buffered form's ring (0 unbuffered), one tensor copy a
-    stage. ``smem``: dynamic shared memory in bytes. ``device``: the CUDA
+    ``stages``: the buffered form's ring (0 unbuffered), one fired block a
+    stage. ``fill``: how the buffered form fills a stage (``"none"``
+    unbuffered): ``"tensor"``, one tensor copy (16-byte block rows);
+    ``"cp.async"``, copies of ``copy_bytes`` (8 or 4, the widest that
+    divides the block row and the row stride) spread over the producer
+    warp; ``"copy"``, 2-byte loads and shared stores (int4 block rows of 2
+    bytes). ``smem``: dynamic shared memory in bytes. ``device``: the CUDA
     device index (-1 for none)."""
 
     instance: str
@@ -333,6 +338,8 @@ class Q8LaunchPlan:
     vector_bytes: int
     blocks_per_group: int
     device: int
+    fill: str = "none"
+    copy_bytes: int = 0
 
 
 def _kpad(k: int) -> int:
@@ -362,20 +369,19 @@ def q8_launch_plan(gates: int, weight_bits: int, block_k: int, ip: int,
     over ``k = ip + hk`` packed columns, ``b`` streams; computed once per
     geometry, ``b``, ``buffered`` and device and cached, so a launch makes
     no CUDA API query. Raises ``ValueError`` for what no instance takes:
-    ``block_k`` not a multiple of 4, a buffered layout whose row stride or
-    block width is not a multiple of 16 bytes (the tensor copies of the
-    ring), or deltas of one stream that do not fit ``SMEM_OPTIN_BYTES``."""
+    ``block_k`` not a multiple of 4, or deltas of one stream that do not
+    fit ``SMEM_OPTIN_BYTES``."""
     if block_k % 4 or k % block_k or ip % block_k:
         raise ValueError(f"the int8/int4 kernels take block_k a multiple of "
                          f"4 dividing ip={ip} and k={k}; got {block_k}")
     wk = k // 2 if weight_bits == 4 else k
     wbk = block_k // 2 if weight_bits == 4 else block_k
     wide = wbk % 16 == 0
-    if buffered and (wk % 16 or wbk % 16):
-        raise ValueError(
-            f"buffered=True streams weight blocks in 16-byte copies; the "
-            f"row stride ({wk} B) and the block width ({wbk} B) must be "
-            f"multiples of 16")
+    fill, copy_bytes = "none", 0
+    if buffered:
+        copy_bytes = next((c for c in (16, 8, 4)
+                           if wbk % c == 0 and wk % c == 0), 2)
+        fill = {16: "tensor", 2: "copy"}.get(copy_bytes, "cp.async")
     vector = 16 if wide else (4 if weight_bits == 8 else 2)
     per_block = wbk // vector          # vectors a gate row has in a block
     span = 8 * Q8_UNROLL               # vectors a gate's lanes walk a group
@@ -402,7 +408,7 @@ def q8_launch_plan(gates: int, weight_bits: int, block_k: int, ip: int,
                         grid=-(-hidden // Q8_ROWS), threads=32 * warps,
                         vector_bytes=vector,
                         blocks_per_group=max(1, span // per_block),
-                        device=device)
+                        device=device, fill=fill, copy_bytes=copy_bytes)
 
 
 def _q8_fn(cell: str):

@@ -19,17 +19,15 @@ re-exports its LSTM spellings (:class:`QuantLstmLayout`,
 """
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import torch
 
-from repro_torch.kernels import _build
 from repro_torch.kernels.delta_q8 import (  # noqa: F401  (re-exports)
     N_MEM, QuantDeltaLayout, _GruBlockGeometry, deltalstm_q8_step,
     deltalstm_q8_step_ref, layout_to, pack_cat_volume, pack_delta_weights_q8)
-from repro_torch.kernels.ops import (DELTALSTM_SEQ_F32, cuda_stream,
-                                     launches_kernel, require)
+from repro_torch.kernels.delta_step_f32 import launch_f32_step
+from repro_torch.kernels.ops import launches_kernel
 
 # LSTM-pinned alias of the shared quantized layout (``gates=4`` instances).
 QuantLstmLayout = QuantDeltaLayout
@@ -96,40 +94,7 @@ def deltalstm_seq_step(layout: FusedLstmLayout, m_prev: torch.Tensor,
     """
     if not launches_kernel(layout.w, m_prev, h_prev, c_prev, dx, dh):
         return deltalstm_seq_step_ref(layout, m_prev, h_prev, c_prev, dx, dh)
-    return _launch_f32(layout, m_prev, c_prev, dx, dh)
-
-
-def _f32_fn():
-    fn = _build.load("deltalstm_seq.cu").deltalstm_seq_step_f32
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch_f32(layout: FusedLstmLayout, m_prev, c_prev, dx, dh):
-    b, h_dim, i_dim = dx.shape[0], layout.hidden_size, layout.input_size
-    k = layout.ip + layout.hk
-    f32 = torch.float32
-    require(layout.w, "w", f32, (4, layout.hp, k))
-    require(m_prev, "m_prev", f32, (b, N_MEM * h_dim))
-    require(c_prev, "c_prev", f32, (b, h_dim))
-    require(dx, "dx", f32, (b, i_dim))
-    require(dh, "dh", f32, (b, h_dim))
-    m_out = torch.empty_like(m_prev)
-    h_out = torch.empty_like(c_prev)
-    c_out = torch.empty_like(c_prev)
-    err = _f32_fn()(
-        layout.w.data_ptr(), m_prev.data_ptr(), c_prev.data_ptr(),
-        dx.data_ptr(), dh.data_ptr(), m_out.data_ptr(), h_out.data_ptr(),
-        c_out.data_ptr(), b, i_dim, h_dim, layout.hp, k, layout.ip,
-        layout.block_k, cuda_stream(m_prev))
-    if err:
-        raise RuntimeError(f"deltalstm_seq_step_f32 launch failed: CUDA "
-                           f"error {err}")
-    DELTALSTM_SEQ_F32.launches += 1
-    return m_out, h_out, c_out
+    return launch_f32_step(layout, 4, m_prev, c_prev, dx, dh)
 
 
 def deltalstm_seq_step_ref(layout: FusedLstmLayout, m_prev: torch.Tensor,

@@ -134,6 +134,11 @@ DELTA_Q8_LSTM_DBUF_I4 = KernelInfo(
 DELTA_SPMV_F32 = KernelInfo(
     "delta_spmv_f32", "src/repro_torch/csrc/delta_spmv.cu",
     "src/repro/kernels/delta_spmv.py:33")
+# the bf16-weight instance of the same kernel, reached through delta_spmv
+# on bf16 weights
+DELTA_SPMV_BF16 = KernelInfo(
+    "delta_spmv_bf16", "src/repro_torch/csrc/delta_spmv.cu",
+    "src/repro/kernels/delta_spmv.py:33")
 RGLRU_SCAN_F32 = KernelInfo(
     "rglru_scan_f32", "src/repro_torch/csrc/rglru_scan.cu",
     "src/repro/kernels/rglru_scan.py:20")
@@ -147,7 +152,8 @@ KERNELS = (DELTAGRU_SEQ_F32, DELTA_Q8_GRU_I8, DELTA_Q8_GRU_I4,
            DELTALSTM_SEQ_F32, DELTA_Q8_LSTM_I8, DELTA_Q8_LSTM_I4,
            DELTA_Q8_GRU_DBUF_I8, DELTA_Q8_GRU_DBUF_I4,
            DELTA_Q8_LSTM_DBUF_I8, DELTA_Q8_LSTM_DBUF_I4,
-           DELTA_SPMV_F32, RGLRU_SCAN_F32, RWKV6_SCAN_F32, DELTAGRU_ACT_F32)
+           DELTA_SPMV_F32, DELTA_SPMV_BF16, RGLRU_SCAN_F32, RWKV6_SCAN_F32,
+           DELTAGRU_ACT_F32)
 
 
 def q8_kernel(gates: int, weight_bits: int, buffered: bool) -> KernelInfo:

@@ -86,13 +86,61 @@ def test_delta_spmv_without_acc_and_all_zero_delta():
 
 
 def test_delta_spmv_rejects_what_it_does_not_take():
+    # fp32 and bf16 operands are taken in any mix (the bf16 cases below);
+    # any other type is refused, as are mismatched shapes
     w, dx, acc = _spmv_inputs(128, 128, 1, seed=4)
-    with pytest.raises(TypeError, match="fp32 operands only"):
-        ops.delta_spmv(_t(w).to(torch.bfloat16), _t(dx).to(torch.bfloat16))
+    for other in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="fp32 and bf16 operands"):
+            ops.delta_spmv(_t(w).to(other), _t(dx).to(other))
+        with pytest.raises(TypeError, match="fp32 and bf16 operands"):
+            ops.delta_spmv(_t(w), _t(dx), _t(acc).to(other))
     with pytest.raises(ValueError, match="padded to block_k"):
         ops.delta_spmv(_t(w)[:, :100], _t(dx)[:, :90], packed=True)
     with pytest.raises(ValueError, match="disagree on I"):
         ops.delta_spmv(_t(w), _t(dx)[:, :64])
+
+
+# bf16 against the Pallas body: the products of bf16 values are exact in
+# fp32 on both sides, but the fp32 sums run in other orders (at most 1e-4
+# apart at these widths, |terms| <= 4 and up to 999 of them), and one bf16
+# rounding of the result can then land one bf16 step (2**-8 relative, at
+# most 2**-7 of |want|) apart; the fp32 output keeps the fp32 bound.
+BF16_RTOL = 2.0 ** -7
+BF16_ATOL = 1e-4
+
+
+@pytest.mark.parametrize("o,i,b", [(128, 128, 1), (256, 384, 2),
+                                   (300, 200, 4), (64, 513, 1),
+                                   (1000, 999, 3)])
+def test_delta_spmv_bf16_matches_jax(o, i, b):
+    w, dx, acc = _spmv_inputs(o, i, b, seed=o * 7 + i + 1)
+    bf = jnp.bfloat16
+    tb = torch.bfloat16
+    jw, jdx, jacc = (jnp.asarray(a).astype(bf) for a in (w, dx, acc))
+    tw, tdx, tacc = (_t(a).to(tb) for a in (w, dx, acc))
+    np.testing.assert_array_equal(tw.float().numpy(),
+                                  np.asarray(jw, np.float32))
+    for t_acc, j_acc in ((tacc, jacc), (None, None), (tacc.float(),
+                                                     jacc.astype(np.float32))):
+        want = jops.delta_spmv(jw, jdx, j_acc, interpret=True)
+        got = tspmv.delta_spmv(tw, tdx, t_acc)
+        assert str(got.dtype).split(".")[-1] == str(want.dtype)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=BF16_RTOL, atol=BF16_ATOL)
+    # the packed layout and a mixed call (fp32 deltas, bf16 weights)
+    packed = tspmv.pack_spmv_weights(tw)
+    want = jops.delta_spmv(jspmv.pack_spmv_weights(jw), jdx, jacc,
+                           interpret=True, packed=True, out_dim=o)
+    got = tspmv.delta_spmv(packed, tdx, tacc, packed=True, out_dim=o)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=BF16_RTOL, atol=BF16_ATOL)
+    want = jops.delta_spmv(jw, jnp.asarray(dx), jnp.asarray(acc),
+                           interpret=True)
+    got = tspmv.delta_spmv(tw, _t(dx), _t(acc))
+    assert got.dtype == torch.float32
+    _close(got, want, tol=BF16_ATOL)
 
 
 def test_hbm_bytes_model_and_fire_mask_match_jax():

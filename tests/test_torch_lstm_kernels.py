@@ -200,12 +200,56 @@ def test_lstm_q8_needs_a_four_gate_layout():
 
 @pytest.mark.parametrize("bits", [8, 4])
 def test_buffered_launch_refuses_unaligned_blocks(bits):
-    # the ring's tensor copies move 16-byte multiples: an 8-column block (8
-    # or 4 bytes a row) cannot be streamed through it
+    # an 8-column block (8 or 4 bytes a row) is no longer refused by the
+    # plan: its ring is filled by 8-byte cp.async copies. The launch gets as
+    # far as the operand checks, which refuse what the kernel cannot take
+    # (here CPU tensors), and on CPU tensors the public entry runs the plain
+    # version, bitwise equal to the unbuffered call
     _, tl = _q8_layouts(48, bits, block=8)
     args = list(map(torch.from_numpy, _step_inputs(48, 1, 0, 0.3, True)))
-    with pytest.raises(ValueError, match="multiples of 16"):
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
         tq8._launch_q8(tl, 4, True, args[0], args[2], args[3], args[4])
+    k = tl.ip + tl.hk
+    plan = tq8.q8_launch_plan(4, bits, 8, tl.ip, k, 48, 1, True)
+    assert (plan.instance, plan.fill, plan.copy_bytes) == (
+        "narrow", "cp.async", 8 if bits == 8 else 4)
+    for x, y in zip(tq8.deltalstm_q8_step(tl, *args, buffered=True),
+                    tq8.deltalstm_q8_step(tl, *args)):
+        _eq(x.numpy(), y.numpy())
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("bits,block", [(8, 8), (4, 16)])
+@pytest.mark.parametrize("fire", [0.0, 0.3])
+def test_narrow_buffered_step_bitwise_vs_jax_buffered_kernel(cell, bits,
+                                                             block, fire):
+    # the layouts R10 used to refuse (block rows of 8 bytes): the port's
+    # buffered entry on CPU tensors against JAX's buffered kernel in
+    # interpret mode. This guards the plain path; the kernel's cp.async
+    # fill runs only on the card (chip_smoke.py holds it bitwise against
+    # the unbuffered kernel there)
+    gates = 4 if cell == "lstm" else 3
+    h = 48
+    rng = np.random.default_rng(gates * 100 + bits + block)
+    s = (6.0 / (I_DIM + gates * h)) ** 0.5
+    w_x = rng.uniform(-s, s, (gates * h, I_DIM)).astype(np.float32)
+    w_h = rng.uniform(-s, s, (gates * h, h)).astype(np.float32)
+    b = rng.normal(0, 0.3, gates * h).astype(np.float32)
+    kw = dict(gates=gates, weight_bits=bits, block_h=block, block_k=block)
+    jl = jq8.pack_delta_weights_q8(jnp.asarray(w_x), jnp.asarray(w_h),
+                                   jnp.asarray(b), **kw)
+    tl = tq8.pack_delta_weights_q8(torch.from_numpy(w_x),
+                                   torch.from_numpy(w_h), torch.from_numpy(b),
+                                   **kw)
+    m, hp, cp, dx, dh = _step_inputs(h, 3, 11, fire, quant=True)
+    args = [m, hp, cp, dx, dh] if cell == "lstm" else [m, hp, dx, dh]
+    step = {"lstm": (tq8.deltalstm_q8_step, jq8.deltalstm_q8_step),
+            "gru": (tq8.deltagru_q8_step, jq8.deltagru_q8_step)}[cell]
+    got = step[0](tl, *map(torch.from_numpy, args), buffered=True)
+    want = step[1](jl, *map(jnp.asarray, args), interpret=True,
+                   buffered=True)
+    for a, t in zip(want, got):
+        _eq(a, t.numpy())
 
 
 # -- the fired patterns of the CUDA walk ---------------------------------------
@@ -380,9 +424,10 @@ def test_lstm_unfired_blocks_do_not_reach_the_sum(fire):
 
 def test_every_kernel_instance_is_listed_once():
     names = [k.name for k in ops.KERNELS]
-    assert len(names) == len(set(names)) == 14
-    assert names[10:] == ["delta_spmv_f32", "rglru_scan_f32",
-                          "rwkv6_scan_f32", "deltagru_act_f32"]
+    assert len(names) == len(set(names)) == 15
+    assert names[10:] == ["delta_spmv_f32", "delta_spmv_bf16",
+                          "rglru_scan_f32", "rwkv6_scan_f32",
+                          "deltagru_act_f32"]
     for gates in (3, 4):
         for bits in (8, 4):
             for buffered in (False, True):

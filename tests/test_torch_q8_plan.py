@@ -10,10 +10,10 @@ and cached, so a launch makes no CUDA API query. It must:
   instance at B = 1, the tile instance (up to 8 streams a pass) above;
 * pick the narrow-load instance exactly for block rows that are not a
   multiple of 16 bytes;
-* refuse a buffered layout exactly where its bulk copies cannot run (a row
-  stride or a block width in bytes that is not a multiple of 16), and give
-  every buffered layout a ring deep enough for one unrolled group of the
-  walk, twice over.
+* give every buffered layout a fill (tensor copies where the row stride
+  and the block width in bytes are multiples of 16, else cp.async or 2-byte
+  copies through the narrow walk: no layout is refused) and a ring deep
+  enough for one unrolled group of the walk, twice over.
 """
 import pytest
 import torch
@@ -80,23 +80,26 @@ def test_plan_picks_the_narrow_instance_exactly_for_unaligned_rows(bits):
 
 @pytest.mark.parametrize("bits", [8, 4])
 def test_plan_refuses_buffered_layouts_exactly_where_r10_says(bits):
+    # R10 is repaired: no buffered layout is refused any more. Where the
+    # tensor copies cannot run (a row stride or a block width in bytes that
+    # is not a multiple of 16) the plan fills the ring with cp.async copies
+    # (or 2-byte copies) through the narrow walk, at the same ring depth
     for block_k in BLOCK_KS:
         for i_dim, h_dim in ((40, 768), (768, 768), (14, 256), (8, 128)):
             ip, k = _geometry(i_dim, h_dim, block_k)
             wbk, wk = _row_bytes(bits, block_k, k)
-            if wk % 16 or wbk % 16:
-                with pytest.raises(ValueError, match="multiples of 16"):
-                    q8.q8_launch_plan(3, bits, block_k, ip, k, h_dim, 1,
-                                      True)
-                continue
             plan = q8.q8_launch_plan(3, bits, block_k, ip, k, h_dim, 1, True)
-            assert plan.instance == "one_stream"
+            narrow = bool(wk % 16 or wbk % 16)
+            assert plan.instance == ("narrow" if narrow else "one_stream")
+            assert plan.fill == ("tensor" if not narrow else
+                                 "copy" if wbk % 4 else "cp.async")
             # a group of the walk holds at most ceil(32 / L) + 1 blocks
-            # (L 16-byte vectors a block row), and the ring takes two groups
-            per_block = wbk // 16
+            # (L vectors a block row), and the ring takes two groups
+            per_block = wbk // plan.vector_bytes
             span = 8 * q8.Q8_UNROLL
             group = -(-span // per_block) + (span % per_block != 0)
             assert plan.stages == max(3, 2 * group)
+            assert plan.smem <= q8.SMEM_OPTIN_BYTES
 
 
 def test_plan_is_cached_per_geometry_streams_buffering_and_device():
