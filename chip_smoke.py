@@ -26,7 +26,8 @@ traceback and a non-zero exit):
    unbuffered twin; an LSTM step whose cell state saturates at the Q8.8
    rail; and narrow layouts (int8 ``block_k`` 8 and 4, int4 16 and 4)
    through the narrow-load instance, their buffered form (a ring filled by
-   ``cp.async`` or 2-byte copies) bitwise equal to it;
+   ``cp.async`` or 2-byte copies) bitwise equal to it, also launched after
+   an L2 flush (copies that land late);
 4. the int8/int4 kernels' own activation stage over every Q8.8 input,
    bitwise against ``torch.sigmoid`` / ``torch.tanh`` on the CPU after the
    LUT rounding;
@@ -55,10 +56,14 @@ The delta-ized LM cells run through the same phases: in phase 3
 ``delta_spmv`` with fp32 and with bf16 operands (the LM layer shapes, the
 64-row decay call whose k blocks a cluster splits, unpacked ragged edges,
 ``ldw % 4 != 0``; B in {1, 2, 8, 9} on the walk's tails as above; every
-case launched twice and the two results bitwise equal), ``rwkv6_scan``,
-``rglru_scan``,
-``deltagru_act`` and ``ops.deltagru_cell_fused`` (against the dense GRU
-step) against their plain versions; in phase 5 ``rwkv6 fused`` (RWKV6 at
+case launched twice and the two results bitwise equal), ``rwkv6_scan`` (B
+in {1, 2, 8, 9}, T in {1, 37, 128}, H in {32, 3}, with and without s0, and
+4-byte aligned operands; within ``TOL_F32``), ``rglru_scan`` (the same B
+and T, W in {4096, 4094, 4097}, with and without h0, and each operand in
+turn 4-byte aligned; bitwise on the card), every scan case launched twice
+and the two results bitwise equal, ``deltagru_act`` and
+``ops.deltagru_cell_fused`` (against the dense GRU step) against their
+plain versions; in phase 5 ``rwkv6 fused`` (RWKV6 at
 D = 2048, 24 layers) and ``rglru fused`` (RG-LRU at D = W = 4096, 4
 layers) from seeded random weights over the smooth stream ``c <- 0.9 c +
 0.35 n``, with exact launch counts of ``delta_spmv`` (4 per layer step)
@@ -66,7 +71,9 @@ and of the cell's scan (1 per layer step) and no other kernel, against
 the CPU program at θ = 0 over 50 frames and layer by layer in lockstep at
 θ = 0.25; in phase 6 their kernels' times at the main path's shapes,
 ``delta_spmv`` (fp32 and bf16) per layer step at 0 %, ~10 % and 100 %
-fired, also with a cold L2, and the engine profile of both paths.
+fired, also with a cold L2, the scans also cold, at B = 8, at T = 128 and
+beside an empty kernel of their build at the same grid, and the engine
+profile of both paths.
 
 The line before the last is ``{"kernels": [...]}`` (every kernel instance;
 the ``launches`` of an instance on no main path, a buffered one,
@@ -550,9 +557,11 @@ def main() -> int:
     from repro_torch.kernels.delta_step_f32 import f32_step_plan
     from repro_torch.kernels.deltagru_cell import deltagru_act, deltagru_act_ref
     from repro_torch.kernels.rglru_scan import (rglru_scan,
-                                                rglru_scan_batched_ref)
+                                                rglru_scan_batched_ref,
+                                                rglru_scan_plan)
     from repro_torch.kernels.rwkv6_scan import (rwkv6_scan,
-                                                rwkv6_scan_batched_ref)
+                                                rwkv6_scan_batched_ref,
+                                                rwkv6_scan_plan)
     from repro_torch.kernels.delta_q8 import (deltagru_q8_step,
                                               deltagru_q8_step_ref,
                                               deltalstm_q8_step,
@@ -825,6 +834,48 @@ def main() -> int:
                       f"({plan.copy_bytes} B), equal to the unbuffered "
                       f"kernel")
 
+    # the narrow rings again with a cold L2: flushed before each buffered
+    # launch, a stage's copies come from device memory and land late
+    # enough that a consumer that read a stage before its barrier said the
+    # copies were in would see the stage's old bytes (with the L2 warm,
+    # such a read came too late to tell). Each narrow layout of the GRU,
+    # B in (1, 9), 30 launches each on every block or half of them fired,
+    # each bitwise equal to the unbuffered kernel
+    flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.float32, device=dev)
+    flush.fill_(1.0)
+    sink = torch.empty((), dtype=torch.float32, device=dev)
+    kern = step_of[("gru", "fused_q8")][0]
+    p0 = models_cpu["gru"]["gru"][0]
+    for bits, block_ks in narrow.items():
+        for block_k in block_ks:
+            lay = pack_delta_weights_q8(p0.w_x, p0.w_h, p0.b, gates=3,
+                                        block_k=block_k,
+                                        weight_bits=bits).to(dev)
+            ok, err = True, 0.0
+            for b in (1, 9):
+                plan = q8_launch_plan(3, bits, block_k, lay.ip,
+                                      lay.ip + lay.hk, lay.hidden_size, b,
+                                      True)
+                for rep in range(30):
+                    n = lay.nbk if rep % 2 == 0 else lay.nbk // 2
+                    fired = tuple(sorted(rng.choice(lay.nbk, n,
+                                                    replace=False)))
+                    gpu = [torch.from_numpy(a).to(dev)
+                           for a in fired_inputs(rng, b, lay, fired)]
+                    k = run_step("gru", kern, lay, gpu)
+                    torch.sum(flush, dim=0, out=sink)
+                    kb = run_step("gru", functools.partial(kern,
+                                                           buffered=True),
+                                  lay, gpu)
+                    torch.cuda.synchronize()
+                    ok = ok and same(kb, k)
+                    err = max(err, max_diff(kb, k))
+            check(ops.q8_kernel(3, bits, True).name, ok, err,
+                  f"narrow layout block_k={block_k}, the ring filled by "
+                  f"{plan.fill} ({plan.stages} stages), B in (1, 9), 30 "
+                  "launches each after an L2 flush: bitwise equal to the "
+                  "unbuffered kernel")
+
     # the LM-path kernels: delta_spmv at the RWKV6 and RG-LRU layer shapes
     # ([I -> O]; the decay LoRA's 64 rows in a 128-padded layout, whose k
     # blocks the plan splits over a cluster), two unpacked ragged edges
@@ -889,36 +940,108 @@ def main() -> int:
                       f"the card and the CPU (scaled {max(err, err_c):.3e}), "
                       f"two launches bitwise equal {twice}")
     log(f"delta_spmv walk cases: {n_spmv} fired sets, each launched twice")
-    for b in (1, 8):
+    # the scans: rwkv6_scan at B in {1, 2, 8, 9} (one stream, two, the
+    # 8-slot batcher, more units than one block a unit) x T in {1, 37, 128}
+    # x H in {32, 3} (the main path's heads, and fewer heads than the SMs),
+    # with s0 and with a zero state (s0=None), within TOL_F32 of its plain
+    # version on the card and the CPU; rglru_scan at W in {4096, 4094, 4097}
+    # (the 16-byte path, and ragged rows of the 4-byte path) over the same B
+    # and T, with h0 and without, bitwise equal to its plain version on the
+    # card and within TOL_F32 of it on the CPU (PyTorch's float32 sqrt on
+    # the CPU is not correctly rounded: up to an ulp off); each also with an
+    # operand that is a contiguous view one float into its buffer (4-byte
+    # aligned: the 4-byte path). Every case launched twice, the two results
+    # bitwise equal
+    def offset_view(a):
+        """``a`` copied into a buffer one float in: contiguous, 4-byte but
+        not 16-byte aligned."""
+        buf = torch.empty(a.numel() + 4, dtype=a.dtype, device=a.device)
+        view = buf[1:1 + a.numel()].view(a.shape)
+        view.copy_(a)
+        return view
+
+    def scan_case(kinfo, kern, ref, cpu_args, dev_args, exact, what):
+        """``exact``: bitwise equal to the plain version on the card (and
+        within TOL_F32 of it on the CPU, whose float32 sqrt is not
+        correctly rounded); else within TOL_F32 of both."""
+        k = kern(*dev_args)
+        k2 = kern(*dev_args)
+        r = ref(*dev_args)
+        c = ref(*cpu_args)
+        torch.cuda.synchronize()
+        twice = same(k, k2)
+        err_c = max(scaled_err(a, bb) for a, bb in zip(k, c))
+        ok = err_c <= TOL_F32 and (
+            same(k, r) if exact
+            else max(scaled_err(a, bb) for a, bb in zip(k, r)) <= TOL_F32)
+        check(kinfo.name, ok and twice, max_diff(k, r),
+              f"{what} (CPU: scaled {err_c:.3e}), two launches bitwise "
+              f"equal {twice}")
+
+    n_scan = 0
+    for b in (1, 2, 8, 9):
         for t in (1, 37, 128):
-            shape = (b, 32, t, 64)
-            wkv = [rng.normal(0, 1, shape), rng.normal(0, 1, shape),
-                   rng.normal(0, 1, shape),
-                   np.exp(-np.exp(rng.normal(-3, 1.5, shape))),
-                   rng.normal(0, 0.1, (32, 64)),
-                   rng.normal(0, 1, (b, 32, 64, 64))]
-            wkv = [torch.from_numpy(a.astype(np.float32)) for a in wkv]
-            gpu = [a.to(dev) for a in wkv]
-            k = rwkv6_scan(*gpu)
-            r = rwkv6_scan_batched_ref(*gpu)
-            c = rwkv6_scan_batched_ref(*wkv)
-            torch.cuda.synchronize()
-            err = max(scaled_err(a, bb) for a, bb in zip(k + k, r + c))
-            check(ops.RWKV6_SCAN_F32.name, err <= TOL_F32, max_diff(k, r),
-                  f"[{b}, 32, {t}, 64] with s0")
-            shape = (b, t, 4096)
-            lru = [rng.normal(0, 1, shape),
-                   1 / (1 + np.exp(-rng.normal(2, 1, shape))),
-                   rng.normal(0, 1, (b, 4096))]
-            lru = [torch.from_numpy(a.astype(np.float32)) for a in lru]
-            gpu = [a.to(dev) for a in lru]
-            k = rglru_scan(*gpu)
-            r = rglru_scan_batched_ref(*gpu)
-            c = rglru_scan_batched_ref(*lru)
-            torch.cuda.synchronize()
-            err = max(scaled_err(a, bb) for a, bb in zip(k + k, r + c))
-            check(ops.RGLRU_SCAN_F32.name, err <= TOL_F32, max_diff(k, r),
-                  f"[{b}, {t}, 4096] with h0")
+            for h in (32, 3):
+                shape = (b, h, t, 64)
+                wkv = [rng.normal(0, 1, shape), rng.normal(0, 1, shape),
+                       rng.normal(0, 1, shape),
+                       np.exp(-np.exp(rng.normal(-3, 1.5, shape))),
+                       rng.normal(0, 0.1, (h, 64)),
+                       rng.normal(0, 1, (b, h, 64, 64))]
+                wkv = [torch.from_numpy(a.astype(np.float32)) for a in wkv]
+                gpu = [a.to(dev) for a in wkv]
+                plan = rwkv6_scan_plan(b, h, t, 64)
+                for with_s0 in (True, False):
+                    n = 6 if with_s0 else 5
+                    scan_case(ops.RWKV6_SCAN_F32, rwkv6_scan,
+                              rwkv6_scan_batched_ref, wkv[:n], gpu[:n],
+                              False,
+                              f"[{b}, {h}, {t}, 64] "
+                              f"{'with s0' if with_s0 else 's0=None'} "
+                              f"({plan.cols} columns a block, grid "
+                              f"{plan.grid} for {plan.units} units), within "
+                              f"{TOL_F32} of max(1, |plain|) on the card "
+                              "and the CPU")
+                    n_scan += 1
+                if (b, t) in ((1, 1), (2, 37)):
+                    # the 4-byte path: r and s0 one float into their buffers
+                    mis = [offset_view(gpu[0])] + gpu[1:5] + [
+                        offset_view(gpu[5])]
+                    scan_case(ops.RWKV6_SCAN_F32, rwkv6_scan,
+                              rwkv6_scan_batched_ref, wkv, mis, False,
+                              f"[{b}, {h}, {t}, 64] r and s0 4-byte aligned "
+                              f"(4-byte loads), within {TOL_F32} on the "
+                              "card and the CPU")
+                    n_scan += 1
+            for w in (4096, 4094, 4097):
+                shape = (b, t, w)
+                lru = [rng.normal(0, 1, shape),
+                       1 / (1 + np.exp(-rng.normal(2, 1, shape))),
+                       rng.normal(0, 1, (b, w))]
+                lru = [torch.from_numpy(a.astype(np.float32)) for a in lru]
+                gpu = [a.to(dev) for a in lru]
+                plan = rglru_scan_plan(b, t, w)
+                for with_h0 in (True, False):
+                    n = 3 if with_h0 else 2
+                    scan_case(ops.RGLRU_SCAN_F32, rglru_scan,
+                              rglru_scan_batched_ref, lru[:n], gpu[:n], True,
+                              f"[{b}, {t}, {w}] "
+                              f"{'with h0' if with_h0 else 'h0=None'} "
+                              f"({plan.vec * 4}-byte loads, {plan.threads} "
+                              f"threads a block, grid {plan.grid}), bitwise "
+                              "on the card")
+                    n_scan += 1
+                if w == 4096 and t in (1, 37):
+                    for i in range(3):     # x, a and h0 in turn
+                        mis = list(gpu)
+                        mis[i] = offset_view(gpu[i])
+                        scan_case(ops.RGLRU_SCAN_F32, rglru_scan,
+                                  rglru_scan_batched_ref, lru, mis, True,
+                                  f"[{b}, {t}, {w}] {'xah'[i]}"
+                                  f"{'' if i < 2 else '0'} 4-byte aligned "
+                                  "(4-byte loads), bitwise on the card")
+                        n_scan += 1
+    log(f"scan cases: {n_scan}, each launched twice")
     h_dim = cfg.hidden_size
     for b in (1, 8):
         act = [rng.normal(0, 2, (b, 4 * h_dim)),
@@ -1308,35 +1431,86 @@ def main() -> int:
         rows[kinfo.name] = spmv_row
 
     # the scans and the activation at the main path's shapes, B = 1; no
-    # single PyTorch call computes any of the three (library_ms null)
-    lm_calls = {
+    # single PyTorch call computes any of the three (library_ms null). The
+    # scans also with a cold L2, at B = 8 (the 8-slot batcher's launch), at
+    # T = 128 (a prefill, not on the main path), and beside the floor under
+    # their launch: an empty kernel of their build at the same grid
+    def wkv_args(b, t):
+        shape = (b, 32, t, 64)
+        return [f32(*shape), f32(*shape), f32(*shape), f32(*shape, lo=0.9),
+                f32(32, 64) * 0.1, f32(b, 32, 64, 64)]
+
+    def lru_args(b, t):
+        return [f32(b, t, 4096), f32(b, t, 4096, lo=0.5), f32(b, 4096)]
+
+    scans = {
         ops.RWKV6_SCAN_F32.name: (
-            rwkv6_scan, rwkv6_scan_batched_ref,
-            [f32(1, 32, 1, 64), f32(1, 32, 1, 64), f32(1, 32, 1, 64),
-             f32(1, 32, 1, 64, lo=0.9), f32(32, 64) * 0.1,
-             f32(1, 32, 64, 64)],
-            4 * (6 * 32 * 64 + 2 * 32 * 64 * 64), 7 * 32 * 64 * 64),
+            rwkv6_scan, rwkv6_scan_batched_ref, wkv_args,
+            lambda b, t: 4 * (5 * b * 32 * t * 64 + 32 * 64
+                              + 2 * b * 32 * 64 * 64),
+            lambda b, t: 7 * b * t * 32 * 64 * 64,
+            lambda: rwkv6_scan_plan(1, 32, 1, 64), "rwkv6_scan.cu",
+            "rwkv6_scan_empty"),
         ops.RGLRU_SCAN_F32.name: (
-            rglru_scan, rglru_scan_batched_ref,
-            [f32(1, 1, 4096), f32(1, 1, 4096, lo=0.5), f32(1, 4096)],
-            4 * 5 * 4096, 6 * 4096),
-        ops.DELTAGRU_ACT_F32.name: (
-            deltagru_act, deltagru_act_ref,
-            [f32(1, 4 * h_dim), f32(1, 3 * h_dim), f32(1, 3 * h_dim),
-             f32(1, h_dim)],
-            4 * 16 * h_dim, 30 * h_dim),
+            rglru_scan, rglru_scan_batched_ref, lru_args,
+            lambda b, t: 4 * (3 * b * t * 4096 + 2 * b * 4096),
+            lambda b, t: 6 * b * t * 4096,
+            lambda: rglru_scan_plan(1, 1, 4096), "rglru_scan.cu",
+            "rglru_scan_empty"),
     }
-    for name, (kern, ref, args, nbytes, nops) in lm_calls.items():
+    for name, (kern, ref, make, nbytes, nops, plan_of, src,
+               empty_name) in scans.items():
+        args = make(1, 1)
         row = {"ms": device_ms(lambda: kern(*args)),
+               "cold_ms": device_ms_cold(lambda: kern(*args)),
                "eager_ms": eager_ms(lambda: kern(*args)),
                "plain_ms": device_ms(lambda: ref(*args)),
-               "library_ms": None, "bytes": nbytes, "ops": nops}
+               "library_ms": None, "bytes": nbytes(1, 1),
+               "ops": nops(1, 1)}
         bound(row)
-        rows[name] = row
-        log(f"time {name} B=1: kernel {row['ms']:.5f} ms on the device "
+        plan = plan_of()
+        empty_fn = getattr(_build.load(src), empty_name)
+        empty_fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        empty_fn.restype = ctypes.c_int
+
+        def empty_scan():
+            if empty_fn(plan.grid, plan.threads,
+                        torch.cuda.current_stream().cuda_stream):
+                raise RuntimeError(f"{empty_name} launch failed")
+
+        row["launch_floor_ms"] = device_ms(empty_scan)
+        row["launch_floor_cold_ms"] = device_ms_cold(empty_scan)
+        log(f"time {name} B=1 T=1: kernel {row['ms']:.5f} ms warm, "
+            f"{row['cold_ms']:.5f} ms with a cold L2 "
             f"({row['eager_ms']:.4f} ms launched from Python), plain "
             f"{row['plain_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
-            f"({nbytes} B, {row['bound_by']}) [{smi}]")
+            f"({row['bytes']} B, {row['bound_by']}); launch floor (an empty "
+            f"kernel of {plan.grid} blocks of {plan.threads} threads) "
+            f"{row['launch_floor_ms']:.5f} ms warm, "
+            f"{row['launch_floor_cold_ms']:.5f} ms timed cold [{smi}]")
+        for key, (b, t) in (("tile", (8, 1)), ("t128", (1, 128))):
+            args = make(b, t)
+            t_bytes = 1e3 * nbytes(b, t) / HBM_BYTES_PER_S
+            t_ops = 1e3 * nops(b, t) / FP32_OPS_PER_S
+            row[f"{key}_ms"] = device_ms(lambda: kern(*args))
+            row[f"{key}_cold_ms"] = device_ms_cold(lambda: kern(*args))
+            row[f"{key}_bound_ms"] = max(t_bytes, t_ops)
+            log(f"time {name} B={b} T={t}: kernel {row[f'{key}_ms']:.5f} ms "
+                f"warm, {row[f'{key}_cold_ms']:.5f} ms with a cold L2, bound "
+                f"{row[f'{key}_bound_ms']:.6f} ms ({nbytes(b, t)} B) [{smi}]")
+        rows[name] = row
+    act = [f32(1, 4 * h_dim), f32(1, 3 * h_dim), f32(1, 3 * h_dim),
+           f32(1, h_dim)]
+    row = {"ms": device_ms(lambda: deltagru_act(*act)),
+           "eager_ms": eager_ms(lambda: deltagru_act(*act)),
+           "plain_ms": device_ms(lambda: deltagru_act_ref(*act)),
+           "library_ms": None, "bytes": 4 * 16 * h_dim, "ops": 30 * h_dim}
+    bound(row)
+    rows[ops.DELTAGRU_ACT_F32.name] = row
+    log(f"time {ops.DELTAGRU_ACT_F32.name} B=1: kernel {row['ms']:.5f} ms "
+        f"on the device ({row['eager_ms']:.4f} ms launched from Python), "
+        f"plain {row['plain_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
+        f"({row['bytes']} B, {row['bound_by']}) [{smi}]")
 
     phase6 = ops.launch_counts()
     for name in ([k.name for k in buffered.values()]
@@ -1394,6 +1568,9 @@ def main() -> int:
                  "eager_ms": row["eager_ms"]}
         if kinfo in spmv_kinfo_all:
             entry["cold_ms"] = row["cold_ms"]
+        if kinfo.name in scans:
+            for key in ("cold_ms", "launch_floor_ms", "tile_ms", "t128_ms"):
+                entry[key] = row[key]
         if kinfo is ops.DELTA_SPMV_BF16:
             entry["path"] = ("repro_torch.kernels.delta_spmv.delta_spmv on "
                              "bf16 weights")

@@ -33,7 +33,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.delta_q8 import SMEM_OPTIN_BYTES, _kpad
 from repro_torch.kernels.ops import (DELTA_SPMV_BF16, DELTA_SPMV_F32,
-                                     cuda_stream, launches_kernel, require)
+                                     H100_SMS, cuda_stream, launches_kernel,
+                                     require)
 
 SPMV_DTYPES = (torch.float32, torch.bfloat16)
 # Constants of csrc/delta_spmv.cu the plan mirrors.
@@ -43,11 +44,10 @@ SPMV_UNROLL = 8          # 16-byte loads a lane has in flight: kUnroll
 SPMV_MAX_SPLIT = 8       # blocks a cluster: kMaxSplit (the portable limit)
 SPMV_MAX_ROWS = 2        # rows a warp walks at once: kMaxRowsPerWarp
 SPMV_INSTANCES = ("one_stream", "tile", "narrow")   # their codes: the index
-# Streaming multiprocessors of an H100 SXM: the plan splits the k blocks of
-# an output with fewer row groups than this, and gives the one-stream
-# instance no more blocks than the SMs hold at once (SPMV_BLOCKS_PER_SM an
-# SM at its registers), so no block waits for a second wave.
-H100_SMS = 132
+# The plan splits the k blocks of an output with fewer row groups than the
+# H100's SMs (ops.H100_SMS), and gives the one-stream instance no more
+# blocks than the SMs hold at once (SPMV_BLOCKS_PER_SM an SM at its
+# registers), so no block waits for a second wave.
 SPMV_BLOCKS_PER_SM = 2
 
 

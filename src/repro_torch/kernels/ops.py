@@ -56,11 +56,15 @@ def launches_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {dev}")
 
 
+# Streaming multiprocessors of an H100 SXM, for the launch plans.
+H100_SMS = 132
+
+
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,
-            shape: tuple) -> torch.Tensor:
-    """Check a kernel operand (device, dtype, shape, contiguity, 16-byte
-    alignment) before its pointer is handed to CUDA; raise on anything the
-    kernel does not take."""
+            shape: tuple, align: int = 16) -> torch.Tensor:
+    """Check a kernel operand (device, dtype, shape, contiguity, alignment
+    to ``align`` bytes) before its pointer is handed to CUDA; raise on
+    anything the kernel does not take."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -70,9 +74,16 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.numel() and t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+    if t.numel() and t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
     return t
+
+
+def aligned16(*tensors) -> bool:
+    """True when every tensor given (None skipped) starts on 16 bytes: the
+    kernels that also take 4-byte aligned operands pick their 16-byte
+    loads by it."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
 
 
 def cuda_stream(t: torch.Tensor) -> int:

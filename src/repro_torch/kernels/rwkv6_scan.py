@@ -10,17 +10,80 @@ evolves with a data-dependent per-key decay ``w_t`` in (0, 1) and a bonus
 
 :func:`rwkv6_scan` launches the CUDA kernel of ``csrc/rwkv6_scan.cu`` for
 CUDA tensors and runs the plain version :func:`rwkv6_scan_batched_ref` for
-CPU tensors.
+CPU tensors. :func:`rwkv6_scan_plan` is its launch plan (the value columns
+a block handles, the grid, the vector width), computed on the host once per
+shape, alignment and device and cached, so a launch makes no CUDA API
+query; the C entry refuses a plan it cannot run.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ops import (RWKV6_SCAN_F32, cuda_stream,
-                                     launches_kernel, require)
+from repro_torch.kernels.ops import (H100_SMS, RWKV6_SCAN_F32, aligned16,
+                                     cuda_stream, launches_kernel, require)
+
+HEAD_DIM = 64                  # the only head size the kernel takes: kD
+# Constants of csrc/rwkv6_scan.cu the plan mirrors.
+RWKV6_VEC = 4                  # value columns a thread owns: kVec
+RWKV6_COLS = 16                # value columns of a work unit: kCols
+RWKV6_THREADS_PER_SM = 2048    # residency its launch bounds ask: kThreadsPerSM
+
+
+@dataclass(frozen=True)
+class Rwkv6ScanPlan:
+    """How one ``rwkv6_scan`` call launches (:func:`rwkv6_scan_plan`).
+
+    A work unit is one (stream, head) and ``cols`` (``RWKV6_COLS``) of its
+    64 value columns; there are ``units = B * H * 64 / cols``. A block of
+    ``threads = 16 * cols`` threads gives thread ``(i, q)`` key ``i`` and
+    the columns ``4q .. 4q + 3`` of its unit; the ``grid`` blocks take
+    units ``blockIdx, blockIdx + grid, ...``. ``vec``: 4 (16-byte loads and
+    stores) or 1 (4-byte). ``device``: the CUDA device index (-1 for
+    none)."""
+
+    cols: int
+    threads: int
+    units: int
+    grid: int
+    vec: int
+    device: int
+
+
+def rwkv6_resident_blocks(threads: int) -> int:
+    """Blocks of ``threads`` the SMs of an H100 hold at once at the
+    kernel's launch bounds."""
+    return H100_SMS * (RWKV6_THREADS_PER_SM // threads)
+
+
+@functools.lru_cache(maxsize=512)
+def rwkv6_scan_plan(b: int, h: int, t: int, d: int,
+                    dtype: torch.dtype = torch.float32, aligned: bool = True,
+                    device: int = -1) -> Rwkv6ScanPlan:
+    """The launch plan of a call over ``[b, h, t, d]`` operands of type
+    ``dtype``; ``aligned``: every operand starts on 16 bytes. A block
+    handles ``RWKV6_COLS`` value columns of a head (128 blocks at the
+    decode shape B = 1, H = 32); the grid is at most the blocks the SMs
+    hold at once. Raises ``ValueError`` for what the kernel does not take:
+    ``d != 64``, negative sizes, operands that are not fp32."""
+    if dtype != torch.float32:
+        raise ValueError(f"rwkv6_scan takes fp32 operands, not {dtype}")
+    if d != HEAD_DIM:
+        raise ValueError(f"rwkv6_scan takes a head size of {HEAD_DIM}, "
+                         f"not {d}")
+    if min(b, h, t) < 0:
+        raise ValueError(f"rwkv6_scan takes sizes >= 0; got B={b}, H={h}, "
+                         f"T={t}")
+    threads = HEAD_DIM * RWKV6_COLS // RWKV6_VEC
+    units = b * h * (HEAD_DIM // RWKV6_COLS)
+    grid = min(units, rwkv6_resident_blocks(threads))
+    return Rwkv6ScanPlan(cols=RWKV6_COLS, threads=threads, units=units,
+                         grid=grid, vec=RWKV6_VEC if aligned else 1,
+                         device=device)
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,7 +101,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _fn():
     fn = _build.load("rwkv6_scan.cu").rwkv6_scan_f32
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -49,16 +112,20 @@ def _launch(r, k, v, w, u, s0):
     f32 = torch.float32
     r, k, v, w = (z.contiguous() for z in (r, k, v, w))
     for z, name in ((r, "r"), (k, "k"), (v, "v"), (w, "w")):
-        require(z, name, f32, (b, h, t, d))
-    require(u, "u", f32, (h, d))
-    if s0 is None:
-        s0 = torch.zeros((b, h, d, d), dtype=f32, device=r.device)
-    require(s0, "s0", f32, (b, h, d, d))
-    y = torch.empty_like(r)
-    s_t = torch.empty_like(s0)
+        require(z, name, f32, (b, h, t, d), align=4)
+    require(u, "u", f32, (h, d), align=4)
+    if s0 is not None:
+        require(s0, "s0", f32, (b, h, d, d), align=4)
+    y = torch.empty((b, h, t, d), dtype=f32, device=r.device)
+    s_t = torch.empty((b, h, d, d), dtype=f32, device=r.device)
+    index = r.device.index
+    plan = rwkv6_scan_plan(b, h, t, d, r.dtype,
+                           aligned16(r, k, v, w, u, s0, y, s_t),
+                           -1 if index is None else index)
     err = _fn()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_t.data_ptr(),
-                b, h, t, d, cuda_stream(r))
+                u.data_ptr(), 0 if s0 is None else s0.data_ptr(),
+                y.data_ptr(), s_t.data_ptr(), b, h, t, d, plan.cols,
+                plan.vec, plan.grid, cuda_stream(r))
     if err:
         raise RuntimeError(f"rwkv6_scan_f32 launch failed: CUDA error {err}")
     RWKV6_SCAN_F32.launches += 1
