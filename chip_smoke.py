@@ -14,7 +14,12 @@ traceback and a non-zero exit):
 2. build: every kernel source compiled with ``nvcc``, all at once; the
    registers, spills and static shared memory of every kernel instance
    (``-Xptxas -v``);
-3. kernels against their plain versions at the two layer shapes of the
+3. kernels against their plain versions: first ``deltagru_act`` (B in
+   {1, 2, 8, 9}, H in {768, 770, 4097}, all operands 16-byte aligned and
+   each of the four in turn 4-byte aligned; within ``TOL_F32`` on the
+   card and the CPU, every case launched twice and the two results
+   bitwise equal) and ``ops.deltagru_cell_fused`` against the dense GRU
+   step; then at the two layer shapes of the
    paper's 2L-768H network (k = 896 and 1536), for both cells (GRU and
    LSTM), B in {1, 2, 8, 9} (the one-stream instance, the tile instance,
    two tile passes) with exactly 0, 1, U - 1, U, U + 1 and all column
@@ -38,8 +43,14 @@ traceback and a non-zero exit):
    ``DeltaStreamEngine.step_many`` over smooth synthetic frames at
    θx = θh = 0.25 under ``torch.cuda.set_sync_debug_mode("error")``, then a
    ``GruStreamBatcher`` over an 8-slot engine draining 16 requests of mixed
-   lengths. Launch counts must equal steps × layers of that path's kernel,
-   and no other kernel may launch, in each run; the results must match the
+   lengths (its sessions open and close between replays). Each engine
+   steps by replaying the one CUDA graph it captured at construction (one
+   capture, a replay a step); its state, carry and report must equal, bit
+   for bit, the same frames stepped op by op through the engine's
+   ``_one_step`` on a second engine (``eager_steps``), its outputs too or
+   within ``TOL_HEAD``. Launch counts, the capture's taken back and each
+   replay's added, must equal steps × layers of that path's kernel, and
+   no other kernel may launch, in each run; the results must match the
    same program compiled with ``device="cpu"``;
 6. times on the card: each kernel instance at B = 1 and its plain version
    (device time from CUDA-graph replay between CUDA events, also with the
@@ -47,10 +58,15 @@ traceback and a non-zero exit):
    from Python), each GRU/LSTM step also at B = 8 (the tile instance), the
    floor under a launch (an empty kernel of the q8 build, two launches),
    the dense ``torch.addmm``
-   over the cell's fp32 volume as a yardstick the port never calls, and
-   per path the engine's wall time per step with its kernels per step and
-   idle share (``torch.profiler``), the per-frame latency of ``step``
-   (median and p95 over the frames) and the batcher's frames per second.
+   over the cell's fp32 volume as a yardstick the port never calls,
+   ``deltagru_act`` also cold, at B = 8 and beside an empty kernel of its
+   build at its grid, ``ops.deltagru_cell_fused`` at I = 40 and 768, and
+   per path the engine, through its graph and op by op
+   (``eager_steps``): wall and CUDA-event time per step with its kernels
+   per step and idle share (``torch.profiler``, which sees the kernels of
+   a replay one by one), the per-frame latency of ``step`` (median and p95
+   over the frames), the capture's time and the batcher's frames per
+   second.
 
 The delta-ized LM cells run through the same phases: in phase 3
 ``delta_spmv`` with fp32 and with bf16 operands (the LM layer shapes, the
@@ -61,12 +77,11 @@ in {1, 2, 8, 9}, T in {1, 37, 128}, H in {32, 3}, with and without s0, and
 4-byte aligned operands; within ``TOL_F32``), ``rglru_scan`` (the same B
 and T, W in {4096, 4094, 4097}, with and without h0, and each operand in
 turn 4-byte aligned; bitwise on the card), every scan case launched twice
-and the two results bitwise equal, ``deltagru_act`` and
-``ops.deltagru_cell_fused`` (against the dense GRU step) against their
-plain versions; in phase 5 ``rwkv6 fused`` (RWKV6 at
+and the two results bitwise equal; in phase 5 ``rwkv6 fused`` (RWKV6 at
 D = 2048, 24 layers) and ``rglru fused`` (RG-LRU at D = W = 4096, 4
 layers) from seeded random weights over the smooth stream ``c <- 0.9 c +
-0.35 n``, with exact launch counts of ``delta_spmv`` (4 per layer step)
+0.35 n``, through their captured graphs held to the eager steps as
+above, with exact launch counts of ``delta_spmv`` (4 per layer step)
 and of the cell's scan (1 per layer step) and no other kernel, against
 the CPU program at θ = 0 over 50 frames and layer by layer in lockstep at
 θ = 0.25; in phase 6 their kernels' times at the main path's shapes,
@@ -266,42 +281,96 @@ def eager_ms(fn, iters: int = 100) -> float:
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
-def step_latencies_us(eng, frames) -> list:
-    """Per-frame latency of ``eng.step``: frame in on the host to output
-    ready on the device (each step ends in a synchronise), after warm-up."""
+def step_latencies_us(step, frames) -> list:
+    """Per-frame latency of ``step(frame)`` (an engine's ``step``): frame
+    in on the host to output ready on the device (each step ends in a
+    synchronise), after warm-up."""
     import torch
     for x in frames[:10]:
-        eng.step(x)
+        step(x)
     torch.cuda.synchronize()
     lat = []
     for x in frames:
         t0 = time.perf_counter()
-        eng.step(x)
+        step(x)
         torch.cuda.synchronize()
         lat.append(1e6 * (time.perf_counter() - t0))
     return lat
 
 
-def engine_profile(eng, frames) -> dict:
+def engine_profile(run, n: int) -> dict:
     """Kernels per step, device-busy time per step and the idle share of
-    ``eng.step_many(frames)``, from ``torch.profiler``."""
+    ``run()``, ``n`` steps (an engine's ``step_many``), from
+    ``torch.profiler``; beside them the wall time and the device time
+    between two CUDA events around the run, per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.step_many(frames)
+        start.record()
+        run()
+        stop.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    n = len(frames)
     return {"kernels_per_step": len(kernels) / n,
             "device_busy_us_per_step": busy_us / n,
             "wall_us_per_step": 1e6 * wall / n,
+            "event_us_per_step": 1e3 * start.elapsed_time(stop) / n,
             "idle_share": 1.0 - busy_us / (1e6 * wall) if kernels else None}
+
+
+def eager_steps(eng, frames):
+    """``eng``'s step run op by op, the engine's ``_one_step`` over
+    ``frames`` (``[T, I]`` or ``[T, N, I]``) from its buffers, as the
+    engine stepped before its step was a captured graph: the reference the
+    graph's replays are held to. One host-to-device copy for the chunk.
+    The final state and carry are written into the engine's buffers, so its
+    ``report()`` reads them. Returns the outputs ``[T, N, O]``."""
+    import torch
+    xs = eng._to_device(frames).reshape(len(frames), eng.n_streams, -1)
+    state, carry = eng.state, eng._carry
+    outs = []
+    for x in xs:
+        out, state, carry = eng._one_step(state, carry, x)
+        outs.append(out)
+    eng._write(eng.state, eng._carry, state, carry)
+    eng._n_steps += len(frames)
+    return torch.stack(outs)
+
+
+def graph_against_eager(path, eng, ref, outs, ref_outs) -> str:
+    """Hold a graph engine's run (``outs``, its state, carry and report)
+    against the eager run of the same frames (``ref``, ``ref_outs``) on the
+    card: the state and the carry bitwise, the report equal, the outputs
+    bitwise or, where the head's library matmul differs under capture,
+    within ``TOL_HEAD``. Returns a line for the log; raises on a
+    difference."""
+    import torch
+    g_leaves, r_leaves = tree_leaves(eng.state), tree_leaves(ref.state)
+    state_same = all(torch.equal(a, b) for a, b in zip(g_leaves, r_leaves))
+    state_err = max(scaled_err(a, b) for a, b in zip(g_leaves, r_leaves))
+    carry_same = all(torch.equal(eng._carry[k], ref._carry[k])
+                     for k in ref._carry)
+    outs = outs.reshape(ref_outs.shape)
+    out_same = torch.equal(outs, ref_outs)
+    out_err = float((outs - ref_outs).abs().max())
+    rep_same = eng.report() == ref.report()
+    line = (f"  {path} graph vs eager on the card: state bitwise "
+            f"{state_same} (scaled {state_err:.3e}), carry bitwise "
+            f"{carry_same}, outputs bitwise {out_same} ({out_err:.3e}), "
+            f"report equal {rep_same}")
+    if not (state_same and carry_same and rep_same
+            and out_err <= TOL_HEAD):
+        raise AssertionError(f"{path}: the graph's steps differ from the "
+                             f"eager steps:\n{line}")
+    return line
 
 
 def layer_inputs(rng, b, lay, fire, quant):
@@ -555,7 +624,9 @@ def main() -> int:
                                                 pack_spmv_weights,
                                                 spmv_launch_plan)
     from repro_torch.kernels.delta_step_f32 import f32_step_plan
-    from repro_torch.kernels.deltagru_cell import deltagru_act, deltagru_act_ref
+    from repro_torch.kernels.deltagru_cell import (deltagru_act,
+                                                   deltagru_act_plan,
+                                                   deltagru_act_ref)
     from repro_torch.kernels.rglru_scan import (rglru_scan,
                                                 rglru_scan_batched_ref,
                                                 rglru_scan_plan)
@@ -653,6 +724,71 @@ def main() -> int:
 
     def same(xs, ys):
         return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(xs, ys))
+
+    def offset_view(a):
+        """``a`` copied into a buffer one float in: contiguous, 4-byte but
+        not 16-byte aligned."""
+        buf = torch.empty(a.numel() + 4, dtype=a.dtype, device=a.device)
+        view = buf[1:1 + a.numel()].view(a.shape)
+        view.copy_(a)
+        return view
+
+    # deltagru_act at B in {1, 2, 8, 9} and H in {768, 770, 4097} (grids
+    # whose last block is ragged), with all operands 16-byte aligned and
+    # with each of the four in turn one float into its buffer (4-byte
+    # aligned), within TOL_F32 of its plain version on the card and the
+    # CPU; every case launched twice, the two results bitwise equal
+    n_act = 0
+    for b in (1, 2, 8, 9):
+        for h in (768, 770, 4097):
+            act = [rng.normal(0, 2, (b, 4 * h)), rng.normal(0, 1, (b, 3 * h)),
+                   rng.normal(0, 1, (b, 3 * h)), rng.uniform(-1, 1, (b, h))]
+            act = [torch.from_numpy(a.astype(np.float32)) for a in act]
+            gpu = [a.to(dev) for a in act]
+            for moved in (None, 0, 1, 2, 3):
+                ins = list(gpu)
+                if moved is not None:
+                    ins[moved] = offset_view(gpu[moved])
+                plan = deltagru_act_plan(b, h)
+                k = deltagru_act(*ins)
+                k2 = deltagru_act(*ins)
+                r = deltagru_act_ref(*ins)
+                c = deltagru_act_ref(*act)
+                torch.cuda.synchronize()
+                err, err_c = max_diff(k, r), max_diff(k, c)
+                twice = same(k, k2)
+                where = ("all 16-byte aligned" if moved is None else
+                         f"{('m_prev', 'zx', 'zh', 'h_prev')[moved]} 4-byte "
+                         "aligned")
+                check(ops.DELTAGRU_ACT_F32.name,
+                      err <= TOL_F32 and err_c <= TOL_F32 and twice, err,
+                      f"[{b}, 4*{h}] {where} ({plan.threads} threads a "
+                      f"block, grid {plan.grid}), "
+                      f"within {TOL_F32} on the card and the CPU (CPU: "
+                      f"{err_c:.3e}), two launches bitwise equal {twice}")
+                n_act += 1
+    log(f"deltagru_act cases: {n_act}, each launched twice")
+    # ops.deltagru_cell_fused (two unpacked spmvs, I = 40 with its ragged
+    # edge and I = 768, then deltagru_act) against the dense GRU step
+    h_dim = cfg.hidden_size
+    for li, p in enumerate(models["gru"]["gru"]):
+        st = init_deltagru_state(p, (8,))
+        st = st._replace(
+            h=torch.from_numpy(rng.uniform(-1, 1, (8, h_dim)).astype(
+                np.float32)).to(dev),
+            h_mem=DeltaState(torch.from_numpy(rng.uniform(
+                -1, 1, (8, h_dim)).astype(np.float32)).to(dev)))
+        x = torch.from_numpy(rng.normal(0, 1, (8, p.input_size)).astype(
+            np.float32)).to(dev)
+        want = deltagru_step(p, st, x, THETA, THETA, backend="dense")
+        dx = delta_encode(x, st.x_mem, THETA).delta
+        dh = delta_encode(st.h, st.h_mem, THETA).delta
+        got = ops.deltagru_cell_fused(p.w_x, p.w_h, st.m, st.h, dx, dh)
+        torch.cuda.synchronize()
+        err = max_diff(got, (want.state.m, want.h))
+        check(ops.DELTAGRU_ACT_F32.name, err <= TOL_F32, err,
+              f"ops.deltagru_cell_fused layer {li} (I={p.input_size}) "
+              "against the dense GRU step")
 
     def walk_sets(lay, u, b):
         """The fired sets of the walk's tails: exactly 0, 1, U - 1, U, U + 1
@@ -952,14 +1088,6 @@ def main() -> int:
     # operand that is a contiguous view one float into its buffer (4-byte
     # aligned: the 4-byte path). Every case launched twice, the two results
     # bitwise equal
-    def offset_view(a):
-        """``a`` copied into a buffer one float in: contiguous, 4-byte but
-        not 16-byte aligned."""
-        buf = torch.empty(a.numel() + 4, dtype=a.dtype, device=a.device)
-        view = buf[1:1 + a.numel()].view(a.shape)
-        view.copy_(a)
-        return view
-
     def scan_case(kinfo, kern, ref, cpu_args, dev_args, exact, what):
         """``exact``: bitwise equal to the plain version on the card (and
         within TOL_F32 of it on the CPU, whose float32 sqrt is not
@@ -1042,41 +1170,6 @@ def main() -> int:
                                   "(4-byte loads), bitwise on the card")
                         n_scan += 1
     log(f"scan cases: {n_scan}, each launched twice")
-    h_dim = cfg.hidden_size
-    for b in (1, 8):
-        act = [rng.normal(0, 2, (b, 4 * h_dim)),
-               rng.normal(0, 1, (b, 3 * h_dim)),
-               rng.normal(0, 1, (b, 3 * h_dim)),
-               rng.uniform(-1, 1, (b, h_dim))]
-        act = [torch.from_numpy(a.astype(np.float32)) for a in act]
-        gpu = [a.to(dev) for a in act]
-        k = deltagru_act(*gpu)
-        r = deltagru_act_ref(*gpu)
-        c = deltagru_act_ref(*act)
-        torch.cuda.synchronize()
-        check(ops.DELTAGRU_ACT_F32.name,
-              max_diff(k, r) <= TOL_F32 and max_diff(k, c) <= TOL_F32,
-              max_diff(k, r), f"[{b}, 4*{h_dim}]")
-    # ops.deltagru_cell_fused (two unpacked spmvs, I = 40 with its ragged
-    # edge and I = 768, then deltagru_act) against the dense GRU step
-    for li, p in enumerate(models["gru"]["gru"]):
-        st = init_deltagru_state(p, (8,))
-        st = st._replace(
-            h=torch.from_numpy(rng.uniform(-1, 1, (8, h_dim)).astype(
-                np.float32)).to(dev),
-            h_mem=DeltaState(torch.from_numpy(rng.uniform(
-                -1, 1, (8, h_dim)).astype(np.float32)).to(dev)))
-        x = torch.from_numpy(rng.normal(0, 1, (8, p.input_size)).astype(
-            np.float32)).to(dev)
-        want = deltagru_step(p, st, x, THETA, THETA, backend="dense")
-        dx = delta_encode(x, st.x_mem, THETA).delta
-        dh = delta_encode(st.h, st.h_mem, THETA).delta
-        got = ops.deltagru_cell_fused(p.w_x, p.w_h, st.m, st.h, dx, dh)
-        torch.cuda.synchronize()
-        err = max_diff(got, (want.state.m, want.h))
-        check(ops.DELTAGRU_ACT_F32.name, err <= TOL_F32, err,
-              f"ops.deltagru_cell_fused layer {li} (I={p.input_size}) "
-              "against the dense GRU step")
     phase3 = ops.launch_counts()
 
     # -- 4. exhaustive activation grid ------------------------------------
@@ -1098,15 +1191,30 @@ def main() -> int:
                 for t in lengths]
     launches = {}
     wall_us = {}
+    eager_us = {}
     batch_fps = {}
+
+    def graph_check(what, eng, steps):
+        """The engine stepped through its one captured graph: captured
+        once (at construction), replayed once a step."""
+        g = eng.graph_stats
+        if g["captures"] != 1 or g["replays"] != steps:
+            raise AssertionError(f"{what}: graph {g}, want 1 capture and "
+                                 f"{steps} replays")
     for (cell, be), prog in progs.items():
         path = f"{cell} {be}"
         kinfo = kernel_of[(cell, be)]
-        # warm-up (cuBLAS handle, allocator), then the counted runs
+        # warm-up (cuBLAS handle, allocator), then the counted runs; each
+        # engine captures its step at construction
         DeltaStreamEngine(prog, task).step_many(frames[:4])
         torch.cuda.synchronize()
 
         eng = DeltaStreamEngine(prog, task)
+        ref = DeltaStreamEngine(prog, task)
+        t0 = time.perf_counter()
+        ref_outs = eager_steps(ref, frames)
+        torch.cuda.synchronize()
+        eager_us[path] = 1e6 * (time.perf_counter() - t0) / N_FRAMES
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1122,6 +1230,8 @@ def main() -> int:
         if n1[kinfo.name] != want or sum(n1.values()) != want:
             raise AssertionError(f"{path}: launches {n1}, want {want} of "
                                  f"{kinfo.name}")
+        graph_check(path, eng, N_FRAMES)
+        log(graph_against_eager(path, eng, ref, outs, ref_outs))
 
         eng8 = DeltaStreamEngine(prog, task, n_streams=8)
         batcher = GruStreamBatcher(eng8)
@@ -1138,12 +1248,15 @@ def main() -> int:
         if n8[kinfo.name] != want8 or sum(n8.values()) != want8:
             raise AssertionError(f"{path} batcher: launches {n8}, want "
                                  f"{want8}")
+        graph_check(f"{path} batcher", eng8, batcher.counters["ticks"])
         launches[kinfo.name] = n1[kinfo.name] + n8[kinfo.name]
         log(f"main path {path}: 1 stream {N_FRAMES} steps -> "
             f"{n1[kinfo.name]} launches; 8-slot batcher {len(done)} "
             f"requests in {batcher.counters['ticks']} ticks -> "
-            f"{n8[kinfo.name]} launches; {wall_us[path]:.1f} us/step wall; "
-            f"report {eng.report()['gamma_dx']:.4f} gamma_dx")
+            f"{n8[kinfo.name]} launches; {wall_us[path]:.1f} us/step wall "
+            f"(eager {eager_us[path]:.1f}); report "
+            f"{eng.report()['gamma_dx']:.4f} gamma_dx; graphs: 1 stream "
+            f"{eng.graph_stats}, batcher {eng8.graph_stats}")
 
         # the same program on the CPU
         cpu_prog = cpu_progs[(cell, be)]
@@ -1226,6 +1339,11 @@ def main() -> int:
         torch.cuda.synchronize()
 
         lm_eng = DeltaStreamEngine(lm_prog, lm_task)
+        lm_ref = DeltaStreamEngine(lm_prog, lm_task)
+        t0 = time.perf_counter()
+        lm_ref_outs = eager_steps(lm_ref, frames_lm)
+        torch.cuda.synchronize()
+        eager_us[path] = 1e6 * (time.perf_counter() - t0) / N_FRAMES
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1241,6 +1359,9 @@ def main() -> int:
                 scan.name: N_FRAMES * n_layers}
         if n1 != want:
             raise AssertionError(f"{path}: launches {n1}, want {want}")
+        graph_check(path, lm_eng, N_FRAMES)
+        log(graph_against_eager(path, lm_eng, lm_ref, lm_outs, lm_ref_outs))
+        del lm_ref, lm_ref_outs
 
         lm_batcher = GruStreamBatcher(DeltaStreamEngine(lm_prog, lm_task,
                                                      n_streams=8))
@@ -1258,13 +1379,17 @@ def main() -> int:
         if n8 != want8 or len(lm_done) != len(requests_lm):
             raise AssertionError(f"{path} batcher: launches {n8}, want "
                                  f"{want8}; {len(lm_done)} requests done")
+        graph_check(f"{path} batcher", lm_batcher.engine, ticks)
         launches[spmv.name] += n1[spmv.name] + n8[spmv.name]
         launches[scan.name] = n1[scan.name] + n8[scan.name]
         lm_rep = lm_eng.report()
         log(f"main path {path}: 1 stream {N_FRAMES} steps -> {n1}; 8-slot "
             f"batcher {len(lm_done)} requests in {ticks} ticks -> {n8}; "
-            f"{wall_us[path]:.1f} us/step wall; report gamma_dx "
-            f"{lm_rep['gamma_dx']:.4f} gamma_dh {lm_rep['gamma_dh']:.4f}")
+            f"{wall_us[path]:.1f} us/step wall (eager "
+            f"{eager_us[path]:.1f}); report gamma_dx "
+            f"{lm_rep['gamma_dx']:.4f} gamma_dh {lm_rep['gamma_dh']:.4f}; "
+            f"graphs: 1 stream {lm_eng.graph_stats}, batcher "
+            f"{lm_batcher.engine.graph_stats}")
         if not torch.isfinite(lm_outs).all():
             raise AssertionError(f"{path}: non-finite outputs")
 
@@ -1499,46 +1624,88 @@ def main() -> int:
                 f"warm, {row[f'{key}_cold_ms']:.5f} ms with a cold L2, bound "
                 f"{row[f'{key}_bound_ms']:.6f} ms ({nbytes(b, t)} B) [{smi}]")
         rows[name] = row
-    act = [f32(1, 4 * h_dim), f32(1, 3 * h_dim), f32(1, 3 * h_dim),
-           f32(1, h_dim)]
+    # deltagru_act at the 2L-768H width: B = 1, also cold, at B = 8, and
+    # beside the floor under its launch (an empty kernel of its build at
+    # its grid, launched as it is); then ops.deltagru_cell_fused (two
+    # unpacked delta_spmv calls, every column fired, then deltagru_act) at
+    # the network's two layer shapes, I = 40 and I = 768
+    def act_args(b):
+        return [f32(b, 4 * h_dim), f32(b, 3 * h_dim), f32(b, 3 * h_dim),
+                f32(b, h_dim)]
+
+    act = act_args(1)
     row = {"ms": device_ms(lambda: deltagru_act(*act)),
+           "cold_ms": device_ms_cold(lambda: deltagru_act(*act)),
            "eager_ms": eager_ms(lambda: deltagru_act(*act)),
            "plain_ms": device_ms(lambda: deltagru_act_ref(*act)),
            "library_ms": None, "bytes": 4 * 16 * h_dim, "ops": 30 * h_dim}
     bound(row)
+    act8 = act_args(8)
+    row["tile_ms"] = device_ms(lambda: deltagru_act(*act8))
+    row["tile_bound_ms"] = 8 * row["bound_ms"]
+    plan = deltagru_act_plan(1, h_dim)
+    act_empty = _build.load("deltagru_cell.cu").deltagru_act_empty
+    act_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    act_empty.restype = ctypes.c_int
+
+    def empty_act():
+        if act_empty(plan.grid, plan.threads,
+                     torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("deltagru_act_empty launch failed")
+
+    row["launch_floor_ms"] = device_ms(empty_act)
+    row["launch_floor_cold_ms"] = device_ms_cold(empty_act)
     rows[ops.DELTAGRU_ACT_F32.name] = row
     log(f"time {ops.DELTAGRU_ACT_F32.name} B=1: kernel {row['ms']:.5f} ms "
-        f"on the device ({row['eager_ms']:.4f} ms launched from Python), "
-        f"plain {row['plain_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
-        f"({row['bytes']} B, {row['bound_by']}) [{smi}]")
+        f"warm, {row['cold_ms']:.5f} ms with a cold L2 "
+        f"({row['eager_ms']:.4f} ms launched from Python), plain "
+        f"{row['plain_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
+        f"({row['bytes']} B, {row['bound_by']}); B=8: {row['tile_ms']:.5f} "
+        f"ms, bound {row['tile_bound_ms']:.6f} ms; launch floor (an empty "
+        f"kernel of {plan.grid} blocks of {plan.threads} threads) "
+        f"{row['launch_floor_ms']:.5f} ms warm, "
+        f"{row['launch_floor_cold_ms']:.5f} ms timed cold [{smi}]")
+    for p in models["gru"]["gru"]:
+        m, hp = f32(1, 4 * h_dim), f32(1, h_dim)
+        dx, dh = f32(1, p.input_size), f32(1, h_dim)
+        ms = device_ms(lambda: ops.deltagru_cell_fused(p.w_x, p.w_h, m, hp,
+                                                       dx, dh))
+        log(f"time ops.deltagru_cell_fused I={p.input_size} H={h_dim} B=1, "
+            f"every column fired: {ms:.5f} ms warm (two delta_spmv and "
+            f"deltagru_act) [{smi}]")
 
     phase6 = ops.launch_counts()
     for name in ([k.name for k in buffered.values()]
                  + [ops.DELTA_SPMV_BF16.name, ops.DELTAGRU_ACT_F32.name]):
         launches[name] = phase3[name] + phase6[name]
 
-    for (cell, be), prog in progs.items():
-        path = f"{cell} {be}"
-        prof = engine_profile(DeltaStreamEngine(prog, task), frames[:50])
-        lat = step_latencies_us(DeltaStreamEngine(prog, task), frames)
-        log(f"engine {path}: frame-to-output latency at 1 stream over "
-            f"{len(lat)} frames: median {np.median(lat):.1f} us, p95 "
-            f"{np.percentile(lat, 95):.1f} us; step_many {wall_us[path]:.1f} "
-            f"us/step; 8-slot batcher {batch_fps[path]:.0f} frames/s; "
-            f"profiled: {json.dumps(prof)} [{smi}]")
-
-    for cell, (lm_prog, lm_task, frames_lm) in lm.items():
-        path = f"{cell} fused"
-        # 10 steps: the LM paths issue thousands of kernels per step
-        prof = engine_profile(DeltaStreamEngine(lm_prog, lm_task),
-                              frames_lm[:10])
-        lat = step_latencies_us(DeltaStreamEngine(lm_prog, lm_task),
-                                frames_lm)
-        log(f"engine {path}: frame-to-output latency at 1 stream over "
-            f"{len(lat)} frames: median {np.median(lat):.1f} us, p95 "
+    # the engine per path, through its captured graph and, as before it
+    # was one, op by op (eager_steps): kernels a step, device busy, idle
+    # share, wall and CUDA-event time a step (torch.profiler over 50 steps
+    # of the GRU/LSTM, 10 of the LM paths, which issue thousands of
+    # kernels a step), the latency of one step, and the capture's time
+    engine_paths = [(f"{cell} {be}", prog, task, frames, 50)
+                    for (cell, be), prog in progs.items()]
+    engine_paths += [(f"{cell} fused", lm_prog, lm_task, frames_lm, 10)
+                     for cell, (lm_prog, lm_task, frames_lm) in lm.items()]
+    for path, prog, eng_task, fr, n_prof in engine_paths:
+        eng = DeltaStreamEngine(prog, eng_task)
+        prof = engine_profile(lambda: eng.step_many(fr[:n_prof]), n_prof)
+        lat = step_latencies_us(DeltaStreamEngine(prog, eng_task).step, fr)
+        ref = DeltaStreamEngine(prog, eng_task)
+        prof_e = engine_profile(lambda: eager_steps(ref, fr[:n_prof]),
+                                n_prof)
+        lat_e = step_latencies_us(lambda x: eager_steps(ref, x[None]), fr)
+        log(f"engine {path} graph: capture {1e3 * eng.graph_stats['capture_s']:.1f} "
+            f"ms; frame-to-output latency at 1 stream over {len(lat)} "
+            f"frames: median {np.median(lat):.1f} us, p95 "
             f"{np.percentile(lat, 95):.1f} us; step_many {wall_us[path]:.1f} "
             f"us/step; 8-slot batcher {batch_fps[path]:.1f} frames/s; "
             f"profiled: {json.dumps(prof)} [{smi}]")
+        log(f"engine {path} eager (op by op): latency median "
+            f"{np.median(lat_e):.1f} us, p95 {np.percentile(lat_e, 95):.1f} "
+            f"us; step_many {eager_us[path]:.1f} us/step; profiled: "
+            f"{json.dumps(prof_e)} [{smi}]")
 
     entries = []
     for kinfo, (cell, be), _, _ in instances:
@@ -1570,6 +1737,9 @@ def main() -> int:
             entry["cold_ms"] = row["cold_ms"]
         if kinfo.name in scans:
             for key in ("cold_ms", "launch_floor_ms", "tile_ms", "t128_ms"):
+                entry[key] = row[key]
+        if kinfo is ops.DELTAGRU_ACT_F32:
+            for key in ("cold_ms", "launch_floor_ms", "tile_ms"):
                 entry[key] = row[key]
         if kinfo is ops.DELTA_SPMV_BF16:
             entry["path"] = ("repro_torch.kernels.delta_spmv.delta_spmv on "

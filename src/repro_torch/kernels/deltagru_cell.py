@@ -9,16 +9,75 @@ kernel over ``[B, H]``: one read per operand, one write per result.
 for CUDA tensors and runs the plain version :func:`deltagru_act_ref` for
 CPU tensors. :func:`repro_torch.kernels.ops.deltagru_cell_fused` composes it
 with two :func:`~repro_torch.kernels.delta_spmv.delta_spmv` calls.
+:func:`deltagru_act_plan` is its launch plan (threads a block, grid),
+computed on the host once per shape and device and cached, so a launch
+makes no CUDA API query; the C entry refuses a plan it cannot run.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ops import (DELTAGRU_ACT_F32, cuda_stream,
-                                     launches_kernel, require)
+from repro_torch.kernels.ops import (DELTAGRU_ACT_F32, H100_SMS,
+                                     cuda_stream, launches_kernel, require)
+
+# Constants of csrc/deltagru_cell.cu the plan mirrors.
+ACT_THREADS = (32, 64, 128, 256)     # threads a block the kernel takes
+# threads a block of the plan: 6 blocks at B = 1, H = 768, 48 for the
+# 8-slot batcher; 32 to 256 time alike there (tools/act_times.py
+# --breakdown)
+ACT_PLAN_THREADS = 128
+# blocks an SM of an H100 holds at once (its 2048 threads, at most 32
+# blocks; the kernel's few registers never bind)
+SM_THREADS, SM_BLOCKS = 2048, 32
+# the largest [B, 4H] operand the C entry takes (its offsets in int)
+ACT_MAX_ELEMS = 2 ** 31 - 1
+
+
+@dataclass(frozen=True)
+class ActPlan:
+    """How one ``deltagru_act`` call launches (:func:`deltagru_act_plan`).
+
+    A thread owns one channel ``(b, o)``; there are ``units = B * H``.
+    ``grid`` blocks of ``threads`` threads take channels ``global thread,
+    + grid * threads, ...``; the last block masks the channels past
+    ``units``. ``device``: the CUDA device index (-1 for none)."""
+
+    threads: int
+    units: int
+    grid: int
+    device: int
+
+
+def act_resident_blocks(threads: int) -> int:
+    """Blocks of ``threads`` the SMs of an H100 hold at once."""
+    return H100_SMS * min(SM_BLOCKS, SM_THREADS // threads)
+
+
+@functools.lru_cache(maxsize=512)
+def deltagru_act_plan(b: int, h: int, dtype: torch.dtype = torch.float32,
+                      device: int = -1) -> ActPlan:
+    """The launch plan of a call over ``[b, 4h]``, ``[b, 3h]`` and ``[b,
+    h]`` operands of type ``dtype``: blocks of ``ACT_PLAN_THREADS``, a
+    grid of at most the blocks the SMs hold at once. One path for every
+    width and every 4-byte aligned operand. Raises ``ValueError`` for what
+    the C entry refuses: negative sizes, operands that are not fp32,
+    ``b * 4h`` beyond ``ACT_MAX_ELEMS``."""
+    if dtype != torch.float32:
+        raise ValueError(f"deltagru_act takes fp32 operands, not {dtype}")
+    if min(b, h) < 0:
+        raise ValueError(f"deltagru_act takes sizes >= 0; got B={b}, H={h}")
+    if b * 4 * h > ACT_MAX_ELEMS:
+        raise ValueError(f"deltagru_act takes at most {ACT_MAX_ELEMS} "
+                         f"elements an operand; got B={b}, H={h}")
+    units = b * h
+    threads = ACT_PLAN_THREADS
+    grid = min(-(-units // threads), act_resident_blocks(threads))
+    return ActPlan(threads=threads, units=units, grid=grid, device=device)
 
 
 def deltagru_act(m_prev: torch.Tensor, zx: torch.Tensor, zh: torch.Tensor,
@@ -34,7 +93,7 @@ def deltagru_act(m_prev: torch.Tensor, zx: torch.Tensor, zh: torch.Tensor,
 def _fn():
     fn = _build.load("deltagru_cell.cu").deltagru_act_f32
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -43,15 +102,19 @@ def _fn():
 def _launch(m_prev, zx, zh, h_prev):
     b, h = h_prev.shape
     f32 = torch.float32
-    require(m_prev, "m_prev", f32, (b, 4 * h))
-    require(zx, "zx", f32, (b, 3 * h))
-    require(zh, "zh", f32, (b, 3 * h))
-    require(h_prev, "h_prev", f32, (b, h))
-    m_out = torch.empty_like(m_prev)
-    h_out = torch.empty_like(h_prev)
+    require(m_prev, "m_prev", f32, (b, 4 * h), align=4)
+    require(zx, "zx", f32, (b, 3 * h), align=4)
+    require(zh, "zh", f32, (b, 3 * h), align=4)
+    require(h_prev, "h_prev", f32, (b, h), align=4)
+    m_out = torch.empty((b, 4 * h), dtype=f32, device=h_prev.device)
+    h_out = torch.empty((b, h), dtype=f32, device=h_prev.device)
+    if not b * h:
+        return m_out, h_out
+    index = h_prev.device.index
+    plan = deltagru_act_plan(b, h, f32, -1 if index is None else index)
     err = _fn()(m_prev.data_ptr(), zx.data_ptr(), zh.data_ptr(),
                 h_prev.data_ptr(), m_out.data_ptr(), h_out.data_ptr(), b, h,
-                cuda_stream(h_prev))
+                plan.threads, plan.grid, cuda_stream(h_prev))
     if err:
         raise RuntimeError(f"deltagru_act_f32 launch failed: CUDA error "
                            f"{err}")

@@ -14,7 +14,10 @@ version on the card call it by name (``*_ref``).
 
 Every kernel wrapper adds one to its :class:`KernelInfo` ``launches`` count
 where it launches its kernel, so a run can show that the main path went
-through the kernels.
+through the kernels. A CUDA graph's capture calls the wrappers without
+running a kernel and its replays run kernels without calling a wrapper, so
+its owner takes the capture's counts back (:func:`take_back_launches`) and
+adds them once per replay (:func:`add_launches`).
 """
 from __future__ import annotations
 
@@ -182,6 +185,26 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
+
+
+def take_back_launches(before: dict) -> tuple:
+    """Set every count back to ``before`` (a :func:`launch_counts`) and
+    return what was counted since, as ``((KernelInfo, n), ...)``. A CUDA
+    graph capture calls every wrapper of the step once but runs no kernel:
+    its counts are taken back, and :func:`add_launches` adds them once per
+    replay, when the kernels do run."""
+    counted = tuple((k, k.launches - before[k.name]) for k in KERNELS
+                    if k.launches != before[k.name])
+    for k, n in counted:
+        k.launches -= n
+    return counted
+
+
+def add_launches(counted: tuple) -> None:
+    """Add the launches of one replay of a captured graph
+    (:func:`take_back_launches`)."""
+    for k, n in counted:
+        k.launches += n
 
 
 # -- the public kernel ops of the JAX package (repro.kernels.ops) ------------

@@ -21,6 +21,15 @@ host until :attr:`stats`, :meth:`report` or :meth:`close_stream` reads
 them. A host numpy frame is snapshotted (a synchronous numpy copy) and sent
 to a CUDA device through pinned memory without blocking.
 
+The step is the port's ``jax.jit(_step)``. The engine keeps its state, its
+carry and its input frame in fixed buffers, and every step and session
+call writes into them in place. On a CUDA device one step over those
+buffers is captured once as a CUDA graph (at construction, and again when
+a value it bakes in changes: :meth:`_capture_key`), and ``step`` /
+``step_many`` replay it, one graph launch a step; a capture or replay that
+fails raises. On the CPU, where no graph exists, the same step runs
+eagerly. ``graph_stats`` counts the captures and replays.
+
 ``mean_est_latency_us`` and the other Eq. 7 figures are the modelled
 latencies of the paper's FPGA (:class:`~repro_torch.core.perf_model.
 AcceleratorSpec`, 125 MHz), not times measured on the GPU.
@@ -33,6 +42,7 @@ steps whose post-step state went non-finite; :meth:`snapshot_streams` /
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -46,6 +56,7 @@ from repro_torch.core.program import (DeltaProgram, DeltaProgramState,
                                       compile_delta_program, infer_cell)
 from repro_torch.core.sparsity import cell_dims
 from repro_torch.core.thresholds import ThresholdPolicy, dynamic_threshold
+from repro_torch.kernels import ops
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.gru_rnn import GruTaskConfig
 
@@ -70,6 +81,51 @@ def _leaves(tree):
             yield from _leaves(x)
     else:
         raise TypeError(f"unexpected state node {type(tree).__name__}")
+
+
+def _clone(state):
+    """A program state whose every leaf is a tensor of its own."""
+    return _map2(lambda a, _: a.clone(), state, state)
+
+
+def _copy_into(dsts: list, srcs: list) -> None:
+    """Write ``srcs`` into the buffers ``dsts`` in place, one
+    ``_foreach_copy_``. A source that is its own buffer (a value passed
+    through unchanged) is skipped; one that shares memory with another
+    buffer is copied out first, so no buffer is overwritten before it is
+    read."""
+    own = {d.untyped_storage().data_ptr(): i for i, d in enumerate(dsts)}
+    pairs = []
+    for i, (d, s) in enumerate(zip(dsts, srcs, strict=True)):
+        j = own.get(s.untyped_storage().data_ptr())
+        if j == i and s.data_ptr() == d.data_ptr():
+            continue
+        pairs.append((d, s if j is None else s.clone()))
+    if pairs:
+        torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
+
+
+def _capture_cuda_graph(body):
+    """Capture ``body`` (one engine step over its fixed buffers, returning
+    its output) into a CUDA graph on a side stream, without synchronising
+    the host (``torch.cuda.graph`` would). Returns ``replay() -> output``:
+    one graph launch, then the graph's own output buffer."""
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        try:
+            out = body()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+
+    def replay():
+        graph.replay()
+        return out
+
+    return replay
 
 
 def _mean(x: torch.Tensor, dim=None) -> torch.Tensor:
@@ -207,7 +263,21 @@ class DeltaStreamEngine:
                 self.thresholds.layer_thetas(task.num_layers)
         else:
             self._theta_x_layers = self._theta_h_layers = None
+        # the fixed buffers: the frame here, the state and carry (and their
+        # rollback shadows) from reset
+        self._x = torch.zeros((n_streams, task.input_size),
+                              dtype=torch.float32, device=self.device)
+        self.state = None
         self.reset()
+        # the captured step: on a CUDA device only (the CPU steps eagerly)
+        self._capture = (_capture_cuda_graph if self.device.type == "cuda"
+                         else None)
+        self._replay = None
+        self._graph_key = self._graph_program = None
+        self._graph_launches = ()
+        self.graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
+        if self._capture is not None:
+            self._capture_step()
 
     # -- the step (tensor ops only: no host sync) --------------------------
 
@@ -287,6 +357,70 @@ class DeltaStreamEngine:
         }
         return out, new_state, new_carry
 
+    def _write(self, dst_state, dst_carry, src_state, src_carry):
+        """Write a state and carry into buffers (the live ones or the
+        rollback shadow), in place."""
+        _copy_into(list(_leaves(dst_state.stack)) + list(dst_carry.values()),
+                   list(_leaves(src_state.stack))
+                   + [src_carry[k] for k in dst_carry])
+
+    def _capture_key(self) -> tuple:
+        """What a captured step bakes in as Python values: the program (its
+        weights, head, backend and stream tile), ``theta_x``, the per-layer
+        thresholds and the dynamic controller's target. ``theta_h`` is a
+        buffer of the carry and stays live."""
+        return (id(self.program), self.backend, self.n_streams, self.theta_x,
+                self._theta_x_layers, self._theta_h_layers,
+                self.dynamic_target)
+
+    def _capture_step(self):
+        """Capture one step over the buffers with ``self._capture``. The
+        step first runs once on scratch copies of the state and carry, so
+        what runs on first use (kernel builds, launch plans, cuBLAS's handle
+        and workspace) runs outside the capture and no stream advances;
+        those launches ran and stay counted. The capture calls every kernel
+        wrapper once and runs no kernel: its counts are taken back and added
+        again at each replay."""
+        t0 = time.perf_counter()
+        scratch = (_clone(self.state),
+                   {k: v.clone() for k, v in self._carry.items()},
+                   self._x.clone())
+        if self.device.type == "cuda":
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self._one_step(*scratch)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+        else:
+            self._one_step(*scratch)
+        del scratch
+
+        def body():
+            out, state, carry = self._one_step(self.state, self._carry,
+                                               self._x)
+            self._write(self.state, self._carry, state, carry)
+            return out
+
+        self._replay = None                 # free the old graph first
+        before = ops.launch_counts()
+        self._replay = self._capture(body)
+        self._graph_launches = ops.take_back_launches(before)
+        self._graph_key = self._capture_key()
+        self._graph_program = self.program     # keeps the key's id unique
+        self.graph_stats["captures"] += 1
+        self.graph_stats["capture_s"] = time.perf_counter() - t0
+
+    def _replay_step(self) -> torch.Tensor:
+        """One replay of the captured step from the input buffer (capturing
+        it again first if what it bakes in changed); returns the graph's
+        output buffer, which the next replay overwrites."""
+        if self._graph_key != self._capture_key():
+            self._capture_step()
+        out = self._replay()
+        ops.add_launches(self._graph_launches)
+        self.graph_stats["replays"] += 1
+        return out
+
     def _mask(self, sids) -> torch.Tensor:
         """A ``[N]`` bool mask on the device, built without a host copy."""
         mask = torch.zeros((self.n_streams,), dtype=torch.bool,
@@ -316,18 +450,20 @@ class DeltaStreamEngine:
                                       dst_carry["last_x"])
         return state, carry
 
-    def _to_device(self, x) -> torch.Tensor:
+    def _to_device(self, x, pinned: bool = False) -> torch.Tensor:
         """A frame on the engine's device. Host numpy input is snapshotted
         with a synchronous copy, so a caller may reuse its buffer at once;
         a CPU tensor goes to a CUDA device through pinned memory without
-        blocking the host."""
+        blocking the host. With ``pinned`` it stays in that pinned memory,
+        for a non-blocking copy into the input buffer."""
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(np.array(x, np.float32))
         x = torch.as_tensor(x, dtype=torch.float32)
         if x.device == self.device:
             return x
         if self.device.type == "cuda" and x.device.type == "cpu":
-            return x.pin_memory().to(self.device, non_blocking=True)
+            x = x.pin_memory()
+            return x if pinned else x.to(self.device, non_blocking=True)
         return x.to(self.device)
 
     # -- hot path ---------------------------------------------------------
@@ -336,8 +472,9 @@ class DeltaStreamEngine:
         """Process one timestep. ``x: [I]`` (single stream) or
         ``[n_streams, I]``; returns ``[O]`` / ``[n_streams, O]`` on the
         device. Reading the result (or :attr:`stats`) is what synchronises,
-        not the call."""
-        x = self._to_device(x)
+        not the call. The result is a tensor of its own: later steps do not
+        overwrite it."""
+        x = self._to_device(x, pinned=self._capture is not None)
         i_dim = self.dims.input_size
         if x.dim() == 1 and self.n_streams == 1:
             x = x[None]
@@ -350,16 +487,29 @@ class DeltaStreamEngine:
                 f"{f' or [1, {i_dim}]' if self.n_streams == 1 else ''}, "
                 f"got {tuple(x.shape)} — reshaping would silently "
                 "cross-contaminate stream slots")
-        out, self.state, self._carry = self._one_step(self.state,
-                                                      self._carry, x)
+        if self._capture is None:
+            out = self._eager_step(x)
+        else:
+            self._x.copy_(x, non_blocking=True)
+            out = self._replay_step().clone()
         self._n_steps += 1
         return out[0] if self.n_streams == 1 else out
+
+    def _eager_step(self, x: torch.Tensor) -> torch.Tensor:
+        """One step run op by op from ``x`` into the buffers (the CPU's
+        step)."""
+        out, state, carry = self._one_step(self.state, self._carry, x)
+        self._write(self.state, self._carry, state, carry)
+        return out
 
     def step_many(self, xs) -> torch.Tensor:
         """Process a chunk of timesteps. ``xs: [T, I]`` or
         ``[T, n_streams, I]``; returns ``[T, O]`` / ``[T, n_streams, O]``.
         One host-to-device copy for the chunk, then a loop of device steps
-        with no host sync."""
+        with no host sync: on a CUDA device a replay a frame, each output
+        copied into a ``[T, n_streams, O]`` tensor of its own (JAX's
+        ``_steps`` is one ``lax.scan``; T varies, so one graph serves every
+        chunk length)."""
         xs = self._to_device(xs)
         squeeze = xs.dim() == 2
         if squeeze:
@@ -374,14 +524,16 @@ class DeltaStreamEngine:
             raise ValueError(
                 f"chunk stream dim {xs.shape[1]} != n_streams="
                 f"{self.n_streams} (xs: {tuple(xs.shape)})")
-        state, carry = self.state, self._carry
-        outs = []
-        for x in xs:
-            out, state, carry = self._one_step(state, carry, x)
-            outs.append(out)
-        self.state, self._carry = state, carry
+        if self._capture is None:
+            outs = torch.stack([self._eager_step(x) for x in xs])
+        else:
+            outs = torch.empty((xs.shape[0], self.n_streams,
+                                self.head[0].shape[-1]),
+                               dtype=torch.float32, device=self.device)
+            for x, out in zip(xs, outs):
+                self._x.copy_(x)
+                out.copy_(self._replay_step())
         self._n_steps += xs.shape[0]
-        outs = torch.stack(outs)
         return outs[:, 0] if (squeeze and self.n_streams == 1) else outs
 
     # -- per-stream sessions ----------------------------------------------
@@ -402,12 +554,12 @@ class DeltaStreamEngine:
         sid = free[0]
         mask = self._mask([sid])
         fresh = self.program.init_state((self.n_streams,))
-        self.state = self._select(mask, self.state, fresh)
         carry = dict(self._carry)
         for k in self._PER_STREAM_KEYS:
             carry[k] = torch.where(mask, 0.0, carry[k])
         carry["last_x"] = torch.where(mask[:, None], 0.0, carry["last_x"])
-        self._carry = carry
+        self._write(self.state, self._carry,
+                    self._select(mask, self.state, fresh), carry)
         self._slot_busy[sid] = True
         self._slot_opened_at[sid] = self._n_steps
         # the slot's rollback target starts as its fresh session state
@@ -457,9 +609,9 @@ class DeltaStreamEngine:
         for sid in sids:
             if not (0 <= sid < self.n_streams):
                 raise ValueError(f"stream {sid} out of range")
-        self._snap_state, self._snap_carry = self._merge_rows(
+        self._write(self._snap_state, self._snap_carry, *self._merge_rows(
             self._snap_state, self._snap_carry, self.state, self._carry,
-            self._mask(sids))
+            self._mask(sids)))
         for sid in sids:
             self._snap_steps[sid] = self._n_steps - self._slot_opened_at[sid]
 
@@ -468,9 +620,9 @@ class DeltaStreamEngine:
         returns the session-step index it rewinds to. Device work only."""
         if not (0 <= sid < self.n_streams) or not self._slot_busy[sid]:
             raise ValueError(f"stream {sid} is not open")
-        self.state, self._carry = self._merge_rows(
+        self._write(self.state, self._carry, *self._merge_rows(
             self.state, self._carry, self._snap_state, self._snap_carry,
-            self._mask([sid]))
+            self._mask([sid])))
         self._slot_opened_at[sid] = self._n_steps - self._snap_steps[sid]
         return self._snap_steps[sid]
 
@@ -480,7 +632,7 @@ class DeltaStreamEngine:
             raise ValueError(
                 "set_theta_h adjusts one scalar theta_h, which would "
                 "silently override the per-layer threshold policy")
-        self._carry = {**self._carry, "theta_h": self._scalar(value)}
+        self._carry["theta_h"].fill_(value)
 
     # -- accounting -------------------------------------------------------
 
@@ -512,14 +664,19 @@ class DeltaStreamEngine:
         )
 
     def reset(self):
-        self.state = self.program.init_state(batch_shape=(self.n_streams,))
-        zeros = torch.zeros((self.n_streams,), dtype=torch.float32,
-                            device=self.device)
-        self._carry = {
-            "fired_x": zeros,
-            "fired_h": zeros,
-            "lat_s": zeros,
-            "w_bytes": zeros,
+        """Every slot fresh, every count zero: written into the buffers
+        (allocated at the first call), each carry key a tensor of its own."""
+        fresh = self.program.init_state(batch_shape=(self.n_streams,))
+
+        def zeros():
+            return torch.zeros((self.n_streams,), dtype=torch.float32,
+                               device=self.device)
+
+        carry = {
+            "fired_x": zeros(),
+            "fired_h": zeros(),
+            "lat_s": zeros(),
+            "w_bytes": zeros(),
             "agg_fired_x": self._scalar(0.0),
             "agg_fired_h": self._scalar(0.0),
             "agg_lat_s": self._scalar(0.0),
@@ -530,17 +687,22 @@ class DeltaStreamEngine:
             "agg_tile_w_bytes": self._scalar(0.0),
             "last_x": torch.zeros((self.n_streams, self.dims.input_size),
                                   dtype=torch.float32, device=self.device),
-            "poison_steps": zeros,
-            "bad_state": zeros,
+            "poison_steps": zeros(),
+            "bad_state": zeros(),
             "agg_poison_steps": self._scalar(0.0),
             "agg_bad_state": self._scalar(0.0),
             "theta_h": self._scalar(self.thresholds.theta_h),
         }
+        if self.state is None:
+            self.state, self._snap_state = _clone(fresh), _clone(fresh)
+            self._carry = carry
+            self._snap_carry = {k: v.clone() for k, v in carry.items()}
+        else:
+            self._write(self.state, self._carry, fresh, carry)
+            self._write(self._snap_state, self._snap_carry, fresh, carry)
         self._n_steps = 0
         self._slot_busy = [False] * self.n_streams
         self._slot_opened_at = [0] * self.n_streams
-        self._snap_state = self.state
-        self._snap_carry = dict(self._carry)
         self._snap_steps = [0] * self.n_streams
 
     def report(self) -> dict:

@@ -273,7 +273,8 @@ def test_rglru_assoc_matches_jax_and_the_scan(t):
 
 # -- deltagru_act and the composed GRU step -----------------------------------
 
-@pytest.mark.parametrize("b,h", [(1, 128), (2, 200), (4, 768)])
+@pytest.mark.parametrize("b,h", [(1, 128), (2, 200), (4, 768), (1, 5),
+                                 (3, 130)])
 def test_deltagru_act_matches_jax(b, h):
     rng = np.random.default_rng(b * 31 + h)
     m, zx, zh, hp = (rng.normal(size=s).astype(np.float32)
