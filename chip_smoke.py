@@ -52,6 +52,27 @@ traceback and a non-zero exit):
    replay's added, must equal steps × layers of that path's kernel, and
    no other kernel may launch, in each run; the results must match the
    same program compiled with ``device="cpu"``;
+5c. resilience (after 5b, below), on the main path's engines: (a) each
+   of the eight 1-stream engines opens a session, steps, snapshots and
+   ``checkpoint``s; ``DeltaStreamEngine.restore`` builds a second engine
+   on the card (its graph captured, then the checkpoint written into its
+   buffers); both step 20 frames bitwise alike in state, carry, shadows,
+   outputs and report, the restored one through one capture over the
+   buffers it captured; ``corrupt_slot_state`` on it is flagged in
+   ``bad_state`` by its next replay and ``rollback_stream`` restores the
+   snapshot bitwise; ``step_many``, ``snapshot_streams``,
+   ``rollback_stream`` and the corruption run under
+   ``set_sync_debug_mode("error")``, and each engine's launches are
+   exact; (b) the seeded chaos soak of ``tests/test_resilience.py::
+   TestChaosSoak`` through ``serve_resumable`` at 2L-768H
+   (``quantize_delta_model``, 8 slots, θ = 0.25; poison, a slot
+   corruption, a stall and a crash at tick 120): every arrival terminal,
+   one restart, ``recovered == quarantined >= 2``, every ``ok`` stream
+   bitwise equal to a clean run of its sanitized frames on an 8-slot
+   engine on the card, a second card run and a run of the same program
+   with ``device="cpu"`` equal in every status and tick-based counter;
+   (c) checkpoint and restore times, the soak's p99 tick wall and frames
+   per second;
 6. times on the card: each kernel instance at B = 1 and its plain version
    (device time from CUDA-graph replay between CUDA events, also with the
    L2 flushed before each call, and the kernel's time per call launched
@@ -91,7 +112,9 @@ beside an empty kernel of their build at the same grid, and the engine
 profile of both paths.
 
 The line before the last is ``{"kernels": [...]}`` (every kernel instance;
-the ``launches`` of an instance on no main path, a buffered one,
+the ``launches`` of a main-path instance are those of phases 5, 5b and
+5c, each run counted from zero; those of an instance on no main path, a
+buffered one,
 ``delta_spmv_bf16`` or ``deltagru_act``, are those of phases 3 and 6, and
 its ``path`` names the entry that reaches it); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -100,8 +123,10 @@ from __future__ import annotations
 
 import ctypes
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -371,6 +396,235 @@ def graph_against_eager(path, eng, ref, outs, ref_outs) -> str:
         raise AssertionError(f"{path}: the graph's steps differ from the "
                              f"eager steps:\n{line}")
     return line
+
+
+def buffer_ptrs(eng) -> list:
+    """Data pointers of an engine's buffers: the live state, carry and frame
+    its captured step reads and writes, and the rollback shadows."""
+    bufs = (tree_leaves(eng.state) + list(eng._carry.values()) + [eng._x]
+            + tree_leaves(eng._snap_state) + list(eng._snap_carry.values()))
+    return [t.data_ptr() for t in bufs]
+
+
+def recording(engine_cls):
+    """A subclass of ``engine_cls`` that keeps every engine it makes and
+    the buffer pointers each captured its graph over."""
+    class Recorded(engine_cls):
+        made = []
+
+        def __init__(self, *args, **kwargs):
+            self.captured_ptrs = None
+            super().__init__(*args, **kwargs)
+            Recorded.made.append(self)
+
+        def _capture_step(self):
+            self.captured_ptrs = buffer_ptrs(self)
+            super()._capture_step()
+
+    return Recorded
+
+
+class no_sync:
+    """Inside, a host sync on a CUDA device raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+
+    def __enter__(self):
+        import torch
+        if self.cuda:
+            torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        import torch
+        if self.cuda:
+            torch.cuda.set_sync_debug_mode("default")
+        return False
+
+
+def sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def same_buffers(a, b) -> bool:
+    """Two engines' state, carry and rollback shadows bit for bit."""
+    import torch
+    leaves = zip(tree_leaves(a.state) + tree_leaves(a._snap_state),
+                 tree_leaves(b.state) + tree_leaves(b._snap_state))
+    return (all(torch.equal(x, y) for x, y in leaves)
+            and all(torch.equal(a._carry[k], b._carry[k])
+                    and torch.equal(a._snap_carry[k], b._snap_carry[k])
+                    for k in a._carry))
+
+
+def restore_round_trip(path, eng, prog, task, frames, engine_cls,
+                       ckpt_dir) -> dict:
+    """The resilience phase's part (a) on one main-path engine ``eng``
+    (one stream, 41 ``frames``): open a session, step, snapshot, step,
+    ``checkpoint``; ``engine_cls.restore`` a second engine (built, its
+    graph captured, then the checkpoint written into its buffers); both
+    step 20 frames, bitwise equal in state, carry, shadows, outputs and
+    report, the restored engine through its one capture over the buffers
+    it captured; then ``corrupt_slot_state`` on the restored engine is
+    flagged in ``bad_state`` by its next step, ``rollback_stream`` brings
+    back its snapshot bit for bit, and both engines, rolled back, step 5
+    frames alike. ``step_many``, ``snapshot_streams``, ``rollback_stream``
+    and the corruption run under ``no_sync``. Returns the times and the
+    number of engine steps run (each launches its step's kernels)."""
+    import torch
+    from repro_torch.serve.faults import corrupt_slot_state
+    dev = eng.device
+    sid = eng.open_stream()
+    with no_sync(dev):
+        eng.step_many(frames[:10])
+        eng.snapshot_streams()
+        eng.step_many(frames[10:15])
+    sync(dev)
+    t0 = time.perf_counter()
+    eng.checkpoint(ckpt_dir)
+    ckpt_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    back = engine_cls.restore(ckpt_dir, prog, task, device=dev)
+    sync(dev)
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    cuda = dev.type == "cuda"
+    if not same_buffers(eng, back) or (back._slot_busy, back._n_steps) != (
+            eng._slot_busy, eng._n_steps):
+        raise AssertionError(f"{path}: the restored engine differs")
+    with no_sync(dev):
+        a = eng.step_many(frames[15:35])
+        b = back.step_many(frames[15:35])
+    graphs = back.graph_stats
+    if not (torch.equal(a, b) and same_buffers(eng, back)
+            and back.report() == eng.report()):
+        raise AssertionError(f"{path}: the restored engine stepped apart "
+                             "from the one it was checkpointed from")
+    if cuda and (graphs["captures"] != 1 or graphs["replays"] != 20
+                 or back.captured_ptrs != buffer_ptrs(back)):
+        raise AssertionError(f"{path}: restored engine graph {graphs}, "
+                             "want 1 capture, 20 replays over the buffers "
+                             "it captured")
+    snap = [t.clone() for t in tree_leaves(back._snap_state)]
+    keys = back._PER_STREAM_KEYS + ("last_x",)
+    snap_carry = {k: back._snap_carry[k].clone() for k in keys}
+    with no_sync(dev):
+        corrupt_slot_state(back, sid)
+        back.step(frames[35])
+    bad = float(back.host_carry()["bad_state"][sid])
+    with no_sync(dev):
+        back.rollback_stream(sid)
+        eng.rollback_stream(sid)
+    rolled = (all(torch.equal(x, y) for x, y in zip(tree_leaves(back.state),
+                                                    snap))
+              and all(torch.equal(back._carry[k], snap_carry[k])
+                      for k in keys))
+    with no_sync(dev):
+        a = eng.step_many(frames[36:41])
+        b = back.step_many(frames[36:41])
+    if bad != 1.0 or not rolled or not torch.equal(a, b):
+        raise AssertionError(f"{path}: corruption flagged {bad} (want 1.0), "
+                             f"rollback bitwise {rolled}, after it equal "
+                             f"{torch.equal(a, b)}")
+    return {"ckpt_ms": ckpt_ms, "restore_ms": restore_ms,
+            "capture_ms": 1e3 * graphs["capture_s"],
+            "steps": 40 + 26 + graphs["captures"]}
+
+
+SOAK_ARRIVALS = 200
+SOAK_SLOTS = 8
+
+
+def soak_arrivals(input_size: int) -> list:
+    """The chaos soak's schedule (``tests/test_resilience.py::
+    TestChaosSoak``): 200 arrivals of 5-29 standard-normal frames, 0-3
+    ticks apart, seed 1234."""
+    import numpy as np
+    rng = np.random.default_rng(1234)
+    arrivals, t = [], 0
+    for _ in range(SOAK_ARRIVALS):
+        n = int(rng.integers(5, 30))
+        arrivals.append((t, rng.standard_normal((n, input_size)).astype(
+            np.float32)))
+        t += int(rng.integers(0, 4))
+    return arrivals
+
+
+def soak_plan():
+    from repro_torch.serve.faults import FaultPlan
+    return FaultPlan(seed=99, poison_streams=(17, 90), inf_streams=(55,),
+                     poison_frames=4, corrupt_slot_at=((40, 3),),
+                     stall_ticks=(25,), crash_at_tick=120)
+
+
+def chaos_soak(prog, task, device, ckpt_dir) -> dict:
+    """The seeded chaos soak through ``serve_resumable`` (8 slots, the
+    ``TestChaosSoak`` policy, a checkpoint every 32 ticks, the crash at
+    tick 120). Returns its results, server, restarts, wall time and the
+    frames of the streams it completed ``ok``."""
+    from repro_torch.serve import resilience
+    pol = resilience.ResiliencePolicy(
+        max_queue=64, deadline_ticks=60, quarantine_after=3,
+        on_quarantine="readmit", check_every=8, ckpt_dir=ckpt_dir,
+        ckpt_every=32)
+    arrivals = soak_arrivals(task.input_size)
+    sync(device)
+    t0 = time.perf_counter()
+    results, srv, restarts = resilience.serve_resumable(
+        prog, task, arrivals, pol, n_streams=SOAK_SLOTS,
+        engine_kwargs={"device": device}, fault_plan=soak_plan())
+    sync(device)
+    wall = time.perf_counter() - t0
+    ok_frames = sum(len(r.outputs) for r in results.values()
+                    if r.status == "ok")
+    return {"results": results, "srv": srv, "restarts": restarts,
+            "wall_s": wall, "ok_frames": ok_frames,
+            "statuses": {i: r.status for i, r in results.items()},
+            "counters": {k: v for k, v in srv.counters.items()
+                         if k not in ("straggler_flags",
+                                      "missed_heartbeats")}}
+
+
+def check_soak(run, what) -> None:
+    """What ``TestChaosSoak`` asserts of one run."""
+    c = run["counters"]
+    if not (run["restarts"] == 1 and len(run["results"]) == SOAK_ARRIVALS
+            and c["quarantined"] >= 2 and c["recovered"] == c["quarantined"]
+            and c["poison_frames"] > 0
+            and sum(s == "ok" for s in run["statuses"].values())
+            >= SOAK_ARRIVALS // 2):
+        raise AssertionError(f"{what}: restarts {run['restarts']}, "
+                             f"{len(run['results'])} terminal, counters {c}")
+
+
+def soak_reference_check(prog, task, run, device) -> int:
+    """Every ``ok`` stream of a soak bitwise equal to a clean run of its
+    sanitized frames through slot 0 of an 8-slot engine. Returns how many
+    streams were checked."""
+    import numpy as np
+    from repro_torch.serve.engine import DeltaStreamEngine
+    from repro_torch.serve.faults import sanitize_frames
+    plan = soak_plan()
+    ref = DeltaStreamEngine(prog, task, n_streams=SOAK_SLOTS, device=device)
+    checked = 0
+    for i, (_, frames) in enumerate(soak_arrivals(task.input_size)):
+        r = run["results"][i]
+        if r.status != "ok":
+            continue
+        fed = sanitize_frames(plan.poison_stream(i, frames))
+        ref.reset()
+        sid = ref.open_stream()
+        xs = np.zeros((len(fed), SOAK_SLOTS, task.input_size), np.float32)
+        xs[:, sid] = fed
+        want = ref.step_many(xs)[:, sid].cpu().numpy()
+        got = np.stack([np.asarray(o) for o in r.outputs])
+        if not np.array_equal(got, want):
+            raise AssertionError(f"soak arrival {i} differs from a clean "
+                                 f"run: {np.abs(got - want).max():.3e}")
+        checked += 1
+    return checked
 
 
 def layer_inputs(rng, b, lay, fire, quant):
@@ -647,6 +901,8 @@ def main() -> int:
                                                    deltalstm_seq_step_ref)
     from repro_torch.models.gru_rnn import (GruTaskConfig, init_gru_model,
                                             init_lstm_model)
+    from repro_torch.quant.export import quantize_delta_model
+    from repro_torch.serve import resilience
     from repro_torch.serve.engine import DeltaStreamEngine
     from repro_torch.serve.scheduler import GruStreamBatcher
 
@@ -1193,6 +1449,11 @@ def main() -> int:
     wall_us = {}
     eager_us = {}
     batch_fps = {}
+    # each path's 1-stream engine after its run, its program and task, the
+    # launches of one of its steps, and frames for the resilience phase
+    # (drawn from a generator of their own: the other phases' inputs stay)
+    main_engines = {}
+    res_rng = np.random.default_rng(SEED + 1)
 
     def graph_check(what, eng, steps):
         """The engine stepped through its one captured graph: captured
@@ -1232,6 +1493,9 @@ def main() -> int:
                                  f"{kinfo.name}")
         graph_check(path, eng, N_FRAMES)
         log(graph_against_eager(path, eng, ref, outs, ref_outs))
+        main_engines[path] = (eng, prog, task, {kinfo.name: cfg.num_layers},
+                              smooth_frames(res_rng, 41, 1,
+                                            cfg.input_size)[:, 0])
 
         eng8 = DeltaStreamEngine(prog, task, n_streams=8)
         batcher = GruStreamBatcher(eng8)
@@ -1362,6 +1626,9 @@ def main() -> int:
         graph_check(path, lm_eng, N_FRAMES)
         log(graph_against_eager(path, lm_eng, lm_ref, lm_outs, lm_ref_outs))
         del lm_ref, lm_ref_outs
+        main_engines[path] = (lm_eng, lm_prog, lm_task,
+                              {spmv.name: 4 * n_layers, scan.name: n_layers},
+                              lm_stream(res_rng, 41, d))
 
         lm_batcher = GruStreamBatcher(DeltaStreamEngine(lm_prog, lm_task,
                                                      n_streams=8))
@@ -1415,6 +1682,107 @@ def main() -> int:
                                  "program")
         lm[cell] = (lm_prog, lm_task, frames_lm)
         del lm_cpu, ge, ce
+
+    # -- 5c. resilience ---------------------------------------------------
+    # (a) a checkpoint/restore round trip on each path's 1-stream engine,
+    # then corruption and rollback on the restored one; each engine's exact
+    # launches, no other kernel
+    Recorded = recording(DeltaStreamEngine)
+    cpu = torch.device("cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        for path, (eng, prog_p, task_p, per_step, fr) in main_engines.items():
+            ops.reset_launch_counts()
+            rt = restore_round_trip(path, eng, prog_p, task_p, fr, Recorded,
+                                    os.path.join(tmp, path.replace(" ", "_")))
+            n = {k: v for k, v in ops.launch_counts().items() if v}
+            want = {k: rt["steps"] * v for k, v in per_step.items()}
+            if n != want:
+                raise AssertionError(f"{path} round trip: launches {n}, "
+                                     f"want {want}")
+            for k, v in n.items():
+                launches[k] += v
+            log(f"resilience {path}: checkpoint {rt['ckpt_ms']:.3f} ms, "
+                f"restore {rt['restore_ms']:.3f} ms (capture "
+                f"{rt['capture_ms']:.3f} ms), round trip bitwise over 20 "
+                "replays, corruption flagged by the next replay, rollback "
+                f"bitwise; launches {n} [{smi}]")
+        del main_engines
+
+        # (b) the seeded chaos soak through serve_resumable at 2L-768H,
+        # fused_q8 on 8 slots: twice on the card, once on the CPU
+        q8 = ops.DELTA_Q8_GRU_I8
+        soak_prog = quantize_delta_model(models["gru"])
+        soak_cpu = quantize_delta_model(models_cpu["gru"], device="cpu")
+        runs = []
+        saved = resilience.DeltaStreamEngine
+        resilience.DeltaStreamEngine = Recorded
+        try:
+            for k in range(2):
+                Recorded.made.clear()
+                ops.reset_launch_counts()
+                run = chaos_soak(soak_prog, task, dev,
+                                 os.path.join(tmp, f"soak{k}"))
+                n = {k2: v for k2, v in ops.launch_counts().items() if v}
+                made = list(Recorded.made)
+                steps = sum(e.graph_stats["replays"]
+                            + e.graph_stats["captures"] for e in made)
+                if n != {q8.name: steps * cfg.num_layers}:
+                    raise AssertionError(f"soak {k}: launches {n}, want "
+                                         f"{steps * cfg.num_layers} of "
+                                         f"{q8.name}")
+                if len(made) != 2 or not all(
+                        e.graph_stats["captures"] == 1
+                        and e.captured_ptrs == buffer_ptrs(e) for e in made):
+                    raise AssertionError(
+                        f"soak {k}: engines {[e.graph_stats for e in made]}"
+                        ", want 2 (one restored after the crash), each "
+                        "one capture over the buffers it still has")
+                launches[q8.name] += n[q8.name]
+                check_soak(run, f"soak {k} on the card")
+                run["restore_capture_ms"] = 1e3 * made[1].graph_stats[
+                    "capture_s"]
+                runs.append(run)
+            cpu_run = chaos_soak(soak_cpu, task, cpu,
+                                 os.path.join(tmp, "soak_cpu"))
+        finally:
+            resilience.DeltaStreamEngine = saved
+        check_soak(cpu_run, "soak on the CPU")
+        for other, what in ((runs[1], "the second card run"),
+                            (cpu_run, "the CPU run")):
+            if (other["statuses"] != runs[0]["statuses"]
+                    or other["counters"] != runs[0]["counters"]
+                    or other["srv"].theta_peak != runs[0]["srv"].theta_peak
+                    or other["srv"].tick_no != runs[0]["srv"].tick_no):
+                raise AssertionError(
+                    f"soak: {what} differs: {other['counters']} against "
+                    f"{runs[0]['counters']}")
+        checked = soak_reference_check(soak_prog, task, runs[0], dev)
+        soak_err = max(
+            float(np.abs(np.stack(r.outputs) - np.stack(
+                cpu_run["results"][i].outputs)).max())
+            for i, r in runs[0]["results"].items() if r.status == "ok")
+        if soak_err > TOL_HEAD:
+            raise AssertionError(f"soak outputs: card against CPU "
+                                 f"{soak_err:.3e} > {TOL_HEAD}")
+        for k, run in enumerate(runs):
+            srv = run["srv"]
+            statuses = {s: sum(v == s for v in run["statuses"].values())
+                        for s in ("ok", "shed", "rejected", "quarantined")}
+            log(f"soak {k} (fused_q8 2L-768H, 8 slots, serve_resumable): "
+                f"{SOAK_ARRIVALS} arrivals in {srv.tick_no} ticks, "
+                f"{run['wall_s']:.4f} s wall, {run['ok_frames']} frames of "
+                f"ok streams, {run['ok_frames'] / run['wall_s']:.1f} "
+                f"frames/s; p99 tick "
+                f"wall {1e3 * srv.p99_tick_wall_s():.4f} ms, median "
+                f"{1e3 * float(np.median(srv.tick_wall_s)):.4f} ms; restart "
+                f"capture {run['restore_capture_ms']:.3f} ms; restarts "
+                f"{run['restarts']}; statuses {statuses}; counters "
+                f"{run['counters']} [{smi}]")
+        log(f"soak: the two card runs and the CPU run agree in every "
+            f"status and counter; {checked} ok streams bitwise equal to a "
+            f"clean 8-slot run on the card; card against CPU outputs "
+            f"{soak_err:.3e}")
+        del runs, cpu_run, soak_cpu
 
     # -- 6. times on the card ---------------------------------------------
     ops.reset_launch_counts()

@@ -1,2 +1,3 @@
-"""Delta encoding, thresholds, the performance model, the backend registry,
-the DeltaGRU and DeltaLSTM stacks and compiled programs."""
+"""Delta encoding, delta-linear layers, thresholds, sparsity metrics, the
+performance model, the backend registry, the DeltaGRU, DeltaLSTM, delta
+RWKV6 and delta RG-LRU stacks and compiled programs."""

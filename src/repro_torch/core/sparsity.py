@@ -1,6 +1,5 @@
-"""Stack dimensions, Eq. 4 effective sparsity and op counting (Eq. 7
-numerator): the part of :mod:`repro.core.sparsity` the Eq. 5-8 model and
-the engine need, ported to plain Python arithmetic.
+"""Temporal-sparsity metrics (EdgeDRNN Eq. 4), stack dimensions and op
+counting (Eq. 7 numerator), the PyTorch port of :mod:`repro.core.sparsity`.
 
 ``Gamma`` (Γ) is the fraction of zeros in delta vectors; the effective
 sparsity weights Γ_Δx and Γ_Δh by the number of parameters each gates.
@@ -8,6 +7,9 @@ sparsity weights Γ_Δx and Γ_Δh by the number of parameters each gates.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Sequence
+
+import torch
 
 # Rows of the RWKV6 decay LoRA down-projection (repro.core.deltarwkv).
 DECAY_LORA = 64
@@ -106,3 +108,42 @@ def effective_sparsity(dims: GruDims, gamma_dx: float, gamma_dh: float) -> float
     xw, hw = dims.x_weight_volume, dims.h_weight_volume
     return (xw * gamma_dx + hw * gamma_dh) / (xw + hw)
 
+
+
+def recip_mean(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """Mean as a sum times the reciprocal of the count. CUDA divides a
+    tensor by a Python scalar through its reciprocal, the CPU divides;
+    written out this way (as XLA compiles the JAX package's means) a mean
+    rounds alike on both devices and in both packages."""
+    n = x.numel() if dim is None else x.shape[dim]
+    total = torch.sum(x) if dim is None else torch.sum(x, dim=dim)
+    return total * (1.0 / n)
+
+
+def fraction_zeros(x: torch.Tensor) -> torch.Tensor:
+    """Fraction of exactly-zero elements (a delta that fired is a.s.
+    nonzero)."""
+    return recip_mean((x == 0).to(torch.float32))
+
+
+def gamma_from_fired(fired: torch.Tensor) -> torch.Tensor:
+    """Sparsity from a boolean 'fired' mask: Γ = mean(!fired)."""
+    return 1.0 - recip_mean(fired.to(torch.float32))
+
+
+def measure_layer_sparsity(delta_x: torch.Tensor, delta_h: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Measured (Γ_Δx, Γ_Δh) for one layer over a [T, ...] delta
+    sequence."""
+    return fraction_zeros(delta_x), fraction_zeros(delta_h)
+
+
+def stack_sparsity(per_layer_dx: Sequence, per_layer_dh: Sequence
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Aggregate per-layer Γ into stack-level Γ_Δx / Γ_Δh (Eq. 4
+    averages)."""
+    gdx = recip_mean(torch.stack([torch.as_tensor(g, dtype=torch.float32)
+                                  for g in per_layer_dx]))
+    gdh = recip_mean(torch.stack([torch.as_tensor(g, dtype=torch.float32)
+                                  for g in per_layer_dh]))
+    return gdx, gdh

@@ -67,15 +67,21 @@ def dynamic_threshold(theta, fired_fraction, target_fired_fraction,
     ``theta_floor`` (one Q8.8 LSB), so a stream opened at Θ = 0 can still
     be throttled; undershoot keeps the pure multiplicative decay. Tensor
     ops only, so it runs inside a step without a host sync.
+
+    A Python-number ``fired_fraction`` (a host measurement, such as a
+    queue depth) keeps the ratio and its power in Python floats, as the
+    JAX package's weakly typed scalars do; only the product with Θ is
+    float32.
     """
     dev = next((t.device for t in (theta, fired_fraction)
                 if isinstance(t, torch.Tensor)), None)
     theta = torch.as_tensor(theta, dtype=torch.float32, device=dev)
-    fired_fraction = torch.as_tensor(fired_fraction, dtype=torch.float32,
-                                     device=dev)
     ratio = (fired_fraction + 1e-6) / (target_fired_fraction + 1e-6)
-    theta = torch.where(ratio > 1.0, torch.clamp(theta, min=theta_floor),
-                        theta)
+    if isinstance(ratio, torch.Tensor):
+        theta = torch.where(ratio > 1.0,
+                            torch.clamp(theta, min=theta_floor), theta)
+    elif ratio > 1.0:
+        theta = torch.clamp(theta, min=theta_floor)
     new_theta = theta * ratio ** gain
     return torch.clamp(new_theta, theta_min, theta_max)
 

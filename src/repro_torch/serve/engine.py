@@ -1,7 +1,7 @@
 """``DeltaStreamEngine`` — streaming delta-RNN inference with live
 temporal-sparsity accounting and the Eq. 7 latency model, the PyTorch port
-of :class:`repro.serve.engine.DeltaStreamEngine` (without ``LmEngine`` and
-without ``checkpoint`` / ``restore``, which wait for ``ft/checkpoint``).
+of :class:`repro.serve.engine.DeltaStreamEngine` (without ``LmEngine``).
+``GruStreamEngine`` is an alias of the class.
 
 Hand it a compiled program (:func:`repro_torch.core.program.
 compile_delta_program` or :func:`repro_torch.quant.export.
@@ -39,6 +39,11 @@ non-finite component by that stream's previous frame (the zero-delta
 silent regime) and counts it in ``poison_steps``; ``bad_state`` counts
 steps whose post-step state went non-finite; :meth:`snapshot_streams` /
 :meth:`rollback_stream` keep and restore per-slot shadow rows.
+:meth:`checkpoint` / :meth:`restore` save and load the state, carry,
+shadows and slot bookkeeping in :mod:`repro_torch.ft.checkpoint`'s format
+(the JAX engine's manifest, path for path). Every one of these writes into
+the buffers, never rebinds them: a CUDA graph replays over the buffers it
+captured, and would not see a tensor put in their place.
 """
 from __future__ import annotations
 
@@ -54,8 +59,9 @@ from repro_torch.core.perf_model import (EDGEDRNN, AcceleratorSpec,
                                          stack_effective_macs)
 from repro_torch.core.program import (DeltaProgram, DeltaProgramState,
                                       compile_delta_program, infer_cell)
-from repro_torch.core.sparsity import cell_dims
+from repro_torch.core.sparsity import cell_dims, recip_mean
 from repro_torch.core.thresholds import ThresholdPolicy, dynamic_threshold
+from repro_torch.ft import checkpoint as ft_checkpoint
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.gru_rnn import GruTaskConfig
@@ -126,16 +132,6 @@ def _capture_cuda_graph(body):
         return out
 
     return replay
-
-
-def _mean(x: torch.Tensor, dim=None) -> torch.Tensor:
-    """Mean as a sum times the reciprocal of the count. CUDA divides a
-    tensor by a Python scalar through its reciprocal, the CPU divides;
-    written out this way (as XLA also compiles the JAX engine's means) the
-    accounting rounds alike on both devices."""
-    n = x.numel() if dim is None else x.shape[dim]
-    total = torch.sum(x) if dim is None else torch.sum(x, dim=dim)
-    return total * (1.0 / n)
 
 
 @dataclass
@@ -292,7 +288,7 @@ class DeltaStreamEngine:
 
     def _latency_s(self, gamma_dx, gamma_dh) -> torch.Tensor:
         """Eq. 7 latency of one step (:func:`stack_latency_s`), dividing by
-        the MAC rate through its reciprocal like :func:`_mean`."""
+        the MAC rate through its reciprocal like :func:`recip_mean`."""
         rate = self.accel.k_pes * self.accel.f_pl_hz
         return stack_effective_macs(self.dims, gamma_dx, gamma_dh) * (
             1.0 / rate)
@@ -309,25 +305,27 @@ class DeltaStreamEngine:
         bad = self._nonfinite_rows(new_state)                     # [N]
         out = y @ self.head[0] + self.head[1]
         f32 = torch.float32
-        fx = _mean(torch.stack(
-            [_mean((dx != 0).to(f32), dim=-1) for dx, _ in deltas]),
+        fx = recip_mean(torch.stack(
+            [recip_mean((dx != 0).to(f32), dim=-1) for dx, _ in deltas]),
             dim=0)                                                # [N]
-        fh = _mean(torch.stack(
-            [_mean((dh != 0).to(f32), dim=-1) for _, dh in deltas]),
+        fh = recip_mean(torch.stack(
+            [recip_mean((dh != 0).to(f32), dim=-1) for _, dh in deltas]),
             dim=0)                                                # [N]
         theta_h = carry["theta_h"]
         if self.dynamic_target is not None:
-            theta_h = dynamic_threshold(theta_h, _mean(fh),
+            theta_h = dynamic_threshold(theta_h, recip_mean(fh),
                                         self.dynamic_target)
         lat = self._latency_s(1.0 - fx, 1.0 - fh)
         wb = dram_traffic_bytes_per_timestep(
             self.dims, 1.0 - fx, 1.0 - fh,
             w_weight_bits=self.accel.w_weight_bits)
         # tile economics: a column is fetched when ANY stream fired it
-        ufx = _mean(torch.stack(
-            [_mean(torch.any(dx != 0, dim=0).to(f32)) for dx, _ in deltas]))
-        ufh = _mean(torch.stack(
-            [_mean(torch.any(dh != 0, dim=0).to(f32)) for _, dh in deltas]))
+        ufx = recip_mean(torch.stack(
+            [recip_mean(torch.any(dx != 0, dim=0).to(f32))
+             for dx, _ in deltas]))
+        ufh = recip_mean(torch.stack(
+            [recip_mean(torch.any(dh != 0, dim=0).to(f32))
+             for _, dh in deltas]))
         tile_lat = self._latency_s(1.0 - ufx, 1.0 - ufh)
         tile_wb = dram_traffic_bytes_per_timestep(
             self.dims, 1.0 - ufx, 1.0 - ufh,
@@ -339,10 +337,10 @@ class DeltaStreamEngine:
             "lat_s": carry["lat_s"] + lat,
             "w_bytes": carry["w_bytes"] + wb,
             # engine-lifetime aggregates (scalars), never reset by sessions
-            "agg_fired_x": carry["agg_fired_x"] + _mean(fx),
-            "agg_fired_h": carry["agg_fired_h"] + _mean(fh),
-            "agg_lat_s": carry["agg_lat_s"] + _mean(lat),
-            "agg_w_bytes": carry["agg_w_bytes"] + _mean(wb),
+            "agg_fired_x": carry["agg_fired_x"] + recip_mean(fx),
+            "agg_fired_h": carry["agg_fired_h"] + recip_mean(fh),
+            "agg_lat_s": carry["agg_lat_s"] + recip_mean(lat),
+            "agg_w_bytes": carry["agg_w_bytes"] + recip_mean(wb),
             "agg_ufired_x": carry["agg_ufired_x"] + ufx,
             "agg_ufired_h": carry["agg_ufired_h"] + ufh,
             "agg_tile_lat_s": carry["agg_tile_lat_s"] + tile_lat,
@@ -422,11 +420,13 @@ class DeltaStreamEngine:
         return out
 
     def _mask(self, sids) -> torch.Tensor:
-        """A ``[N]`` bool mask on the device, built without a host copy."""
+        """A ``[N]`` bool mask on the device, built without a host copy:
+        a fill of each slot's element (``mask[sid] = True`` would copy the
+        scalar from the host and synchronise on a CUDA device)."""
         mask = torch.zeros((self.n_streams,), dtype=torch.bool,
                            device=self.device)
         for sid in sids:
-            mask[sid] = True
+            mask[sid].fill_(True)
         return mask
 
     def _select(self, mask: torch.Tensor, cur, new):
@@ -567,9 +567,10 @@ class DeltaStreamEngine:
         return sid
 
     def host_carry(self) -> dict:
-        """The per-stream accounting carry copied to the host (one sync)."""
-        return {k: self._carry[k].cpu().numpy()
-                for k in self._PER_STREAM_KEYS}
+        """The per-stream accounting carry copied to the host (one copy,
+        one sync)."""
+        host = torch.stack([self._carry[k] for k in self._PER_STREAM_KEYS])
+        return dict(zip(self._PER_STREAM_KEYS, host.cpu().numpy()))
 
     def close_stream(self, sid: int, host_carry=None) -> dict:
         """Release a session slot; returns that stream's accounting. One
@@ -633,6 +634,60 @@ class DeltaStreamEngine:
                 "set_theta_h adjusts one scalar theta_h, which would "
                 "silently override the per-layer threshold policy")
         self._carry["theta_h"].fill_(value)
+
+    # -- resilience: checkpoint / restore ----------------------------------
+
+    def _ckpt_tree(self) -> dict:
+        """The engine's restorable tree: the state, carry and shadow
+        buffers, and the host slot bookkeeping as numpy leaves."""
+        return {
+            "state": self.state,
+            "carry": self._carry,
+            "snap_state": self._snap_state,
+            "snap_carry": self._snap_carry,
+            "meta": {
+                "n_steps": np.int64(self._n_steps),
+                "slot_busy": np.asarray(self._slot_busy, bool),
+                "slot_opened_at": np.asarray(self._slot_opened_at,
+                                             np.int64),
+                "snap_steps": np.asarray(self._snap_steps, np.int64),
+            },
+        }
+
+    def checkpoint(self, ckpt_dir: str, step: int | None = None) -> str:
+        """Publish a crash-consistent engine checkpoint (atomic rename via
+        :mod:`repro_torch.ft.checkpoint`): recurrent state, the accounting
+        carry, the rollback shadows and slot bookkeeping, so
+        :meth:`restore` resumes with the same streams and the same
+        :meth:`report`. Syncs (the tree is copied to the host)."""
+        step = self._n_steps if step is None else step
+        return ft_checkpoint.save(ckpt_dir, step, self._ckpt_tree())
+
+    @classmethod
+    def restore(cls, ckpt_dir: str, program, task, step: int | None = None,
+                **kwargs) -> "DeltaStreamEngine":
+        """Rebuild an engine from :meth:`checkpoint` output (of this
+        package or of the JAX engine).
+
+        ``program`` / ``task`` / ``kwargs`` must match the checkpointing
+        engine's construction (weights travel in the program, not the
+        checkpoint); a shape that does not match raises in
+        :func:`repro_torch.ft.checkpoint.restore`. The engine is built
+        first (on a CUDA device it captures its graph), then the restored
+        values are written into its buffers.
+        """
+        eng = cls(program, task, **kwargs)
+        tree = ft_checkpoint.restore(ckpt_dir, eng._ckpt_tree(), step=step,
+                                     device=eng.device)
+        eng._write(eng.state, eng._carry, tree["state"], tree["carry"])
+        eng._write(eng._snap_state, eng._snap_carry, tree["snap_state"],
+                   tree["snap_carry"])
+        meta = tree["meta"]
+        eng._n_steps = int(meta["n_steps"])
+        eng._slot_busy = [bool(b) for b in meta["slot_busy"]]
+        eng._slot_opened_at = [int(v) for v in meta["slot_opened_at"]]
+        eng._snap_steps = [int(v) for v in meta["snap_steps"]]
+        return eng
 
     # -- accounting -------------------------------------------------------
 
@@ -739,3 +794,7 @@ class DeltaStreamEngine:
             rep["theta_h_per_layer"] = self._theta_h_layers
         return rep
 
+
+# The class served only GRU programs when it was born; the name survives
+# as an alias now that it streams any compiled delta-RNN cell.
+GruStreamEngine = DeltaStreamEngine

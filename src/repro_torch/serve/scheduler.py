@@ -1,6 +1,7 @@
-"""``GruStreamBatcher`` — admission/harvest scheduling of streaming requests
-over :class:`~repro_torch.serve.engine.DeltaStreamEngine` stream sessions,
-the PyTorch port of :class:`repro.serve.scheduler.GruStreamBatcher`.
+"""``GruStreamBatcher`` (alias ``DeltaStreamBatcher``) — admission/harvest
+scheduling of streaming requests over
+:class:`~repro_torch.serve.engine.DeltaStreamEngine` stream sessions, the
+PyTorch port of :class:`repro.serve.scheduler.GruStreamBatcher`.
 
 Queued requests are admitted into free ``n_streams`` slots via
 ``open_stream()`` (per-slot masked reset); every tick feeds one frame per
@@ -161,3 +162,6 @@ class GruStreamBatcher:
                 "max_ticks or pass strict=False for a partial result")
         return done
 
+
+# The name of the cell-agnostic scheduler in the JAX package.
+DeltaStreamBatcher = GruStreamBatcher

@@ -12,8 +12,12 @@ and within ``TOL_F32`` for ``fused`` (at θ = 0, the bound of
 ``test_torch_engine.py``); outputs within ``TOL_HEAD`` (the head is one
 fp32 matmul whose summation order each library picks); reports key by key
 as in ``test_torch_engine.py``. The stub engine must give the eager
-engine's bits everywhere.
+engine's bits everywhere. The stub records the engine's buffer pointers at
+capture and fails any replay after one moved, as the card's graph would
+silently step the old buffer.
 """
+import inspect
+
 import jax
 import numpy as np
 import pytest
@@ -71,16 +75,34 @@ def _same_report(jr, tr):
             assert jr[k] == tr[k], k
 
 
+def buffer_ptrs(eng) -> list:
+    """The data pointers of the engine's buffers: the live state, carry and
+    frame a captured step reads and writes, and the rollback shadows."""
+    bufs = (list(tengine._leaves(eng.state.stack)) + list(eng._carry.values())
+            + [eng._x] + list(tengine._leaves(eng._snap_state.stack))
+            + list(eng._snap_carry.values()))
+    return [t.data_ptr() for t in bufs]
+
+
 def stub_capture(body):
     """A stand-in for ``_capture_cuda_graph`` on the CPU. Capturing runs no
     kernel but calls every wrapper once: here it runs nothing and counts
-    ``STUB_LAUNCHES`` of ``STUB_KERNEL``. Its replay reruns the step and
-    copies the output into one buffer that every replay overwrites, as a
-    CUDA graph's static output is."""
+    ``STUB_LAUNCHES`` of ``STUB_KERNEL``. It records the engine's buffer
+    pointers, and every replay fails if one moved: a CUDA graph replays
+    over the buffers it captured, so an engine that put a new tensor in a
+    buffer's place (rebinding instead of writing in place) would step the
+    old one on the card. Its replay reruns the step and copies the output
+    into one buffer that every replay overwrites, as a CUDA graph's static
+    output is."""
+    eng = inspect.getclosurevars(body).nonlocals["self"]
+    captured = buffer_ptrs(eng)
     STUB_KERNEL.launches += STUB_LAUNCHES
     static = []
 
     def replay():
+        assert buffer_ptrs(eng) == captured, (
+            "an engine buffer was rebound after the capture; the graph "
+            "would replay over the old one")
         out = body()
         if not static:
             static.append(torch.empty_like(out))

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.configs.rwkv6_1_6b import reduced_delta_recipe
+from repro_torch.core.delta_dense import init_delta_linear_state
 from repro_torch.core.deltarglru import init_deltarglru_model
 from repro_torch.core.deltarwkv import init_deltarwkv_model
 from repro_torch.core.program import compile_delta_program
@@ -23,7 +24,9 @@ from repro_torch.kernels.deltagru_seq import deltagru_seq_step, pack_gru_layer
 from repro_torch.models.gru_rnn import (GruTaskConfig, init_gru_model,
                                         init_lstm_model, model_from_numpy)
 from repro_torch.quant.export import quantize_delta_model
+from repro_torch.ft import checkpoint as ft_checkpoint
 from repro_torch.serve.engine import DeltaStreamEngine
+from repro_torch.serve.resilience import ResiliencePolicy, serve_resumable
 
 torch.set_num_threads(1)
 
@@ -40,7 +43,9 @@ def test_the_scan_covers_every_port_module_and_kernel_source():
                 "configs/rwkv6_1_6b.py", "configs/recurrentgemma_9b.py",
                 "kernels/delta_spmv.py", "kernels/rwkv6_scan.py",
                 "kernels/rglru_scan.py", "kernels/deltagru_cell.py",
-                "kernels/ref.py"):
+                "kernels/ref.py", "core/delta_dense.py", "core/sparsity.py",
+                "ft/checkpoint.py", "ft/heartbeat.py", "ft/straggler.py",
+                "ft/restart.py", "serve/faults.py", "serve/resilience.py"):
         assert mod in names, mod
     assert sorted(_build.SOURCES) == sorted(
         p.name for p in (PORT / "csrc").glob("*.cu"))
@@ -101,8 +106,9 @@ def _np_tree(model):
     "compile_delta_program_lstm", "DeltaStreamEngine_lstm",
     "init_deltarwkv_model", "init_deltarglru_model",
     "compile_delta_program_rwkv6", "DeltaStreamEngine_rglru",
-    "reduced_delta_recipe"])
-def test_default_device_without_cuda_raises(entry, monkeypatch):
+    "reduced_delta_recipe", "init_delta_linear_state", "checkpoint_restore",
+    "serve_resumable"])
+def test_default_device_without_cuda_raises(entry, monkeypatch, tmp_path):
     model = _small_model()
     cfg = GruTaskConfig(40, 48, 2, 12)
     lstm = init_lstm_model(0, cfg, device="cpu")
@@ -130,6 +136,12 @@ def test_default_device_without_cuda_raises(entry, monkeypatch):
             compile_delta_program(rglru, cell="rglru", device="cpu"),
             lm_cfg),
         "reduced_delta_recipe": lambda: reduced_delta_recipe(0),
+        "init_delta_linear_state": lambda: init_delta_linear_state(4, 3),
+        "checkpoint_restore": lambda: ft_checkpoint.restore(
+            str(tmp_path), {"w": torch.zeros(2)}),
+        "serve_resumable": lambda: serve_resumable(
+            compile_delta_program(model, device="cpu"), cfg, [],
+            ResiliencePolicy()),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
