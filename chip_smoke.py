@@ -73,6 +73,29 @@ traceback and a non-zero exit):
    with ``device="cpu"`` equal in every status and tick-based counter;
    (c) checkpoint and restore times, the soak's p99 tick wall and frames
    per second;
+5d. training, the paper's recipe (Sec. IV-A) at 2L-768H CTC
+   (``PAPER_NETWORKS["2L-768H"]``, seeded ``init_gru_model``, batches of
+   ``digit_batch`` at its defaults, B = 32, T = 96): (a) 10 steps of
+   ``make_gru_train_step(use_delta=False)``, Adam at 1e-3; (b) 10 steps with
+   ``qat=EDGEDRNN_QAT`` at θx = θh = 0.25 from the pretrained weights
+   (a fresh Adam state, as ``examples/train_gas_regression.py``); every
+   loss finite and each stage's last 3 below its first. Each stage's first
+   step is held against the same step with ``device="cpu"`` from the same
+   weights and batch: the loss within ``TOL_TRAIN_LOSS``, every gradient
+   leaf within ``TOL_TRAIN_GRAD`` of its largest element, every updated
+   parameter within what Adam's first step makes of that; in (b) the CPU
+   replays the card's LUT outputs where its own differ, each such flip
+   within ``FLIP_MARGIN`` of a rounding boundary, and the flips are
+   counted. No hand-written kernel launches while training. (c) A
+   ``CheckpointManager`` saves the state after step 5 of (b); it restores
+   bitwise, and steps 6-10 from it and from the state in memory, both under
+   ``torch.use_deterministic_algorithms(True)``, are bitwise equal. (d)
+   ``quantize_delta_model`` exports the trained stack to ``fused_q8`` on
+   the card; an engine of 32 streams replays its captured graph over a
+   fresh digit batch under ``set_sync_debug_mode("error")``, with exact
+   launches of the int8 GRU kernel and no other, its final state bitwise
+   and its outputs within ``TOL_HEAD`` of the same program compiled with
+   ``device="cpu"``; the greedy-decode edit distance is reported;
 6. times on the card: each kernel instance at B = 1 and its plain version
    (device time from CUDA-graph replay between CUDA events, also with the
    L2 flushed before each call, and the kernel's time per call launched
@@ -87,7 +110,9 @@ traceback and a non-zero exit):
    per step and idle share (``torch.profiler``, which sees the kernels of
    a replay one by one), the per-frame latency of ``step`` (median and p95
    over the frames), the capture's time and the batcher's frames per
-   second.
+   second; per training stage of 5d the wall per train step, frames per
+   second, kernels per step and idle share, the step cut into forward,
+   backward and Adam, the peak memory, and the export's time.
 
 The delta-ized LM cells run through the same phases: in phase 3
 ``delta_spmv`` with fp32 and with bf16 operands (the LM layer shapes, the
@@ -112,8 +137,8 @@ beside an empty kernel of their build at the same grid, and the engine
 profile of both paths.
 
 The line before the last is ``{"kernels": [...]}`` (every kernel instance;
-the ``launches`` of a main-path instance are those of phases 5, 5b and
-5c, each run counted from zero; those of an instance on no main path, a
+the ``launches`` of a main-path instance are those of phases 5, 5b, 5c
+and 5d, each run counted from zero; those of an instance on no main path, a
 buffered one,
 ``delta_spmv_bf16`` or ``deltagru_act``, are those of phases 3 and 6, and
 its ``path`` names the entry that reaches it); the last line is
@@ -122,6 +147,7 @@ its ``path`` names the entry that reaches it); the last line is
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -161,6 +187,24 @@ TOL_BF16 = 2.0 ** -7
 # the scaled error stayed at 1e-6 or less in every layer; 1e-3 keeps a
 # factor of ten over TOL_F32 for what 24 layers add.
 TOL_LM = 1e-3
+# The train step on the card against the same step on the CPU (phase 5d):
+# the loss is a mean of CTC log-likelihoods over 96-frame recursions on a
+# forward whose sums (808 and 768 products a gate, 96 steps, 2 layers) run
+# in other orders on each device: 1e-5 of it. A gradient leaf sums BPTT
+# over 96 steps: the CPU suite measured 2e-6 of a leaf's largest element at
+# H = 32, T = 24; H = 768 sums 24 times the terms and T = 96 four times the
+# steps, a factor of ~10 under sqrt growth, and 1e-4 keeps five over that.
+TOL_TRAIN_LOSS = 1e-5
+TOL_TRAIN_GRAD = 1e-4
+# A LUT output of the CPU's QAT forward may differ from the card's only
+# where its pre-rounding value lies this close (in Q1.4 grid steps) to a
+# rounding boundary: the two devices' arguments differ by float32 sum
+# orders (~1e-6 after 96 steps of accumulation, 4e-6 of a step through the
+# sigmoid's slope, 16 steps a unit), so 1e-3 of a step keeps a factor of
+# ~250.
+FLIP_MARGIN = 1e-3
+TRAIN_STEPS = 10
+TRAIN_LR = 1e-3
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM data sheet, fp32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20
@@ -850,6 +894,410 @@ def lm_layer_lockstep(prog, cpu_prog, frames, theta, tree_to, tree_leaves):
     return err, flips, n, in_max
 
 
+def train_grads(params, task, batch, qat, use_delta):
+    """The loss and gradients (in ``tree_leaves`` order) of the paper's
+    train step, by autograd: what ``make_gru_train_step`` computes before
+    its Adam update."""
+    from repro_torch.models.gru_rnn import gru_model_forward
+    from repro_torch.train.losses import ctc_loss_mean
+    from repro_torch.train.optim import tree_leaves, tree_map
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    out, _ = gru_model_forward(p, task, batch["features"],
+                               use_delta=use_delta, qat=qat)
+    loss = ctc_loss_mean(out, batch["labels"], batch["in_lens"],
+                         batch["lab_lens"])[0]
+    loss.backward()
+    return loss.detach(), [t.grad for t in tree_leaves(p)]
+
+
+def lut_lockstep(margin: float):
+    """Two QAT policies on ``EDGEDRNN_QAT``'s grids for holding a card's QAT
+    train step against the CPU's: ``record`` keeps every LUT output of a
+    forward on the card, in call order; ``replay``, on the CPU, computes its
+    own and, where the two differ (a one-ulp difference of the LUT's
+    argument, a float32 sum, moved the output a grid step), takes the
+    card's, after checking that its own pre-rounding value lies within
+    ``margin`` grid steps of a rounding boundary (else it raises: no flip
+    explains the difference). The backward is the exact function's either
+    way. Returns ``(record, replay, stats)``; ``stats`` counts the LUT
+    sites, the flips and the largest flip margin."""
+    import dataclasses
+
+    import torch
+    from repro_torch.quant.fake_quant import quantize
+    from repro_torch.quant.lut import LutNonlinearity
+    from repro_torch.quant.qat import QatPolicy
+
+    log = []
+    stats = {"sites": 0, "flips": 0, "max_margin": 0.0}
+
+    @dataclasses.dataclass(frozen=True)
+    class Recording(LutNonlinearity):
+        def __call__(self, x):
+            y = LutNonlinearity.__call__(self, x)
+            log.append(y.detach())
+            return y
+
+    @dataclasses.dataclass(frozen=True)
+    class Replaying(LutNonlinearity):
+        calls: object = None
+
+        def __call__(self, x):
+            exact = self.fn(x)
+            lut = quantize(exact, self.out_fmt)
+            card = next(self.calls).to(lut.device)
+            stats["sites"] += lut.numel()
+            differs = lut.detach() != card
+            n = int(differs.sum())
+            if n:
+                s = exact.detach()[differs].double() * self.out_fmt.scale
+                m = float((s - torch.floor(s) - 0.5).abs().max())
+                if m > margin:
+                    raise AssertionError(
+                        f"a LUT output differs from the card's {m:.3e} grid "
+                        f"steps from a rounding boundary (> {margin})")
+                stats["flips"] += n
+                stats["max_margin"] = max(stats["max_margin"], m)
+                lut = torch.where(differs, card, lut)
+            return exact + (lut - exact).detach()
+
+    @dataclasses.dataclass(frozen=True)
+    class Record(QatPolicy):
+        def act_fns(self):
+            sig, tanh = QatPolicy.act_fns(self)
+            return (Recording(sig.fn, sig.out_fmt),
+                    Recording(tanh.fn, tanh.out_fmt))
+
+    @dataclasses.dataclass(frozen=True)
+    class Replay(QatPolicy):
+        def act_fns(self):
+            sig, tanh = QatPolicy.act_fns(self)
+            calls = iter(log)      # one forward's calls, in order
+            return (Replaying(sig.fn, sig.out_fmt, calls),
+                    Replaying(tanh.fn, tanh.out_fmt, calls))
+
+    return Record(), Replay(), stats
+
+
+def adam_first_step_bound(g, delta, scale, lr, eps=1e-8):
+    """How far Adam's first update ``lr * c g / (|c g| + eps)`` (``c`` the
+    clip scale) moves when the gradient ``g`` moves by ``delta``: monotone
+    in ``g``, so the worst case is at an end of ``[g - delta, g + delta]``;
+    plus 8 ulps of ``lr`` for the bias corrections' rounding."""
+    import numpy as np
+
+    def upd(v):
+        v = scale * np.asarray(v, np.float64)
+        return v / (np.abs(v) + eps)
+    u = upd(g)
+    reach = np.maximum(np.abs(upd(g + delta) - u), np.abs(upd(g - delta) - u))
+    return lr * (reach + 8 * 2.0 ** -24)
+
+
+def first_step_against_cpu(what, step, cpu_step, state, cpu_state, batch,
+                           qat, cpu_qat, task, use_delta, lr):
+    """The first step of a training stage on the card held against the same
+    step run with ``device="cpu"`` from the same weights and batch: the
+    loss within ``TOL_TRAIN_LOSS``, every gradient leaf within
+    ``TOL_TRAIN_GRAD`` of its largest element, every updated parameter
+    within what Adam's first step makes of that bound. The gradients come
+    from ``train_grads`` (with ``qat`` / ``cpu_qat``, the recording and
+    replaying policies for a QAT stage), the updated parameters from the
+    two packages' ``step``. Returns ``(card state, metrics, report)``."""
+    import numpy as np
+    import torch
+    from repro_torch.train.optim import tree_leaves
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    loss, grads = train_grads(state.params, task, batch, qat, use_delta)
+    c_loss, c_grads = train_grads(cpu_state.params, task, cpu_batch,
+                                  cpu_qat, use_delta)
+    new, metrics = step(state, batch)
+    c_new, c_metrics = cpu_step(cpu_state, cpu_batch)
+    loss_err = abs(float(loss) - float(c_loss)) / abs(float(c_loss))
+    step_loss_err = abs(float(metrics["loss"]) - float(c_metrics["loss"])) \
+        / abs(float(c_metrics["loss"]))
+    scale = min(1.0, 1.0 / (float(c_metrics["grad_norm"]) + 1e-9))
+    grad_err, param_excess = 0.0, -float("inf")
+    for g, cg, p, cp in zip(grads, c_grads, tree_leaves(new.params),
+                            tree_leaves(c_new.params)):
+        cg = cg.numpy()
+        top = float(np.abs(cg).max())
+        grad_err = max(grad_err, float(np.abs(g.cpu().numpy() - cg).max())
+                       / top)
+        bound = adam_first_step_bound(cg, TOL_TRAIN_GRAD * top, scale, lr)
+        cp = cp.numpy()
+        excess = (np.abs(p.cpu().numpy() - cp)
+                  - bound - np.spacing(np.abs(cp)))
+        param_excess = max(param_excess, float(excess.max()))
+    report = (f"{what} first step, card against CPU: loss {loss_err:.3e} "
+              f"(step {step_loss_err:.3e}) relative, gradients "
+              f"{grad_err:.3e} of each leaf's largest, updated parameters "
+              f"within the Adam bound with {-param_excess:.3e} to spare at "
+              f"the closest")
+    if (loss_err > TOL_TRAIN_LOSS or step_loss_err > TOL_TRAIN_LOSS
+            or grad_err > TOL_TRAIN_GRAD or param_excess > 0
+            or not torch.isfinite(loss)):
+        raise AssertionError(f"{report}: outside the bounds")
+    return new, metrics, report
+
+
+def train_split_ms(params, task, batch, qat, use_delta, opt_state, opt_cfg):
+    """One train step cut at its joints, each part ended by a synchronise:
+    the forward with its loss, the backward, the Adam update (ms)."""
+    import torch
+    from repro_torch.models.gru_rnn import gru_model_forward
+    from repro_torch.train.losses import ctc_loss_mean
+    from repro_torch.train.optim import adam_update, tree_map
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    out, _ = gru_model_forward(p, task, batch["features"],
+                               use_delta=use_delta, qat=qat)
+    loss = ctc_loss_mean(out, batch["labels"], batch["in_lens"],
+                         batch["lab_lens"])[0]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    adam_update(tree_map(lambda t: t.grad, p), opt_state, params, opt_cfg)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return {"forward_ms": 1e3 * (t1 - t0), "backward_ms": 1e3 * (t2 - t1),
+            "adam_ms": 1e3 * (t3 - t2)}
+
+
+def graph_check(what, eng, steps):
+    """The engine stepped through its one captured graph: captured
+    once (at construction), replayed once a step."""
+    g = eng.graph_stats
+    if g["captures"] != 1 or g["replays"] != steps:
+        raise AssertionError(f"{what}: graph {g}, want 1 capture and "
+                             f"{steps} replays")
+
+
+def training_phase(dev, train_task, batch: int = 32, max_t: int = 96):
+    """Phase 5d on ``train_task`` (a CTC ``GruTaskConfig``): (a) 10 steps of
+    the dense pretrain, (b) 10 of the QAT DeltaGRU retrain at θ = 0.25, each
+    stage's first step held against the CPU, (c) a checkpoint after step 5
+    of (b), restored and steps 6-10 replayed under deterministic
+    algorithms, (d) the trained stack exported to ``fused_q8`` and streamed
+    through the engine's captured graph. Returns the per-stage records
+    (losses, final state, step, step times, peak memory) with the served
+    export's under ``"serve"`` (launches, export ms, decode errors), the
+    batches and the optimizer config."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import digit_batch
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.ft.checkpoint import restore as ckpt_restore
+    from repro_torch.kernels import ops
+    from repro_torch.models.gru_rnn import gru_model_forward, init_gru_model
+    from repro_torch.quant.export import quantize_delta_model
+    from repro_torch.quant.qat import EDGEDRNN_QAT, FP32
+    from repro_torch.serve.engine import DeltaStreamEngine
+    from repro_torch.train.ctc import ctc_greedy_decode, edit_distance
+    from repro_torch.train.losses import ctc_loss_mean
+    from repro_torch.train.optim import (AdamConfig, constant_schedule,
+                                         tree_leaves as opt_leaves, tree_map)
+    from repro_torch.train.trainer import (LoopHooks, init_train_state,
+                                           make_gru_train_step, train_loop)
+    delta_task = dataclasses.replace(train_task, theta_x=THETA,
+                                     theta_h=THETA)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    batches = [digit_batch(gen, batch, max_t, device=dev)
+               for _ in range(2 * TRAIN_STEPS)]
+    serve_draws = digit_batch(gen, batch, max_t, device=dev)
+    opt_cfg = AdamConfig(schedule=constant_schedule(TRAIN_LR))
+    train = {}
+    ops.reset_launch_counts()
+    record, replay, qat_stats = lut_lockstep(FLIP_MARGIN)
+    stages = {"dense": (train_task, FP32, False, FP32, FP32),
+              "qat": (delta_task, EDGEDRNN_QAT, True, record, replay)}
+    train_params = init_gru_model(SEED, train_task, device=dev)
+    cpu_train_params = init_gru_model(SEED, train_task, device="cpu")
+    stash = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, every=5, keep=2)
+        for si, (name, spec) in enumerate(stages.items()):
+            task_s, qat, use_delta, rec, rep = spec
+            step = make_gru_train_step(task_s, opt_cfg, qat=qat,
+                                       use_delta=use_delta)
+            cpu_step = make_gru_train_step(task_s, opt_cfg, qat=rep,
+                                           use_delta=use_delta)
+            tstate, m1, report = first_step_against_cpu(
+                f"train {name}", step, cpu_step,
+                init_train_state(train_params),
+                init_train_state(cpu_train_params), batches[si * TRAIN_STEPS],
+                rec, rep, task_s, use_delta, TRAIN_LR)
+            log(report)
+
+            def keep(i, st, name=name):
+                if name == "qat":
+                    mgr.maybe_save(int(st.step), st)
+                    if int(st.step) == 5:
+                        stash[5] = st
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            tstate, hist = train_loop(
+                step, tstate,
+                batches[si * TRAIN_STEPS + 1:(si + 1) * TRAIN_STEPS],
+                TRAIN_STEPS - 1, LoopHooks(checkpoint_every=1,
+                                           save_checkpoint=keep))
+            losses = [float(m1["loss"])] + [h["loss"] for h in hist]
+            if not all(np.isfinite(losses)) or not (
+                    np.mean(losses[-3:]) < losses[0]):
+                raise AssertionError(f"train {name}: losses {losses}")
+            train[name] = {"losses": losses, "state": tstate, "step": step,
+                           "task": task_s, "qat": qat, "use_delta": use_delta,
+                           "step_ms": [1e3 * h["step_time_s"] for h in hist],
+                           "peak_bytes": torch.cuda.max_memory_allocated()
+                           - base, "base_bytes": base}
+            cell = f"QAT DeltaGRU, theta={THETA}" if use_delta else "GRU"
+            log(f"train {name} ({cell}, {train_task.num_layers}L-"
+                f"{train_task.hidden_size}H CTC, B={batch} T={max_t}, Adam "
+                f"{TRAIN_LR}): losses "
+                + ", ".join(f"{v:.4f}" for v in losses))
+            train_params = tstate.params
+            cpu_train_params = {
+                k2: (v.cpu() if isinstance(v, torch.Tensor)
+                     else [p.to("cpu") for p in v])
+                for k2, v in tstate.params.items()}
+        mgr.wait()
+        stray = {k2: v for k2, v in ops.launch_counts().items() if v}
+        if stray:
+            raise AssertionError(f"training launched hand-written kernels: "
+                                 f"{stray}")
+
+        # (c) resume: steps 6-10 of the QAT stage from the in-memory state
+        # at step 5 and from its checkpoint, both under deterministic
+        # algorithms (gather's backward, a scatter-add, otherwise adds with
+        # atomics); PyTorch then refuses cuBLAS unless its workspace is fixed
+        prior_ws = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        q = train["qat"]
+        tail = batches[TRAIN_STEPS + 5:2 * TRAIN_STEPS]
+        torch.use_deterministic_algorithms(True)
+        try:
+            restored = ckpt_restore(tmp, stash[5], step=5, device=dev)
+            same_restore = all(torch.equal(a, b) for a, b in zip(
+                opt_leaves(restored), opt_leaves(stash[5])))
+            a_state, _ = train_loop(q["step"], stash[5], tail, 5)
+            b_state, _ = train_loop(q["step"], restored, tail, 5)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            if prior_ws is None:
+                os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = prior_ws
+        resume_bitwise = all(torch.equal(a, b) for a, b in zip(
+            opt_leaves(a_state), opt_leaves(b_state)))
+        timed_diff = max(float((a - b).abs().max()) for a, b in zip(
+            opt_leaves(a_state.params), opt_leaves(q["state"].params)))
+        # which part of the step differs between runs with the default
+        # algorithms: the CTC loss's gradient w.r.t. the logits, and the
+        # network's gradient under a fixed cotangent, each taken twice
+        p = tree_map(lambda t: t.detach().requires_grad_(True),
+                     q["state"].params)
+        bt = batches[TRAIN_STEPS]
+        out, _ = gru_model_forward(p, delta_task, bt["features"],
+                                   qat=EDGEDRNN_QAT)
+        logits = out.detach().requires_grad_(True)
+        cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            SEED)).to(dev)
+
+        def ctc_grad():
+            loss = ctc_loss_mean(logits, bt["labels"], bt["in_lens"],
+                                 bt["lab_lens"])[0]
+            return [torch.autograd.grad(loss, logits)[0]]
+
+        def net_grad():
+            return torch.autograd.grad(out, opt_leaves(p), cot,
+                                       retain_graph=True)
+        twice = {}
+        for part, fn in (("ctc", ctc_grad), ("net", net_grad)):
+            g1, g2 = fn(), fn()
+            twice[part] = max(float((a - b).abs().max())
+                              for a, b in zip(g1, g2))
+        log(f"train resume: checkpoint at step 5 restored bitwise "
+            f"{same_restore}; steps 6-10 replayed from it under "
+            f"deterministic algorithms bitwise equal to the same steps from "
+            f"the state in memory: {resume_bitwise}; the timed run's step 10 "
+            f"(default algorithms) differs from them by {timed_diff:.3e} in "
+            f"the parameters; with the default algorithms, twice over: the "
+            f"CTC loss's gradient w.r.t. the logits differs by "
+            f"{twice['ctc']:.3e}, the network's gradient under a fixed "
+            f"cotangent by {twice['net']:.3e}")
+        if not (same_restore and resume_bitwise):
+            raise AssertionError("train resume is not bitwise")
+    # the CPU ran two forwards (gradients, then the step) over one log
+    log(f"train qat first step: {qat_stats['sites'] // 2} LUT sites a "
+        f"forward; {qat_stats['flips'] // 2} of the CPU's outputs differed "
+        f"from the card's and took the card's value (largest distance of "
+        f"such a pre-rounding value from a rounding boundary: "
+        f"{qat_stats['max_margin']:.3e} of a Q1.4 step)")
+
+    # (d) export the trained stack and stream a fresh digit batch through
+    # the engine's captured graph at θ = 0.25
+    trained = train["qat"]["state"].params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve_prog = quantize_delta_model(trained)
+    torch.cuda.synchronize()
+    export_ms = 1e3 * (time.perf_counter() - t0)
+    serve_cpu = quantize_delta_model(
+        {k2: (v.cpu() if isinstance(v, torch.Tensor)
+              else [p.to("cpu") for p in v]) for k2, v in trained.items()},
+        device="cpu")
+    feats = serve_draws["features"].cpu().numpy()
+    n_serve = feats.shape[1]
+    eng = DeltaStreamEngine(serve_prog, delta_task, n_streams=n_serve)
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = eng.step_many(feats)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    n_served = ops.launch_counts()
+    q8 = ops.DELTA_Q8_GRU_I8
+    want = feats.shape[0] * train_task.num_layers
+    if n_served[q8.name] != want or sum(n_served.values()) != want:
+        raise AssertionError(f"served export: launches {n_served}, want "
+                             f"{want} of {q8.name}")
+    graph_check("served export", eng, feats.shape[0])
+    ce = DeltaStreamEngine(serve_cpu, delta_task, n_streams=n_serve,
+                           device="cpu")
+    c_outs = ce.step_many(feats)
+    same_state = all(torch.equal(a.cpu(), b) for a, b in zip(
+        tree_leaves(eng.state), tree_leaves(ce.state)))
+    head_err = float((outs.cpu() - c_outs).abs().max())
+    if not same_state or head_err > TOL_HEAD or not torch.isfinite(
+            outs).all():
+        raise AssertionError(f"served export disagrees with the CPU program: "
+                             f"state bitwise {same_state}, outputs "
+                             f"{head_err:.3e}")
+    decoded = ctc_greedy_decode(torch.log_softmax(outs, -1),
+                                serve_draws["in_lens"]).cpu().numpy()
+    labels = serve_draws["labels"].cpu().numpy()
+    lab_lens = serve_draws["lab_lens"].cpu().numpy()
+    errors = sum(edit_distance([v for v in d if v >= 0],
+                               list(lab[:ln]))
+                 for d, lab, ln in zip(decoded, labels, lab_lens))
+    train["serve"] = {"export_ms": export_ms, "errors": errors,
+                      "labels": int(lab_lens.sum()),
+                      "launches": n_served[q8.name]}
+    log(f"served export (fused_q8, {n_serve} streams, {feats.shape[0]} "
+        f"frames, theta={THETA}): {n_served[q8.name]} launches of "
+        f"{q8.name}; final state bitwise the CPU program's, outputs "
+        f"{head_err:.3e}; greedy "
+        f"decode edit distance {errors} over {int(lab_lens.sum())} labels "
+        f"({errors / lab_lens.sum():.4f} a label); report gamma_dx "
+        f"{eng.report()['gamma_dx']:.4f}")
+    return train, batches, opt_cfg
+
+
 def main() -> int:
     import functools
 
@@ -899,8 +1347,8 @@ def main() -> int:
                                                   deltagru_seq_step_ref)
     from repro_torch.kernels.deltalstm_seq import (deltalstm_seq_step,
                                                    deltalstm_seq_step_ref)
-    from repro_torch.models.gru_rnn import (GruTaskConfig, init_gru_model,
-                                            init_lstm_model)
+    from repro_torch.models.gru_rnn import (PAPER_NETWORKS, GruTaskConfig,
+                                            init_gru_model, init_lstm_model)
     from repro_torch.quant.export import quantize_delta_model
     from repro_torch.serve import resilience
     from repro_torch.serve.engine import DeltaStreamEngine
@@ -1455,13 +1903,6 @@ def main() -> int:
     main_engines = {}
     res_rng = np.random.default_rng(SEED + 1)
 
-    def graph_check(what, eng, steps):
-        """The engine stepped through its one captured graph: captured
-        once (at construction), replayed once a step."""
-        g = eng.graph_stats
-        if g["captures"] != 1 or g["replays"] != steps:
-            raise AssertionError(f"{what}: graph {g}, want 1 capture and "
-                                 f"{steps} replays")
     for (cell, be), prog in progs.items():
         path = f"{cell} {be}"
         kinfo = kernel_of[(cell, be)]
@@ -1784,6 +2225,10 @@ def main() -> int:
             f"{soak_err:.3e}")
         del runs, cpu_run, soak_cpu
 
+    # -- 5d. training: the paper's recipe at 2L-768H ----------------------
+    train, batches, opt_cfg = training_phase(dev, PAPER_NETWORKS["2L-768H"])
+    launches[ops.DELTA_Q8_GRU_I8.name] += train["serve"]["launches"]
+
     # -- 6. times on the card ---------------------------------------------
     ops.reset_launch_counts()
     instances = [(kernel_of[key], key, *step_of[key]) for key in progs]
@@ -2074,6 +2519,41 @@ def main() -> int:
             f"{np.median(lat_e):.1f} us, p95 {np.percentile(lat_e, 95):.1f} "
             f"us; step_many {eager_us[path]:.1f} us/step; profiled: "
             f"{json.dumps(prof_e)} [{smi}]")
+
+    # the train step of each stage: wall ms a step (median of the timed
+    # steps 2-10, each ended by reading its metrics), frames a second,
+    # kernels a step, device busy and idle share (torch.profiler over one
+    # step, as engine_profile; also the share against the unprofiled wall),
+    # the step cut into forward, backward and Adam, the timed loop's peak
+    # memory above what the process held when the loop began (earlier
+    # phases' tensors, the batches and the first step's state, which the
+    # loop replaces: its activations, gradients and a second state); and
+    # the export's time
+    for name in ("dense", "qat"):
+        tr = train[name]
+        st, bt = tr["state"], batches[TRAIN_STEPS - 1]
+        wall_ms = float(np.median(tr["step_ms"]))
+        frames = bt["features"].shape[0] * bt["features"].shape[1]
+        prof = engine_profile(lambda: tr["step"](st, bt), 1)
+        split = train_split_ms(st.params, tr["task"], bt, tr["qat"],
+                               tr["use_delta"], st.opt, opt_cfg)
+        busy_ms = prof["device_busy_us_per_step"] / 1e3
+        log(f"time train {name} (2L-768H CTC, B={bt['features'].shape[1]}, "
+            f"T={bt['features'].shape[0]}): {wall_ms:.3f} ms a step wall "
+            f"(median of steps 2-10; each "
+            + ", ".join(f"{v:.3f}" for v in tr["step_ms"])
+            + f"), {1e3 * frames / wall_ms:.1f} frames/s; profiled step: "
+            f"{prof['kernels_per_step']:.0f} kernels, device busy "
+            f"{busy_ms:.3f} ms, idle share {prof['idle_share']:.4f} (wall "
+            f"{prof['wall_us_per_step'] / 1e3:.3f} ms under the profiler), "
+            f"{1 - busy_ms / wall_ms:.4f} against the unprofiled wall; "
+            f"forward {split['forward_ms']:.3f} ms, backward "
+            f"{split['backward_ms']:.3f} ms, Adam {split['adam_ms']:.3f} ms; "
+            f"peak memory {tr['peak_bytes'] / 2 ** 30:.3f} GiB "
+            f"({tr['peak_bytes']} B) above the {tr['base_bytes']} B "
+            f"allocated before the loop [{smi}]")
+    log(f"time train export: quantize_delta_model of the trained 2L-768H "
+        f"stack {train['serve']['export_ms']:.3f} ms [{smi}]")
 
     entries = []
     for kinfo, (cell, be), _, _ in instances:

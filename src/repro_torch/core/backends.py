@@ -18,6 +18,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+import torch
+
 # (cell, name) -> BackendSpec
 _REGISTRY: dict = {}
 
@@ -33,6 +35,10 @@ class BackendSpec:
 
           step(params, state, x, theta_x, theta_h, *, layout)
               -> DeltaGruStepOut / DeltaLstmStepOut
+
+        The GRU and LSTM steps also take ``sigmoid=`` / ``tanh=``
+        (default ``torch.sigmoid`` / ``torch.tanh``); only ``dense``
+        honours other functions, every kernel backend raises on them.
 
       cell: recurrent cell family.
       m_init: ``"bias"`` folds biases into M; ``"zero"`` is the unscaled
@@ -87,14 +93,31 @@ def require_stream_tile(x, name: str) -> None:
             f"{name.removesuffix('_batch')!r} backend")
 
 
+def require_default_acts(sigmoid: Callable, tanh: Callable,
+                         message: str) -> None:
+    """Guard of the kernel backends: they hard-code their activation
+    pipeline, so custom (QAT) ``sigmoid`` / ``tanh`` raise ``ValueError``
+    with ``message`` rather than run another path."""
+    if not (sigmoid is torch.sigmoid and tanh is torch.tanh):
+        raise ValueError(message)
+
+
+def quant_acts_message(name: str) -> str:
+    """The refusal of the int8 / int4 backends ``fused_q8`` / ``fused_q4``."""
+    return (f"{name} hard-codes the Q8.8/Q1.n LUT activation pipeline; "
+            "pass backend='dense' with QAT act fns for training-time "
+            "emulation")
+
+
 def batched_step(name: str, parent: Callable) -> Callable:
     """The ``*_batch`` tile contract over a per-stream step: require the
     stream axis, then run the same kernel (it already compacts on the union
     of fired columns across the tile, and a stream that did not fire a
     fired block adds exact zeros)."""
-    def step(params, state, x, theta_x, theta_h, *, layout):
+    def step(params, state, x, theta_x, theta_h, *, layout, **acts):
         require_stream_tile(x, name)
-        return parent(params, state, x, theta_x, theta_h, layout=layout)
+        return parent(params, state, x, theta_x, theta_h, layout=layout,
+                      **acts)
     step.__name__ = f"_step_{name}"
     return step
 

@@ -7,7 +7,9 @@ c``; ``W_x: [3H, I]``, ``W_h: [3H, H]``.
 
 Backends (each a registered :class:`repro_torch.core.backends.BackendSpec`):
 
-* ``"dense"`` — plain matmuls; zeros in the deltas are multiplied.
+* ``"dense"`` — plain matmuls; zeros in the deltas are multiplied. The
+  one backend that takes custom ``sigmoid=`` / ``tanh=`` (the QAT LUTs);
+  the kernel backends below raise on them.
 * ``"fused"`` — one launch of the fp32 fused layer-step kernel per layer
   step (:mod:`repro_torch.kernels.deltagru_seq`).
 * ``"fused_q8"`` / ``"fused_q4"`` — the fixed-point pipeline (int8 codes,
@@ -26,12 +28,13 @@ synchronises the host.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
 from repro_torch.core.backends import (BackendSpec, batched_step, get_backend,
-                                       register_backend)
+                                       quant_acts_message, register_backend,
+                                       require_default_acts)
 from repro_torch.core.delta import DeltaState, delta_encode, init_delta_state
 from repro_torch.core.thresholds import layer_theta
 
@@ -79,16 +82,17 @@ def init_gru_stack(generator: torch.Generator, input_size: int,
 # Reference GRU (Eq. 1)
 # ---------------------------------------------------------------------------
 
-def gru_step(params: GruLayerParams, h_prev: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
+def gru_step(params: GruLayerParams, h_prev: torch.Tensor, x: torch.Tensor,
+             sigmoid: Callable = torch.sigmoid,
+             tanh: Callable = torch.tanh) -> torch.Tensor:
     """Standard GRU cell update (Eq. 1). ``x: [..., I]``, ``h: [..., H]``."""
     zx = x @ params.w_x.T + params.b            # [..., 3H]
     zh = h_prev @ params.w_h.T                  # [..., 3H]
     rx, ux, cx = torch.chunk(zx, 3, dim=-1)
     rh, uh, ch = torch.chunk(zh, 3, dim=-1)
-    r = torch.sigmoid(rx + rh)
-    u = torch.sigmoid(ux + uh)
-    c = torch.tanh(cx + r * ch)
+    r = sigmoid(rx + rh)
+    u = sigmoid(ux + uh)
+    c = tanh(cx + r * ch)
     return (1.0 - u) * c + u * h_prev
 
 
@@ -156,8 +160,10 @@ def _kernel_layer_step(kernel_step, layout, params: GruLayerParams,
 
 # -- per-backend step implementations (registered BackendSpec.step fns) -----
 
-def _step_dense(params, state, x, theta_x, theta_h, *, layout):
-    """Eq. 3 with plain matmuls (zeros in the deltas are multiplied)."""
+def _step_dense(params, state, x, theta_x, theta_h, *, layout,
+                sigmoid=torch.sigmoid, tanh=torch.tanh):
+    """Eq. 3 with plain matmuls (zeros in the deltas are multiplied); the
+    one backend that honours custom (QAT) activations."""
     dx_out = delta_encode(x, state.x_mem, theta_x)
     dh_out = delta_encode(state.h, state.h_mem, theta_h)
     dx, dh = dx_out.delta, dh_out.delta
@@ -170,9 +176,9 @@ def _step_dense(params, state, x, theta_x, theta_h, *, layout):
     m_u = m_u + zxu + zhu
     m_xc = m_xc + zxc
     m_hc = m_hc + zhc
-    r = torch.sigmoid(m_r)
-    u = torch.sigmoid(m_u)
-    c = torch.tanh(m_xc + r * m_hc)
+    r = sigmoid(m_r)
+    u = sigmoid(m_u)
+    c = tanh(m_xc + r * m_hc)
     h = (1.0 - u) * c + u * state.h
     new_state = DeltaGruLayerState(
         h=h, x_mem=dx_out.state, h_mem=dh_out.state,
@@ -180,8 +186,12 @@ def _step_dense(params, state, x, theta_x, theta_h, *, layout):
     return DeltaGruStepOut(h=h, state=new_state, delta_x=dx, delta_h=dh)
 
 
-def _step_fused(params, state, x, theta_x, theta_h, *, layout):
+def _step_fused(params, state, x, theta_x, theta_h, *, layout,
+                sigmoid=torch.sigmoid, tanh=torch.tanh):
     from repro_torch.kernels import deltagru_seq as _seq
+    require_default_acts(sigmoid, tanh, "fused backend hard-codes the "
+                         "Fig. 7 activation pipeline; pass backend='dense' "
+                         "for custom/QAT activations")
     if layout is None:
         layout = _seq.pack_gru_layer(params.w_x, params.w_h)
     dx_out = delta_encode(x, state.x_mem, theta_x)
@@ -191,8 +201,9 @@ def _step_fused(params, state, x, theta_x, theta_h, *, layout):
 
 
 def _step_fused_quant(bits: int, params, state, x, theta_x, theta_h, *,
-                      layout):
+                      layout, sigmoid, tanh):
     from repro_torch.kernels import delta_q8 as _q8
+    require_default_acts(sigmoid, tanh, quant_acts_message(f"fused_q{bits}"))
     if layout is None:
         layout = _q8.pack_delta_weights_q8(params.w_x, params.w_h,
                                            b=params.b, weight_bits=bits)
@@ -205,16 +216,18 @@ def _step_fused_quant(bits: int, params, state, x, theta_x, theta_h, *,
                               dx_out, dh_out)
 
 
-def _step_fused_q8(params, state, x, theta_x, theta_h, *, layout):
+def _step_fused_q8(params, state, x, theta_x, theta_h, *, layout,
+                   sigmoid=torch.sigmoid, tanh=torch.tanh):
     return _step_fused_quant(8, params, state, x, theta_x, theta_h,
-                             layout=layout)
+                             layout=layout, sigmoid=sigmoid, tanh=tanh)
 
 
-def _step_fused_q4(params, state, x, theta_x, theta_h, *, layout):
+def _step_fused_q4(params, state, x, theta_x, theta_h, *, layout,
+                   sigmoid=torch.sigmoid, tanh=torch.tanh):
     """The int4 twin of :func:`_step_fused_q8`; the kernel dispatches on
     ``layout.weight_bits``."""
     return _step_fused_quant(4, params, state, x, theta_x, theta_h,
-                             layout=layout)
+                             layout=layout, sigmoid=sigmoid, tanh=tanh)
 
 
 _step_fused_batch = batched_step("fused_batch", _step_fused)
@@ -276,16 +289,22 @@ register_backend(BackendSpec(
 
 
 def deltagru_step(params: GruLayerParams, state: DeltaGruLayerState,
-                  x: torch.Tensor, theta_x, theta_h, backend: str = "dense",
+                  x: torch.Tensor, theta_x, theta_h,
+                  sigmoid: Callable = torch.sigmoid,
+                  tanh: Callable = torch.tanh, backend: str = "dense",
                   layout=None) -> DeltaGruStepOut:
     """One DeltaGRU timestep (Eq. 3) through the backend registry.
 
     ``state`` must follow the backend's ``m_init`` convention (``"zero"``
     for ``fused_q8`` / ``fused_q4``); the program API enforces it.
     ``layout`` is the pre-packed layer (packed on the fly otherwise).
+    ``sigmoid`` / ``tanh`` other than ``torch.sigmoid`` / ``torch.tanh``
+    (the QAT LUTs of :meth:`repro_torch.quant.qat.QatPolicy.act_fns`) run
+    on ``dense`` only; every kernel backend raises ``ValueError``.
     """
     spec = get_backend(backend, cell="gru")
-    return spec.step(params, state, x, theta_x, theta_h, layout=layout)
+    return spec.step(params, state, x, theta_x, theta_h, layout=layout,
+                     sigmoid=sigmoid, tanh=tanh)
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +331,8 @@ def stack_m_init(backend: str) -> str:
 def deltagru_stack_step(params: Sequence[GruLayerParams],
                         state: DeltaGruStackState, x: torch.Tensor,
                         theta_x, theta_h, backend: str = "dense",
-                        layouts=None):
+                        layouts=None, sigmoid: Callable = torch.sigmoid,
+                        tanh: Callable = torch.tanh):
     """One timestep through all layers. The input threshold of layers >= 2
     applies to the previous layer's output stream. ``theta_x`` /
     ``theta_h`` are scalars, 0-d tensors or per-layer tuples."""
@@ -322,7 +342,7 @@ def deltagru_stack_step(params: Sequence[GruLayerParams],
     for li, (p, st) in enumerate(zip(params, state.layers)):
         out = deltagru_step(
             p, st, inp, layer_theta(theta_x, li), layer_theta(theta_h, li),
-            backend=backend,
+            sigmoid=sigmoid, tanh=tanh, backend=backend,
             layout=layouts[li] if layouts is not None else None)
         new_layers.append(out.state)
         deltas.append((out.delta_x, out.delta_h))
@@ -343,7 +363,9 @@ def deltagru_sequence(params: Sequence[GruLayerParams], xs: torch.Tensor,
                       theta_x, theta_h,
                       init_state: DeltaGruStackState | None = None,
                       collect_sparsity: bool = True,
-                      backend: str = "dense", layouts=None):
+                      backend: str = "dense", layouts=None,
+                      sigmoid: Callable = torch.sigmoid,
+                      tanh: Callable = torch.tanh):
     """Run a DeltaGRU stack over ``xs: [T, B, I]`` (a Python loop over T).
 
     Kernel backends get their weights packed once here, or take pre-packed
@@ -362,7 +384,8 @@ def deltagru_sequence(params: Sequence[GruLayerParams], xs: torch.Tensor,
     for x in xs:
         y, state, deltas = deltagru_stack_step(params, state, x, theta_x,
                                                theta_h, backend=backend,
-                                               layouts=layouts)
+                                               layouts=layouts,
+                                               sigmoid=sigmoid, tanh=tanh)
         ys.append(y)
         if collect_sparsity:
             for (gx, gh), (dx, dh) in zip(per_layer, deltas):
@@ -378,7 +401,9 @@ def deltagru_sequence(params: Sequence[GruLayerParams], xs: torch.Tensor,
                        "per_layer": stats}
 
 
-def gru_sequence(params: Sequence[GruLayerParams], xs: torch.Tensor):
+def gru_sequence(params: Sequence[GruLayerParams], xs: torch.Tensor,
+                 sigmoid: Callable = torch.sigmoid,
+                 tanh: Callable = torch.tanh):
     """Reference multi-layer GRU over ``xs: [T, B, I]`` (Eq. 1 oracle)."""
     batch_shape = xs.shape[1:-1]
     hs = [torch.zeros((*batch_shape, p.hidden_size), dtype=xs.dtype,
@@ -387,7 +412,7 @@ def gru_sequence(params: Sequence[GruLayerParams], xs: torch.Tensor):
     for x in xs:
         inp = x
         for li, p in enumerate(params):
-            hs[li] = gru_step(p, hs[li], inp)
+            hs[li] = gru_step(p, hs[li], inp, sigmoid, tanh)
             inp = hs[li]
         ys.append(inp)
     return torch.stack(ys)

@@ -10,7 +10,9 @@ state ``c``.
 Backends (registered under ``cell="lstm"`` in
 :mod:`repro_torch.core.backends`), the same seven as the GRU's:
 
-* ``"dense"`` — plain matmuls; zeros in the deltas are multiplied.
+* ``"dense"`` — plain matmuls; zeros in the deltas are multiplied. The
+  one backend that takes custom ``sigmoid=`` / ``tanh=``; the kernel
+  backends below raise on them.
 * ``"fused"`` — one launch of the fp32 LSTM layer-step kernel per layer
   step (:mod:`repro_torch.kernels.deltalstm_seq`).
 * ``"fused_q8"`` / ``"fused_q4"`` — the fixed-point pipeline (int8 or
@@ -26,12 +28,13 @@ the host.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
 from repro_torch.core.backends import (BackendSpec, batched_step, get_backend,
-                                       register_backend)
+                                       quant_acts_message, register_backend,
+                                       require_default_acts)
 from repro_torch.core.delta import DeltaState, delta_encode, init_delta_state
 from repro_torch.core.thresholds import layer_theta
 
@@ -77,15 +80,17 @@ def init_lstm_stack(generator: torch.Generator, input_size: int,
             for l in range(num_layers)]
 
 
-def lstm_step(params: LstmLayerParams, carry, x: torch.Tensor):
+def lstm_step(params: LstmLayerParams, carry, x: torch.Tensor,
+              sigmoid: Callable = torch.sigmoid,
+              tanh: Callable = torch.tanh):
     """Reference LSTM cell. ``carry = (h, c)``; returns the new pair."""
     h_prev, c_prev = carry
     z = x @ params.w_x.T + h_prev @ params.w_h.T + params.b
     zi, zf, zg, zo = torch.chunk(z, 4, dim=-1)
-    i, f, o = torch.sigmoid(zi), torch.sigmoid(zf), torch.sigmoid(zo)
-    g = torch.tanh(zg)
+    i, f, o = sigmoid(zi), sigmoid(zf), sigmoid(zo)
+    g = tanh(zg)
     c = f * c_prev + i * g
-    h = o * torch.tanh(c)
+    h = o * tanh(c)
     return (h, c)
 
 
@@ -147,25 +152,30 @@ def _kernel_layer_step(kernel_step, layout, params: LstmLayerParams,
 
 # -- per-backend step implementations (registered BackendSpec.step fns) -----
 
-def _step_dense(params, state, x, theta_x, theta_h, *, layout):
+def _step_dense(params, state, x, theta_x, theta_h, *, layout,
+                sigmoid=torch.sigmoid, tanh=torch.tanh):
     """The delta update with plain matmuls (zeros in the deltas are
-    multiplied)."""
+    multiplied); the one backend that honours custom (QAT) activations."""
     dx_out = delta_encode(x, state.x_mem, theta_x)
     dh_out = delta_encode(state.h, state.h_mem, theta_h)
     m = state.m + dx_out.delta @ params.w_x.T + dh_out.delta @ params.w_h.T
     zi, zf, zg, zo = torch.chunk(m, 4, dim=-1)
-    i, f, o = torch.sigmoid(zi), torch.sigmoid(zf), torch.sigmoid(zo)
-    g = torch.tanh(zg)
+    i, f, o = sigmoid(zi), sigmoid(zf), sigmoid(zo)
+    g = tanh(zg)
     c = f * state.c + i * g
-    h = o * torch.tanh(c)
+    h = o * tanh(c)
     new_state = DeltaLstmLayerState(h=h, c=c, x_mem=dx_out.state,
                                     h_mem=dh_out.state, m=m)
     return DeltaLstmStepOut(h=h, state=new_state, delta_x=dx_out.delta,
                             delta_h=dh_out.delta)
 
 
-def _step_fused(params, state, x, theta_x, theta_h, *, layout):
+def _step_fused(params, state, x, theta_x, theta_h, *, layout,
+                sigmoid=torch.sigmoid, tanh=torch.tanh):
     from repro_torch.kernels import deltalstm_seq as _seq
+    require_default_acts(sigmoid, tanh, "fused backend hard-codes the "
+                         "i/f/g/o activation pipeline; pass "
+                         "backend='dense' for custom/QAT activations")
     if layout is None:
         layout = _seq.pack_lstm_layer(params.w_x, params.w_h)
     dx_out = delta_encode(x, state.x_mem, theta_x)
@@ -175,8 +185,9 @@ def _step_fused(params, state, x, theta_x, theta_h, *, layout):
 
 
 def _step_fused_quant(bits: int, params, state, x, theta_x, theta_h, *,
-                      layout):
+                      layout, sigmoid, tanh):
     from repro_torch.kernels import delta_q8 as _q8
+    require_default_acts(sigmoid, tanh, quant_acts_message(f"fused_q{bits}"))
     if layout is None:
         layout = _q8.pack_delta_weights_q8(params.w_x, params.w_h,
                                            b=params.b, gates=4,
@@ -190,16 +201,18 @@ def _step_fused_quant(bits: int, params, state, x, theta_x, theta_h, *,
                               dx_out, dh_out)
 
 
-def _step_fused_q8(params, state, x, theta_x, theta_h, *, layout):
+def _step_fused_q8(params, state, x, theta_x, theta_h, *, layout,
+                   sigmoid=torch.sigmoid, tanh=torch.tanh):
     return _step_fused_quant(8, params, state, x, theta_x, theta_h,
-                             layout=layout)
+                             layout=layout, sigmoid=sigmoid, tanh=tanh)
 
 
-def _step_fused_q4(params, state, x, theta_x, theta_h, *, layout):
+def _step_fused_q4(params, state, x, theta_x, theta_h, *, layout,
+                   sigmoid=torch.sigmoid, tanh=torch.tanh):
     """The int4 twin of :func:`_step_fused_q8`; the kernel dispatches on
     ``layout.weight_bits``."""
     return _step_fused_quant(4, params, state, x, theta_x, theta_h,
-                             layout=layout)
+                             layout=layout, sigmoid=sigmoid, tanh=tanh)
 
 
 _step_fused_batch = batched_step("fused_batch", _step_fused)
@@ -266,13 +279,18 @@ def lstm_stack_m_init(backend: str) -> str:
 
 
 def deltalstm_step(params: LstmLayerParams, state: DeltaLstmLayerState,
-                   x: torch.Tensor, theta_x, theta_h, backend: str = "dense",
+                   x: torch.Tensor, theta_x, theta_h,
+                   sigmoid: Callable = torch.sigmoid,
+                   tanh: Callable = torch.tanh, backend: str = "dense",
                    layout=None) -> DeltaLstmStepOut:
     """One DeltaLSTM timestep through the ``cell="lstm"`` registry.
     ``state`` must follow the backend's ``m_init`` convention; ``layout``
-    is the pre-packed layer (packed on the fly otherwise)."""
+    is the pre-packed layer (packed on the fly otherwise). Custom
+    ``sigmoid`` / ``tanh`` run on ``dense`` only; the kernel backends
+    raise ``ValueError``."""
     spec = get_backend(backend, cell="lstm")
-    return spec.step(params, state, x, theta_x, theta_h, layout=layout)
+    return spec.step(params, state, x, theta_x, theta_h, layout=layout,
+                     sigmoid=sigmoid, tanh=tanh)
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +313,8 @@ def init_deltalstm_stack_state(params: Sequence[LstmLayerParams],
 def deltalstm_stack_step(params: Sequence[LstmLayerParams],
                          state: DeltaLstmStackState, x: torch.Tensor,
                          theta_x, theta_h, backend: str = "dense",
-                         layouts=None):
+                         layouts=None, sigmoid: Callable = torch.sigmoid,
+                         tanh: Callable = torch.tanh):
     """One timestep through all layers; the input threshold of layers >= 2
     applies to the previous layer's output stream, as in the GRU stack."""
     new_layers = []
@@ -304,7 +323,7 @@ def deltalstm_stack_step(params: Sequence[LstmLayerParams],
     for li, (p, st) in enumerate(zip(params, state.layers)):
         out = deltalstm_step(
             p, st, inp, layer_theta(theta_x, li), layer_theta(theta_h, li),
-            backend=backend,
+            sigmoid=sigmoid, tanh=tanh, backend=backend,
             layout=layouts[li] if layouts is not None else None)
         new_layers.append(out.state)
         deltas.append((out.delta_x, out.delta_h))
@@ -324,7 +343,9 @@ def deltalstm_sequence(params: Sequence[LstmLayerParams], xs: torch.Tensor,
                        theta_x, theta_h,
                        init_state: DeltaLstmStackState | None = None,
                        collect_sparsity: bool = True,
-                       backend: str = "dense", layouts=None):
+                       backend: str = "dense", layouts=None,
+                       sigmoid: Callable = torch.sigmoid,
+                       tanh: Callable = torch.tanh):
     """Run a DeltaLSTM stack over ``xs: [T, B, I]`` (a Python loop over T).
 
     Kernel backends get their weights packed once here, or take pre-packed
@@ -343,7 +364,8 @@ def deltalstm_sequence(params: Sequence[LstmLayerParams], xs: torch.Tensor,
     for x in xs:
         y, state, deltas = deltalstm_stack_step(params, state, x, theta_x,
                                                 theta_h, backend=backend,
-                                                layouts=layouts)
+                                                layouts=layouts,
+                                                sigmoid=sigmoid, tanh=tanh)
         ys.append(y)
         if collect_sparsity:
             for (gx, gh), (dx, dh) in zip(per_layer, deltas):
@@ -359,7 +381,9 @@ def deltalstm_sequence(params: Sequence[LstmLayerParams], xs: torch.Tensor,
                        "per_layer": stats}
 
 
-def lstm_sequence(params: Sequence[LstmLayerParams], xs: torch.Tensor):
+def lstm_sequence(params: Sequence[LstmLayerParams], xs: torch.Tensor,
+                  sigmoid: Callable = torch.sigmoid,
+                  tanh: Callable = torch.tanh):
     """Reference multi-layer LSTM over ``xs: [T, B, I]`` (the oracle)."""
     batch_shape = xs.shape[1:-1]
     carries = [(torch.zeros((*batch_shape, p.hidden_size), dtype=xs.dtype,
@@ -368,7 +392,7 @@ def lstm_sequence(params: Sequence[LstmLayerParams], xs: torch.Tensor):
     for x in xs:
         inp = x
         for li, p in enumerate(params):
-            carries[li] = lstm_step(p, carries[li], inp)
+            carries[li] = lstm_step(p, carries[li], inp, sigmoid, tanh)
             inp = carries[li][0]
         ys.append(inp)
     return torch.stack(ys)

@@ -1,7 +1,6 @@
 """The paper's own networks: multi-layer (Delta)GRU stacks with a CTC
 classifier head (TIDIGITS) or a regression head (SensorsGas). The PyTorch
-port of :mod:`repro.models.gru_rnn` (the QAT argument of
-``gru_model_forward`` waits for the training slice).
+port of :mod:`repro.models.gru_rnn`.
 
 A model is a dict ``{"gru": [GruLayerParams, ...], "head": [H, O],
 "head_b": [O]}`` of tensors on one device (``"lstm"`` and
@@ -27,6 +26,7 @@ from repro_torch.core.deltarwkv import RwkvLayerParams
 from repro_torch.core.program import infer_cell
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.common import dense_init
+from repro_torch.quant.qat import FP32, QatPolicy
 
 
 @dataclass(frozen=True)
@@ -125,7 +125,7 @@ def model_from_numpy(tree: dict, device=None) -> dict:
 
 
 def gru_model_forward(params, cfg: GruTaskConfig, xs: torch.Tensor, *,
-                      use_delta: bool = True,
+                      use_delta: bool = True, qat: QatPolicy = FP32,
                       collect_sparsity: bool = False,
                       backend: str | None = None,
                       layouts=None,
@@ -137,6 +137,14 @@ def gru_model_forward(params, cfg: GruTaskConfig, xs: torch.Tensor, *,
     compiled delta path with its packed weights and head (or
     ``params``'s head, for a program compiled from a bare stack); the
     ``backend=`` / ``layouts=`` kwargs are the ad-hoc spelling.
+
+    ``qat=`` (training-time fake quant, e.g.
+    :data:`repro_torch.quant.qat.EDGEDRNN_QAT`) fake-quantizes every
+    layer's ``w_x``, ``w_h`` and ``b`` and runs the LUT activations, so it
+    needs the ``dense`` backend (the kernel backends raise). Train with it,
+    then export with :func:`repro_torch.quant.export.quantize_delta_model`
+    and run the returned ``fused_q8`` program: the two sides of the
+    paper's recipe.
     """
     if program is not None:
         if backend is not None or layouts is not None:
@@ -144,6 +152,11 @@ def gru_model_forward(params, cfg: GruTaskConfig, xs: torch.Tensor, *,
                 "backend=/layouts= conflict with program= — the compiled "
                 f"program already fixes both (its backend: "
                 f"{program.backend!r}); drop the legacy kwargs")
+        if qat.enabled:
+            raise ValueError(
+                "program= holds weights packed at compile time; QAT fake "
+                "quant would be silently ignored — quantize at compile "
+                "(backend='fused_q8') or run the legacy dense path")
         if not use_delta:
             raise ValueError("program= compiles the DeltaGRU path; use the "
                              "legacy kwargs for the plain-GRU oracle")
@@ -152,12 +165,14 @@ def gru_model_forward(params, cfg: GruTaskConfig, xs: torch.Tensor, *,
         if program.head is not None:
             return program.apply_head(ys), stats
         return ys @ params["head"] + params["head_b"], stats
+    gru_params = [qat.quantize_params(p) for p in params["gru"]]
+    sigmoid, tanh = qat.act_fns()
     stats = {}
     if use_delta:
         ys, _, stats = deltagru_sequence(
-            params["gru"], xs, cfg.theta_x, cfg.theta_h,
+            gru_params, xs, cfg.theta_x, cfg.theta_h,
             collect_sparsity=collect_sparsity, backend=backend or "dense",
-            layouts=layouts)
+            layouts=layouts, sigmoid=sigmoid, tanh=tanh)
     else:
-        ys = gru_sequence(params["gru"], xs)
+        ys = gru_sequence(gru_params, xs, sigmoid, tanh)
     return ys @ params["head"] + params["head_b"], stats

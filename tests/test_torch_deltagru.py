@@ -183,18 +183,19 @@ def test_batch_backends_reject_streamless_inputs():
 
 def test_kernel_backends_reject_custom_activations():
     # No step option reroutes a kernel backend onto other arithmetic:
-    # custom activations and matvecs (training-time emulation) are not
-    # options of the port's step.
+    # custom (QAT) activations raise ValueError, as in the JAX package, and
+    # a matvec override is not an option of the port's step.
     _, tp = _models(48)
     p = tp["gru"][0]
     st = tgru.init_deltagru_state(p, (1,))
-    overrides = ({"sigmoid": lambda v: v}, {"tanh": lambda v: v},
-                 {"matvec": lambda w, v: v @ w.T})
     for be in ("fused", "fused_q8", "fused_q4"):
-        for kw in overrides:
-            with pytest.raises(TypeError, match="unexpected keyword"):
+        for kw in ({"sigmoid": lambda v: v}, {"tanh": lambda v: v}):
+            with pytest.raises(ValueError, match="hard-codes the"):
                 tgru.deltagru_step(p, st, torch.zeros(1, 40), 0.0, 0.0,
                                    backend=be, **kw)
+        with pytest.raises(TypeError, match="unexpected keyword"):
+            tgru.deltagru_step(p, st, torch.zeros(1, 40), 0.0, 0.0,
+                               backend=be, matvec=lambda w, v: v @ w.T)
 
 
 # -- programs -----------------------------------------------------------------

@@ -18,6 +18,7 @@ from repro_torch.core.delta_dense import init_delta_linear_state
 from repro_torch.core.deltarglru import init_deltarglru_model
 from repro_torch.core.deltarwkv import init_deltarwkv_model
 from repro_torch.core.program import compile_delta_program
+from repro_torch.data.synthetic import digit_batch, gas_batch
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.delta_q8 import deltagru_q8_step, pack_delta_weights_q8
 from repro_torch.kernels.deltagru_seq import deltagru_seq_step, pack_gru_layer
@@ -45,7 +46,10 @@ def test_the_scan_covers_every_port_module_and_kernel_source():
                 "kernels/rglru_scan.py", "kernels/deltagru_cell.py",
                 "kernels/ref.py", "core/delta_dense.py", "core/sparsity.py",
                 "ft/checkpoint.py", "ft/heartbeat.py", "ft/straggler.py",
-                "ft/restart.py", "serve/faults.py", "serve/resilience.py"):
+                "ft/restart.py", "serve/faults.py", "serve/resilience.py",
+                "quant/qat.py", "train/ctc.py", "train/losses.py",
+                "train/optim.py", "train/trainer.py", "data/synthetic.py",
+                "dist/grad_compress.py"):
         assert mod in names, mod
     assert sorted(_build.SOURCES) == sorted(
         p.name for p in (PORT / "csrc").glob("*.cu"))
@@ -107,7 +111,7 @@ def _np_tree(model):
     "init_deltarwkv_model", "init_deltarglru_model",
     "compile_delta_program_rwkv6", "DeltaStreamEngine_rglru",
     "reduced_delta_recipe", "init_delta_linear_state", "checkpoint_restore",
-    "serve_resumable"])
+    "serve_resumable", "digit_batch", "gas_batch"])
 def test_default_device_without_cuda_raises(entry, monkeypatch, tmp_path):
     model = _small_model()
     cfg = GruTaskConfig(40, 48, 2, 12)
@@ -142,6 +146,8 @@ def test_default_device_without_cuda_raises(entry, monkeypatch, tmp_path):
         "serve_resumable": lambda: serve_resumable(
             compile_delta_program(model, device="cpu"), cfg, [],
             ResiliencePolicy()),
+        "digit_batch": lambda: digit_batch(0, batch=2, max_t=16),
+        "gas_batch": lambda: gas_batch(0, batch=2, t_len=8),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
