@@ -96,6 +96,30 @@ traceback and a non-zero exit):
    launches of the int8 GRU kernel and no other, its final state bitwise
    and its outputs within ``TOL_HEAD`` of the same program compiled with
    ``device="cpu"``; the greedy-decode edit distance is reported;
+5e. the serving fabric (``ShardedStreamFleet`` behind ``StreamRouter``,
+   driven by ``run_fabric_load``), at ``benchmarks/BENCH_fabric.json``'s
+   configuration: 8 shards × 128 streams on the one card (the mesh lists
+   it once a shard), 2000 Poisson arrivals at 120 a tick of 6-20 frames
+   (seed 777), queues of 64, shard 5 lost at tick 12 (drain checkpoint,
+   replay of its streams from frame 0 on the survivors). (a) At the
+   record's own width (I = 8, H = 16, L = 2, O = 3, θ = 0.05,
+   ``quantize_delta_model`` of seed-0 ``init_gru_model``): the record's
+   ``counts`` block key for key, as ``benchmarks/loadgen_fabric.py``
+   computes it, and every completed stream bitwise equal to a clean run
+   on a same-width reference engine on the card. (b) The same traffic at
+   2L-768H (``fused_q8``, θx = θh = 0.25, frames of 40): the same counts in
+   two runs, every completed stream bitwise its reference on the card, the
+   first reference group rerun with ``device="cpu"`` (state bitwise,
+   outputs within ``TOL_HEAD``), the drain checkpoint restored through
+   ``DeltaStreamEngine.restore`` equal in state, carry and report to the
+   dying shard's export taken just before ``remove_shard``, launches of
+   the int8 GRU kernel exactly layers × (live shards summed over the ticks
+   + every other engine's warm-up and replays) and no other kernel, every
+   tick on which no stream can finish run under
+   ``set_sync_debug_mode("error")``; ticks 6-10 of the second run profiled.
+   Then a ``fused`` fleet of 4 × 8 through ``step_many`` (20 frames),
+   every shard's state and outputs bitwise a standalone 8-stream engine,
+   with exact launches of the fp32 GRU kernel;
 6. times on the card: each kernel instance at B = 1 and its plain version
    (device time from CUDA-graph replay between CUDA events, also with the
    L2 flushed before each call, and the kernel's time per call launched
@@ -112,7 +136,11 @@ traceback and a non-zero exit):
    over the frames), the capture's time and the batcher's frames per
    second; per training stage of 5d the wall per train step, frames per
    second, kernels per step and idle share, the step cut into forward,
-   backward and Adam, the peak memory, and the export's time.
+   backward and Adam, the peak memory, and the export's time; for 5e (b)
+   the wall, streams and frames a second, the steady tick p50 and p99
+   (``loadgen_fabric``'s rule: ticks over 10 × the median dropped), replays
+   a tick, kernels, device busy and idle share a profiled tick, and the
+   scale-down's time.
 
 The delta-ized LM cells run through the same phases: in phase 3
 ``delta_spmv`` with fp32 and with bf16 operands (the LM layer shapes, the
@@ -137,8 +165,9 @@ beside an empty kernel of their build at the same grid, and the engine
 profile of both paths.
 
 The line before the last is ``{"kernels": [...]}`` (every kernel instance;
-the ``launches`` of a main-path instance are those of phases 5, 5b, 5c
-and 5d, each run counted from zero; those of an instance on no main path, a
+the ``launches`` of a main-path instance are those of phases 5, 5b, 5c,
+5d and 5e (the fabric's runs add to the int8 and fp32 GRU kernels'), each
+run counted from zero; those of an instance on no main path, a
 buffered one,
 ``delta_spmv_bf16`` or ``deltagru_act``, are those of phases 3 and 6, and
 its ``path`` names the entry that reaches it); the last line is
@@ -367,11 +396,12 @@ def step_latencies_us(step, frames) -> list:
     return lat
 
 
-def engine_profile(run, n: int) -> dict:
+def engine_profile(run, n: int, match: str | None = None) -> dict:
     """Kernels per step, device-busy time per step and the idle share of
     ``run()``, ``n`` steps (an engine's ``step_many``), from
     ``torch.profiler``; beside them the wall time and the device time
-    between two CUDA events around the run, per step."""
+    between two CUDA events around the run, per step; with ``match``, the
+    busy time per step of the kernels whose name holds it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -388,11 +418,15 @@ def engine_profile(run, n: int) -> dict:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    return {"kernels_per_step": len(kernels) / n,
-            "device_busy_us_per_step": busy_us / n,
-            "wall_us_per_step": 1e6 * wall / n,
-            "event_us_per_step": 1e3 * start.elapsed_time(stop) / n,
-            "idle_share": 1.0 - busy_us / (1e6 * wall) if kernels else None}
+    out = {"kernels_per_step": len(kernels) / n,
+           "device_busy_us_per_step": busy_us / n,
+           "wall_us_per_step": 1e6 * wall / n,
+           "event_us_per_step": 1e3 * start.elapsed_time(stop) / n,
+           "idle_share": 1.0 - busy_us / (1e6 * wall) if kernels else None}
+    if match is not None:
+        out["match_us_per_step"] = sum(
+            e.time_range.elapsed_us() for e in kernels if match in e.name) / n
+    return out
 
 
 def eager_steps(eng, frames):
@@ -1296,6 +1330,496 @@ def training_phase(dev, train_task, batch: int = 32, max_t: int = 96):
         f"({errors / lab_lens.sum():.4f} a label); report gamma_dx "
         f"{eng.report()['gamma_dx']:.4f}")
     return train, batches, opt_cfg
+
+
+# -- phase 5e: the serving fabric --------------------------------------------
+
+FABRIC_JSON = ROOT / "benchmarks" / "BENCH_fabric.json"
+# the fabric's own tick-exact record (benchmarks/loadgen_fabric.py, the JAX
+# package's): its config is the run, its counts the gate
+FABRIC_PROFILE_TICKS = (6, 10)     # ticks profiled in (b)'s second run
+
+
+def steady_percentile(walls, q):
+    """``benchmarks/loadgen_fabric.py::_steady_percentile``: the percentile
+    of the tick walls after dropping ticks over 10 × the median."""
+    if not walls:
+        return 0.0
+    walls = sorted(walls)
+    med = walls[len(walls) // 2]
+    steady = [w for w in walls if w <= 10 * med] or walls
+    return steady[min(len(steady) - 1, int(q * len(steady)))]
+
+
+def fabric_check_contract(router, summary, cfg) -> None:
+    """The hard asserts of ``benchmarks/loadgen_fabric.py`` on one run:
+    both books close, the scale-down displaced streams and every one of
+    them completed, and the full fleet reached ``min_concurrent``."""
+    cons = router.conservation()
+    replayed = [r for r in summary.results.values() if r.replayed]
+    if not (cons["conserved"] and cons["queued"] == 0
+            and cons["in_flight"] == 0
+            and cons["submitted"] == cfg["n_arrivals"]
+            == cons["completed"] + cons["rejected"] + cons["shed"]
+            and cons["frames_conserved"]
+            and summary.scale_info is not None and cons["rebalanced"] > 0
+            and len(replayed) == cons["rebalanced"]
+            and all(r.status == "ok" for r in replayed)
+            and summary.peak_concurrent_full >= cfg["min_concurrent"]):
+        raise AssertionError(f"fabric contract: {cons}, peak on the full "
+                             f"fleet {summary.peak_concurrent_full}")
+
+
+def fabric_counts(router, summary, fleet, parity_ok) -> dict:
+    """The tick-exact ``counts`` block, computed as
+    ``benchmarks/loadgen_fabric.py`` computes it."""
+    cons = router.conservation()
+    results = summary.results
+    ok_lat = sorted(r.latency_ticks for r in results.values()
+                    if r.status == "ok")
+    rep = router.report()
+    return {
+        "submitted": cons["submitted"],
+        "completed": cons["completed"],
+        "rejected": cons["rejected"],
+        "shed": cons["shed"],
+        "rebalanced": cons["rebalanced"],
+        "replayed_completed": sum(r.replayed for r in results.values()),
+        "parity_ok": parity_ok,
+        "frames_out": cons["frames_out"],
+        "harvested_steps": cons["harvested_steps"],
+        "ticks": summary.ticks,
+        "peak_concurrent": summary.peak_concurrent,
+        "peak_concurrent_full": summary.peak_concurrent_full,
+        "peak_active": summary.peak_active,
+        "latency_ticks_p50": ok_lat[len(ok_lat) // 2],
+        "latency_ticks_p99": ok_lat[min(len(ok_lat) - 1,
+                                        int(0.99 * len(ok_lat)))],
+        "per_shard_completed": (
+            [b["completed"] for b in rep["retired_shards"]]
+            + [b["completed"] for b in rep["per_shard"]]),
+        "fleet_shards_final": fleet.n_shards,
+    }
+
+
+def fabric_parity(arrivals, results, fleet, keep_first=False):
+    """``benchmarks/loadgen_fabric.py::_check_parity`` on the fleet's
+    device: every completed stream bitwise equal to a clean run on a
+    same-width reference engine (``fleet.reference_engine()``), B streams
+    a reference run, short streams padded with their last frame. Returns
+    the count and, with ``keep_first``, the first group's frames, outputs
+    and final state (for the CPU rerun)."""
+    import numpy as np
+    b = fleet.streams_per_shard
+    ref = fleet.reference_engine()
+    completed = [(i, r) for i, r in sorted(results.items())
+                 if r.status == "ok"]
+    parity_ok, first = 0, None
+    for base in range(0, len(completed), b):
+        group = completed[base:base + b]
+        t_max = max(len(arrivals[i][1]) for i, _ in group)
+        xs = np.zeros((t_max, b, fleet.dims.input_size), np.float32)
+        for j, (i, _) in enumerate(group):
+            frames = arrivals[i][1]
+            xs[:len(frames), j] = frames
+            xs[len(frames):, j] = frames[-1]
+        ref.reset()
+        want = ref.step_many(xs).cpu().numpy()
+        if keep_first and first is None:
+            first = {"xs": xs, "outs": want,
+                     "state": [t.to("cpu", copy=True)
+                               for t in tree_leaves(ref.state)]}
+        for j, (i, r) in enumerate(group):
+            got = np.stack([np.asarray(o) for o in r.outputs])
+            if want[:len(got), j].tobytes() != got.tobytes():
+                raise AssertionError(
+                    f"fabric parity: arrival {i} (shard {r.shard}, replayed="
+                    f"{r.replayed}, {len(got)} frames) diverged from its "
+                    "clean same-width reference")
+            parity_ok += 1
+    return parity_ok, first
+
+
+class TickProfile:
+    """``torch.profiler`` (device activity only: recording every host op
+    of ~1000 streams' bookkeeping would slow the ticks it measures) and
+    two CUDA events over router ticks ``first`` to ``last`` (the arrivals
+    submitted between them included), driven from ``run_fabric_load``'s
+    ``on_tick`` hook: kernels, device busy and idle share a tick, as
+    ``engine_profile`` reads them."""
+
+    def __init__(self, first: int, last: int):
+        self.first, self.last = first, last
+        self.result = None
+
+    def __call__(self, router, tick):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        if tick == self.first - 1:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.stop = torch.cuda.Event(enable_timing=True)
+            self.t0 = time.perf_counter()
+            self.start.record()
+        elif tick == self.last:
+            self.stop.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - self.t0
+            self.prof.__exit__(None, None, None)
+            n = self.last - self.first + 1
+            kernels = [e for e in self.prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+            self.result = {
+                "ticks": n, "kernels_per_tick": len(kernels) / n,
+                "device_busy_us_per_tick": busy_us / n,
+                "wall_us_per_tick": 1e6 * wall / n,
+                "event_us_per_tick": 1e3 * self.start.elapsed_time(
+                    self.stop) / n,
+                "idle_share": 1.0 - busy_us / (1e6 * wall)}
+
+
+def timed(obj, name, acc) -> None:
+    """Wrap the method ``name`` of ``obj`` so that ``acc[name]`` sums the
+    host seconds spent in its calls."""
+    fn = getattr(obj, name)
+    acc[name] = 0.0
+
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            acc[name] += time.perf_counter() - t0
+
+    setattr(obj, name, call)
+
+
+def fabric_run(prog, task, cfg, arrivals, dev, ckpt_dir, *, quiet_no_sync,
+               on_tick=None) -> dict:
+    """One load run of the committed fabric configuration ``cfg``
+    (``BENCH_fabric.json``'s): a ``ShardedStreamFleet`` of
+    ``n_shards × streams_per_shard`` slots on ``dev`` (the mesh lists the
+    device once a shard), a ``StreamRouter`` with ``max_queue``, the
+    arrivals through ``run_fabric_load`` with the scale-down of
+    ``scale_down_shard`` at ``scale_down_at`` into ``ckpt_dir``. With
+    ``quiet_no_sync`` every tick on which no stream can finish runs under
+    ``no_sync``. Records the ticks that stepped the fleet with the live
+    shards, the export of the dying shard taken just before
+    ``remove_shard`` and the scale-down's time (drain checkpoint and
+    remove)."""
+    from repro_torch.dist.elastic import best_mesh
+    from repro_torch.dist.serving import ShardedStreamFleet
+    from repro_torch.serve.loadgen import run_fabric_load
+    from repro_torch.serve.router import RouterPolicy, StreamRouter
+    n_shards = cfg["n_shards"]
+    mesh = best_mesh(n_shards, devices=[dev] * n_shards)
+    fleet = ShardedStreamFleet(prog, task,
+                               n_streams=n_shards * cfg["streams_per_shard"],
+                               mesh=mesh)
+    router = StreamRouter(fleet, RouterPolicy(max_queue=cfg["max_queue"]))
+    rec = {"quiet_ticks": 0, "shard_steps": 0, "before_remove": None,
+           "scale_ms": None}
+    router_tick, fleet_remove = router.tick, fleet.remove_shard
+
+    def tick():
+        # a stream finishes this tick iff it is in flight on its last
+        # frame, or queued with a single frame (admitted and finished)
+        harvest = (any(r.cursor + 1 >= len(r.frames)
+                       for r in router._slot_rec.values())
+                   or any(len(r.frames) == 1 for q in router.queues
+                          for r in q))
+        ticks = fleet._n_ticks
+        if quiet_no_sync and not harvest:
+            rec["quiet_ticks"] += 1
+            with no_sync(dev):
+                out = router_tick()
+        else:
+            out = router_tick()
+        if fleet._n_ticks > ticks:
+            rec["shard_steps"] += fleet.n_shards
+        return out
+
+    def remove_shard(dead, ckpt_dir=None):
+        rec["before_remove"] = fleet.export_shard_engine(dead)
+        sync(dev)
+        t0 = time.perf_counter()
+        info = fleet_remove(dead, ckpt_dir=ckpt_dir)
+        sync(dev)
+        rec["scale_ms"] = 1e3 * (time.perf_counter() - t0)
+        return info
+
+    router.tick, fleet.remove_shard = tick, remove_shard
+    # host seconds in the fleet's calls and the router's submits (a carry
+    # read waits for the tick's replays to finish)
+    rec["host_s"] = {}
+    for obj, name in ((fleet, "step"), (fleet, "open_stream"),
+                      (fleet, "host_carry"), (fleet, "close_stream"),
+                      (router, "submit")):
+        timed(obj, name, rec["host_s"])
+    sync(dev)
+    t0 = time.perf_counter()
+    summary = run_fabric_load(
+        router, arrivals, scale_down_at=cfg["scale_down_at"],
+        scale_down_shard=cfg["scale_down_shard"], ckpt_dir=ckpt_dir,
+        on_tick=on_tick)
+    sync(dev)
+    rec["wall_s"] = time.perf_counter() - t0
+    ckpt = summary.scale_info["checkpoint"]
+    if not (ckpt and os.path.exists(ckpt)):
+        raise AssertionError("scale-down did not publish the dying shard's "
+                             "drain checkpoint")
+    fabric_check_contract(router, summary, cfg)
+    rec.update(fleet=fleet, router=router, summary=summary)
+    return rec
+
+
+def fabric_phase(dev, model_768, kernel_q8, kernel_f32, smi) -> dict:
+    """Phase 5e: the serving fabric on the card. (a) ``BENCH_fabric.json``'s
+    configuration at its own width (I = 8, H = 16, L = 2, O = 3, θ = 0.05,
+    ``quantize_delta_model`` of seed-0 ``init_gru_model``): its counts
+    exactly, every completed stream bitwise its same-width reference, the
+    drain checkpoint published. (b) The same traffic at 2L-768H
+    (``model_768``, ``quantize_delta_model``, θx = θh = 0.25, frames of
+    40): the counts twice, every stream bitwise, the first reference group
+    against the CPU, the drain checkpoint restored into an engine equal to
+    the dying shard's export, exact launches of ``kernel_q8`` and no other,
+    no host sync on ticks that harvest nothing, and the tick profile of
+    the second run. Then a ``fused`` fleet of 4 × 8 ``step_many`` over 20
+    frames, bitwise 4 standalone 8-stream engines. Returns the launches a
+    kernel and the timings."""
+    import numpy as np
+    import torch
+    from repro_torch.core.program import compile_deltagru
+    from repro_torch.dist import serving
+    from repro_torch.dist.elastic import best_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models.gru_rnn import (PAPER_NETWORKS, GruTaskConfig,
+                                            init_gru_model)
+    from repro_torch.quant.export import quantize_delta_model
+    from repro_torch.serve.loadgen import poisson_arrivals
+    bench = json.loads(FABRIC_JSON.read_text())
+    cfg, want_counts = bench["config"], bench["counts"]
+    launches = {kernel_q8.name: 0, kernel_f32.name: 0}
+    Recorded = recording(serving.DeltaStreamEngine)
+    saved = serving.DeltaStreamEngine
+    serving.DeltaStreamEngine = Recorded
+
+    def arrivals_of(width):
+        return poisson_arrivals(cfg["n_arrivals"], cfg["rate_per_tick"],
+                                min_len=cfg["min_len"],
+                                max_len=cfg["max_len"], input_size=width,
+                                seed=cfg["seed"])
+
+    def counted(what, run_fn, kinfo, layers):
+        """``run_fn()`` from zero counts; the launches must be ``layers``
+        a step of every engine it made (captures' warm-up steps and
+        replays) of ``kinfo`` alone."""
+        Recorded.made.clear()
+        ops.reset_launch_counts()
+        out = run_fn()
+        sync(dev)
+        n = {k: v for k, v in ops.launch_counts().items() if v}
+        steps = sum(e.graph_stats["captures"] + e.graph_stats["replays"]
+                    for e in Recorded.made)
+        # (on the CPU no kernel launches)
+        if n != ({kinfo.name: steps * layers} if dev.type == "cuda" else {}):
+            raise AssertionError(f"{what}: launches {n}, want "
+                                 f"{steps * layers} of {kinfo.name}")
+        launches[kinfo.name] += n.get(kinfo.name, 0)
+        return out, list(Recorded.made)
+
+    res = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # (a) the committed configuration at its own width
+            task_a = GruTaskConfig(cfg["input"], cfg["hidden"], cfg["layers"],
+                                   3, task="regression", theta_x=0.05,
+                                   theta_h=0.05)
+            prog_a = quantize_delta_model(
+                init_gru_model(0, task_a, device=dev), device=dev)
+            arr_a = arrivals_of(cfg["input"])
+
+            def run_a():
+                run = fabric_run(prog_a, task_a, cfg, arr_a, dev,
+                                 os.path.join(tmp, "a"), quiet_no_sync=False)
+                run["parity_ok"], _ = fabric_parity(
+                    arr_a, run["summary"].results, run["fleet"])
+                return run
+
+            run, _ = counted("fabric (a)", run_a, kernel_q8, task_a.num_layers)
+            counts = fabric_counts(run["router"], run["summary"], run["fleet"],
+                                   run["parity_ok"])
+            if counts != want_counts:
+                raise AssertionError(f"fabric (a): counts {counts}, "
+                                     f"BENCH_fabric.json {want_counts}")
+            log(f"fabric (a) I={cfg['input']} H={cfg['hidden']} "
+                f"L={cfg['layers']} fused_q8, {cfg['n_shards']} shards x "
+                f"{cfg['streams_per_shard']} on {dev}: counts equal "
+                f"BENCH_fabric.json key for key ({counts['completed']} "
+                f"completed, {counts['rejected']} rejected, "
+                f"{counts['rebalanced']} rebalanced, {counts['ticks']} "
+                f"ticks); {counts['parity_ok']} streams bitwise their "
+                f"reference; wall {run['wall_s']:.4f} s [{smi}]")
+            del run
+
+            # (b) the same traffic at 2L-768H
+            task_b = dataclasses.replace(PAPER_NETWORKS["2L-768H"],
+                                         theta_x=THETA, theta_h=THETA)
+            prog_b = quantize_delta_model(model_768, device=dev)
+            arr_b = arrivals_of(task_b.input_size)
+            layers = task_b.num_layers
+
+            def run_b1():
+                run = fabric_run(prog_b, task_b, cfg, arr_b, dev,
+                                 os.path.join(tmp, "b1"), quiet_no_sync=True)
+                run["parity_ok"], run["first"] = fabric_parity(
+                    arr_b, run["summary"].results, run["fleet"],
+                    keep_first=True)
+                run["restored"] = Recorded.restore(
+                    os.path.join(tmp, "b1"), run["fleet"].program, task_b,
+                    n_streams=cfg["streams_per_shard"], device=dev)
+                return run
+
+            run, made = counted("fabric (b) run 1", run_b1, kernel_q8, layers)
+            fleet, router = run["fleet"], run["router"]
+            fleet_steps = fleet.graph_stats["replays"]
+            if (fleet_steps != run["shard_steps"] and dev.type == "cuda") \
+                    or run["quiet_ticks"] < 1:
+                raise AssertionError(
+                    f"fabric (b): {fleet_steps} shard replays, want live "
+                    f"shards summed over the ticks, {run['shard_steps']}; "
+                    f"{run['quiet_ticks']} ticks without a harvest")
+            counts = fabric_counts(router, run["summary"], fleet,
+                                   run["parity_ok"])
+            if counts != want_counts:
+                raise AssertionError(f"fabric (b): counts {counts}, "
+                                     f"BENCH_fabric.json {want_counts}")
+            # the first reference group again on the CPU
+            first = run["first"]
+            cpu_ref = fleet.reference_engine(device="cpu")
+            cpu_outs = cpu_ref.step_many(first["xs"]).numpy()
+            state_same = all(torch.equal(a, b) for a, b in zip(
+                first["state"], tree_leaves(cpu_ref.state)))
+            cpu_err = float(np.abs(cpu_outs - first["outs"]).max())
+            if not state_same or cpu_err > TOL_HEAD:
+                raise AssertionError(
+                    f"fabric (b): the first group on the CPU: state bitwise "
+                    f"{state_same}, outputs {cpu_err:.3e} > {TOL_HEAD}")
+            # the drain checkpoint against the dying shard's export
+            back, exported = run["restored"], run["before_remove"]
+            if not (same_buffers(back, exported)
+                    and back.report() == exported.report()
+                    and back._slot_busy == exported._slot_busy
+                    and back._n_steps == exported._n_steps):
+                raise AssertionError("fabric (b): the drain checkpoint "
+                                     "restores into another engine than "
+                                     "the dying shard's export")
+            walls = router.tick_wall_s
+            res["b"] = {
+                "wall_s": run["wall_s"],
+                "streams_per_s": counts["completed"] / run["wall_s"],
+                "frames_per_s": counts["frames_out"] / run["wall_s"],
+                "p50_tick_ms": 1e3 * steady_percentile(walls, 0.50),
+                "p99_tick_ms": 1e3 * steady_percentile(walls, 0.99),
+                "median_tick_ms": 1e3 * float(np.median(walls)),
+                "max_tick_ms": 1e3 * max(walls),
+                "replays_per_tick": fleet_steps / fleet.graph_stats["ticks"],
+                "scale_ms": run["scale_ms"],
+                "quiet_ticks": run["quiet_ticks"],
+                "engines": len(made),
+                "ticks_ms": 1e3 * sum(walls),
+                "host_ms": {k: 1e3 * v for k, v in run["host_s"].items()}}
+            log(f"fabric (b) 2L-768H fused_q8, {cfg['n_shards']} shards x "
+                f"{cfg['streams_per_shard']} on {dev}: counts equal "
+                f"BENCH_fabric.json; {counts['parity_ok']} streams bitwise "
+                f"their reference on the card; first group on the CPU: "
+                f"state bitwise, outputs {cpu_err:.3e}; drain checkpoint "
+                f"restored equal to the export; {fleet_steps} shard replays "
+                f"in {fleet.graph_stats['ticks']} ticks, "
+                f"{launches[kernel_q8.name]} launches of {kernel_q8.name} "
+                f"and no other ({len(made)} engines); "
+                f"{run['quiet_ticks']} ticks without a harvest under "
+                f"set_sync_debug_mode('error') [{smi}]")
+            # one surviving shard's replay at B = 128, 20 steps of frames
+            # like the arrivals': kernels, busy, the int8 tile kernel's time
+            shard = fleet.engines[0]
+            xs = np.random.default_rng(SEED + 3).standard_normal(
+                (20, cfg["streams_per_shard"], task_b.input_size)).astype(
+                np.float32)
+            if dev.type == "cuda":
+                ops.reset_launch_counts()
+                res["shard_profile"] = engine_profile(
+                    lambda: shard.step_many(xs), len(xs),
+                    match="delta_q8_kernel")
+                n = {k: v for k, v in ops.launch_counts().items() if v}
+                if n != {kernel_q8.name: len(xs) * layers}:
+                    raise AssertionError(f"fabric shard profile: launches "
+                                         f"{n}")
+                launches[kernel_q8.name] += len(xs) * layers
+            del run, fleet, router, made, back, exported, cpu_ref, shard
+
+            # (b) again, counts equal; ticks FABRIC_PROFILE_TICKS profiled
+            prof = TickProfile(*FABRIC_PROFILE_TICKS)
+
+            def run_b2():
+                return fabric_run(prog_b, task_b, cfg, arr_b, dev,
+                                  os.path.join(tmp, "b2"),
+                                  quiet_no_sync=False, on_tick=prof)
+
+            run, _ = counted("fabric (b) run 2", run_b2, kernel_q8, layers)
+            # parity was held on the first run; the counts' parity_ok is
+            # the completed streams that equal their reference there
+            counts2 = fabric_counts(run["router"], run["summary"],
+                                    run["fleet"], counts["parity_ok"])
+            if counts2 != want_counts or prof.result is None:
+                raise AssertionError(f"fabric (b) run 2: counts {counts2}")
+            res["b"]["profile"] = prof.result
+            res["b"]["wall2_s"] = run["wall_s"]
+            res["b"]["p50_tick2_ms"] = 1e3 * steady_percentile(
+                run["router"].tick_wall_s, 0.50)
+            res["b"]["p99_tick2_ms"] = 1e3 * steady_percentile(
+                run["router"].tick_wall_s, 0.99)
+            del run
+
+            # a fused (fp32) fleet of 4 x 8 against 4 standalone engines
+            prog_f = compile_deltagru(model_768, "fused", device=dev)
+            xs = smooth_frames(np.random.default_rng(SEED + 2), 20, 32,
+                               task_b.input_size)
+
+            def run_f():
+                mesh = best_mesh(4, devices=[dev] * 4)
+                fl = serving.ShardedStreamFleet(prog_f, task_b, n_streams=32,
+                                                mesh=mesh)
+                got = fl.step_many(xs)
+                solo = [serving.DeltaStreamEngine(prog_f, task_b,
+                                                  n_streams=8, device=dev)
+                        for _ in range(4)]
+                want = [e.step_many(xs[:, 8 * s:8 * (s + 1)])
+                        for s, e in enumerate(solo)]
+                return fl, got, solo, want
+
+            (fl, got, solo, want), _ = counted("fabric fp32 fleet", run_f,
+                                               kernel_f32, layers)
+            same = all(
+                torch.equal(got[:, 8 * s:8 * (s + 1)], want[s])
+                and all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(fl.engines[s].state),
+                    tree_leaves(solo[s].state)))
+                for s in range(4))
+            if not same:
+                raise AssertionError("fabric fp32 fleet: a shard differs "
+                                     "from its standalone engine")
+            log(f"fabric fp32 fleet 4 x 8 (2L-768H fused, step_many of 20 "
+                f"frames): every shard's state and outputs bitwise a "
+                f"standalone 8-stream engine; {fl.graph_stats['replays']} "
+                f"replays [{smi}]")
+    finally:
+        serving.DeltaStreamEngine = saved
+    res["launches"] = launches
+    return res
 
 
 def main() -> int:
@@ -2229,6 +2753,12 @@ def main() -> int:
     train, batches, opt_cfg = training_phase(dev, PAPER_NETWORKS["2L-768H"])
     launches[ops.DELTA_Q8_GRU_I8.name] += train["serve"]["launches"]
 
+    # -- 5e. the serving fabric -------------------------------------------
+    fabric = fabric_phase(dev, models["gru"], ops.DELTA_Q8_GRU_I8,
+                          ops.DELTAGRU_SEQ_F32, smi)
+    for name, n in fabric["launches"].items():
+        launches[name] += n
+
     # -- 6. times on the card ---------------------------------------------
     ops.reset_launch_counts()
     instances = [(kernel_of[key], key, *step_of[key]) for key in progs]
@@ -2554,6 +3084,45 @@ def main() -> int:
             f"allocated before the loop [{smi}]")
     log(f"time train export: quantize_delta_model of the trained 2L-768H "
         f"stack {train['serve']['export_ms']:.3f} ms [{smi}]")
+
+    # the fabric at 2L-768H (phase 5e (b)): the first run's wall, streams
+    # and frames a second and steady tick walls (loadgen_fabric's rule),
+    # replays a tick, the second run's profiled ticks, the scale-down
+    fb = fabric["b"]
+    pr = fb["profile"]
+    log(f"time fabric (b) 2L-768H fused_q8, 8 shards x 128: wall "
+        f"{fb['wall_s']:.4f} s, {fb['streams_per_s']:.2f} streams/s, "
+        f"{fb['frames_per_s']:.2f} frames/s; steady tick p50 "
+        f"{fb['p50_tick_ms']:.4f} ms, p99 {fb['p99_tick_ms']:.4f} ms "
+        f"(median {fb['median_tick_ms']:.4f}, max {fb['max_tick_ms']:.4f}); "
+        f"{fb['replays_per_tick']:.4f} replays a tick; ticks "
+        f"{FABRIC_PROFILE_TICKS[0]}-{FABRIC_PROFILE_TICKS[1]} of the second "
+        f"run profiled: {pr['kernels_per_tick']:.1f} kernels a tick, device "
+        f"busy {pr['device_busy_us_per_tick']:.1f} us a tick, idle share "
+        f"{pr['idle_share']:.4f} (wall {pr['wall_us_per_tick']:.1f} us, "
+        f"events {pr['event_us_per_tick']:.1f} us a tick under the "
+        f"profiler); scale-down (drain checkpoint and remove) "
+        f"{fb['scale_ms']:.3f} ms; second run (profiled) wall "
+        f"{fb['wall2_s']:.4f} s, tick p50 {fb['p50_tick2_ms']:.4f} ms, p99 "
+        f"{fb['p99_tick2_ms']:.4f} ms [{smi}]")
+    sp = fabric["shard_profile"]
+    log(f"time fabric (b) one shard's replay at B=128 (20 steps): "
+        f"{sp['kernels_per_step']:.1f} kernels a step, device busy "
+        f"{sp['device_busy_us_per_step']:.1f} us a step, of which the int8 "
+        f"tile kernel {sp['match_us_per_step']:.1f} us (2 launches); events "
+        f"{sp['event_us_per_step']:.1f} us, wall "
+        f"{sp['wall_us_per_step']:.1f} us a step [{smi}]")
+    host = fb["host_ms"]
+    inside = sum(v for k, v in host.items() if k != "submit")
+    log(f"time fabric (b) where the first run's {fb['ticks_ms']:.3f} ms of "
+        f"ticks went (host ms): fleet.step (stage and 8 or 7 replays, no "
+        f"sync) {host['step']:.3f}, open_stream {host['open_stream']:.3f}, "
+        f"host_carry (waits for the replays) {host['host_carry']:.3f}, "
+        f"close_stream {host['close_stream']:.3f}, the router's own (shed, "
+        f"admit, staging, output rows, one output copy a harvest) "
+        f"{fb['ticks_ms'] - inside:.3f}; submits between ticks "
+        f"{host['submit']:.3f} of the {1e3 * fb['wall_s']:.3f} ms wall "
+        f"[{smi}]")
 
     entries = []
     for kinfo, (cell, be), _, _ in instances:

@@ -199,6 +199,19 @@ class DeltaProgram:
                 "compile_delta_program(params, backend=...)")
         return replace(self, backend=backend)
 
+    def to(self, device) -> "DeltaProgram":
+        """The same program with every tensor copied to ``device`` (itself
+        when it is already there); the packed bytes are copied as they
+        are."""
+        dev = resolve_device(device)
+        if dev == self.device:
+            return self
+        return replace(
+            self, layers=tuple(p.to(dev) for p in self.layers),
+            layouts=(tuple(_to(lay, dev) for lay in self.layouts)
+                     if self.layouts is not None else None),
+            head=_to(self.head, dev), head_b=_to(self.head_b, dev))
+
 
 def infer_cell(params) -> str:
     """Cell family of a model params dict (stack-key spelling)."""

@@ -19,6 +19,8 @@ from repro_torch.core.deltarglru import init_deltarglru_model
 from repro_torch.core.deltarwkv import init_deltarwkv_model
 from repro_torch.core.program import compile_delta_program
 from repro_torch.data.synthetic import digit_batch, gas_batch
+from repro_torch.dist.elastic import best_mesh
+from repro_torch.dist.serving import ShardedStreamFleet
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.delta_q8 import deltagru_q8_step, pack_delta_weights_q8
 from repro_torch.kernels.deltagru_seq import deltagru_seq_step, pack_gru_layer
@@ -49,7 +51,8 @@ def test_the_scan_covers_every_port_module_and_kernel_source():
                 "ft/restart.py", "serve/faults.py", "serve/resilience.py",
                 "quant/qat.py", "train/ctc.py", "train/losses.py",
                 "train/optim.py", "train/trainer.py", "data/synthetic.py",
-                "dist/grad_compress.py"):
+                "dist/grad_compress.py", "dist/elastic.py",
+                "dist/serving.py", "serve/router.py", "serve/loadgen.py"):
         assert mod in names, mod
     assert sorted(_build.SOURCES) == sorted(
         p.name for p in (PORT / "csrc").glob("*.cu"))
@@ -111,7 +114,8 @@ def _np_tree(model):
     "init_deltarwkv_model", "init_deltarglru_model",
     "compile_delta_program_rwkv6", "DeltaStreamEngine_rglru",
     "reduced_delta_recipe", "init_delta_linear_state", "checkpoint_restore",
-    "serve_resumable", "digit_batch", "gas_batch"])
+    "serve_resumable", "digit_batch", "gas_batch", "best_mesh",
+    "ShardedStreamFleet"])
 def test_default_device_without_cuda_raises(entry, monkeypatch, tmp_path):
     model = _small_model()
     cfg = GruTaskConfig(40, 48, 2, 12)
@@ -148,6 +152,9 @@ def test_default_device_without_cuda_raises(entry, monkeypatch, tmp_path):
             ResiliencePolicy()),
         "digit_batch": lambda: digit_batch(0, batch=2, max_t=16),
         "gas_batch": lambda: gas_batch(0, batch=2, t_len=8),
+        "best_mesh": lambda: best_mesh(),
+        "ShardedStreamFleet": lambda: ShardedStreamFleet(
+            compile_delta_program(model, device="cpu"), cfg, n_streams=8),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
