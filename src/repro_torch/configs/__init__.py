@@ -1,3 +1,3 @@
-"""Model configurations: the paper's own networks (``edgedrnn``) and the
-architecture configs of the delta-ized LM cells (``rwkv6_1_6b``,
-``recurrentgemma_9b``)."""
+"""Model configurations: the paper's own networks (``edgedrnn``), the ten
+architecture configs of the LM zoo (one module each) and their registry
+(``registry.get_config(arch)``)."""

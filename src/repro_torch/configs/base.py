@@ -1,5 +1,5 @@
-"""The model configuration dataclass of the architecture configs, the
-PyTorch port of :class:`repro.configs.base.ModelConfig` (a plain dataclass;
+"""The model and shape configuration dataclasses of the architecture
+configs, the PyTorch port of :mod:`repro.configs.base` (plain dataclasses;
 the port keeps its own copy)."""
 from __future__ import annotations
 
@@ -95,3 +95,25 @@ class ModelConfig:
         )
         small.update(overrides)
         return replace(self, **small)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell of the assignment grid."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)

@@ -152,6 +152,10 @@ def list_backends(cell: str = "gru") -> tuple:
     return tuple(n for (c, n) in _REGISTRY if c == cell)
 
 
+# the JAX package's other name for list_backends
+backend_names = list_backends
+
+
 def registered_backends(cell: str = "gru") -> tuple:
     """All registered specs for a cell, in registration order."""
     _ensure_builtins()

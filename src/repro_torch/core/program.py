@@ -279,6 +279,11 @@ def compile_delta_program(params, backend: str = "fused", *,
         cell=cell)
 
 
+# the GRU-pinned names of the JAX package: the same classes
+DeltaGruProgram = DeltaProgram
+DeltaGruProgramState = DeltaProgramState
+
+
 def compile_deltagru(params, backend: str = "fused", *, layouts=None,
                      block: int = 128, device=None) -> DeltaProgram:
     """GRU-pinned alias of :func:`compile_delta_program`."""

@@ -2,6 +2,13 @@
 // (sm_90a). Per (stream b, head h) and step t, with S [64 key, 64 value]:
 //   y_t[j] = sum_i r_t[i] * (S[i][j] + u[i] * k_t[i] * v_t[j])
 //   S[i][j] <- w_t[i] * S[i][j] + k_t[i] * v_t[j]
+// Two instances: rwkv6_scan_f32 (every operand fp32) and rwkv6_scan_bf16
+// (r, k, v in bf16; w, u, the state and y fp32, as the bf16 models give
+// them). The bf16 instance rounds k_t[i] * v_t[j] to bf16 (round to
+// nearest even) before it is used, as the reference's bf16 x bf16 outer
+// product does (src/repro/kernels/ref.py::rwkv6_scan_ref); u times that,
+// the state update and the sum over keys stay fp32, as the reference
+// promotes them.
 //
 // Replaces: the Pallas TPU kernel src/repro/kernels/rwkv6_scan.py::_kernel
 // (pallas_call in rwkv6_scan). The TPU version keeps S in a VMEM scratch
@@ -46,7 +53,12 @@
 //   for it (griddepcontrol.wait) before it reads anything.
 // - The loop runs over the real T inside the block: no chunking and no
 //   w = 1 padding. s0 may be null (a zero state, nothing read).
+// - bf16 operands: a bf16 value is the upper half of its fp32, so a
+//   thread's 4 v columns are one 8-byte load widened by shifts; r_i and
+//   k_i are 2-byte loads. The bf16 instance is the fp32 one with half the
+//   bytes of r, k and v; it is not tuned further.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,11 +71,44 @@ constexpr int kThreads = kD * kCols / kVec;  // one (key, column vector) each
 constexpr int kThreadsPerSM = 2048;  // the plan's residency: 32 registers
 constexpr unsigned kFull = 0xffffffffu;
 
+// TI: the type of r, k and v (float or __nv_bfloat16)
+template <typename TI>
 struct ScanArgs {
-  const float *r, *k, *v, *w, *u, *s0;
+  const TI *r, *k, *v;
+  const float *w, *u, *s0;
   float *y, *s_out;
   int H, T, units;
 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// k_t[i] * v_t[j] as the reference forms it in the operands' type: exact
+// in fp32 for fp32 operands' product, rounded to bf16 for bf16 operands
+// (the fp32 product of two bf16 values is exact, so one rounding)
+__device__ __forceinline__ float outer(float k, float v, float) {
+  return k * v;
+}
+__device__ __forceinline__ float outer(float k, float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(k * v));
+}
+
+template <bool VEC>
+__device__ __forceinline__ void load4(const __nv_bfloat16* p,
+                                      float (&x)[kVec]) {
+  if constexpr (VEC) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    x[0] = __uint_as_float(q.x << 16);
+    x[1] = __uint_as_float(q.x & 0xffff0000u);
+    x[2] = __uint_as_float(q.y << 16);
+    x[3] = __uint_as_float(q.y & 0xffff0000u);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) x[c] = __bfloat162float(p[c]);
+  }
+}
 
 template <bool VEC>
 __device__ __forceinline__ void load4(const float* p, float (&x)[kVec]) {
@@ -97,9 +142,9 @@ __device__ __forceinline__ void store_state4(float* p,
   }
 }
 
-template <bool VEC>
+template <typename TI, bool VEC>
 __global__ void __launch_bounds__(kThreads, kThreadsPerSM / kThreads)
-    rwkv6_scan_kernel(const ScanArgs a) {
+    rwkv6_scan_kernel(const ScanArgs<TI> a) {
   constexpr int Q = kCols / kVec;  // column vectors of a unit
   constexpr int NW = kD * Q / 32;  // warps of a block
   constexpr int GROUPS = kD / kCols;
@@ -126,7 +171,8 @@ __global__ void __launch_bounds__(kThreads, kThreadsPerSM / kThreads)
     const float ui = a.u[(bh % a.H) * kD + i];
     float ri = 0.0f, ki = 0.0f, wi = 0.0f;
     if (a.T > 0) {
-      ri = a.r[base + i], ki = a.k[base + i], wi = a.w[base + i];
+      ri = to_f32(a.r[base + i]), ki = to_f32(a.k[base + i]);
+      wi = a.w[base + i];
       load4<VEC>(a.v + base + j, v);
     }
     for (int t = 0; t < a.T; ++t) {
@@ -134,13 +180,14 @@ __global__ void __launch_bounds__(kThreads, kThreadsPerSM / kThreads)
       const size_t nx = base + (size_t)(t + 1) * kD;
       float rn = 0.0f, kn = 0.0f, wn = 0.0f, vn[kVec] = {};
       if (t + 1 < a.T) {
-        rn = a.r[nx + i], kn = a.k[nx + i], wn = a.w[nx + i];
+        rn = to_f32(a.r[nx + i]), kn = to_f32(a.k[nx + i]);
+        wn = a.w[nx + i];
         load4<VEC>(a.v + nx + j, vn);
       }
       float p[kVec];
 #pragma unroll
       for (int c = 0; c < kVec; ++c) {
-        const float kv = ki * v[c];
+        const float kv = outer(ki, v[c], TI{});
         p[c] = ri * (s[c] + ui * kv);
         s[c] = wi * s[c] + kv;
       }
@@ -195,46 +242,68 @@ cudaError_t launch_pdl(void (*kernel)(Args...), int grid, int threads,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-}  // namespace
-
-// r, k, v, w, y [B, H, T, D]; u [H, D]; s0 (may be null: a zero state),
-// s_out [B, H, D, D] (key-dim by value-dim); all fp32, contiguous. Requires
-// D == 64. The plan (kernels/rwkv6_scan.py::rwkv6_scan_plan): cols, the
-// value columns a block handles (kCols), vec (4: 16-byte loads, which every
-// pointer must allow; 1: 4-byte loads) and grid (blocks, at most one per
-// unit: the blocks walk the B * H * 64 / cols units in turn). A plan the
-// kernel cannot run returns cudaErrorInvalidValue. Launches on `stream` (a
-// programmatic dependent launch) and returns cudaGetLastError() (0 on
-// success).
-extern "C" int rwkv6_scan_f32(const void* r, const void* k, const void* v,
-                              const void* w, const void* u, const void* s0,
-                              void* y, void* s_out, int B, int H, int T,
-                              int D, int cols, int vec, int grid,
-                              void* stream) {
+// The checks and launch of either instance (TI: the type of r, k, v).
+template <typename TI>
+int launch_scan(const void* r, const void* k, const void* v, const void* w,
+                const void* u, const void* s0, void* y, void* s_out, int B,
+                int H, int T, int D, int cols, int vec, int grid,
+                void* stream) {
   if (B < 0 || H < 0 || D != kD || T < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0) return 0;
   if (cols != kCols) return (int)cudaErrorInvalidValue;
   const long long units = (long long)B * H * (kD / kCols);
   if (units > (1LL << 30) || grid < 1 || grid > units)
     return (int)cudaErrorInvalidValue;
-  const void* ptrs[] = {r, k, v, w, u, s0, y, s_out};
-  for (const void* p : ptrs)
-    if (p != nullptr && ((uintptr_t)p & 3)) return (int)cudaErrorInvalidValue;
-  if (vec == kVec) {
-    for (const void* p : ptrs)
-      if (p != nullptr && ((uintptr_t)p & 15))
-        return (int)cudaErrorInvalidValue;
-  } else if (vec != 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const ScanArgs a{(const float*)r, (const float*)k, (const float*)v,
-                   (const float*)w, (const float*)u, (const float*)s0,
-                   (float*)y,       (float*)s_out,   H,
-                   T,               (int)units};
+  if (vec != kVec && vec != 1) return (int)cudaErrorInvalidValue;
+  // a thread's loads of 4 columns: 16 bytes of fp32, 8 of bf16 (vec = 4),
+  // else one element at a time
+  const uintptr_t in_mask = (vec == kVec ? kVec : 1) * sizeof(TI) - 1;
+  const uintptr_t f32_mask = (vec == kVec ? kVec : 1) * sizeof(float) - 1;
+  const void* ins[] = {r, k, v};
+  const void* f32s[] = {w, u, s0, y, s_out};
+  for (const void* p : ins)
+    if ((uintptr_t)p & in_mask) return (int)cudaErrorInvalidValue;
+  for (const void* p : f32s)
+    if (p != nullptr && ((uintptr_t)p & f32_mask))
+      return (int)cudaErrorInvalidValue;
+  const ScanArgs<TI> a{(const TI*)r,     (const TI*)k,     (const TI*)v,
+                       (const float*)w,  (const float*)u,  (const float*)s0,
+                       (float*)y,        (float*)s_out,    H,
+                       T,                (int)units};
   const cudaError_t err = launch_pdl(
-      vec == kVec ? rwkv6_scan_kernel<true> : rwkv6_scan_kernel<false>, grid,
-      kThreads, (cudaStream_t)stream, a);
+      vec == kVec ? rwkv6_scan_kernel<TI, true> : rwkv6_scan_kernel<TI, false>,
+      grid, kThreads, (cudaStream_t)stream, a);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// r, k, v, w, y [B, H, T, D]; u [H, D]; s0 (may be null: a zero state),
+// s_out [B, H, D, D] (key-dim by value-dim); contiguous; r, k, v fp32
+// (rwkv6_scan_f32) or bf16 (rwkv6_scan_bf16), everything else fp32.
+// Requires D == 64. The plan (kernels/rwkv6_scan.py::rwkv6_scan_plan):
+// cols, the value columns a block handles (kCols), vec (4: vector loads of
+// 4 columns, which every pointer must allow; 1: one element at a time) and
+// grid (blocks, at most one per unit: the blocks walk the B * H * 64 / cols
+// units in turn). A plan the kernel cannot run returns
+// cudaErrorInvalidValue. Launches on `stream` (a programmatic dependent
+// launch) and returns cudaGetLastError() (0 on success).
+extern "C" int rwkv6_scan_f32(const void* r, const void* k, const void* v,
+                              const void* w, const void* u, const void* s0,
+                              void* y, void* s_out, int B, int H, int T,
+                              int D, int cols, int vec, int grid,
+                              void* stream) {
+  return launch_scan<float>(r, k, v, w, u, s0, y, s_out, B, H, T, D, cols,
+                            vec, grid, stream);
+}
+
+extern "C" int rwkv6_scan_bf16(const void* r, const void* k, const void* v,
+                               const void* w, const void* u, const void* s0,
+                               void* y, void* s_out, int B, int H, int T,
+                               int D, int cols, int vec, int grid,
+                               void* stream) {
+  return launch_scan<__nv_bfloat16>(r, k, v, w, u, s0, y, s_out, B, H, T, D,
+                                    cols, vec, grid, stream);
 }
 
 // An empty kernel of this build, launched as the scan is (a programmatic

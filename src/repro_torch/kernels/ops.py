@@ -159,6 +159,11 @@ RGLRU_SCAN_F32 = KernelInfo(
 RWKV6_SCAN_F32 = KernelInfo(
     "rwkv6_scan_f32", "src/repro_torch/csrc/rwkv6_scan.cu",
     "src/repro/kernels/rwkv6_scan.py:24")
+# the bf16 r, k, v instance of the same kernel, reached through rwkv6_scan
+# on bf16 operands (the bf16 RWKV6 models)
+RWKV6_SCAN_BF16 = KernelInfo(
+    "rwkv6_scan_bf16", "src/repro_torch/csrc/rwkv6_scan.cu",
+    "src/repro/kernels/rwkv6_scan.py:24")
 DELTAGRU_ACT_F32 = KernelInfo(
     "deltagru_act_f32", "src/repro_torch/csrc/deltagru_cell.cu",
     "src/repro/kernels/deltagru_cell.py:24")
@@ -167,7 +172,7 @@ KERNELS = (DELTAGRU_SEQ_F32, DELTA_Q8_GRU_I8, DELTA_Q8_GRU_I4,
            DELTA_Q8_GRU_DBUF_I8, DELTA_Q8_GRU_DBUF_I4,
            DELTA_Q8_LSTM_DBUF_I8, DELTA_Q8_LSTM_DBUF_I4,
            DELTA_SPMV_F32, DELTA_SPMV_BF16, RGLRU_SCAN_F32, RWKV6_SCAN_F32,
-           DELTAGRU_ACT_F32)
+           RWKV6_SCAN_BF16, DELTAGRU_ACT_F32)
 
 
 def q8_kernel(gates: int, weight_bits: int, buffered: bool) -> KernelInfo:

@@ -1,1 +1,13 @@
-"""The paper's networks: multi-layer DeltaGRU stacks with a head."""
+"""Models: the paper's DeltaGRU / DeltaLSTM networks (``gru_rnn``), the
+RWKV6 and RG-LRU blocks, and the LM zoo's substrate: norms, RoPE and
+embeddings (``common``), GQA/MQA and local attention with a ring KV cache
+(``attention``), gated FFNs (``ffn``), block schedules (``blocks``) and the
+decoder-only LM (``lm``)."""
+from repro_torch.models.attention import KVCache
+from repro_torch.models.blocks import make_schedule
+from repro_torch.models.lm import (init_lm, init_lm_caches, lm_decode,
+                                   lm_forward, lm_params_from_numpy,
+                                   lm_prefill)
+
+__all__ = ["KVCache", "make_schedule", "init_lm", "init_lm_caches",
+           "lm_forward", "lm_prefill", "lm_decode", "lm_params_from_numpy"]

@@ -24,25 +24,26 @@ from repro_torch.models.common import dense_init
 def init_rglru_block(generator: torch.Generator, d_model: int,
                      lru_width: int | None = None,
                      dtype=torch.float32) -> dict:
-    """One recurrent block drawn on the CPU from ``generator`` (the JAX
+    """One recurrent block drawn from ``generator`` on its device (the JAX
     recipe: ``λ = softplus⁻¹(-log a / c)`` with ``a ~ U[0.9, 0.999]``,
     truncated-normal fan-in projections, conv weights ``N(0, 1/4)``, zero
     biases)."""
     w = lru_width or d_model
+    dev = generator.device
     a = 0.9 + 0.099 * torch.rand((w,), generator=generator,
-                                 dtype=torch.float32)
+                                 dtype=torch.float32, device=dev)
     lam = torch.log(torch.expm1(-torch.log(a) / _C))
     conv_w = torch.randn((CONV_WIDTH, w), generator=generator,
-                         dtype=torch.float32) * CONV_WIDTH ** -0.5
+                         dtype=torch.float32, device=dev) * CONV_WIDTH ** -0.5
     return {
         "w_in": dense_init(generator, d_model, w, dtype),       # recurrent
         "w_in_gate": dense_init(generator, d_model, w, dtype),  # gelu gate
         "conv_w": conv_w.to(dtype),
-        "conv_b": torch.zeros((w,), dtype=dtype),
+        "conv_b": torch.zeros((w,), dtype=dtype, device=dev),
         "w_rg": dense_init(generator, w, w, dtype),   # recurrence gate
         "w_ig": dense_init(generator, w, w, dtype),   # input gate
-        "b_rg": torch.zeros((w,), dtype=dtype),
-        "b_ig": torch.zeros((w,), dtype=dtype),
+        "b_rg": torch.zeros((w,), dtype=dtype, device=dev),
+        "b_ig": torch.zeros((w,), dtype=dtype, device=dev),
         "lambda": lam,                                # [w] f32
         "w_out": dense_init(generator, w, d_model, dtype),
     }

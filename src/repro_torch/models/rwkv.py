@@ -26,17 +26,20 @@ from repro_torch.models.common import dense_init
 
 def init_rwkv_time_mix(generator: torch.Generator, d_model: int,
                        dtype=torch.float32) -> dict:
-    """One time-mix layer drawn on the CPU from ``generator`` (the JAX
+    """One time-mix layer drawn from ``generator`` on its device (the JAX
     recipe: zero lerp offsets, truncated-normal fan-in projections, decay
     base -6, bonus ``u ~ 0.1 N(0, 1)``, unit group-norm scale)."""
     h = d_model // HEAD_DIM
+    dev = generator.device
 
     def normal(*shape):
-        return torch.randn(shape, generator=generator, dtype=torch.float32)
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=dev)
 
     return {
-        "mu_base": torch.zeros((d_model,), dtype=dtype),
-        "mu": torch.zeros((5, d_model), dtype=dtype),       # r,k,v,w,g
+        "mu_base": torch.zeros((d_model,), dtype=dtype, device=dev),
+        # r, k, v, w, g
+        "mu": torch.zeros((5, d_model), dtype=dtype, device=dev),
         "tsh_w1": dense_init(generator, d_model, 5 * TSHIFT_LORA, dtype),
         "tsh_w2": (normal(5, TSHIFT_LORA, d_model)
                    * TSHIFT_LORA ** -0.5).to(dtype),
@@ -45,19 +48,22 @@ def init_rwkv_time_mix(generator: torch.Generator, d_model: int,
         "w_v": dense_init(generator, d_model, d_model, dtype),
         "w_g": dense_init(generator, d_model, d_model, dtype),
         "w_o": dense_init(generator, d_model, d_model, dtype),
-        "decay_base": torch.zeros((d_model,), dtype=torch.float32) - 6.0,
+        "decay_base": torch.full((d_model,), -6.0, dtype=torch.float32,
+                                 device=dev),
         "decay_w1": dense_init(generator, d_model, DECAY_LORA, dtype),
         "decay_w2": dense_init(generator, DECAY_LORA, d_model, dtype),
         "bonus_u": normal(h, HEAD_DIM) * 0.1,
-        "ln_scale": torch.ones((d_model,), dtype=dtype),    # group norm
+        # group norm
+        "ln_scale": torch.ones((d_model,), dtype=dtype, device=dev),
     }
 
 
 def init_rwkv_channel_mix(generator: torch.Generator, d_model: int,
                           d_ff: int, dtype=torch.float32) -> dict:
+    dev = generator.device
     return {
-        "mu_k": torch.zeros((d_model,), dtype=dtype),
-        "mu_r": torch.zeros((d_model,), dtype=dtype),
+        "mu_k": torch.zeros((d_model,), dtype=dtype, device=dev),
+        "mu_r": torch.zeros((d_model,), dtype=dtype, device=dev),
         "w_k": dense_init(generator, d_model, d_ff, dtype),
         "w_v": dense_init(generator, d_ff, d_model, dtype),
         "w_r": dense_init(generator, d_model, d_model, dtype),

@@ -1,6 +1,11 @@
-"""``DeltaStreamEngine`` — streaming delta-RNN inference with live
-temporal-sparsity accounting and the Eq. 7 latency model, the PyTorch port
-of :class:`repro.serve.engine.DeltaStreamEngine` (without ``LmEngine``).
+"""Serving engines, the PyTorch port of :mod:`repro.serve.engine`.
+
+``LmEngine`` — batched prefill and decode for a registry arch over a fixed
+slot count, with ring caches of per-slot lengths for continuous batching;
+it runs eagerly (the JAX engine jits each step).
+
+``DeltaStreamEngine`` — streaming delta-RNN inference with live
+temporal-sparsity accounting and the Eq. 7 latency model.
 ``GruStreamEngine`` is an alias of the class.
 
 Hand it a compiled program (:func:`repro_torch.core.program.
@@ -61,10 +66,13 @@ from repro_torch.core.program import (DeltaProgram, DeltaProgramState,
                                       compile_delta_program, infer_cell)
 from repro_torch.core.sparsity import cell_dims, recip_mean
 from repro_torch.core.thresholds import ThresholdPolicy, dynamic_threshold
+from repro_torch.configs.base import ModelConfig
 from repro_torch.ft import checkpoint as ft_checkpoint
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.models.common import tree_leaves
 from repro_torch.models.gru_rnn import GruTaskConfig
+from repro_torch.models.lm import init_lm_caches, lm_decode, lm_prefill
 
 
 def _map2(fn, a, b):
@@ -132,6 +140,57 @@ def _capture_cuda_graph(body):
         return out
 
     return replay
+
+
+class LmEngine:
+    """Prefill / decode engine over a fixed slot count (the decode batch).
+
+    ``params`` (from :func:`repro_torch.models.lm.init_lm` or
+    :func:`~repro_torch.models.lm.lm_params_from_numpy`) must lie on
+    ``device`` (default ``"cuda"``), where the engine keeps its caches.
+    Prefill and decode write the caches in place; ``caches`` may be
+    replaced between calls (the batcher's slotwise merge does)."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, batch: int,
+                 max_len: int, device=None):
+        self.device = resolve_device(device)
+        where = {t.device for t in tree_leaves(params)}
+        if where != {self.device}:
+            raise ValueError(f"LmEngine on {self.device}: the parameters lie "
+                             f"on {sorted(map(str, where))}")
+        self.params = params
+        self.cfg = cfg
+        self.batch = batch
+        self.max_len = max_len
+        self.caches = init_lm_caches(cfg, batch, max_len, self.device)
+
+    @torch.no_grad()
+    def prefill(self, tokens) -> torch.Tensor:
+        """Prefill all slots with (left-padded) prompts ``[B, S]``; returns
+        the last logits ``[B, 1, V]``."""
+        logits, self.caches = lm_prefill(
+            self.params, self.cfg, torch.as_tensor(tokens, device=self.device),
+            self.caches)
+        return logits
+
+    @torch.no_grad()
+    def decode_step(self, tokens) -> torch.Tensor:
+        """One decode step for every slot, ``tokens: [B, 1]``."""
+        logits, self.caches = lm_decode(
+            self.params, self.cfg, torch.as_tensor(tokens, device=self.device),
+            self.caches)
+        return logits
+
+    def generate_greedy(self, tokens, steps: int) -> torch.Tensor:
+        """Greedy generation; returns ``[B, steps]`` new tokens."""
+        logits = self.prefill(tokens)
+        out = []
+        cur = torch.argmax(logits[:, -1:], dim=-1)
+        for _ in range(steps):
+            out.append(cur)
+            logits = self.decode_step(cur)
+            cur = torch.argmax(logits[:, -1:], dim=-1)
+        return torch.cat(out, dim=1)
 
 
 @dataclass

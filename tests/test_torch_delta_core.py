@@ -23,8 +23,10 @@ from repro_torch.core import delta as tdelta
 from repro_torch.core import perf_model as tperf
 from repro_torch.core import sparsity as tsparsity
 from repro_torch.core import thresholds as tthr
-from repro_torch.quant import fake_quant as tfq
 from repro_torch.quant import lut as tlut
+# the package re-exports the function fake_quant under the module's name
+# (as repro.quant does), so the module is imported by its full name
+tfq = importlib.import_module("repro_torch.quant.fake_quant")
 
 # repro.quant re-exports a function named fake_quant over its submodule
 jfq = importlib.import_module("repro.quant.fake_quant")

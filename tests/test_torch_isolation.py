@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.registry import get_config
 from repro_torch.configs.rwkv6_1_6b import reduced_delta_recipe
 from repro_torch.core.delta_dense import init_delta_linear_state
 from repro_torch.core.deltarglru import init_deltarglru_model
@@ -22,13 +23,16 @@ from repro_torch.data.synthetic import digit_batch, gas_batch
 from repro_torch.dist.elastic import best_mesh
 from repro_torch.dist.serving import ShardedStreamFleet
 from repro_torch.kernels import _build, ops
+from repro_torch.launch import serve as launch_serve
 from repro_torch.kernels.delta_q8 import deltagru_q8_step, pack_delta_weights_q8
 from repro_torch.kernels.deltagru_seq import deltagru_seq_step, pack_gru_layer
 from repro_torch.models.gru_rnn import (GruTaskConfig, init_gru_model,
                                         init_lstm_model, model_from_numpy)
+from repro_torch.models.lm import (init_lm, init_lm_caches,
+                                   lm_params_from_numpy)
 from repro_torch.quant.export import quantize_delta_model
 from repro_torch.ft import checkpoint as ft_checkpoint
-from repro_torch.serve.engine import DeltaStreamEngine
+from repro_torch.serve.engine import DeltaStreamEngine, LmEngine
 from repro_torch.serve.resilience import ResiliencePolicy, serve_resumable
 
 torch.set_num_threads(1)
@@ -52,7 +56,17 @@ def test_the_scan_covers_every_port_module_and_kernel_source():
                 "quant/qat.py", "train/ctc.py", "train/losses.py",
                 "train/optim.py", "train/trainer.py", "data/synthetic.py",
                 "dist/grad_compress.py", "dist/elastic.py",
-                "dist/serving.py", "serve/router.py", "serve/loadgen.py"):
+                "dist/serving.py", "serve/router.py", "serve/loadgen.py",
+                "models/common.py", "models/attention.py", "models/ffn.py",
+                "models/blocks.py", "models/lm.py", "configs/registry.py",
+                "configs/llama3_2_1b.py", "configs/smollm_360m.py",
+                "configs/olmo_1b.py", "configs/qwen2_5_32b.py",
+                "configs/deepseek_v2_lite_16b.py",
+                "configs/granite_moe_3b_a800m.py",
+                "configs/llama3_2_vision_11b.py",
+                "configs/seamless_m4t_large_v2.py", "launch/__init__.py",
+                "launch/serve.py", "core/__init__.py", "quant/__init__.py",
+                "models/__init__.py"):
         assert mod in names, mod
     assert sorted(_build.SOURCES) == sorted(
         p.name for p in (PORT / "csrc").glob("*.cu"))
@@ -98,6 +112,40 @@ def test_port_imports_with_jax_and_repro_blocked():
     assert r.stdout.strip() == "ok"
 
 
+def test_package_reexports_import_with_jax_and_repro_blocked():
+    """``repro_torch.core``, ``.quant`` and ``.models`` re-export the public
+    names of the JAX package's ``__init__`` files (the core's TPU perf-model
+    section aside), importing neither JAX nor a card."""
+    tpu_only = {"TpuChipSpec", "V5E", "tpu_batch1_gru_roofline",
+                "batch_sweep"}
+    want = {}
+    for pkg in ("core", "quant"):
+        tree = ast.parse((ROOT / "src" / "repro" / pkg / "__init__.py")
+                         .read_text())
+        want[pkg] = sorted({a.asname or a.name for node in tree.body
+                            if isinstance(node, ast.ImportFrom)
+                            for a in node.names} - tpu_only)
+    want["models"] = ["init_lm", "init_lm_caches", "lm_forward",
+                      "lm_prefill", "lm_decode", "lm_params_from_numpy",
+                      "KVCache", "make_schedule"]
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import importlib\n"
+            f"for pkg, names in {want!r}.items():\n"
+            "    m = importlib.import_module('repro_torch.' + pkg)\n"
+            "    missing = [n for n in names if not hasattr(m, n)]\n"
+            "    assert not missing, (pkg, missing)\n"
+            "import torch\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
 def _small_model():
     return init_gru_model(0, GruTaskConfig(40, 48, 2, 12), device="cpu")
 
@@ -115,7 +163,8 @@ def _np_tree(model):
     "compile_delta_program_rwkv6", "DeltaStreamEngine_rglru",
     "reduced_delta_recipe", "init_delta_linear_state", "checkpoint_restore",
     "serve_resumable", "digit_batch", "gas_batch", "best_mesh",
-    "ShardedStreamFleet"])
+    "ShardedStreamFleet", "init_lm", "init_lm_caches", "LmEngine",
+    "launch_serve", "lm_params_from_numpy"])
 def test_default_device_without_cuda_raises(entry, monkeypatch, tmp_path):
     model = _small_model()
     cfg = GruTaskConfig(40, 48, 2, 12)
@@ -123,6 +172,8 @@ def test_default_device_without_cuda_raises(entry, monkeypatch, tmp_path):
     rwkv = init_deltarwkv_model(0, 64, 1, 12, device="cpu")
     rglru = init_deltarglru_model(0, 64, 1, 12, device="cpu")
     lm_cfg = GruTaskConfig(64, 64, 1, 12)
+    zoo_cfg = get_config("llama3.2-1b").reduced()
+    zoo = init_lm(0, zoo_cfg, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
         "compile_delta_program": lambda: compile_delta_program(model),
@@ -155,6 +206,13 @@ def test_default_device_without_cuda_raises(entry, monkeypatch, tmp_path):
         "best_mesh": lambda: best_mesh(),
         "ShardedStreamFleet": lambda: ShardedStreamFleet(
             compile_delta_program(model, device="cpu"), cfg, n_streams=8),
+        "init_lm": lambda: init_lm(0, zoo_cfg),
+        "init_lm_caches": lambda: init_lm_caches(zoo_cfg, 2, 8),
+        "LmEngine": lambda: LmEngine(zoo, zoo_cfg, 2, 8),
+        "launch_serve": lambda: launch_serve.main(
+            ["--arch", "llama3.2-1b", "--reduced"]),
+        "lm_params_from_numpy": lambda: lm_params_from_numpy(
+            {"w": np.zeros(2, np.float32)}),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -183,6 +241,8 @@ def test_cpu_tensors_run_the_plain_version_and_count_nothing():
     ops.deltagru_cell_fused(w_x, w_h, m, h, dx, dh)
     r = torch.ones(1, 2, 3, 64)
     ops.rwkv6_scan(r, r, r, r * 0.5, torch.zeros(2, 64))
+    ops.rwkv6_scan(r.bfloat16(), r.bfloat16(), r.bfloat16(), r * 0.5,
+                   torch.zeros(2, 64))
     ops.rglru_scan(torch.ones(1, 3, 8), torch.full((1, 3, 8), 0.5))
     assert sum(ops.launch_counts().values()) == 0
 

@@ -220,6 +220,96 @@ def test_rwkv6_chunked_differentiable():
     assert torch.isfinite(rt.grad).all()
 
 
+
+# -- rwkv6_scan with bf16 r, k, v (row 9b) ------------------------------------
+# The bf16 RWKV6 models hand the scan bf16 r, k, v beside fp32 w, u and
+# state. The plain version computes under PyTorch's type promotion, which is
+# JAX's: the outer product k^T v is a bf16 product, rounded to bf16, and all
+# it meets afterwards is fp32. Eagerly, op by op, JAX rounds it too, and the
+# two agree within the fp32 tolerance (their sums over keys run in other
+# orders). JAX's compiled oracle (lax.scan under jit) keeps the product in
+# fp32 instead (XLA's excess precision, R19 in ROADMAP.md), so it is held
+# within what that one rounding can move: k v rounds by at most 2**-9 of
+# itself, and y and the state sum such terms over keys and steps, each
+# within 2**-9 of its own magnitude, 2**-8 keeping a factor of two.
+TOL_BF16_ROUNDING = 2 ** -8
+
+
+def _bf16(a):
+    import ml_dtypes
+    return np.asarray(a, np.float32).astype(ml_dtypes.bfloat16)
+
+
+def _wkv_bf16_inputs(b, h, t, seed):
+    rng = np.random.default_rng(seed)
+    r, k, v = (_bf16(rng.normal(0, 1, (b, h, t, 64))) for _ in range(3))
+    w = np.exp(-np.exp(rng.normal(-3, 1.5, (b, h, t, 64)))).astype(
+        np.float32)
+    u = rng.normal(0, 0.1, (h, 64)).astype(np.float32)
+    s0 = rng.normal(0, 1, (b, h, 64, 64)).astype(np.float32)
+    return r, k, v, w, u, s0
+
+
+def _torch_bf16(a):
+    from repro_torch.models.lm import lm_params_from_numpy
+    return lm_params_from_numpy(a, device="cpu")
+
+
+def _eager_jax_wkv(r, k, v, w, u, s):
+    """The WKV recurrence in JAX op by op (no jit, no scan), so each bf16
+    product is rounded as its types say."""
+    ys = []
+    for i in range(r.shape[2]):
+        kv = k[:, :, i, :, None] * v[:, :, i, None, :]
+        y = jnp.matmul(r[:, :, i, None, :], s + u[:, :, None] * kv)[..., 0, :]
+        s = w[:, :, i, :, None] * s + kv
+        ys.append(y)
+    return jnp.stack(ys, axis=2), s
+
+
+def _scaled(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.parametrize("b,h,t", [(1, 1, 1), (2, 3, 9), (1, 2, 40),
+                                   (4, 2, 128)])
+def test_rwkv6_scan_bf16_plain_version_matches_jax(b, h, t):
+    ins = _wkv_bf16_inputs(b, h, t, seed=b * 100 + t)
+    y, s = trwkv.rwkv6_scan(*(_torch_bf16(a) for a in ins))
+    assert y.dtype == s.dtype == torch.float32
+    ey, es = _eager_jax_wkv(*map(jnp.asarray, ins))
+    assert _scaled(y, ey) <= TOL and _scaled(s, es) <= TOL
+    jy, js = jref.rwkv6_scan_batched_ref(*map(jnp.asarray, ins))
+    assert jy.dtype == js.dtype == jnp.float32
+    assert _scaled(y, jy) <= TOL_BF16_ROUNDING
+    assert _scaled(s, js) <= TOL_BF16_ROUNDING
+
+
+def test_bf16_promotion_equals_jax():
+    """bf16 x bf16 -> bf16 (one rounding to nearest even, bitwise JAX's),
+    bf16 with fp32 -> fp32, in elementwise ops: the rules the bf16 plain
+    version relies on."""
+    for a, b in ((torch.bfloat16, torch.bfloat16),
+                 (torch.bfloat16, torch.float32),
+                 (torch.float32, torch.bfloat16)):
+        ja, jb = (jnp.dtype(str(x).split(".")[1]) for x in (a, b))
+        assert str(torch.promote_types(a, b)).split(".")[1] == str(
+            jnp.promote_types(ja, jb))
+    rng = np.random.default_rng(5)
+    k, v = _bf16(rng.normal(0, 1, 4096)), _bf16(rng.normal(0, 3, 4096))
+    want = np.asarray(jnp.asarray(k) * jnp.asarray(v))
+    got = _torch_bf16(k) * _torch_bf16(v)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  want.view(np.int16))
+    u = rng.normal(0, 1, 4096).astype(np.float32)
+    mixed = torch.from_numpy(u) * got
+    assert mixed.dtype == torch.float32
+    np.testing.assert_array_equal(mixed.numpy(), np.asarray(
+        jnp.asarray(u) * jnp.asarray(want)))
+
 # -- rglru_scan ---------------------------------------------------------------
 
 def _lru_inputs(b, t, d, seed):

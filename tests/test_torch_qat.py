@@ -34,9 +34,11 @@ from repro_torch.core import deltagru as tgru
 from repro_torch.core import deltalstm as tlstm
 from repro_torch.core.program import compile_deltagru
 from repro_torch.models import gru_rnn as tmodels
-from repro_torch.quant import fake_quant as tfq
 from repro_torch.quant import lut as tlut
 from repro_torch.quant import qat as tqat
+# the package re-exports the function fake_quant under the module's name
+# (as repro.quant does), so the module is imported by its full name
+tfq = importlib.import_module("repro_torch.quant.fake_quant")
 
 jfq = importlib.import_module("repro.quant.fake_quant")
 torch.set_num_threads(1)

@@ -14,8 +14,8 @@ one stream), the plans must:
 * launch no more blocks than the SMs of an H100 hold at once;
 * take the 16-byte path exactly where it is legal: for ``rglru_scan`` when
   ``W % 4 == 0`` and every operand is 16-byte aligned;
-* refuse a head size other than 64, negative sizes and operands that are
-  not fp32;
+* refuse a head size other than 64, negative sizes, and operands that
+  are not fp32 (``rwkv6_scan`` also takes bf16 ``r, k, v``);
 * be cached, and make no CUDA API call.
 """
 import numpy as np
@@ -145,13 +145,28 @@ def test_refusals():
         with pytest.raises(ValueError, match=">= 0"):
             lru.rglru_scan_plan(*bad)
     for dtype in (torch.bfloat16, torch.float16, torch.float64):
-        with pytest.raises(ValueError, match="fp32"):
-            wkv.rwkv6_scan_plan(1, 32, 1, 64, dtype)
+        if dtype != torch.bfloat16:       # rwkv6_scan's bf16 instance
+            with pytest.raises(ValueError, match="fp32"):
+                wkv.rwkv6_scan_plan(1, 32, 1, 64, dtype)
         with pytest.raises(ValueError, match="fp32"):
             lru.rglru_scan_plan(1, 1, 4096, dtype)
     # zero-sized calls plan no work
     assert wkv.rwkv6_scan_plan(0, 32, 1, 64).units == 0
     assert lru.rglru_scan_plan(1, 0, 4096).units == 1024
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float64, torch.int8, torch.float32])
+def test_rwkv6_plan_takes_fp32_and_bf16_only(dtype):
+    """Row 9b: bf16 r, k, v have a plan, the same walk as fp32's; every
+    other type is refused."""
+    if dtype in (torch.float32, torch.bfloat16):
+        plan = wkv.rwkv6_scan_plan(4, 32, 128, 64, dtype)
+        assert plan == wkv.rwkv6_scan_plan(4, 32, 128, 64, torch.float32)
+        assert (_wkv_cover(plan, 4, 32) == 1).all()
+    else:
+        with pytest.raises(ValueError, match="fp32 or bf16"):
+            wkv.rwkv6_scan_plan(4, 32, 128, 64, dtype)
 
 
 def test_plans_are_cached_and_need_no_cuda_api(monkeypatch):
