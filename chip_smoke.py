@@ -142,6 +142,21 @@ traceback and a non-zero exit):
    prefill and
    decode times, kernels a decode step and idle share, peak memory, and the
    drain's tokens a second;
+5g. the rest of the LM zoo (``zoo_phase``), seeded ``init_lm`` on the
+   card, bf16, full size: (a) deepseek-v2-lite-16b (MLA, MoE) under the
+   batcher as (a) of 5f (two drains the same tokens, a staggered
+   admission that leaves the live request's tokens those of its run with
+   the same waves); (b) granite-moe-3b-a800m, (c) llama-3.2-vision-11b
+   with seeded image embeddings [4, 1601, 7680] and (d)
+   seamless-m4t-large-v2 with seeded audio frames [4, 1536, 160], through
+   ``generate_greedy`` on 4 prompts of 128 tokens for 32 steps; each
+   model's prefill-then-decode logits within ``TOL_LM_BF16_RMS`` of its
+   teacher-forced forward (MoE with capacity for every token; routing
+   flips held to ``ROUTE_MARGIN_BF16``); (e) the four in fp32 at full
+   width and the fewest layers that hold each block kind, card against
+   CPU within ``TOL_LM`` (a flip within ``ROUTE_MARGIN_F32`` replayed)
+   and decode against forward within ``TOL_F32``; no hand-written kernel
+   launched; per model the times of 5f, the init's peak and the host RSS;
 6. times on the card: each kernel instance at B = 1 and its plain version
    (device time from CUDA-graph replay between CUDA events, also with the
    L2 flushed before each call, and the kernel's time per call launched
@@ -191,12 +206,12 @@ without s0 and with r 2-byte aligned, within ``TOL_F32``, and timed in 5f
 at the LM path's shapes.
 
 The line before the last is ``{"kernels": [...]}`` (every kernel instance;
-the ``launches`` of a main-path instance are those of phases 5, 5b, 5c,
-5d, 5e and 5f (the fabric's runs add to the int8 and fp32 GRU kernels',
-5f to the scans'), each run counted from zero; those of an instance on no
-main path, a buffered one, ``delta_spmv_bf16`` or ``deltagru_act``, are
-those of phases 3 and 6, and its ``path`` names the entry that reaches
-it); the last line is ``{"ok": true, "device": {...}}``.
+the ``launches`` of a main-path instance are those of phases 5, 5b, 5c, 5d,
+5e and 5f (the fabric's runs add to the int8 and fp32 GRU kernels', 5f to
+the scans'; 5g launches none), each run counted from zero; those of an
+instance on no main path, a buffered one, ``delta_spmv_bf16`` or
+``deltagru_act``, are those of phases 3 and 6, and its ``path`` names the
+entry that reaches it); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -209,6 +224,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1897,6 +1913,206 @@ def scan_row(kern, ref, args, nbytes, nops) -> dict:
     return row
 
 
+def lm_build(cfg, dev, base: dict):
+    """The model's seeded weights drawn on the card (``init_lm``), the
+    seconds it took and the peak bytes the init held above what the
+    process held before (``base["bytes"]``, set here: the earlier phases'
+    tensors); the peak memory counts from the end of the init on."""
+    import torch
+    from repro_torch.models.lm import init_lm
+    gc.collect()          # an engine wrapped by counting() is a cycle
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base["bytes"] = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base["bytes"]
+    torch.cuda.reset_peak_memory_stats()
+    return params, init_s, init_peak
+
+
+class RouteLog:
+    """Within a ``with``: every MoE router call of the port
+    (``moe._route``, which ``moe_apply`` reaches through the module) keeps
+    its top-k choice in ``calls``. With ``replay`` (a list of ``[T, K]``
+    choices, one a call in order, from another run of the same tokens)
+    the calls take those choices instead, their gates renormalized from
+    their own probabilities, so the two runs' hidden states stay
+    comparable; :meth:`flips` then counts the tokens whose own choice
+    differed."""
+
+    def __init__(self, replay=None):
+        self.calls, self.replay, self.own = [], replay, []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.mod, self.orig = moe, moe._route
+
+        def route(params, xt, top_k):
+            vals, idx, aux = self.orig(params, xt, top_k)
+            if self.replay is not None:
+                probs = torch.softmax(xt.float() @ params["router"], dim=-1)
+                self.own.append((probs, idx))
+                idx = self.replay[len(self.calls)].to(idx.device)
+                vals = probs.gather(1, idx)
+                vals = vals / (vals.sum(-1, keepdim=True) + 1e-9)
+            self.calls.append(idx)
+            return vals, idx, aux
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._route = self.orig
+
+    def flips(self) -> tuple:
+        """Tokens whose own top-k set differed from the replayed one, and
+        the largest gap, in their own probabilities, between such a
+        token's k-th and (k+1)-th probability."""
+        n, gap = 0, 0.0
+        for (probs, own), used in zip(self.own, self.calls):
+            bad = (own.sort(-1).values != used.sort(-1).values).any(-1)
+            if bad.any():
+                k = own.shape[1]
+                p = probs[bad].sort(-1, descending=True).values
+                n += int(bad.sum())
+                gap = max(gap, float((p[:, k - 1] - p[:, k]).max()))
+        return n, gap
+
+
+def flips_allowed(what, n, gap, margin) -> str:
+    """Hold a run's routing flips to ``margin``; their summary."""
+    if n and gap > margin:
+        raise AssertionError(f"{what}: {n} routing flips, one at a gap of "
+                             f"{gap:.3e} (margin {margin:.1e})")
+    return (f"{n} routing flips" + (f" (largest gap {gap:.3e}, margin "
+                                    f"{margin:.1e})" if n else ""))
+
+
+def no_drop(cfg):
+    """``cfg`` with MoE capacity for every token (capacity factor E / K
+    makes the capacity the token count), for checks that compare two
+    token counts (prefill then decode against one forward): at the
+    config's own factor each drops other assignments by design."""
+    if not cfg.n_experts:
+        return cfg
+    return dataclasses.replace(cfg,
+                               capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def lm_forced(params, cfg, dev, rng, what, tol=TOL_LM_BF16_RMS,
+              modality=None, margin=None) -> dict:
+    """Prefill 64 tokens and decode 8 greedy ones, against the
+    teacher-forced forward over the same 72 tokens: the largest relative
+    RMS of a step's logits, held within ``tol`` (``None``: measured only).
+    MoE runs at ``no_drop(cfg)``, and the forward takes the prefill's and
+    the decode steps' expert choices; the tokens whose own choice differed
+    (routing flips) are held to ``margin``. Returns ``{"err", "flips",
+    "gap"}``."""
+    import torch
+    from repro_torch.models.lm import (init_lm_caches, lm_decode,
+                                       lm_forward, lm_prefill)
+    cfg = no_drop(cfg)
+    mod = modality or {}
+    b = LM_SLOTS
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (b, 64))).to(dev)
+    caches = init_lm_caches(cfg, b, LM_MAX_LEN, dev)
+    with torch.no_grad(), RouteLog() as seq_log:
+        lg, caches = lm_prefill(params, cfg, toks, caches, **mod)
+        got, seq = [lg], [toks]
+        for _ in range(8):
+            seq.append(torch.argmax(got[-1][:, -1:], dim=-1))
+            lg, caches = lm_decode(params, cfg, seq[-1], caches)
+            got.append(lg)
+    # the prefill's and the decode steps' choices, in the forward's order
+    layers = len(seq_log.calls) // 9
+    seq_idx = [torch.cat([seq_log.calls[layer].reshape(b, 64, -1)] + [
+        seq_log.calls[layers * (1 + i) + layer].reshape(b, 1, -1)
+        for i in range(8)], dim=1).reshape(b * 72, -1)
+        for layer in range(layers)]
+    with torch.no_grad(), RouteLog(replay=seq_idx) as full_log:
+        full, _ = lm_forward(params, cfg, torch.cat(seq, dim=1), **mod)
+    n, gap = full_log.flips()
+    flips_allowed(what, n, gap, margin if margin is not None else 0.0)
+    errs = [rel_rms(g[:, 0], full[:, 63 + i]) for i, g in enumerate(got)]
+    if (tol is not None and max(errs) > tol) or not all(
+            torch.isfinite(g).all() for g in got):
+        raise AssertionError(f"{what}: prefill/decode against the "
+                             f"teacher-forced forward {errs}")
+    return {"err": max(errs), "flips": n, "gap": gap}
+
+
+def lm_timed(name, cfg, params, init_s, t_prompt, dev, rng, base, smi,
+             extra="", modality=None) -> dict:
+    """Prefill ms at [4, t_prompt] (median of 3 after a warm one, the last
+    the prefill of ``generate_greedy``), decode ms a step (each
+    synchronised) over ``generate_greedy``'s LM_NEW steps, the profiled
+    decode step (5 steps), peak memory; ``"tokens"``: the greedy tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.models.common import count_params
+    from repro_torch.serve.engine import LmEngine
+    eng = LmEngine(params, cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+    toks = rng.integers(1, cfg.vocab, (LM_SLOTS, t_prompt))
+    mod = modality or {}
+    pre, dec = [], []
+
+    def timing(fn, into):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            into.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return call
+
+    prefill, decode = eng.prefill, eng.decode_step
+    eng.prefill, eng.decode_step = timing(prefill, pre), timing(decode, dec)
+    for _ in range(3):
+        eng.prefill(toks, **mod)
+    new = eng.generate_greedy(toks, LM_NEW, **mod)
+    eng.prefill, eng.decode_step = prefill, decode
+    cur = new[:, -1:]
+    prof = engine_profile(lambda: [eng.decode_step(cur)
+                                   for _ in range(5)], 5)
+    # host synchronisations of one decode step (each a wait for the card)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.decode_step(cur)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    prof["syncs_per_step"] = sum("synchroniz" in str(w.message)
+                                 for w in caught)
+    out = {"init_s": init_s, "prefill_ms": float(np.median(pre[1:])),
+           "tokens": new,
+           "decode_p50_ms": float(np.percentile(dec, 50)),
+           "decode_p95_ms": float(np.percentile(dec, 95)),
+           "profile": prof, "params": count_params(params),
+           "peak_gib": (torch.cuda.max_memory_allocated()
+                        - base["bytes"]) / 2 ** 30}
+    log(f"time lm {name}: {out['params']} parameters, init "
+        f"{init_s:.3f} s; prefill [{LM_SLOTS}, {t_prompt}] "
+        f"{out['prefill_ms']:.3f} ms (each "
+        + ", ".join(f"{v:.3f}" for v in pre)
+        + f"); decode a step at B={LM_SLOTS} p50 "
+        f"{out['decode_p50_ms']:.3f} ms, p95 {out['decode_p95_ms']:.3f} "
+        f"ms over {LM_NEW} steps; profiled decode step: "
+        f"{prof['kernels_per_step']:.1f} kernels, device busy "
+        f"{prof['device_busy_us_per_step']:.1f} us, idle share "
+        f"{prof['idle_share']:.4f} (wall {prof['wall_us_per_step']:.1f} "
+        f"us under the profiler), {prof['syncs_per_step']} host syncs a "
+        f"step; peak memory after the init, above the "
+        f"{base['bytes']} B held before the model, {out['peak_gib']:.3f} "
+        f"GiB{extra} [{smi}]")
+    return out
+
+
 def lm_phase(dev, smi) -> dict:
     """Phase 5f: the LM zoo's serving path on the card, from seeded random
     weights drawn on the card (``init_lm``). (a) llama3.2-1b at full size in
@@ -1933,10 +2149,9 @@ def lm_phase(dev, smi) -> dict:
                                                 rglru_scan_batched_ref)
     from repro_torch.kernels.rwkv6_scan import (rwkv6_scan,
                                                 rwkv6_scan_batched_ref)
-    from repro_torch.models.common import count_params, tree_map
+    from repro_torch.models.common import tree_map
     from repro_torch.models.common import tree_leaves as lm_leaves
-    from repro_torch.models.lm import (init_lm, init_lm_caches, lm_decode,
-                                       lm_forward, lm_prefill)
+    from repro_torch.models.lm import init_lm_caches, lm_decode, lm_prefill
     from repro_torch.serve.engine import LmEngine
     from repro_torch.serve.scheduler import ContinuousBatcher
 
@@ -1948,42 +2163,10 @@ def lm_phase(dev, smi) -> dict:
     base = {}
 
     def build(cfg):
-        """The model's seeded weights drawn on the card, and the seconds it
-        took; the peak memory counts from here on, above what the process
-        held before (the earlier phases' programs)."""
-        gc.collect()          # an engine wrapped by counting() is a cycle
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        base["bytes"] = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        params = init_lm(SEED, cfg, device=dev)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        torch.cuda.reset_peak_memory_stats()
-        return params, init_s
+        return lm_build(cfg, dev, base)[:2]
 
     def forced(params, cfg, what, tol=TOL_LM_BF16_RMS):
-        """Prefill 64 tokens and decode 8 greedy ones, against the
-        teacher-forced forward over the same 72 tokens: the largest relative
-        RMS of a step's logits, held within ``tol`` (``None``: measured
-        only)."""
-        toks = torch.from_numpy(rng.integers(1, cfg.vocab, (LM_SLOTS, 64))
-                                ).to(dev)
-        caches = init_lm_caches(cfg, LM_SLOTS, LM_MAX_LEN, dev)
-        with torch.no_grad():
-            lg, caches = lm_prefill(params, cfg, toks, caches)
-            got, seq = [lg], [toks]
-            for _ in range(8):
-                seq.append(torch.argmax(got[-1][:, -1:], dim=-1))
-                lg, caches = lm_decode(params, cfg, seq[-1], caches)
-                got.append(lg)
-            full, _ = lm_forward(params, cfg, torch.cat(seq, dim=1))
-        errs = [rel_rms(g[:, 0], full[:, 63 + i]) for i, g in enumerate(got)]
-        if (tol is not None and max(errs) > tol) or not all(
-                torch.isfinite(g).all() for g in got):
-            raise AssertionError(f"{what}: prefill/decode against the "
-                                 f"teacher-forced forward {errs}")
-        return max(errs)
+        return lm_forced(params, cfg, dev, rng, what, tol)["err"]
 
     def counting(eng):
         """Wrap the engine's prefill and decode_step to keep the launches
@@ -2018,48 +2201,9 @@ def lm_phase(dev, smi) -> dict:
         return orig, kept
 
     def timed(name, cfg, params, init_s, t_prompt, extra=""):
-        """Prefill ms at [4, t_prompt] (median of 3 after a warm one),
-        decode ms a step (each synchronised) over LM_NEW steps, the
-        profiled decode step, peak memory."""
-        eng = LmEngine(params, cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
-        toks = rng.integers(1, cfg.vocab, (LM_SLOTS, t_prompt))
-        pre = []
-        for _ in range(4):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            lg = eng.prefill(toks)
-            torch.cuda.synchronize()
-            pre.append(1e3 * (time.perf_counter() - t0))
-        cur = torch.argmax(lg[:, -1:], dim=-1)
-        dec = []
-        for _ in range(LM_NEW):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            lg = eng.decode_step(cur)
-            cur = torch.argmax(lg[:, -1:], dim=-1)
-            torch.cuda.synchronize()
-            dec.append(1e3 * (time.perf_counter() - t0))
-        prof = engine_profile(lambda: [eng.decode_step(cur)
-                                       for _ in range(5)], 5)
-        out = {"init_s": init_s, "prefill_ms": float(np.median(pre[1:])),
-               "decode_p50_ms": float(np.percentile(dec, 50)),
-               "decode_p95_ms": float(np.percentile(dec, 95)),
-               "profile": prof, "params": count_params(params),
-               "peak_gib": (torch.cuda.max_memory_allocated()
-                            - base["bytes"]) / 2 ** 30}
-        log(f"time lm {name}: {out['params']} parameters, init "
-            f"{init_s:.3f} s; prefill [{LM_SLOTS}, {t_prompt}] "
-            f"{out['prefill_ms']:.3f} ms (each "
-            + ", ".join(f"{v:.3f}" for v in pre)
-            + f"); decode a step at B={LM_SLOTS} p50 "
-            f"{out['decode_p50_ms']:.3f} ms, p95 {out['decode_p95_ms']:.3f} "
-            f"ms over {LM_NEW} steps; profiled decode step: "
-            f"{prof['kernels_per_step']:.1f} kernels, device busy "
-            f"{prof['device_busy_us_per_step']:.1f} us, idle share "
-            f"{prof['idle_share']:.4f} (wall {prof['wall_us_per_step']:.1f} "
-            f"us under the profiler); peak memory after the init, above the "
-            f"{base['bytes']} B held before the model, {out['peak_gib']:.3f} "
-            f"GiB{extra} [{smi}]")
+        out = lm_timed(name, cfg, params, init_s, t_prompt, dev, rng, base,
+                       smi, extra)
+        del out["tokens"]
         return out
 
     # (a) llama3.2-1b, full size, bf16
@@ -2286,6 +2430,263 @@ def lm_phase(dev, smi) -> dict:
             f"{TOL_F32}) [{smi}]")
         del params, cpu_params, caches, c_caches
     torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 5g: the rest of the LM zoo: MLA, MoE, cross-attention ----------
+
+# A routing flip: MoE top-k over near-tied router probabilities picks
+# another expert in one of two runs of the same tokens. One run takes the
+# other's expert choices (so the hidden states stay comparable: a flip
+# left free moves its token's state by its own size and cascades through
+# the later layers), and a token whose own top-k differs is allowed only
+# where its k-th and (k+1)-th probabilities lie within this of each other.
+# A probability p moves by ~p * dlogit when its logit (of order 1) moves
+# by dlogit; p <= 2**-3 at the top-k boundary of 40-64 experts. fp32: the
+# runs' hidden states differ by ~1e-6 relative (phase 5f (d)), dp ~1e-7:
+# 1e-5 keeps a factor of 100. bf16: by 1-3 % at 16-40 layers (5f: 1.2e-2
+# at 16), tails to 4 times that, dlogit up to ~0.1, a gap up to
+# 2 * 2**-3 * 0.1 = 2.5e-2: 2**-5.
+ROUTE_MARGIN_F32 = 1e-5
+ROUTE_MARGIN_BF16 = 2.0 ** -5
+# (a)'s staggered admission: the live request's new tokens (the wave
+# joins at its third; a decode step of deepseek takes ~0.2 s)
+ZOO_STAGGER_NEW = 12
+# the fp32 runs of (e): the fewest layers that hold every block kind of
+# the arch (the VLM: one period of four self-attention layers and a cross
+# one; seamless: two encoder and two decoder layers)
+ZOO_F32_LAYERS = {"deepseek-v2-lite-16b": {"n_layers": 2},
+                  "granite-moe-3b-a800m": {"n_layers": 2},
+                  "llama-3.2-vision-11b": {"n_layers": 5},
+                  "seamless-m4t-large-v2": {"n_layers": 2,
+                                            "n_encoder_layers": 2}}
+
+
+def modality_inputs(cfg, b: int, dev, dtype, gen) -> dict:
+    """Seeded stub modality inputs drawn on ``dev``: image embeddings
+    ``[b, n_image_tokens, vision_dim]`` (normal, scaled 0.02 as the
+    reference's ``lm_batch``) or audio frames ``[b, n_audio_frames,
+    audio_dim]`` (standard normal)."""
+    import torch
+    out = {}
+    if cfg.cross_attn_every:
+        out["image_embeds"] = (torch.randn(
+            (b, cfg.n_image_tokens, cfg.vision_dim), generator=gen,
+            device=dev) * 0.02).to(dtype)
+    if cfg.encdec:
+        out["audio_frames"] = torch.randn(
+            (b, cfg.n_audio_frames, cfg.audio_dim), generator=gen,
+            device=dev).to(dtype)
+    return out
+
+
+def host_rss_gib() -> tuple:
+    """The process's resident host memory now and at its peak, GiB."""
+    import resource
+    with open("/proc/self/status") as f:
+        now = next(int(line.split()[1]) for line in f
+                   if line.startswith("VmRSS:"))
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return now / 2 ** 20, peak / 2 ** 20
+
+
+def zoo_phase(dev, smi) -> dict:
+    """Phase 5g: the rest of the LM zoo on the card, seeded ``init_lm`` on
+    the card, bf16, at full size. (a) deepseek-v2-lite-16b (MLA, 64 routed
+    experts top-6 and 2 shared): an ``LmEngine(4, 256)`` under a
+    ``ContinuousBatcher`` drains 12 prompts of 16-96 tokens, 32 new each,
+    twice with the same tokens, and a staggered admission leaves the live
+    request's tokens those of a run with the same waves; (b)
+    granite-moe-3b-a800m (40 experts padded to 48, top-8), (c)
+    llama-3.2-vision-11b (8 cross layers of 40, image embeddings [4, 1601,
+    7680]) and (d) seamless-m4t-large-v2 (24 encoder and 24 decoder layers,
+    audio frames [4, 1536, 160]): ``generate_greedy`` on 4 prompts of 128
+    tokens for 32 steps. For each, the prefill-then-decode logits within
+    ``TOL_LM_BF16_RMS`` of the teacher-forced forward (``lm_forced``; MoE
+    at a capacity for every token, routing flips within
+    ``ROUTE_MARGIN_BF16``). (e) all four in fp32 at full width and the
+    fewest layers that hold each block kind (``ZOO_F32_LAYERS``): prefill
+    [2, 32] and a decode step on the card and on the CPU within ``TOL_LM``
+    (the CPU takes the card's expert choices; flips within
+    ``ROUTE_MARGIN_F32``),
+    and prefill-then-decode against the forward within ``TOL_F32``. No
+    hand-written kernel is launched. Times per model as phase 5f's
+    (``lm_timed``), with the init's peak memory. Returns the time rows."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.common import tree_leaves as lm_leaves
+    from repro_torch.models.lm import init_lm_caches, lm_decode, lm_prefill
+    from repro_torch.serve.engine import LmEngine
+    from repro_torch.serve.scheduler import ContinuousBatcher
+
+    rng = np.random.default_rng(SEED + 7)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    base, res = {}, {}
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+
+    def no_kernels(what):
+        n = {k: v for k, v in ops.launch_counts().items() if v}
+        if n:
+            raise AssertionError(f"{what}: hand-written kernels launched {n}")
+
+    # (a) deepseek-v2-lite-16b, full size, bf16, under the batcher
+    cfg = get_config("deepseek-v2-lite-16b")
+    params, init_s, init_peak = lm_build(cfg, dev, base)
+    prompts = [rng.integers(1, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(16, 97, LM_REQUESTS)]
+
+    def batcher():
+        return ContinuousBatcher(LmEngine(params, cfg, LM_SLOTS, LM_MAX_LEN,
+                                          device=dev))
+
+    def drain():
+        cb = batcher()
+        for p in prompts:
+            cb.submit(p, max_new_tokens=LM_NEW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = cb.run_until_drained()
+        torch.cuda.synchronize()
+        return {r.uid: r.output for r in done}, time.perf_counter() - t0
+
+    def staggered(stagger):
+        cb = batcher()
+        cb.submit(prompts[0], max_new_tokens=ZOO_STAGGER_NEW)
+        done, submitted = [], not stagger
+        while cb.queue or any(cb.slots):
+            done += cb.step()
+            if (not submitted and cb.slots[0] is not None
+                    and len(cb.slots[0].output) >= 3):
+                for p in prompts[1:4]:
+                    cb.submit(p, max_new_tokens=8)
+                submitted = True
+        return {r.uid: r.output for r in done}
+
+    outs, wall = drain()
+    outs2, wall2 = drain()
+    if outs != outs2 or sorted(outs) != list(range(LM_REQUESTS)) or any(
+            len(o) != LM_NEW for o in outs.values()):
+        raise AssertionError(f"deepseek-v2-lite-16b drain: {len(outs)} "
+                             f"requests, two runs equal {outs == outs2}")
+    solo, mixed = staggered(False), staggered(True)
+    if mixed[0] != solo[0] or len(mixed) != 4:
+        raise AssertionError("deepseek-v2-lite-16b: a staggered admission "
+                             "changed the live request's tokens")
+    f = lm_forced(params, cfg, dev, rng, "deepseek-v2-lite-16b",
+                  margin=ROUTE_MARGIN_BF16)
+    no_kernels("deepseek-v2-lite-16b")
+    n_tok = LM_REQUESTS * LM_NEW
+    log(f"lm deepseek-v2-lite-16b (bf16, full size: MLA kv_lora "
+        f"{cfg.kv_lora}, {cfg.n_experts} experts top-{cfg.top_k} + "
+        f"{cfg.n_shared_experts} shared) batcher: {LM_REQUESTS} prompts of "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
+        f"{LM_NEW} new each, {LM_SLOTS} slots: {n_tok} tokens in "
+        f"{wall2:.3f} s ({n_tok / wall2:.1f} tokens/s; the first run, "
+        f"warm-up included, {wall:.3f} s, the same tokens); staggered "
+        f"admission: the live request's tokens equal those of its run with "
+        f"the same waves; prefill-then-decode against the teacher-forced "
+        f"forward: relative RMS {f['err']:.3e} (within {TOL_LM_BF16_RMS}), "
+        + flips_allowed("deepseek", f["flips"], f["gap"], ROUTE_MARGIN_BF16)
+        + f"; init {init_s:.3f} s, its peak {init_peak / 2 ** 30:.3f} GiB "
+        f"above the {base['bytes']} B held before; no hand-written kernel "
+        f"launched [{smi}]")
+    res["deepseek-v2-lite-16b"] = lm_timed(
+        "deepseek-v2-lite-16b", cfg, params, init_s, LM_T, dev, rng, base,
+        smi, f"; drain {n_tok / wall2:.1f} tokens/s")
+    del res["deepseek-v2-lite-16b"]["tokens"]
+    res["deepseek-v2-lite-16b"].update(
+        tokens_per_s=n_tok / wall2, init_peak_gib=init_peak / 2 ** 30,
+        forced=f)
+    del params
+
+    # (b)-(d): generate_greedy on 4 prompts of 128 tokens, 32 steps
+    for arch in ("granite-moe-3b-a800m", "llama-3.2-vision-11b",
+                 "seamless-m4t-large-v2"):
+        cfg = get_config(arch)
+        params, init_s, init_peak = lm_build(cfg, dev, base)
+        mod = modality_inputs(cfg, LM_SLOTS, dev, torch.bfloat16, gen)
+        res[arch] = lm_timed(arch, cfg, params, init_s, LM_T, dev, rng, base,
+                             smi, modality=mod)
+        new = res[arch].pop("tokens")
+        if new.shape != (LM_SLOTS, LM_NEW) or not (0 <= new).all() or not (
+                new < cfg.vocab).all():
+            raise AssertionError(f"{arch} tokens {new.shape}")
+        f = lm_forced(params, cfg, dev, rng, arch, modality=mod,
+                      margin=ROUTE_MARGIN_BF16)
+        no_kernels(arch)
+        what = ", ".join(f"{k} {list(v.shape)}" for k, v in mod.items())
+        log(f"lm {arch} (bf16, full size) generate_greedy: {LM_SLOTS} "
+            f"prompts of {LM_T}{', ' + what if what else ''}, {LM_NEW} "
+            f"steps; prefill-then-decode against the teacher-forced "
+            f"forward: relative RMS {f['err']:.3e} (within "
+            f"{TOL_LM_BF16_RMS}), "
+            + flips_allowed(arch, f["flips"], f["gap"], ROUTE_MARGIN_BF16)
+            + f"; init peak {init_peak / 2 ** 30:.3f} GiB; no hand-written "
+            f"kernel launched [{smi}]")
+        res[arch].update(init_peak_gib=init_peak / 2 ** 30, forced=f)
+        del params, mod, new
+
+    # (e) fp32 at full width and few layers: the card against the CPU
+    cpu = torch.device("cpu")
+    for arch, layers in ZOO_F32_LAYERS.items():
+        cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                                  **layers)
+        params, _, _ = lm_build(cfg, dev, base)
+        cpu_params = tree_map(lambda x: x.to(cpu), params)
+        mod = modality_inputs(cfg, LM_SLOTS, dev, torch.float32, gen)
+        mod2 = {k: v[:2] for k, v in mod.items()}
+        toks = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 32)))
+
+        def run(p, where, m, replay=None):
+            with torch.no_grad(), RouteLog(replay) as routes:
+                caches = init_lm_caches(cfg, 2, 64, where)
+                lg_p, caches = lm_prefill(p, cfg, toks.to(where), caches,
+                                          **{k: v.to(where)
+                                             for k, v in m.items()})
+                lg_d, caches = lm_decode(p, cfg, cur.to(where), caches)
+            return lg_p, lg_d, caches, routes
+
+        cur = torch.zeros((2, 1), dtype=torch.long)
+        with torch.no_grad():
+            caches = init_lm_caches(cfg, 2, 64, dev)
+            lg, _ = lm_prefill(params, cfg, toks.to(dev), caches, **mod2)
+            cur = torch.argmax(lg[:, -1:], dim=-1).cpu()
+        lg_p, lg_d, caches, card_routes = run(params, dev, mod2)
+        t0 = time.perf_counter()
+        c_p, c_d, c_caches, cpu_routes = run(cpu_params, cpu, mod2,
+                                             card_routes.calls)
+        cpu_s = time.perf_counter() - t0
+        n, gap = cpu_routes.flips()
+        flips = flips_allowed(f"{arch} fp32 card against CPU", n, gap,
+                              ROUTE_MARGIN_F32)
+        err = max([scaled_err(lg_p, c_p), scaled_err(lg_d, c_d)] + [
+            scaled_err(a.float(), b.float()) for a, b in zip(
+                lm_leaves(caches), lm_leaves(c_caches))])
+        if err > TOL_LM:
+            raise AssertionError(f"{arch} fp32: card against CPU {err:.3e}")
+        f = lm_forced(params, cfg, dev, rng, f"{arch} fp32", TOL_F32,
+                      modality=mod, margin=ROUTE_MARGIN_F32)
+        no_kernels(f"{arch} fp32")
+        rss, rss_peak = host_rss_gib()
+        shape = ", ".join(f"{k}={v}" for k, v in layers.items())
+        log(f"lm {arch} (fp32, full width, {shape}) card against CPU: "
+            f"prefill [2, 32] and first decode logits and every cache leaf "
+            f"within {err:.3e} of max(1, |CPU|) (tolerance {TOL_LM}), the "
+            f"CPU taking the card's expert choices: {flips}; CPU run "
+            f"{cpu_s:.1f} s, host RSS {rss:.2f} GiB (peak {rss_peak:.2f}); "
+            f"on the card, prefill-then-decode against the teacher-forced "
+            f"forward: relative RMS {f['err']:.3e} (within {TOL_F32}), "
+            + flips_allowed(arch, f["flips"], f["gap"], ROUTE_MARGIN_F32)
+            + f" [{smi}]")
+        res[f"{arch} fp32"] = {"err": err, "forced": f, "flips": n}
+        del params, cpu_params, caches, c_caches, mod, mod2
+        gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 5g took {time.perf_counter() - t_phase:.1f} s")
     return res
 
 
@@ -3270,6 +3671,9 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     for name, err in zoo["max_err"].items():
         max_err[name] = max(max_err[name], err)
+
+    # -- 5g. the rest of the LM zoo: MLA, MoE, cross-attention ------------
+    zoo_phase(dev, smi)
 
     # -- 6. times on the card ---------------------------------------------
     ops.reset_launch_counts()

@@ -3,7 +3,11 @@
 
 Brings up an ``LmEngine`` and a ``ContinuousBatcher`` on one device (the
 card by default; ``--device cpu`` runs the plain versions), feeds it seeded
-synthetic requests, and reports tokens and throughput.
+synthetic requests, and reports tokens and throughput. Every arch of the
+registry initializes; the VLM and the encoder-decoder then stop at the
+first prefill with a ``ValueError`` naming ``image_embeds`` /
+``audio_frames``: the batcher passes no modality, as the reference's does
+(whose launcher fails there too).
 """
 from __future__ import annotations
 

@@ -1,7 +1,6 @@
-"""Attention: GQA/MQA, causal and local-window self-attention, q-chunked
-prefill and decode against a ring KV cache, the PyTorch port of
-:mod:`repro.models.attention` (cross-attention, ``kv_x``, arrives with the
-cross-attention models).
+"""Attention: GQA/MQA, causal, bidirectional and local-window
+self-attention, cross-attention (``kv_x``), q-chunked prefill and decode
+against a ring KV cache, the PyTorch port of :mod:`repro.models.attention`.
 
 Attention is computed as the JAX package computes it, outside any kernel:
 two einsums whose products of the storage dtype are summed in fp32 and a
@@ -140,25 +139,33 @@ class KVCache(NamedTuple):
 
 
 def _qkv(params: dict, x: torch.Tensor, n_heads: int, n_kv_heads: int,
-         head_dim: int):
+         head_dim: int, kv_x: torch.Tensor | None = None):
+    """Queries from ``x``, keys and values from ``kv_x`` (default ``x``)."""
+    src = x if kv_x is None else kv_x
     b, s, _ = x.shape
+    sk = src.shape[1]
     q = _proj(x, params["w_q"], params.get("b_q"))
-    k = _proj(x, params["w_k"], params.get("b_k"))
-    v = _proj(x, params["w_v"], params.get("b_v"))
+    k = _proj(src, params["w_k"], params.get("b_k"))
+    v = _proj(src, params["w_v"], params.get("b_v"))
     return (q.reshape(b, s, n_heads, head_dim),
-            k.reshape(b, s, n_kv_heads, head_dim),
-            v.reshape(b, s, n_kv_heads, head_dim))
+            k.reshape(b, sk, n_kv_heads, head_dim),
+            v.reshape(b, sk, n_kv_heads, head_dim))
 
 
 def attention_apply(params: dict, x: torch.Tensor, *, n_heads: int,
                     n_kv_heads: int, head_dim: int, causal: bool = True,
                     window: int | None = None,
                     rope_theta: float | None = 10000.0, q_chunk: int = 512,
-                    positions: torch.Tensor | None = None) -> torch.Tensor:
-    """Full-sequence self-attention (the teacher-forced forward)."""
+                    positions: torch.Tensor | None = None,
+                    kv_x: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence attention (the teacher-forced forward and the encoder,
+    ``causal=False``). ``kv_x`` switches to cross-attention: keys and values
+    from the other stream, no RoPE and no mask (still q-chunked)."""
     b, s, _ = x.shape
-    q, k, v = _qkv(params, x, n_heads, n_kv_heads, head_dim)
-    if rope_theta is not None:
+    q, k, v = _qkv(params, x, n_heads, n_kv_heads, head_dim, kv_x)
+    if kv_x is not None:
+        causal, window = False, None
+    elif rope_theta is not None:
         pos = (positions if positions is not None
                else torch.arange(s, device=x.device)[None])
         q = apply_rope(q, pos, rope_theta)

@@ -1,23 +1,27 @@
 """Block assembly: per-kind init and apply, and a loop over the layers of a
 schedule, the PyTorch port of :mod:`repro.models.blocks`.
 
-Layers are grouped into repeated *periods* (RecurrentGemma's rec-rec-attn);
-each schedule entry stacks ``count`` periods, so every parameter and cache
-leaf of an entry is ``[count, ...]`` as in the JAX package, and caches are
+Layers are grouped into repeated *periods* (RecurrentGemma's rec-rec-attn,
+the VLM's four self-attention layers and a cross-attention one); each
+schedule entry stacks ``count`` periods, so every parameter and cache leaf
+of an entry is ``[count, ...]`` as in the JAX package, and caches are
 ``[count, B, ...]`` (axis 1 is the slot). Where JAX scans over the stacked
 axis, the port loops over it in Python.
 
-Block kinds ported: ``attn`` (pre-norm self-attention + gated FFN),
-``local_attn`` (windowed), ``rglru`` (the RG-LRU recurrent block + FFN) and
+Block kinds: ``attn`` (pre-norm self-attention, or MLA with
+``cfg.use_mla``, + a gated FFN, or MoE with ``cfg.n_experts``),
+``local_attn`` (windowed), ``cross`` (self-attention + cross-attention to
+the modality stream + FFN), ``enc`` (bidirectional self-attention + FFN,
+the audio encoder), ``rglru`` (the RG-LRU recurrent block + FFN) and
 ``rwkv`` (RWKV6 time-mix + channel-mix). Every block adds its output to the
-residual stream after a norm. MLA and MoE (``ROADMAP.md`` Queue 1 item 5b)
-and the ``cross`` / ``enc`` kinds (item 5c) are not ported:
-:func:`require_ported` names the item.
+residual stream after a norm.
 
 Modes: ``train`` (full sequence, no cache), ``prefill`` (full sequence,
 writes the cache), ``decode`` (one token against the cache). Caches are
 written in place: :func:`apply_blocks` returns the stacked caches it was
-given, holding the new state.
+given, holding the new state. A ``cross`` block's cache is ``{"ck", "cv",
+"self"}``: the cross stream's keys and values, written at prefill and read
+by every decode step, and the self-attention ring.
 """
 from __future__ import annotations
 
@@ -25,18 +29,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (apply_norm, init_norm, tree_leaves,
                                        tree_map)
 from repro_torch.models.ffn import ffn_apply, init_ffn
+from repro_torch.models.mla import MlaCache
+from repro_torch.models.moe import init_moe, moe_apply_auto
 from repro_torch.models.rglru import (init_rglru_block, init_rglru_state,
                                       rglru_block_apply, rglru_block_decode)
 from repro_torch.models.rwkv import (RwkvState, init_rwkv_channel_mix,
                                      init_rwkv_state, init_rwkv_time_mix,
                                      rwkv_channel_mix, rwkv_time_mix)
-
-PORTED_KINDS = ("attn", "local_attn", "rglru", "rwkv")
-
 
 # ---------------------------------------------------------------------------
 # Schedules
@@ -62,18 +66,8 @@ def make_schedule(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
     return [(("attn",), cfg.n_layers)]
 
 
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config whose blocks the port
-    does not have yet, naming the ``ROADMAP.md`` item that brings them."""
-    if cfg.use_mla or cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: latent attention (MLA) and mixture-of-experts "
-            "blocks are not ported yet (ROADMAP.md Queue 1 item 5b)")
-    kinds = {k for pattern, _ in make_schedule(cfg) for k in pattern}
-    if cfg.encdec or not kinds <= set(PORTED_KINDS):
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention and encoder blocks are not ported "
-            "yet (ROADMAP.md Queue 1 item 5c)")
+def _uses_moe(cfg: ModelConfig, kind: str) -> bool:
+    return cfg.n_experts > 0 and kind in ("attn", "local_attn")
 
 
 # ---------------------------------------------------------------------------
@@ -93,14 +87,32 @@ def init_block(kind: str, generator: torch.Generator, cfg: ModelConfig,
         return p
     if kind == "rglru":
         p["rglru"] = init_rglru_block(generator, d, d, dtype)
-    elif kind in ("attn", "local_attn"):
+    elif kind in ("attn", "local_attn", "enc"):
+        if cfg.use_mla:
+            p["attn"] = mla_mod.init_mla(
+                generator, d, cfg.n_heads, kv_lora=cfg.kv_lora,
+                qk_nope=cfg.qk_nope, qk_rope=cfg.qk_rope,
+                v_dim=cfg.v_head_dim, dtype=dtype)
+        else:
+            p["attn"] = attn_mod.init_attention(
+                generator, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                dtype=dtype, qkv_bias=cfg.qkv_bias)
+    elif kind == "cross":
         p["attn"] = attn_mod.init_attention(
             generator, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             dtype=dtype, qkv_bias=cfg.qkv_bias)
+        p["norm_x"] = init_norm(cfg.norm, d, dtype, dev)
+        p["xattn"] = attn_mod.init_attention(
+            generator, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            dtype=dtype)
     else:
-        raise ValueError(f"unknown or unported block kind {kind!r}")
+        raise ValueError(f"unknown block kind {kind!r}")
     p["norm2"] = init_norm(cfg.norm, d, dtype, dev)
-    p["ffn"] = init_ffn(generator, d, cfg.d_ff, gated=True, dtype=dtype)
+    if _uses_moe(cfg, kind):
+        p["moe"] = init_moe(generator, d, cfg.expert_d_ff, cfg.n_experts,
+                            n_shared=cfg.n_shared_experts, dtype=dtype)
+    else:
+        p["ffn"] = init_ffn(generator, d, cfg.d_ff, gated=True, dtype=dtype)
     return p
 
 
@@ -115,26 +127,58 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
     if kind == "rglru":
         return init_rglru_state(batch, cfg.d_model, dtype, device)
     if kind in ("attn", "local_attn"):
+        if cfg.use_mla:
+            return MlaCache.zeros(batch, max_len, cfg.kv_lora, cfg.qk_rope,
+                                  dtype, device)
         cache_len = (min(max_len, cfg.attn_window)
                      if kind == "local_attn" and cfg.attn_window else max_len)
         return KVCache.zeros(batch, cache_len, cfg.n_kv_heads, cfg.head_dim,
                              dtype, device)
-    raise ValueError(f"unknown or unported block kind {kind!r}")
+    if kind == "cross":
+        shape = (batch, cfg.n_image_tokens or cfg.n_audio_frames,
+                 cfg.n_kv_heads, cfg.head_dim)
+        return {"ck": torch.zeros(shape, dtype=dtype, device=device),
+                "cv": torch.zeros(shape, dtype=dtype, device=device),
+                "self": KVCache.zeros(batch, max_len, cfg.n_kv_heads,
+                                      cfg.head_dim, dtype, device)}
+    if kind == "enc":
+        return None
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 # ---------------------------------------------------------------------------
 # Per-kind apply
 # ---------------------------------------------------------------------------
 
+def _ffn_or_moe(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str):
+    """The block's FFN, or its MoE; returns ``(y, aux_loss)``."""
+    if _uses_moe(cfg, kind):
+        return moe_apply_auto(params["moe"], x, top_k=cfg.top_k,
+                              capacity_factor=cfg.capacity_factor,
+                              activation=cfg.activation)
+    return ffn_apply(params["ffn"], x, activation=cfg.activation), 0.0
+
+
 def _self_attn(params: dict, h: torch.Tensor, cfg: ModelConfig, kind: str,
                mode: str, cache):
+    if cfg.use_mla and kind != "cross":
+        kw = dict(n_heads=cfg.n_heads, kv_lora=cfg.kv_lora,
+                  qk_nope=cfg.qk_nope, qk_rope=cfg.qk_rope,
+                  v_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta)
+        if mode == "train":
+            return mla_mod.mla_apply(params["attn"], h, **kw), cache
+        if mode == "prefill":
+            return mla_mod.mla_prefill(params["attn"], h, cache, **kw)
+        if mode == "decode":
+            return mla_mod.mla_decode(params["attn"], h, cache, **kw)
+        raise ValueError(mode)
     window = cfg.attn_window if kind == "local_attn" else None
     kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
               head_dim=cfg.head_dim, window=window,
               rope_theta=cfg.rope_theta)
     if mode == "train":
-        return attn_mod.attention_apply(params["attn"], h, causal=True,
-                                        **kw), cache
+        return attn_mod.attention_apply(params["attn"], h,
+                                        causal=(kind != "enc"), **kw), cache
     if mode == "prefill":
         return attn_mod.attention_prefill(params["attn"], h, cache, **kw)
     if mode == "decode":
@@ -142,10 +186,44 @@ def _self_attn(params: dict, h: torch.Tensor, cfg: ModelConfig, kind: str,
     raise ValueError(mode)
 
 
+def _cross_attn(params: dict, h: torch.Tensor, cfg: ModelConfig, mode: str,
+                cache, cross_kv):
+    """The cross-attention of a ``cross`` block. Prefill computes the
+    stream's keys and values and writes them into ``cache["ck"]`` /
+    ``["cv"]``; decode attends over those (no mask, no RoPE). Returns
+    ``(y, ck, cv)``, the last two ``None`` without a cache."""
+    b, s, _ = h.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    xp = params["xattn"]
+    if mode == "decode":
+        q = (h @ xp["w_q"]).reshape(b, s, hq, hd)
+        out = attn_mod.sdpa(q, cache["ck"].to(q.dtype),
+                            cache["cv"].to(q.dtype))
+        return out.reshape(b, s, -1) @ xp["w_o"], cache["ck"], cache["cv"]
+    if cache is not None and cross_kv is None:
+        raise ValueError("a cross block's prefill needs the cross stream "
+                         "(cross_kv)")
+    y = attn_mod.attention_apply(xp, h, n_heads=hq, n_kv_heads=hkv,
+                                 head_dim=hd, rope_theta=None, kv_x=cross_kv)
+    if cache is None:
+        return y, None, None
+    n = cross_kv.shape[1]
+    if n != cache["ck"].shape[1]:
+        raise ValueError(f"a cross stream of {n} positions; the cache holds "
+                         f"{cache['ck'].shape[1]} (n_image_tokens or "
+                         "n_audio_frames)")
+    ck = (cross_kv @ xp["w_k"]).reshape(b, n, hkv, hd)
+    cv = (cross_kv @ xp["w_v"]).reshape(b, n, hkv, hd)
+    return y, ck.to(cache["ck"].dtype), cv.to(cache["cv"].dtype)
+
+
 def apply_block(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
-                mode: str, cache):
+                mode: str, cache, cross_kv: torch.Tensor | None = None):
     """Returns ``(x, new_cache, aux_loss)``; the new cache is ``None`` in
-    ``train`` mode."""
+    ``train`` mode. ``cross_kv`` is the modality stream a ``cross`` block
+    attends to in ``train`` and ``prefill`` (without it, in ``train``, the
+    block's cross-attention attends to ``x`` itself, as the reference's
+    does)."""
     if kind == "rwkv":
         st = cache if cache is not None else init_rwkv_state(
             x.shape[0], cfg.d_model, x.dtype, x.device)
@@ -164,13 +242,21 @@ def apply_block(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
         else:
             y, new = rglru_block_apply(params["rglru"], h, cache)
         new = None if mode == "train" else new
-    elif kind in ("attn", "local_attn"):
+    elif kind == "cross":
+        y, sa = _self_attn(params, h, cfg, "attn", mode,
+                           cache["self"] if cache is not None else None)
+        x = x + y
+        h = apply_norm(cfg.norm, params["norm_x"], x)
+        y, ck, cv = _cross_attn(params, h, cfg, mode, cache, cross_kv)
+        new = None if cache is None else {"ck": ck, "cv": cv, "self": sa}
+    elif kind in ("attn", "local_attn", "enc"):
         y, new = _self_attn(params, h, cfg, kind, mode, cache)
     else:
-        raise ValueError(f"unknown or unported block kind {kind!r}")
+        raise ValueError(f"unknown block kind {kind!r}")
     x = x + y
     h = apply_norm(cfg.norm, params["norm2"], x)
-    return x + ffn_apply(params["ffn"], h, activation=cfg.activation), new, 0.0
+    y, aux = _ffn_or_moe(params, h, cfg, kind)
+    return x + y, new, aux
 
 
 # ---------------------------------------------------------------------------
@@ -179,14 +265,23 @@ def apply_block(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def init_blocks(generator: torch.Generator, cfg: ModelConfig, dtype,
                 schedule=None) -> list:
-    """Per schedule entry: ``{"sub<j>": params stacked over count}``."""
+    """Per schedule entry: ``{"sub<j>": params stacked over count}``. Each
+    stacked leaf is allocated once and each period drawn into its slot, so
+    the weights are held once (not again as a list of periods); the draws
+    are those of drawing every period in turn and stacking them."""
     schedule = schedule or make_schedule(cfg)
     entries = []
     for pattern, count in schedule:
-        periods = [{f"sub{j}": init_block(kind, generator, cfg, dtype)
-                    for j, kind in enumerate(pattern)}
-                   for _ in range(count)]
-        entries.append(tree_map(lambda *xs: torch.stack(xs), *periods))
+        stacked = None
+        for i in range(count):
+            period = {f"sub{j}": init_block(kind, generator, cfg, dtype)
+                      for j, kind in enumerate(pattern)}
+            if stacked is None:
+                stacked = tree_map(
+                    lambda t: t.new_empty((count,) + tuple(t.shape)), period)
+            tree_map(lambda dst, src: dst[i].copy_(src), stacked, period)
+            del period
+        entries.append(stacked)
     return entries
 
 
@@ -208,14 +303,15 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 def _write_back(dst, new) -> None:
     """Copy a block's new cache into its views of the stacked caches (a KV
-    cache was written in place already and is its own view)."""
+    or MLA cache was written in place already and is its own view)."""
     for d, n in zip(tree_leaves(dst), tree_leaves(new)):
         if d is not n:
             d.copy_(n)
 
 
 def apply_blocks(entries: list, x: torch.Tensor, cfg: ModelConfig, mode: str,
-                 caches: list | None = None, schedule=None):
+                 caches: list | None = None,
+                 cross_kv: torch.Tensor | None = None, schedule=None):
     """Run the whole schedule. Returns ``(x, caches, total_aux)``: the
     caches given, written in place (``None`` without caches)."""
     schedule = schedule or make_schedule(cfg)
@@ -229,7 +325,7 @@ def apply_blocks(entries: list, x: torch.Tensor, cfg: ModelConfig, mode: str,
             for j, kind in enumerate(pattern):
                 sub_c = c[f"sub{j}"] if c is not None else None
                 x, new_c, aux = apply_block(kind, p[f"sub{j}"], x, cfg, mode,
-                                            sub_c)
+                                            sub_c, cross_kv)
                 if sub_c is not None:
                     _write_back(sub_c, new_c)
                 total_aux = total_aux + aux

@@ -165,12 +165,14 @@ class LmEngine:
         self.caches = init_lm_caches(cfg, batch, max_len, self.device)
 
     @torch.no_grad()
-    def prefill(self, tokens) -> torch.Tensor:
+    def prefill(self, tokens, **modality) -> torch.Tensor:
         """Prefill all slots with (left-padded) prompts ``[B, S]``; returns
-        the last logits ``[B, 1, V]``."""
+        the last logits ``[B, 1, V]``. The VLM takes ``image_embeds=``, the
+        encoder-decoder ``audio_frames=`` (arrays in the model's dtype)."""
         logits, self.caches = lm_prefill(
             self.params, self.cfg, torch.as_tensor(tokens, device=self.device),
-            self.caches)
+            self.caches, **{k: torch.as_tensor(v, device=self.device)
+                            for k, v in modality.items()})
         return logits
 
     @torch.no_grad()
@@ -181,9 +183,9 @@ class LmEngine:
             self.caches)
         return logits
 
-    def generate_greedy(self, tokens, steps: int) -> torch.Tensor:
+    def generate_greedy(self, tokens, steps: int, **modality) -> torch.Tensor:
         """Greedy generation; returns ``[B, steps]`` new tokens."""
-        logits = self.prefill(tokens)
+        logits = self.prefill(tokens, **modality)
         out = []
         cur = torch.argmax(logits[:, -1:], dim=-1)
         for _ in range(steps):

@@ -66,7 +66,7 @@ def test_the_scan_covers_every_port_module_and_kernel_source():
                 "configs/llama3_2_vision_11b.py",
                 "configs/seamless_m4t_large_v2.py", "launch/__init__.py",
                 "launch/serve.py", "core/__init__.py", "quant/__init__.py",
-                "models/__init__.py"):
+                "models/__init__.py", "models/mla.py", "models/moe.py"):
         assert mod in names, mod
     assert sorted(_build.SOURCES) == sorted(
         p.name for p in (PORT / "csrc").glob("*.cu"))
@@ -127,7 +127,7 @@ def test_package_reexports_import_with_jax_and_repro_blocked():
                             for a in node.names} - tpu_only)
     want["models"] = ["init_lm", "init_lm_caches", "lm_forward",
                       "lm_prefill", "lm_decode", "lm_params_from_numpy",
-                      "KVCache", "make_schedule"]
+                      "KVCache", "MlaCache", "make_schedule"]
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

@@ -1,6 +1,8 @@
 """The LM serving path of the PyTorch port (``LmEngine``,
 ``ContinuousBatcher``, ``_merge_caches_slotwise``, the launcher) against
-the JAX package, on the CPU, at the reduced configs in fp32.
+the JAX package, on the CPU, at the reduced configs in fp32: every arch of
+the registry through the engine (the VLM and the encoder-decoder with
+seeded image embeddings / audio frames), the batcher over each cache kind.
 
 Greedy tokens across packages: the fp32 logits agree within ``TOL_LM`` of
 their magnitude (``tests/test_torch_lm.py``), so an argmax can flip only
@@ -32,10 +34,13 @@ from repro_torch.serve.scheduler import (ContinuousBatcher,
 torch.set_num_threads(1)
 
 TOL_LM = 2e-5
-PORTED = ("smollm-360m", "llama3.2-1b", "olmo-1b", "qwen2.5-32b",
-          "recurrentgemma-9b", "rwkv6-1.6b")
-# one arch of each cache kind: KV ring, RWKV6 state, RG-LRU + local ring
-KINDS = ("llama3.2-1b", "rwkv6-1.6b", "recurrentgemma-9b")
+PORTED = tuple(jreg.ARCH_IDS)
+# one arch of each cache kind the batcher serves: KV ring, RWKV6 state,
+# RG-LRU + local ring, MLA latents (with MoE). The VLM and the
+# encoder-decoder need a modality at prefill, which the batcher (as JAX's)
+# does not pass.
+KINDS = ("llama3.2-1b", "rwkv6-1.6b", "recurrentgemma-9b",
+         "deepseek-v2-lite-16b")
 
 _MODELS = {}
 
@@ -78,15 +83,33 @@ def _same_tokens(got: list, want: list, margins: list, tol: float) -> None:
             return
 
 
+def _modality(cfg) -> dict:
+    """Seeded image embeddings / audio frames (numpy) for the archs that
+    take them, as ``lm_batch`` scales them."""
+    rng = np.random.default_rng(12)
+    out = {}
+    if cfg.cross_attn_every:
+        out["image_embeds"] = (rng.normal(0, 1, (
+            2, cfg.n_image_tokens, cfg.vision_dim)) * 0.02).astype(np.float32)
+    if cfg.encdec:
+        out["audio_frames"] = rng.normal(0, 1, (
+            2, cfg.n_audio_frames, cfg.audio_dim)).astype(np.float32)
+    return out
+
+
 @pytest.mark.parametrize("arch", PORTED)
 def test_lm_engine_greedy_matches_jax(arch):
+    """``prefill(tokens, **modality)``, ``decode_step`` and
+    ``generate_greedy(tokens, steps, **modality)`` against JAX's engine."""
     jcfg, tcfg, jp, tp = _model(arch)
     toks = np.random.default_rng(3).integers(1, jcfg.vocab, (2, 6)).astype(
         np.int32)
     steps = 6
+    mod = _modality(jcfg)
+    jmod = {k: jnp.asarray(v) for k, v in mod.items()}
     # JAX's greedy run, keeping each step's logits
     jeng = jengine.LmEngine(jp, jcfg, batch=2, max_len=48)
-    lg = jeng.prefill(jnp.asarray(toks))
+    lg = jeng.prefill(jnp.asarray(toks), **jmod)
     jlog, jtok = [lg], []
     cur = jnp.argmax(lg[:, -1:], axis=-1)
     for _ in range(steps):
@@ -97,17 +120,17 @@ def test_lm_engine_greedy_matches_jax(arch):
     want = np.concatenate(jtok, axis=1)
     np.testing.assert_array_equal(
         want, np.asarray(jengine.LmEngine(jp, jcfg, 2, 48).generate_greedy(
-            jnp.asarray(toks), steps)))
+            jnp.asarray(toks), steps, **jmod)))
     # the port fed JAX's tokens: logits everywhere
     teng = LmEngine(tp, tcfg, batch=2, max_len=48, device="cpu")
-    got_log = [teng.prefill(toks)] + [teng.decode_step(want[:, i:i + 1])
-                                      for i in range(steps)]
+    got_log = [teng.prefill(toks, **mod)] + [
+        teng.decode_step(want[:, i:i + 1]) for i in range(steps)]
     for g, w in zip(got_log, jlog):
         err = np.abs(_np(g) - _np(w)).max() / max(1.0, np.abs(_np(w)).max())
         assert err <= TOL_LM
     # the port's own greedy run: tokens under the margin rule
     got = LmEngine(tp, tcfg, batch=2, max_len=48,
-                   device="cpu").generate_greedy(toks, steps)
+                   device="cpu").generate_greedy(toks, steps, **mod)
     assert got.shape == (2, steps)
     tol = max(_flip_tol(w) for w in jlog)
     margins = np.stack([_margin(w) for w in jlog[:steps]], axis=1)
@@ -281,6 +304,38 @@ def test_merge_caches_slotwise_matches_jax():
         np.testing.assert_array_equal(_np(g.float()), _np(w))
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "llama-3.2-vision-11b",
+                                  "seamless-m4t-large-v2"])
+def test_merge_caches_slotwise_carries_mla_and_cross_caches(arch):
+    """The slotwise merge over ``MlaCache`` and the cross caches
+    (``{"ck", "cv", "self"}``), leaf for leaf against JAX's."""
+    jcfg = jreg.get_config(arch).reduced()
+
+    def filled(seed):
+        r = np.random.default_rng(seed)
+        return jax.tree_util.tree_map(
+            lambda x: jnp.asarray(r.normal(0, 1, x.shape)).astype(x.dtype)
+            if jnp.issubdtype(x.dtype, jnp.floating)
+            else jnp.asarray(r.integers(-1, 9, x.shape)).astype(x.dtype),
+            jlm.init_lm_caches(jcfg, 3, 8))
+
+    old, new = filled(1), filled(2)
+    keep = np.array([True, False, True])
+    want = jsched._merge_caches_slotwise(old, new, jnp.asarray(keep))
+    t_old, t_new = (tlm.lm_params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, c), device="cpu")
+        for c in (old, new))
+    got = _merge_caches_slotwise(t_old, t_new, torch.from_numpy(keep))
+    kinds = {type(c).__name__ for e in got for c in e.values()}
+    assert kinds == ({"MlaCache"} if jcfg.use_mla else {"dict"} | (
+        {"KVCache"} if jcfg.cross_attn_every else set()))
+    leaves = tree_leaves(got)
+    assert len(leaves) == len(jax.tree_util.tree_leaves(want))
+    for g, w in zip(leaves, jax.tree_util.tree_leaves(want)):
+        np.testing.assert_array_equal(_np(g.float()), _np(w))
+
+
 def test_lm_engine_refuses_params_on_another_device():
     _, tcfg, _, tp = _model("llama3.2-1b")
     eng = LmEngine(tp, tcfg, batch=2, max_len=16, device="cpu")
@@ -307,3 +362,41 @@ def test_launcher_runs_on_the_cpu_like_jax(capsys, monkeypatch):
         return words[1], words[3], words[-2]   # requests, tokens, ticks
     assert counts(got[-1]) == counts(want[-1]) == ("5", "15", "6")
     assert got[0].startswith(want[0])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "granite-moe-3b-a800m"])
+def test_launcher_serves_mla_and_moe_like_jax(arch, capsys, monkeypatch):
+    """``python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
+    --device cpu --reduced``: JAX's requests, tokens and ticks."""
+    args = ["--arch", arch, "--reduced", "--requests", "5",
+            "--max-new-tokens", "3", "--slots", "2"]
+    tlaunch.main(args + ["--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    from repro.launch import serve as jlaunch
+    monkeypatch.setattr("sys.argv", ["serve"] + args)
+    jlaunch.main()
+    want = capsys.readouterr().out.splitlines()
+    assert got[-1].split()[1:6] == want[-1].split()[1:6]
+    assert got[-1].split()[-2] == want[-1].split()[-2]
+
+
+@pytest.mark.parametrize("arch,name", [("llama-3.2-vision-11b",
+                                        "image_embeds"),
+                                       ("seamless-m4t-large-v2",
+                                        "audio_frames")])
+def test_launcher_names_the_missing_modality(arch, name, capsys,
+                                             monkeypatch):
+    """The launcher passes no modality, as JAX's does: the VLM and the
+    encoder-decoder initialize, then the first prefill raises a
+    ``ValueError`` naming the input (JAX's launcher fails there too, on
+    the missing stream)."""
+    args = ["--arch", arch, "--reduced", "--requests", "2",
+            "--max-new-tokens", "2", "--slots", "2"]
+    with pytest.raises(ValueError, match=name):
+        tlaunch.main(args + ["--device", "cpu"])
+    assert capsys.readouterr().out.startswith(f"[serve] {arch}-smoke")
+    from repro.launch import serve as jlaunch
+    monkeypatch.setattr("sys.argv", ["serve"] + args)
+    with pytest.raises((AttributeError, TypeError)):
+        jlaunch.main()
