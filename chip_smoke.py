@@ -157,6 +157,27 @@ traceback and a non-zero exit):
    CPU within ``TOL_LM`` (a flip within ``ROUTE_MARGIN_F32`` replayed)
    and decode against forward within ``TOL_F32``; no hand-written kernel
    launched; per model the times of 5f, the init's peak and the host RSS;
+5h. LM training (``lm_train_phase``): (a) ``repro_torch.launch.train``
+   trains llama3.2-1b at full size (the registry config: bf16 weights,
+   fp32 Adam moments, remat) for 8 steps of [8, 128], every loss finite,
+   and 2 steps with ``--grad-accum 2``; 5 steps of ``make_lm_train_step``
+   on one fixed batch with the launcher's optimizer, whose loss falls, 2
+   more profiled (kernels a step, device busy, idle share), the step cut
+   into forward, backward and Adam, peak memory, tokens/s, beside the
+   step's bound; (b) one train step on the card against the same step on
+   the CPU in fp32 from the same seeded weights and batch [2, 32]:
+   llama3.2-1b, rwkv6-1.6b and granite-moe-3b-a800m at full width and 2
+   layers, recurrentgemma-9b at full width and 3 layers (its vocabulary
+   cut), deepseek-v2-lite-16b, llama-3.2-vision-11b and
+   seamless-m4t-large-v2 at ``reduced()`` widths: the loss within
+   ``TOL_LM``, every gradient leaf within ``TOL_LM_TRAIN_GRAD`` of its
+   largest (``TOL_LM_TRAIN_GRAD_RWKV6``), no zero card gradient on a
+   scan's leaves, the parameters after Adam within its first-step bound,
+   MoE choices replayed (flips within ``ROUTE_MARGIN_F32``); (c) the same
+   3 ``--reduced`` steps of llama3.2-1b and granite-moe-3b-a800m twice,
+   losses bitwise equal, and a run stopped at step 4 by its checkpoint
+   and resumed to 6 bitwise an uninterrupted run's steps 5-6. The blocks
+   run the plain scans under autograd: no hand-written kernel launches;
 6. times on the card: each kernel instance at B = 1 and its plain version
    (device time from CUDA-graph replay between CUDA events, also with the
    L2 flushed before each call, and the kernel's time per call launched
@@ -208,7 +229,7 @@ at the LM path's shapes.
 The line before the last is ``{"kernels": [...]}`` (every kernel instance;
 the ``launches`` of a main-path instance are those of phases 5, 5b, 5c, 5d,
 5e and 5f (the fabric's runs add to the int8 and fp32 GRU kernels', 5f to
-the scans'; 5g launches none), each run counted from zero; those of an
+the scans'; 5g and 5h launch none), each run counted from zero; those of an
 instance on no main path, a buffered one, ``delta_spmv_bf16`` or
 ``deltagru_act``, are those of phases 3 and 6, and its ``path`` names the
 entry that reaches it); the last line is ``{"ok": true, "device": {...}}``.
@@ -219,6 +240,7 @@ import ctypes
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2690,6 +2712,415 @@ def zoo_phase(dev, smi) -> dict:
     return res
 
 
+# -- phase 5h: LM training ------------------------------------------------------
+
+# (a) the launcher at full size: llama3.2-1b, bf16 weights, fp32 Adam
+# moments, remat on, 8 steps of [8, 128]; then 5 steps of
+# make_lm_train_step on one fixed batch with the launcher's optimizer at
+# its defaults (AdamW, weight decay 0.1, warmup to 3e-4 over 20 steps):
+# the loss must fall; two more steps profiled. (At a constant 3e-4 or
+# 1e-3 the first steps' near-sign updates of every weight overshoot and
+# the loss swings up and down on a fixed batch.)
+LM_TRAIN_ARCH = "llama3.2-1b"
+LM_TRAIN_STEPS = 8
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128
+LM_FIXED_STEPS = 5
+# bf16 dense rate of an H100 SXM's tensor cores, from the data sheet (not
+# measured here), for the step's bound
+BF16_OPS_PER_S = 989e12
+# (b) one train step on the card against the same step on the CPU, in fp32,
+# from the same weights and batch [2, 32]: the loss within TOL_LM, each
+# gradient leaf within TOL_LM_TRAIN_GRAD of the leaf's largest magnitude
+# (the CPU suite holds the packages to 1e-5 at D = 64; the card sums the
+# same products in other orders over D up to 4096, ~8 times the terms of a
+# dot product, a factor of ~3 under sqrt growth, and 1e-4 keeps three over
+# that), the parameters after Adam within adam_first_step_bound of that.
+# The families at full width and few layers (recurrentgemma-9b: one period
+# of 3 layers, its vocabulary cut to LM_GRAD_RG_VOCAB: the 256,000-row
+# embedding alone is 4.2 GB in fp32, and the CPU's copies of a training
+# step hold it ~8 times); deepseek-v2-lite-16b, llama-3.2-vision-11b and
+# seamless-m4t-large-v2 at reduced() widths: at full width two of their
+# layers are 1.3-6.0 G fp32 parameters, whose training copies on the CPU
+# would take ~50 GB and most of the phase's time
+TOL_LM_TRAIN_GRAD = 1e-4
+# RWKV6's group norm divides each head by rsqrt(var + 1e-5), and its
+# backward subtracts near-equal terms where a head's variance is small: the
+# CPU suite holds RWKV6's leaves to 5e-4 (measured 1.2e-4 on a microbatch
+# of 2 at D = 64) where it holds the others to 1e-5; the card against the
+# CPU at full width measured 1.2e-4 (first run), and 1e-3 keeps a factor
+# of eight
+TOL_LM_TRAIN_GRAD_RWKV6 = 1e-3
+LM_GRAD_BATCH, LM_GRAD_SEQ = 2, 32
+LM_GRAD_RG_VOCAB = 32768
+LM_GRAD_FULL = {"llama3.2-1b": {"n_layers": 2},
+                "rwkv6-1.6b": {"n_layers": 2},
+                "recurrentgemma-9b": {"n_layers": 3,
+                                      "vocab": LM_GRAD_RG_VOCAB},
+                "granite-moe-3b-a800m": {"n_layers": 2}}
+LM_GRAD_REDUCED = ("deepseek-v2-lite-16b", "llama-3.2-vision-11b",
+                   "seamless-m4t-large-v2")
+# the leaves whose gradient flows only through a scan: a zero gradient on
+# any of them on the card fails (b)
+SCAN_LEAVES = {"rwkv6-1.6b": ("time_mix/w_r", "time_mix/w_k", "time_mix/w_v",
+                              "time_mix/decay_w1", "time_mix/bonus_u"),
+               "recurrentgemma-9b": ("rglru/w_rg", "rglru/w_ig",
+                                     "rglru/b_rg", "rglru/lambda")}
+
+
+def adam_first_step_excess(p, cp, cg, delta, scale, lr, eps=1e-8) -> float:
+    """``adam_first_step_bound`` on the card, in float64: the most by which
+    ``|p - cp|`` (the parameters after Adam's first step from the gradients
+    ``g`` and ``cg``, the CPU's, ``|g - cg| <= delta``) exceeds the bound
+    plus an ulp of ``cp``; negative when every element is within it."""
+    import torch
+    g = cg.double()
+
+    def upd(v):
+        v = scale * v
+        return v / (v.abs() + eps)
+    u = upd(g)
+    reach = torch.maximum((upd(g + delta) - u).abs(), (upd(g - delta) - u).abs())
+    a = cp.abs()
+    ulp = (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).double()
+    return float(((p.double() - cp.double()).abs() - lr * (reach + 8 * 2.0 ** -24)
+                  - ulp).max())
+
+
+def lm_step_against_cpu(what, cfg, dev, smi) -> dict:
+    """(b) for one config: seeded ``init_lm`` on the card, copied to the
+    CPU; one batch ``[2, 32]`` (``lm_batch``) on both; one
+    ``make_lm_train_step`` step on each, its gradients kept by a
+    ``grad_transform`` that returns them unchanged; the card's MoE choices
+    replayed on the CPU (flips within ``ROUTE_MARGIN_F32``). Compared on
+    the card, leaf by leaf."""
+    import torch
+    from repro_torch.data.lm_data import lm_batch
+    from repro_torch.ft.checkpoint import tree_paths
+    from repro_torch.models.common import count_params, tree_map
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.optim import AdamConfig, constant_schedule
+    from repro_torch.train.trainer import (init_train_state,
+                                           make_lm_train_step)
+    cpu = torch.device("cpu")
+    arch = what.split(" ")[0]
+    tol = TOL_LM_TRAIN_GRAD_RWKV6 if arch.startswith("rwkv6") else (
+        TOL_LM_TRAIN_GRAD)
+    t0 = time.perf_counter()
+    params = init_lm(SEED, cfg, device=dev)
+    n_params = count_params(params)
+    cpu_params = tree_map(lambda t: t.to(cpu), params)
+    batch = lm_batch((SEED, 5), cfg, LM_GRAD_BATCH, LM_GRAD_SEQ,
+                     device="cpu")
+    kept = {}
+
+    def step_on(where):
+        def keep(grads):
+            kept[where] = grads
+            return grads
+        return make_lm_train_step(cfg, AdamConfig(
+            schedule=constant_schedule(TRAIN_LR)), grad_transform=keep)
+
+    with RouteLog() as card_log:
+        new, metrics = step_on("card")(
+            init_train_state(params), {k: v.to(dev) for k, v in
+                                       batch.items()})
+    del params
+    c_t0 = time.perf_counter()
+    with RouteLog(card_log.calls) as cpu_log:
+        c_new, c_metrics = step_on("cpu")(init_train_state(cpu_params),
+                                          batch)
+    cpu_s = time.perf_counter() - c_t0
+    del cpu_params
+    n_flip, gap = cpu_log.flips()
+    flip_text = flips_allowed(f"{arch} train step", n_flip, gap,
+                              ROUTE_MARGIN_F32)
+    loss_err = abs(float(metrics["loss"]) - float(c_metrics["loss"])) / abs(
+        float(c_metrics["loss"]))
+    scale = min(1.0, 1.0 / (float(c_metrics["grad_norm"]) + 1e-9))
+    grad_err, worst, excess, zero = 0.0, "none", -float("inf"), []
+    scan_leaves = SCAN_LEAVES.get(arch, ())
+    for (path, g), (_, cg), (_, p), (_, cp) in zip(
+            tree_paths(kept["card"]), tree_paths(kept["cpu"]),
+            tree_paths(new.params), tree_paths(c_new.params)):
+        cg, cp = cg.to(dev), cp.to(dev)
+        top = float(cg.abs().max())
+        diff = float((g - cg).abs().max())
+        err = diff / top if top else (0.0 if diff == 0 else float("inf"))
+        if err > grad_err:
+            grad_err, worst = err, path
+        if any(path.endswith(leaf) for leaf in scan_leaves) and not float(
+                g.abs().max()) > 0:
+            zero.append(path)
+        excess = max(excess, adam_first_step_excess(p, cp, cg, tol * top,
+                                                    scale, TRAIN_LR))
+    report = (f"train {what} (fp32, {n_params} parameters) card against "
+              f"CPU, one make_lm_train_step on [{LM_GRAD_BATCH}, "
+              f"{LM_GRAD_SEQ}]: loss {loss_err:.3e} relative (tolerance "
+              f"{TOL_LM}), gradients {grad_err:.3e} of the leaf's largest at "
+              f"the worst ({worst}; tolerance {tol}), parameters after Adam "
+              f"within its first-step bound with {-excess:.3e} to spare at "
+              f"the closest; {flip_text}"
+              + (f"; nonzero card gradients on {', '.join(scan_leaves)}"
+                 if scan_leaves else "")
+              + f"; {time.perf_counter() - t0:.1f} s ({cpu_s:.1f} the CPU's "
+              f"step) [{smi}]")
+    if (loss_err > TOL_LM or grad_err > tol or excess > 0 or zero
+            or not math.isfinite(float(metrics["loss"]))):
+        raise AssertionError(f"{report}: outside the bounds; zero card "
+                             f"gradients on {zero}")
+    log(report)
+    return {"loss_err": loss_err, "grad_err": grad_err, "worst": worst,
+            "flips": n_flip, "cpu_s": cpu_s}
+
+
+# substrings of the names of cuBLAS's matmul kernels on an H100
+MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def lm_step_split(cfg, state, batch, opt_cfg) -> dict:
+    """One LM train step cut at its joints, each part ended by a
+    synchronise (ms): the forward with its loss, the backward (remat's
+    second forward in it), the Adam update; and the device time of one
+    step by kernel group (``torch.profiler``): the library's matmuls
+    (``MATMUL_KERNELS`` in the kernel's name), the rest, and the six
+    kernels that took the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.lm import lm_forward
+    from repro_torch.train.losses import lm_loss
+    from repro_torch.train.optim import adam_update
+    from repro_torch.train.trainer import make_lm_train_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    live = tree_map(lambda p: p.detach().requires_grad_(True), state.params)
+    logits, aux = lm_forward(live, cfg, batch["tokens"])
+    loss = lm_loss(logits, batch["tokens"])[0] + 0.01 * torch.as_tensor(aux)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    adam_update(tree_map(lambda p: p.grad, live), state.opt, state.params,
+                opt_cfg)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    del live, logits, loss
+    step = make_lm_train_step(cfg, opt_cfg)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    gemm = sum(us for name, (_, us) in by_name.items()
+               if any(m in name.lower() for m in MATMUL_KERNELS))
+    rest = sum(us for _, us in by_name.values()) - gemm
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+
+    def short(name):
+        for cut in ("void ", "at::native::", "(anonymous namespace)::"):
+            name = name.replace(cut, "")
+        return name[:150]
+    return {"forward_ms": 1e3 * (t1 - t0), "backward_ms": 1e3 * (t2 - t1),
+            "adam_ms": 1e3 * (t3 - t2), "gemm_us": gemm, "other_us": rest,
+            "top": [(short(name), n, us) for name, (n, us) in top]}
+
+
+def lm_train_phase(dev, smi) -> dict:
+    """Phase 5h: LM training on the card. (a) ``launch.train.main`` trains
+    llama3.2-1b at full size (the registry config: bf16 weights, fp32 Adam
+    moments, remat) for 8 steps of [8, 128], every loss finite; 5 steps of
+    ``make_lm_train_step`` on one fixed batch, whose loss falls, 2 of them
+    profiled (``engine_profile``); ``--grad-accum 2`` for 2 steps. (b) One
+    train step on the card against the CPU in fp32 per family
+    (``LM_GRAD_FULL``, ``LM_GRAD_REDUCED``; ``lm_step_against_cpu``). (c)
+    The same 3 steps of ``--reduced`` llama3.2-1b and granite-moe-3b-a800m
+    twice, losses bitwise equal; a run stopped at step 4 by its checkpoint
+    and resumed to step 6 gives the losses of steps 5-6 of an
+    uninterrupted run, bitwise. No hand-written kernel launches: the
+    blocks run the plain scans under autograd. Returns the numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.lm_data import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.common import count_params
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.optim import AdamConfig, warmup_cosine_schedule
+    from repro_torch.train.trainer import (init_train_state,
+                                           make_lm_train_step)
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    res = {}
+
+    def finite(what, losses, n):
+        if len(losses) != n or not all(np.isfinite(losses)):
+            raise AssertionError(f"{what}: losses {losses}")
+
+    # (a) the launcher at full size
+    args = ["--arch", LM_TRAIN_ARCH, "--steps", str(LM_TRAIN_STEPS),
+            "--batch", str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ),
+            "--log-every", "1"]
+    t0 = time.perf_counter()
+    run = train_main(args)
+    run_s = time.perf_counter() - t0
+    finite("launch.train " + " ".join(args), run["losses"], LM_TRAIN_STEPS)
+    log(f"train {LM_TRAIN_ARCH} (full size, bf16) launch.train "
+        f"{' '.join(args)}: {LM_TRAIN_STEPS} finite losses "
+        + ", ".join(f"{v:.4f}" for v in run["losses"])
+        + f"; steps 2-{LM_TRAIN_STEPS} p50 "
+        f"{float(np.median(run['step_ms'][1:])):.3f} ms (the first, warm-up "
+        f"included, {run['step_ms'][0]:.3f} ms); {run_s:.1f} s in all "
+        f"[{smi}]")
+    run2 = train_main(args[:2] + ["--steps", "2", "--batch",
+                                  str(LM_TRAIN_BATCH), "--seq",
+                                  str(LM_TRAIN_SEQ), "--grad-accum", "2",
+                                  "--log-every", "1"])
+    finite("launch.train --grad-accum 2", run2["losses"], 2)
+    log(f"train {LM_TRAIN_ARCH} --grad-accum 2 (2 microbatches of "
+        f"[{LM_TRAIN_BATCH // 2}, {LM_TRAIN_SEQ}]): losses "
+        + ", ".join(f"{v:.4f}" for v in run2["losses"])
+        + "; step ms " + ", ".join(f"{v:.3f}" for v in run2["step_ms"])
+        + f" [{smi}]")
+
+    cfg = get_config(LM_TRAIN_ARCH)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(SEED, cfg, device=dev)
+    n_params = count_params(params)
+    state = {"s": init_train_state(params)}
+    del params
+    step_opt = AdamConfig(schedule=warmup_cosine_schedule(3e-4, 20, 100),
+                          weight_decay=0.1)
+    step = make_lm_train_step(cfg, step_opt)
+    batch = lm_batch((SEED, 9), cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                     device=dev)
+    losses, walls = [], []
+    for _ in range(LM_FIXED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state["s"], m = step(state["s"], batch)
+        losses.append(float(m["loss"]))
+        walls.append(1e3 * (time.perf_counter() - t0))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{LM_TRAIN_ARCH} fixed batch: losses {losses}"
+                             " (want finite and falling)")
+
+    def two_steps():
+        for _ in range(2):
+            state["s"], mm = step(state["s"], batch)
+        float(mm["loss"])
+    prof = engine_profile(two_steps, 2)
+    split = lm_step_split(cfg, state["s"], batch, step_opt)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    p50 = float(np.median(walls[1:]))
+    # the step's least time: 6 N T operations of forward and backward plus
+    # remat's second forward (2 N T) at the bf16 tensor-core rate, or the
+    # bytes of the Adam update (bf16 weights read and written, bf16
+    # gradients read, fp32 moments read and written) at HBM_BYTES_PER_S
+    t_ops = 8 * n_params * tokens / BF16_OPS_PER_S
+    t_bytes = (2 * 2 + 2 + 4 * 4) * n_params / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    res["a"] = {"launcher_losses": run["losses"],
+                "launcher_step_ms": run["step_ms"],
+                "fixed_losses": losses, "fixed_step_ms": walls,
+                "step_p50_ms": p50, "profile": prof, "peak_gib": peak,
+                "tokens_per_s": 1e3 * tokens / p50, "bound_ms": bound_ms,
+                "params": n_params, "split": split}
+    log(f"time train {LM_TRAIN_ARCH} (full size: {n_params} parameters, "
+        f"bf16, fp32 Adam moments, remat) make_lm_train_step on one "
+        f"[{LM_TRAIN_BATCH}, {LM_TRAIN_SEQ}] batch: losses "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f" (falling); step wall p50 {p50:.3f} ms over steps 2-"
+        f"{LM_FIXED_STEPS} (each " + ", ".join(f"{v:.3f}" for v in walls)
+        + f"), {1e3 * tokens / p50:.1f} tokens/s; profiled step: "
+        f"{prof['kernels_per_step']:.1f} kernels, device busy "
+        f"{prof['device_busy_us_per_step']:.1f} us, idle share "
+        f"{prof['idle_share']:.4f} (wall {prof['wall_us_per_step']:.1f} us "
+        f"under the profiler); peak memory {peak:.3f} GiB above the "
+        f"{base} B held before; bound {bound_ms:.3f} ms (8 N T = "
+        f"{8 * n_params * tokens:.4e} bf16 operations at "
+        f"{BF16_OPS_PER_S:.3e}/s: {1e3 * t_ops:.3f} ms; Adam's "
+        f"{(2 * 2 + 2 + 4 * 4) * n_params} B at {HBM_BYTES_PER_S:.3e} B/s: "
+        f"{1e3 * t_bytes:.3f} ms) [{smi}]")
+    log(f"time train {LM_TRAIN_ARCH} step split (each part synchronised): "
+        f"forward and loss {split['forward_ms']:.3f} ms, backward (remat's "
+        f"second forward in it) {split['backward_ms']:.3f} ms, Adam "
+        f"{split['adam_ms']:.3f} ms; device time of one step: matmul "
+        f"kernels {split['gemm_us']:.1f} us, the rest "
+        f"{split['other_us']:.1f} us; the six largest: "
+        + "; ".join(f"{name} x{n} {us:.1f} us" for name, n, us in
+                    split["top"]) + f" [{smi}]")
+    del state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the card against the CPU, per family, fp32
+    res["b"] = {}
+    for arch, shape in LM_GRAD_FULL.items():
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", **shape)
+        cut = ", ".join(f"{k}={v}" for k, v in shape.items())
+        res["b"][arch] = lm_step_against_cpu(f"{arch} ({cut}, full width)",
+                                             cfg, dev, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in LM_GRAD_REDUCED:
+        cfg = get_config(arch).reduced()
+        res["b"][arch] = lm_step_against_cpu(
+            f"{arch} (reduced: D={cfg.d_model}, {cfg.n_layers} layers)", cfg,
+            dev, smi)
+    rss, rss_peak = host_rss_gib()
+    log(f"train card against CPU: host RSS {rss:.2f} GiB (peak "
+        f"{rss_peak:.2f})")
+
+    # (c) determinism and resume, --reduced
+    res["c"] = {}
+    for arch in (LM_TRAIN_ARCH, "granite-moe-3b-a800m"):
+        args = ["--arch", arch, "--reduced", "--steps", "3", "--batch", "8",
+                "--seq", "128", "--log-every", "1"]
+        a, b = train_main(args)["losses"], train_main(args)["losses"]
+        finite(f"{arch} --reduced", a, 3)
+        if a != b:
+            raise AssertionError(f"{arch} --reduced: two runs of 3 steps "
+                                 f"differ: {a} / {b}")
+        res["c"][arch] = a
+        log(f"train {arch} --reduced: two runs of 3 steps, losses bitwise "
+            f"equal: " + ", ".join(repr(v) for v in a) + f" [{smi}]")
+    base_args = ["--arch", LM_TRAIN_ARCH, "--reduced", "--batch", "8",
+                 "--seq", "128", "--log-every", "1"]
+    whole = train_main(base_args + ["--steps", "6"])["losses"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = ["--ckpt-dir", tmp, "--ckpt-every", "4"]
+        first = train_main(base_args + ["--steps", "4"] + ck)
+        resumed = train_main(base_args + ["--steps", "6"] + ck)
+    if (first["losses"] != whole[:4] or resumed["start"] != 4
+            or resumed["losses"] != whole[4:]):
+        raise AssertionError(f"resume: uninterrupted {whole}, stopped at 4 "
+                             f"{first['losses']}, resumed from "
+                             f"{resumed['start']} {resumed['losses']}")
+    log(f"train {LM_TRAIN_ARCH} --reduced resume: stopped at step 4 by its "
+        f"checkpoint, resumed to 6; steps 5-6 "
+        + ", ".join(repr(v) for v in resumed["losses"])
+        + f" bitwise those of an uninterrupted run [{smi}]")
+
+    n = {k: v for k, v in ops.launch_counts().items() if v}
+    if n:
+        raise AssertionError(f"phase 5h launched hand-written kernels {n}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 5h took {res['seconds']:.1f} s; no hand-written kernel "
+        f"launched")
+    return res
+
+
 def main() -> int:
     import functools
 
@@ -3674,6 +4105,9 @@ def main() -> int:
 
     # -- 5g. the rest of the LM zoo: MLA, MoE, cross-attention ------------
     zoo_phase(dev, smi)
+
+    # -- 5h. LM training --------------------------------------------------
+    lm_train_phase(dev, smi)
 
     # -- 6. times on the card ---------------------------------------------
     ops.reset_launch_counts()

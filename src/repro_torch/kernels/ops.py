@@ -59,6 +59,18 @@ def launches_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {dev}")
 
 
+def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise before a launch that autograd would record: a kernel has no
+    backward, and its ``torch.empty`` outputs carry no ``grad_fn``, so a
+    gradient through it would be lost without a word. Callers that train
+    through the function call its plain version (``*_ref``) by name."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: it is called on operands that require "
+            "grad with grad mode on; call its plain version by name to "
+            "differentiate through it")
+
+
 # Streaming multiprocessors of an H100 SXM, for the launch plans.
 H100_SMS = 132
 

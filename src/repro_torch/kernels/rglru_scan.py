@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ops import (H100_SMS, RGLRU_SCAN_F32, aligned16,
-                                     cuda_stream, launches_kernel, require)
+                                     cuda_stream, launches_kernel,
+                                     refuse_autograd, require)
 
 # Constants of csrc/rglru_scan.cu the plan mirrors.
 RGLRU_VEC = 4                         # channels a thread owns: kVec
@@ -86,10 +87,13 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor,
                h0: torch.Tensor | None = None):
     """RG-LRU over ``x, a: [B, T, D]`` (gated input, decay in (0, 1)) from
     ``h0: [B, D]`` (zeros if None). Returns ``(h_seq: [B, T, D], h_T:
-    [B, D])``."""
+    [B, D])``. The kernel has no backward: on operands that require grad,
+    with grad mode on, a CUDA call raises (call
+    :func:`rglru_scan_batched_ref` to differentiate)."""
     operands = [t for t in (x, a, h0) if t is not None]
     if not launches_kernel(*operands):
         return rglru_scan_batched_ref(x, a, h0)
+    refuse_autograd("rglru_scan", *operands)
     return _launch(x, a, h0)
 
 

@@ -32,7 +32,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ops import (H100_SMS, RWKV6_SCAN_BF16,
                                      RWKV6_SCAN_F32, aligned16, cuda_stream,
-                                     launches_kernel, require)
+                                     launches_kernel, refuse_autograd,
+                                     require)
 
 HEAD_DIM = 64                  # the only head size the kernel takes: kD
 # Constants of csrc/rwkv6_scan.cu the plan mirrors.
@@ -101,10 +102,14 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """WKV6 over ``r, k, v, w: [B, H, T, D]`` with bonus ``u: [H, D]`` and
     initial state ``s0: [B, H, D, D]`` (zeros if None); ``w`` is the decay
     factor in (0, 1). ``r, k, v`` are fp32 or bf16, everything else fp32.
-    Returns ``(y: [B, H, T, D], s_T: [B, H, D, D])``, both fp32."""
+    Returns ``(y: [B, H, T, D], s_T: [B, H, D, D])``, both fp32. The
+    kernel has no backward: on operands that require grad, with grad mode
+    on, a CUDA call raises (call :func:`rwkv6_scan_batched_ref` to
+    differentiate)."""
     operands = [t for t in (r, k, v, w, u, s0) if t is not None]
     if not launches_kernel(*operands):
         return rwkv6_scan_batched_ref(r, k, v, w, u, s0)
+    refuse_autograd("rwkv6_scan", *operands)
     return _launch(r, k, v, w, u, s0)
 
 

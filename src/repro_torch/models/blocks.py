@@ -22,10 +22,28 @@ written in place: :func:`apply_blocks` returns the stacked caches it was
 given, holding the new state. A ``cross`` block's cache is ``{"ck", "cv",
 "self"}``: the cross stream's keys and values, written at prefill and read
 by every decode step, and the self-attention ring.
+
+The scans of the ``rwkv`` and ``rglru`` blocks: :func:`apply_block` picks
+the version by name. Where autograd would record the scan (grad mode on,
+and the block's input or one of its parameters requires grad: a train
+step), it calls the plain, differentiable scan, as the reference's blocks
+do (``use_kernel=False``, a ``lax.scan`` that ``jax.value_and_grad``
+differentiates); everywhere else (serving, with or without grad mode) it
+calls :mod:`repro_torch.kernels.ops`' scan, the CUDA kernel on a CUDA
+device. This is a choice made before the call, not a fallback: a kernel
+that fails still raises, and the kernel itself refuses operands that
+require grad.
+
+In ``train`` mode with ``cfg.remat == "full"`` and grad mode on,
+:func:`apply_blocks` runs each period's body under
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+reference's ``jax.checkpoint`` on its scan body: the period's activations
+are recomputed in the backward instead of kept.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -217,18 +235,30 @@ def _cross_attn(params: dict, h: torch.Tensor, cfg: ModelConfig, mode: str,
     return y, ck.to(cache["ck"].dtype), cv.to(cache["cv"].dtype)
 
 
+def _records_grad(params: dict, x: torch.Tensor) -> bool:
+    """True when autograd would record a function of ``x`` and ``params``:
+    grad mode is on and ``x`` or a parameter leaf requires grad."""
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for t in tree_leaves(params)))
+
+
 def apply_block(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
                 mode: str, cache, cross_kv: torch.Tensor | None = None):
     """Returns ``(x, new_cache, aux_loss)``; the new cache is ``None`` in
     ``train`` mode. ``cross_kv`` is the modality stream a ``cross`` block
     attends to in ``train`` and ``prefill`` (without it, in ``train``, the
     block's cross-attention attends to ``x`` itself, as the reference's
-    does)."""
+    does). An ``rwkv`` or ``rglru`` block calls the plain scan where
+    autograd would record it, and the kernel's entry otherwise (the module
+    docstring)."""
+    use_kernel = (kind in ("rwkv", "rglru")
+                  and not _records_grad(params, x))
     if kind == "rwkv":
         st = cache if cache is not None else init_rwkv_state(
             x.shape[0], cfg.d_model, x.dtype, x.device)
         h = apply_norm(cfg.norm, params["norm1"], x)
-        y, tm_shift, wkv = rwkv_time_mix(params["time_mix"], h, st)
+        y, tm_shift, wkv = rwkv_time_mix(params["time_mix"], h, st,
+                                         use_kernel=use_kernel)
         x = x + y
         h = apply_norm(cfg.norm, params["norm2"], x)
         y, cm_shift = rwkv_channel_mix(params["channel_mix"], h, st.cm_shift)
@@ -240,7 +270,8 @@ def apply_block(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
         if mode == "decode":
             y, new = rglru_block_decode(params["rglru"], h, cache)
         else:
-            y, new = rglru_block_apply(params["rglru"], h, cache)
+            y, new = rglru_block_apply(params["rglru"], h, cache,
+                                       use_kernel=use_kernel)
         new = None if mode == "train" else new
     elif kind == "cross":
         y, sa = _self_attn(params, h, cfg, "attn", mode,
@@ -309,24 +340,49 @@ def _write_back(dst, new) -> None:
             d.copy_(n)
 
 
+def _periods(stacked, count: int) -> list:
+    """The ``count`` periods of a stacked parameter tree, as views. Taken
+    with one ``unbind`` a leaf: under autograd its backward stacks the
+    periods' gradients once, where indexing each period would add a
+    zero-padded gradient of the whole stacked leaf a period."""
+    split = [t.unbind(0) for t in tree_leaves(stacked)]
+    periods = []
+    for i in range(count):
+        it = iter([s[i] for s in split])
+        periods.append(tree_map(lambda _: next(it), stacked))
+    return periods
+
+
 def apply_blocks(entries: list, x: torch.Tensor, cfg: ModelConfig, mode: str,
                  caches: list | None = None,
                  cross_kv: torch.Tensor | None = None, schedule=None):
     """Run the whole schedule. Returns ``(x, caches, total_aux)``: the
-    caches given, written in place (``None`` without caches)."""
+    caches given, written in place (``None`` without caches). In ``train``
+    mode with ``cfg.remat == "full"`` and grad mode on, each period runs
+    under ``torch.utils.checkpoint`` (the module docstring)."""
     schedule = schedule or make_schedule(cfg)
+    remat = (mode == "train" and cfg.remat == "full"
+             and torch.is_grad_enabled())
     total_aux = 0.0
     for e, ((pattern, count), params_stacked) in enumerate(
             zip(schedule, entries)):
         cache_stacked = caches[e] if caches is not None else None
-        for i in range(count):
-            p = tree_map(lambda t: t[i], params_stacked)
-            c = tree_map(lambda t: t[i], cache_stacked)
+
+        def period(x, aux, p, c):
             for j, kind in enumerate(pattern):
                 sub_c = c[f"sub{j}"] if c is not None else None
-                x, new_c, aux = apply_block(kind, p[f"sub{j}"], x, cfg, mode,
-                                            sub_c, cross_kv)
+                x, new_c, a = apply_block(kind, p[f"sub{j}"], x, cfg, mode,
+                                          sub_c, cross_kv)
                 if sub_c is not None:
                     _write_back(sub_c, new_c)
-                total_aux = total_aux + aux
+                aux = aux + a
+            return x, aux
+
+        for i, p in enumerate(_periods(params_stacked, count)):
+            c = tree_map(lambda t: t[i], cache_stacked)
+            if remat:
+                x, total_aux = checkpoint(period, x, total_aux, p, c,
+                                          use_reentrant=False)
+            else:
+                x, total_aux = period(x, total_aux, p, c)
     return x, caches, total_aux

@@ -3,8 +3,13 @@ the PyTorch port of :mod:`repro.models.rglru`.
 
 The recurrence over a sequence runs through
 :func:`repro_torch.kernels.ops.rglru_scan` (the CUDA kernel on a CUDA
-device, its plain version on the CPU); callers who want the log-depth form
-call :func:`repro_torch.kernels.ref.rglru_assoc_ref` themselves.
+device, its plain version on the CPU) when :func:`rglru_block_apply` is
+asked for the kernel, and through the plain version
+:func:`repro_torch.kernels.rglru_scan.rglru_scan_batched_ref`, by name,
+otherwise (the default, as the reference's ``use_kernel=False``): the
+kernel has no backward, so a differentiated call takes the plain scan.
+Callers who want the log-depth form call
+:func:`repro_torch.kernels.ref.rglru_assoc_ref` themselves.
 
 The gate expressions live in :mod:`repro_torch.core.deltarglru`, so the
 delta decode and :func:`rglru_block_decode` share one set of ops: that is
@@ -18,6 +23,7 @@ import torch
 
 from repro_torch.core.deltarglru import _C, CONV_WIDTH, gelu, rglru_gates
 from repro_torch.kernels import ops
+from repro_torch.kernels.rglru_scan import rglru_scan_batched_ref
 from repro_torch.models.common import dense_init
 
 
@@ -81,16 +87,22 @@ def _gates(params: dict, u: torch.Tensor):
 
 
 def rglru_block_apply(params: dict, x: torch.Tensor,
-                      state: RglruState | None = None):
+                      state: RglruState | None = None,
+                      use_kernel: bool = False):
     """Full-sequence recurrent block. ``x: [B, T, D]`` -> ``([B, T, D],
-    state)``."""
+    state)``. ``use_kernel=True`` runs the recurrence through
+    :func:`repro_torch.kernels.ops.rglru_scan` (the kernel on a CUDA
+    device, which refuses operands autograd would record);
+    ``use_kernel=False`` calls the plain, differentiable
+    :func:`rglru_scan_batched_ref` on any device."""
     gate = gelu(x @ params["w_in_gate"])
     u = x @ params["w_in"]
     hist = state.conv if state is not None else None
     u, new_hist = _causal_conv(u, params["conv_w"], params["conv_b"], hist)
     a, gated = _gates(params, u)
     h0 = state.h if state is not None else None
-    hs, h_t = ops.rglru_scan(gated, a, h0)
+    scan = ops.rglru_scan if use_kernel else rglru_scan_batched_ref
+    hs, h_t = scan(gated, a, h0)
     y = (hs.to(x.dtype) * gate) @ params["w_out"]
     return y, RglruState(h=h_t, conv=new_hist)
 

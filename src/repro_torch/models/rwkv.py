@@ -4,8 +4,13 @@ channel-mix, the PyTorch port of :mod:`repro.models.rwkv`.
 RWKV is attention-free: decode carries an O(D²/head) state instead of a KV
 cache. The WKV recurrence runs through
 :func:`repro_torch.kernels.ops.rwkv6_scan` (the CUDA kernel on a CUDA
-device, its plain version on the CPU); callers who want the chunk-parallel
-form call :func:`repro_torch.kernels.ops.rwkv6_chunked` themselves.
+device, its plain version on the CPU) when :func:`rwkv_time_mix` is asked
+for the kernel, and through the plain version
+:func:`repro_torch.kernels.rwkv6_scan.rwkv6_scan_batched_ref`, by name,
+otherwise (the default, as the reference's ``use_kernel=False``): the
+kernel has no backward, so a differentiated call takes the plain scan.
+Callers who want the chunk-parallel form call
+:func:`repro_torch.kernels.ops.rwkv6_chunked` themselves.
 
 The time-mix expressions live in :mod:`repro_torch.core.deltarwkv`, so the
 delta decode and this path share one set of ops: that is what makes the
@@ -21,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.core.deltarwkv import (DECAY_LORA, HEAD_DIM, TSHIFT_LORA,
                                         group_norm_heads, mix_streams)
 from repro_torch.kernels import ops
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_batched_ref
 from repro_torch.models.common import dense_init
 
 
@@ -93,8 +99,15 @@ def _token_shift(x: torch.Tensor, last: torch.Tensor):
     return prev - x, x[:, -1]
 
 
-def rwkv_time_mix(params: dict, x: torch.Tensor, state: RwkvState):
-    """``x: [B, T, D]`` -> ``(y, new_tm_shift, new_wkv_state)``."""
+def rwkv_time_mix(params: dict, x: torch.Tensor, state: RwkvState,
+                  use_kernel: bool = False):
+    """``x: [B, T, D]`` -> ``(y, new_tm_shift, new_wkv_state)``.
+
+    ``use_kernel=True`` runs the WKV recurrence through
+    :func:`repro_torch.kernels.ops.rwkv6_scan` (the kernel on a CUDA
+    device, which refuses operands autograd would record);
+    ``use_kernel=False`` calls the plain, differentiable
+    :func:`rwkv6_scan_batched_ref` on any device."""
     b, t, d = x.shape
     h = d // HEAD_DIM
     xx, new_last = _token_shift(x, state.tm_shift)
@@ -117,8 +130,8 @@ def rwkv_time_mix(params: dict, x: torch.Tensor, state: RwkvState):
     def tr(z):                      # [B, T, H, D] -> [B, H, T, D]
         return torch.movedim(z, 2, 1)
 
-    y, wkv_t = ops.rwkv6_scan(tr(r), tr(k), tr(v), tr(w), params["bonus_u"],
-                              state.wkv)
+    scan = ops.rwkv6_scan if use_kernel else rwkv6_scan_batched_ref
+    y, wkv_t = scan(tr(r), tr(k), tr(v), tr(w), params["bonus_u"], state.wkv)
     y = torch.movedim(y, 1, 2)                                      # [B,T,H,D]
     y = group_norm_heads(y.to(torch.float32),
                          params["ln_scale"].to(torch.float32))

@@ -113,7 +113,10 @@ def clip_by_global_norm(grads, max_norm: float):
     # a true division: ``max_norm / tensor`` multiplies by a reciprocal
     scale = torch.clamp(torch.full_like(norm, max_norm) / (norm + 1e-9),
                         max=1.0)
-    return tree_map(lambda g: g * scale, grads), norm
+    # JAX promotes a bf16 gradient times the fp32 scale to fp32; PyTorch
+    # would keep a 0-d operand from promoting and round the product to bf16
+    return tree_map(lambda g: g.to(torch.promote_types(g.dtype, scale.dtype))
+                    * scale, grads), norm
 
 
 @torch.no_grad()

@@ -1,12 +1,19 @@
-"""The paper's train step and the training loop, the PyTorch port of the
-GRU part of :mod:`repro.train.trainer`.
+"""Train-step factories and the training loop, the PyTorch port of
+:mod:`repro.train.trainer`.
 
-``make_gru_train_step`` builds the paper's CTC / regression step with QAT:
-the forward of :func:`repro_torch.models.gru_rnn.gru_model_forward` on the
-``dense`` backend, gradients by autograd's ``backward`` (the JAX package's
+``make_lm_train_step`` builds the step of any registry arch (cross-entropy
+plus the MoE aux loss, AdamW with global-norm clipping, an optional
+gradient transform for compression, microbatch accumulation);
+``make_gru_train_step`` builds the paper's CTC / regression step with QAT.
+Both are functional over the parameter trees: the forward (of
+:func:`repro_torch.models.lm.lm_forward`, or of
+:func:`repro_torch.models.gru_rnn.gru_model_forward` on the ``dense``
+backend), gradients by autograd's ``backward`` (the JAX package's
 ``jax.value_and_grad``), then :func:`repro_torch.train.optim.adam_update`.
-The step runs eagerly, one PyTorch op at a time, on the device of the
-parameters. The loop handles checkpoint cadence and metric logging.
+A step runs eagerly, one PyTorch op at a time, on the device of the
+parameters. Under autograd the LM blocks run the plain scans
+(:mod:`repro_torch.models.blocks`): the scan kernels have no backward. The
+loop handles checkpoint cadence and metric logging.
 """
 from __future__ import annotations
 
@@ -16,11 +23,13 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.gru_rnn import GruTaskConfig, gru_model_forward
+from repro_torch.models.lm import lm_forward
 from repro_torch.quant.qat import FP32, QatPolicy
-from repro_torch.train.losses import ctc_loss_mean, mse_loss
+from repro_torch.train.losses import ctc_loss_mean, lm_loss, mse_loss
 from repro_torch.train.optim import (AdamConfig, adam_update,
-                                     init_adam_state, tree_map)
+                                     init_adam_state, tree_leaves, tree_map)
 
 
 class TrainState(NamedTuple):
@@ -34,6 +43,117 @@ class TrainState(NamedTuple):
 
 def init_train_state(params, opt_cfg: AdamConfig | None = None) -> TrainState:
     return TrainState(params=params, opt=init_adam_state(params))
+
+
+def _grads(live, what: str):
+    """The gradients of ``live`` (leaves that required grad) after
+    ``backward``. A leaf without one, cut off from the loss, raises: a
+    zero in its place would hide the cut."""
+    missing = sum(p.grad is None for p in tree_leaves(live))
+    if missing:
+        raise RuntimeError(f"{what}: {missing} parameter leaves got no "
+                           "gradient (cut off from the loss)")
+    return tree_map(lambda p: p.grad, live)
+
+
+def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
+                          aux_weight: float = 0.01,
+                          grad_transform: Callable | None = None,
+                          grad_accum: int = 1,
+                          accum_rules=None):
+    """``step(state, batch) -> (state, metrics)`` for any registry arch.
+
+    ``batch``: dict with ``tokens [B, S]`` (+ ``image_embeds`` /
+    ``audio_frames`` for the VLM / the encoder-decoder), on the
+    parameters' device. The loss is ``lm_loss`` (next-token cross-entropy
+    with a z-loss) plus ``aux_weight`` times the MoE aux loss. Metrics are
+    0-d tensors on that device: ``loss``, ``ce``, ``accuracy``,
+    ``tokens``, ``aux``, ``grad_norm`` (with clipping) and ``lr``.
+
+    ``grad_accum > 1`` loops over that many microbatches (the batch dim
+    must divide), accumulating the gradients in fp32, then divides by
+    ``grad_accum`` and averages the metrics, as the reference's
+    ``lax.scan`` does: the live activations scale with the microbatch.
+    ``accum_rules`` (the reference's ZeRO-1 accumulator sharded on a mesh)
+    raises ``NotImplementedError``: the port has no mesh paths yet
+    (``ROADMAP.md`` Queue 1 item 5e).
+
+    Every parameter leaf must get a gradient from autograd: a leaf that
+    does not (``None``, cut off from the loss) raises (``jax.grad`` would
+    give it zeros); no arch of the registry has one."""
+    if accum_rules is not None:
+        raise NotImplementedError(
+            "accum_rules shards the gradient accumulator over a mesh; the "
+            "port has no mesh paths yet (ROADMAP.md Queue 1 item 5e)")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+
+    def loss_fn(params, batch):
+        logits, aux = lm_forward(
+            params, cfg, batch["tokens"],
+            image_embeds=batch.get("image_embeds"),
+            audio_frames=batch.get("audio_frames"))
+        loss, metrics = lm_loss(logits, batch["tokens"])
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+        total = loss + aux_weight * aux
+        metrics["aux"] = aux
+        metrics["loss"] = total
+        return total, metrics
+
+    def value_and_grad(params, batch):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        total, metrics = loss_fn(live, batch)
+        total.backward()
+        return (_grads(live, cfg.name),
+                {k: v.detach() for k, v in metrics.items()})
+
+    def compute_grads(params, batch):
+        if grad_accum == 1:
+            return value_and_grad(params, batch)
+        b = batch["tokens"].shape[0]
+        if b % grad_accum:
+            raise ValueError(f"a batch of {b} does not split into "
+                             f"{grad_accum} microbatches")
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                             device=p.device), params)
+        per_mb = []
+        for m in range(grad_accum):
+            micro = {k: v.reshape(grad_accum, b // grad_accum,
+                                  *v.shape[1:])[m] for k, v in batch.items()}
+            grads, metrics = value_and_grad(params, micro)
+            tree_map(lambda a, g: a.add_(g.to(torch.float32)), acc, grads)
+            per_mb.append(metrics)
+            del grads
+        grads = tree_map(lambda a: a / grad_accum, acc)
+        metrics = {k: torch.mean(torch.stack([m[k] for m in per_mb]))
+                   for k in per_mb[0]}
+        return grads, metrics
+
+    def step(state: TrainState, batch):
+        grads, metrics = compute_grads(state.params, batch)
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        params, opt, opt_metrics = adam_update(grads, state.opt,
+                                               state.params, opt_cfg)
+        metrics.update(opt_metrics)
+        return TrainState(params, opt), metrics
+
+    return step
+
+
+def make_lm_train_step(cfg: ModelConfig, opt_cfg: AdamConfig,
+                       aux_weight: float = 0.01,
+                       grad_transform: Callable | None = None,
+                       donate: bool = True):
+    """:func:`make_lm_train_step_fn` with one microbatch, the reference's
+    jitted convenience wrapper. ``donate`` is the reference's donation of
+    the old state to the step: the caller hands the state over and must
+    not read it after the call. The eager step writes a new state and
+    reuses no tensor of the old one, so the flag changes no computation;
+    the old state's memory goes when the caller drops it (as the launcher
+    does, rebinding ``state``)."""
+    del donate
+    return make_lm_train_step_fn(cfg, opt_cfg, aux_weight, grad_transform)
 
 
 def make_gru_train_step(task: GruTaskConfig, opt_cfg: AdamConfig,
@@ -60,8 +180,7 @@ def make_gru_train_step(task: GruTaskConfig, opt_cfg: AdamConfig,
                           state.params)
         loss, metrics = loss_fn(params, batch)
         loss.backward()
-        grads = tree_map(lambda p: p.grad if p.grad is not None
-                         else torch.zeros_like(p), params)
+        grads = _grads(params, "the GRU step")
         metrics = {k: v.detach() for k, v in metrics.items()}
         new_params, opt, opt_metrics = adam_update(grads, state.opt,
                                                    state.params, opt_cfg)

@@ -19,11 +19,13 @@ from repro_torch.core.delta_dense import init_delta_linear_state
 from repro_torch.core.deltarglru import init_deltarglru_model
 from repro_torch.core.deltarwkv import init_deltarwkv_model
 from repro_torch.core.program import compile_delta_program
+from repro_torch.data.lm_data import lm_batch
 from repro_torch.data.synthetic import digit_batch, gas_batch
 from repro_torch.dist.elastic import best_mesh
 from repro_torch.dist.serving import ShardedStreamFleet
 from repro_torch.kernels import _build, ops
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.kernels.delta_q8 import deltagru_q8_step, pack_delta_weights_q8
 from repro_torch.kernels.deltagru_seq import deltagru_seq_step, pack_gru_layer
 from repro_torch.models.gru_rnn import (GruTaskConfig, init_gru_model,
@@ -66,7 +68,9 @@ def test_the_scan_covers_every_port_module_and_kernel_source():
                 "configs/llama3_2_vision_11b.py",
                 "configs/seamless_m4t_large_v2.py", "launch/__init__.py",
                 "launch/serve.py", "core/__init__.py", "quant/__init__.py",
-                "models/__init__.py", "models/mla.py", "models/moe.py"):
+                "models/__init__.py", "models/mla.py", "models/moe.py",
+                "launch/train.py", "data/lm_data.py", "data/pipeline.py",
+                "data/__init__.py", "train/__init__.py"):
         assert mod in names, mod
     assert sorted(_build.SOURCES) == sorted(
         p.name for p in (PORT / "csrc").glob("*.cu"))
@@ -128,6 +132,11 @@ def test_package_reexports_import_with_jax_and_repro_blocked():
     want["models"] = ["init_lm", "init_lm_caches", "lm_forward",
                       "lm_prefill", "lm_decode", "lm_params_from_numpy",
                       "KVCache", "MlaCache", "make_schedule"]
+    want["data"] = ["lm_batch", "lm_batch_stream", "token_batch",
+                    "Prefetcher"]
+    want["train"] = ["make_lm_train_step", "make_lm_train_step_fn",
+                     "make_gru_train_step", "init_train_state", "TrainState",
+                     "train_loop", "LoopHooks"]
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -164,7 +173,7 @@ def _np_tree(model):
     "reduced_delta_recipe", "init_delta_linear_state", "checkpoint_restore",
     "serve_resumable", "digit_batch", "gas_batch", "best_mesh",
     "ShardedStreamFleet", "init_lm", "init_lm_caches", "LmEngine",
-    "launch_serve", "lm_params_from_numpy"])
+    "launch_serve", "lm_params_from_numpy", "lm_batch", "launch_train"])
 def test_default_device_without_cuda_raises(entry, monkeypatch, tmp_path):
     model = _small_model()
     cfg = GruTaskConfig(40, 48, 2, 12)
@@ -213,6 +222,9 @@ def test_default_device_without_cuda_raises(entry, monkeypatch, tmp_path):
             ["--arch", "llama3.2-1b", "--reduced"]),
         "lm_params_from_numpy": lambda: lm_params_from_numpy(
             {"w": np.zeros(2, np.float32)}),
+        "lm_batch": lambda: lm_batch(0, zoo_cfg, 2, 8),
+        "launch_train": lambda: launch_train.main(
+            ["--arch", "llama3.2-1b", "--reduced", "--steps", "1"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
