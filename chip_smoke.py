@@ -178,6 +178,22 @@ traceback and a non-zero exit):
    losses bitwise equal, and a run stopped at step 4 by its checkpoint
    and resumed to 6 bitwise an uninterrupted run's steps 5-6. The blocks
    run the plain scans under autograd: no hand-written kernel launches;
+5i. the mesh paths (``mesh_phase``) on a (4, 2) mesh over the card listed
+   8 times (``best_mesh(devices=[card] * 8, model_parallel=2)``): (a) the
+   expert-parallel forward of granite-moe-3b-a800m and
+   deepseek-v2-lite-16b at full width, 2 layers, fp32, against the CPU
+   under its mesh and against the sorted path within ``TOL_LM`` (choices
+   replayed, flips within ``ROUTE_MARGIN_F32``), and granite at full size
+   in bf16 once beside the sorted path; (b) llama3.2-1b's train step at
+   full size under the mesh (``grad_accum=2``, the ZeRO-1
+   ``accum_rules``, the one-hot embedding): loss bitwise the step without
+   a mesh, gradients within ``TOL_LM_TRAIN_GRAD``, parameters within
+   Adam's first-step bound; timed steps; (c) a granite mesh step against
+   the CPU, every fed expert with a nonzero gradient; (d)
+   ``pipeline_forward`` over 4 stages bitwise the stages applied in turn
+   and within ``TOL_F32`` of the CPU; (e) ``--model-parallel 2`` bitwise
+   ``--model-parallel 1`` and ``prefetch_to_mesh``'s spec; no
+   hand-written kernel launches;
 6. times on the card: each kernel instance at B = 1 and its plain version
    (device time from CUDA-graph replay between CUDA events, also with the
    L2 flushed before each call, and the kernel's time per call launched
@@ -229,7 +245,7 @@ at the LM path's shapes.
 The line before the last is ``{"kernels": [...]}`` (every kernel instance;
 the ``launches`` of a main-path instance are those of phases 5, 5b, 5c, 5d,
 5e and 5f (the fabric's runs add to the int8 and fp32 GRU kernels', 5f to
-the scans'; 5g and 5h launch none), each run counted from zero; those of an
+the scans'; 5g, 5h and 5i launch none), each run counted from zero; those of an
 instance on no main path, a buffered one, ``delta_spmv_bf16`` or
 ``deltagru_act``, are those of phases 3 and 6, and its ``path`` names the
 entry that reaches it); the last line is ``{"ok": true, "device": {...}}``.
@@ -1957,38 +1973,47 @@ def lm_build(cfg, dev, base: dict):
 
 
 class RouteLog:
-    """Within a ``with``: every MoE router call of the port
-    (``moe._route``, which ``moe_apply`` reaches through the module) keeps
-    its top-k choice in ``calls``. With ``replay`` (a list of ``[T, K]``
-    choices, one a call in order, from another run of the same tokens)
-    the calls take those choices instead, their gates renormalized from
-    their own probabilities, so the two runs' hidden states stay
-    comparable; :meth:`flips` then counts the tokens whose own choice
-    differed."""
+    """Within a ``with``: every MoE router call of the port (``moe._route``,
+    which ``moe_apply`` reaches through the module, and
+    ``moe_ep._route_local``, one a data shard of the expert-parallel
+    dispatch) keeps its top-k choice in ``calls``. With ``replay`` (a list
+    of ``[T, K]`` choices, one a call in order, from another run of the
+    same tokens) the calls take those choices instead, their gates
+    renormalized from their own probabilities, so the two runs' hidden
+    states stay comparable; :meth:`flips` then counts the tokens whose own
+    choice differed."""
 
     def __init__(self, replay=None):
         self.calls, self.replay, self.own = [], replay, []
 
     def __enter__(self):
         import torch
-        from repro_torch.models import moe
-        self.mod, self.orig = moe, moe._route
+        from repro_torch.models import moe, moe_ep
+        self.patched = [(moe, "_route", moe._route),
+                        (moe_ep, "_route_local", moe_ep._route_local)]
 
-        def route(params, xt, top_k):
-            vals, idx, aux = self.orig(params, xt, top_k)
-            if self.replay is not None:
-                probs = torch.softmax(xt.float() @ params["router"], dim=-1)
-                self.own.append((probs, idx))
-                idx = self.replay[len(self.calls)].to(idx.device)
-                vals = probs.gather(1, idx)
-                vals = vals / (vals.sum(-1, keepdim=True) + 1e-9)
-            self.calls.append(idx)
-            return vals, idx, aux
-        moe._route = route
+        def wrap(orig, router_of):
+            def route(*args):
+                out = orig(*args)
+                vals, idx = out[0], out[1]
+                if self.replay is not None:
+                    router_w, xt = router_of(args)
+                    probs = torch.softmax(xt.float() @ router_w, dim=-1)
+                    self.own.append((probs, idx))
+                    idx = self.replay[len(self.calls)].to(idx.device)
+                    vals = probs.gather(1, idx)
+                    vals = vals / (vals.sum(-1, keepdim=True) + 1e-9)
+                self.calls.append(idx)
+                return (vals, idx) + tuple(out[2:])
+            return route
+        moe._route = wrap(moe._route, lambda a: (a[0]["router"], a[1]))
+        moe_ep._route_local = wrap(moe_ep._route_local,
+                                   lambda a: (a[0], a[1]))
         return self
 
     def __exit__(self, *exc):
-        self.mod._route = self.orig
+        for mod, name, orig in self.patched:
+            setattr(mod, name, orig)
 
     def flips(self) -> tuple:
         """Tokens whose own top-k set differed from the replayed one, and
@@ -2067,6 +2092,20 @@ def lm_forced(params, cfg, dev, rng, what, tol=TOL_LM_BF16_RMS,
     return {"err": max(errs), "flips": n, "gap": gap}
 
 
+def host_syncs(fn) -> int:
+    """Host synchronisations (each a wait for the card) while ``fn()``
+    runs, counted by ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def lm_timed(name, cfg, params, init_s, t_prompt, dev, rng, base, smi,
              extra="", modality=None) -> dict:
     """Prefill ms at [4, t_prompt] (median of 3 after a warm one, the last
@@ -2101,16 +2140,7 @@ def lm_timed(name, cfg, params, init_s, t_prompt, dev, rng, base, smi,
     cur = new[:, -1:]
     prof = engine_profile(lambda: [eng.decode_step(cur)
                                    for _ in range(5)], 5)
-    # host synchronisations of one decode step (each a wait for the card)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            eng.decode_step(cur)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    prof["syncs_per_step"] = sum("synchroniz" in str(w.message)
-                                 for w in caught)
+    prof["syncs_per_step"] = host_syncs(lambda: eng.decode_step(cur))
     out = {"init_s": init_s, "prefill_ms": float(np.median(pre[1:])),
            "tokens": new,
            "decode_p50_ms": float(np.percentile(dec, 50)),
@@ -2781,21 +2811,61 @@ def adam_first_step_excess(p, cp, cg, delta, scale, lr, eps=1e-8) -> float:
     u = upd(g)
     reach = torch.maximum((upd(g + delta) - u).abs(), (upd(g - delta) - u).abs())
     a = cp.abs()
-    ulp = (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).double()
+    if a.dtype == torch.bfloat16:        # the next bf16 up, by its bits
+        ulp = (a.view(torch.int16) + 1).view(torch.bfloat16).double() - (
+            a.double())
+    else:
+        ulp = (torch.nextafter(a, torch.full_like(a, float("inf")))
+               - a).double()
     return float(((p.double() - cp.double()).abs() - lr * (reach + 8 * 2.0 ** -24)
                   - ulp).max())
 
 
-def lm_step_against_cpu(what, cfg, dev, smi) -> dict:
+def steps_apart(grads, ref_grads, params, ref_params, ref_grad_norm, tol,
+                lr, dev, scan_leaves=()) -> tuple:
+    """Two Adam first steps from the same state, leaf by leaf on ``dev``:
+    the largest gradient error as a share of the reference leaf's largest
+    (and its leaf), the most by which a parameter exceeds Adam's
+    first-step bound of ``tol`` (``adam_first_step_excess``; negative
+    within it), and the ``scan_leaves`` whose gradient is zero."""
+    from repro_torch.ft.checkpoint import tree_paths
+    scale = min(1.0, 1.0 / (ref_grad_norm + 1e-9))
+    grad_err, worst, excess, zero = 0.0, "none", -float("inf"), []
+    for (path, g), (_, cg), (_, p), (_, cp) in zip(
+            tree_paths(grads), tree_paths(ref_grads), tree_paths(params),
+            tree_paths(ref_params)):
+        cg, cp = cg.to(dev), cp.to(dev)
+        top = float(cg.abs().max())
+        diff = float((g - cg).abs().max())
+        err = diff / top if top else (0.0 if diff == 0 else float("inf"))
+        if err > grad_err:
+            grad_err, worst = err, path
+        if any(path.endswith(leaf) for leaf in scan_leaves) and not float(
+                g.abs().max()) > 0:
+            zero.append(path)
+        excess = max(excess, adam_first_step_excess(p, cp, cg, tol * top,
+                                                    scale, lr))
+    return grad_err, worst, excess, zero
+
+
+def lm_step_against_cpu(what, cfg, dev, smi, meshes=None,
+                        shape=(LM_GRAD_BATCH, LM_GRAD_SEQ),
+                        on_card=None) -> dict:
     """(b) for one config: seeded ``init_lm`` on the card, copied to the
-    CPU; one batch ``[2, 32]`` (``lm_batch``) on both; one
+    CPU; one batch ``shape`` (``lm_batch``, default [2, 32]) on both; one
     ``make_lm_train_step`` step on each, its gradients kept by a
     ``grad_transform`` that returns them unchanged; the card's MoE choices
     replayed on the CPU (flips within ``ROUTE_MARGIN_F32``). Compared on
-    the card, leaf by leaf."""
+    the card, leaf by leaf. ``meshes``: a (card mesh, CPU mesh) pair the
+    two steps run under (``use_mesh`` with ``AxisRules()``, the batch put
+    by ``shard_batch``); ``on_card(grads, route_calls)`` sees the card's
+    gradients and router choices."""
+    import contextlib
+
     import torch
     from repro_torch.data.lm_data import lm_batch
-    from repro_torch.ft.checkpoint import tree_paths
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.dist.sharding import AxisRules, use_mesh
     from repro_torch.models.common import count_params, tree_map
     from repro_torch.models.lm import init_lm
     from repro_torch.train.optim import AdamConfig, constant_schedule
@@ -2809,9 +2879,16 @@ def lm_step_against_cpu(what, cfg, dev, smi) -> dict:
     params = init_lm(SEED, cfg, device=dev)
     n_params = count_params(params)
     cpu_params = tree_map(lambda t: t.to(cpu), params)
-    batch = lm_batch((SEED, 5), cfg, LM_GRAD_BATCH, LM_GRAD_SEQ,
-                     device="cpu")
+    batch = lm_batch((SEED, 5), cfg, *shape, device="cpu")
     kept = {}
+
+    def under(i):
+        if meshes is None:
+            return contextlib.nullcontext()
+        return use_mesh(meshes[i], AxisRules())
+
+    def put(b, i):
+        return b if meshes is None else shard_batch(b, meshes[i])
 
     def step_on(where):
         def keep(grads):
@@ -2820,15 +2897,17 @@ def lm_step_against_cpu(what, cfg, dev, smi) -> dict:
         return make_lm_train_step(cfg, AdamConfig(
             schedule=constant_schedule(TRAIN_LR)), grad_transform=keep)
 
-    with RouteLog() as card_log:
+    with under(0), RouteLog() as card_log:
         new, metrics = step_on("card")(
-            init_train_state(params), {k: v.to(dev) for k, v in
-                                       batch.items()})
+            init_train_state(params), put({k: v.to(dev) for k, v in
+                                           batch.items()}, 0))
     del params
+    if on_card is not None:
+        on_card(kept["card"], card_log.calls)
     c_t0 = time.perf_counter()
-    with RouteLog(card_log.calls) as cpu_log:
+    with under(1), RouteLog(card_log.calls) as cpu_log:
         c_new, c_metrics = step_on("cpu")(init_train_state(cpu_params),
-                                          batch)
+                                          put(batch, 1))
     cpu_s = time.perf_counter() - c_t0
     del cpu_params
     n_flip, gap = cpu_log.flips()
@@ -2836,26 +2915,15 @@ def lm_step_against_cpu(what, cfg, dev, smi) -> dict:
                               ROUTE_MARGIN_F32)
     loss_err = abs(float(metrics["loss"]) - float(c_metrics["loss"])) / abs(
         float(c_metrics["loss"]))
-    scale = min(1.0, 1.0 / (float(c_metrics["grad_norm"]) + 1e-9))
-    grad_err, worst, excess, zero = 0.0, "none", -float("inf"), []
     scan_leaves = SCAN_LEAVES.get(arch, ())
-    for (path, g), (_, cg), (_, p), (_, cp) in zip(
-            tree_paths(kept["card"]), tree_paths(kept["cpu"]),
-            tree_paths(new.params), tree_paths(c_new.params)):
-        cg, cp = cg.to(dev), cp.to(dev)
-        top = float(cg.abs().max())
-        diff = float((g - cg).abs().max())
-        err = diff / top if top else (0.0 if diff == 0 else float("inf"))
-        if err > grad_err:
-            grad_err, worst = err, path
-        if any(path.endswith(leaf) for leaf in scan_leaves) and not float(
-                g.abs().max()) > 0:
-            zero.append(path)
-        excess = max(excess, adam_first_step_excess(p, cp, cg, tol * top,
-                                                    scale, TRAIN_LR))
+    grad_err, worst, excess, zero = steps_apart(
+        kept["card"], kept["cpu"], new.params, c_new.params,
+        float(c_metrics["grad_norm"]), tol, TRAIN_LR, dev, scan_leaves)
     report = (f"train {what} (fp32, {n_params} parameters) card against "
-              f"CPU, one make_lm_train_step on [{LM_GRAD_BATCH}, "
-              f"{LM_GRAD_SEQ}]: loss {loss_err:.3e} relative (tolerance "
+              f"CPU, one make_lm_train_step on [{shape[0]}, {shape[1]}]"
+              + ("" if meshes is None else
+                 f" under a {meshes[0].shape} mesh on each")
+              + f": loss {loss_err:.3e} relative (tolerance "
               f"{TOL_LM}), gradients {grad_err:.3e} of the leaf's largest at "
               f"the worst ({worst}; tolerance {tol}), parameters after Adam "
               f"within its first-step bound with {-excess:.3e} to spare at "
@@ -3117,6 +3185,481 @@ def lm_train_phase(dev, smi) -> dict:
         raise AssertionError(f"phase 5h launched hand-written kernels {n}")
     res["seconds"] = time.perf_counter() - t_phase
     log(f"phase 5h took {res['seconds']:.1f} s; no hand-written kernel "
+        f"launched")
+    return res
+
+
+# -- phase 5i: the mesh paths ----------------------------------------------------
+
+# The phase's mesh: (data, model) = (4, 2) over the card listed 8 times
+# (best_mesh(devices=[card] * 8, model_parallel=2)), and its twin over the
+# CPU. The port's mesh lists one device: GSPMD over several cards is
+# ROADMAP.md Queue 1 item 9.
+MESH_DEVICES, MESH_MODEL = 8, 2
+# (a) the expert-parallel forward at full width and 2 layers in fp32, at a
+# capacity that drops nothing (no_drop: the local capacity is then the
+# shard's token count, so EP and the sorted path keep every assignment), on
+# [8, 32], whose 8 rows split over the 4 data shards; then granite at full
+# size in bf16 on [8, 128]
+MESH_EP_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
+MESH_EP_BATCH, MESH_EP_SEQ = 8, 32
+# (b) llama3.2-1b at full size as 5h (a), [8, 128] in two microbatches;
+# timed steps after the compared one
+MESH_TRAIN_ACCUM = 2
+MESH_TRAIN_STEPS = 3
+# (d) pipeline_forward: 4 stages tanh(x @ w) at llama3.2-1b's width, 8
+# microbatches of [4, 128, D]
+PIPE_STAGES, PIPE_MICRO, PIPE_D = 4, 8, 2048
+PIPE_MB = (4, 128)
+
+
+def free_card():
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def mesh_ep_forward(arch, mesh, cpu_mesh, dev, rng, merged, ep_calls,
+                    smi) -> dict:
+    """5i (a) for one config: ``lm_forward`` at full width, 2 layers, fp32,
+    ``no_drop``, on [8, 32] under ``mesh`` (the expert-parallel branch),
+    under ``cpu_mesh`` on the CPU (the card's choices replayed) and without
+    a mesh (the sorted path, the card's choices merged and replayed)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist.sharding import AxisRules, use_mesh
+    from repro_torch.models.common import count_params, tree_map
+    from repro_torch.models.lm import init_lm, lm_forward
+    t0 = time.perf_counter()
+    dp = mesh.shape["data"]
+    rules = AxisRules()
+    cfg = no_drop(dataclasses.replace(get_config(arch), dtype="float32",
+                                      n_layers=2))
+    params = init_lm(SEED, cfg, device=dev)
+    n_params = count_params(params)
+    cpu_params = tree_map(lambda t: t.to("cpu"), params)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab, (MESH_EP_BATCH, MESH_EP_SEQ))).to(dev)
+    ep_calls.clear()
+    with torch.no_grad():
+        with use_mesh(mesh, rules), RouteLog() as ep_log:
+            logits, aux = lm_forward(params, cfg, tokens)
+        n_ep = len(ep_calls)
+        with use_mesh(cpu_mesh, rules), RouteLog(ep_log.calls) as cpu_log:
+            c_logits, c_aux = lm_forward(cpu_params, cfg, tokens.cpu())
+        with RouteLog(merged(ep_log.calls)) as s_log:
+            s_logits, s_aux = lm_forward(params, cfg, tokens)
+
+        def under_mesh():
+            with use_mesh(mesh, rules):
+                lm_forward(params, cfg, tokens)
+        syncs = host_syncs(under_mesh)
+    n_moe = len(s_log.calls)
+    if not n_moe or n_ep != n_moe or len(ep_log.calls) != dp * n_moe:
+        raise AssertionError(
+            f"{arch}: {n_ep} expert-parallel calls and {len(ep_log.calls)} "
+            f"router calls for {n_moe} MoE layers")
+    flips = [flips_allowed(f"{arch} EP against {what}", *log_.flips(),
+                           ROUTE_MARGIN_F32)
+             for what, log_ in (("the CPU", cpu_log),
+                                ("the sorted path", s_log))]
+    errs = {"card_cpu": scaled_err(logits, c_logits),
+            "ep_sorted": scaled_err(logits, s_logits),
+            "aux_card_cpu": abs(float(aux) - float(c_aux)) / abs(float(c_aux)),
+            "aux_ep_sorted": abs(float(aux) - float(s_aux))
+            / abs(float(s_aux))}
+    if max(errs.values()) > TOL_LM or not torch.isfinite(logits).all():
+        raise AssertionError(f"{arch} EP forward: {errs}")
+    log(f"mesh (a) {arch} (fp32, full width, 2 layers, {n_params} "
+        f"parameters) lm_forward [{MESH_EP_BATCH}, {MESH_EP_SEQ}] under the "
+        f"{mesh.shape} mesh: the expert-parallel branch ({n_ep} calls, "
+        f"{len(ep_log.calls)} router calls, {dp} a layer); card against CPU "
+        f"under its mesh: logits {errs['card_cpu']:.3e}, aux "
+        f"{errs['aux_card_cpu']:.3e}; against the sorted path without a "
+        f"mesh: logits {errs['ep_sorted']:.3e}, aux "
+        f"{errs['aux_ep_sorted']:.3e} (tolerance {TOL_LM}); {flips[0]} (CPU),"
+        f" {flips[1]} (sorted); {syncs} host syncs a forward under the mesh; "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    return dict(errs, syncs=syncs)
+
+
+def mesh_ep_timed(mesh, dev, rng, smi) -> dict:
+    """5i (a): granite-moe-3b-a800m at full size in bf16, ``lm_forward`` on
+    [8, 128] once without a mesh (the sorted path) and once under ``mesh``
+    (expert-parallel), each after a warm-up: wall, kernels, device busy,
+    peak memory above the weights."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist.sharding import AxisRules, use_mesh
+    from repro_torch.models.common import count_params
+    from repro_torch.models.lm import init_lm, lm_forward
+    arch = "granite-moe-3b-a800m"
+    cfg = get_config(arch)
+    params = init_lm(SEED, cfg, device=dev)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab, (LM_TRAIN_BATCH, LM_TRAIN_SEQ))).to(dev)
+    outs, rows = {}, {}
+    for name, on in (("sorted", None), ("expert-parallel", mesh)):
+        def run():
+            with torch.no_grad():
+                if on is None:
+                    return lm_forward(params, cfg, tokens)
+                with use_mesh(on, AxisRules()):
+                    return lm_forward(params, cfg, tokens)
+        run()
+        free_card()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs[name] = run()[0]
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        prof = engine_profile(run, 1)
+        if not torch.isfinite(outs[name]).all():
+            raise AssertionError(f"{arch} bf16 {name}: logits not finite")
+        rows[name] = {"wall_ms": wall, "peak_gib": peak, "profile": prof}
+    apart = rel_rms(outs["expert-parallel"], outs["sorted"])
+    log(f"time mesh (a) {arch} (full size, bf16, {count_params(params)} "
+        f"parameters) lm_forward [{LM_TRAIN_BATCH}, {LM_TRAIN_SEQ}] once "
+        f"each: " + "; ".join(
+            f"{name}: wall {r['wall_ms']:.3f} ms, "
+            f"{r['profile']['kernels_per_step']:.0f} kernels, device busy "
+            f"{r['profile']['device_busy_us_per_step']:.1f} us, peak "
+            f"{r['peak_gib']:.3f} GiB above the weights"
+            for name, r in rows.items())
+        + f"; logits {apart:.3e} relative RMS apart (at the capacity factor "
+        f"1.25 EP drops by the local token count, by design) [{smi}]")
+    return dict(rows, rel_rms=apart)
+
+
+def mesh_train_step(mesh, dev, smi) -> dict:
+    """5i (b): llama3.2-1b at full size, ``make_lm_train_step_fn`` with
+    ``grad_accum=2`` and the ZeRO-1 ``accum_rules`` under ``mesh`` against
+    the same step without a mesh, from one state and batch; then timed
+    steps under the mesh, one profiled."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.lm_data import lm_batch
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.dist.sharding import AxisRules, use_mesh
+    from repro_torch.ft.checkpoint import tree_paths
+    from repro_torch.models.common import count_params
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.optim import AdamConfig, constant_schedule
+    from repro_torch.train.trainer import (init_train_state,
+                                           make_lm_train_step_fn)
+    arch = LM_TRAIN_ARCH
+    cfg = get_config(arch)
+    rules = AxisRules()
+    base = torch.cuda.memory_allocated()
+    params = init_lm(SEED, cfg, device=dev)
+    n_params = count_params(params)
+    state0 = init_train_state(params)
+    del params
+    batch = lm_batch((SEED, 13), cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                     device=dev)
+    opt = AdamConfig(schedule=constant_schedule(TRAIN_LR))
+    kept = {}
+
+    def keeping(tag, accum_rules):
+        def keep(grads):
+            kept[tag] = grads
+            return grads
+        return make_lm_train_step_fn(cfg, opt, grad_transform=keep,
+                                     grad_accum=MESH_TRAIN_ACCUM,
+                                     accum_rules=accum_rules)
+    with use_mesh(mesh, rules):
+        new_m, met_m = keeping("mesh", AxisRules())(
+            state0, shard_batch(batch, mesh, rules))
+    new_p, met_p = keeping("plain", None)(state0, batch)
+    same_loss = torch.equal(met_m["loss"], met_p["loss"])
+    # The forward is bitwise the gather's, so is every gradient but the
+    # embedding's. There the one-hot's backward is a matmul that sums a
+    # row's tokens in fp32 and rounds once; the gather's is an index
+    # accumulation that adds a repeated token's rows in bf16 one by one.
+    # So rows whose token occurs at most once in each microbatch (or never)
+    # are held bitwise, the repeated ones are measured; the parameters are
+    # held within Adam's first-step bound of the measured difference.
+    counts = torch.stack([torch.bincount(t.flatten(), minlength=cfg.vocab)
+                          for t in batch["tokens"].chunk(MESH_TRAIN_ACCUM)])
+    single = counts.max(0).values <= 1
+    scale = min(1.0, 1.0 / (float(met_p["grad_norm"]) + 1e-9))
+    excess, differ, rep_err = -float("inf"), [], 0.0
+    for (path, g), (_, gp), (_, pm), (_, pp) in zip(
+            tree_paths(kept["mesh"]), tree_paths(kept["plain"]),
+            tree_paths(new_m.params), tree_paths(new_p.params)):
+        top = float(gp.abs().max())
+        delta = TOL_LM_TRAIN_GRAD * top
+        if path == "embedding":
+            diff = (g - gp).abs()
+            if float(diff[single].max()) > 0:
+                differ.append(path + " (single rows)")
+            rep_err = float(diff.max()) / top
+            delta = max(delta, float(diff.max()))
+            del diff
+        elif not torch.equal(g, gp):
+            differ.append(path)
+        excess = max(excess, adam_first_step_excess(pm, pp, gp, delta, scale,
+                                                    TRAIN_LR))
+    report = (f"train {arch} (full size, bf16, remat, {n_params} "
+              f"parameters) make_lm_train_step_fn(grad_accum="
+              f"{MESH_TRAIN_ACCUM}, accum_rules=AxisRules()) on "
+              f"[{LM_TRAIN_BATCH}, {LM_TRAIN_SEQ}] under the {mesh.shape} "
+              f"mesh (one-hot embedding) against the step without a mesh: "
+              f"loss {float(met_m['loss'])!r} / {float(met_p['loss'])!r} "
+              f"({'bitwise' if same_loss else 'not bitwise'}); every "
+              f"gradient bitwise (differing: {differ or 'none'}) but the "
+              f"embedding's {int((~single).sum())} rows of repeated tokens, "
+              f"{rep_err:.3e} of its largest apart there (the gather's bf16 "
+              f"accumulation); parameters within Adam's first-step bound of "
+              f"that with {-excess:.3e} to spare")
+    if not same_loss or differ or excess > 0:
+        raise AssertionError(report)
+    log(report + f" [{smi}]")
+    del kept, new_p, state0, met_p, met_m
+    free_card()
+
+    step = make_lm_train_step_fn(cfg, opt, grad_accum=MESH_TRAIN_ACCUM,
+                                 accum_rules=AxisRules())
+    state = {"s": new_m}
+    del new_m
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    with use_mesh(mesh, rules):
+        placed = shard_batch(batch, mesh, rules)
+        for _ in range(MESH_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state["s"], m = step(state["s"], placed)
+            losses.append(float(m["loss"]))
+            walls.append(1e3 * (time.perf_counter() - t0))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+        def one_step():
+            state["s"], mm = step(state["s"], placed)
+            float(mm["loss"])
+        prof = engine_profile(one_step, 1)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch} mesh steps: losses {losses}")
+    p50 = float(np.median(walls))
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    log(f"time train {arch} under the {mesh.shape} mesh (grad_accum "
+        f"{MESH_TRAIN_ACCUM}, ZeRO-1 accumulator, one-hot embedding): "
+        f"{MESH_TRAIN_STEPS} steps on one batch, losses "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; wall p50 {p50:.3f} ms (each "
+        + ", ".join(f"{v:.3f}" for v in walls)
+        + f"), {1e3 * tokens / p50:.1f} tokens/s; profiled step: "
+        f"{prof['kernels_per_step']:.1f} kernels, device busy "
+        f"{prof['device_busy_us_per_step']:.1f} us, idle share "
+        f"{prof['idle_share']:.4f}; peak memory {peak:.3f} GiB above the "
+        f"{base} B held before the model [{smi}]")
+    return {"embedding_err": rep_err, "step_ms": walls, "p50_ms": p50,
+            "peak_gib": peak, "profile": prof}
+
+
+def mesh_pipeline(dev, smi) -> dict:
+    """5i (d): ``pipeline_forward`` over ``PIPE_STAGES`` stages on the card
+    listed that many times, against the stages applied in turn on the card
+    (bitwise) and the pipeline on the CPU (``TOL_F32``)."""
+    import numpy as np
+    import torch
+    from repro_torch.dist.elastic import Mesh
+    from repro_torch.dist.pipeline import pipeline_forward, split_microbatches
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ws = torch.randn(PIPE_STAGES, PIPE_D, PIPE_D, generator=gen,
+                     device=dev) * PIPE_D ** -0.5
+    xs = split_microbatches(torch.randn(
+        PIPE_MICRO * PIPE_MB[0], PIPE_MB[1], PIPE_D, generator=gen,
+        device=dev), PIPE_MICRO)
+
+    def stage(w, xm):
+        return torch.tanh(xm @ w)
+
+    def in_turn():
+        outs = []
+        for m in range(PIPE_MICRO):
+            y = xs[m]
+            for s in range(PIPE_STAGES):
+                y = stage(ws[s], y)
+            outs.append(y)
+        return torch.stack(outs)
+
+    def over(device):
+        return Mesh(np.array([device] * PIPE_STAGES, dtype=object),
+                    ("stage",))
+    fwd = pipeline_forward(stage, over(dev), "stage", PIPE_MICRO)
+    got, want = fwd(ws, xs), in_turn()
+    cpu_got = pipeline_forward(stage, over(torch.device("cpu")), "stage",
+                               PIPE_MICRO)(ws.cpu(), xs.cpu())
+    err = scaled_err(got, cpu_got)
+    if not torch.equal(got, want) or err > TOL_F32:
+        raise AssertionError(f"pipeline_forward: bitwise the stages in turn "
+                             f"{torch.equal(got, want)}, against the CPU "
+                             f"{err:.3e}")
+    walls = {}
+    for name, fn in (("pipeline", lambda: fwd(ws, xs)), ("in turn", in_turn)):
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        walls[name] = float(np.median(ts))
+    log(f"mesh (d) pipeline_forward: {PIPE_STAGES} stages tanh(x @ w) at D "
+        f"= {PIPE_D} on the card listed {PIPE_STAGES} times, {PIPE_MICRO} "
+        f"microbatches of [{PIPE_MB[0]}, {PIPE_MB[1]}, {PIPE_D}] fp32: "
+        f"bitwise the stages applied in turn on the card, {err:.3e} from the "
+        f"CPU (tolerance {TOL_F32}); wall (median of 3) "
+        f"{walls['pipeline']:.3f} ms over {PIPE_MICRO + PIPE_STAGES - 1} "
+        f"ticks, in turn {walls['in turn']:.3f} ms [{smi}]")
+    return {"cpu_err": err, "walls_ms": walls}
+
+
+def mesh_phase(dev, smi) -> dict:
+    """Phase 5i: the mesh paths on a (4, 2) mesh over the card listed 8
+    times (and its twin over the CPU). (a) ``mesh_ep_forward`` for
+    granite-moe-3b-a800m and deepseek-v2-lite-16b: the expert-parallel
+    branch, 4 router calls a layer, card against CPU and against the
+    sorted path within ``TOL_LM``, choices replayed (``RouteLog``, flips
+    within ``ROUTE_MARGIN_F32``); ``mesh_ep_timed``, granite at full size
+    in bf16 under the mesh once beside the sorted path. (b)
+    ``mesh_train_step``: llama3.2-1b at full size, the mesh step's loss
+    bitwise the plain step's (the one-hot embedding picks its rows
+    exactly), gradients within ``TOL_LM_TRAIN_GRAD`` of each leaf's
+    largest, parameters within Adam's first-step bound; timed steps. (c)
+    One granite-moe-3b-a800m step (fp32, full width, 2 layers, [8, 32])
+    under the mesh, card against CPU (``lm_step_against_cpu``), every
+    expert a layer routed a token to with a nonzero gradient there. (d)
+    ``mesh_pipeline``. (e) ``launch.train --model-parallel 2 --reduced``
+    repeats ``--model-parallel 1``'s losses bitwise; ``prefetch_to_mesh``
+    puts batches on the card with the reference's spec. No hand-written
+    kernel launches. Returns the numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.lm_data import lm_batch_stream
+    from repro_torch.data.pipeline import prefetch_to_mesh
+    from repro_torch.dist.elastic import best_mesh
+    from repro_torch.dist.sharding import AxisRules
+    from repro_torch.ft.checkpoint import tree_paths
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import moe_ep
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    mesh = best_mesh(devices=[dev] * MESH_DEVICES, model_parallel=MESH_MODEL)
+    cpu_mesh = best_mesh(devices=[torch.device("cpu")] * MESH_DEVICES,
+                         model_parallel=MESH_MODEL)
+    if mesh.shape != {"data": 4, "model": 2}:
+        raise AssertionError(f"best_mesh gave {mesh.shape}")
+    dp = mesh.shape["data"]
+    rng = np.random.default_rng(SEED + 24)
+    res = {}
+    ep_calls = []
+    orig_ep = moe_ep.moe_apply_ep
+
+    def counted(*a, **kw):
+        ep_calls.append(1)
+        return orig_ep(*a, **kw)
+
+    def merged(calls):
+        """The expert-parallel choices as the sorted path's: one [T, K] a
+        layer, the data shards' rows in order."""
+        return [torch.cat(calls[i:i + dp]) for i in range(0, len(calls), dp)]
+
+    moe_ep.moe_apply_ep = counted
+    try:
+        res["a"] = {arch: mesh_ep_forward(arch, mesh, cpu_mesh, dev, rng,
+                                          merged, ep_calls, smi)
+                    for arch in MESH_EP_ARCHS}
+        free_card()
+        res["a"]["bf16"] = mesh_ep_timed(mesh, dev, rng, smi)
+        free_card()
+        res["b"] = mesh_train_step(mesh, dev, smi)
+        free_card()
+
+        # (c) the MoE mesh train step, card against CPU
+        arch = "granite-moe-3b-a800m"
+        cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                                  n_layers=2)
+        fed = {}
+
+        def experts_fed(grads, calls):
+            """Every expert a layer's forward routed a token to has a
+            nonzero gradient in that layer's slice of each expert leaf
+            (the forward's choices: the first ``dp`` calls a layer)."""
+            for path, g in tree_paths(grads):
+                if "experts_" not in path:
+                    continue
+                for layer in range(cfg.n_layers):
+                    used = torch.unique(torch.cat(
+                        calls[layer * dp:(layer + 1) * dp]).flatten())
+                    zero = [int(e) for e in used
+                            if not float(g[layer, e].abs().max()) > 0]
+                    if zero:
+                        raise AssertionError(f"{arch} EP: zero gradients of "
+                                             f"{path} layer {layer} experts "
+                                             f"{zero}")
+                    fed[(path, layer)] = int(used.numel())
+        ep_calls.clear()
+        res["c"] = lm_step_against_cpu(
+            f"{arch} (n_layers=2, full width)", cfg, dev, smi,
+            meshes=(mesh, cpu_mesh), shape=(MESH_EP_BATCH, MESH_EP_SEQ),
+            on_card=experts_fed)
+        if len(ep_calls) < 2 * cfg.n_layers or not fed:
+            raise AssertionError(f"{arch} mesh step: {len(ep_calls)} "
+                                 f"expert-parallel calls, {len(fed)} leaves")
+        log(f"train {arch} mesh step: {len(ep_calls)} expert-parallel calls "
+            f"(card and CPU, remat's recompute included); nonzero gradients "
+            f"on every fed expert of {len(fed)} leaf layers ("
+            + ", ".join(sorted({str(v) for v in fed.values()}))
+            + " experts fed a layer)")
+        free_card()
+    finally:
+        moe_ep.moe_apply_ep = orig_ep
+
+    res["d"] = mesh_pipeline(dev, smi)
+    free_card()
+
+    # (e) the launcher's mesh flag and the mesh-placed batches
+    args = ["--arch", LM_TRAIN_ARCH, "--reduced", "--steps", "3", "--batch",
+            "8", "--seq", "128", "--log-every", "1", "--device", dev.type]
+    one = train_main(args + ["--model-parallel", "1"])["losses"]
+    two = train_main(args + ["--model-parallel", "2"])["losses"]
+    if one != two or len(one) != 3:
+        raise AssertionError(f"--model-parallel 2 {two} against 1 {one}")
+    cfg = get_config(LM_TRAIN_ARCH).reduced()
+    stream = prefetch_to_mesh(lm_batch_stream((1, 0), cfg, 8, 128,
+                                              device=dev), mesh, AxisRules())
+    # the reference's shard_batch spec on a (data, model) mesh: the batch
+    # dim on "data", the rest replicated
+    for _ in range(2):
+        b = next(stream)["tokens"]
+        if (b.device.type != dev.type or b.sharding.mesh is not mesh
+                or tuple(b.sharding.spec) != ("data", None)):
+            raise AssertionError(f"prefetch_to_mesh: {b.device} "
+                                 f"{b.sharding.spec}")
+    stream.close()
+    for _ in stream:
+        pass
+    res["e"] = one
+    log(f"mesh (e) launch.train --reduced --model-parallel 2 (one card: "
+        f"mesh {{'data': 1, 'model': 1}}) repeats --model-parallel 1 "
+        f"bitwise: " + ", ".join(repr(v) for v in two) + "; "
+        f"prefetch_to_mesh batches on {dev} with spec ('data', None) "
+        f"[{smi}]")
+
+    n = {k: v for k, v in ops.launch_counts().items() if v}
+    if n:
+        raise AssertionError(f"phase 5i launched hand-written kernels {n}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 5i took {res['seconds']:.1f} s; no hand-written kernel "
         f"launched")
     return res
 
@@ -4108,6 +4651,9 @@ def main() -> int:
 
     # -- 5h. LM training --------------------------------------------------
     lm_train_phase(dev, smi)
+
+    # -- 5i. the mesh paths -------------------------------------------------
+    mesh_phase(dev, smi)
 
     # -- 6. times on the card ---------------------------------------------
     ops.reset_launch_counts()

@@ -1,17 +1,21 @@
-"""Host-side data pipeline: background prefetch, the PyTorch port of
-:class:`repro.data.pipeline.Prefetcher`.
+"""Host-side data pipeline: background prefetch and mesh placement, the
+PyTorch port of :mod:`repro.data.pipeline`.
 
-The reference's mesh placement (``shard_batch``, ``prefetch_to_mesh``)
-needs ``dist/sharding.py::AxisRules`` and waits for the port's mesh paths
-(``ROADMAP.md`` Queue 1 item 5e). On one device the batch builders put a
-batch where it runs (``lm_batch(..., device=...)``), so the prefetch alone
-is the input pipeline.
+``shard_batch`` puts each leaf of a batch on the mesh with the reference's
+spec (the batch dim on the ``batch`` axes, the rest replicated); the port's
+mesh lists one device, so a leaf lies whole on it and carries its spec as
+``.sharding``. ``prefetch_to_mesh`` is that placement behind a
+``Prefetcher``, the launcher's input pipeline.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from typing import Iterator
+
+from repro_torch.dist.elastic import Mesh
+from repro_torch.dist.sharding import AxisRules, NamedSharding, device_put
+from repro_torch.train.optim import tree_map
 
 
 class Prefetcher:
@@ -57,3 +61,23 @@ class Prefetcher:
 
     def close(self):
         self._done.set()
+
+
+def shard_batch(batch, mesh: Mesh, rules: AxisRules | None = None):
+    """Place a batch (a tree of ``[B, ...]`` tensors) on the mesh: each
+    leaf's spec is the batch dim on the ``batch`` axes and the rest
+    replicated, as the reference resolves it, and the leaf goes to the
+    mesh's device (``device_put``)."""
+    rules = rules or AxisRules()
+
+    def sharding(x):
+        spec = rules.resolve(*(["batch"] + [None] * (x.ndim - 1)), mesh=mesh)
+        return NamedSharding(mesh, spec)
+
+    return device_put(batch, tree_map(sharding, batch))
+
+
+def prefetch_to_mesh(it: Iterator, mesh: Mesh,
+                     rules: AxisRules | None = None, depth: int = 2):
+    """Prefetch + shard: the standard input pipeline composition."""
+    return Prefetcher((shard_batch(b, mesh, rules) for b in it), depth=depth)

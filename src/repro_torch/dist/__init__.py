@@ -1,5 +1,12 @@
-"""Distribution substrate: elastic meshes, delta gradient compression
-(:mod:`repro_torch.dist.grad_compress`) — and the sharded serving fleet.
+"""Distribution substrate: sharding rules (:mod:`repro_torch.dist.sharding`),
+elastic meshes, delta gradient compression
+(:mod:`repro_torch.dist.grad_compress`), pipeline parallelism
+(:mod:`repro_torch.dist.pipeline`) — and the sharded serving fleet.
+
+Everything is mesh-optional: with no active mesh the sharding helpers are
+no-ops, so single-device code paths (the DeltaGRU streaming engine, unit
+tests) never pay for the machinery. The port's mesh lists one device k
+times (a device listed k times hosts k shards).
 
 The serving-fabric entry points re-exported here:
 

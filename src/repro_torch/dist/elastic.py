@@ -46,6 +46,12 @@ class Mesh:
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self.devices.shape))
 
+    @property
+    def size(self) -> int:
+        """The number of mesh positions (a device listed k times counts
+        k times), as ``jax.sharding.Mesh.size``."""
+        return int(self.devices.size)
+
 
 def _cuda_devices() -> list:
     """Every visible CUDA device; raises without a card (no CPU fallback)."""

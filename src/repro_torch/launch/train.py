@@ -7,10 +7,13 @@ Runs real steps of any registry arch on one device (the card by default;
 synthetic ``lm_batch_stream`` behind a ``Prefetcher``, AdamW with a
 warmup-cosine schedule, ``--grad-accum`` microbatches, checkpoints through
 ``CheckpointManager`` with a resume from the latest one, and a log line
-every ``--log-every`` steps. The mesh is ``best_mesh`` over that one
-device: ``--model-parallel`` above 1 raises until the port has its mesh
-paths (``ROADMAP.md`` Queue 1 item 5e). Checkpoints hold numpy arrays, so
-a bf16 state does not save (as the reference's does not restore).
+every ``--log-every`` steps. As in the reference, init and steps run
+under ``use_mesh(best_mesh(model_parallel=k, devices=[device]),
+AxisRules())``: the state is placed by ``specs.train_state_sharding`` and
+the stream by ``prefetch_to_mesh``. ``best_mesh`` clamps
+``--model-parallel`` to the one device, so any ``k`` gives a (1, 1) mesh
+and the same losses. Checkpoints hold numpy arrays, so a bf16 state does
+not save (as the reference's does not restore).
 
 The batch of step ``i`` is seeded ``(1, i)`` whether the run started at 0
 or resumed (:mod:`repro_torch.data.lm_data`), so a resumed run repeats the
@@ -23,10 +26,12 @@ import time
 
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.data.lm_data import lm_batch_stream
-from repro_torch.data.pipeline import Prefetcher
+from repro_torch.data.pipeline import prefetch_to_mesh
 from repro_torch.dist.elastic import best_mesh
+from repro_torch.dist.sharding import AxisRules, device_put, use_mesh
 from repro_torch.ft.checkpoint import CheckpointManager, latest_step, restore
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.launch import specs
 from repro_torch.models.lm import init_lm, lm_dtype
 from repro_torch.train.optim import AdamConfig, warmup_cosine_schedule
 from repro_torch.train.trainer import init_train_state, make_lm_train_step_fn
@@ -57,50 +62,52 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 shards the model over a mesh; the port "
-            "has no mesh paths yet (ROADMAP.md Queue 1 item 5e)")
     mesh = best_mesh(model_parallel=args.model_parallel, devices=[dev])
+    rules = AxisRules()
     print(f"[train] {cfg.name} on mesh {mesh.shape}")
 
     opt = AdamConfig(schedule=warmup_cosine_schedule(args.lr, 20, args.steps),
                      weight_decay=0.1)
     step_fn = make_lm_train_step_fn(cfg, opt, grad_accum=args.grad_accum)
-    state = init_train_state(init_lm(0, cfg, device=dev))
 
-    mgr = None
-    start = 0
-    if args.ckpt_dir:
-        mgr = CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
-        if latest_step(args.ckpt_dir):
-            state = restore(args.ckpt_dir, state, device=dev)
-            start = int(state.step)
-            print(f"[train] resumed from step {start}")
+    with use_mesh(mesh, rules):
+        state = init_train_state(init_lm(0, cfg, device=dev))
+        st_sh = specs.train_state_sharding(state, mesh, rules)
+        state = device_put(state, st_sh)
 
-    stream = Prefetcher(lm_batch_stream((1, start), cfg, args.batch,
-                                        args.seq, dtype=lm_dtype(cfg),
-                                        device=dev))
-    losses, t_hist = [], []
-    for i in range(start, args.steps):
-        batch = next(stream)
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])  # waits for the step
-        dt = time.perf_counter() - t0
-        losses.append(loss)
-        t_hist.append(dt)
-        if (i + 1) % args.log_every == 0:
-            print(f"step {i + 1:5d} loss {loss:8.4f} "
-                  f"{dt * 1e3:7.1f} ms/step "
-                  f"acc {float(metrics['accuracy']):.3f}")
+        mgr = None
+        start = 0
+        if args.ckpt_dir:
+            mgr = CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
+            if latest_step(args.ckpt_dir):
+                state = device_put(restore(args.ckpt_dir, state, device=dev),
+                                   st_sh)
+                start = int(state.step)
+                print(f"[train] resumed from step {start}")
+
+        stream = prefetch_to_mesh(
+            lm_batch_stream((1, start), cfg, args.batch, args.seq,
+                            dtype=lm_dtype(cfg), device=dev), mesh, rules)
+        losses, t_hist = [], []
+        for i in range(start, args.steps):
+            batch = next(stream)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])  # waits for the step
+            dt = time.perf_counter() - t0
+            losses.append(loss)
+            t_hist.append(dt)
+            if (i + 1) % args.log_every == 0:
+                print(f"step {i + 1:5d} loss {loss:8.4f} "
+                      f"{dt * 1e3:7.1f} ms/step "
+                      f"acc {float(metrics['accuracy']):.3f}")
+            if mgr:
+                mgr.maybe_save(i + 1, state)
+        stream.close()
+        for _ in stream:      # the worker stops at its next batch and exits
+            pass
         if mgr:
-            mgr.maybe_save(i + 1, state)
-    stream.close()
-    for _ in stream:      # the worker stops at its next batch and exits
-        pass
-    if mgr:
-        mgr.wait()
+            mgr.wait()
     if t_hist:
         print(f"[train] done: final loss {losses[-1]:.4f}; median step "
               f"{sorted(t_hist)[len(t_hist) // 2] * 1e3:.1f} ms")

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import (_axis_extent, current_mesh,
+                                       current_rules, shard)
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.attention import KVCache
 from repro_torch.models.blocks import apply_blocks, init_blocks, init_caches
@@ -87,14 +89,37 @@ def init_lm(generator, cfg: ModelConfig, device=None) -> dict:
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = apply_norm(cfg.norm, params["final_norm"], x)
     if cfg.tie_embeddings:
-        return x @ params["embedding"].T
-    return x @ params["lm_head"]
+        logits = x @ params["embedding"].T
+    else:
+        logits = x @ params["lm_head"]
+    return shard(logits, "batch", "seq", "vocab")
 
 
-def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """Embedding lookup, a gather (the JAX package's one-hot contraction is
-    for a vocab-sharded table on a mesh; the port has no mesh yet)."""
-    return params["embedding"][tokens.long()]
+def _embed(params: dict, tokens: torch.Tensor,
+           mode: str = "train") -> torch.Tensor:
+    """Embedding lookup, sharding-aware, as the reference's.
+
+    Training with a vocab-sharded table (a mesh whose ``vocab`` extent is
+    above 1 and divides the vocabulary) contracts a one-hot: its gradient
+    is then a matmul, not a scatter. A one-hot row picks its embedding row
+    exactly, so the forward equals the gather's bitwise. Otherwise, and in
+    the no-grad modes (``"prefill"`` / ``"decode"``), a gather."""
+    emb = params["embedding"]
+    v = emb.shape[0]
+    mesh = current_mesh()
+    vocab_sharded = False
+    if mesh is not None:
+        ext = _axis_extent(mesh, current_rules().resolve("vocab",
+                                                         mesh=mesh)[0])
+        vocab_sharded = ext > 1 and v % ext == 0
+    tokens = tokens.long()
+    if mode == "train" and vocab_sharded:
+        onehot = torch.zeros(*tokens.shape, v, dtype=emb.dtype,
+                             device=emb.device).scatter_(
+            -1, tokens[..., None], 1.0)
+        onehot = shard(onehot, "batch", "seq", "vocab")
+        return shard(onehot @ emb, "batch", "seq", "embed")
+    return shard(emb[tokens], "batch", "seq", "embed")
 
 
 def _cross_stream(params: dict, cfg: ModelConfig, image_embeds,
@@ -122,7 +147,7 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     The VLM's ``cross`` blocks attend to ``image_embeds [B, N, vision_dim]``
     projected, the encoder-decoder's to the encoder's output over
     ``audio_frames [B, N, audio_dim]``."""
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, "train")
     cross_kv = _cross_stream(params, cfg, image_embeds, audio_frames)
     x, _, aux = apply_blocks(params["blocks"], x, cfg, "train",
                              cross_kv=cross_kv)
@@ -153,7 +178,7 @@ def lm_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         if needed and given is None:
             raise ValueError(f"{cfg.name}: prefill needs {name}= (the "
                              "stream its cross-attention blocks attend to)")
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, "prefill")
     cross_kv = _cross_stream(params, cfg, image_embeds, audio_frames)
     x, caches, _ = apply_blocks(params["blocks"], x, cfg, "prefill",
                                 caches=caches, cross_kv=cross_kv)
@@ -164,7 +189,7 @@ def lm_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
               caches: list):
     """One decode step, ``token: [B, 1]``, against ``caches`` (in place).
     Returns ``(logits [B, 1, V], caches)``."""
-    x = _embed(params, token)
+    x = _embed(params, token, "decode")
     x, caches, _ = apply_blocks(params["blocks"], x, cfg, "decode",
                                 caches=caches)
     return _logits(params, cfg, x), caches

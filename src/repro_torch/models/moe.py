@@ -1,5 +1,5 @@
 """Mixture-of-Experts: a softmax top-k router and two dispatch engines, the
-PyTorch port of :mod:`repro.models.moe` (single device).
+PyTorch port of :mod:`repro.models.moe`.
 
 ``moe_apply`` (the default): *sorted* dispatch. The token-expert
 assignments are sorted by expert (a stable sort, as ``jnp.argsort``), each
@@ -11,14 +11,21 @@ the order of atomic adds (a scatter-add on the card would).
 ``moe_apply_onehot``: the reference einsum dispatch (Switch-style),
 ``O(T * E * C)`` memory, the plain cross-check of the sorted engine.
 
-Both drop the assignments beyond an expert's capacity (their combine weight
-is 0) and return the load-balancing aux loss.
+``moe_apply_auto`` (what the blocks call) takes the expert-parallel
+dispatch of :mod:`repro_torch.models.moe_ep` under a mesh whose
+``experts`` axis divides the experts and whose ``batch`` axes divide the
+batch, and the sorted path otherwise.
+
+All drop the assignments beyond an expert's capacity (their combine
+weight is 0) and return the load-balancing aux loss.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import (_axis_extent, current_mesh,
+                                       current_rules)
 from repro_torch.models.common import ACTIVATIONS, dense_init
 from repro_torch.models.ffn import ffn_apply, init_ffn
 
@@ -90,6 +97,54 @@ def _with_shared(params: dict, y: torch.Tensor, x: torch.Tensor,
     return y
 
 
+def _sort_assignments(gate_idx: torch.Tensor, n_experts: int):
+    """The assignments ``i = token * top_k + k`` sorted by expert, ties in
+    order (a stable sort, as ``jnp.argsort``). Returns ``(flat_expert [TK],
+    order [TK], start [E], count [E], rank [TK])``: an expert's first
+    position in the sorted order and its number of assignments, and each
+    assignment's rank within its expert, in (token, k) order."""
+    tk = gate_idx.numel()
+    dev = gate_idx.device
+    flat_expert = gate_idx.reshape(tk)
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_expert = flat_expert[order]
+    experts = torch.arange(n_experts, device=dev)
+    start = torch.searchsorted(sorted_expert, experts)
+    count = torch.searchsorted(sorted_expert, experts, right=True) - start
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(tk, device=dev) - start[sorted_expert]
+    return flat_expert, order, start, count, rank
+
+
+def _fill_buffer(xt: torch.Tensor, order: torch.Tensor, start: torch.Tensor,
+                 count: torch.Tensor, capacity: int,
+                 top_k: int) -> torch.Tensor:
+    """The capacity buffers ``[E, C, D]`` of the experts whose ``start`` /
+    ``count`` are given: row ``(e, c)`` holds the token of the expert's
+    c-th assignment, zeros past its count. A gather, so no row is written
+    twice and none out of range (the reference's scatter with
+    ``mode="drop"``)."""
+    c = torch.arange(capacity, device=xt.device)
+    src = (start[:, None] + c).clamp(max=order.numel() - 1)
+    filled = c < count[:, None]                               # [E, C]
+    rows = xt[order[src] // top_k]
+    return torch.where(filled[..., None], rows,
+                       torch.zeros((), dtype=xt.dtype, device=xt.device))
+
+
+def _combine(ye: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor,
+             gate_vals: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``[T, D]``: each token's kept rows ``ye[dest]`` weighted by their
+    gates, its ``top_k`` rows summed in fp32 in a fixed order (no atomics),
+    then cast to ``dtype``."""
+    t, top_k = gate_vals.shape
+    out = torch.where(keep[:, None], ye[dest], torch.zeros(
+        (), dtype=ye.dtype, device=ye.device))
+    contrib = out * gate_vals.reshape(-1, 1).to(out.dtype)
+    y = contrib.reshape(t, top_k, -1).sum(dim=1, dtype=torch.float32)
+    return y.to(dtype)
+
+
 def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25, activation: str = "silu"):
     """Sorted-dispatch MoE. ``x: [B, S, D]`` -> ``(y, aux_loss)``."""
@@ -99,35 +154,12 @@ def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
     xt = x.reshape(t, d)
     gate_vals, gate_idx, aux = _route(params, xt, top_k)
     capacity = moe_capacity(t, top_k, capacity_factor, e)
-    dev = x.device
-
-    # assignment i = token * top_k + k; sorted by expert, ties in order
-    flat_expert = gate_idx.reshape(tk)
-    order = torch.argsort(flat_expert, stable=True)
-    sorted_expert = flat_expert[order]
-    experts = torch.arange(e, device=dev)
-    start = torch.searchsorted(sorted_expert, experts)
-    count = torch.searchsorted(sorted_expert, experts, right=True) - start
-
-    # buffer row (expert, c) holds the expert's c-th assignment, if any
-    c = torch.arange(capacity, device=dev)
-    src = (start[:, None] + c).clamp(max=tk - 1)
-    filled = c < count[:, None]                               # [E, C]
-    rows = xt[order[src] // top_k]
-    buf = torch.where(filled[..., None], rows, torch.zeros((), dtype=x.dtype,
-                                                           device=dev))
+    flat_expert, order, start, count, rank = _sort_assignments(gate_idx, e)
+    buf = _fill_buffer(xt, order, start, count, capacity, top_k)
     ye = _expert_ffn(params, buf, activation, e).reshape(e * capacity, d)
-
-    # back to (token, k): each assignment's rank within its expert
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(tk, device=dev) - start[sorted_expert]
     keep = rank < capacity
     dest = flat_expert * capacity + rank.clamp(max=capacity - 1)
-    out = torch.where(keep[:, None], ye[dest], torch.zeros(
-        (), dtype=ye.dtype, device=dev))
-    contrib = out * gate_vals.reshape(tk, 1).to(out.dtype)
-    y = contrib.reshape(t, top_k, d).sum(dim=1, dtype=torch.float32)
-    y = y.to(x.dtype).reshape(b, s, d)
+    y = _combine(ye, dest, keep, gate_vals, x.dtype).reshape(b, s, d)
     return _with_shared(params, y, x, activation), aux
 
 
@@ -161,10 +193,26 @@ def moe_apply_onehot(params: dict, x: torch.Tensor, *, top_k: int,
 
 def moe_apply_auto(params: dict, x: torch.Tensor, *, top_k: int,
                    capacity_factor: float = 1.25, activation: str = "silu"):
-    """The dispatch engine of the blocks. The reference takes an
-    expert-parallel ``shard_map`` under a mesh with an ``experts`` axis and
-    the sorted path otherwise; the port has no mesh yet (its
-    expert-parallel path, ``moe_ep.py``, is ``ROADMAP.md`` Queue 1 item
-    5e), so this is the single-device sorted path."""
+    """The dispatch engine of the blocks: the expert-parallel dispatch
+    (``moe_ep.moe_apply_ep``, then the shared experts) when a mesh is
+    active whose ``experts`` extent ``ep`` is above 1 and divides the
+    physical experts and whose ``batch`` extent divides ``x.shape[0]``,
+    exactly the reference's condition; the sorted path otherwise. The
+    sorted path carries none of the reference's activation annotations, so
+    under a mesh it runs where the reference's raises (``ROADMAP.md``
+    R29a: its ``shard(h, "experts", None, "ff")`` names the model axis
+    twice)."""
+    mesh = current_mesh()
+    if mesh is not None:
+        from repro_torch.models.moe_ep import moe_apply_ep
+        rules = current_rules()
+        ep = _axis_extent(mesh, rules.resolve("experts", mesh=mesh)[0])
+        dp = _axis_extent(mesh, rules.resolve("batch", mesh=mesh)[0])
+        e_phys = params["experts_gate"].shape[0]
+        if ep > 1 and e_phys % ep == 0 and x.shape[0] % max(dp, 1) == 0:
+            y, aux = moe_apply_ep(params, x, top_k=top_k,
+                                  capacity_factor=capacity_factor,
+                                  activation=activation)
+            return _with_shared(params, y, x, activation), aux
     return moe_apply(params, x, top_k=top_k, capacity_factor=capacity_factor,
                      activation=activation)

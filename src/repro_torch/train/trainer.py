@@ -24,6 +24,9 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import (NamedSharding, current_mesh,
+                                       infer_param_specs,
+                                       with_sharding_constraint)
 from repro_torch.models.gru_rnn import GruTaskConfig, gru_model_forward
 from repro_torch.models.lm import lm_forward
 from repro_torch.quant.qat import FP32, QatPolicy
@@ -74,17 +77,15 @@ def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
     must divide), accumulating the gradients in fp32, then divides by
     ``grad_accum`` and averages the metrics, as the reference's
     ``lax.scan`` does: the live activations scale with the microbatch.
-    ``accum_rules`` (the reference's ZeRO-1 accumulator sharded on a mesh)
-    raises ``NotImplementedError``: the port has no mesh paths yet
-    (``ROADMAP.md`` Queue 1 item 5e).
+    ``accum_rules`` (an ``AxisRules``) lays the fp32 accumulator out as
+    the ZeRO-1 optimizer state under the active mesh
+    (``infer_param_specs``, each spec checked as a sharding constraint);
+    without a mesh, or with one microbatch, it is ignored, as in the
+    reference.
 
     Every parameter leaf must get a gradient from autograd: a leaf that
     does not (``None``, cut off from the loss) raises (``jax.grad`` would
     give it zeros); no arch of the registry has one."""
-    if accum_rules is not None:
-        raise NotImplementedError(
-            "accum_rules shards the gradient accumulator over a mesh; the "
-            "port has no mesh paths yet (ROADMAP.md Queue 1 item 5e)")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
@@ -116,6 +117,13 @@ def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
                              f"{grad_accum} microbatches")
         acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                              device=p.device), params)
+        mesh = current_mesh()
+        if accum_rules is not None and mesh is not None:
+            # ZeRO-1: the fp32 accumulator sharded like the optimizer
+            # state even when the params are data-replicated
+            specs = infer_param_specs(acc, rules=accum_rules, mesh=mesh)
+            acc = tree_map(lambda z, sp: with_sharding_constraint(
+                z, NamedSharding(mesh, sp)), acc, specs)
         per_mb = []
         for m in range(grad_accum):
             micro = {k: v.reshape(grad_accum, b // grad_accum,

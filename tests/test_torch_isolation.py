@@ -70,7 +70,9 @@ def test_the_scan_covers_every_port_module_and_kernel_source():
                 "launch/serve.py", "core/__init__.py", "quant/__init__.py",
                 "models/__init__.py", "models/mla.py", "models/moe.py",
                 "launch/train.py", "data/lm_data.py", "data/pipeline.py",
-                "data/__init__.py", "train/__init__.py"):
+                "data/__init__.py", "train/__init__.py",
+                "dist/sharding.py", "dist/pipeline.py", "models/moe_ep.py",
+                "launch/specs.py", "dist/__init__.py"):
         assert mod in names, mod
     assert sorted(_build.SOURCES) == sorted(
         p.name for p in (PORT / "csrc").glob("*.cu"))
@@ -117,9 +119,10 @@ def test_port_imports_with_jax_and_repro_blocked():
 
 
 def test_package_reexports_import_with_jax_and_repro_blocked():
-    """``repro_torch.core``, ``.quant`` and ``.models`` re-export the public
-    names of the JAX package's ``__init__`` files (the core's TPU perf-model
-    section aside), importing neither JAX nor a card."""
+    """``repro_torch.core``, ``.quant``, ``.models``, ``.data``, ``.train``
+    and ``.dist`` re-export the public names of the JAX package's
+    ``__init__`` files (the core's TPU perf-model section aside), importing
+    neither JAX nor a card."""
     tpu_only = {"TpuChipSpec", "V5E", "tpu_batch1_gru_roofline",
                 "batch_sweep"}
     want = {}
@@ -133,10 +136,15 @@ def test_package_reexports_import_with_jax_and_repro_blocked():
                       "lm_prefill", "lm_decode", "lm_params_from_numpy",
                       "KVCache", "MlaCache", "make_schedule"]
     want["data"] = ["lm_batch", "lm_batch_stream", "token_batch",
-                    "Prefetcher"]
+                    "Prefetcher", "shard_batch", "prefetch_to_mesh"]
     want["train"] = ["make_lm_train_step", "make_lm_train_step_fn",
                      "make_gru_train_step", "init_train_state", "TrainState",
                      "train_loop", "LoopHooks"]
+    tree = ast.parse((ROOT / "src" / "repro" / "dist" / "__init__.py")
+                     .read_text())
+    want["dist"] = sorted(ast.literal_eval(node.value) for node in tree.body
+                          if isinstance(node, ast.Assign)
+                          and node.targets[0].id == "__all__")[0]
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -173,7 +181,8 @@ def _np_tree(model):
     "reduced_delta_recipe", "init_delta_linear_state", "checkpoint_restore",
     "serve_resumable", "digit_batch", "gas_batch", "best_mesh",
     "ShardedStreamFleet", "init_lm", "init_lm_caches", "LmEngine",
-    "launch_serve", "lm_params_from_numpy", "lm_batch", "launch_train"])
+    "launch_serve", "lm_params_from_numpy", "lm_batch", "launch_train",
+    "launch_train_model_parallel"])
 def test_default_device_without_cuda_raises(entry, monkeypatch, tmp_path):
     model = _small_model()
     cfg = GruTaskConfig(40, 48, 2, 12)
@@ -225,6 +234,9 @@ def test_default_device_without_cuda_raises(entry, monkeypatch, tmp_path):
         "lm_batch": lambda: lm_batch(0, zoo_cfg, 2, 8),
         "launch_train": lambda: launch_train.main(
             ["--arch", "llama3.2-1b", "--reduced", "--steps", "1"]),
+        "launch_train_model_parallel": lambda: launch_train.main(
+            ["--arch", "llama3.2-1b", "--reduced", "--steps", "1",
+             "--model-parallel", "2"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -34,6 +34,7 @@ from repro_torch.configs import registry as treg
 from repro_torch.data import lm_data as tdata
 from repro_torch.data import pipeline as tpipe
 from repro_torch.dist import grad_compress as tgc
+from repro_torch.dist import sharding as tsharding
 from repro_torch.ft import checkpoint as tckpt
 from repro_torch.kernels import ops
 from repro_torch.kernels import rglru_scan as trglru_scan
@@ -81,13 +82,21 @@ def test_grad_accum_matches_jax(arch, monkeypatch):
 
 
 def test_grad_accum_needs_a_dividing_batch_and_no_mesh_rules():
+    """A batch that does not split raises, as does ``grad_accum=0``;
+    ``accum_rules`` without a mesh is ignored, as in the reference: the
+    step equals the step without it, bitwise."""
     _, tcfg, _, tp, batch = _model("llama3.2-1b")
     step = ttrainer.make_lm_train_step_fn(tcfg, _opt(toptim), grad_accum=3)
     with pytest.raises(ValueError, match="microbatches"):
         step(ttrainer.init_train_state(tp), _tb(batch))
-    with pytest.raises(NotImplementedError, match="5e"):
-        ttrainer.make_lm_train_step_fn(tcfg, _opt(toptim), grad_accum=2,
-                                       accum_rules=object())
+    plain, ruled = (ttrainer.make_lm_train_step_fn(
+        tcfg, _opt(toptim), grad_accum=2, accum_rules=rules)(
+            ttrainer.init_train_state(tp), _tb(batch))
+        for rules in (None, tsharding.AxisRules()))
+    for a, b in zip(toptim.tree_leaves(plain[0]), toptim.tree_leaves(
+            ruled[0])):
+        assert torch.equal(a, b)
+    assert all(torch.equal(plain[1][k], ruled[1][k]) for k in plain[1])
     with pytest.raises(ValueError, match="grad_accum"):
         ttrainer.make_lm_train_step_fn(tcfg, _opt(toptim), grad_accum=0)
 
@@ -413,13 +422,20 @@ def test_launch_train_cli_prints_and_resumes(tmp_path, capsys):
 
 
 def test_launch_train_grad_accum_and_mesh_flags(capsys):
+    """``--grad-accum 2`` trains; ``--model-parallel 2`` clamps to the one
+    device, a (1, 1) mesh, and repeats ``--model-parallel 1``'s losses
+    bitwise."""
     base = ["--arch", "llama3.2-1b", "--reduced", "--batch", "4", "--seq",
             "16", "--device", "cpu", "--steps", "2"]
     out = tlaunch.main(base + ["--grad-accum", "2"])
     assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
-    with pytest.raises(NotImplementedError, match="5e"):
-        tlaunch.main(base + ["--model-parallel", "2"])
     capsys.readouterr()
+    one = tlaunch.main(base + ["--model-parallel", "1"])
+    two = tlaunch.main(base + ["--model-parallel", "2"])
+    assert two["losses"] == one["losses"] and len(one["losses"]) == 2
+    lines = capsys.readouterr().out.splitlines()
+    assert lines.count("[train] llama3.2-1b-smoke on mesh "
+                       "{'data': 1, 'model': 1}") == 2
 
 
 # -- checkpoints across the packages ----------------------------------------------
