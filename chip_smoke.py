@@ -194,6 +194,17 @@ traceback and a non-zero exit):
    and within ``TOL_F32`` of the CPU; (e) ``--model-parallel 2`` bitwise
    ``--model-parallel 1`` and ``prefetch_to_mesh``'s spec; no
    hand-written kernel launches;
+5j. the examples and the launch tooling (``examples_phase``): the card's
+   HBM copy rate and bf16 matmul rate beside ``H100``'s data-sheet
+   constants, and ``gpu_batch1_gru_roofline`` of 2L-768H at phase 5's
+   sparsity beside its measured step; the four example twins
+   (``examples/*_torch.py``), two in this process with their launches
+   counted (the quickstart launches rows 1, 2, 4, 6 and 7, the digits twin
+   rows 1 and 2, the B = 4 tile under its batcher, exactly two a replay)
+   and two as subprocesses, each printing its JAX example's labelled lines
+   and holding its invariants (the quickstart and the decode twin also
+   against ``--device cpu``); ``repro_torch.launch.dryrun --all`` over the
+   (16, 16) mesh over the card, every runnable cell ok;
 6. times on the card: each kernel instance at B = 1 and its plain version
    (device time from CUDA-graph replay between CUDA events, also with the
    L2 flushed before each call, and the kernel's time per call launched
@@ -3664,8 +3675,387 @@ def mesh_phase(dev, smi) -> dict:
     return res
 
 
+# -- phase 5j: the examples and the launch tooling ---------------------------
+
+EXAMPLES = ROOT / "examples"
+TWIN_TIMEOUT_S = 300
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_WORKERS = 5            # beside the two twins run as subprocesses
+# the digits twin's CTC steps and the gas twin's dense ones (half as many
+# QAT steps follow): their defaults, 400 and 150, would take 70 s and 100 s
+# of the card's eager steps (host-bound, ~0.17 s a digits step)
+DIGITS_STEPS = 100
+GAS_STEPS = 40
+COPY_BYTES = 4 * 2 ** 30      # the HBM copy of (c)
+MATMUL_N = 8192               # the bf16 matmul of (c)
+# the labelled lines each twin prints, in its JAX example's order
+TWIN_LABELS = {
+    "quickstart_torch.py": (
+        "theta=0   max |DeltaGRU - GRU| = ", "theta=  8 (Q8.8)  gamma_dx=",
+        "theta= 32 (Q8.8)  gamma_dx=", "theta= 64 (Q8.8)  gamma_dx=",
+        "Eq.7 on the EdgeDRNN config (8 PEs @125 MHz, peak 2 GOp/s):",
+        "  est latency/step = ", "delta_spmv kernel: weight HBM traffic ",
+        "compiled program (backend=fused): step/sequence API",
+        "int8 program: weights quantized+packed at compile time",
+        "state safety: ", "quantized LSTM (cell=lstm, backend=fused_q8)",
+        "  layout: gates=4, w_q "),
+    "serve_stream_digits_torch.py": (
+        "trained digit recognizer: CTC loss ", "reference digits: ",
+        "decoded digits:   ", "streaming report over ", "  gamma_dx=",
+        "  mean Eq.7 latency ", "int8 deployment (backend=fused_q8, 8-bit",
+        "  gamma_dh=", "session batcher: 10 streams recycled through 4 slots",
+        "with closed-loop theta controller (target 15% hidden firing):",
+        "  theta_h adapted "),
+    "train_gas_regression_torch.py": (
+        "== SensorsGas regression, 2L-64H ==",
+        "stage 1 (dense pretrain):   loss ",
+        "stage 2 (DeltaGRU retrain): loss -> ", "eval: RMSE=",
+        "temporal sparsity: gamma_dx=", "Eq.7 deployment estimate: "),
+    "lm_delta_decode_torch.py": (
+        "delta-RWKV6 greedy decode (rwkv6-1.6b-smoke: D=64, L=2, vocab=48,",
+        "   theta  gamma_dx  gamma_dh  KB/step     drift  tok match",
+        "   0.000 ", "   0.031 ", "   0.125 ", "   0.250 ",
+        "=> the engine prices exactly what the deltas fetch"),
+}
+
+
+def twin_labels(name: str, out: str) -> None:
+    """Every labelled line of the twin, in order."""
+    lines = out.splitlines()
+    at = 0
+    for label in TWIN_LABELS[name]:
+        while at < len(lines) and not lines[at].startswith(label):
+            at += 1
+        if at == len(lines):
+            raise AssertionError(f"{name}: no line {label!r} in order:\n"
+                                 f"{out}")
+        at += 1
+
+
+def twin_numbers(line: str) -> list:
+    import re
+    return [float(x) for x in re.findall(r"-?\d+\.\d+(?:e[-+]\d+)?", line)]
+
+
+def twin_line(out: str, label: str) -> str:
+    return next(ln for ln in out.splitlines() if ln.startswith(label))
+
+
+def run_twin(name: str, argv: list) -> tuple:
+    """``examples/<name>`` run in this process (``runpy``) with ``argv``;
+    returns its output and its globals."""
+    import contextlib
+    import io
+    import runpy
+    buf = io.StringIO()
+    saved = sys.argv
+    sys.argv = [str(EXAMPLES / name), *argv]
+    try:
+        with contextlib.redirect_stdout(buf):
+            env = runpy.run_path(str(EXAMPLES / name), run_name="__main__")
+    finally:
+        sys.argv = saved
+    return buf.getvalue(), env
+
+
+def start(cmd: list, env: dict, out_dir: str, what: str):
+    """``cmd`` in a process group of its own (it may start others), its
+    output and errors written to files under ``out_dir``."""
+    out = open(os.path.join(out_dir, f"{what}.out"), "w")
+    err = open(os.path.join(out_dir, f"{what}.err"), "w")
+    proc = subprocess.Popen(cmd, stdout=out, stderr=err, text=True, env=env,
+                            cwd=ROOT, start_new_session=True)
+    out.close()
+    err.close()
+    proc.files = (out.name, err.name)
+    return proc
+
+
+def stop(proc) -> None:
+    """Kill ``proc``'s whole process group, whatever is left of it."""
+    import signal
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def finish(proc, what: str, timeout: float) -> str:
+    """The process's output once it exits 0 (its group killed at
+    ``timeout``)."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        stop(proc)
+        raise AssertionError(f"{what} ran past {timeout} s")
+    stop(proc)                      # anything it left behind
+    with open(proc.files[0]) as f:
+        out = f.read()
+    if proc.returncode != 0:
+        with open(proc.files[1]) as f:
+            err = f.read()
+        raise AssertionError(f"{what} exited {proc.returncode}:\n{out}\n"
+                             f"{err[-4000:]}")
+    return out
+
+
+def card_rates(dev) -> dict:
+    """The card's HBM copy rate (a 4 GiB device-to-device copy: read and
+    write) and dense bf16 matmul rate (8192^3, a library call: it measures
+    the card), by CUDA events over repeated calls."""
+    import torch
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / 1e3 / reps
+
+    a = torch.empty(COPY_BYTES, dtype=torch.uint8, device=dev)
+    b = torch.empty_like(a)
+    t_copy = timed(lambda: b.copy_(a), 10)
+    del a, b
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((MATMUL_N, MATMUL_N), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    y = torch.randn((MATMUL_N, MATMUL_N), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    t_mm = timed(lambda: x @ y, 20)
+    del x, y
+    free_card()
+    return {"hbm_bytes_per_s": 2 * COPY_BYTES / t_copy,
+            "copy_ms": 1e3 * t_copy,
+            "bf16_flops_per_s": 2 * MATMUL_N ** 3 / t_mm,
+            "matmul_ms": 1e3 * t_mm}
+
+
+def examples_phase(dev, smi, main_gru: dict) -> dict:
+    """Phase 5j: the four example twins and the launch tooling on the card.
+    (a) ``examples/quickstart_torch.py`` and
+    ``examples/serve_stream_digits_torch.py`` run in this process (each
+    with the launch counts set to 0 just before and read just after), and
+    ``train_gas_regression_torch.py`` and ``lm_delta_decode_torch.py`` as
+    subprocesses, each within ``TWIN_TIMEOUT_S``; every twin exits cleanly
+    and prints every labelled line of its JAX example (the digits twin at
+    ``--steps DIGITS_STEPS``, the gas twin at ``--steps GAS_STEPS``: their
+    defaults would take minutes of eager steps). The quickstart must
+    launch rows 1, 2, 4, 6 and 7 (``deltagru_seq_f32``,
+    ``delta_q8_gru_i8``, ``delta_q8_lstm_i8``, ``deltalstm_seq_f32``,
+    ``delta_spmv_f32``); the digits twin rows 1 and 2 exactly two layers a
+    replay (and a capture's warm-up step) of its engines (row 2 one-stream
+    and the B = 4 tile under the batcher) and nothing while it trains. (b) The quickstart's theta=0 line
+    within ``TOL_F32`` (the delta memory sums rounded deltas: JAX's example
+    prints 2.1e-7 there) and its state-safety ``ValueError``; the decode
+    twin's theta=0 row at drift 0.0000 and 100 % token match; the training
+    twins' losses finite and falling; the quickstart and the decode twin
+    against the same twins with ``--device cpu``: every int8 output
+    bitwise, every fp32 output within ``TOL_F32``, the decode's reference
+    tokens equal. (c) The card's HBM copy rate and bf16 matmul rate beside
+    ``H100``'s data-sheet constants; ``gpu_batch1_gru_roofline`` of the
+    paper's 2L-768H at phase 5's measured sparsity beside phase 5's
+    ``step_many`` time (``main_gru``: backend -> (gamma_dx, gamma_dh,
+    us a step)). (d) ``python -m repro_torch.launch.dryrun --all`` on the
+    (16, 16) mesh over the card, in ``DRYRUN_WORKERS`` processes: one line
+    a cell, every runnable cell of ``grid()`` ok. Returns the launches and
+    the numbers."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import grid
+    from repro_torch.core.perf_model import H100, gpu_batch1_gru_roofline
+    from repro_torch.core.sparsity import GruDims, effective_sparsity
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    res = {"launches": {}}
+    # (c) first, while nothing else runs on the card
+    rates = card_rates(dev)
+    res["rates"] = rates
+    log(f"examples (c) HBM: a {COPY_BYTES} B device-to-device copy in "
+        f"{rates['copy_ms']:.4f} ms, {rates['hbm_bytes_per_s'] / 1e12:.4f} "
+        f"TB/s read + written (data sheet {H100.hbm_bw / 1e12:.2f} TB/s); "
+        f"bf16 {MATMUL_N}^3 matmul in {rates['matmul_ms']:.4f} ms, "
+        f"{rates['bf16_flops_per_s'] / 1e12:.2f} TFLOP/s (data sheet "
+        f"{H100.peak_bf16_flops / 1e12:.0f} TFLOP/s dense) [{smi}]")
+    dims = GruDims(40, 768, 2)
+    for be, wbytes in (("fused", 4), ("fused_q8", 1)):
+        gdx, gdh, us = main_gru[be]
+        g_eff = float(effective_sparsity(dims, gdx, gdh))
+        roof = gpu_batch1_gru_roofline(dims, g_eff, weight_bytes=wbytes)
+        bound_us = 1e6 * max(roof["t_compute"], roof["t_memory"])
+        res[f"roofline_{be}"] = dict(roof, gamma_eff=g_eff, bound_us=bound_us,
+                                     step_many_us=us)
+        log(f"examples (c) gpu_batch1_gru_roofline 2L-768H {be} "
+            f"({wbytes}-byte weights) at phase 5's gamma_eff {g_eff:.4f} "
+            f"(gamma_dx {gdx:.4f}, gamma_dh {gdh:.4f}): compute "
+            f"{1e6 * roof['t_compute']:.5f} us, memory "
+            f"{1e6 * roof['t_memory']:.5f} us ({roof['bound']}-bound, "
+            f"{bound_us:.5f} us a step); phase 5's step_many {us:.1f} us a "
+            f"step, {us / bound_us:.1f} x the bound [{smi}]")
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    out_dir = tempfile.mkdtemp(prefix="examples_")
+    rec_dir = os.path.join(out_dir, "dryrun")
+    procs = {}
+    try:
+        procs["dryrun"] = start(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--workers", str(DRYRUN_WORKERS), "--out", rec_dir], env,
+            out_dir, "dryrun")
+        procs["gas"] = start(
+            [sys.executable, str(EXAMPLES / "train_gas_regression_torch.py"),
+             "--steps", str(GAS_STEPS)], env, out_dir, "gas")
+        procs["decode"] = start(
+            [sys.executable, str(EXAMPLES / "lm_delta_decode_torch.py")],
+            env, out_dir, "decode")
+        # (a) the in-process twins, each launch counted
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        out_q, card_q = run_twin("quickstart_torch.py", [])
+        n_q = {k: v for k, v in ops.launch_counts().items() if v}
+        res["quickstart_s"] = time.perf_counter() - t0
+        log(out_q.rstrip())
+        twin_labels("quickstart_torch.py", out_q)
+        want_q = (ops.DELTAGRU_SEQ_F32, ops.DELTA_Q8_GRU_I8,
+                  ops.DELTA_Q8_LSTM_I8, ops.DELTALSTM_SEQ_F32,
+                  ops.DELTA_SPMV_F32)
+        if any(not n_q.get(k.name) for k in want_q) or set(n_q) - {
+                k.name for k in want_q}:
+            raise AssertionError(f"quickstart launches {n_q}")
+        log(f"examples (a) quickstart on {dev}: launches {n_q} "
+            f"({res['quickstart_s']:.1f} s)")
+
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        log(f"examples (a) quickstart done at "
+            f"{time.perf_counter() - t_phase:.1f} s of the phase")
+        out_d, card_d = run_twin("serve_stream_digits_torch.py",
+                                 ["--steps", str(DIGITS_STEPS)])
+        n_d = {k: v for k, v in ops.launch_counts().items() if v}
+        res["digits_s"] = time.perf_counter() - t0
+        log(out_d.rstrip())
+        twin_labels("serve_stream_digits_torch.py", out_d)
+        # a replay runs two layer kernels; so does the warm-up step each
+        # capture runs first, outside the graph
+        replays = {k: card_d[k].graph_stats["replays"]
+                   + card_d[k].graph_stats["captures"]
+                   for k in ("eng", "eng2", "eng_q", "eng_m")}
+        want_d = {ops.DELTAGRU_SEQ_F32.name:
+                  2 * (replays["eng"] + replays["eng2"]),
+                  ops.DELTA_Q8_GRU_I8.name:
+                  2 * (replays["eng_q"] + replays["eng_m"])}
+        if (n_d != want_d or card_d["eng_m"].n_streams != 4
+                or not replays["eng_m"] or not replays["eng_q"]):
+            raise AssertionError(f"digits launches {n_d}, want {want_d} "
+                                 f"(replays {replays})")
+        log(f"examples (a) serve_stream_digits --steps {DIGITS_STEPS} on "
+            f"{dev}: launches {n_d} = 2 layers x replays {replays} (the "
+            f"int8 kernel's B=4 tile under the batcher: "
+            f"{2 * replays['eng_m']}) ({res['digits_s']:.1f} s)")
+        for k in set(n_q) | set(n_d):
+            res["launches"][k] = n_q.get(k, 0) + n_d.get(k, 0)
+
+        # (b) invariants and the card against the CPU
+        err0 = twin_numbers(twin_line(out_q, "theta=0   max"))[0]
+        if not err0 <= TOL_F32:
+            raise AssertionError(f"quickstart theta=0: {err0} > {TOL_F32}")
+        losses = twin_numbers(twin_line(out_d, "trained digit recognizer"))
+        if not (np.all(np.isfinite(losses)) and losses[1] < losses[0]):
+            raise AssertionError(f"digits losses {losses}")
+        out_qc, cpu_q = run_twin("quickstart_torch.py", ["--device", "cpu"])
+        twin_labels("quickstart_torch.py", out_qc)
+        errs = {}
+        for key in ("ys_dense", "ys_delta0", "ys_prog", "ys_legacy",
+                    "ys_l"):
+            errs[key] = float((card_q[key].cpu() - cpu_q[key]).abs().max())
+            if errs[key] > TOL_F32:
+                raise AssertionError(f"quickstart {key}: card against CPU "
+                                     f"{errs[key]:.3e} > {TOL_F32}")
+        for key in ("ys_q8", "ys_lq8"):
+            if not torch.equal(card_q[key].cpu(), cpu_q[key]):
+                raise AssertionError(f"quickstart {key}: card and CPU "
+                                     "differ")
+        log(f"examples (b) quickstart: theta=0 {err0:.2e} <= {TOL_F32}; "
+            f"state safety raised; card against --device cpu: int8 "
+            f"outputs (ys_q8, ys_lq8) bitwise, fp32 "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" <= {TOL_F32}; digits CTC loss {losses[0]} -> {losses[1]}")
+
+        out_dec, card_dec = run_twin("lm_delta_decode_torch.py", [])
+        _, cpu_dec = run_twin("lm_delta_decode_torch.py",
+                              ["--device", "cpu"])
+        dec_err = float((card_dec["ref_logits"].cpu()
+                         - cpu_dec["ref_logits"]).abs().max())
+        if dec_err > TOL_F32 or card_dec["ref_toks"] != cpu_dec["ref_toks"]:
+            raise AssertionError(f"decode: card against CPU {dec_err:.3e}, "
+                                 f"tokens {card_dec['ref_toks']} / "
+                                 f"{cpu_dec['ref_toks']}")
+
+        # the subprocesses
+        out_gas = finish(procs.pop("gas"), "train_gas_regression_torch.py",
+                         TWIN_TIMEOUT_S)
+        log(out_gas.rstrip())
+        twin_labels("train_gas_regression_torch.py", out_gas)
+        stage1 = twin_numbers(twin_line(out_gas, "stage 1"))
+        stage2 = twin_numbers(twin_line(out_gas, "stage 2"))
+        if not (np.all(np.isfinite(stage1 + stage2))
+                and stage1[1] < stage1[0] and stage2[0] < stage1[0]):
+            raise AssertionError(f"gas losses {stage1} {stage2}")
+        out_dsub = finish(procs.pop("decode"), "lm_delta_decode_torch.py",
+                          TWIN_TIMEOUT_S)
+        log(out_dsub.rstrip())
+        twin_labels("lm_delta_decode_torch.py", out_dsub)
+        row0 = twin_line(out_dsub, "   0.000 ").split()
+        if row0[4] != "0.0000" or row0[5] != "100%":
+            raise AssertionError(f"decode theta=0 row {row0}")
+        log(f"examples (b) gas: stage 1 loss {stage1[0]} -> {stage1[1]}, "
+            f"stage 2 -> {stage2[0]}; decode theta=0 row drift {row0[4]}, "
+            f"match {row0[5]}; decode card against --device cpu: reference "
+            f"logits {dec_err:.2e} <= {TOL_F32}, reference tokens equal "
+            f"[{smi}]")
+
+        # (d) the dry-run
+        t0 = time.perf_counter()
+        out_dr = finish(procs.pop("dryrun"), "launch.dryrun --all",
+                        DRYRUN_TIMEOUT_S)
+        for line in out_dr.splitlines():
+            if line.strip():
+                log(f"dryrun {line}")
+        runnable = [(a, s.name) for a, s, skip in grid() if not skip]
+        recs = {}
+        for a, s in runnable:
+            with open(os.path.join(rec_dir, f"{a}__{s}__16x16.json")) as f:
+                recs[(a, s)] = json.load(f)
+        bad = [k for k, r in recs.items()
+               if not r["ok"] or r.get("mesh") != "16x16"]
+        if bad:
+            raise AssertionError(f"dry-run cells not ok: {bad}")
+        res["dryrun"] = recs
+        res["dryrun_wait_s"] = time.perf_counter() - t0
+        log(f"examples (d) dry-run: {len(recs)} runnable cells of grid() "
+            f"ok on the 16x16 mesh over {dev}, "
+            f"{sum(r['memory']['fits'] for r in recs.values())} fit; waited "
+            f"{res['dryrun_wait_s']:.1f} s for it after the twins [{smi}]")
+    finally:
+        for p in procs.values():
+            stop(p)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 5j took {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     import functools
+    t_script = time.perf_counter()
 
     import numpy as np
     import torch
@@ -4298,6 +4688,7 @@ def main() -> int:
     requests = [smooth_frames(rng, int(t), 1, cfg.input_size)[:, 0]
                 for t in lengths]
     launches = {}
+    main_rates = {}
     wall_us = {}
     eager_us = {}
     batch_fps = {}
@@ -4359,6 +4750,9 @@ def main() -> int:
                                  f"{want8}")
         graph_check(f"{path} batcher", eng8, batcher.counters["ticks"])
         launches[kinfo.name] = n1[kinfo.name] + n8[kinfo.name]
+        rep1 = eng.report()
+        main_rates[path] = (rep1["gamma_dx"], rep1["gamma_dh"],
+                            wall_us[path])
         log(f"main path {path}: 1 stream {N_FRAMES} steps -> "
             f"{n1[kinfo.name]} launches; 8-slot batcher {len(done)} "
             f"requests in {batcher.counters['ticks']} ticks -> "
@@ -4654,6 +5048,12 @@ def main() -> int:
 
     # -- 5i. the mesh paths -------------------------------------------------
     mesh_phase(dev, smi)
+
+    # -- 5j. the examples and the launch tooling ------------------------------
+    ex = examples_phase(dev, smi, {be: main_rates[f"gru {be}"]
+                                   for be in ("fused", "fused_q8")})
+    for name, n in ex["launches"].items():
+        launches[name] = launches.get(name, 0) + n
 
     # -- 6. times on the card ---------------------------------------------
     ops.reset_launch_counts()
@@ -5080,6 +5480,7 @@ def main() -> int:
             e["launches"] > 0 for e in entries):
         got = [(e["name"], e["launches"]) for e in entries]
         raise AssertionError(f"kernel line incomplete: {got}")
+    log(f"chip_smoke took {time.perf_counter() - t_script:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -2,10 +2,9 @@
 performance model, the backend registry, the DeltaGRU, DeltaLSTM, delta
 RWKV6 and delta RG-LRU stacks and compiled programs.
 
-The public names of :mod:`repro.core`, re-exported, except the perf model's
-TPU section (``TpuChipSpec``, ``V5E``, ``tpu_batch1_gru_roofline``,
-``batch_sweep``), which the port has not taken (``ROADMAP.md`` Queue 1
-item 1)."""
+The public names of :mod:`repro.core`, re-exported; the perf model's
+accelerator section under the card's names (``GpuChipSpec``, ``H100``,
+``gpu_batch1_gru_roofline``, ``batch_sweep``)."""
 from repro_torch.core.backends import (BackendSpec, backend_names,
                                        get_backend, list_backends,
                                        register_backend, registered_backends,
@@ -30,10 +29,12 @@ from repro_torch.core.deltalstm import (DeltaLstmStackState, LstmLayerParams,
                                         init_deltalstm_state, init_lstm_layer,
                                         init_lstm_stack, lstm_sequence,
                                         lstm_stack_m_init, pack_lstm_stack)
-from repro_torch.core.perf_model import (EDGEDRNN, AcceleratorSpec,
+from repro_torch.core.perf_model import (EDGEDRNN, H100, AcceleratorSpec,
+                                         GpuChipSpec, batch_sweep,
                                          delta_unit_latency_cycles,
                                          dram_traffic_bytes_per_timestep,
                                          estimate_stack,
+                                         gpu_batch1_gru_roofline,
                                          normalized_batch1_throughput)
 from repro_torch.core.program import (DeltaGruProgram, DeltaGruProgramState,
                                       DeltaProgram, DeltaProgramState,

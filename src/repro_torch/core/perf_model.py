@@ -14,9 +14,12 @@ times, not times measured on any GPU. The functions are plain arithmetic,
 so they take Python floats or tensors alike (the engine accumulates them on
 the device without a host sync).
 
-The JAX package's TPU v5e constants (``TpuChipSpec``) are not ported: no
-code on this path needs them, and when the roofline harness is ported its
-constants will be the H100's, measured, never the v5e's.
+The last section is the same law on a GPU: :class:`GpuChipSpec` and
+:data:`H100` (the NVIDIA H100 SXM data sheet's dense bf16 rate, HBM3
+bandwidth and NVLink bandwidth), a batch-1 roofline of a delta-GRU step and
+a batch sweep, the port of the reference's accelerator section with the
+card's constants. ``chip_smoke.py`` measures two of the constants on the
+card and prints them beside the data sheet's.
 """
 from __future__ import annotations
 
@@ -169,3 +172,59 @@ def estimate_batched_tile(dims: GruDims, gamma_dx: float, gamma_dh: float,
         "weight_bytes_per_stream": tile_bytes / batch,
         "throughput_ops": ops / lat if lat > 0 else float("inf"),
     }
+
+
+# ---------------------------------------------------------------------------
+# The same law on a GPU, with the card's constants.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class GpuChipSpec:
+    peak_bf16_flops: float = 989e12   # dense bf16, H100 SXM data sheet
+    hbm_bw: float = 3.35e12           # HBM3 bytes/s, H100 SXM data sheet
+    nvlink_bw: float = 900e9          # NVLink bytes/s, H100 SXM data sheet
+
+
+H100 = GpuChipSpec()
+
+
+def gpu_batch1_gru_roofline(dims: GruDims, gamma_eff: float,
+                            batch: int = 1, weight_bytes: int = 2,
+                            chip: GpuChipSpec = H100) -> dict:
+    """Roofline terms for a delta-GRU decode step on one card.
+
+    compute term  = batch * Op / peak_flops
+    memory term   = surviving weight bytes / hbm_bw   (weights dominate at
+                    batch ~ 1; activations are KB-scale and ignored, as in
+                    the paper's analysis)
+    """
+    ops = dims.params_per_timestep_ops * batch
+    wbytes = dims.n_params * weight_bytes * (1.0 - gamma_eff)
+    t_compute = ops / chip.peak_bf16_flops
+    t_memory = wbytes / chip.hbm_bw
+    return {
+        "t_compute": t_compute,
+        "t_memory": t_memory,
+        "bound": "memory" if t_memory >= t_compute else "compute",
+        "effective_ops_per_s": ops / max(t_compute, t_memory),
+        "speedup_vs_dense": 1.0 / (1.0 - gamma_eff),
+    }
+
+
+def batch_sweep(dims: GruDims, batches, weight_bytes: int = 2,
+                act_bytes: int = 2, chip: GpuChipSpec = H100,
+                gamma_eff: float = 0.0) -> list[dict]:
+    """Fig. 13 analogue: throughput & latency vs batch size.
+
+    Weights are fetched once per step regardless of batch (reuse), so
+    throughput rises toward the compute roofline with batch while latency
+    grows once compute dominates.
+    """
+    rows = []
+    for b in batches:
+        ops = dims.params_per_timestep_ops * b
+        wbytes = dims.n_params * weight_bytes * (1.0 - gamma_eff)
+        abytes = act_bytes * b * (dims.input_size + 2 * dims.hidden_size * dims.num_layers)
+        t = max(ops / chip.peak_bf16_flops, (wbytes + abytes) / chip.hbm_bw)
+        rows.append({"batch": b, "latency_s": t, "throughput_ops": ops / t})
+    return rows

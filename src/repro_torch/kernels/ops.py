@@ -6,7 +6,10 @@ oracle elsewhere) and has a global ``set_force_ref`` switch. Here the rule
 is the tensor's device, and nothing else:
 
 * operands on the CPU run the kernel's plain PyTorch version;
-* operands on a CUDA device launch the hand-written kernel, or raise.
+* operands on a CUDA device launch the hand-written kernel, or raise;
+* operands on the meta device (shapes and dtypes, no data: the launch
+  tooling's abstract structures) run the plain version, which computes
+  nothing there but the shapes of its results.
 
 There is no fallback from a failed launch to the plain version and no
 global switch that reroutes the main path; callers that want the plain
@@ -46,15 +49,16 @@ def resolve_device(device=None) -> torch.device:
 
 def launches_kernel(*tensors: torch.Tensor) -> bool:
     """Dispatch rule: True when every operand lies on one CUDA device
-    (launch the kernel), False when every operand lies on the CPU (run the
-    plain version). Mixed or other devices raise."""
+    (launch the kernel), False when every operand lies on the CPU or on
+    the meta device (run the plain version). Mixed or other devices
+    raise."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"kernel operands on several devices: {devices}")
     dev = devices.pop()
     if dev.type == "cuda":
         return True
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return False
     raise ValueError(f"no kernel or plain version for device {dev}")
 
@@ -111,6 +115,132 @@ def cuda_stream(t: torch.Tensor) -> int:
                          f"device is cuda:{current}; call "
                          "torch.cuda.set_device first")
     return torch.cuda.current_stream().cuda_stream
+
+
+# -- loops over time ----------------------------------------------------------
+
+_TRIPS = [1]
+
+
+def trip_count() -> int:
+    """How many times the op now running stands for: above 1 inside the
+    one trip that :func:`scan_trips` runs for a whole loop on the meta
+    device (``launch/hlo_cost.py`` multiplies the op's costs by it)."""
+    return _TRIPS[-1]
+
+
+class _trips:
+    def __init__(self, n: int):
+        self.n = n
+
+    def __enter__(self):
+        _TRIPS.append(_TRIPS[-1] * self.n)
+
+    def __exit__(self, *exc):
+        _TRIPS.pop()
+        return False
+
+
+def scan_trips(step, carry: tuple, seqs: tuple, consts: tuple = (),
+               dim: int = 0):
+    """The plain scans' loop over time: ``carry, y = step(carry, *(s_t for
+    s in seqs), *consts)`` for each index ``t`` of ``seqs``' dim ``dim``.
+    Returns ``(ys stacked along dim, carry)``.
+
+    On the meta device (the dry-run's abstract evaluation) one trip runs
+    for the whole loop, as the reference's cost walker multiplies a loop
+    body by its trip count: its ops count ``T`` times (:func:`trip_count`),
+    forward and backward, and the tensors the loop would keep for its
+    backward, ``T - 1`` more trips' worth, are held as one meta buffer.
+    Elsewhere it is the loop itself."""
+    n = seqs[0].shape[dim]
+    if seqs[0].device.type == "meta" and n > 1:
+        out = _MetaTrips.apply(step, n, dim, len(carry), len(seqs), *carry,
+                               *seqs, *consts)
+        return out[-1], tuple(out[:-1])
+    ys = []
+    for t in range(n):
+        carry, y = step(carry, *(s.select(dim, t) for s in seqs), *consts)
+        ys.append(y)
+    return torch.stack(ys, dim), carry
+
+
+class _MetaTrips(torch.autograd.Function):
+    """One trip of :func:`scan_trips` standing for ``n`` on meta tensors."""
+
+    @staticmethod
+    def forward(ctx, step, n, dim, n_carry, n_seq, *tensors):
+        grad = any(t.requires_grad for t in tensors)
+        # past the first trip the carry depends on what requires grad
+        ins = [t.detach().requires_grad_(t.requires_grad
+                                         or (grad and i < n_carry))
+               for i, t in enumerate(tensors)]
+        carry = tuple(ins[:n_carry])
+        seqs = ins[n_carry:n_carry + n_seq]
+        # a trip keeps what it saves but its inputs' slices and constants
+        # (the carry it was handed is its predecessor's output)
+        own = {t.untyped_storage()._cdata for t in tensors[n_carry:]}
+        saved = {}
+
+        def pack(t):
+            st = t.untyped_storage()
+            if st._cdata not in own:
+                saved[st._cdata] = st.nbytes()
+            return t
+
+        # the last trip runs beside the other trips' outputs, listed until
+        # the stack copies them out (their size from a trip that counts
+        # nothing), and is handed a carry of its own: the first one's stays
+        # with the caller
+        with torch.no_grad(), _trips(0):
+            y0 = step(carry, *(s.select(dim, 0) for s in seqs),
+                      *ins[n_carry + n_seq:])[1]
+        listed = torch.empty(((n - 1) * y0.numel() * y0.element_size(),),
+                             dtype=torch.uint8, device="meta")
+        del y0
+        handed = torch.empty((sum(c.numel() * c.element_size()
+                                  for c in carry),),
+                             dtype=torch.uint8, device="meta")
+        with torch.enable_grad(), _trips(n), \
+                torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            new_carry, y = step(carry, *(s.select(dim, 0) for s in seqs),
+                                *ins[n_carry + n_seq:])
+        ctx.n, ctx.dim, ctx.ins, ctx.n_carry = n, dim, ins, n_carry
+        ctx.req = [t.requires_grad for t in tensors]
+        ctx.outs = (*new_carry, y)
+        # the other trips' tensors kept for the backward
+        ctx.held = torch.empty(((n - 1) * sum(saved.values()),),
+                               dtype=torch.uint8, device="meta")
+        with _trips(n):                   # the stack's traffic, a trip each
+            torch.stack([y.detach()], dim)
+        shape = list(y.shape)
+        shape.insert(dim, n)
+        ys = y.new_empty(shape)
+        del listed, handed
+        return (*(c.detach() for c in new_carry), ys)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g_outs = [*grads[:-1], grads[-1].select(ctx.dim, 0)]
+        pairs = [(o, g) for o, g in zip(ctx.outs, g_outs) if o.requires_grad]
+        need = [i for i, t in enumerate(ctx.ins) if t.requires_grad]
+        got = [None] * len(ctx.ins)
+        if pairs and need:
+            with _trips(ctx.n):
+                gs = torch.autograd.grad([o for o, _ in pairs],
+                                         [ctx.ins[i] for i in need],
+                                         [g for _, g in pairs],
+                                         allow_unused=True)
+            # the loop's backward adds up a gradient a trip for each slice
+            # and constant it read: n - 1 additions of each
+            with _trips(ctx.n - 1):
+                for i, g in zip(need, gs):
+                    if g is not None and i >= ctx.n_carry:
+                        torch.add(g, g)
+            for i, g in zip(need, gs):
+                got[i] = g if ctx.req[i] else None
+        ctx.held = ctx.outs = ctx.ins = None
+        return (None,) * 5 + tuple(got)
 
 
 @dataclass

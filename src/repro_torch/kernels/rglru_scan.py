@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ops import (H100_SMS, RGLRU_SCAN_F32, aligned16,
                                      cuda_stream, launches_kernel,
-                                     refuse_autograd, require)
+                                     refuse_autograd, require, scan_trips)
 
 # Constants of csrc/rglru_scan.cu the plan mirrors.
 RGLRU_VEC = 4                         # channels a thread owns: kVec
@@ -135,13 +135,15 @@ def rglru_scan_batched_ref(x, a, h0=None):
     rounded on its own."""
     h = (torch.zeros((x.shape[0], x.shape[-1]), dtype=x.dtype,
                      device=x.device) if h0 is None else h0)
-    hs = []
-    for i in range(x.shape[1]):
-        a_t = a[:, i]
-        norm = torch.sqrt(torch.clamp_min(1.0 - a_t * a_t, 0.0))
-        h = a_t * h + norm * x[:, i]
-        hs.append(h)
-    return torch.stack(hs, dim=1), h
+    hs, (h,) = scan_trips(_lru_step, (h,), (x, a), dim=1)
+    return hs, h
+
+
+def _lru_step(carry, x_t, a_t):
+    (h,) = carry
+    norm = torch.sqrt(torch.clamp_min(1.0 - a_t * a_t, 0.0))
+    h = a_t * h + norm * x_t
+    return (h,), h
 
 
 def rglru_scan_ref(x, a, h0=None):

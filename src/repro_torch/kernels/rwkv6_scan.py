@@ -33,7 +33,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ops import (H100_SMS, RWKV6_SCAN_BF16,
                                      RWKV6_SCAN_F32, aligned16, cuda_stream,
                                      launches_kernel, refuse_autograd,
-                                     require)
+                                     require, scan_trips)
 
 HEAD_DIM = 64                  # the only head size the kernel takes: kD
 # Constants of csrc/rwkv6_scan.cu the plan mirrors.
@@ -162,16 +162,16 @@ def rwkv6_scan_batched_ref(r, k, v, w, u, s0=None):
     if s0 is None:
         s0 = torch.zeros((b, h, d, d), device=r.device,
                          dtype=torch.promote_types(r.dtype, w.dtype))
-    s = s0
-    ys = []
-    for i in range(t):
-        r_t, k_t, v_t, w_t = r[:, :, i], k[:, :, i], v[:, :, i], w[:, :, i]
-        kv = k_t[..., :, None] * v_t[..., None, :]               # [B,H,D,D]
-        m = s + u[:, :, None] * kv
-        y = (r_t[..., None, :].to(m.dtype) @ m)[..., 0, :]
-        s = w_t[..., :, None] * s + kv
-        ys.append(y)
-    return torch.stack(ys, dim=2), s
+    ys, (s,) = scan_trips(_wkv_step, (s0,), (r, k, v, w), (u,), dim=2)
+    return ys, s
+
+
+def _wkv_step(carry, r_t, k_t, v_t, w_t, u):
+    (s,) = carry
+    kv = k_t[..., :, None] * v_t[..., None, :]                   # [B,H,D,D]
+    m = s + u[:, :, None] * kv
+    y = (r_t[..., None, :].to(m.dtype) @ m)[..., 0, :]
+    return (w_t[..., :, None] * s + kv,), y
 
 
 def rwkv6_scan_ref(r, k, v, w, u, s0=None):

@@ -368,7 +368,9 @@ def apply_blocks(entries: list, x: torch.Tensor, cfg: ModelConfig, mode: str,
             zip(schedule, entries)):
         cache_stacked = caches[e] if caches is not None else None
 
-        def period(x, aux, p, c):
+        # ``pattern`` bound now: the checkpoint recomputes a period in the
+        # backward, after the loop has moved on to the next entry
+        def period(x, aux, p, c, pattern=pattern):
             for j, kind in enumerate(pattern):
                 sub_c = c[f"sub{j}"] if c is not None else None
                 x, new_c, a = apply_block(kind, p[f"sub{j}"], x, cfg, mode,

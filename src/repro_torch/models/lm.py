@@ -60,7 +60,28 @@ def init_lm(generator, cfg: ModelConfig, device=None) -> dict:
     an int seed). A CUDA generator gives other numbers than a CPU one of the
     same seed."""
     dev = resolve_device(device)
-    gen = _generator(generator, dev)
+    return _init_params(_generator(generator, dev), cfg, dev)
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device: the factories get
+    their device from ``generator.device``, and a meta tensor draws
+    nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def init_lm_abstract(cfg: ModelConfig) -> dict:
+    """The tree :func:`init_lm` builds, on the meta device: every leaf's
+    shape and dtype, nothing drawn or allocated (the role of
+    ``jax.eval_shape`` over the reference's ``init_lm``)."""
+    return _init_params(_MetaGenerator(), cfg, torch.device("meta"))
+
+
+def _init_params(gen: torch.Generator, cfg: ModelConfig,
+                 dev: torch.device) -> dict:
     dt = lm_dtype(cfg)
     params = {
         "embedding": embed_init(gen, cfg.vocab, cfg.d_model, dt),

@@ -24,6 +24,8 @@ from repro_torch.data.synthetic import digit_batch, gas_batch
 from repro_torch.dist.elastic import best_mesh
 from repro_torch.dist.serving import ShardedStreamFleet
 from repro_torch.kernels import _build, ops
+from repro_torch.launch import dryrun as launch_dryrun
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.kernels.delta_q8 import deltagru_q8_step, pack_delta_weights_q8
@@ -41,7 +43,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+TWINS = sorted((ROOT / "examples").glob("*_torch.py"))
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + TWINS
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -72,8 +75,12 @@ def test_the_scan_covers_every_port_module_and_kernel_source():
                 "launch/train.py", "data/lm_data.py", "data/pipeline.py",
                 "data/__init__.py", "train/__init__.py",
                 "dist/sharding.py", "dist/pipeline.py", "models/moe_ep.py",
-                "launch/specs.py", "dist/__init__.py"):
+                "launch/specs.py", "dist/__init__.py", "launch/mesh.py",
+                "launch/hlo_cost.py", "launch/dryrun.py"):
         assert mod in names, mod
+    assert [p.name for p in TWINS] == [
+        "lm_delta_decode_torch.py", "quickstart_torch.py",
+        "serve_stream_digits_torch.py", "train_gas_regression_torch.py"]
     assert sorted(_build.SOURCES) == sorted(
         p.name for p in (PORT / "csrc").glob("*.cu"))
 
@@ -121,17 +128,21 @@ def test_port_imports_with_jax_and_repro_blocked():
 def test_package_reexports_import_with_jax_and_repro_blocked():
     """``repro_torch.core``, ``.quant``, ``.models``, ``.data``, ``.train``
     and ``.dist`` re-export the public names of the JAX package's
-    ``__init__`` files (the core's TPU perf-model section aside), importing
-    neither JAX nor a card."""
-    tpu_only = {"TpuChipSpec", "V5E", "tpu_batch1_gru_roofline",
-                "batch_sweep"}
+    ``__init__`` files (the core's perf-model accelerator section under
+    the card's names), importing neither JAX nor a card."""
+    card_names = {"TpuChipSpec": "GpuChipSpec", "V5E": "H100",
+                  "tpu_batch1_gru_roofline": "gpu_batch1_gru_roofline"}
     want = {}
     for pkg in ("core", "quant"):
         tree = ast.parse((ROOT / "src" / "repro" / pkg / "__init__.py")
                          .read_text())
-        want[pkg] = sorted({a.asname or a.name for node in tree.body
+        want[pkg] = sorted({card_names.get(a.asname or a.name,
+                                           a.asname or a.name)
+                            for node in tree.body
                             if isinstance(node, ast.ImportFrom)
-                            for a in node.names} - tpu_only)
+                            for a in node.names})
+    assert {"GpuChipSpec", "H100", "gpu_batch1_gru_roofline",
+            "batch_sweep"} <= set(want["core"])
     want["models"] = ["init_lm", "init_lm_caches", "lm_forward",
                       "lm_prefill", "lm_decode", "lm_params_from_numpy",
                       "KVCache", "MlaCache", "make_schedule"]
@@ -182,7 +193,8 @@ def _np_tree(model):
     "serve_resumable", "digit_batch", "gas_batch", "best_mesh",
     "ShardedStreamFleet", "init_lm", "init_lm_caches", "LmEngine",
     "launch_serve", "lm_params_from_numpy", "lm_batch", "launch_train",
-    "launch_train_model_parallel"])
+    "launch_train_model_parallel", "make_production_mesh",
+    "make_debug_mesh", "launch_dryrun"])
 def test_default_device_without_cuda_raises(entry, monkeypatch, tmp_path):
     model = _small_model()
     cfg = GruTaskConfig(40, 48, 2, 12)
@@ -237,6 +249,11 @@ def test_default_device_without_cuda_raises(entry, monkeypatch, tmp_path):
         "launch_train_model_parallel": lambda: launch_train.main(
             ["--arch", "llama3.2-1b", "--reduced", "--steps", "1",
              "--model-parallel", "2"]),
+        "make_production_mesh": lambda: launch_mesh.make_production_mesh(),
+        "make_debug_mesh": lambda: launch_mesh.make_debug_mesh(),
+        "launch_dryrun": lambda: launch_dryrun.main(
+            ["--arch", "smollm-360m", "--shape", "decode_32k", "--out",
+             str(tmp_path)]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -274,8 +291,9 @@ def test_cpu_tensors_run_the_plain_version_and_count_nothing():
 def test_dispatch_rule():
     cpu = torch.zeros(2)
     assert ops.launches_kernel(cpu, cpu) is False
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.launches_kernel(torch.zeros(2, device="meta"))
+    # meta tensors (the launch tooling's abstract structures) take the plain
+    # version too: it computes nothing there but its results' shapes
+    assert ops.launches_kernel(torch.zeros(2, device="meta")) is False
     with pytest.raises(ValueError, match="several devices"):
         ops.launches_kernel(cpu, torch.zeros(2, device="meta"))
     with pytest.raises(ValueError, match="CUDA tensor"):

@@ -298,6 +298,38 @@ def test_remat_full_gives_the_same_step(arch, monkeypatch):
         assert float(mf["aux"]) > 0
 
 
+@pytest.mark.parametrize("arch,n_layers", [("recurrentgemma-9b", 5),
+                                           ("llama-3.2-vision-11b", 3)])
+def test_remat_full_with_a_remainder_entry(arch, n_layers):
+    """A schedule of two entries (the periods, then the layers left over,
+    as recurrentgemma-9b's 38 = 12 x 3 + 2 at full size): the checkpoint
+    recomputes each period with its own entry's pattern, so the step is
+    that of ``remat="none"`` bitwise, and the loss JAX's."""
+    jcfg = jreg.get_config(arch).reduced(n_layers=n_layers)
+    tcfg = treg.get_config(arch).reduced(n_layers=n_layers)
+    assert len(tblocks.make_schedule(tcfg)) == 2
+    jp = jlm.init_lm(jax.random.PRNGKey(0), jcfg)
+    tp = tlm.lm_params_from_numpy(_np_tree(jp), device="cpu")
+    rng = np.random.default_rng(n_layers)
+    batch = {"tokens": rng.integers(0, jcfg.vocab, (B, S)).astype(np.int32)}
+    if jcfg.cross_attn_every:
+        batch["image_embeds"] = (rng.normal(0, 1, (
+            B, jcfg.n_image_tokens, jcfg.vision_dim)) * 0.02).astype(
+                np.float32)
+    runs = {}
+    for remat in ("none", "full"):
+        cfg = dataclasses.replace(tcfg, remat=remat)
+        step = ttrainer.make_lm_train_step(cfg, _opt(toptim))
+        runs[remat] = step(ttrainer.init_train_state(tp), _tb(batch))
+    (sn, mn), (sf, mf) = runs["none"], runs["full"]
+    for k in mn:
+        assert torch.equal(mn[k], mf[k]), k
+    for a, b in zip(toptim.tree_leaves(sn), toptim.tree_leaves(sf)):
+        assert torch.equal(a, b)
+    loss, _ = _jgrads(jcfg, jp, batch)
+    assert abs(float(mf["loss"]) - loss) <= TOL_METRIC * max(1.0, abs(loss))
+
+
 def test_remat_stays_off_outside_train_grad():
     """No checkpoint in prefill, or in ``train`` mode without grad."""
     _, tcfg, _, tp, batch = _model("llama3.2-1b")
