@@ -32,7 +32,15 @@ traceback and a non-zero exit):
    rail; and narrow layouts (int8 ``block_k`` 8 and 4, int4 16 and 4)
    through the narrow-load instance, their buffered form (a ring filled by
    ``cp.async`` or 2-byte copies) bitwise equal to it, also launched after
-   an L2 flush (copies that land late);
+   an L2 flush (copies that land late); then the engine step's two
+   kernels (``engine_kernels_phase``): the Delta Unit at the main paths'
+   layer shapes, N in {1, 8, 9, 128}, θ 0 and 0.25 (a number and a device
+   tensor), the input on the Q8.8 grid or not, with steps exactly at θ,
+   NaN and ±inf inputs (deltas, memories and count totals bitwise), and
+   the epilogue over 2, 4 and 24 layers of those count rows at N in {1, 8,
+   128}, with non-finite values in a slot's first leaf and in another
+   slot's last leaf alone (flags, poison and bad-state sums and
+   ``last_x`` bitwise, the fp32 terms within ``TOL_EPILOGUE_REL``);
 4. the int8/int4 kernels' own activation stage over every Q8.8 input,
    bitwise against ``torch.sigmoid`` / ``torch.tanh`` on the CPU after the
    LUT rounding;
@@ -44,21 +52,25 @@ traceback and a non-zero exit):
    θx = θh = 0.25 under ``torch.cuda.set_sync_debug_mode("error")``, then a
    ``GruStreamBatcher`` over an 8-slot engine draining 16 requests of mixed
    lengths (its sessions open and close between replays). Each engine
-   steps by replaying the one CUDA graph it captured at construction (one
-   capture, a replay a step); its state, carry and report must equal, bit
-   for bit, the same frames stepped op by op through the engine's
-   ``_one_step`` on a second engine (``eager_steps``), its outputs too or
-   within ``TOL_HEAD``. Launch counts, the capture's taken back and each
-   replay's added, must equal steps × layers of that path's kernel, and
-   no other kernel may launch, in each run; the results must match the
-   same program compiled with ``device="cpu"``;
+   steps by replaying its CUDA graphs (the one-step graph captured at
+   construction, the 16-, 8-, 4-, 2- and 1-step chunks of ``step_many``
+   captured by a warm-up run of 31 frames before the timed run, each
+   once); its state, carry and report must equal, bit for bit, the same
+   frames stepped op by op through the engine's ``_one_step`` on a second
+   engine (``eager_steps``), its outputs too or within ``TOL_HEAD``.
+   Launch counts, the captures' taken back and each replay's added, must
+   equal a step's launches (the layer kernels, a Delta Unit a layer, two
+   for RG-LRU, and one epilogue) times the steps, and no other kernel may
+   launch, in each run; the results must match the same program compiled
+   with ``device="cpu"``;
 5c. resilience (after 5b, below), on the main path's engines: (a) each
    of the eight 1-stream engines opens a session, steps, snapshots and
    ``checkpoint``s; ``DeltaStreamEngine.restore`` builds a second engine
    on the card (its graph captured, then the checkpoint written into its
    buffers); both step 20 frames bitwise alike in state, carry, shadows,
-   outputs and report, the restored one through one capture over the
-   buffers it captured; ``corrupt_slot_state`` on it is flagged in
+   outputs and report, the restored one through graphs captured over the
+   buffers it has (the one-step graph before the restore wrote them, the
+   16- and 4-step chunks after); ``corrupt_slot_state`` on it is flagged in
    ``bad_state`` by its next replay and ``rollback_stream`` restores the
    snapshot bitwise; ``step_many``, ``snapshot_streams``,
    ``rollback_stream`` and the corruption run under
@@ -138,7 +150,10 @@ traceback and a non-zero exit):
    logits of (a) and (c) within ``TOL_LM_BF16_RMS`` of the teacher-forced
    forward; (d) llama3.2-1b and rwkv6-1.6b in fp32 at full width and 2
    layers, the card against the CPU within ``TOL_LM`` and prefill-then-
-   decode against the forward within ``TOL_F32``; with each model's init,
+   decode against the forward within ``TOL_F32``; (e) rwkv6-1.6b's fp32
+   2-layer prefill [2, 32] under ``REPRO_RWKV_CHUNKED=1`` (the
+   chunk-parallel route, plain PyTorch, no kernel) within ``TOL_LM`` of
+   the same prefill through ``rwkv6_scan_f32``; with each model's init,
    prefill and
    decode times, kernels a decode step and idle share, peak memory, and the
    drain's tokens a second;
@@ -169,7 +184,8 @@ traceback and a non-zero exit):
    llama3.2-1b, rwkv6-1.6b and granite-moe-3b-a800m at full width and 2
    layers, recurrentgemma-9b at full width and 3 layers (its vocabulary
    cut), deepseek-v2-lite-16b, llama-3.2-vision-11b and
-   seamless-m4t-large-v2 at ``reduced()`` widths: the loss within
+   seamless-m4t-large-v2 at ``reduced()`` widths, and rwkv6-1.6b again
+   at 2 layers under ``REPRO_RWKV_CHUNKED=1`` on both devices: the loss within
    ``TOL_LM``, every gradient leaf within ``TOL_LM_TRAIN_GRAD`` of its
    largest (``TOL_LM_TRAIN_GRAD_RWKV6``), no zero card gradient on a
    scan's leaves, the parameters after Adam within its first-step bound,
@@ -210,6 +226,9 @@ traceback and a non-zero exit):
    L2 flushed before each call, and the kernel's time per call launched
    from Python), each GRU/LSTM step also at B = 8 (the tile instance), the
    floor under a launch (an empty kernel of the q8 build, two launches),
+   the Delta Unit's launches of one step and the epilogue over that step's
+   state for GRU ``fused`` / ``fused_q8`` and RWKV6 (warm, cold, from
+   Python, plain, bound),
    the dense ``torch.addmm``
    over the cell's fp32 volume as a yardstick the port never calls,
    ``deltagru_act`` also cold, at B = 8 and beside an empty kernel of its
@@ -218,7 +237,7 @@ traceback and a non-zero exit):
    (``eager_steps``): wall and CUDA-event time per step with its kernels
    per step and idle share (``torch.profiler``, which sees the kernels of
    a replay one by one), the per-frame latency of ``step`` (median and p95
-   over the frames), the capture's time and the batcher's frames per
+   over the frames), each chunk graph's capture time and the batcher's frames per
    second; per training stage of 5d the wall per train step, frames per
    second, kernels per step and idle share, the step cut into forward,
    backward and Adam, the peak memory, and the export's time; for 5e (b)
@@ -314,6 +333,11 @@ TOL_LM = 1e-3
 # over 96 steps: the CPU suite measured 2e-6 of a leaf's largest element at
 # H = 32, T = 24; H = 768 sums 24 times the terms and T = 96 four times the
 # steps, a factor of ~10 under sqrt growth, and 1e-4 keeps five over that.
+# The engine epilogue's fp32 terms against its plain version on the card
+# (R5): the kernel sums the layers and the slots in index order, PyTorch's
+# reductions pair them otherwise, a few ulps of the sum (24 layers, 128
+# slots); counts, flags, poison and bad-state sums and last_x are exact.
+TOL_EPILOGUE_REL = 1e-6
 TOL_TRAIN_LOSS = 1e-5
 TOL_TRAIN_GRAD = 1e-4
 # A LUT output of the CPU's QAT forward may differ from the card's only
@@ -586,11 +610,31 @@ def recording(engine_cls):
             super().__init__(*args, **kwargs)
             Recorded.made.append(self)
 
-        def _capture_step(self):
+        def _capture_step(self, k=1):
             self.captured_ptrs = buffer_ptrs(self)
-            super()._capture_step()
+            super()._capture_step(k)
 
     return Recorded
+
+
+class env_var:
+    """Set an environment variable inside a ``with`` block and restore it
+    (or its absence) after: the blocks read the scan-route variables
+    (``REPRO_RWKV_CHUNKED``, ``REPRO_RGLRU_ASSOC``) at each call."""
+
+    def __init__(self, name: str, value: str):
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        self.old = os.environ.get(self.name)
+        os.environ[self.name] = self.value
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop(self.name, None)
+        else:
+            os.environ[self.name] = self.old
+        return False
 
 
 class no_sync:
@@ -646,6 +690,7 @@ def restore_round_trip(path, eng, prog, task, frames, engine_cls,
     import torch
     from repro_torch.serve.faults import corrupt_slot_state
     dev = eng.device
+    eng_steps = engine_steps(eng)
     sid = eng.open_stream()
     with no_sync(dev):
         eng.step_many(frames[:10])
@@ -671,11 +716,15 @@ def restore_round_trip(path, eng, prog, task, frames, engine_cls,
             and back.report() == eng.report()):
         raise AssertionError(f"{path}: the restored engine stepped apart "
                              "from the one it was checkpointed from")
-    if cuda and (graphs["captures"] != 1 or graphs["replays"] != 20
+    # the one-step graph captured before the restore wrote the buffers,
+    # the 16- and 4-step graphs of step_many's 20 frames after it
+    if cuda and (graphs["captures"] != 3 or graphs["replays"] != 2
+                 or graphs["steps"] != 20
                  or back.captured_ptrs != buffer_ptrs(back)):
         raise AssertionError(f"{path}: restored engine graph {graphs}, "
-                             "want 1 capture, 20 replays over the buffers "
-                             "it captured")
+                             "want 3 captures, 20 steps in 2 replays over "
+                             "the buffers it captured")
+    capture_ms = 1e3 * graphs["capture_s"]
     snap = [t.clone() for t in tree_leaves(back._snap_state)]
     keys = back._PER_STREAM_KEYS + ("last_x",)
     snap_carry = {k: back._snap_carry[k].clone() for k in keys}
@@ -698,8 +747,8 @@ def restore_round_trip(path, eng, prog, task, frames, engine_cls,
                              f"rollback bitwise {rolled}, after it equal "
                              f"{torch.equal(a, b)}")
     return {"ckpt_ms": ckpt_ms, "restore_ms": restore_ms,
-            "capture_ms": 1e3 * graphs["capture_s"],
-            "steps": 40 + 26 + graphs["captures"]}
+            "capture_ms": capture_ms,
+            "steps": engine_steps(eng) - eng_steps + engine_steps(back)}
 
 
 SOAK_ARRIVALS = 200
@@ -1193,12 +1242,330 @@ def train_split_ms(params, task, batch, qat, use_delta, opt_state, opt_cfg):
 
 
 def graph_check(what, eng, steps):
-    """The engine stepped through its one captured graph: captured
-    once (at construction), replayed once a step."""
+    """The engine stepped ``steps`` steps through its captured graphs, each
+    captured once (the one-step graph at construction, a chunk's at its
+    first use) and never again, with no more replays than ``chunk_plan``
+    needs a call."""
     g = eng.graph_stats
-    if g["captures"] != 1 or g["replays"] != steps:
-        raise AssertionError(f"{what}: graph {g}, want 1 capture and "
-                             f"{steps} replays")
+    if g["captures"] != len(eng._graphs) or g["steps"] != steps \
+            or g["replays"] > steps:
+        raise AssertionError(f"{what}: graph {g} over {sorted(eng._graphs)}"
+                             f", want each graph captured once and {steps} "
+                             "steps")
+
+
+# frames that capture every chunk graph of step_many (16 + 8 + 4 + 2 + 1)
+WARM_FRAMES = 31
+
+
+def warm_chunks(eng, frames):
+    """Capture every graph ``step_many`` uses (a run of WARM_FRAMES of
+    ``frames``), then reset the engine: a timed or counted run after it
+    captures nothing."""
+    eng.step_many(frames[:WARM_FRAMES])
+    eng.reset()
+
+
+def engine_steps(eng) -> int:
+    """The steps an engine ran on the card: its replays' steps, and one
+    a capture (the step a capture runs first, outside the graph)."""
+    g = eng.graph_stats
+    return g["steps"] + g["captures"]
+
+
+def step_launches(layer_kernels: dict, units: int) -> dict:
+    """The launches of one engine step: its layer kernels'
+    (``{name: launches}``), ``units`` Delta Unit launches and one
+    epilogue."""
+    from repro_torch.kernels import ops
+    return {**layer_kernels, ops.DELTA_UNIT_F32.name: units,
+            ops.ENGINE_EPILOGUE_F32.name: 1}
+
+
+def times(per_step: dict, steps: int) -> dict:
+    return {k: v * steps for k, v in per_step.items()}
+
+
+def add_counts(total: dict, n: dict) -> None:
+    for k, v in n.items():
+        total[k] = total.get(k, 0) + v
+
+
+def bits(t):
+    """A float tensor's bit patterns (NaN-safe bitwise comparison)."""
+    import torch
+    return t.contiguous().view(-1).view(torch.int32).cpu()
+
+
+def du_streams(rng, n, widths, dev, theta, quant, strided):
+    """Delta Unit operands: a ``(s, memory)`` pair of ``[n, w]`` per width,
+    memories on the Q8.8 grid, ``s`` = memory + a step that lands exactly
+    on ``theta`` (fires under >=, not under >), exactly 0 (fires at
+    theta = 0 with a zero delta), below, above, or at NaN / +-inf; with
+    ``quant`` also off the grid by half a step (rounded to even);
+    ``strided``: ``s`` a column block of a wider tensor (row stride)."""
+    import numpy as np
+    import torch
+    out = []
+    for w in widths:
+        mem = np.round(rng.normal(0, 1, (n, w)) * 256) / 256
+        pick = rng.integers(0, 7, (n, w))
+        step = np.choose(pick, [np.full((n, w), theta), np.zeros((n, w)),
+                                rng.uniform(0, 0.9, (n, w)) * theta,
+                                theta + rng.uniform(0.01, 2, (n, w)),
+                                -theta - rng.uniform(0.01, 2, (n, w)),
+                                np.full((n, w), -theta),
+                                rng.normal(0, 1, (n, w))])
+        s = mem + step
+        if quant:
+            half = rng.random((n, w)) < 0.1
+            s = np.where(half, np.floor(s * 256) / 256 + 0.5 / 256, s)
+        special = rng.random((n, w))
+        s = np.where(special < 0.01, np.nan, s)
+        s = np.where((special >= 0.01) & (special < 0.02), np.inf, s)
+        s = np.where((special >= 0.02) & (special < 0.03), -np.inf, s)
+        if n > 1:
+            s[-1] = mem[-1]                        # a silent slot
+        s_t = torch.from_numpy(s.astype(np.float32)).to(dev)
+        if strided:
+            wide = torch.zeros((n, w + 8), dtype=torch.float32, device=dev)
+            wide[:, 3:3 + w] = s_t
+            s_t = wide[:, 3:3 + w]
+        out.append((s_t, torch.from_numpy(mem.astype(np.float32)).to(dev)))
+    return out
+
+
+def engine_kernel_rows(dev, programs: dict, rng, floor_ms: float,
+                       smi: str) -> dict:
+    """Phase 6 for the engine step's two kernels at the main paths' shapes,
+    one stream, theta = 0.25: warm (CUDA-graph replay), with a cold L2,
+    launched from Python, and the plain version on the card; the bound is
+    the bytes each launch must move (each input read once, each output
+    written once) at 3.35 TB/s, beside the launch floor (no single
+    PyTorch call computes either: library_ms None). ``programs``: a
+    compiled program per path, ``{"gru fused_q8": ..., "rwkv6 fused":
+    ...}``; per path the Delta Unit launches of one step and the epilogue
+    over that step's state. Returns ``{kernel name: {path: row}}``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.delta_unit import (DU_TILE, delta_unit,
+                                                delta_unit_ref)
+    from repro_torch.kernels.engine_epilogue import (AGGREGATES, PER_STREAM,
+                                                     EpilogueConsts,
+                                                     engine_epilogue,
+                                                     engine_epilogue_ref)
+    from repro_torch.core.sparsity import cell_dims
+    th = torch.full((), THETA, dtype=torch.float32, device=dev)
+    rows = {ops.DELTA_UNIT_F32.name: {}, ops.ENGINE_EPILOGUE_F32.name: {}}
+    for path, prog in programs.items():
+        cell = prog.cell
+        quant = prog.backend.startswith("fused_q")
+        d_in, hid, n_layers = prog.input_size, prog.hidden_size, \
+            prog.num_layers
+        if cell == "rwkv6":
+            shapes = [([hid] * 3, [hid])] * n_layers
+        else:
+            shapes = [([d_in if l == 0 else hid], [hid])
+                      for l in range(n_layers)]
+        calls = [(du_streams(rng, 1, wx, dev, THETA, quant, False),
+                  du_streams(rng, 1, wh, dev, THETA, False, False))
+                 for wx, wh in shapes]
+        grid = (256.0, -128.0, 128.0 - 1.0 / 256) if quant else None
+
+        def du_all(fn=delta_unit):
+            return [fn(xs, hs, THETA, th, act_grid=grid)[2]
+                    for xs, hs in calls]
+
+        du_bytes = sum(16 * (sum(wx) + sum(wh))
+                       + 4 * 3 * sum(-(-w // DU_TILE) for w in wx + wh)
+                       for wx, wh in shapes)
+        counts = [(l, c) for l, c in enumerate(du_all())]
+        cols = [(sum(wx), sum(wh)) for wx, wh in shapes]
+        state = prog.init_state((1,))
+        leaves = [t for t in tree_leaves(state)]
+        carry = {k: torch.zeros((1,), device=dev) for k in PER_STREAM}
+        carry.update({k: torch.zeros((), device=dev) for k in AGGREGATES})
+        carry["last_x"] = torch.zeros((1, d_in), device=dev)
+        x = torch.rand((1, d_in), device=dev)
+        finite = torch.ones((1,), dtype=torch.bool, device=dev)
+        consts = EpilogueConsts(cell_dims(cell, d_in, hid, n_layers),
+                                8.0 * 125e6, 8)
+        ws = torch.zeros((2,), dtype=torch.int32, device=dev)
+        ep_bytes = (sum(4 * t.numel() for t in leaves)
+                    + sum(4 * c.numel() for _, c in counts)
+                    + 4 * 2 * d_in + 1 + 4 * 2 * (len(PER_STREAM)
+                                                  + len(AGGREGATES)))
+
+        def ep(fn=engine_epilogue):
+            args = (leaves, counts, cols, carry, x, finite, consts)
+            return fn(*args, ws) if fn is engine_epilogue else fn(*args)
+
+        for kinfo, run, plain, nbytes, launches in (
+                (ops.DELTA_UNIT_F32, du_all,
+                 lambda: du_all(delta_unit_ref), du_bytes, n_layers),
+                (ops.ENGINE_EPILOGUE_F32, ep,
+                 lambda: ep(engine_epilogue_ref), ep_bytes, 1)):
+            row = {"ms": device_ms(run), "cold_ms": device_ms_cold(run),
+                   "eager_ms": eager_ms(run), "plain_ms": device_ms(plain),
+                   "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                   "bound_by": "bytes", "library_ms": None, "bytes": nbytes,
+                   "launches_per_step": launches,
+                   "launch_floor_ms": floor_ms * launches / 2}
+            rows[kinfo.name][path] = row
+            log(f"time {kinfo.name} {path}, one step's {launches} "
+                f"launch{'es' if launches > 1 else ''} at B=1: kernel "
+                f"{row['ms']:.5f} ms warm, {row['cold_ms']:.5f} ms with a "
+                f"cold L2 ({row['eager_ms']:.4f} ms launched from Python), "
+                f"plain {row['plain_ms']:.5f} ms, bound "
+                f"{row['bound_ms']:.6f} ms ({nbytes} B), launch floor "
+                f"{row['launch_floor_ms']:.5f} ms [{smi}]")
+    return rows
+
+
+def engine_kernels_phase(dev, rng) -> dict:
+    """Phase 3 for the engine step's two kernels, each against its plain
+    version on the card, every case launched twice and bitwise equal.
+
+    The Delta Unit at the main paths' layer shapes (2L-768H's two GRU /
+    LSTM layers, RWKV6's three input streams, row-strided, and its decay
+    stream at D = 2048, RG-LRU's 4096-wide streams one group at a time) at
+    N in {1, 8, 9, 128}, theta 0 and 0.25 (a number, and a device tensor),
+    the input group on the Q8.8 grid or not: deltas and memories bitwise,
+    the count rows' totals exact.
+
+    The epilogue on count rows of those launches, over 2 and 24 layers,
+    with state leaves like the engines' (a [N, 32, 64, 64] WKV state past
+    one scan chunk, a row-strided [N, 3, W] slice of [N, 4, W], an empty
+    row), non-finite values in the first leaf of one slot and in the last
+    leaf alone of another, frames flagged non-finite: flags, counts,
+    poison and bad-state sums and last_x bitwise, the fp32 terms within
+    TOL_EPILOGUE_REL of the plain version, the workspace left zero.
+    Returns ``{"max_err": {name: max absolute error}, "cases": n}``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sparsity import cell_dims
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.delta_unit import (count_totals, delta_unit,
+                                                delta_unit_ref)
+    from repro_torch.kernels.engine_epilogue import (AGGREGATES, PER_STREAM,
+                                                     EpilogueConsts,
+                                                     engine_epilogue,
+                                                     engine_epilogue_ref)
+    du, ep = ops.DELTA_UNIT_F32, ops.ENGINE_EPILOGUE_F32
+    err = {du.name: 0.0, ep.name: 0.0}
+    grid = (256.0, -128.0, 128.0 - 1.0 / 256)
+    shapes = {"gru layer 0": ([40], [768]), "gru layer 1": ([768], [768]),
+              "rwkv6 layer": ([2048] * 3, [2048]),
+              "rglru x": ([4096], []), "rglru u": ([], [4096])}
+    n_cases = 0
+    rows_for = {}
+    for n in (1, 8, 9, 128):
+        for what, (wx, wh) in shapes.items():
+            for theta in (0.0, 0.25):
+                for quant in ((False, True) if what.startswith("gru")
+                              else (False,)):
+                    xs = du_streams(rng, n, wx, dev, theta, quant,
+                                    strided=what.startswith("rwkv6"))
+                    hs = du_streams(rng, n, wh, dev, theta, False, False)
+                    th = torch.full((), theta, dtype=torch.float32,
+                                    device=dev)
+                    ag = grid if quant else None
+                    runs = [delta_unit(xs, hs, theta, th, act_grid=ag)
+                            for _ in range(2)]
+                    ref = delta_unit_ref(xs, hs, theta, th, act_grid=ag)
+                    torch.cuda.synchronize()
+                    outs = [[t for pair in r[0] + r[1] for t in pair]
+                            for r in runs + [ref]]
+                    same = all(torch.equal(bits(a), bits(b))
+                               for o in outs[1:] for a, b in zip(outs[0], o))
+                    totals = [count_totals(r[2]).cpu() for r in runs + [ref]]
+                    exact = all(torch.equal(totals[0], t) for t in totals)
+                    fired = int(totals[0][:, :n].sum())
+                    desc = (f"{what} N={n} theta={theta}"
+                            f"{' Q8.8 input' if quant else ''}: {fired} "
+                            f"deltas fired, unions {totals[0][:, n].tolist()}")
+                    if not (same and exact):
+                        raise AssertionError(
+                            f"{du.name} disagrees with its plain version: "
+                            f"{desc}; outputs bitwise {same}, counts {exact}"
+                            f" ({totals[0].tolist()} against "
+                            f"{totals[-1].tolist()})")
+                    n_cases += 1
+                    if theta > 0 and not quant:
+                        rows_for[(n, what)] = runs[0][2]
+        log(f"kernel {du.name} N={n}: every shape, theta and grid bitwise "
+            "its plain version (deltas, memories, count totals)")
+
+    for n in (1, 8, 128):
+        for n_layers, kinds in ((2, ("gru layer 0", "gru layer 1")),
+                                (24, ("rwkv6 layer",) * 24),
+                                (4, ("rglru x", "rglru u") * 4)):
+            i_dim = {"gru layer 0": 40}.get(kinds[0], 2048 if kinds[0]
+                                            .startswith("rwkv6") else 4096)
+            if kinds[0].startswith("rglru"):
+                counts = [(l // 2, rows_for[(n, k)])
+                          for l, k in enumerate(kinds)]
+                cols = [(4096, 4096)] * n_layers
+                dims = cell_dims("rglru", 4096, 4096, n_layers)
+            else:
+                counts = [(l, rows_for[(n, k)]) for l, k in enumerate(kinds)]
+                cols = ([(40, 768), (768, 768)] if n_layers == 2
+                        else [(3 * 2048, 2048)] * n_layers)
+                dims = (cell_dims("gru", 40, 768, 2) if n_layers == 2
+                        else cell_dims("rwkv6", 2048, 2048, n_layers))
+            g = torch.Generator(device=dev).manual_seed(n * 100 + n_layers)
+
+            def rand(*shape):
+                return torch.rand(shape, generator=g, device=dev)
+
+            conv = rand(n, 4, 33)[:, 1:]
+            leaves = [rand(n, 768), rand(n, 32, 64, 64), conv,
+                      rand(n, 0), rand(n, 3)]
+            leaves[0][0, 5] = float("nan")         # slot 0: the first leaf
+            if n > 1:
+                leaves[-1][n - 1, 2] = float("inf")   # the last slot: last
+            if n > 2:
+                leaves[1][1, 31, 63, 63] = float("-inf")  # past chunk 0
+            x = rand(n, i_dim)
+            finite = rand(n) > 0.3
+            carry = {k: rand(n) for k in PER_STREAM}
+            carry.update({k: rand() for k in AGGREGATES})
+            carry["last_x"] = rand(n, i_dim)
+            consts = EpilogueConsts(dims, 8.0 * 125e6, 8)
+            got = [{k: v.clone() for k, v in carry.items()}
+                   for _ in range(2)]
+            ws = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
+            fh = [engine_epilogue(leaves, counts, cols, c, x, finite,
+                                  consts, ws) for c in got]
+            want = {k: v.clone() for k, v in carry.items()}
+            fh_ref = engine_epilogue_ref(leaves, counts, cols, want, x,
+                                         finite, consts)
+            torch.cuda.synchronize()
+            exact_keys = ("poison_steps", "bad_state", "agg_poison_steps",
+                          "agg_bad_state", "last_x")
+            twice = all(torch.equal(got[0][k], got[1][k]) for k in carry) \
+                and torch.equal(fh[0], fh[1])
+            exact = all(torch.equal(got[0][k], want[k]) for k in exact_keys)
+            terms = [(got[0][k], want[k]) for k in carry
+                     if k not in exact_keys] + [(fh[0], fh_ref)]
+            rel = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                      for a, b in terms)
+            err[ep.name] = max([err[ep.name]] + [
+                float((a - b).abs().max()) for a, b in terms])
+            flagged = got[0]["bad_state"] != carry["bad_state"]
+            desc = (f"N={n}, {n_layers} layers: slots flagged "
+                    f"{int(flagged.sum())}, fp32 terms {rel:.3e} relative")
+            if not (twice and exact and rel <= TOL_EPILOGUE_REL
+                    and int(ws.abs().sum()) == 0
+                    and bool(flagged[0]) and bool(flagged[n - 1])):
+                raise AssertionError(
+                    f"{ep.name} disagrees with its plain version: {desc}; "
+                    f"launched twice bitwise {twice}, exact entries {exact}, "
+                    f"workspace {ws.tolist()[:4]}")
+            n_cases += 1
+            log(f"kernel {ep.name} {desc}: exact entries bitwise, fp32 "
+                f"within {TOL_EPILOGUE_REL}")
+    return {"max_err": err, "cases": n_cases}
 
 
 def training_phase(dev, train_task, batch: int = 32, max_t: int = 96):
@@ -1378,6 +1745,7 @@ def training_phase(dev, train_task, batch: int = 32, max_t: int = 96):
     feats = serve_draws["features"].cpu().numpy()
     n_serve = feats.shape[1]
     eng = DeltaStreamEngine(serve_prog, delta_task, n_streams=n_serve)
+    steps0 = engine_steps(eng)
     ops.reset_launch_counts()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1385,12 +1753,14 @@ def training_phase(dev, train_task, batch: int = 32, max_t: int = 96):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    n_served = ops.launch_counts()
+    n_served = {k: v for k, v in ops.launch_counts().items() if v}
     q8 = ops.DELTA_Q8_GRU_I8
-    want = feats.shape[0] * train_task.num_layers
-    if n_served[q8.name] != want or sum(n_served.values()) != want:
+    layers = train_task.num_layers
+    want = times(step_launches({q8.name: layers}, layers),
+                 engine_steps(eng) - steps0)
+    if n_served != want:
         raise AssertionError(f"served export: launches {n_served}, want "
-                             f"{want} of {q8.name}")
+                             f"{want}")
     graph_check("served export", eng, feats.shape[0])
     ce = DeltaStreamEngine(serve_cpu, delta_task, n_streams=n_serve,
                            device="cpu")
@@ -1412,10 +1782,9 @@ def training_phase(dev, train_task, batch: int = 32, max_t: int = 96):
                  for d, lab, ln in zip(decoded, labels, lab_lens))
     train["serve"] = {"export_ms": export_ms, "errors": errors,
                       "labels": int(lab_lens.sum()),
-                      "launches": n_served[q8.name]}
+                      "launches": n_served}
     log(f"served export (fused_q8, {n_serve} streams, {feats.shape[0]} "
-        f"frames, theta={THETA}): {n_served[q8.name]} launches of "
-        f"{q8.name}; final state bitwise the CPU program's, outputs "
+        f"frames, theta={THETA}): launches {n_served}; final state bitwise the CPU program's, outputs "
         f"{head_err:.3e}; greedy "
         f"decode edit distance {errors} over {int(lab_lens.sum())} labels "
         f"({errors / lab_lens.sum():.4f} a label); report gamma_dx "
@@ -1705,21 +2074,21 @@ def fabric_phase(dev, model_768, kernel_q8, kernel_f32, smi) -> dict:
                                 seed=cfg["seed"])
 
     def counted(what, run_fn, kinfo, layers):
-        """``run_fn()`` from zero counts; the launches must be ``layers``
-        a step of every engine it made (captures' warm-up steps and
-        replays) of ``kinfo`` alone."""
+        """``run_fn()`` from zero counts; the launches must be a step's
+        (``layers`` of ``kinfo`` and of the Delta Unit, one epilogue) for
+        each step of every engine it made (captures' warm-up steps and
+        replays' steps) and no other."""
         Recorded.made.clear()
         ops.reset_launch_counts()
         out = run_fn()
         sync(dev)
         n = {k: v for k, v in ops.launch_counts().items() if v}
-        steps = sum(e.graph_stats["captures"] + e.graph_stats["replays"]
-                    for e in Recorded.made)
+        steps = sum(engine_steps(e) for e in Recorded.made)
+        want = times(step_launches({kinfo.name: layers}, layers), steps)
         # (on the CPU no kernel launches)
-        if n != ({kinfo.name: steps * layers} if dev.type == "cuda" else {}):
-            raise AssertionError(f"{what}: launches {n}, want "
-                                 f"{steps * layers} of {kinfo.name}")
-        launches[kinfo.name] += n.get(kinfo.name, 0)
+        if n != (want if dev.type == "cuda" else {}):
+            raise AssertionError(f"{what}: launches {n}, want {want}")
+        add_counts(launches, n)
         return out, list(Recorded.made)
 
     res = {}
@@ -1831,7 +2200,8 @@ def fabric_phase(dev, model_768, kernel_q8, kernel_f32, smi) -> dict:
                 f"restored equal to the export; {fleet_steps} shard replays "
                 f"in {fleet.graph_stats['ticks']} ticks, "
                 f"{launches[kernel_q8.name]} launches of {kernel_q8.name} "
-                f"and no other ({len(made)} engines); "
+                f"with the step's Delta Units and epilogues and no other "
+                f"({len(made)} engines); "
                 f"{run['quiet_ticks']} ticks without a harvest under "
                 f"set_sync_debug_mode('error') [{smi}]")
             # one surviving shard's replay at B = 128, 20 steps of frames
@@ -1841,15 +2211,17 @@ def fabric_phase(dev, model_768, kernel_q8, kernel_f32, smi) -> dict:
                 (20, cfg["streams_per_shard"], task_b.input_size)).astype(
                 np.float32)
             if dev.type == "cuda":
+                shard.step_many(xs)           # its chunks' graphs, once
                 ops.reset_launch_counts()
                 res["shard_profile"] = engine_profile(
                     lambda: shard.step_many(xs), len(xs),
                     match="delta_q8_kernel")
                 n = {k: v for k, v in ops.launch_counts().items() if v}
-                if n != {kernel_q8.name: len(xs) * layers}:
+                if n != times(step_launches({kernel_q8.name: layers},
+                                            layers), len(xs)):
                     raise AssertionError(f"fabric shard profile: launches "
                                          f"{n}")
-                launches[kernel_q8.name] += len(xs) * layers
+                add_counts(launches, n)
             del run, fleet, router, made, back, exported, cpu_ref, shard
 
             # (b) again, counts equal; ticks FABRIC_PROFILE_TICKS profiled
@@ -2492,6 +2864,38 @@ def lm_phase(dev, smi) -> dict:
             f"teacher-forced forward: relative RMS {err_f:.3e} (within "
             f"{TOL_F32}) [{smi}]")
         del params, cpu_params, caches, c_caches
+
+    # (e) the chunk-parallel route: rwkv6-1.6b's fp32 2-layer prefill
+    # [2, 32] under REPRO_RWKV_CHUNKED=1 (ops.rwkv6_chunked, plain
+    # PyTorch, no kernel) against the same prefill through row 9
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), n_layers=2,
+                              dtype="float32")
+    params, _ = build(cfg)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 32))).to(dev)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        lg_k, caches_k = lm_prefill(params, cfg, toks,
+                                    init_lm_caches(cfg, 2, 64, dev))
+        n_k = {k: v for k, v in ops.launch_counts().items() if v}
+        ops.reset_launch_counts()
+        with env_var("REPRO_RWKV_CHUNKED", "1"):
+            lg_c, caches_c = lm_prefill(params, cfg, toks,
+                                        init_lm_caches(cfg, 2, 64, dev))
+        torch.cuda.synchronize()
+        n_c = {k: v for k, v in ops.launch_counts().items() if v}
+    err = max([scaled_err(lg_c, lg_k)] + [
+        scaled_err(a.float(), b.float()) for a, b in zip(
+            lm_leaves(caches_c), lm_leaves(caches_k))])
+    if err > TOL_LM or n_k != {wkv32.name: 2} or n_c:
+        raise AssertionError(f"rwkv6 chunked prefill: against row 9 "
+                             f"{err:.3e}; launches {n_c} (row 9's {n_k})")
+    res["launches"][wkv32.name] += n_k[wkv32.name]
+    log(f"lm rwkv6-1.6b (fp32, full width, 2 layers) prefill [2, 32] under "
+        f"REPRO_RWKV_CHUNKED=1 against the same prefill through row 9: "
+        f"logits and every cache leaf within {err:.3e} of max(1, |row 9|) "
+        f"(tolerance {TOL_LM}); launches {n_c or 'none'} (row 9's run "
+        f"{n_k}) [{smi}]")
+    del params, caches_k, caches_c
     torch.cuda.empty_cache()
     return res
 
@@ -3152,6 +3556,17 @@ def lm_train_phase(dev, smi) -> dict:
                                              cfg, dev, smi)
         gc.collect()
         torch.cuda.empty_cache()
+    # the chunk-parallel route's step: rwkv6-1.6b at 2 layers under
+    # REPRO_RWKV_CHUNKED=1 on both devices (its backward through the
+    # chunks' matmul form)
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), dtype="float32",
+                              **LM_GRAD_FULL["rwkv6-1.6b"])
+    with env_var("REPRO_RWKV_CHUNKED", "1"):
+        res["b"]["rwkv6-1.6b chunked"] = lm_step_against_cpu(
+            "rwkv6-1.6b (n_layers=2, full width, REPRO_RWKV_CHUNKED=1)", cfg,
+            dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     for arch in LM_GRAD_REDUCED:
         cfg = get_config(arch).reduced()
         res["b"][arch] = lm_step_against_cpu(
@@ -3926,7 +4341,7 @@ def examples_phase(dev, smi, main_gru: dict) -> dict:
         twin_labels("quickstart_torch.py", out_q)
         want_q = (ops.DELTAGRU_SEQ_F32, ops.DELTA_Q8_GRU_I8,
                   ops.DELTA_Q8_LSTM_I8, ops.DELTALSTM_SEQ_F32,
-                  ops.DELTA_SPMV_F32)
+                  ops.DELTA_SPMV_F32, ops.DELTA_UNIT_F32)
         if any(not n_q.get(k.name) for k in want_q) or set(n_q) - {
                 k.name for k in want_q}:
             raise AssertionError(f"quickstart launches {n_q}")
@@ -3943,21 +4358,23 @@ def examples_phase(dev, smi, main_gru: dict) -> dict:
         res["digits_s"] = time.perf_counter() - t0
         log(out_d.rstrip())
         twin_labels("serve_stream_digits_torch.py", out_d)
-        # a replay runs two layer kernels; so does the warm-up step each
-        # capture runs first, outside the graph
-        replays = {k: card_d[k].graph_stats["replays"]
-                   + card_d[k].graph_stats["captures"]
+        # a step runs two layer kernels, two Delta Units and an epilogue;
+        # so does the warm-up step each capture runs first, outside the
+        # graph
+        replays = {k: engine_steps(card_d[k])
                    for k in ("eng", "eng2", "eng_q", "eng_m")}
         want_d = {ops.DELTAGRU_SEQ_F32.name:
                   2 * (replays["eng"] + replays["eng2"]),
                   ops.DELTA_Q8_GRU_I8.name:
-                  2 * (replays["eng_q"] + replays["eng_m"])}
+                  2 * (replays["eng_q"] + replays["eng_m"]),
+                  ops.DELTA_UNIT_F32.name: 2 * sum(replays.values()),
+                  ops.ENGINE_EPILOGUE_F32.name: sum(replays.values())}
         if (n_d != want_d or card_d["eng_m"].n_streams != 4
                 or not replays["eng_m"] or not replays["eng_q"]):
             raise AssertionError(f"digits launches {n_d}, want {want_d} "
                                  f"(replays {replays})")
         log(f"examples (a) serve_stream_digits --steps {DIGITS_STEPS} on "
-            f"{dev}: launches {n_d} = 2 layers x replays {replays} (the "
+            f"{dev}: launches {n_d} = 2 layers x steps {replays} (the "
             f"int8 kernel's B=4 tile under the batcher: "
             f"{2 * replays['eng_m']}) ({res['digits_s']:.1f} s)")
         for k in set(n_q) | set(n_d):
@@ -4668,6 +5085,12 @@ def main() -> int:
                               "the card and the CPU")
                     n_scan += 1
     log(f"scan cases: {n_scan}, each launched twice")
+    # the engine step's Delta Unit and epilogue (inputs from a generator of
+    # their own: the other phases' inputs stay)
+    eng_k = engine_kernels_phase(dev, np.random.default_rng(SEED + 5))
+    for name, e in eng_k["max_err"].items():
+        max_err[name] = max(max_err[name], e)
+    log(f"engine kernel cases: {eng_k['cases']}, each launched twice")
     phase3 = ops.launch_counts()
 
     # -- 4. exhaustive activation grid ------------------------------------
@@ -4707,6 +5130,7 @@ def main() -> int:
         torch.cuda.synchronize()
 
         eng = DeltaStreamEngine(prog, task)
+        warm_chunks(eng, frames)
         ref = DeltaStreamEngine(prog, task)
         t0 = time.perf_counter()
         ref_outs = eager_steps(ref, frames)
@@ -4722,14 +5146,15 @@ def main() -> int:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         wall_us[path] = 1e6 * (time.perf_counter() - t0) / N_FRAMES
-        n1 = ops.launch_counts()
-        want = N_FRAMES * cfg.num_layers
-        if n1[kinfo.name] != want or sum(n1.values()) != want:
-            raise AssertionError(f"{path}: launches {n1}, want {want} of "
-                                 f"{kinfo.name}")
-        graph_check(path, eng, N_FRAMES)
+        n1 = {k: v for k, v in ops.launch_counts().items() if v}
+        per_step = step_launches({kinfo.name: cfg.num_layers},
+                                 cfg.num_layers)
+        want = times(per_step, N_FRAMES)
+        if n1 != want:
+            raise AssertionError(f"{path}: launches {n1}, want {want}")
+        graph_check(path, eng, WARM_FRAMES + N_FRAMES)
         log(graph_against_eager(path, eng, ref, outs, ref_outs))
-        main_engines[path] = (eng, prog, task, {kinfo.name: cfg.num_layers},
+        main_engines[path] = (eng, prog, task, per_step,
                               smooth_frames(res_rng, 41, 1,
                                             cfg.input_size)[:, 0])
 
@@ -4743,13 +5168,14 @@ def main() -> int:
         torch.cuda.synchronize()
         batch_fps[path] = sum(len(fr) for fr in requests) / (
             time.perf_counter() - t0)
-        n8 = ops.launch_counts()
-        want8 = batcher.counters["ticks"] * cfg.num_layers
-        if n8[kinfo.name] != want8 or sum(n8.values()) != want8:
+        n8 = {k: v for k, v in ops.launch_counts().items() if v}
+        want8 = times(per_step, batcher.counters["ticks"])
+        if n8 != want8:
             raise AssertionError(f"{path} batcher: launches {n8}, want "
                                  f"{want8}")
         graph_check(f"{path} batcher", eng8, batcher.counters["ticks"])
-        launches[kinfo.name] = n1[kinfo.name] + n8[kinfo.name]
+        add_counts(launches, n1)
+        add_counts(launches, n8)
         rep1 = eng.report()
         main_rates[path] = (rep1["gamma_dx"], rep1["gamma_dh"],
                             wall_us[path])
@@ -4818,7 +5244,6 @@ def main() -> int:
                 "rglru": (init_deltarglru_model, RGLRU_CONFIG.d_model,
                           RGLRU_LAYERS, ops.RGLRU_SCAN_F32)}
     spmv = ops.DELTA_SPMV_F32
-    launches[spmv.name] = 0
     lm = {}
     for cell, (init, d, n_layers, scan) in lm_specs.items():
         path = f"{cell} fused"
@@ -4842,6 +5267,7 @@ def main() -> int:
         torch.cuda.synchronize()
 
         lm_eng = DeltaStreamEngine(lm_prog, lm_task)
+        warm_chunks(lm_eng, frames_lm)
         lm_ref = DeltaStreamEngine(lm_prog, lm_task)
         t0 = time.perf_counter()
         lm_ref_outs = eager_steps(lm_ref, frames_lm)
@@ -4858,15 +5284,18 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_us[path] = 1e6 * (time.perf_counter() - t0) / N_FRAMES
         n1 = {k: v for k, v in ops.launch_counts().items() if v}
-        want = {spmv.name: 4 * N_FRAMES * n_layers,
-                scan.name: N_FRAMES * n_layers}
+        # a Delta Unit a layer (RWKV6: its four streams together; RG-LRU
+        # one before and one after its conv)
+        lm_step = step_launches({spmv.name: 4 * n_layers,
+                                 scan.name: n_layers},
+                                n_layers * (2 if cell == "rglru" else 1))
+        want = times(lm_step, N_FRAMES)
         if n1 != want:
             raise AssertionError(f"{path}: launches {n1}, want {want}")
-        graph_check(path, lm_eng, N_FRAMES)
+        graph_check(path, lm_eng, WARM_FRAMES + N_FRAMES)
         log(graph_against_eager(path, lm_eng, lm_ref, lm_outs, lm_ref_outs))
         del lm_ref, lm_ref_outs
-        main_engines[path] = (lm_eng, lm_prog, lm_task,
-                              {spmv.name: 4 * n_layers, scan.name: n_layers},
+        main_engines[path] = (lm_eng, lm_prog, lm_task, lm_step,
                               lm_stream(res_rng, 41, d))
 
         lm_batcher = GruStreamBatcher(DeltaStreamEngine(lm_prog, lm_task,
@@ -4881,13 +5310,13 @@ def main() -> int:
             time.perf_counter() - t0)
         ticks = lm_batcher.counters["ticks"]
         n8 = {k: v for k, v in ops.launch_counts().items() if v}
-        want8 = {spmv.name: 4 * ticks * n_layers, scan.name: ticks * n_layers}
+        want8 = times(lm_step, ticks)
         if n8 != want8 or len(lm_done) != len(requests_lm):
             raise AssertionError(f"{path} batcher: launches {n8}, want "
                                  f"{want8}; {len(lm_done)} requests done")
         graph_check(f"{path} batcher", lm_batcher.engine, ticks)
-        launches[spmv.name] += n1[spmv.name] + n8[spmv.name]
-        launches[scan.name] = n1[scan.name] + n8[scan.name]
+        add_counts(launches, n1)
+        add_counts(launches, n8)
         lm_rep = lm_eng.report()
         log(f"main path {path}: 1 stream {N_FRAMES} steps -> {n1}; 8-slot "
             f"batcher {len(lm_done)} requests in {ticks} ticks -> {n8}; "
@@ -4938,8 +5367,7 @@ def main() -> int:
             if n != want:
                 raise AssertionError(f"{path} round trip: launches {n}, "
                                      f"want {want}")
-            for k, v in n.items():
-                launches[k] += v
+            add_counts(launches, n)
             log(f"resilience {path}: checkpoint {rt['ckpt_ms']:.3f} ms, "
                 f"restore {rt['restore_ms']:.3f} ms (capture "
                 f"{rt['capture_ms']:.3f} ms), round trip bitwise over 20 "
@@ -4963,12 +5391,12 @@ def main() -> int:
                                  os.path.join(tmp, f"soak{k}"))
                 n = {k2: v for k2, v in ops.launch_counts().items() if v}
                 made = list(Recorded.made)
-                steps = sum(e.graph_stats["replays"]
-                            + e.graph_stats["captures"] for e in made)
-                if n != {q8.name: steps * cfg.num_layers}:
+                steps = sum(engine_steps(e) for e in made)
+                want = times(step_launches({q8.name: cfg.num_layers},
+                                           cfg.num_layers), steps)
+                if n != want:
                     raise AssertionError(f"soak {k}: launches {n}, want "
-                                         f"{steps * cfg.num_layers} of "
-                                         f"{q8.name}")
+                                         f"{want}")
                 if len(made) != 2 or not all(
                         e.graph_stats["captures"] == 1
                         and e.captured_ptrs == buffer_ptrs(e) for e in made):
@@ -4976,7 +5404,7 @@ def main() -> int:
                         f"soak {k}: engines {[e.graph_stats for e in made]}"
                         ", want 2 (one restored after the crash), each "
                         "one capture over the buffers it still has")
-                launches[q8.name] += n[q8.name]
+                add_counts(launches, n)
                 check_soak(run, f"soak {k} on the card")
                 run["restore_capture_ms"] = 1e3 * made[1].graph_stats[
                     "capture_s"]
@@ -5025,7 +5453,7 @@ def main() -> int:
 
     # -- 5d. training: the paper's recipe at 2L-768H ----------------------
     train, batches, opt_cfg = training_phase(dev, PAPER_NETWORKS["2L-768H"])
-    launches[ops.DELTA_Q8_GRU_I8.name] += train["serve"]["launches"]
+    add_counts(launches, train["serve"]["launches"])
 
     # -- 5e. the serving fabric -------------------------------------------
     fabric = fabric_phase(dev, models["gru"], ops.DELTA_Q8_GRU_I8,
@@ -5313,6 +5741,12 @@ def main() -> int:
             f"every column fired: {ms:.5f} ms warm (two delta_spmv and "
             f"deltagru_act) [{smi}]")
 
+    # the engine step's Delta Unit and epilogue at the main paths' shapes
+    eng_rows = engine_kernel_rows(
+        dev, {"gru fused": progs[("gru", "fused")],
+              "gru fused_q8": progs[("gru", "fused_q8")],
+              "rwkv6 fused": lm["rwkv6"][0]},
+        rng, floor["ms"], smi)
     phase6 = ops.launch_counts()
     for name in ([k.name for k in buffered.values()]
                  + [ops.DELTA_SPMV_BF16.name, ops.DELTAGRU_ACT_F32.name]):
@@ -5329,14 +5763,16 @@ def main() -> int:
                      for cell, (lm_prog, lm_task, frames_lm) in lm.items()]
     for path, prog, eng_task, fr, n_prof in engine_paths:
         eng = DeltaStreamEngine(prog, eng_task)
+        warm_chunks(eng, fr)
         prof = engine_profile(lambda: eng.step_many(fr[:n_prof]), n_prof)
         lat = step_latencies_us(DeltaStreamEngine(prog, eng_task).step, fr)
         ref = DeltaStreamEngine(prog, eng_task)
         prof_e = engine_profile(lambda: eager_steps(ref, fr[:n_prof]),
                                 n_prof)
         lat_e = step_latencies_us(lambda x: eager_steps(ref, x[None]), fr)
-        log(f"engine {path} graph: capture {1e3 * eng.graph_stats['capture_s']:.1f} "
-            f"ms; frame-to-output latency at 1 stream over {len(lat)} "
+        caps = {k: round(1e3 * v, 3) for k, v in sorted(eng.capture_s.items())}
+        log(f"engine {path} graph: capture ms by steps a graph {caps}; "
+            f"frame-to-output latency at 1 stream over {len(lat)} "
             f"frames: median {np.median(lat):.1f} us, p95 "
             f"{np.percentile(lat, 95):.1f} us; step_many {wall_us[path]:.1f} "
             f"us/step; 8-slot batcher {batch_fps[path]:.1f} frames/s; "
@@ -5475,6 +5911,25 @@ def main() -> int:
                              "bf16 weights")
         if kinfo is ops.DELTAGRU_ACT_F32:
             entry["path"] = "repro_torch.kernels.ops.deltagru_cell_fused"
+        entries.append(entry)
+    # the engine step's two kernels: the 2L-768H fused_q8 step's launches
+    # (the paper's deployment), the other paths' beside them
+    for kinfo in (ops.DELTA_UNIT_F32, ops.ENGINE_EPILOGUE_F32):
+        main_row = eng_rows[kinfo.name]["gru fused_q8"]
+        entry = {"name": kinfo.name, "route": "cuda", "source": kinfo.source,
+                 "replaces": kinfo.replaces,
+                 "launches": launches[kinfo.name],
+                 "max_abs_err": max_err[kinfo.name]}
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "eager_ms", "cold_ms", "launch_floor_ms",
+                    "launches_per_step"):
+            entry[key] = main_row[key]
+        entry["shape"] = ("one 2L-768H fused_q8 step at B = 1 (others: "
+                          "by_path)")
+        entry["by_path"] = {path: {k: r[k] for k in ("ms", "cold_ms",
+                                                     "plain_ms", "bound_ms",
+                                                     "launches_per_step")}
+                            for path, r in eng_rows[kinfo.name].items()}
         entries.append(entry)
     if len(entries) != len(ops.KERNELS) or not all(
             e["launches"] > 0 for e in entries):

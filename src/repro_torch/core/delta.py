@@ -53,6 +53,19 @@ def delta_encode(s: torch.Tensor, state: DeltaState, theta) -> DeltaEncodeOut:
                           fired=fired)
 
 
+class LayerDeltas(tuple):
+    """One layer step's ``(delta_x, delta_h)`` pair, as a stack step lists
+    it. ``counts`` holds the count rows of the Delta Unit launches that
+    encoded the pair (:mod:`repro_torch.kernels.delta_unit`), empty when
+    the layer encoded through :func:`delta_encode` itself (the dense
+    backends)."""
+
+    def __new__(cls, delta_x, delta_h, counts=()):
+        pair = super().__new__(cls, (delta_x, delta_h))
+        pair.counts = tuple(counts)
+        return pair
+
+
 class _StraightThrough(torch.autograd.Function):
     """Forward: the thresholded delta; backward: identity to ``raw``."""
 

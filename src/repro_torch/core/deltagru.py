@@ -35,7 +35,8 @@ import torch
 from repro_torch.core.backends import (BackendSpec, batched_step, get_backend,
                                        quant_acts_message, register_backend,
                                        require_default_acts)
-from repro_torch.core.delta import DeltaState, delta_encode, init_delta_state
+from repro_torch.core.delta import (DeltaState, LayerDeltas, delta_encode,
+                                    init_delta_state)
 from repro_torch.core.thresholds import layer_theta
 
 
@@ -138,24 +139,43 @@ class DeltaGruStepOut(NamedTuple):
     state: DeltaGruLayerState
     delta_x: torch.Tensor   # the (sparse) encoded input delta actually used
     delta_h: torch.Tensor   # the (sparse) encoded hidden delta actually used
+    counts: tuple = ()      # the Delta Unit's count rows (kernel backends)
+
+
+def layer_delta_unit(params, state, x, theta_x, theta_h, act_grid=None):
+    """Eq. 2 on a GRU / LSTM layer's input ``x`` and hidden state through
+    one :func:`repro_torch.kernels.ops.delta_unit` launch (batch dims
+    flattened): ``((dx, x_mem), (dh, h_mem), counts)``, the deltas and
+    memories in the state's lead shape."""
+    from repro_torch.kernels import ops
+    h_dim, i_dim = params.hidden_size, params.input_size
+    lead = state.h.shape[:-1]
+    (xo,), (ho,), counts = ops.delta_unit(
+        [(x.reshape(-1, i_dim), state.x_mem.memory.reshape(-1, i_dim))],
+        [(state.h.reshape(-1, h_dim), state.h_mem.memory.reshape(-1, h_dim))],
+        theta_x, theta_h, act_grid=act_grid)
+    return (tuple(t.reshape(*lead, i_dim) for t in xo),
+            tuple(t.reshape(*lead, h_dim) for t in ho), counts)
 
 
 def _kernel_layer_step(kernel_step, layout, params: GruLayerParams,
-                       state: DeltaGruLayerState, dx_out, dh_out):
-    """Eq. 3 through one fused layer-step kernel (batch dims flattened)."""
+                       state: DeltaGruLayerState, x_out, h_out, counts):
+    """Eq. 3 through one fused layer-step kernel (batch dims flattened) on
+    the Delta Unit's ``(delta, memory)`` pairs."""
     h_dim, i_dim = params.hidden_size, params.input_size
     lead = state.h.shape[:-1]
+    (dx, x_mem), (dh, h_mem) = x_out, h_out
     m_new, h_new = kernel_step(
         layout, state.m.reshape(-1, 4 * h_dim).contiguous(),
         state.h.reshape(-1, h_dim).contiguous(),
-        dx_out.delta.reshape(-1, i_dim).contiguous(),
-        dh_out.delta.reshape(-1, h_dim).contiguous())
+        dx.reshape(-1, i_dim).contiguous(),
+        dh.reshape(-1, h_dim).contiguous())
     h_new = h_new.reshape(*lead, h_dim)
     new_state = DeltaGruLayerState(
-        h=h_new, x_mem=dx_out.state, h_mem=dh_out.state,
+        h=h_new, x_mem=DeltaState(x_mem), h_mem=DeltaState(h_mem),
         m=m_new.reshape(*lead, 4 * h_dim))
-    return DeltaGruStepOut(h=h_new, state=new_state,
-                           delta_x=dx_out.delta, delta_h=dh_out.delta)
+    return DeltaGruStepOut(h=h_new, state=new_state, delta_x=dx, delta_h=dh,
+                           counts=(counts,))
 
 
 # -- per-backend step implementations (registered BackendSpec.step fns) -----
@@ -194,10 +214,9 @@ def _step_fused(params, state, x, theta_x, theta_h, *, layout,
                          "for custom/QAT activations")
     if layout is None:
         layout = _seq.pack_gru_layer(params.w_x, params.w_h)
-    dx_out = delta_encode(x, state.x_mem, theta_x)
-    dh_out = delta_encode(state.h, state.h_mem, theta_h)
     return _kernel_layer_step(_seq.deltagru_seq_step, layout, params, state,
-                              dx_out, dh_out)
+                              *layer_delta_unit(params, state, x, theta_x,
+                                                theta_h))
 
 
 def _step_fused_quant(bits: int, params, state, x, theta_x, theta_h, *,
@@ -209,11 +228,9 @@ def _step_fused_quant(bits: int, params, state, x, theta_x, theta_h, *,
                                            b=params.b, weight_bits=bits)
     # The Delta Unit sees the Q8.8-quantized input stream (layer >= 2
     # inputs are already on-grid hidden states; re-rounding is exact).
-    x = layout.quantize_act(x)
-    dx_out = delta_encode(x, state.x_mem, theta_x)
-    dh_out = delta_encode(state.h, state.h_mem, theta_h)
     return _kernel_layer_step(_q8.deltagru_q8_step, layout, params, state,
-                              dx_out, dh_out)
+                              *layer_delta_unit(params, state, x, theta_x,
+                                                theta_h, layout.act_grid))
 
 
 def _step_fused_q8(params, state, x, theta_x, theta_h, *, layout,
@@ -345,7 +362,7 @@ def deltagru_stack_step(params: Sequence[GruLayerParams],
             sigmoid=sigmoid, tanh=tanh, backend=backend,
             layout=layouts[li] if layouts is not None else None)
         new_layers.append(out.state)
-        deltas.append((out.delta_x, out.delta_h))
+        deltas.append(LayerDeltas(out.delta_x, out.delta_h, out.counts))
         inp = out.h
     return inp, DeltaGruStackState(tuple(new_layers)), deltas
 

@@ -35,7 +35,9 @@ import torch
 from repro_torch.core.backends import (BackendSpec, batched_step, get_backend,
                                        quant_acts_message, register_backend,
                                        require_default_acts)
-from repro_torch.core.delta import DeltaState, delta_encode, init_delta_state
+from repro_torch.core.delta import (DeltaState, LayerDeltas, delta_encode,
+                                    init_delta_state)
+from repro_torch.core.deltagru import layer_delta_unit
 from repro_torch.core.thresholds import layer_theta
 
 
@@ -129,25 +131,28 @@ class DeltaLstmStepOut(NamedTuple):
     state: DeltaLstmLayerState
     delta_x: torch.Tensor   # the (sparse) encoded input delta actually used
     delta_h: torch.Tensor   # the (sparse) encoded hidden delta actually used
+    counts: tuple = ()      # the Delta Unit's count rows (kernel backends)
 
 
 def _kernel_layer_step(kernel_step, layout, params: LstmLayerParams,
-                       state: DeltaLstmLayerState, dx_out, dh_out):
-    """One fused LSTM layer-step kernel (batch dims flattened)."""
+                       state: DeltaLstmLayerState, x_out, h_out, counts):
+    """One fused LSTM layer-step kernel (batch dims flattened) on the Delta
+    Unit's ``(delta, memory)`` pairs."""
     h_dim, i_dim = params.hidden_size, params.input_size
     lead = state.h.shape[:-1]
+    (dx, x_mem), (dh, h_mem) = x_out, h_out
     m_new, h_new, c_new = kernel_step(
         layout, state.m.reshape(-1, 4 * h_dim).contiguous(),
         state.h.reshape(-1, h_dim).contiguous(),
         state.c.reshape(-1, h_dim).contiguous(),
-        dx_out.delta.reshape(-1, i_dim).contiguous(),
-        dh_out.delta.reshape(-1, h_dim).contiguous())
+        dx.reshape(-1, i_dim).contiguous(),
+        dh.reshape(-1, h_dim).contiguous())
     h_new = h_new.reshape(*lead, h_dim)
     new_state = DeltaLstmLayerState(
-        h=h_new, c=c_new.reshape(*lead, h_dim), x_mem=dx_out.state,
-        h_mem=dh_out.state, m=m_new.reshape(*lead, 4 * h_dim))
-    return DeltaLstmStepOut(h=h_new, state=new_state, delta_x=dx_out.delta,
-                            delta_h=dh_out.delta)
+        h=h_new, c=c_new.reshape(*lead, h_dim), x_mem=DeltaState(x_mem),
+        h_mem=DeltaState(h_mem), m=m_new.reshape(*lead, 4 * h_dim))
+    return DeltaLstmStepOut(h=h_new, state=new_state, delta_x=dx,
+                            delta_h=dh, counts=(counts,))
 
 
 # -- per-backend step implementations (registered BackendSpec.step fns) -----
@@ -178,10 +183,9 @@ def _step_fused(params, state, x, theta_x, theta_h, *, layout,
                          "backend='dense' for custom/QAT activations")
     if layout is None:
         layout = _seq.pack_lstm_layer(params.w_x, params.w_h)
-    dx_out = delta_encode(x, state.x_mem, theta_x)
-    dh_out = delta_encode(state.h, state.h_mem, theta_h)
     return _kernel_layer_step(_seq.deltalstm_seq_step, layout, params, state,
-                              dx_out, dh_out)
+                              *layer_delta_unit(params, state, x, theta_x,
+                                                theta_h))
 
 
 def _step_fused_quant(bits: int, params, state, x, theta_x, theta_h, *,
@@ -194,11 +198,9 @@ def _step_fused_quant(bits: int, params, state, x, theta_x, theta_h, *,
                                            weight_bits=bits)
     # The Delta Unit sees the Q8.8-quantized input stream (layer >= 2
     # inputs are already on-grid hidden states; re-rounding is exact).
-    x = layout.quantize_act(x)
-    dx_out = delta_encode(x, state.x_mem, theta_x)
-    dh_out = delta_encode(state.h, state.h_mem, theta_h)
     return _kernel_layer_step(_q8.deltalstm_q8_step, layout, params, state,
-                              dx_out, dh_out)
+                              *layer_delta_unit(params, state, x, theta_x,
+                                                theta_h, layout.act_grid))
 
 
 def _step_fused_q8(params, state, x, theta_x, theta_h, *, layout,
@@ -326,7 +328,7 @@ def deltalstm_stack_step(params: Sequence[LstmLayerParams],
             sigmoid=sigmoid, tanh=tanh, backend=backend,
             layout=layouts[li] if layouts is not None else None)
         new_layers.append(out.state)
-        deltas.append((out.delta_x, out.delta_h))
+        deltas.append(LayerDeltas(out.delta_x, out.delta_h, out.counts))
         inp = out.h
     return inp, DeltaLstmStackState(tuple(new_layers)), deltas
 

@@ -44,7 +44,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.backends import (BackendSpec, get_backend,
                                        register_backend)
-from repro_torch.core.delta import DeltaState, delta_encode, init_delta_state
+from repro_torch.core.delta import (DeltaEncodeOut, DeltaState, LayerDeltas,
+                                    delta_encode, init_delta_state)
 from repro_torch.core.deltarwkv import run_sequence
 from repro_torch.core.thresholds import layer_theta
 from repro_torch.kernels import ops
@@ -189,6 +190,7 @@ class DeltaRglruStepOut(NamedTuple):
     state: DeltaRglruLayerState
     delta_x: torch.Tensor            # [..., D] Δx (input stream)
     delta_h: torch.Tensor            # [..., W] Δu (post-conv gate stream)
+    counts: tuple = ()               # the Delta Unit's count rows (fused)
 
 
 class RglruFusedLayout(NamedTuple):
@@ -229,8 +231,20 @@ def _layer_step(params: RglruLayerParams, state: DeltaRglruLayerState,
     def flat(a, n):
         return a.reshape(-1, n)
 
-    enc_x = delta_encode(xb, DeltaState(flat(state.x_mem.memory, d)),
-                         theta_x)
+    def encode(s, mem, group):
+        """Eq. 2 on one stream: a Delta Unit launch (fused) or
+        delta_encode (dense, also under autograd)."""
+        theta = (theta_x, theta_h)[group]
+        if not accumulate:
+            return delta_encode(s, DeltaState(mem), theta), ()
+        pair = [(s, mem)]
+        xo, ho, rows = ops.delta_unit(pair if group == 0 else [],
+                                      pair if group == 1 else [],
+                                      theta_x, theta_h)
+        (dl, new_mem), = xo + ho
+        return DeltaEncodeOut(dl, DeltaState(new_mem), None), (rows,)
+
+    enc_x, counts_x = encode(xb, flat(state.x_mem.memory, d), 0)
 
     if accumulate:
         lay = layout if layout is not None else pack_rglru_layer(params)
@@ -256,8 +270,7 @@ def _layer_step(params: RglruLayerParams, state: DeltaRglruLayerState,
     u1 = sum(xh[:, i] * params.conv_w[i] for i in range(CONV_WIDTH))
     u1 = u1 + params.conv_b                                   # [B, W]
 
-    enc_u = delta_encode(u1, DeltaState(flat(state.u_mem.memory, w)),
-                         theta_h)
+    enc_u, counts_u = encode(u1, flat(state.u_mem.memory, w), 1)
 
     if accumulate:
         m_rg = spmv(lay.wt_rg, enc_u.delta, flat(state.m_rg, w))
@@ -297,7 +310,8 @@ def _layer_step(params: RglruLayerParams, state: DeltaRglruLayerState,
         m_rg=unflat(m_rg), m_ig=unflat(m_ig))
     return DeltaRglruStepOut(h=unflat(y[:, 0]), state=new_state,
                              delta_x=unflat(enc_x.delta),
-                             delta_h=unflat(enc_u.delta))
+                             delta_h=unflat(enc_u.delta),
+                             counts=counts_x + counts_u)
 
 
 # -- per-backend step implementations (registered BackendSpec.step fns) -----
@@ -371,7 +385,7 @@ def deltarglru_stack_step(params: Sequence[RglruLayerParams],
             backend=backend,
             layout=layouts[li] if layouts is not None else None)
         new_layers.append(out.state)
-        deltas.append((out.delta_x, out.delta_h))
+        deltas.append(LayerDeltas(out.delta_x, out.delta_h, out.counts))
         inp = out.h
     return inp, DeltaRglruStackState(tuple(new_layers)), deltas
 

@@ -42,7 +42,8 @@ import torch
 
 from repro_torch.core.backends import (BackendSpec, get_backend,
                                        register_backend)
-from repro_torch.core.delta import DeltaState, delta_encode, init_delta_state
+from repro_torch.core.delta import (DeltaEncodeOut, DeltaState, LayerDeltas,
+                                    delta_encode, init_delta_state)
 from repro_torch.core.thresholds import layer_theta
 from repro_torch.kernels import ops
 
@@ -207,6 +208,7 @@ class DeltaRwkvStepOut(NamedTuple):
     state: DeltaRwkvLayerState
     delta_x: torch.Tensor           # [..., 3D] concat(Δx_r, Δx_k, Δx_v)
     delta_h: torch.Tensor           # [..., D]  Δx_w (decay stream)
+    counts: tuple = ()              # the Delta Unit's count rows (fused)
 
 
 class RwkvFusedLayout(NamedTuple):
@@ -260,15 +262,23 @@ def _layer_step(params: RwkvLayerParams, state: DeltaRwkvLayerState,
     x_r, x_k, x_v, x_w, x_g = mix_streams(x3, xx, params.mu_base, params.mu,
                                           params.tsh_w1, params.tsh_w2)
 
-    # Eq. 2 on the projection input streams.
-    enc_r = delta_encode(x_r[:, 0], DeltaState(flat(state.r_mem.memory, d)),
-                         theta_x)
-    enc_k = delta_encode(x_k[:, 0], DeltaState(flat(state.k_mem.memory, d)),
-                         theta_x)
-    enc_v = delta_encode(x_v[:, 0], DeltaState(flat(state.v_mem.memory, d)),
-                         theta_x)
-    enc_w = delta_encode(x_w[:, 0], DeltaState(flat(state.w_mem.memory, d)),
-                         theta_h)
+    # Eq. 2 on the projection input streams: one Delta Unit launch for the
+    # four (fused), or delta_encode on each (dense, also under autograd).
+    streams = [(x_r[:, 0], flat(state.r_mem.memory, d)),
+               (x_k[:, 0], flat(state.k_mem.memory, d)),
+               (x_v[:, 0], flat(state.v_mem.memory, d)),
+               (x_w[:, 0], flat(state.w_mem.memory, d))]
+    if accumulate:
+        xo, ho, rows = ops.delta_unit(streams[:3], streams[3:], theta_x,
+                                      theta_h)
+        enc_r, enc_k, enc_v, enc_w = (
+            DeltaEncodeOut(dl, DeltaState(mem), None) for dl, mem in xo + ho)
+        counts = (rows,)
+    else:
+        enc_r, enc_k, enc_v, enc_w = (
+            delta_encode(s, DeltaState(mem), theta)
+            for (s, mem), theta in zip(streams, (theta_x,) * 3 + (theta_h,)))
+        counts = ()
 
     if accumulate:
         lay = layout if layout is not None else pack_rwkv_layer(params)
@@ -329,7 +339,7 @@ def _layer_step(params: RwkvLayerParams, state: DeltaRwkvLayerState,
     delta_x = torch.cat([enc_r.delta, enc_k.delta, enc_v.delta], dim=-1)
     return DeltaRwkvStepOut(h=unflat(y[:, 0]), state=new_state,
                             delta_x=unflat(delta_x),
-                            delta_h=unflat(enc_w.delta))
+                            delta_h=unflat(enc_w.delta), counts=counts)
 
 
 # -- per-backend step implementations (registered BackendSpec.step fns) -----
@@ -404,7 +414,7 @@ def deltarwkv_stack_step(params: Sequence[RwkvLayerParams],
             backend=backend,
             layout=layouts[li] if layouts is not None else None)
         new_layers.append(out.state)
-        deltas.append((out.delta_x, out.delta_h))
+        deltas.append(LayerDeltas(out.delta_x, out.delta_h, out.counts))
         inp = out.h
     return inp, DeltaRwkvStackState(tuple(new_layers)), deltas
 

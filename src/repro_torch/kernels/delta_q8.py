@@ -177,7 +177,13 @@ class QuantDeltaLayout(_GruBlockGeometry):
 
     def quantize_act(self, x: torch.Tensor) -> torch.Tensor:
         """Round onto the activation (Q8.8) grid — the Delta Unit's input."""
-        return _grid_round(x, self.act_scale, self.act_min, self.act_max)
+        return _grid_round(x, *self.act_grid)
+
+    @property
+    def act_grid(self) -> tuple:
+        """``(scale, min, max)`` of the activation grid, as
+        :func:`repro_torch.kernels.ops.delta_unit` takes it."""
+        return (self.act_scale, self.act_min, self.act_max)
 
     def dequantized(self):
         """The matching fp32 fused layout carrying the same quantized

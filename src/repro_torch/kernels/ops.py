@@ -309,12 +309,22 @@ RWKV6_SCAN_BF16 = KernelInfo(
 DELTAGRU_ACT_F32 = KernelInfo(
     "deltagru_act_f32", "src/repro_torch/csrc/deltagru_cell.cu",
     "src/repro/kernels/deltagru_cell.py:24")
+# the engine step's two kernels, which replace no Pallas kernel: the JAX
+# package runs Eq. 2 and the step's accounting as XLA fusions inside its
+# jitted step (repro/serve/engine.py:468-469)
+DELTA_UNIT_F32 = KernelInfo(
+    "delta_unit_f32", "src/repro_torch/csrc/delta_unit.cu",
+    "none (XLA fusions: src/repro/core/delta.py:55 delta_encode)")
+ENGINE_EPILOGUE_F32 = KernelInfo(
+    "engine_epilogue_f32", "src/repro_torch/csrc/engine_epilogue.cu",
+    "none (XLA fusions: src/repro/serve/engine.py:315 _one_step)")
 KERNELS = (DELTAGRU_SEQ_F32, DELTA_Q8_GRU_I8, DELTA_Q8_GRU_I4,
            DELTALSTM_SEQ_F32, DELTA_Q8_LSTM_I8, DELTA_Q8_LSTM_I4,
            DELTA_Q8_GRU_DBUF_I8, DELTA_Q8_GRU_DBUF_I4,
            DELTA_Q8_LSTM_DBUF_I8, DELTA_Q8_LSTM_DBUF_I4,
            DELTA_SPMV_F32, DELTA_SPMV_BF16, RGLRU_SCAN_F32, RWKV6_SCAN_F32,
-           RWKV6_SCAN_BF16, DELTAGRU_ACT_F32)
+           RWKV6_SCAN_BF16, DELTAGRU_ACT_F32, DELTA_UNIT_F32,
+           ENGINE_EPILOGUE_F32)
 
 
 def q8_kernel(gates: int, weight_bits: int, buffered: bool) -> KernelInfo:
@@ -397,6 +407,23 @@ def rwkv6_chunked(r, k, v, w, u, s0=None, *, chunk: int = 16):
         w = torch.nn.functional.pad(w, pd, value=1.0)
     y, s_t = rwkv6_chunked_ref(r, k, v, w, u, s0, chunk=chunk)
     return y[:, :, :t], s_t
+
+
+def delta_unit(x_streams, h_streams, theta_x, theta_h, *, act_grid=None):
+    """Eq. 2 over a layer step's input and hidden streams in one launch,
+    with the firing counts; :func:`repro_torch.kernels.delta_unit.
+    delta_unit`."""
+    from repro_torch.kernels.delta_unit import delta_unit as _du
+    return _du(x_streams, h_streams, theta_x, theta_h, act_grid=act_grid)
+
+
+def engine_epilogue(leaves, counts, cols, carry, x, finite, consts,
+                    workspace=None):
+    """The engine step's non-finite rows, firing fractions, Eq. 5-8 terms
+    and carry updates in one launch; :func:`repro_torch.kernels.
+    engine_epilogue.engine_epilogue`."""
+    from repro_torch.kernels.engine_epilogue import engine_epilogue as _ep
+    return _ep(leaves, counts, cols, carry, x, finite, consts, workspace)
 
 
 def rglru_scan(x, a, h0=None):

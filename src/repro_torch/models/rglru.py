@@ -8,8 +8,10 @@ asked for the kernel, and through the plain version
 :func:`repro_torch.kernels.rglru_scan.rglru_scan_batched_ref`, by name,
 otherwise (the default, as the reference's ``use_kernel=False``): the
 kernel has no backward, so a differentiated call takes the plain scan.
-Callers who want the log-depth form call
-:func:`repro_torch.kernels.ref.rglru_assoc_ref` themselves.
+At T > 1 with ``REPRO_RGLRU_ASSOC=1`` in the environment (read at call
+time, as the reference reads it) the block takes the log-depth
+associative scan :func:`repro_torch.kernels.ref.rglru_assoc_ref`
+instead, whatever ``use_kernel`` says.
 
 The gate expressions live in :mod:`repro_torch.core.deltarglru`, so the
 delta decode and :func:`rglru_block_decode` share one set of ops: that is
@@ -17,12 +19,15 @@ what makes the θ=0 delta decode bitwise equal to the block decode.
 """
 from __future__ import annotations
 
+import os
+
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.deltarglru import _C, CONV_WIDTH, gelu, rglru_gates
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import rglru_assoc_ref
 from repro_torch.kernels.rglru_scan import rglru_scan_batched_ref
 from repro_torch.models.common import dense_init
 
@@ -101,7 +106,10 @@ def rglru_block_apply(params: dict, x: torch.Tensor,
     u, new_hist = _causal_conv(u, params["conv_w"], params["conv_b"], hist)
     a, gated = _gates(params, u)
     h0 = state.h if state is not None else None
-    scan = ops.rglru_scan if use_kernel else rglru_scan_batched_ref
+    if x.shape[1] > 1 and os.environ.get("REPRO_RGLRU_ASSOC", "0") == "1":
+        scan = rglru_assoc_ref
+    else:
+        scan = ops.rglru_scan if use_kernel else rglru_scan_batched_ref
     hs, h_t = scan(gated, a, h0)
     y = (hs.to(x.dtype) * gate) @ params["w_out"]
     return y, RglruState(h=h_t, conv=new_hist)

@@ -9,14 +9,19 @@ for the kernel, and through the plain version
 :func:`repro_torch.kernels.rwkv6_scan.rwkv6_scan_batched_ref`, by name,
 otherwise (the default, as the reference's ``use_kernel=False``): the
 kernel has no backward, so a differentiated call takes the plain scan.
-Callers who want the chunk-parallel form call
-:func:`repro_torch.kernels.ops.rwkv6_chunked` themselves.
+At T > 1 with ``REPRO_RWKV_CHUNKED=1`` in the environment (read at call
+time, as the reference reads it) the block takes the chunk-parallel
+matmul form :func:`repro_torch.kernels.ops.rwkv6_chunked` instead,
+whatever ``use_kernel`` says: differentiable, and its backward keeps one
+state a chunk rather than one a step.
 
 The time-mix expressions live in :mod:`repro_torch.core.deltarwkv`, so the
 delta decode and this path share one set of ops: that is what makes the
 θ=0 delta decode bitwise equal to :func:`rwkv_time_mix` at T = 1.
 """
 from __future__ import annotations
+
+import os
 
 from typing import NamedTuple
 
@@ -130,7 +135,10 @@ def rwkv_time_mix(params: dict, x: torch.Tensor, state: RwkvState,
     def tr(z):                      # [B, T, H, D] -> [B, H, T, D]
         return torch.movedim(z, 2, 1)
 
-    scan = ops.rwkv6_scan if use_kernel else rwkv6_scan_batched_ref
+    if t > 1 and os.environ.get("REPRO_RWKV_CHUNKED", "0") == "1":
+        scan = ops.rwkv6_chunked
+    else:
+        scan = ops.rwkv6_scan if use_kernel else rwkv6_scan_batched_ref
     y, wkv_t = scan(tr(r), tr(k), tr(v), tr(w), params["bonus_u"], state.wkv)
     y = torch.movedim(y, 1, 2)                                      # [B,T,H,D]
     y = group_norm_heads(y.to(torch.float32),

@@ -26,14 +26,25 @@ host until :attr:`stats`, :meth:`report` or :meth:`close_stream` reads
 them. A host numpy frame is snapshotted (a synchronous numpy copy) and sent
 to a CUDA device through pinned memory without blocking.
 
-The step is the port's ``jax.jit(_step)``. The engine keeps its state, its
-carry and its input frame in fixed buffers, and every step and session
-call writes into them in place. On a CUDA device one step over those
-buffers is captured once as a CUDA graph (at construction, and again when
-a value it bakes in changes: :meth:`_capture_key`), and ``step`` /
-``step_many`` replay it, one graph launch a step; a capture or replay that
-fails raises. On the CPU, where no graph exists, the same step runs
-eagerly. ``graph_stats`` counts the captures and replays.
+The step is the port's ``jax.jit(_step)``, and ``step_many`` its
+``jax.jit(_steps)``. The engine keeps its state, its carry and a chunk of
+16 input frames and outputs in fixed buffers, and every step and session
+call writes into them in place. On a CUDA device K steps over those
+buffers are captured as one CUDA graph, for K in 1, 2, 4, 8 and 16: the
+one-step graph at construction, the others at their first use, and all
+of them again when a value they bake in changes (:meth:`_capture_key`).
+``step`` replays the one-step graph; ``step_many`` copies a chunk of T
+frames to the device once and replays T // 16 sixteen-step graphs and at
+most one each of 8, 4, 2 and 1 steps (:func:`chunk_plan`); a capture or
+replay that fails raises. On the CPU, where no graph exists, the same
+step runs eagerly. ``graph_stats`` counts the captures, the replays and
+the steps they ran.
+
+A step is the frame guard (four small kernels), the program's step (a Delta
+Unit launch and a layer kernel a layer for the GRU / LSTM kernel
+backends: :func:`repro_torch.kernels.ops.delta_unit`), the head and one
+epilogue launch that does the accounting below and updates the carry in
+place (:func:`repro_torch.kernels.ops.engine_epilogue`).
 
 ``mean_est_latency_us`` and the other Eq. 7 figures are the modelled
 latencies of the paper's FPGA (:class:`~repro_torch.core.perf_model.
@@ -59,16 +70,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.perf_model import (EDGEDRNN, AcceleratorSpec,
-                                         dram_traffic_bytes_per_timestep,
-                                         estimate_stack, spec_for_backend,
-                                         stack_effective_macs)
+                                         estimate_stack, spec_for_backend)
 from repro_torch.core.program import (DeltaProgram, DeltaProgramState,
                                       compile_delta_program, infer_cell)
-from repro_torch.core.sparsity import cell_dims, recip_mean
+from repro_torch.core.sparsity import cell_dims
 from repro_torch.core.thresholds import ThresholdPolicy, dynamic_threshold
 from repro_torch.configs.base import ModelConfig
 from repro_torch.ft import checkpoint as ft_checkpoint
 from repro_torch.kernels import ops
+from repro_torch.kernels.delta_unit import count_rows_ref
+from repro_torch.kernels.engine_epilogue import EpilogueConsts
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.common import tree_leaves
 from repro_torch.models.gru_rnn import GruTaskConfig
@@ -119,11 +130,28 @@ def _copy_into(dsts: list, srcs: list) -> None:
         torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
 
 
+# the steps a captured graph runs, largest first (step_many's chunks)
+CHUNK_STEPS = (16, 8, 4, 2, 1)
+
+
+def chunk_plan(t: int) -> list:
+    """The captured graphs that run ``t`` steps: ``t // 16`` of 16 steps,
+    then at most one each of 8, 4, 2 and 1 (``ceil(t / 16) + 4`` replays
+    at most)."""
+    plan = [CHUNK_STEPS[0]] * (t // CHUNK_STEPS[0])
+    rest = t % CHUNK_STEPS[0]
+    for k in CHUNK_STEPS[1:]:
+        if rest >= k:
+            plan.append(k)
+            rest -= k
+    return plan
+
+
 def _capture_cuda_graph(body):
-    """Capture ``body`` (one engine step over its fixed buffers, returning
-    its output) into a CUDA graph on a side stream, without synchronising
-    the host (``torch.cuda.graph`` would). Returns ``replay() -> output``:
-    one graph launch, then the graph's own output buffer."""
+    """Capture ``body`` (engine steps over the fixed buffers, returning
+    their output buffer) into a CUDA graph on a side stream, without
+    synchronising the host (``torch.cuda.graph`` would). Returns
+    ``replay() -> output``: one graph launch, then that output buffer."""
     graph = torch.cuda.CUDAGraph()
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
@@ -320,101 +348,60 @@ class DeltaStreamEngine:
                 self.thresholds.layer_thetas(task.num_layers)
         else:
             self._theta_x_layers = self._theta_h_layers = None
-        # the fixed buffers: the frame here, the state and carry (and their
-        # rollback shadows) from reset
-        self._x = torch.zeros((n_streams, task.input_size),
-                              dtype=torch.float32, device=self.device)
+        # the fixed buffers: a chunk of frames and outputs (the one-step
+        # graph reads the first frame and writes the first output), the
+        # epilogue's workspace, and the state and carry (and their rollback
+        # shadows) from reset
+        self._xs = torch.zeros((CHUNK_STEPS[0], n_streams, task.input_size),
+                               dtype=torch.float32, device=self.device)
+        self._x = self._xs[0]
+        self._ys = torch.zeros((CHUNK_STEPS[0], n_streams,
+                                program.head.shape[-1]),
+                               dtype=torch.float32, device=self.device)
+        self._epilogue_ws = torch.zeros((n_streams + 1,), dtype=torch.int32,
+                                        device=self.device)
+        self._epilogue_consts = EpilogueConsts(
+            self.dims, self.accel.k_pes * self.accel.f_pl_hz,
+            self.accel.w_weight_bits)
         self.state = None
         self.reset()
-        # the captured step: on a CUDA device only (the CPU steps eagerly)
+        # the captured steps: on a CUDA device only (the CPU steps eagerly)
         self._capture = (_capture_cuda_graph if self.device.type == "cuda"
                          else None)
-        self._replay = None
+        self._graphs = {}       # steps K -> (replay, launches of a replay)
+        self.capture_s = {}     # steps K -> seconds its last capture took
         self._graph_key = self._graph_program = None
-        self._graph_launches = ()
-        self.graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
+        self.graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0,
+                            "steps": 0}
         if self._capture is not None:
             self._capture_step()
 
     # -- the step (tensor ops only: no host sync) --------------------------
 
-    def _nonfinite_rows(self, state: DeltaProgramState) -> torch.Tensor:
-        """Per-stream flag ``[N]``: any non-finite value in the state."""
-        n = self.n_streams
-        flags = torch.zeros((n,), dtype=torch.float32, device=self.device)
-        for leaf in _leaves(state.stack):
-            bad = torch.any(~torch.isfinite(leaf.reshape(n, -1)), dim=-1)
-            flags = torch.maximum(flags, bad.to(torch.float32))
-        return flags
-
-    def _latency_s(self, gamma_dx, gamma_dh) -> torch.Tensor:
-        """Eq. 7 latency of one step (:func:`stack_latency_s`), dividing by
-        the MAC rate through its reciprocal like :func:`recip_mean`."""
-        rate = self.accel.k_pes * self.accel.f_pl_hz
-        return stack_effective_macs(self.dims, gamma_dx, gamma_dh) * (
-            1.0 / rate)
-
-    def _one_step(self, state, carry: dict, x: torch.Tensor):
+    def _one_step(self, state, carry: dict, x: torch.Tensor, out=None):
         """One timestep with the frame guard, firing statistics, Eq. 7
-        terms and the Θ controller, all on the device."""
-        finite = torch.all(torch.isfinite(x), dim=-1)            # [N]
+        terms and the Θ controller, all on the device. ``carry`` is updated
+        in place and returned; the output goes to ``out`` when given."""
+        # the frame guard: x - x is 0 exactly where x is finite (NaN where
+        # it is not), two kernels where torch.isfinite takes four
+        finite = torch.all(x - x == 0, dim=-1)                    # [N]
         x = torch.where(finite[:, None], x, carry["last_x"])
-        poison = 1.0 - finite.to(torch.float32)                   # [N]
         tx = self._theta_x_layers if self._per_layer else self.theta_x
         th = self._theta_h_layers if self._per_layer else carry["theta_h"]
         y, new_state, deltas = self.program.step(state, x, tx, th)
-        bad = self._nonfinite_rows(new_state)                     # [N]
-        out = y @ self.head[0] + self.head[1]
-        f32 = torch.float32
-        fx = recip_mean(torch.stack(
-            [recip_mean((dx != 0).to(f32), dim=-1) for dx, _ in deltas]),
-            dim=0)                                                # [N]
-        fh = recip_mean(torch.stack(
-            [recip_mean((dh != 0).to(f32), dim=-1) for _, dh in deltas]),
-            dim=0)                                                # [N]
-        theta_h = carry["theta_h"]
+        out = torch.add(y @ self.head[0], self.head[1], out=out)
+        # the Delta Unit's counts (a layer that encoded without it, on a
+        # dense backend, is counted from its deltas)
+        counts = [(layer, rows) for layer, d in enumerate(deltas)
+                  for rows in (d.counts or (count_rows_ref([d[0]], [d[1]]),))]
+        fh_mean = ops.engine_epilogue(
+            list(_leaves(new_state.stack)), counts,
+            [(dx.shape[-1], dh.shape[-1]) for dx, dh in deltas], carry, x,
+            finite, self._epilogue_consts, self._epilogue_ws)
         if self.dynamic_target is not None:
-            theta_h = dynamic_threshold(theta_h, recip_mean(fh),
-                                        self.dynamic_target)
-        lat = self._latency_s(1.0 - fx, 1.0 - fh)
-        wb = dram_traffic_bytes_per_timestep(
-            self.dims, 1.0 - fx, 1.0 - fh,
-            w_weight_bits=self.accel.w_weight_bits)
-        # tile economics: a column is fetched when ANY stream fired it
-        ufx = recip_mean(torch.stack(
-            [recip_mean(torch.any(dx != 0, dim=0).to(f32))
-             for dx, _ in deltas]))
-        ufh = recip_mean(torch.stack(
-            [recip_mean(torch.any(dh != 0, dim=0).to(f32))
-             for _, dh in deltas]))
-        tile_lat = self._latency_s(1.0 - ufx, 1.0 - ufh)
-        tile_wb = dram_traffic_bytes_per_timestep(
-            self.dims, 1.0 - ufx, 1.0 - ufh,
-            w_weight_bits=self.accel.w_weight_bits)
-        new_carry = {
-            # per-stream accumulators ([N]): session accounting
-            "fired_x": carry["fired_x"] + fx,
-            "fired_h": carry["fired_h"] + fh,
-            "lat_s": carry["lat_s"] + lat,
-            "w_bytes": carry["w_bytes"] + wb,
-            # engine-lifetime aggregates (scalars), never reset by sessions
-            "agg_fired_x": carry["agg_fired_x"] + recip_mean(fx),
-            "agg_fired_h": carry["agg_fired_h"] + recip_mean(fh),
-            "agg_lat_s": carry["agg_lat_s"] + recip_mean(lat),
-            "agg_w_bytes": carry["agg_w_bytes"] + recip_mean(wb),
-            "agg_ufired_x": carry["agg_ufired_x"] + ufx,
-            "agg_ufired_h": carry["agg_ufired_h"] + ufh,
-            "agg_tile_lat_s": carry["agg_tile_lat_s"] + tile_lat,
-            "agg_tile_w_bytes": carry["agg_tile_w_bytes"] + tile_wb,
-            # resilience carry
-            "last_x": x,
-            "poison_steps": carry["poison_steps"] + poison,
-            "bad_state": carry["bad_state"] + bad,
-            "agg_poison_steps": carry["agg_poison_steps"] + torch.sum(poison),
-            "agg_bad_state": carry["agg_bad_state"] + torch.sum(bad),
-            "theta_h": theta_h,
-        }
-        return out, new_state, new_carry
+            carry["theta_h"].copy_(dynamic_threshold(
+                carry["theta_h"], fh_mean, self.dynamic_target))
+        return out, new_state, carry
 
     def _write(self, dst_state, dst_carry, src_state, src_carry):
         """Write a state and carry into buffers (the live ones or the
@@ -432,17 +419,23 @@ class DeltaStreamEngine:
                 self._theta_x_layers, self._theta_h_layers,
                 self.dynamic_target)
 
-    def _capture_step(self):
-        """Capture one step over the buffers with ``self._capture``. The
-        step first runs once on scratch copies of the state and carry, so
-        what runs on first use (kernel builds, launch plans, cuBLAS's handle
-        and workspace) runs outside the capture and no stream advances;
-        those launches ran and stay counted. The capture calls every kernel
-        wrapper once and runs no kernel: its counts are taken back and added
-        again at each replay."""
+    def _capture_step(self, k: int = 1):
+        """Capture ``k`` steps over the buffers with ``self._capture``:
+        step ``j`` reads frame ``_xs[j]`` and writes output ``_ys[j]``. A
+        changed :meth:`_capture_key` drops every graph first (each is
+        captured again at its next use). One step first runs on scratch
+        copies of the state and carry, so what runs on first use (kernel
+        builds, launch plans, cuBLAS's handle and workspace) runs outside
+        the capture and no stream advances; those launches ran and stay
+        counted. The capture calls every kernel wrapper ``k`` times and
+        runs no kernel: its counts are taken back and added again at each
+        replay."""
         t0 = time.perf_counter()
+        if self._graph_key != self._capture_key():
+            self._graphs.clear()            # free the old graphs first
+        self._graphs.pop(k, None)
         scratch = (_clone(self.state),
-                   {k: v.clone() for k, v in self._carry.items()},
+                   {key: v.clone() for key, v in self._carry.items()},
                    self._x.clone())
         if self.device.type == "cuda":
             side = torch.cuda.Stream(self.device)
@@ -455,30 +448,32 @@ class DeltaStreamEngine:
         del scratch
 
         def body():
-            out, state, carry = self._one_step(self.state, self._carry,
-                                               self._x)
-            self._write(self.state, self._carry, state, carry)
-            return out
+            for j in range(k):
+                _, state, carry = self._one_step(
+                    self.state, self._carry, self._xs[j], out=self._ys[j])
+                self._write(self.state, self._carry, state, carry)
+            return self._ys[:k]
 
-        self._replay = None                 # free the old graph first
         before = ops.launch_counts()
-        self._replay = self._capture(body)
-        self._graph_launches = ops.take_back_launches(before)
+        replay = self._capture(body)
+        self._graphs[k] = (replay, ops.take_back_launches(before))
         self._graph_key = self._capture_key()
         self._graph_program = self.program     # keeps the key's id unique
         self.graph_stats["captures"] += 1
-        self.graph_stats["capture_s"] = time.perf_counter() - t0
+        self.graph_stats["capture_s"] = self.capture_s[k] = (
+            time.perf_counter() - t0)
 
-    def _replay_step(self) -> torch.Tensor:
-        """One replay of the captured step from the input buffer (capturing
-        it again first if what it bakes in changed); returns the graph's
-        output buffer, which the next replay overwrites."""
-        if self._graph_key != self._capture_key():
-            self._capture_step()
-        out = self._replay()
-        ops.add_launches(self._graph_launches)
+    def _replay_steps(self, k: int = 1) -> None:
+        """One replay of the ``k``-step graph from the frame buffer into the
+        output buffer ``_ys[:k]`` (capturing it first at its first use, or
+        when what it bakes in changed)."""
+        if self._graph_key != self._capture_key() or k not in self._graphs:
+            self._capture_step(k)
+        replay, launches = self._graphs[k]
+        replay()
+        ops.add_launches(launches)
         self.graph_stats["replays"] += 1
-        return out
+        self.graph_stats["steps"] += k
 
     def _mask(self, sids) -> torch.Tensor:
         """A ``[N]`` bool mask on the device, built without a host copy:
@@ -552,7 +547,8 @@ class DeltaStreamEngine:
             out = self._eager_step(x)
         else:
             self._x.copy_(x, non_blocking=True)
-            out = self._replay_step().clone()
+            self._replay_steps(1)
+            out = self._ys[0].clone()
         self._n_steps += 1
         return out[0] if self.n_streams == 1 else out
 
@@ -566,11 +562,11 @@ class DeltaStreamEngine:
     def step_many(self, xs) -> torch.Tensor:
         """Process a chunk of timesteps. ``xs: [T, I]`` or
         ``[T, n_streams, I]``; returns ``[T, O]`` / ``[T, n_streams, O]``.
-        One host-to-device copy for the chunk, then a loop of device steps
-        with no host sync: on a CUDA device a replay a frame, each output
-        copied into a ``[T, n_streams, O]`` tensor of its own (JAX's
-        ``_steps`` is one ``lax.scan``; T varies, so one graph serves every
-        chunk length)."""
+        One host-to-device copy for the chunk, then device steps with no
+        host sync: on a CUDA device the replays of :func:`chunk_plan`
+        (JAX's ``_steps`` is one ``lax.scan``), each taking its frames from
+        the chunk and leaving its outputs in a ``[T, n_streams, O]`` tensor
+        of its own."""
         xs = self._to_device(xs)
         squeeze = xs.dim() == 2
         if squeeze:
@@ -591,9 +587,12 @@ class DeltaStreamEngine:
             outs = torch.empty((xs.shape[0], self.n_streams,
                                 self.head[0].shape[-1]),
                                dtype=torch.float32, device=self.device)
-            for x, out in zip(xs, outs):
-                self._x.copy_(x)
-                out.copy_(self._replay_step())
+            t = 0
+            for k in chunk_plan(xs.shape[0]):
+                self._xs[:k].copy_(xs[t:t + k])
+                self._replay_steps(k)
+                outs[t:t + k].copy_(self._ys[:k])
+                t += k
         self._n_steps += xs.shape[0]
         return outs[:, 0] if (squeeze and self.n_streams == 1) else outs
 

@@ -38,6 +38,7 @@ from repro_torch.core import deltalstm as tlstm
 from repro_torch.core import program as tprogram
 from repro_torch.core import sparsity as tsparsity
 from repro_torch.core.delta import DeltaState
+from repro_torch.kernels.engine_epilogue import nonfinite_rows
 from repro_torch.models import gru_rnn as tmodels
 from repro_torch.quant import export as texport
 from repro_torch.serve import engine as tengine
@@ -426,4 +427,5 @@ def test_sessions_roll_back_and_guard_the_cell_state():
     bad = tprogram.DeltaProgramState(
         stack=tlstm.DeltaLstmStackState((st.layers[0], layer)),
         backend=st.backend, cell="lstm")
-    _eq(te._nonfinite_rows(bad).numpy(), np.array([0.0, 1.0], np.float32))
+    _eq(nonfinite_rows(list(tengine._leaves(bad.stack)), 2, "cpu").numpy(),
+        np.array([0.0, 1.0], np.float32))

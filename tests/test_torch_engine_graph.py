@@ -85,18 +85,19 @@ def buffer_ptrs(eng) -> list:
 
 
 def stub_capture(body):
-    """A stand-in for ``_capture_cuda_graph`` on the CPU. Capturing runs no
-    kernel but calls every wrapper once: here it runs nothing and counts
-    ``STUB_LAUNCHES`` of ``STUB_KERNEL``. It records the engine's buffer
+    """A stand-in for ``_capture_cuda_graph`` on the CPU. Capturing ``k``
+    steps runs no kernel but calls every wrapper ``k`` times: here it runs
+    nothing and counts ``k * STUB_LAUNCHES`` of ``STUB_KERNEL``. It records the engine's buffer
     pointers, and every replay fails if one moved: a CUDA graph replays
     over the buffers it captured, so an engine that put a new tensor in a
     buffer's place (rebinding instead of writing in place) would step the
     old one on the card. Its replay reruns the step and copies the output
     into one buffer that every replay overwrites, as a CUDA graph's static
     output is."""
-    eng = inspect.getclosurevars(body).nonlocals["self"]
+    free = inspect.getclosurevars(body).nonlocals
+    eng = free["self"]
     captured = buffer_ptrs(eng)
-    STUB_KERNEL.launches += STUB_LAUNCHES
+    STUB_KERNEL.launches += STUB_LAUNCHES * free["k"]
     static = []
 
     def replay():
@@ -187,8 +188,12 @@ def test_sessions_interleaved_with_steps_match_jax(backend, theta, theta_set,
     for out, copy in held:
         assert torch.equal(out, copy)
     if mode == "stub graph":
-        assert te.graph_stats["captures"] == 1
-        assert te.graph_stats["replays"] == 26
+        # graphs of 4, 1 and 2 steps, each captured at its first use; the
+        # 26 steps as 11 replays (step_many's chunks: 4 | 4 | 2 + 1 | 2 + 1
+        # | 4 | 4 + 2, and two single steps)
+        assert te.graph_stats["captures"] == 3
+        assert te.graph_stats["replays"] == 11
+        assert te.graph_stats["steps"] == 26
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -328,7 +333,10 @@ def test_a_changed_key_recaptures_and_steps_as_eager():
         eng.step_many(xs[:3])
         eng.theta_x = 0.5
         eng.step_many(xs[3:])
-    assert te.graph_stats["captures"] == 2 and te.graph_stats["replays"] == 8
+    # 3 frames: graphs of 2 and 1 steps; the changed key drops both, and
+    # 5 frames capture graphs of 4 and 1 steps
+    assert te.graph_stats["captures"] == 4 and te.graph_stats["replays"] == 4
+    assert te.graph_stats["steps"] == 8
     for a, b in zip(_leaves(eager.state), _leaves(te.state)):
         assert torch.equal(a, b)
     assert te.report() == eager.report()
@@ -349,7 +357,8 @@ def test_launch_accounting_with_a_stub_graph():
     counts = ops.launch_counts()
     assert counts[STUB_KERNEL.name] == 6 * STUB_LAUNCHES
     assert sum(counts.values()) == counts[STUB_KERNEL.name]
-    assert te.graph_stats == {"captures": 2, "replays": 6,
+    # one-step graphs before and after the change, one of 4 steps between
+    assert te.graph_stats == {"captures": 3, "replays": 3, "steps": 6,
                               "capture_s": te.graph_stats["capture_s"]}
     ops.reset_launch_counts()
 
@@ -377,4 +386,5 @@ def test_cpu_engines_step_eagerly():
     te = tengine.DeltaStreamEngine(tprog, tcfg, device="cpu")
     assert te._capture is None
     te.step_many(_frames(3, 1)[:, 0])
-    assert te.graph_stats == {"captures": 0, "capture_s": 0.0, "replays": 0}
+    assert te.graph_stats == {"captures": 0, "capture_s": 0.0, "replays": 0,
+                              "steps": 0}

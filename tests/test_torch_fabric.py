@@ -295,9 +295,10 @@ class TestFleet:
             for x, y in zip(tengine._leaves(ref.state.stack),
                             tengine._leaves(tf.engines[s].state.stack)):
                 assert torch.equal(x, y)
-        # one capture a shard; a replay a shard a tick
-        assert tf.graph_stats == {"captures": tf.n_shards,
-                                  "replays": 12 * tf.n_shards, "ticks": 12}
+        # a shard: the one-step graph, replayed a tick, and step_many's 6
+        # frames as the 4- and 2-step graphs, each captured at first use
+        assert tf.graph_stats == {"captures": 3 * tf.n_shards,
+                                  "replays": 8 * tf.n_shards, "ticks": 12}
 
     def test_carry_sessions_and_report_match_jax(self):
         jf, tf = _fleets("fused_q8", 4, 2)
@@ -358,7 +359,8 @@ class TestFleet:
         assert ti["displaced"] == [2, 3] and ti["checkpoint"] is None
         assert tf.engines == survivors and tf.n_streams == 6
         assert tf.mesh.shape == ji["plan"]["new_shape"]
-        assert all(e.graph_stats["captures"] == 1 for e in tf.engines)
+        # the one-step graph and xs1's 4-step chunk (5 = 4 + 1 frames)
+        assert all(e.graph_stats["captures"] == 2 for e in tf.engines)
         t_out = tf.step_many(xs2).numpy()
         np.testing.assert_allclose(t_out, np.asarray(jf.step_many(xs2)),
                                    rtol=0, atol=TOL_HEAD)
@@ -370,8 +372,10 @@ class TestFleet:
             ref.step_many(xs1[:, 2 * old:2 * old + 2])
             want = ref.step_many(xs2[:, 2 * new:2 * new + 2]).numpy()
             assert want.tobytes() == t_out[:, 2 * new:2 * new + 2].tobytes()
-        assert tf.graph_stats == {"captures": 4, "replays": 4 * 5 + 3 * 6,
-                                  "ticks": 11}
+        # xs1 (4 + 1 frames) on four shards, xs2 (4 + 2) on three, the
+        # survivors' 2-step graph captured for it
+        assert tf.graph_stats == {"captures": 4 * 2 + 3,
+                                  "replays": 4 * 2 + 3 * 2, "ticks": 11}
         with pytest.raises(ValueError, match="out of range"):
             tf.remove_shard(3)
 

@@ -17,9 +17,13 @@ D = W = 4096 with 4 layers, each ``fused``, from seeded random weights at
 (every tree the same). Per path, with the helpers of this checkout's
 ``chip_smoke.py``: kernels a step, device-busy time a step and the idle
 share of ``step_many`` (``torch.profiler``, 50 steps, 10 on the LM paths),
+the step's kernels by name (launches a step, names cut to 90 characters),
 ``step_many``'s wall time a step over 300 frames, the latency of ``step``
 (median and p95 over 300 frames) and the frames per second of an 8-slot
-batcher draining 16 requests of 20-60 frames. One JSON line per path,
+batcher draining 16 requests of 20-60 frames. Before the profiled and the
+timed ``step_many`` the engine runs 31 frames and is reset, so a tree
+that captures a graph per chunk length (16, 8, 4, 2, 1 steps) has them
+all and captures nothing inside the measurement. One JSON line per path,
 with the card's name and power limit.
 """
 from __future__ import annotations
@@ -86,14 +90,37 @@ def time_tree(src: Path) -> None:
                         for t in rng.integers(20, 61, 16)]
             yield f"{cell} fused", prog, task, frames, requests, 10
 
+    def warm(eng):
+        """Every chunk graph captured (31 = 16 + 8 + 4 + 2 + 1 frames),
+        then a fresh state in the same buffers."""
+        eng.step_many(frames[:31])
+        eng.reset()
+        torch.cuda.synchronize()
+        return eng
+
+    def kernels_by_name(run, n: int) -> dict:
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            run()
+            torch.cuda.synchronize()
+        names = {}
+        for e in p.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                key = e.name[:90]
+                names[key] = names.get(key, 0) + 1
+        return {k: v / n for k, v in sorted(names.items(),
+                                            key=lambda kv: -kv[1])}
+
     for path, prog, task, frames, requests, n_prof in paths():
         DeltaStreamEngine(prog, task).step_many(frames[:4])     # warm-up
         torch.cuda.synchronize()
-        eng = DeltaStreamEngine(prog, task)
+        eng = warm(DeltaStreamEngine(prog, task))
         prof = cs.engine_profile(lambda: eng.step_many(frames[:n_prof]),
                                  n_prof)
-        eng = DeltaStreamEngine(prog, task)
-        torch.cuda.synchronize()
+        by_name = kernels_by_name(lambda: eng.step_many(frames[:n_prof]),
+                                  n_prof)
+        eng = warm(DeltaStreamEngine(prog, task))
         t0 = time.perf_counter()
         eng.step_many(frames)
         torch.cuda.synchronize()
@@ -110,6 +137,7 @@ def time_tree(src: Path) -> None:
         fps = sum(len(fr) for fr in requests) / (time.perf_counter() - t0)
         print(json.dumps({
             "tree": str(src), "path": path, **prof,
+            "kernels_by_name": by_name,
             "step_many_us_per_step": step_many_us,
             "latency_median_us": float(np.median(lat)),
             "latency_p95_us": float(np.percentile(lat, 95)),
