@@ -129,7 +129,11 @@ traceback and a non-zero exit):
    + every other engine's warm-up and replays) and no other kernel, every
    tick on which no stream can finish run under
    ``set_sync_debug_mode("error")``; ticks 6-10 of the second run profiled.
-   Then a ``fused`` fleet of 4 × 8 through ``step_many`` (20 frames),
+   The sessions (``session_opens``): an engine's ``open_stream`` is at
+   most two host launches (the slot buffer's fill and one replay of its
+   open program, profiled), a fleet open the shard engine's reset replay
+   alone, its rollback shadow untouched; host µs an open. Then a ``fused``
+   fleet of 4 × 8 through ``step_many`` (20 frames),
    every shard's state and outputs bitwise a standalone 8-stream engine,
    with exact launches of the fp32 GRU kernel;
 5f. the LM zoo's serving path (``lm_phase``), from seeded weights drawn
@@ -142,7 +146,8 @@ traceback and a non-zero exit):
    128 tokens for 32 steps, ``rwkv6_scan_bf16`` launched exactly 24 times
    by the prefill and by each decode step and no other kernel, each launch
    of the prefill and the first decode step held against its plain version
-   on the inputs the path gave it (within ``TOL_F32``); (c)
+   on the inputs the path gave it (within ``TOL_F32``; the decode step's
+   launches on its eager twin, since a replay calls no wrapper); (c)
    recurrentgemma-9b at full width, reduced to 3 of its 38 layers (one
    rglru, rglru, local_attn period), prefill at T = 128 and 32 decode
    steps, ``rglru_scan`` launched twice by the prefill and never by a
@@ -156,7 +161,11 @@ traceback and a non-zero exit):
    the same prefill through ``rwkv6_scan_f32``; with each model's init,
    prefill and
    decode times, kernels a decode step and idle share, peak memory, and the
-   drain's tokens a second;
+   drain's tokens a second. Every ``LmEngine`` decode step is one replay of
+   its CUDA graph; in each model's timed run every step's logits and caches
+   are held bitwise against ``lm_decode`` run op by op on copies of the
+   same caches (``eager_twin``), and the graph's capture ms and private
+   pool (``graph_pool_bytes``) are printed;
 5g. the rest of the LM zoo (``zoo_phase``), seeded ``init_lm`` on the
    card, bf16, full size: (a) deepseek-v2-lite-16b (MLA, MoE) under the
    batcher as (a) of 5f (two drains the same tokens, a staggered
@@ -171,7 +180,8 @@ traceback and a non-zero exit):
    width and the fewest layers that hold each block kind, card against
    CPU within ``TOL_LM`` (a flip within ``ROUTE_MARGIN_F32`` replayed)
    and decode against forward within ``TOL_F32``; no hand-written kernel
-   launched; per model the times of 5f, the init's peak and the host RSS;
+   launched; per model the times of 5f (the decode steps held against
+   their eager twin), the init's peak and the host RSS;
 5h. LM training (``lm_train_phase``): (a) ``repro_torch.launch.train``
    trains llama3.2-1b at full size (the registry config: bf16 weights,
    fp32 Adam moments, remat) for 8 steps of [8, 128], every loss finite,
@@ -601,7 +611,7 @@ def buffer_ptrs(eng) -> list:
 
 def recording(engine_cls):
     """A subclass of ``engine_cls`` that keeps every engine it makes and
-    the buffer pointers each captured its graph over."""
+    the buffer pointers each captured its step graphs over."""
     class Recorded(engine_cls):
         made = []
 
@@ -610,9 +620,10 @@ def recording(engine_cls):
             super().__init__(*args, **kwargs)
             Recorded.made.append(self)
 
-        def _capture_step(self, k=1):
-            self.captured_ptrs = buffer_ptrs(self)
-            super()._capture_step(k)
+        def _capture_step(self, k=1, session=None):
+            if session is None:
+                self.captured_ptrs = buffer_ptrs(self)
+            super()._capture_step(k, session)
 
     return Recorded
 
@@ -1941,13 +1952,17 @@ class TickProfile:
                 "idle_share": 1.0 - busy_us / (1e6 * wall)}
 
 
-def timed(obj, name, acc) -> None:
+def timed(obj, name, acc, calls=None) -> None:
     """Wrap the method ``name`` of ``obj`` so that ``acc[name]`` sums the
-    host seconds spent in its calls."""
+    host seconds spent in its calls (and ``calls[name]`` counts them)."""
     fn = getattr(obj, name)
     acc[name] = 0.0
+    if calls is not None:
+        calls[name] = 0
 
     def call(*args, **kwargs):
+        if calls is not None:
+            calls[name] += 1
         t0 = time.perf_counter()
         try:
             return fn(*args, **kwargs)
@@ -1955,6 +1970,89 @@ def timed(obj, name, acc) -> None:
             acc[name] += time.perf_counter() - t0
 
     setattr(obj, name, call)
+
+
+# the host launches of a session open: the slot buffer's fill and one graph
+# replay (the CUDA runtime calls that put work on a stream)
+OPEN_LAUNCHES = 2
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                "cudaMemcpy", "cudaMemset")
+
+
+def host_launches(fn) -> dict:
+    """The CUDA runtime calls of ``LAUNCH_CALLS`` the host makes while
+    ``fn()`` runs, by name (``torch.profiler``'s runtime events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.name.startswith(LAUNCH_CALLS):
+            names[e.name] = names.get(e.name, 0) + 1
+    return names
+
+
+def session_opens(fleet, dev, n: int = 16) -> dict:
+    """The session programs on the drained fleet of a 5e (b) run. Shard
+    0's engine opens a stream (its open program captured), then one more
+    under the profiler: at most ``OPEN_LAUNCHES`` host launches and one
+    session replay; then ``n`` back to back (host µs an open). The fleet
+    then opens on shard 1 the same way: each open the shard engine's reset
+    replay alone (its only session program), its rollback shadow bitwise
+    as it was. Every stream is closed after. Returns the launches by name
+    and the host µs an open, of each kind."""
+    import torch
+    out = {}
+
+    def opens(open_one, eng, what):
+        sids = [open_one()]
+        replays = eng.session_stats["replays"]
+        names = host_launches(lambda: sids.append(open_one()))
+        if not (1 <= sum(names.values()) <= OPEN_LAUNCHES
+                and eng.session_stats["replays"] == replays + 1):
+            raise AssertionError(f"{what}: host launches {names} (want at "
+                                 f"most {OPEN_LAUNCHES}), "
+                                 f"{eng.session_stats['replays'] - replays} "
+                                 "session replays (want 1)")
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            sids.append(open_one())
+        host_us = 1e6 * (time.perf_counter() - t0) / n
+        sync(dev)
+        if eng.session_stats["replays"] != replays + 1 + n:
+            raise AssertionError(f"{what}: {n} opens, session replays "
+                                 f"{eng.session_stats['replays'] - replays}")
+        return sids, {"launches": names, "host_us": host_us}
+
+    eng = fleet.engines[0]
+    pools = graph_pool_bytes()
+    sids, out["engine"] = opens(eng.open_stream, eng, "engine open")
+    out["pool_kib"] = (None if pools is None
+                       else (graph_pool_bytes() - pools) / 2 ** 10)
+    host = eng.host_carry()
+    for sid in sids:
+        eng.close_stream(sid, host_carry=host)
+    out["capture_ms"] = 1e3 * eng.session_stats["capture_s"]
+    shard = fleet.engines[1]
+    snap = [t.clone() for t in tree_leaves(shard._snap_state)
+            + list(shard._snap_carry.values())]
+    sids, out["fleet"] = opens(lambda: fleet.open_stream(1), shard,
+                               "fleet open")
+    after = tree_leaves(shard._snap_state) + list(shard._snap_carry.values())
+    if sorted(shard._sessions) != ["reset"] or not all(
+            torch.equal(a, b) for a, b in zip(snap, after)):
+        raise AssertionError(f"fleet open: session programs "
+                             f"{sorted(shard._sessions)} (want the reset "
+                             "alone), or the shard's shadow moved")
+    host = fleet.host_carry()
+    for sid in sids:
+        fleet.close_stream(sid, host_carry=host)
+    return out
 
 
 def fabric_run(prog, task, cfg, arrivals, dev, ckpt_dir, *, quiet_no_sync,
@@ -2014,11 +2112,11 @@ def fabric_run(prog, task, cfg, arrivals, dev, ckpt_dir, *, quiet_no_sync,
     router.tick, fleet.remove_shard = tick, remove_shard
     # host seconds in the fleet's calls and the router's submits (a carry
     # read waits for the tick's replays to finish)
-    rec["host_s"] = {}
+    rec["host_s"], rec["host_calls"] = {}, {}
     for obj, name in ((fleet, "step"), (fleet, "open_stream"),
                       (fleet, "host_carry"), (fleet, "close_stream"),
                       (router, "submit")):
-        timed(obj, name, rec["host_s"])
+        timed(obj, name, rec["host_s"], rec["host_calls"])
     sync(dev)
     t0 = time.perf_counter()
     summary = run_fabric_load(
@@ -2204,6 +2302,24 @@ def fabric_phase(dev, model_768, kernel_q8, kernel_f32, smi) -> dict:
                 f"({len(made)} engines); "
                 f"{run['quiet_ticks']} ticks without a harvest under "
                 f"set_sync_debug_mode('error') [{smi}]")
+            # the session programs: host launches and host µs an open
+            calls = run["host_calls"]["open_stream"]
+            res["b"]["open_us"] = 1e6 * run["host_s"]["open_stream"] / calls
+            res["b"]["opens"] = calls
+            if dev.type == "cuda":
+                op = res["b"]["sessions"] = session_opens(fleet, dev)
+                log(f"fabric (b) sessions: an engine open "
+                    f"{op['engine']['launches']} (one fill and one replay "
+                    f"of the open program: reset and snapshot), "
+                    f"{op['engine']['host_us']:.2f} us of host time an open "
+                    f"(16 back to back), its capture "
+                    f"{op['capture_ms']:.3f} ms, its graph's private pool "
+                    f"{op['pool_kib']} KiB; a fleet open "
+                    f"{op['fleet']['launches']} (the shard's reset replay "
+                    f"alone, its rollback shadow bitwise as it was), "
+                    f"{op['fleet']['host_us']:.2f} us; the run's {calls} "
+                    f"fleet opens {res['b']['open_us']:.2f} us each "
+                    f"[{smi}]")
             # one surviving shard's replay at B = 128, 20 steps of frames
             # like the arrivals': kernels, busy, the int8 tile kernel's time
             shard = fleet.engines[0]
@@ -2489,17 +2605,71 @@ def host_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
+def graph_pool_bytes() -> int | None:
+    """Bytes of the caching allocator's segments that belong to a CUDA
+    graph's private pool (every graph alive), from
+    ``torch.cuda.memory_snapshot()``; ``None`` where the snapshot does not
+    name the pools."""
+    import torch
+    segments = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in seg for seg in segments):
+        return None
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg["segment_pool_id"]) != (0, 0))
+
+
+def eager_twin(eng) -> list:
+    """Wrap ``eng.decode_step`` (an ``LmEngine`` on the card: one graph
+    replay a step): each call first copies the caches and the tokens, and
+    after the replay ``lm_decode`` runs op by op on the copies; its logits
+    and every cache leaf must equal the replay's bit for bit. Returns the
+    list that counts the steps so held."""
+    import torch
+    from repro_torch.models.common import tree_leaves as lm_leaves
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.lm import lm_decode
+    step, held = eng.decode_step, []
+
+    def call(tokens):
+        caches = tree_map(torch.clone, eng.caches)
+        toks = torch.as_tensor(tokens).to(eng.device, torch.int64, copy=True)
+        out = step(tokens)
+        with torch.no_grad():
+            want, caches = lm_decode(eng.params, eng.cfg, toks, caches)
+        if not (torch.equal(out, want) and all(
+                torch.equal(a, b) for a, b in zip(lm_leaves(eng.caches),
+                                                  lm_leaves(caches)))):
+            raise AssertionError(f"{eng.cfg.name}: decode step {len(held)}: "
+                                 "the replay differs from lm_decode op by "
+                                 "op on copies of its caches")
+        held.append(1)
+        return out
+
+    eng.decode_step = call
+    return held
+
+
 def lm_timed(name, cfg, params, init_s, t_prompt, dev, rng, base, smi,
              extra="", modality=None) -> dict:
     """Prefill ms at [4, t_prompt] (median of 3 after a warm one, the last
     the prefill of ``generate_greedy``), decode ms a step (each
-    synchronised) over ``generate_greedy``'s LM_NEW steps, the profiled
-    decode step (5 steps), peak memory; ``"tokens"``: the greedy tokens."""
+    synchronised) over ``generate_greedy``'s LM_NEW steps, each of them
+    held bitwise against its eager twin (``eager_twin``, outside the
+    clock), the profiled decode step (5 steps: kernels, idle share,
+    replays a step), the decode graph's capture and private pool, peak
+    memory; ``"tokens"``: the greedy tokens."""
     import numpy as np
     import torch
     from repro_torch.models.common import count_params
+    from repro_torch.models.common import tree_leaves as lm_leaves
     from repro_torch.serve.engine import LmEngine
+    pools = graph_pool_bytes()
     eng = LmEngine(params, cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    pool_mib = (None if pools is None
+                else (graph_pool_bytes() - pools) / 2 ** 20)
+    cache_mib = sum(t.numel() * t.element_size()
+                    for t in lm_leaves(eng.caches)) / 2 ** 20
     toks = rng.integers(1, cfg.vocab, (LM_SLOTS, t_prompt))
     mod = modality or {}
     pre, dec = [], []
@@ -2516,19 +2686,30 @@ def lm_timed(name, cfg, params, init_s, t_prompt, dev, rng, base, smi,
 
     prefill, decode = eng.prefill, eng.decode_step
     eng.prefill, eng.decode_step = timing(prefill, pre), timing(decode, dec)
+    held = eager_twin(eng)
     for _ in range(3):
         eng.prefill(toks, **mod)
     new = eng.generate_greedy(toks, LM_NEW, **mod)
     eng.prefill, eng.decode_step = prefill, decode
+    if len(held) != LM_NEW:
+        raise AssertionError(f"{name}: {len(held)} decode steps held "
+                             f"against their eager twin, want {LM_NEW}")
     cur = new[:, -1:]
+    replays = eng.decode_stats["replays"]
     prof = engine_profile(lambda: [eng.decode_step(cur)
                                    for _ in range(5)], 5)
+    prof["replays_per_step"] = (eng.decode_stats["replays"] - replays) / 5
     prof["syncs_per_step"] = host_syncs(lambda: eng.decode_step(cur))
+    if prof["replays_per_step"] != 1 or eng.decode_stats["captures"] != 1:
+        raise AssertionError(f"{name}: decode graph {eng.decode_stats}, "
+                             f"{prof['replays_per_step']} replays a step")
     out = {"init_s": init_s, "prefill_ms": float(np.median(pre[1:])),
            "tokens": new,
            "decode_p50_ms": float(np.percentile(dec, 50)),
            "decode_p95_ms": float(np.percentile(dec, 95)),
            "profile": prof, "params": count_params(params),
+           "capture_ms": 1e3 * eng.decode_stats["capture_s"],
+           "pool_mib": pool_mib, "cache_mib": cache_mib,
            "peak_gib": (torch.cuda.max_memory_allocated()
                         - base["bytes"]) / 2 ** 30}
     log(f"time lm {name}: {out['params']} parameters, init "
@@ -2537,12 +2718,18 @@ def lm_timed(name, cfg, params, init_s, t_prompt, dev, rng, base, smi,
         + ", ".join(f"{v:.3f}" for v in pre)
         + f"); decode a step at B={LM_SLOTS} p50 "
         f"{out['decode_p50_ms']:.3f} ms, p95 {out['decode_p95_ms']:.3f} "
-        f"ms over {LM_NEW} steps; profiled decode step: "
+        f"ms over {LM_NEW} steps, each bitwise lm_decode op by op on "
+        f"copies of its caches; profiled decode step: "
+        f"{prof['replays_per_step']:.0f} replay, "
         f"{prof['kernels_per_step']:.1f} kernels, device busy "
         f"{prof['device_busy_us_per_step']:.1f} us, idle share "
         f"{prof['idle_share']:.4f} (wall {prof['wall_us_per_step']:.1f} "
         f"us under the profiler), {prof['syncs_per_step']} host syncs a "
-        f"step; peak memory after the init, above the "
+        f"step; the decode graph's capture {out['capture_ms']:.1f} ms, its "
+        f"private pool "
+        + ("not measured" if pool_mib is None else f"{pool_mib:.2f} MiB")
+        + f" (the caches {cache_mib:.2f} MiB); peak memory after the init, "
+        f"above the "
         f"{base['bytes']} B held before the model, {out['peak_gib']:.3f} "
         f"GiB{extra} [{smi}]")
     return out
@@ -2709,6 +2896,9 @@ def lm_phase(dev, smi) -> dict:
     toks = rng.integers(1, cfg.vocab, (LM_SLOTS, LM_T))
     eng = LmEngine(params, cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
     per_call = counting(eng)
+    # the replays call no wrapper: the first decode step's launches are
+    # recorded on its eager twin, on the same inputs
+    eager_twin(eng)
     orig, kept = recording("rwkv6_scan",
                            lambda args, k: k < 2 * cfg.n_layers)
     try:
@@ -2744,7 +2934,8 @@ def lm_phase(dev, smi) -> dict:
         f"{cfg.n_layers} times by the prefill and by each decode step "
         f"({res['launches'][wkv16.name]} in all) and no other kernel; the "
         f"{len(kept)} launches of the prefill [{LM_SLOTS}, 32, {LM_T}, 64] "
-        f"and the first decode step [{LM_SLOTS}, 32, 1, 64] against the "
+        f"and the first decode step's eager twin [{LM_SLOTS}, 32, 1, 64] "
+        f"(each step one replay, bitwise its twin) against the "
         f"plain version on the card: scaled {errs[LM_T]:.3e} / {errs[1]:.3e}"
         f" (within {TOL_F32}); prefill-then-decode against the "
         f"teacher-forced forward: relative RMS {err_b:.3e} (not held: the "
@@ -5848,7 +6039,8 @@ def main() -> int:
     inside = sum(v for k, v in host.items() if k != "submit")
     log(f"time fabric (b) where the first run's {fb['ticks_ms']:.3f} ms of "
         f"ticks went (host ms): fleet.step (stage and 8 or 7 replays, no "
-        f"sync) {host['step']:.3f}, open_stream {host['open_stream']:.3f}, "
+        f"sync) {host['step']:.3f}, open_stream {host['open_stream']:.3f} "
+        f"({fb['opens']} opens, {fb['open_us']:.2f} us each), "
         f"host_carry (waits for the replays) {host['host_carry']:.3f}, "
         f"close_stream {host['close_stream']:.3f}, the router's own (shed, "
         f"admit, staging, output rows, one output copy a harvest) "

@@ -230,7 +230,10 @@ class ShardedStreamFleet:
     def open_stream(self, shard: int) -> int:
         """Claim the first free slot ON the given shard (placement is the
         router's job — the fleet never load-balances by itself). Device
-        work only: no host sync."""
+        work only, no host sync: the shard engine's reset replay alone, as
+        the JAX fleet's open resets the slot and takes no snapshot (the
+        fleet has no rollback; :meth:`export_shard_engine` seeds the
+        shadows)."""
         if not (0 <= shard < self.n_shards):
             raise ValueError(f"shard {shard} out of range "
                              f"(n_shards={self.n_shards})")
@@ -239,7 +242,8 @@ class ShardedStreamFleet:
             raise RuntimeError(
                 f"shard {shard}: all {self.streams_per_shard} slots busy; "
                 "queue the request (see serve.router.StreamRouter)")
-        return shard * self.streams_per_shard + eng.open_stream()
+        return (shard * self.streams_per_shard
+                + eng._open_stream(snapshot=False))
 
     def close_stream(self, sid: int, host_carry=None) -> dict:
         """Release a session slot; returns that stream's accounting (the

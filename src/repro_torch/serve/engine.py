@@ -1,8 +1,11 @@
 """Serving engines, the PyTorch port of :mod:`repro.serve.engine`.
 
 ``LmEngine`` — batched prefill and decode for a registry arch over a fixed
-slot count, with ring caches of per-slot lengths for continuous batching;
-it runs eagerly (the JAX engine jits each step).
+slot count, with ring caches of per-slot lengths for continuous batching.
+The prefill runs eagerly (the JAX engine re-traces its jitted prefill for
+every prompt shape); on a CUDA device the decode step is one CUDA graph
+over the engine's caches and token buffer (the JAX engine's jitted
+decode).
 
 ``DeltaStreamEngine`` — streaming delta-RNN inference with live
 temporal-sparsity accounting and the Eq. 7 latency model.
@@ -40,6 +43,17 @@ replay that fails raises. On the CPU, where no graph exists, the same
 step runs eagerly. ``graph_stats`` counts the captures, the replays and
 the steps they ran.
 
+The session calls are the reference's jitted ``_reset_streams`` and
+``_merge_rows``, over two more buffers: the slot an open resets (a device
+scalar) and a ``[N]`` row mask. ``open_stream`` is one fill of the slot and
+one replay of a graph that builds the mask from it, puts the program's
+fresh state (one slot's rows, built once per program) into the slot's rows,
+zeroes its per-stream accounting and copies those rows into the rollback
+shadow: the JAX engine's reset and snapshot dispatches in one.
+``snapshot_streams`` / ``rollback_stream`` fill the mask and replay the
+merge graph of their direction. These graphs are captured at their first
+use, under the step graphs' capture key; ``session_stats`` counts them.
+
 A step is the frame guard (four small kernels), the program's step (a Delta
 Unit launch and a layer kernel a layer for the GRU / LSTM kernel
 backends: :func:`repro_torch.kernels.ops.delta_unit`), the head and one
@@ -76,12 +90,13 @@ from repro_torch.core.program import (DeltaProgram, DeltaProgramState,
 from repro_torch.core.sparsity import cell_dims
 from repro_torch.core.thresholds import ThresholdPolicy, dynamic_threshold
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import current_mesh
 from repro_torch.ft import checkpoint as ft_checkpoint
 from repro_torch.kernels import ops
 from repro_torch.kernels.delta_unit import count_rows_ref
 from repro_torch.kernels.engine_epilogue import EpilogueConsts
 from repro_torch.kernels.ops import resolve_device
-from repro_torch.models.common import tree_leaves
+from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.gru_rnn import GruTaskConfig
 from repro_torch.models.lm import init_lm_caches, lm_decode, lm_prefill
 
@@ -147,6 +162,20 @@ def chunk_plan(t: int) -> list:
     return plan
 
 
+def _run_aside(device: torch.device, fn, *args) -> None:
+    """``fn(*args)`` on a side stream of a CUDA ``device``, which the
+    current stream then waits for (directly on the CPU): a warm-up before a
+    capture, whose first-use work must not run on the capturing stream."""
+    if device.type != "cuda":
+        fn(*args)
+        return
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream(device).wait_stream(side)
+
+
 def _capture_cuda_graph(body):
     """Capture ``body`` (engine steps over the fixed buffers, returning
     their output buffer) into a CUDA graph on a side stream, without
@@ -176,8 +205,14 @@ class LmEngine:
     ``params`` (from :func:`repro_torch.models.lm.init_lm` or
     :func:`~repro_torch.models.lm.lm_params_from_numpy`) must lie on
     ``device`` (default ``"cuda"``), where the engine keeps its caches.
-    Prefill and decode write the caches in place; ``caches`` may be
-    replaced between calls (the batcher's slotwise merge does)."""
+    Prefill and decode write the caches in place. On a CUDA device the
+    decode step is a CUDA graph over the caches, a ``[B, 1]`` token buffer
+    and the logits it writes, captured at construction and again when a
+    value it bakes in changes (:meth:`_capture_key`); a capture or replay
+    that fails raises. On the CPU the step runs eagerly. Assigning
+    ``caches`` (the JAX engine's style) copies the new values into the
+    engine's buffers, leaf by leaf: a captured step reads those buffers, and
+    would not see a tree put in their place."""
 
     def __init__(self, params: dict, cfg: ModelConfig, batch: int,
                  max_len: int, device=None):
@@ -190,7 +225,71 @@ class LmEngine:
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
-        self.caches = init_lm_caches(cfg, batch, max_len, self.device)
+        self._caches = init_lm_caches(cfg, batch, max_len, self.device)
+        self._tokens = torch.zeros((batch, 1), dtype=torch.int64,
+                                   device=self.device)
+        # the captured decode step: on a CUDA device only
+        self._capture = (_capture_cuda_graph if self.device.type == "cuda"
+                         else None)
+        self._decode = None     # (replay, launches of a replay)
+        self._decode_key = self._decode_refs = None
+        self.decode_stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
+        if self._capture is not None:
+            self._capture_decode()
+
+    @property
+    def caches(self) -> list:
+        return self._caches
+
+    @caches.setter
+    def caches(self, new) -> None:
+        if new is self._caches:
+            return
+        dst, src = tree_leaves(self._caches), tree_leaves(new)
+        if len(dst) != len(src) or any(
+                d.shape != s.shape or d.dtype != s.dtype
+                for d, s in zip(dst, src)):
+            raise ValueError(
+                "caches: the new tree's leaves differ from the engine's in "
+                "number, shape or dtype; build them with init_lm_caches("
+                "cfg, batch, max_len)")
+        _copy_into(dst, src)
+
+    def _capture_key(self) -> tuple:
+        """What the captured decode step bakes in: the batch and ring sizes,
+        the config, the parameters (by identity: a tree whose leaves are
+        replaced must be a new tree) and the mesh, on which the blocks
+        branch when they run (``lm._embed``, ``moe.moe_apply``)."""
+        return (self.batch, self.max_len, self.cfg, id(self.params),
+                id(current_mesh()))
+
+    @torch.no_grad()
+    def _capture_decode(self) -> None:
+        """Capture one decode step over the buffers with ``self._capture``.
+        One step first runs on a scratch copy of the caches on a side
+        stream, so what runs at first use (cuBLAS's handle and workspace,
+        kernel builds and launch plans) runs outside the capture and the
+        caches stay as they were; its launches ran and stay counted. The
+        capture calls the kernel wrappers once and runs no kernel: their
+        counts are taken back and added again at each replay."""
+        t0 = time.perf_counter()
+        self._decode = None                 # free the old graph first
+        _run_aside(self.device, lm_decode, self.params, self.cfg,
+                   self._tokens.clone(), tree_map(torch.clone, self._caches))
+
+        def body():
+            logits, _ = lm_decode(self.params, self.cfg, self._tokens,
+                                  self._caches)
+            return logits
+
+        before = ops.launch_counts()
+        replay = self._capture(body)
+        self._decode = (replay, ops.take_back_launches(before))
+        self._decode_key = self._capture_key()
+        # keeps the ids in the key unique while the graph lives
+        self._decode_refs = (self.params, current_mesh())
+        self.decode_stats["captures"] += 1
+        self.decode_stats["capture_s"] = time.perf_counter() - t0
 
     @torch.no_grad()
     def prefill(self, tokens, **modality) -> torch.Tensor:
@@ -205,11 +304,32 @@ class LmEngine:
 
     @torch.no_grad()
     def decode_step(self, tokens) -> torch.Tensor:
-        """One decode step for every slot, ``tokens: [B, 1]``."""
-        logits, self.caches = lm_decode(
-            self.params, self.cfg, torch.as_tensor(tokens, device=self.device),
-            self.caches)
-        return logits
+        """One decode step for every slot, ``tokens: [B, 1]``; returns the
+        logits ``[B, 1, V]``, a tensor of its own (later steps do not
+        overwrite it). On a CUDA device the tokens go into the token buffer
+        without a host sync (a host array through pinned memory, a device
+        tensor device to device), then one replay."""
+        if self._capture is None:
+            logits, _ = lm_decode(
+                self.params, self.cfg,
+                torch.as_tensor(tokens, device=self.device), self._caches)
+            return logits
+        if isinstance(tokens, np.ndarray):
+            tokens = torch.from_numpy(np.array(tokens))
+        tokens = torch.as_tensor(tokens).to(torch.int64)
+        if tuple(tokens.shape) != (self.batch, 1):
+            raise ValueError(f"decode_step takes one token a slot, "
+                             f"[{self.batch}, 1]; got {tuple(tokens.shape)}")
+        if tokens.device.type == "cpu" and self.device.type == "cuda":
+            tokens = tokens.pin_memory()
+        self._tokens.copy_(tokens, non_blocking=True)
+        if self._decode_key != self._capture_key():
+            self._capture_decode()
+        replay, launches = self._decode
+        logits = replay()
+        ops.add_launches(launches)
+        self.decode_stats["replays"] += 1
+        return logits.clone()
 
     def generate_greedy(self, tokens, steps: int, **modality) -> torch.Tensor:
         """Greedy generation; returns ``[B, steps]`` new tokens."""
@@ -363,6 +483,13 @@ class DeltaStreamEngine:
         self._epilogue_consts = EpilogueConsts(
             self.dims, self.accel.k_pes * self.accel.f_pl_hz,
             self.accel.w_weight_bits)
+        # the session programs' buffers: the slot an open resets, the [N]
+        # row mask the programs read, and the fresh state of one slot
+        self._slot = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._slot_ids = torch.arange(n_streams, device=self.device)
+        self._rows = torch.zeros((n_streams,), dtype=torch.bool,
+                                 device=self.device)
+        self._fresh = self._fresh_program = None
         self.state = None
         self.reset()
         # the captured steps: on a CUDA device only (the CPU steps eagerly)
@@ -370,9 +497,11 @@ class DeltaStreamEngine:
                          else None)
         self._graphs = {}       # steps K -> (replay, launches of a replay)
         self.capture_s = {}     # steps K -> seconds its last capture took
+        self._sessions = {}     # session program -> (replay, launches)
         self._graph_key = self._graph_program = None
         self.graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0,
                             "steps": 0}
+        self.session_stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
         if self._capture is not None:
             self._capture_step()
 
@@ -419,35 +548,40 @@ class DeltaStreamEngine:
                 self._theta_x_layers, self._theta_h_layers,
                 self.dynamic_target)
 
-    def _capture_step(self, k: int = 1):
+    def _capture_step(self, k: int = 1, session: str | None = None):
         """Capture ``k`` steps over the buffers with ``self._capture``:
-        step ``j`` reads frame ``_xs[j]`` and writes output ``_ys[j]``. A
-        changed :meth:`_capture_key` drops every graph first (each is
-        captured again at its next use). One step first runs on scratch
-        copies of the state and carry, so what runs on first use (kernel
-        builds, launch plans, cuBLAS's handle and workspace) runs outside
-        the capture and no stream advances; those launches ran and stay
-        counted. The capture calls every kernel wrapper ``k`` times and
-        runs no kernel: its counts are taken back and added again at each
-        replay."""
+        step ``j`` reads frame ``_xs[j]`` and writes output ``_ys[j]``; with
+        ``session`` (and ``k = 0``) the graph is that session program
+        (:meth:`_session`) instead. A changed :meth:`_capture_key` drops
+        every graph first (each is captured again at its next use). The
+        graph's work first runs on scratch copies of the buffers, so what
+        runs on first use (kernel builds, launch plans, cuBLAS's handle and
+        workspace) runs outside the capture and no stream advances; those
+        launches ran and stay counted. The capture calls every kernel
+        wrapper ``k`` times and runs no kernel: its counts are taken back
+        and added again at each replay."""
         t0 = time.perf_counter()
         if self._graph_key != self._capture_key():
             self._graphs.clear()            # free the old graphs first
-        self._graphs.pop(k, None)
-        scratch = (_clone(self.state),
-                   {key: v.clone() for key, v in self._carry.items()},
-                   self._x.clone())
-        if self.device.type == "cuda":
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                self._one_step(*scratch)
-            torch.cuda.current_stream(self.device).wait_stream(side)
+            self._sessions.clear()
+        graphs = self._graphs if session is None else self._sessions
+        graphs.pop(session or k, None)
+        carry = {key: v.clone() for key, v in self._carry.items()}
+        if session is None:
+            _run_aside(self.device, self._one_step, _clone(self.state), carry,
+                       self._x.clone())
         else:
-            self._one_step(*scratch)
-        del scratch
+            _run_aside(self.device, self._session, session,
+                       _clone(self.state), carry, _clone(self._snap_state),
+                       {key: v.clone() for key, v in self._snap_carry.items()},
+                       self._rows.clone(), self._slot.clone())
+        del carry
 
         def body():
+            if session is not None:
+                self._session(session, self.state, self._carry,
+                              self._snap_state, self._snap_carry, self._rows,
+                              self._slot)
             for j in range(k):
                 _, state, carry = self._one_step(
                     self.state, self._carry, self._xs[j], out=self._ys[j])
@@ -456,12 +590,14 @@ class DeltaStreamEngine:
 
         before = ops.launch_counts()
         replay = self._capture(body)
-        self._graphs[k] = (replay, ops.take_back_launches(before))
+        graphs[session or k] = (replay, ops.take_back_launches(before))
         self._graph_key = self._capture_key()
         self._graph_program = self.program     # keeps the key's id unique
-        self.graph_stats["captures"] += 1
-        self.graph_stats["capture_s"] = self.capture_s[k] = (
-            time.perf_counter() - t0)
+        stats = self.graph_stats if session is None else self.session_stats
+        stats["captures"] += 1
+        stats["capture_s"] = time.perf_counter() - t0
+        if session is None:
+            self.capture_s[k] = stats["capture_s"]
 
     def _replay_steps(self, k: int = 1) -> None:
         """One replay of the ``k``-step graph from the frame buffer into the
@@ -475,36 +611,87 @@ class DeltaStreamEngine:
         self.graph_stats["replays"] += 1
         self.graph_stats["steps"] += k
 
-    def _mask(self, sids) -> torch.Tensor:
-        """A ``[N]`` bool mask on the device, built without a host copy:
-        a fill of each slot's element (``mask[sid] = True`` would copy the
-        scalar from the host and synchronise on a CUDA device)."""
-        mask = torch.zeros((self.n_streams,), dtype=torch.bool,
-                           device=self.device)
-        for sid in sids:
-            mask[sid].fill_(True)
-        return mask
+    # -- the session programs (tensor ops only: no host sync) --------------
 
-    def _select(self, mask: torch.Tensor, cur, new):
-        n = self.n_streams
+    def _fresh_state(self) -> DeltaProgramState:
+        """The program's fresh state for one slot, ``init_state((1,))``,
+        built once per program: its rows are those of ``init_state((N,))``
+        (each backend's ``m_init`` convention is the same for every slot)."""
+        if self._fresh_program is not self.program:
+            self._fresh = self.program.init_state((1,))
+            self._fresh_program = self.program
+        return self._fresh
 
-        def sel(c, w):
-            return torch.where(mask.reshape((n,) + (1,) * (c.dim() - 1)),
-                               w, c)
+    @staticmethod
+    def _where_rows(rows: torch.Tensor, src: torch.Tensor,
+                    dst: torch.Tensor) -> None:
+        """``dst``'s slot rows where ``rows`` is True become ``src``'s (a
+        row of one slot broadcasts), in place."""
+        torch.where(rows.reshape((-1,) + (1,) * (dst.dim() - 1)), src, dst,
+                    out=dst)
 
-        return _map2(sel, cur, new)
-
-    def _merge_rows(self, dst_state, dst_carry, src_state, src_carry, mask):
-        """Take ``src``'s slot rows where ``mask`` is True, ``dst``'s
-        elsewhere (per-stream carry only; lifetime aggregates and Θ_h keep
-        ``dst``'s values) — the snapshot/rollback primitive."""
-        state = self._select(mask, dst_state, src_state)
-        carry = dict(dst_carry)
+    def _reset_rows(self, state, carry: dict, rows: torch.Tensor) -> None:
+        """The reference's ``_reset_streams``, in place: the fresh state in
+        the slots where ``rows`` is True, their per-stream accounting and
+        ``last_x`` zeroed; every other slot untouched."""
+        for cur, new in zip(_leaves(state.stack),
+                            _leaves(self._fresh_state().stack)):
+            self._where_rows(rows, new, cur)
         for k in self._PER_STREAM_KEYS:
-            carry[k] = torch.where(mask, src_carry[k], dst_carry[k])
-        carry["last_x"] = torch.where(mask[:, None], src_carry["last_x"],
-                                      dst_carry["last_x"])
-        return state, carry
+            carry[k].masked_fill_(rows, 0.0)
+        carry["last_x"].masked_fill_(rows[:, None], 0.0)
+
+    def _merge_rows(self, dst_state, dst_carry: dict, src_state,
+                    src_carry: dict, rows: torch.Tensor) -> None:
+        """The reference's ``_merge_rows``, in place: ``src``'s slot rows
+        into ``dst`` where ``rows`` is True (per-stream carry and
+        ``last_x`` only; the lifetime aggregates and Θ_h keep ``dst``'s
+        values), the snapshot and rollback primitive."""
+        for d, s in zip(_leaves(dst_state.stack), _leaves(src_state.stack)):
+            self._where_rows(rows, s, d)
+        for k in self._PER_STREAM_KEYS + ("last_x",):
+            self._where_rows(rows, src_carry[k], dst_carry[k])
+
+    def _session(self, name: str, state, carry: dict, snap_state,
+                 snap_carry: dict, rows: torch.Tensor,
+                 slot: torch.Tensor) -> None:
+        """The session program ``name`` over the given buffers, in place.
+        ``"reset"``: the rows of slot ``slot`` (``rows`` is written from
+        it) reset; ``"open"``: that reset, then those rows into the shadow
+        (the JAX engine's open: its reset and snapshot dispatches);
+        ``"snapshot"`` / ``"rollback"``: the rows ``rows`` selects, live
+        into shadow / shadow into live."""
+        if name in ("open", "reset"):
+            torch.eq(self._slot_ids, slot, out=rows)
+            self._reset_rows(state, carry, rows)
+        if name in ("open", "snapshot"):
+            self._merge_rows(snap_state, snap_carry, state, carry, rows)
+        elif name == "rollback":
+            self._merge_rows(state, carry, snap_state, snap_carry, rows)
+
+    def _run_session(self, name: str) -> None:
+        """Run the session program ``name`` over the engine's buffers: one
+        replay of its graph on a CUDA device (captured at its first use, or
+        when what it bakes in changed), eagerly on the CPU."""
+        if self._capture is None:
+            self._session(name, self.state, self._carry, self._snap_state,
+                          self._snap_carry, self._rows, self._slot)
+            return
+        if self._graph_key != self._capture_key() or name not in \
+                self._sessions:
+            self._capture_step(0, session=name)
+        replay, launches = self._sessions[name]
+        replay()
+        ops.add_launches(launches)
+        self.session_stats["replays"] += 1
+
+    def _select_rows(self, sids) -> None:
+        """Fill the row mask buffer with the slots ``sids``, without a host
+        copy: a fill of each slot's element (``mask[sid] = True`` would copy
+        the scalar from the host and synchronise on a CUDA device)."""
+        self._rows.zero_()
+        for sid in sids:
+            self._rows[sid].fill_(True)
 
     def _to_device(self, x, pinned: bool = False) -> torch.Tensor:
         """A frame on the engine's device. Host numpy input is snapshotted
@@ -605,25 +792,27 @@ class DeltaStreamEngine:
 
     def open_stream(self) -> int:
         """Claim a free slot: masked-reset only that slot's state and
-        accounting. Raises ``RuntimeError`` when every slot is busy."""
+        accounting, and make that fresh session state its rollback target
+        (one fill of the slot buffer, one replay). Raises ``RuntimeError``
+        when every slot is busy."""
+        return self._open_stream(snapshot=True)
+
+    def _open_stream(self, snapshot: bool) -> int:
+        """Claim the first free slot. Without ``snapshot`` its rollback
+        shadow keeps what it held (the reset replay alone: the JAX fleet's
+        open, whose fleet has no rollback)."""
         free = self.free_streams
         if not free:
             raise RuntimeError(
                 f"all {self.n_streams} stream slots are busy; close one "
                 "or queue through GruStreamBatcher")
         sid = free[0]
-        mask = self._mask([sid])
-        fresh = self.program.init_state((self.n_streams,))
-        carry = dict(self._carry)
-        for k in self._PER_STREAM_KEYS:
-            carry[k] = torch.where(mask, 0.0, carry[k])
-        carry["last_x"] = torch.where(mask[:, None], 0.0, carry["last_x"])
-        self._write(self.state, self._carry,
-                    self._select(mask, self.state, fresh), carry)
+        self._slot.fill_(sid)
+        self._run_session("open" if snapshot else "reset")
         self._slot_busy[sid] = True
         self._slot_opened_at[sid] = self._n_steps
-        # the slot's rollback target starts as its fresh session state
-        self.snapshot_streams([sid])
+        if snapshot:
+            self._snap_steps[sid] = 0
         return sid
 
     def host_carry(self) -> dict:
@@ -670,9 +859,8 @@ class DeltaStreamEngine:
         for sid in sids:
             if not (0 <= sid < self.n_streams):
                 raise ValueError(f"stream {sid} out of range")
-        self._write(self._snap_state, self._snap_carry, *self._merge_rows(
-            self._snap_state, self._snap_carry, self.state, self._carry,
-            self._mask(sids)))
+        self._select_rows(sids)
+        self._run_session("snapshot")
         for sid in sids:
             self._snap_steps[sid] = self._n_steps - self._slot_opened_at[sid]
 
@@ -681,9 +869,8 @@ class DeltaStreamEngine:
         returns the session-step index it rewinds to. Device work only."""
         if not (0 <= sid < self.n_streams) or not self._slot_busy[sid]:
             raise ValueError(f"stream {sid} is not open")
-        self._write(self.state, self._carry, *self._merge_rows(
-            self.state, self._carry, self._snap_state, self._snap_carry,
-            self._mask([sid])))
+        self._select_rows([sid])
+        self._run_session("rollback")
         self._slot_opened_at[sid] = self._n_steps - self._snap_steps[sid]
         return self._snap_steps[sid]
 

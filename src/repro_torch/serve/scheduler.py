@@ -5,8 +5,8 @@ PyTorch port of :mod:`repro.serve.scheduler`.
 whenever slots free up, the newest wave of queued prompts is left-padded to
 a common length and prefilled through the whole-batch prefill (which
 attends over the pads, as the reference does); the live slots' cache rows
-are merged back from a copy taken before the wave, so in-flight requests
-are untouched. Every tick decodes all slots; finished slots (EOS or
+are merged back, in place, from a copy taken before the wave, so in-flight
+requests are untouched. Every tick decodes all slots; finished slots (EOS or
 budget) are harvested and recycled.
 
 ``GruStreamBatcher`` (alias ``DeltaStreamBatcher``) — admission/harvest
@@ -88,7 +88,8 @@ class ContinuousBatcher:
         if live:
             keep = np.zeros((self.engine.batch,), bool)
             keep[live] = True
-            self.engine.caches = _merge_caches_slotwise(
+            # in place: the engine's captured decode step reads its caches
+            _merge_caches_slotwise(
                 old_caches, self.engine.caches,
                 torch.from_numpy(keep).to(self.engine.device))
         nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
@@ -139,13 +140,16 @@ class ContinuousBatcher:
 
 
 def _merge_caches_slotwise(old, new, keep: torch.Tensor):
-    """``old``'s rows for the slots where ``keep`` is True, else ``new``'s.
-    Cache leaves are stacked ``[count, B, ...]``
+    """``old``'s rows for the slots where ``keep`` is True, else ``new``'s,
+    written into ``new`` in place (its leaves keep their buffers); returns
+    ``new``. Cache leaves are stacked ``[count, B, ...]``
     (:func:`repro_torch.models.blocks.init_caches`): the slot is axis 1."""
     def sel(o, n):
-        return torch.where(keep.reshape((1, -1) + (1,) * (n.ndim - 2)), o, n)
+        return torch.where(keep.reshape((1, -1) + (1,) * (n.ndim - 2)), o, n,
+                           out=n)
 
-    return tree_map(sel, old, new)
+    tree_map(sel, old, new)
+    return new
 
 
 @dataclass
