@@ -40,7 +40,13 @@ traceback and a non-zero exit):
    the epilogue over 2, 4 and 24 layers of those count rows at N in {1, 8,
    128}, with non-finite values in a slot's first leaf and in another
    slot's last leaf alone (flags, poison and bad-state sums and
-   ``last_x`` bitwise, the fp32 terms within ``TOL_EPILOGUE_REL``);
+   ``last_x`` bitwise, the fp32 terms within ``TOL_EPILOGUE_REL``); then
+   the train steps' fused AdamW (``adam_kernels_phase``): fp32 and bf16
+   parameters (and bf16 with fp32 gradients, and a tree of both), leaves
+   of 1, 3, 4095 and 2**20 + 1 elements aligned and 2-4 bytes off 16-byte
+   alignment, clipping and decay on and off, steps 1 and 1000, NaN and
+   +-inf gradients: ``p``, ``mu`` and ``nu`` bitwise the plain version on
+   the card, every case launched twice and once in place;
 4. the int8/int4 kernels' own activation stage over every Q8.8 input,
    bitwise against ``torch.sigmoid`` / ``torch.tanh`` on the CPU after the
    LUT rounding;
@@ -91,17 +97,25 @@ traceback and a non-zero exit):
    ``make_gru_train_step(use_delta=False)``, Adam at 1e-3; (b) 10 steps with
    ``qat=EDGEDRNN_QAT`` at θx = θh = 0.25 from the pretrained weights
    (a fresh Adam state, as ``examples/train_gas_regression.py``); every
-   loss finite and each stage's last 3 below its first. Each stage's first
+   loss finite and each stage's last 3 below its first. Each stage's
+   first step runs eagerly, the other nine through the compiled step (one
+   CUDA graph, captured at its first call; the last call under
+   ``set_sync_debug_mode("error")``), and the ten are held bitwise
+   (losses, parameters, moments) against ten eager steps (``.eager``) from
+   a copy of the stage's first state. Each stage's first
    step is held against the same step with ``device="cpu"`` from the same
    weights and batch: the loss within ``TOL_TRAIN_LOSS``, every gradient
    leaf within ``TOL_TRAIN_GRAD`` of its largest element, every updated
    parameter within what Adam's first step makes of that; in (b) the CPU
    replays the card's LUT outputs where its own differ, each such flip
    within ``FLIP_MARGIN`` of a rounding boundary, and the flips are
-   counted. No hand-written kernel launches while training. (c) A
-   ``CheckpointManager`` saves the state after step 5 of (b); it restores
-   bitwise, and steps 6-10 from it and from the state in memory, both under
-   ``torch.use_deterministic_algorithms(True)``, are bitwise equal. (d)
+   counted. Training launches the fused Adam once a step (eager steps,
+   compiled steps' warm-ups and replays) and no other hand-written
+   kernel. (c) A ``CheckpointManager`` saves the compiled step's state
+   after step 5 of (b); it restores bitwise, and steps 6-10 from it and
+   from the state in memory, both through the compiled step under
+   ``torch.use_deterministic_algorithms(True)`` (a switch in the capture's
+   key: it captures again), are bitwise equal. (d)
    ``quantize_delta_model`` exports the trained stack to ``fused_q8`` on
    the card; an engine of 32 streams replays its captured graph over a
    fresh digit batch under ``set_sync_debug_mode("error")``, with exact
@@ -185,11 +199,16 @@ traceback and a non-zero exit):
 5h. LM training (``lm_train_phase``): (a) ``repro_torch.launch.train``
    trains llama3.2-1b at full size (the registry config: bf16 weights,
    fp32 Adam moments, remat) for 8 steps of [8, 128], every loss finite,
-   and 2 steps with ``--grad-accum 2``; 5 steps of ``make_lm_train_step``
-   on one fixed batch with the launcher's optimizer, whose loss falls, 2
-   more profiled (kernels a step, device busy, idle share), the step cut
-   into forward, backward and Adam, peak memory, tokens/s, beside the
-   step's bound; (b) one train step on the card against the same step on
+   and 2 steps with ``--grad-accum 2``, each step one replay of its
+   compiled step; 5 steps of the compiled ``make_lm_train_step`` on one
+   fixed batch with the launcher's optimizer, whose loss falls, one more
+   under ``set_sync_debug_mode("error")``, 2 more profiled, then the same
+   8 steps through its eager twin from a copy of the first state, bitwise
+   in losses, parameters and moments; eager and compiled: kernels a step,
+   device busy, idle share, the fused Adam's time, the step cut into
+   forward, backward and Adam, peak memory, tokens/s, beside the step's
+   bound, and the capture's time and graph pool; (b) one eager train step
+   on the card against the same step on
    the CPU in fp32 from the same seeded weights and batch [2, 32]:
    llama3.2-1b, rwkv6-1.6b and granite-moe-3b-a800m at full width and 2
    layers, recurrentgemma-9b at full width and 3 layers (its vocabulary
@@ -202,8 +221,10 @@ traceback and a non-zero exit):
    MoE choices replayed (flips within ``ROUTE_MARGIN_F32``); (c) the same
    3 ``--reduced`` steps of llama3.2-1b and granite-moe-3b-a800m twice,
    losses bitwise equal, and a run stopped at step 4 by its checkpoint
-   and resumed to 6 bitwise an uninterrupted run's steps 5-6. The blocks
-   run the plain scans under autograd: no hand-written kernel launches;
+   and resumed to 6 bitwise an uninterrupted run's steps 5-6, through the
+   launcher's compiled step. The blocks run the plain scans under
+   autograd: the only hand-written kernel launched is the fused Adam,
+   once a step and parameter dtype;
 5i. the mesh paths (``mesh_phase``) on a (4, 2) mesh over the card listed
    8 times (``best_mesh(devices=[card] * 8, model_parallel=2)``): (a) the
    expert-parallel forward of granite-moe-3b-a800m and
@@ -218,15 +239,16 @@ traceback and a non-zero exit):
    the CPU, every fed expert with a nonzero gradient; (d)
    ``pipeline_forward`` over 4 stages bitwise the stages applied in turn
    and within ``TOL_F32`` of the CPU; (e) ``--model-parallel 2`` bitwise
-   ``--model-parallel 1`` and ``prefetch_to_mesh``'s spec; no
-   hand-written kernel launches;
+   ``--model-parallel 1`` and ``prefetch_to_mesh``'s spec; the fused Adam
+   once a step and no other hand-written kernel;
 5j. the examples and the launch tooling (``examples_phase``): the card's
    HBM copy rate and bf16 matmul rate beside ``H100``'s data-sheet
    constants, and ``gpu_batch1_gru_roofline`` of 2L-768H at phase 5's
    sparsity beside its measured step; the four example twins
    (``examples/*_torch.py``), two in this process with their launches
    counted (the quickstart launches rows 1, 2, 4, 6 and 7, the digits twin
-   rows 1 and 2, the B = 4 tile under its batcher, exactly two a replay)
+   rows 1 and 2, the B = 4 tile under its batcher, exactly two a replay,
+   and row 13, the fused Adam, once a compiled training step)
    and two as subprocesses, each printing its JAX example's labelled lines
    and holding its invariants (the quickstart and the decode twin also
    against ``--device cpu``); ``repro_torch.launch.dryrun --all`` over the
@@ -248,13 +270,18 @@ traceback and a non-zero exit):
    per step and idle share (``torch.profiler``, which sees the kernels of
    a replay one by one), the per-frame latency of ``step`` (median and p95
    over the frames), each chunk graph's capture time and the batcher's frames per
-   second; per training stage of 5d the wall per train step, frames per
-   second, kernels per step and idle share, the step cut into forward,
-   backward and Adam, the peak memory, and the export's time; for 5e (b)
+   second; per training stage of 5d, eager against compiled, the wall per
+   train step, frames per second, kernels per step and idle share, the
+   fused Adam's time, the eager step cut into forward, backward and Adam,
+   the capture's time and graph pool, the peak memory, and the export's
+   time; for 5e (b)
    the wall, streams and frames a second, the steady tick p50 and p99
    (``loadgen_fabric``'s rule: ticks over 10 × the median dropped), replays
    a tick, kernels, device busy and idle share a profiled tick, and the
-   scale-down's time.
+   scale-down's time; the fused Adam's instances at their main paths'
+   trees (fp32: the 2L-768H GRU; bf16: llama3.2-1b, timed in 5h) beside
+   their plain version, ``torch._fused_adamw_``, the plain clip norm and
+   the bytes bound.
 
 The delta-ized LM cells run through the same phases: in phase 3
 ``delta_spmv`` with fp32 and with bf16 operands (the LM layer shapes, the
@@ -285,7 +312,8 @@ at the LM path's shapes.
 The line before the last is ``{"kernels": [...]}`` (every kernel instance;
 the ``launches`` of a main-path instance are those of phases 5, 5b, 5c, 5d,
 5e and 5f (the fabric's runs add to the int8 and fp32 GRU kernels', 5f to
-the scans'; 5g, 5h and 5i launch none), each run counted from zero; those of an
+the scans'; 5g launches none; the fused Adam's are those of 5d's training
+runs (fp32) and 5h (a)'s launcher (bf16)), each run counted from zero; those of an
 instance on no main path, a buffered one, ``delta_spmv_bf16`` or
 ``deltagru_act``, are those of phases 3 and 6, and its ``path`` names the
 entry that reaches it); the last line is ``{"ok": true, "device": {...}}``.
@@ -469,23 +497,25 @@ def device_ms(fn, calls: int = 20, reps: int = 10) -> float:
     volumes are at most 22.4 MB of the 50 MB), as they do between the
     steps of a stream."""
     import torch
+    from repro_torch.kernels import ops
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+
+    def body():
         for _ in range(calls):
             fn()
-    graph.replay()
+    replay = ops.capture_cuda_graph(body)
+    replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        graph.replay()
+        replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / (reps * calls)
@@ -1579,6 +1609,309 @@ def engine_kernels_phase(dev, rng) -> dict:
     return {"max_err": err, "cases": n_cases}
 
 
+# -- the fused AdamW kernel ----------------------------------------------------
+
+# phase 3's leaves: one element, a few, one short of a 4096-element tile,
+# and past 2**20 (128 of the kernel's 8192-element chunks and a ragged one)
+ADAM_SIZES = (1, 3, 4095, 2 ** 20 + 1)
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def adam_bits(t):
+    """A float tensor's bit patterns, fp32 or bf16 (NaN-safe)."""
+    import torch
+    view = torch.int16 if t.dtype == torch.bfloat16 else torch.int32
+    return t.contiguous().view(-1).view(view)
+
+
+def adam_err(x, y) -> float:
+    """The largest absolute difference of two float tensors of one shape;
+    a position where both hold the same value (NaN, or an infinity of one
+    sign) counts 0."""
+    import torch
+    if not x.numel():
+        return 0.0
+    x, y = x.float(), y.float()
+    same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+    return float(torch.where(same, 0.0, (x - y).abs()).max())
+
+
+def adam_compare(got, ref, p_dtypes) -> tuple:
+    """``got`` and ``ref`` (each ``(params', mu', nu')``) leaf by leaf:
+    ``(mismatches, {instance name: max abs error})``, a mismatch being a
+    leaf whose dtype or bits differ, each leaf's error under the instance
+    of its parameter's dtype."""
+    import torch
+    from repro_torch.kernels import ops
+    names = {torch.float32: ops.FUSED_ADAM_F32.name,
+             torch.bfloat16: ops.FUSED_ADAM_BF16.name}
+    bad, err = 0, {}
+    for j, pd in enumerate(p_dtypes):
+        for x, y in ((got[0][j], ref[0][j]), (got[1][j], ref[1][j]),
+                     (got[2][j], ref[2][j])):
+            if x.dtype != y.dtype or not torch.equal(adam_bits(x),
+                                                     adam_bits(y)):
+                bad += 1
+            err[names[pd]] = max(err.get(names[pd], 0.0), adam_err(x, y))
+    return bad, err
+
+
+def adam_operands(dev, gen, sizes, p_dtypes, g_dtypes, misalign: int):
+    """Seeded leaves on the card, each a view ``misalign`` elements into a
+    buffer of its own (1 puts every leaf 2 or 4 bytes off 16-byte
+    alignment): parameters N(0, 1), gradients N(0, 3), ``mu`` N(0, 1e-2),
+    ``nu`` |N(0, 1e-4)|, in the leaves' dtypes."""
+    import torch
+    f32 = torch.float32
+
+    def leaf(n, dtype, scale, absval=False):
+        t = torch.randn(n + misalign, generator=gen) * scale
+        return (t.abs() if absval else t).to(dtype).to(dev)[misalign:]
+    p = [leaf(n, d, 1.0) for n, d in zip(sizes, p_dtypes)]
+    g = [leaf(n, d, 3.0) for n, d in zip(sizes, g_dtypes)]
+    mu = [leaf(n, f32, 1e-2) for n in sizes]
+    nu = [leaf(n, f32, 1e-4, absval=True) for n in sizes]
+    return p, g, mu, nu
+
+
+def adam_scalars(grads, step: int, clip, dev) -> dict:
+    """The plain ops' device scalars of ``adam_update`` at ``step`` (the
+    warmup-cosine schedule of the launcher): the clip scale or None, lr,
+    corr1, corr2."""
+    import torch
+    from repro_torch.train.optim import (clip_scale, global_norm,
+                                         warmup_cosine_schedule)
+    st = torch.tensor(step, dtype=torch.int32, device=dev)
+    t = st.to(torch.float32)
+    return {"scale": None if clip is None else clip_scale(
+                global_norm(grads), clip),
+            "lr": warmup_cosine_schedule(1e-3, 20, 2000)(st),
+            "corr1": 1 - ADAM_B1 ** t, "corr2": 1 - ADAM_B2 ** t}
+
+
+def adam_kernels_phase(dev) -> dict:
+    """Phase 3's fused AdamW cases: the kernel against its plain version on
+    the card, bitwise in ``p``, ``mu`` and ``nu``: fp32 and bf16
+    parameters (bf16 ones also with fp32 gradients, as ``grad_accum``
+    gives them, and a tree of both dtypes, two launches), leaves of
+    ``ADAM_SIZES`` aligned and 2 or 4 bytes off 16-byte alignment, with and
+    without clipping and decay, at steps 1 and 1000; a NaN and a +-inf
+    gradient with and without clipping; every case launched twice, the two
+    bitwise equal, and once in place on copies (``out`` the inputs),
+    bitwise the functional result."""
+    import torch
+    from repro_torch.kernels.fused_adam import fused_adam, fused_adam_ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 28)
+    cases = []
+    for pd, gd in ((f32, f32), (bf16, bf16), (bf16, f32)):
+        for misalign in (0, 1):
+            for clip in (None, 1.0):
+                for wd in (0.0, 0.1):
+                    for step in (1, 1000):
+                        cases.append(((pd,) * 4, (gd,) * 4, misalign, clip,
+                                      wd, step, None))
+    mixed = (f32, bf16, f32, bf16)
+    cases.append((mixed, mixed, 1, 1.0, 0.1, 7, None))
+    for pd in (f32, bf16):
+        for clip in (None, 1.0):
+            cases.append(((pd,) * 4, (pd,) * 4, 0, clip, 0.1, 3, "nonfinite"))
+    n_bad = []
+    max_err = {"fused_adam_f32": 0.0, "fused_adam_bf16": 0.0}
+    for p_dt, g_dt, misalign, clip, wd, step, special in cases:
+        p, g, mu, nu = adam_operands(dev, gen, ADAM_SIZES, p_dt, g_dt,
+                                     misalign)
+        if special:
+            g[3][5] = float("nan")
+            g[2][0] = float("inf")
+            g[2][4094] = -float("inf")
+        kw = dict(adam_scalars(g, step, clip, dev), b1=ADAM_B1, b2=ADAM_B2,
+                  eps=ADAM_EPS, weight_decay=wd)
+        a = fused_adam(p, g, mu, nu, **kw)
+        b = fused_adam(p, g, mu, nu, **kw)
+        ip = ([t.clone() for t in p], [t.clone() for t in mu],
+              [t.clone() for t in nu])
+        fused_adam(ip[0], g, ip[1], ip[2], out=ip, **kw)
+        r = fused_adam_ref(p, g, mu, nu, **kw)
+        torch.cuda.synchronize()
+        for got in (a, b, ip):
+            bad, err = adam_compare(got, r, p_dt)
+            n_bad += [(p_dt, g_dt, misalign, clip, wd, step, special)] * bad
+            for name, e in err.items():
+                max_err[name] = max(max_err[name], e)
+        if special and not (torch.isnan(a[0][3][5])
+                            and torch.isnan(a[0][2][0])):
+            raise AssertionError(f"fused Adam {p_dt} clip {clip}: a "
+                                 "non-finite gradient did not propagate")
+    if n_bad:
+        raise AssertionError(f"fused Adam against its plain version: "
+                             f"{len(n_bad)} mismatches, first {n_bad[0]}")
+    log(f"fused Adam: {len(cases)} cases (fp32 / bf16 / bf16 with fp32 "
+        f"gradients / a mixed tree; leaves {ADAM_SIZES}, aligned and 2-4 "
+        f"bytes off; clip and decay on and off; steps 1 and 1000; NaN and "
+        f"+-inf gradients), each launched twice and in place: p, mu and nu "
+        f"bitwise the plain version on the card")
+    return {"cases": len(cases), "max_err": max_err}
+
+
+def adam_bytes(params, grads) -> int:
+    """What one update must move: each parameter read and written, each
+    gradient read, both fp32 moments read and written."""
+    return sum(p.numel() * (2 * p.element_size() + g.element_size() + 16)
+               for p, g in zip(params, grads))
+
+
+def events_ms(fn, reps: int) -> float:
+    """Time of one call of ``fn`` issued from Python between CUDA events,
+    after one warm-up call (for calls whose device time dwarfs their
+    launches)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def adam_row(kinfo, params, step: int, clip, wd, where: str, large: bool,
+             smi) -> dict:
+    """The fused Adam instance ``kinfo`` timed on the leaves of ``params``
+    (a main path's tree), with seeded gradients of the parameters' dtype
+    and fp32 moments: the kernel (updating in place), its plain version,
+    ``torch._fused_adamw_`` over the same leaves (PyTorch's fused AdamW,
+    its moments in the parameters' dtype as ``torch.optim`` keeps them,
+    another rounding: a yardstick the port never calls), the plain clip
+    norm, and the bound (``adam_bytes`` at ``HBM_BYTES_PER_S``). ``large``:
+    time eager calls between events (a llama-size update takes ~10 ms)
+    rather than graph replays. Before the timing, one update of the kernel
+    in place (as the compiled step makes it) is held bitwise against the
+    plain version on the same inputs; a mismatch raises, and the row's
+    ``max_err`` is the largest difference measured."""
+    import torch
+    from repro_torch.kernels.fused_adam import fused_adam, fused_adam_ref
+    from repro_torch.train.optim import clip_scale, global_norm, tree_leaves
+    dev = tree_leaves(params)[0].device
+    p = [t.detach().clone() for t in tree_leaves(params)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    g = [torch.randn(t.shape, generator=gen, device=dev).mul_(1e-3).to(
+        t.dtype) for t in p]
+    mu = [torch.zeros_like(t, dtype=torch.float32) for t in p]
+    nu = [torch.zeros_like(t, dtype=torch.float32) for t in p]
+    kw = dict(adam_scalars(g, step, clip, dev), b1=ADAM_B1, b2=ADAM_B2,
+              eps=ADAM_EPS, weight_decay=wd)
+
+    def kernel():
+        fused_adam(p, g, mu, nu, out=(p, mu, nu), **kw)
+
+    ref = fused_adam_ref(p, g, mu, nu, **kw)
+    kernel()
+    bad, err = adam_compare((p, mu, nu), ref, [t.dtype for t in p])
+    del ref
+    if bad or set(err) != {kinfo.name}:
+        raise AssertionError(f"{kinfo.name} at {where}: {bad} leaves differ "
+                             f"from the plain version (max abs error "
+                             f"{err}) or another instance ran")
+    max_err = err[kinfo.name]
+
+    def plain():
+        fused_adam_ref(p, g, mu, nu, **kw)
+
+    def norm():
+        clip_scale(global_norm(g), 1.0)
+    if large:
+        ms, plain_ms, norm_ms = (events_ms(kernel, 5), events_ms(plain, 2),
+                                 events_ms(norm, 5))
+    else:
+        ms, plain_ms, norm_ms = (device_ms(kernel), device_ms(plain, 5),
+                                 device_ms(norm))
+    library_ms, library_note = None, ""
+    try:
+        lib_mu = [torch.zeros_like(t) for t in p]
+        lib_nu = [torch.zeros_like(t) for t in p]
+        steps = [torch.full((), float(step), device=dev) for _ in p]
+        lr = float(kw["lr"])
+
+        def library():
+            torch._fused_adamw_(p, g, lib_mu, lib_nu, [], steps, lr=lr,
+                                beta1=ADAM_B1, beta2=ADAM_B2,
+                                weight_decay=wd, eps=ADAM_EPS,
+                                amsgrad=False, maximize=False)
+        library_ms = (events_ms(library, 5) if large
+                      else device_ms(library))
+        del lib_mu, lib_nu
+    except Exception as exc:              # noqa: BLE001 - reported
+        library_note = f" (torch._fused_adamw_ refused: {exc!r:.200})"
+    nbytes = adam_bytes(p, g)
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    n = sum(t.numel() for t in p)
+    log(f"{kinfo.name} at {where}: one update in place bitwise the plain "
+        f"version in p, mu and nu (max abs error {max_err!r}) [{smi}]")
+    log(f"time {kinfo.name} at {where} ({n} elements in {len(p)} leaves, "
+        f"clip {clip}, decay {wd}): kernel {ms:.5f} ms, plain "
+        f"{plain_ms:.5f} ms, torch._fused_adamw_ "
+        + (f"{library_ms:.5f} ms" if library_ms is not None else "n/a")
+        + f"{library_note}; the plain clip norm (global_norm, clip_scale) "
+        f"{norm_ms:.5f} ms; bound {bound_ms:.5f} ms ({nbytes} B at "
+        f"{HBM_BYTES_PER_S:.3e} B/s), the kernel at "
+        f"{bound_ms / ms:.3f} of it [{smi}]")
+    del p, g, mu, nu
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "norm_ms": norm_ms,
+            "bytes": nbytes, "elements": n, "shape": where,
+            "max_err": max_err}
+
+
+def adam_instances(dtypes) -> list:
+    """The fused Adam instances a step of parameters of ``dtypes`` launches,
+    each once."""
+    import torch
+    from repro_torch.kernels import ops
+    return [k for dt, k in ((torch.float32, ops.FUSED_ADAM_F32),
+                            (torch.bfloat16, ops.FUSED_ADAM_BF16))
+            if dt in set(dtypes)]
+
+
+def tally_adam(want: dict, dtypes, steps: int) -> None:
+    """Add ``steps`` steps' fused Adam launches to ``want`` (kernel name ->
+    launches)."""
+    for k in adam_instances(dtypes):
+        want[k.name] = want.get(k.name, 0) + steps
+
+
+def compiled_steps(stats: dict) -> int:
+    """Steps a compiled step ran: a warm-up each capture, a replay each
+    call."""
+    return stats["captures"] + stats["replays"]
+
+
+def check_adam_launches(what: str, want: dict) -> dict:
+    """The phase's launches since its reset: the fused Adam's instances
+    exactly ``want`` (its steps, one launch a parameter dtype each), and no
+    other hand-written kernel."""
+    from repro_torch.kernels import ops
+    n = {k: v for k, v in ops.launch_counts().items() if v}
+    if n != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{what}: launches {n}, want the fused Adam's "
+                             f"{want} alone")
+    return n
+
+
+def state_bitwise(a, b) -> bool:
+    """Two train states (or trees) bitwise equal, leaf for leaf."""
+    import torch
+    from repro_torch.train.optim import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and (
+            torch.equal(adam_bits(x), adam_bits(y)) if x.is_floating_point()
+            else torch.equal(x, y)) for x, y in zip(la, lb))
+
+
 def training_phase(dev, train_task, batch: int = 32, max_t: int = 96):
     """Phase 5d on ``train_task`` (a CTC ``GruTaskConfig``): (a) 10 steps of
     the dense pretrain, (b) 10 of the QAT DeltaGRU retrain at θ = 0.25, each
@@ -1620,6 +1953,8 @@ def training_phase(dev, train_task, batch: int = 32, max_t: int = 96):
     train_params = init_gru_model(SEED, train_task, device=dev)
     cpu_train_params = init_gru_model(SEED, train_task, device="cpu")
     stash = {}
+    adam_want, main_adam, main_steps = {}, {}, {}
+    f32 = {torch.float32}
     with tempfile.TemporaryDirectory() as tmp:
         mgr = CheckpointManager(tmp, every=5, keep=2)
         for si, (name, spec) in enumerate(stages.items()):
@@ -1628,11 +1963,17 @@ def training_phase(dev, train_task, batch: int = 32, max_t: int = 96):
                                        use_delta=use_delta)
             cpu_step = make_gru_train_step(task_s, opt_cfg, qat=rep,
                                            use_delta=use_delta)
+            stage = batches[si * TRAIN_STEPS:(si + 1) * TRAIN_STEPS]
+            start = init_train_state(train_params)
+            twin_start = tree_map(torch.clone, start)
+            before = ops.launch_counts()
+            # the first step runs eagerly (it is held against the CPU's),
+            # the other nine through the compiled step: one capture, then
+            # a replay each
             tstate, m1, report = first_step_against_cpu(
-                f"train {name}", step, cpu_step,
-                init_train_state(train_params),
-                init_train_state(cpu_train_params), batches[si * TRAIN_STEPS],
-                rec, rep, task_s, use_delta, TRAIN_LR)
+                f"train {name}", step.eager, cpu_step, start,
+                init_train_state(cpu_train_params), stage[0], rec, rep,
+                task_s, use_delta, TRAIN_LR)
             log(report)
 
             def keep(i, st, name=name):
@@ -1643,20 +1984,63 @@ def training_phase(dev, train_task, batch: int = 32, max_t: int = 96):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
+            pools0 = graph_pools()
             tstate, hist = train_loop(
-                step, tstate,
-                batches[si * TRAIN_STEPS + 1:(si + 1) * TRAIN_STEPS],
-                TRAIN_STEPS - 1, LoopHooks(checkpoint_every=1,
-                                           save_checkpoint=keep))
+                step, tstate, stage[1:-1], TRAIN_STEPS - 2,
+                LoopHooks(checkpoint_every=1, save_checkpoint=keep))
+            # the last step: a call after the first makes no host sync
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                tstate, m_last = step(tstate, stage[-1])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            hist.append({k: float(v) for k, v in m_last.items()})
+            hist[-1]["step_time_s"] = time.perf_counter() - t0
+            keep(TRAIN_STEPS - 1, tstate)
+            peak = torch.cuda.max_memory_allocated() - base
+            pool = new_pool_bytes(pools0)
+            after = ops.launch_counts()
+            for k in (ops.FUSED_ADAM_F32, ops.FUSED_ADAM_BF16):
+                main_adam[k.name] = (main_adam.get(k.name, 0)
+                                     + after[k.name] - before[k.name])
+            tally_adam(adam_want, f32, 1 + compiled_steps(step.stats))
+            tally_adam(main_steps, f32, 1 + compiled_steps(step.stats))
             losses = [float(m1["loss"])] + [h["loss"] for h in hist]
             if not all(np.isfinite(losses)) or not (
                     np.mean(losses[-3:]) < losses[0]):
                 raise AssertionError(f"train {name}: losses {losses}")
+            # the eager twin: the same ten steps op by op from a copy of
+            # the stage's first state
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_e = torch.cuda.memory_allocated()
+            e_state, e_hist = train_loop(step.eager, twin_start, stage,
+                                         TRAIN_STEPS)
+            peak_e = torch.cuda.max_memory_allocated() - base_e
+            tally_adam(adam_want, f32, TRAIN_STEPS)
+            e_losses = [h["loss"] for h in e_hist]
+            if e_losses != losses or not state_bitwise(tstate, e_state):
+                raise AssertionError(
+                    f"train {name}: the compiled steps are not bitwise the "
+                    f"eager step's: losses {losses} / {e_losses}, state "
+                    f"bitwise {state_bitwise(tstate, e_state)}")
+            del e_state, twin_start
+            log(f"train {name}: steps 2-{TRAIN_STEPS} through the compiled "
+                f"step ({step.stats['captures']} capture, "
+                f"{step.stats['replays']} replays, the last under "
+                f"set_sync_debug_mode('error')) and the first eager: "
+                f"losses, parameters, moments and step count bitwise "
+                f"{TRAIN_STEPS} eager steps from a copy of the first state")
             train[name] = {"losses": losses, "state": tstate, "step": step,
                            "task": task_s, "qat": qat, "use_delta": use_delta,
                            "step_ms": [1e3 * h["step_time_s"] for h in hist],
-                           "peak_bytes": torch.cuda.max_memory_allocated()
-                           - base, "base_bytes": base}
+                           "eager_step_ms": [1e3 * h["step_time_s"]
+                                             for h in e_hist],
+                           "capture_s": step.stats["capture_s"],
+                           "pool_bytes": pool,
+                           "peak_bytes": peak, "eager_peak_bytes": peak_e,
+                           "base_bytes": base}
             cell = f"QAT DeltaGRU, theta={THETA}" if use_delta else "GRU"
             log(f"train {name} ({cell}, {train_task.num_layers}L-"
                 f"{train_task.hidden_size}H CTC, B={batch} T={max_t}, Adam "
@@ -1668,10 +2052,6 @@ def training_phase(dev, train_task, batch: int = 32, max_t: int = 96):
                      else [p.to("cpu") for p in v])
                 for k2, v in tstate.params.items()}
         mgr.wait()
-        stray = {k2: v for k2, v in ops.launch_counts().items() if v}
-        if stray:
-            raise AssertionError(f"training launched hand-written kernels: "
-                                 f"{stray}")
 
         # (c) resume: steps 6-10 of the QAT stage from the in-memory state
         # at step 5 and from its checkpoint, both under deterministic
@@ -1686,8 +2066,14 @@ def training_phase(dev, train_task, batch: int = 32, max_t: int = 96):
             restored = ckpt_restore(tmp, stash[5], step=5, device=dev)
             same_restore = all(torch.equal(a, b) for a, b in zip(
                 opt_leaves(restored), opt_leaves(stash[5])))
+            # the compiled step captures again: the switch is in its key
+            captures = q["step"].stats["captures"]
+            replays = q["step"].stats["replays"]
             a_state, _ = train_loop(q["step"], stash[5], tail, 5)
             b_state, _ = train_loop(q["step"], restored, tail, 5)
+            tally_adam(adam_want, f32,
+                       q["step"].stats["captures"] - captures
+                       + q["step"].stats["replays"] - replays)
         finally:
             torch.use_deterministic_algorithms(False)
             if prior_ws is None:
@@ -1734,6 +2120,10 @@ def training_phase(dev, train_task, batch: int = 32, max_t: int = 96):
             f"cotangent by {twice['net']:.3e}")
         if not (same_restore and resume_bitwise):
             raise AssertionError("train resume is not bitwise")
+        n_adam = check_adam_launches("phase 5d training", adam_want)
+        log(f"train launches: {n_adam}, exactly one fused_adam_f32 a step "
+            f"(eager steps, compiled steps' warm-ups and replays) and no "
+            f"other hand-written kernel")
     # the CPU ran two forwards (gradients, then the step) over one log
     log(f"train qat first step: {qat_stats['sites'] // 2} LUT sites a "
         f"forward; {qat_stats['flips'] // 2} of the CPU's outputs differed "
@@ -1794,6 +2184,8 @@ def training_phase(dev, train_task, batch: int = 32, max_t: int = 96):
     train["serve"] = {"export_ms": export_ms, "errors": errors,
                       "labels": int(lab_lens.sum()),
                       "launches": n_served}
+    train["adam_launches"] = main_adam
+    train["adam_steps"] = main_steps
     log(f"served export (fused_q8, {n_serve} streams, {feats.shape[0]} "
         f"frames, theta={THETA}): launches {n_served}; final state bitwise the CPU program's, outputs "
         f"{head_err:.3e}; greedy "
@@ -2605,17 +2997,37 @@ def host_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def graph_pool_bytes() -> int | None:
-    """Bytes of the caching allocator's segments that belong to a CUDA
-    graph's private pool (every graph alive), from
-    ``torch.cuda.memory_snapshot()``; ``None`` where the snapshot does not
-    name the pools."""
+def graph_pools() -> dict | None:
+    """Bytes of the caching allocator's segments by CUDA graph private pool
+    id (every graph alive), from ``torch.cuda.memory_snapshot()``; ``None``
+    where the snapshot does not name the pools."""
     import torch
     segments = torch.cuda.memory_snapshot()
     if any("segment_pool_id" not in seg for seg in segments):
         return None
-    return sum(seg["total_size"] for seg in segments
-               if tuple(seg["segment_pool_id"]) != (0, 0))
+    pools = {}
+    for seg in segments:
+        pid = tuple(seg["segment_pool_id"])
+        if pid != (0, 0):
+            pools[pid] = pools.get(pid, 0) + seg["total_size"]
+    return pools
+
+
+def new_pool_bytes(before: dict | None) -> int | None:
+    """Bytes of the private pools that appeared since ``before`` (a
+    :func:`graph_pools`): the pools of the graphs captured since."""
+    after = graph_pools()
+    if before is None or after is None:
+        return None
+    return sum(v for pid, v in after.items() if pid not in before)
+
+
+def graph_pool_bytes() -> int | None:
+    """Bytes of the caching allocator's segments that belong to a CUDA
+    graph's private pool (every graph alive); ``None`` where the snapshot
+    does not name the pools."""
+    pools = graph_pools()
+    return None if pools is None else sum(pools.values())
 
 
 def eager_twin(eng) -> list:
@@ -3459,7 +3871,9 @@ def lm_step_against_cpu(what, cfg, dev, smi, meshes=None,
                         on_card=None) -> dict:
     """(b) for one config: seeded ``init_lm`` on the card, copied to the
     CPU; one batch ``shape`` (``lm_batch``, default [2, 32]) on both; one
-    ``make_lm_train_step`` step on each, its gradients kept by a
+    eager ``make_lm_train_step`` step on each (``.eager``: the check
+    compares arithmetic across devices, not the program), its gradients
+    kept by a
     ``grad_transform`` that returns them unchanged; the card's MoE choices
     replayed on the CPU (flips within ``ROUTE_MARGIN_F32``). Compared on
     the card, leaf by leaf. ``meshes``: a (card mesh, CPU mesh) pair the
@@ -3472,7 +3886,7 @@ def lm_step_against_cpu(what, cfg, dev, smi, meshes=None,
     from repro_torch.data.lm_data import lm_batch
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.dist.sharding import AxisRules, use_mesh
-    from repro_torch.models.common import count_params, tree_map
+    from repro_torch.models.common import count_params, tree_leaves, tree_map
     from repro_torch.models.lm import init_lm
     from repro_torch.train.optim import AdamConfig, constant_schedule
     from repro_torch.train.trainer import (init_train_state,
@@ -3484,6 +3898,7 @@ def lm_step_against_cpu(what, cfg, dev, smi, meshes=None,
     t0 = time.perf_counter()
     params = init_lm(SEED, cfg, device=dev)
     n_params = count_params(params)
+    dtypes = {t.dtype for t in tree_leaves(params)}
     cpu_params = tree_map(lambda t: t.to(cpu), params)
     batch = lm_batch((SEED, 5), cfg, *shape, device="cpu")
     kept = {}
@@ -3501,7 +3916,7 @@ def lm_step_against_cpu(what, cfg, dev, smi, meshes=None,
             kept[where] = grads
             return grads
         return make_lm_train_step(cfg, AdamConfig(
-            schedule=constant_schedule(TRAIN_LR)), grad_transform=keep)
+            schedule=constant_schedule(TRAIN_LR)), grad_transform=keep).eager
 
     with under(0), RouteLog() as card_log:
         new, metrics = step_on("card")(
@@ -3544,30 +3959,33 @@ def lm_step_against_cpu(what, cfg, dev, smi, meshes=None,
                              f"gradients on {zero}")
     log(report)
     return {"loss_err": loss_err, "grad_err": grad_err, "worst": worst,
-            "flips": n_flip, "cpu_s": cpu_s}
+            "flips": n_flip, "cpu_s": cpu_s, "dtypes": dtypes}
 
 
 # substrings of the names of cuBLAS's matmul kernels on an H100
 MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")
 
 
-def lm_step_split(cfg, state, batch, opt_cfg) -> dict:
-    """One LM train step cut at its joints, each part ended by a
+def lm_step_split(cfg, state, batch, opt_cfg, steps: dict) -> dict:
+    """One eager LM train step cut at its joints, each part ended by a
     synchronise (ms): the forward with its loss, the backward (remat's
-    second forward in it), the Adam update; and the device time of one
-    step by kernel group (``torch.profiler``): the library's matmuls
-    (``MATMUL_KERNELS`` in the kernel's name), the rest, and the six
-    kernels that took the most."""
+    second forward in it), the Adam update (norm, schedule, fused kernel);
+    and for each of ``steps`` (name -> step, e.g. eager and compiled),
+    after one unprofiled call (a compiled step's capture), the device time
+    of one step by kernel group (``torch.profiler``): the
+    library's matmuls (``MATMUL_KERNELS`` in the kernel's name), the fused
+    Adam, the rest, and the six kernels that took the most. Each step
+    updates ``state["s"]``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.common import tree_map
     from repro_torch.models.lm import lm_forward
     from repro_torch.train.losses import lm_loss
     from repro_torch.train.optim import adam_update
-    from repro_torch.train.trainer import make_lm_train_step
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    live = tree_map(lambda p: p.detach().requires_grad_(True), state.params)
+    live = tree_map(lambda p: p.detach().requires_grad_(True),
+                    state["s"].params)
     logits, aux = lm_forward(live, cfg, batch["tokens"])
     loss = lm_loss(logits, batch["tokens"])[0] + 0.01 * torch.as_tensor(aux)
     torch.cuda.synchronize()
@@ -3575,54 +3993,66 @@ def lm_step_split(cfg, state, batch, opt_cfg) -> dict:
     loss.backward()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    adam_update(tree_map(lambda p: p.grad, live), state.opt, state.params,
-                opt_cfg)
+    adam_update(tree_map(lambda p: p.grad, live), state["s"].opt,
+                state["s"].params, opt_cfg)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     del live, logits, loss
-    step = make_lm_train_step(cfg, opt_cfg)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(state, batch)
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    gemm = sum(us for name, (_, us) in by_name.items()
-               if any(m in name.lower() for m in MATMUL_KERNELS))
-    rest = sum(us for _, us in by_name.values()) - gemm
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
 
     def short(name):
         for cut in ("void ", "at::native::", "(anonymous namespace)::"):
             name = name.replace(cut, "")
         return name[:150]
-    return {"forward_ms": 1e3 * (t1 - t0), "backward_ms": 1e3 * (t2 - t1),
-            "adam_ms": 1e3 * (t3 - t2), "gemm_us": gemm, "other_us": rest,
-            "top": [(short(name), n, us) for name, (n, us) in top]}
+    out = {"forward_ms": 1e3 * (t1 - t0), "backward_ms": 1e3 * (t2 - t1),
+           "adam_ms": 1e3 * (t3 - t2)}
+    for how, step in steps.items():
+        state["s"], _ = step(state["s"], batch)   # a compiled step captures
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state["s"], _ = step(state["s"], batch)
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n, us = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        gemm = sum(us for name, (_, us) in by_name.items()
+                   if any(m in name.lower() for m in MATMUL_KERNELS))
+        adam = sum(us for name, (_, us) in by_name.items()
+                   if "fused_adam" in name)
+        rest = sum(us for _, us in by_name.values()) - gemm - adam
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+        out[how] = {"gemm_us": gemm, "adam_us": adam, "other_us": rest,
+                    "top": [(short(name), n, us) for name, (n, us) in top]}
+    return out
 
 
 def lm_train_phase(dev, smi) -> dict:
     """Phase 5h: LM training on the card. (a) ``launch.train.main`` trains
     llama3.2-1b at full size (the registry config: bf16 weights, fp32 Adam
-    moments, remat) for 8 steps of [8, 128], every loss finite; 5 steps of
-    ``make_lm_train_step`` on one fixed batch, whose loss falls, 2 of them
-    profiled (``engine_profile``); ``--grad-accum 2`` for 2 steps. (b) One
-    train step on the card against the CPU in fp32 per family
-    (``LM_GRAD_FULL``, ``LM_GRAD_REDUCED``; ``lm_step_against_cpu``). (c)
-    The same 3 steps of ``--reduced`` llama3.2-1b and granite-moe-3b-a800m
-    twice, losses bitwise equal; a run stopped at step 4 by its checkpoint
-    and resumed to step 6 gives the losses of steps 5-6 of an
-    uninterrupted run, bitwise. No hand-written kernel launches: the
-    blocks run the plain scans under autograd. Returns the numbers."""
+    moments, remat) for 8 steps of [8, 128], every loss finite, its step
+    compiled (one CUDA graph, donated state); ``--grad-accum 2`` for 2
+    steps; 5 steps of the compiled ``make_lm_train_step`` on one fixed
+    batch, whose loss falls, one more under ``set_sync_debug_mode("error")``
+    and 2 profiled (``engine_profile``), then the same 8 steps through its
+    eager twin from a copy of the first state: losses, parameters, moments
+    and step bitwise; both profiled, timed and cut into forward, backward
+    and Adam. (b) One eager train step on the card against the CPU in fp32
+    per family (``LM_GRAD_FULL``, ``LM_GRAD_REDUCED``;
+    ``lm_step_against_cpu``). (c) The same 3 steps of ``--reduced``
+    llama3.2-1b and granite-moe-3b-a800m twice, losses bitwise equal; a run
+    stopped at step 4 by its checkpoint and resumed to step 6 gives the
+    losses of steps 5-6 of an uninterrupted run, bitwise. The only
+    hand-written kernel launched is the fused Adam, once a step and
+    parameter dtype: the blocks run the plain scans under autograd.
+    Returns the numbers."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.data.lm_data import lm_batch
     from repro_torch.kernels import ops
     from repro_torch.launch.train import main as train_main
-    from repro_torch.models.common import count_params
+    from repro_torch.models.common import count_params, tree_map
     from repro_torch.models.lm import init_lm
     from repro_torch.train.optim import AdamConfig, warmup_cosine_schedule
     from repro_torch.train.trainer import (init_train_state,
@@ -3636,7 +4066,9 @@ def lm_train_phase(dev, smi) -> dict:
         if len(losses) != n or not all(np.isfinite(losses)):
             raise AssertionError(f"{what}: losses {losses}")
 
-    # (a) the launcher at full size
+    # (a) the launcher at full size, its step compiled with donation
+    f32, bf16 = {torch.float32}, {torch.bfloat16}
+    adam_want = {}
     args = ["--arch", LM_TRAIN_ARCH, "--steps", str(LM_TRAIN_STEPS),
             "--batch", str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ),
             "--log-every", "1"]
@@ -3644,39 +4076,53 @@ def lm_train_phase(dev, smi) -> dict:
     run = train_main(args)
     run_s = time.perf_counter() - t0
     finite("launch.train " + " ".join(args), run["losses"], LM_TRAIN_STEPS)
+    tally_adam(adam_want, bf16, compiled_steps(run["compiled"]))
+    main_adam = {k: v for k, v in ops.launch_counts().items() if v}
+    main_steps = dict(adam_want)
     log(f"train {LM_TRAIN_ARCH} (full size, bf16) launch.train "
         f"{' '.join(args)}: {LM_TRAIN_STEPS} finite losses "
         + ", ".join(f"{v:.4f}" for v in run["losses"])
         + f"; steps 2-{LM_TRAIN_STEPS} p50 "
         f"{float(np.median(run['step_ms'][1:])):.3f} ms (the first, warm-up "
-        f"included, {run['step_ms'][0]:.3f} ms); {run_s:.1f} s in all "
-        f"[{smi}]")
+        f"and capture included, {run['step_ms'][0]:.3f} ms; the capture "
+        f"{1e3 * run['compiled']['capture_s']:.3f} ms); compiled step "
+        f"{run['compiled']}; {run_s:.1f} s in all [{smi}]")
     run2 = train_main(args[:2] + ["--steps", "2", "--batch",
                                   str(LM_TRAIN_BATCH), "--seq",
                                   str(LM_TRAIN_SEQ), "--grad-accum", "2",
                                   "--log-every", "1"])
     finite("launch.train --grad-accum 2", run2["losses"], 2)
+    tally_adam(adam_want, bf16, compiled_steps(run2["compiled"]))
     log(f"train {LM_TRAIN_ARCH} --grad-accum 2 (2 microbatches of "
-        f"[{LM_TRAIN_BATCH // 2}, {LM_TRAIN_SEQ}]): losses "
+        f"[{LM_TRAIN_BATCH // 2}, {LM_TRAIN_SEQ}], compiled): losses "
         + ", ".join(f"{v:.4f}" for v in run2["losses"])
         + "; step ms " + ", ".join(f"{v:.3f}" for v in run2["step_ms"])
         + f" [{smi}]")
 
+    # the fixed batch: the compiled make_lm_train_step (LM_FIXED_STEPS
+    # timed steps, one under set_sync_debug_mode("error"), two profiled),
+    # then the same steps op by op (its eager twin) from a copy of the
+    # first state, bitwise; the graph is freed before the twin runs
     cfg = get_config(LM_TRAIN_ARCH)
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    free_card()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     params = init_lm(SEED, cfg, device=dev)
     n_params = count_params(params)
     state = {"s": init_train_state(params)}
     del params
+    state_bytes = torch.cuda.memory_allocated() - base
+    twin = {"s": tree_map(torch.clone, state["s"])}
     step_opt = AdamConfig(schedule=warmup_cosine_schedule(3e-4, 20, 100),
                           weight_decay=0.1)
     step = make_lm_train_step(cfg, step_opt)
+    eager = step.eager
     batch = lm_batch((SEED, 9), cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
                      device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_c = torch.cuda.memory_allocated()
+    pools0 = graph_pools()
     losses, walls = [], []
     for _ in range(LM_FIXED_STEPS):
         torch.cuda.synchronize()
@@ -3684,19 +4130,66 @@ def lm_train_phase(dev, smi) -> dict:
         state["s"], m = step(state["s"], batch)
         losses.append(float(m["loss"]))
         walls.append(1e3 * (time.perf_counter() - t0))
-    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+    pool = new_pool_bytes(pools0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state["s"], m = step(state["s"], batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    losses.append(float(m["loss"]))
+    if not all(np.isfinite(losses)) or not losses[LM_FIXED_STEPS - 1] < \
+            losses[0]:
         raise AssertionError(f"{LM_TRAIN_ARCH} fixed batch: losses {losses}"
                              " (want finite and falling)")
 
-    def two_steps():
-        for _ in range(2):
-            state["s"], mm = step(state["s"], batch)
-        float(mm["loss"])
-    prof = engine_profile(two_steps, 2)
-    split = lm_step_split(cfg, state["s"], batch, step_opt)
+    def two_steps(fn, out, into):
+        def run2steps():
+            for _ in range(2):
+                out["s"], mm = fn(out["s"], batch)
+                into.append(float(mm["loss"]))
+        return run2steps
+    prof = {"compiled": engine_profile(two_steps(step, state, losses), 2,
+                                       match="fused_adam")}
+    peak = {"compiled": (torch.cuda.max_memory_allocated() - base_c)
+            / 2 ** 30}
+    tally_adam(adam_want, bf16, compiled_steps(step.stats))
+    capture_s, stats = step.stats["capture_s"], dict(step.stats)
+    del step, m
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    base_e = torch.cuda.memory_allocated()
+    e_losses, e_walls = [], []
+    for _ in range(LM_FIXED_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        twin["s"], m = eager(twin["s"], batch)
+        e_losses.append(float(m["loss"]))
+        e_walls.append(1e3 * (time.perf_counter() - t0))
+    del m
+    prof["eager"] = engine_profile(two_steps(eager, twin, e_losses), 2,
+                                   match="fused_adam")
+    peak["eager"] = (torch.cuda.max_memory_allocated() - base_e) / 2 ** 30
+    tally_adam(adam_want, bf16, LM_FIXED_STEPS + 3)
+    same = e_losses == losses and state_bitwise(state["s"], twin["s"])
+    report = (f"train {LM_TRAIN_ARCH} (full size) make_lm_train_step "
+              f"compiled ({stats['captures']} capture, {stats['replays']} "
+              f"replays, one under set_sync_debug_mode('error')) against "
+              f"its eager twin over {len(losses)} steps on one batch: "
+              f"losses bitwise {e_losses == losses}, parameters, moments "
+              f"and step bitwise {state_bitwise(state['s'], twin['s'])}")
+    if not same:
+        raise AssertionError(f"{report}: {losses} / {e_losses}")
+    log(report + f" [{smi}]")
+    del twin
+    free_card()
+    split = lm_step_split(cfg, state, batch, step_opt,
+                          {"eager": eager,
+                           "compiled": make_lm_train_step(cfg, step_opt)})
+    # the split's update, the eager step twice, the compiled step's warm-up
+    # and two replays
+    tally_adam(adam_want, bf16, 1 + 2 + 3)
     tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
-    p50 = float(np.median(walls[1:]))
+    walls_of = {"compiled": walls[1:], "eager": e_walls[1:]}
     # the step's least time: 6 N T operations of forward and backward plus
     # remat's second forward (2 N T) at the bf16 tensor-core rate, or the
     # bytes of the Adam update (bf16 weights read and written, bf16
@@ -3706,37 +4199,63 @@ def lm_train_phase(dev, smi) -> dict:
     bound_ms = 1e3 * max(t_ops, t_bytes)
     res["a"] = {"launcher_losses": run["losses"],
                 "launcher_step_ms": run["step_ms"],
-                "fixed_losses": losses, "fixed_step_ms": walls,
-                "step_p50_ms": p50, "profile": prof, "peak_gib": peak,
-                "tokens_per_s": 1e3 * tokens / p50, "bound_ms": bound_ms,
-                "params": n_params, "split": split}
-    log(f"time train {LM_TRAIN_ARCH} (full size: {n_params} parameters, "
-        f"bf16, fp32 Adam moments, remat) make_lm_train_step on one "
-        f"[{LM_TRAIN_BATCH}, {LM_TRAIN_SEQ}] batch: losses "
-        + ", ".join(f"{v:.4f}" for v in losses)
-        + f" (falling); step wall p50 {p50:.3f} ms over steps 2-"
-        f"{LM_FIXED_STEPS} (each " + ", ".join(f"{v:.3f}" for v in walls)
-        + f"), {1e3 * tokens / p50:.1f} tokens/s; profiled step: "
-        f"{prof['kernels_per_step']:.1f} kernels, device busy "
-        f"{prof['device_busy_us_per_step']:.1f} us, idle share "
-        f"{prof['idle_share']:.4f} (wall {prof['wall_us_per_step']:.1f} us "
-        f"under the profiler); peak memory {peak:.3f} GiB above the "
-        f"{base} B held before; bound {bound_ms:.3f} ms (8 N T = "
-        f"{8 * n_params * tokens:.4e} bf16 operations at "
-        f"{BF16_OPS_PER_S:.3e}/s: {1e3 * t_ops:.3f} ms; Adam's "
-        f"{(2 * 2 + 2 + 4 * 4) * n_params} B at {HBM_BYTES_PER_S:.3e} B/s: "
-        f"{1e3 * t_bytes:.3f} ms) [{smi}]")
-    log(f"time train {LM_TRAIN_ARCH} step split (each part synchronised): "
-        f"forward and loss {split['forward_ms']:.3f} ms, backward (remat's "
-        f"second forward in it) {split['backward_ms']:.3f} ms, Adam "
-        f"{split['adam_ms']:.3f} ms; device time of one step: matmul "
-        f"kernels {split['gemm_us']:.1f} us, the rest "
-        f"{split['other_us']:.1f} us; the six largest: "
-        + "; ".join(f"{name} x{n} {us:.1f} us" for name, n, us in
-                    split["top"]) + f" [{smi}]")
-    del state, batch, step
-    gc.collect()
-    torch.cuda.empty_cache()
+                "fixed_losses": losses, "params": n_params,
+                "state_bytes": state_bytes,
+                "bound_ms": bound_ms, "split": split,
+                "capture_s": capture_s, "pool_bytes": pool}
+    for how in ("eager", "compiled"):
+        pr, w = prof[how], walls_of[how]
+        p50 = float(np.median(w))
+        res["a"][how] = {"step_ms": w, "p50_ms": p50, "profile": pr,
+                         "peak_gib": peak[how],
+                         "tokens_per_s": 1e3 * tokens / p50}
+        log(f"time train {LM_TRAIN_ARCH} {how} (full size: {n_params} "
+            f"parameters, bf16, fp32 Adam moments, remat) "
+            f"make_lm_train_step on one [{LM_TRAIN_BATCH}, {LM_TRAIN_SEQ}] "
+            f"batch: losses "
+            + ", ".join(f"{v:.4f}" for v in (
+                losses if how == "compiled" else e_losses))
+            + f"; step wall p50 {p50:.3f} ms over steps 2-"
+            f"{len(w) + 1} (each " + ", ".join(f"{v:.3f}" for v in w)
+            + f"), {1e3 * tokens / p50:.1f} tokens/s; profiled step: "
+            f"{pr['kernels_per_step']:.1f} kernels, device busy "
+            f"{pr['device_busy_us_per_step']:.1f} us, idle share "
+            f"{pr['idle_share']:.4f} (wall {pr['wall_us_per_step']:.1f} us "
+            f"under the profiler), fused Adam kernel "
+            f"{pr['match_us_per_step']:.1f} us; peak memory "
+            f"{peak[how]:.3f} GiB above the state and its copy (the state "
+            f"{state_bytes / 2 ** 30:.3f} GiB, {state_bytes} B; peak with "
+            f"the state {peak[how] + state_bytes / 2 ** 30:.3f} GiB) [{smi}]")
+    log(f"time train {LM_TRAIN_ARCH} compiled: capture {1e3 * capture_s:.3f} "
+        f"ms (a warm-up step, then the capture), graph pool "
+        + (f"{pool / 2 ** 30:.3f} GiB ({pool} B)" if pool is not None
+           else "not measured")
+        + f"; bound {bound_ms:.3f} ms (8 N T = {8 * n_params * tokens:.4e} "
+        f"bf16 operations at {BF16_OPS_PER_S:.3e}/s: {1e3 * t_ops:.3f} ms; "
+        f"Adam's {(2 * 2 + 2 + 4 * 4) * n_params} B at "
+        f"{HBM_BYTES_PER_S:.3e} B/s: {1e3 * t_bytes:.3f} ms) [{smi}]")
+    log(f"time train {LM_TRAIN_ARCH} eager step split (each part "
+        f"synchronised): forward and loss {split['forward_ms']:.3f} ms, "
+        f"backward (remat's second forward in it) "
+        f"{split['backward_ms']:.3f} ms, Adam (norm, schedule, fused "
+        f"kernel) {split['adam_ms']:.3f} ms [{smi}]")
+    for how in ("eager", "compiled"):
+        sp = split[how]
+        log(f"time train {LM_TRAIN_ARCH} {how}: device time of one step: "
+            f"matmul kernels {sp['gemm_us']:.1f} us, fused Adam "
+            f"{sp['adam_us']:.1f} us, the rest {sp['other_us']:.1f} us; the "
+            f"six largest: " + "; ".join(f"{name} x{n} {us:.1f} us"
+                                         for name, n, us in sp["top"])
+            + f" [{smi}]")
+    # the bf16 instance's row at the main path's tree (timing launches are
+    # taken back: they are no step's)
+    before = ops.launch_counts()
+    res["adam_row"] = adam_row(ops.FUSED_ADAM_BF16, state["s"].params, 8,
+                               1.0, 0.1, "llama3.2-1b at full size",
+                               True, smi)
+    ops.take_back_launches(before)
+    del state, batch
+    free_card()
 
     # (b) the card against the CPU, per family, fp32
     res["b"] = {}
@@ -3745,6 +4264,7 @@ def lm_train_phase(dev, smi) -> dict:
         cut = ", ".join(f"{k}={v}" for k, v in shape.items())
         res["b"][arch] = lm_step_against_cpu(f"{arch} ({cut}, full width)",
                                              cfg, dev, smi)
+        tally_adam(adam_want, res["b"][arch]["dtypes"], 1)
         gc.collect()
         torch.cuda.empty_cache()
     # the chunk-parallel route's step: rwkv6-1.6b at 2 layers under
@@ -3756,6 +4276,7 @@ def lm_train_phase(dev, smi) -> dict:
         res["b"]["rwkv6-1.6b chunked"] = lm_step_against_cpu(
             "rwkv6-1.6b (n_layers=2, full width, REPRO_RWKV_CHUNKED=1)", cfg,
             dev, smi)
+    tally_adam(adam_want, res["b"]["rwkv6-1.6b chunked"]["dtypes"], 1)
     gc.collect()
     torch.cuda.empty_cache()
     for arch in LM_GRAD_REDUCED:
@@ -3763,6 +4284,7 @@ def lm_train_phase(dev, smi) -> dict:
         res["b"][arch] = lm_step_against_cpu(
             f"{arch} (reduced: D={cfg.d_model}, {cfg.n_layers} layers)", cfg,
             dev, smi)
+        tally_adam(adam_want, res["b"][arch]["dtypes"], 1)
     rss, rss_peak = host_rss_gib()
     log(f"train card against CPU: host RSS {rss:.2f} GiB (peak "
         f"{rss_peak:.2f})")
@@ -3772,7 +4294,10 @@ def lm_train_phase(dev, smi) -> dict:
     for arch in (LM_TRAIN_ARCH, "granite-moe-3b-a800m"):
         args = ["--arch", arch, "--reduced", "--steps", "3", "--batch", "8",
                 "--seq", "128", "--log-every", "1"]
-        a, b = train_main(args)["losses"], train_main(args)["losses"]
+        ra, rb = train_main(args), train_main(args)
+        a, b = ra["losses"], rb["losses"]
+        for r in (ra, rb):
+            tally_adam(adam_want, f32, compiled_steps(r["compiled"]))
         finite(f"{arch} --reduced", a, 3)
         if a != b:
             raise AssertionError(f"{arch} --reduced: two runs of 3 steps "
@@ -3782,11 +4307,14 @@ def lm_train_phase(dev, smi) -> dict:
             f"equal: " + ", ".join(repr(v) for v in a) + f" [{smi}]")
     base_args = ["--arch", LM_TRAIN_ARCH, "--reduced", "--batch", "8",
                  "--seq", "128", "--log-every", "1"]
-    whole = train_main(base_args + ["--steps", "6"])["losses"]
+    whole_run = train_main(base_args + ["--steps", "6"])
+    whole = whole_run["losses"]
     with tempfile.TemporaryDirectory() as tmp:
         ck = ["--ckpt-dir", tmp, "--ckpt-every", "4"]
         first = train_main(base_args + ["--steps", "4"] + ck)
         resumed = train_main(base_args + ["--steps", "6"] + ck)
+    for r in (whole_run, first, resumed):
+        tally_adam(adam_want, f32, compiled_steps(r["compiled"]))
     if (first["losses"] != whole[:4] or resumed["start"] != 4
             or resumed["losses"] != whole[4:]):
         raise AssertionError(f"resume: uninterrupted {whole}, stopped at 4 "
@@ -3797,12 +4325,13 @@ def lm_train_phase(dev, smi) -> dict:
         + ", ".join(repr(v) for v in resumed["losses"])
         + f" bitwise those of an uninterrupted run [{smi}]")
 
-    n = {k: v for k, v in ops.launch_counts().items() if v}
-    if n:
-        raise AssertionError(f"phase 5h launched hand-written kernels {n}")
+    n = check_adam_launches("phase 5h", adam_want)
+    res["adam_launches"] = main_adam
+    res["adam_steps"] = main_steps
     res["seconds"] = time.perf_counter() - t_phase
-    log(f"phase 5h took {res['seconds']:.1f} s; no hand-written kernel "
-        f"launched")
+    log(f"phase 5h took {res['seconds']:.1f} s; launches {n}: the fused "
+        f"Adam once a step and parameter dtype, no other hand-written "
+        f"kernel (the blocks run the plain scans under autograd)")
     return res
 
 
@@ -4075,7 +4604,8 @@ def mesh_train_step(mesh, dev, smi) -> dict:
         f"{prof['idle_share']:.4f}; peak memory {peak:.3f} GiB above the "
         f"{base} B held before the model [{smi}]")
     return {"embedding_err": rep_err, "step_ms": walls, "p50_ms": p50,
-            "peak_gib": peak, "profile": prof}
+            "peak_gib": peak, "profile": prof,
+            "adam_steps": 2 + MESH_TRAIN_STEPS + 1}
 
 
 def mesh_pipeline(dev, smi) -> dict:
@@ -4153,9 +4683,11 @@ def mesh_phase(dev, smi) -> dict:
     under the mesh, card against CPU (``lm_step_against_cpu``), every
     expert a layer routed a token to with a nonzero gradient there. (d)
     ``mesh_pipeline``. (e) ``launch.train --model-parallel 2 --reduced``
-    repeats ``--model-parallel 1``'s losses bitwise; ``prefetch_to_mesh``
-    puts batches on the card with the reference's spec. No hand-written
-    kernel launches. Returns the numbers."""
+    repeats ``--model-parallel 1``'s losses bitwise, both through the
+    launcher's compiled step; ``prefetch_to_mesh`` puts batches on the card
+    with the reference's spec. The only hand-written kernel launched is
+    the fused Adam, once a step (eager or compiled) and parameter dtype.
+    Returns the numbers."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
@@ -4170,6 +4702,7 @@ def mesh_phase(dev, smi) -> dict:
 
     t_phase = time.perf_counter()
     ops.reset_launch_counts()
+    adam_want = {}
     mesh = best_mesh(devices=[dev] * MESH_DEVICES, model_parallel=MESH_MODEL)
     cpu_mesh = best_mesh(devices=[torch.device("cpu")] * MESH_DEVICES,
                          model_parallel=MESH_MODEL)
@@ -4199,6 +4732,7 @@ def mesh_phase(dev, smi) -> dict:
         res["a"]["bf16"] = mesh_ep_timed(mesh, dev, rng, smi)
         free_card()
         res["b"] = mesh_train_step(mesh, dev, smi)
+        tally_adam(adam_want, {torch.bfloat16}, res["b"]["adam_steps"])
         free_card()
 
         # (c) the MoE mesh train step, card against CPU
@@ -4229,6 +4763,7 @@ def mesh_phase(dev, smi) -> dict:
             f"{arch} (n_layers=2, full width)", cfg, dev, smi,
             meshes=(mesh, cpu_mesh), shape=(MESH_EP_BATCH, MESH_EP_SEQ),
             on_card=experts_fed)
+        tally_adam(adam_want, res["c"]["dtypes"], 1)
         if len(ep_calls) < 2 * cfg.n_layers or not fed:
             raise AssertionError(f"{arch} mesh step: {len(ep_calls)} "
                                  f"expert-parallel calls, {len(fed)} leaves")
@@ -4247,8 +4782,10 @@ def mesh_phase(dev, smi) -> dict:
     # (e) the launcher's mesh flag and the mesh-placed batches
     args = ["--arch", LM_TRAIN_ARCH, "--reduced", "--steps", "3", "--batch",
             "8", "--seq", "128", "--log-every", "1", "--device", dev.type]
-    one = train_main(args + ["--model-parallel", "1"])["losses"]
-    two = train_main(args + ["--model-parallel", "2"])["losses"]
+    runs = [train_main(args + ["--model-parallel", k]) for k in "12"]
+    for r in runs:
+        tally_adam(adam_want, {torch.float32}, compiled_steps(r["compiled"]))
+    one, two = (r["losses"] for r in runs)
     if one != two or len(one) != 3:
         raise AssertionError(f"--model-parallel 2 {two} against 1 {one}")
     cfg = get_config(LM_TRAIN_ARCH).reduced()
@@ -4272,12 +4809,11 @@ def mesh_phase(dev, smi) -> dict:
         f"prefetch_to_mesh batches on {dev} with spec ('data', None) "
         f"[{smi}]")
 
-    n = {k: v for k, v in ops.launch_counts().items() if v}
-    if n:
-        raise AssertionError(f"phase 5i launched hand-written kernels {n}")
+    n = check_adam_launches("phase 5i", adam_want)
     res["seconds"] = time.perf_counter() - t_phase
-    log(f"phase 5i took {res['seconds']:.1f} s; no hand-written kernel "
-        f"launched")
+    log(f"phase 5i took {res['seconds']:.1f} s; launches {n}: the fused "
+        f"Adam once a step and parameter dtype, no other hand-written "
+        f"kernel")
     return res
 
 
@@ -4554,12 +5090,20 @@ def examples_phase(dev, smi, main_gru: dict) -> dict:
         # graph
         replays = {k: engine_steps(card_d[k])
                    for k in ("eng", "eng2", "eng_q", "eng_m")}
+        # and its training: the compiled step's warm-up and a replay a
+        # step, one fused Adam launch each
         want_d = {ops.DELTAGRU_SEQ_F32.name:
                   2 * (replays["eng"] + replays["eng2"]),
                   ops.DELTA_Q8_GRU_I8.name:
                   2 * (replays["eng_q"] + replays["eng_m"]),
                   ops.DELTA_UNIT_F32.name: 2 * sum(replays.values()),
-                  ops.ENGINE_EPILOGUE_F32.name: sum(replays.values())}
+                  ops.ENGINE_EPILOGUE_F32.name: sum(replays.values()),
+                  ops.FUSED_ADAM_F32.name: compiled_steps(
+                      card_d["step"].stats)}
+        if card_d["step"].stats["replays"] != DIGITS_STEPS:
+            raise AssertionError(f"digits training: {card_d['step'].stats}, "
+                                 f"want a replay for each of {DIGITS_STEPS} "
+                                 f"steps")
         if (n_d != want_d or card_d["eng_m"].n_streams != 4
                 or not replays["eng_m"] or not replays["eng_q"]):
             raise AssertionError(f"digits launches {n_d}, want {want_d} "
@@ -4567,7 +5111,8 @@ def examples_phase(dev, smi, main_gru: dict) -> dict:
         log(f"examples (a) serve_stream_digits --steps {DIGITS_STEPS} on "
             f"{dev}: launches {n_d} = 2 layers x steps {replays} (the "
             f"int8 kernel's B=4 tile under the batcher: "
-            f"{2 * replays['eng_m']}) ({res['digits_s']:.1f} s)")
+            f"{2 * replays['eng_m']}), the fused Adam once a training step "
+            f"(compiled: {card_d['step'].stats}) ({res['digits_s']:.1f} s)")
         for k in set(n_q) | set(n_d):
             res["launches"][k] = n_q.get(k, 0) + n_d.get(k, 0)
 
@@ -5282,6 +5827,10 @@ def main() -> int:
     for name, e in eng_k["max_err"].items():
         max_err[name] = max(max_err[name], e)
     log(f"engine kernel cases: {eng_k['cases']}, each launched twice")
+    # the train steps' fused AdamW update
+    adam_k = adam_kernels_phase(dev)
+    for name, e in adam_k["max_err"].items():
+        max_err[name] = max(max_err[name], e)
     phase3 = ops.launch_counts()
 
     # -- 4. exhaustive activation grid ------------------------------------
@@ -5645,6 +6194,7 @@ def main() -> int:
     # -- 5d. training: the paper's recipe at 2L-768H ----------------------
     train, batches, opt_cfg = training_phase(dev, PAPER_NETWORKS["2L-768H"])
     add_counts(launches, train["serve"]["launches"])
+    add_counts(launches, train["adam_launches"])
 
     # -- 5e. the serving fabric -------------------------------------------
     fabric = fabric_phase(dev, models["gru"], ops.DELTA_Q8_GRU_I8,
@@ -5663,7 +6213,8 @@ def main() -> int:
     zoo_phase(dev, smi)
 
     # -- 5h. LM training --------------------------------------------------
-    lm_train_phase(dev, smi)
+    lm_train = lm_train_phase(dev, smi)
+    add_counts(launches, lm_train["adam_launches"])
 
     # -- 5i. the mesh paths -------------------------------------------------
     mesh_phase(dev, smi)
@@ -5973,38 +6524,68 @@ def main() -> int:
             f"us; step_many {eager_us[path]:.1f} us/step; profiled: "
             f"{json.dumps(prof_e)} [{smi}]")
 
-    # the train step of each stage: wall ms a step (median of the timed
-    # steps 2-10, each ended by reading its metrics), frames a second,
+    # the train step of each stage, eager against compiled: wall ms a step
+    # (median of the timed steps, each ended by reading its metrics: the
+    # compiled run's steps 3-10, the eager twin's 2-10), frames a second,
     # kernels a step, device busy and idle share (torch.profiler over one
     # step, as engine_profile; also the share against the unprofiled wall),
-    # the step cut into forward, backward and Adam, the timed loop's peak
-    # memory above what the process held when the loop began (earlier
-    # phases' tensors, the batches and the first step's state, which the
-    # loop replaces: its activations, gradients and a second state); and
-    # the export's time
+    # the fused Adam kernel's device time in it, the eager step cut into
+    # forward, backward and Adam (each part synchronised), the capture's
+    # time and the graph's private pool, each timed loop's peak memory
+    # above what the process held when it began; and the export's time
     for name in ("dense", "qat"):
         tr = train[name]
         st, bt = tr["state"], batches[TRAIN_STEPS - 1]
-        wall_ms = float(np.median(tr["step_ms"]))
         frames = bt["features"].shape[0] * bt["features"].shape[1]
-        prof = engine_profile(lambda: tr["step"](st, bt), 1)
+        tr["step"](st, bt)   # captures again if (c) left its key switched
+        prof = {"compiled": engine_profile(lambda: tr["step"](st, bt), 1,
+                                           match="fused_adam"),
+                "eager": engine_profile(lambda: tr["step"].eager(st, bt), 1,
+                                        match="fused_adam")}
         split = train_split_ms(st.params, tr["task"], bt, tr["qat"],
                                tr["use_delta"], st.opt, opt_cfg)
-        busy_ms = prof["device_busy_us_per_step"] / 1e3
-        log(f"time train {name} (2L-768H CTC, B={bt['features'].shape[1]}, "
-            f"T={bt['features'].shape[0]}): {wall_ms:.3f} ms a step wall "
-            f"(median of steps 2-10; each "
-            + ", ".join(f"{v:.3f}" for v in tr["step_ms"])
-            + f"), {1e3 * frames / wall_ms:.1f} frames/s; profiled step: "
-            f"{prof['kernels_per_step']:.0f} kernels, device busy "
-            f"{busy_ms:.3f} ms, idle share {prof['idle_share']:.4f} (wall "
-            f"{prof['wall_us_per_step'] / 1e3:.3f} ms under the profiler), "
-            f"{1 - busy_ms / wall_ms:.4f} against the unprofiled wall; "
+        walls = {"compiled": tr["step_ms"][1:],
+                 "eager": tr["eager_step_ms"][1:]}
+        peaks = {"compiled": tr["peak_bytes"], "eager": tr["eager_peak_bytes"]}
+        tr["times"] = {}
+        for how in ("eager", "compiled"):
+            pr = prof[how]
+            wall_ms = float(np.median(walls[how]))
+            busy_ms = pr["device_busy_us_per_step"] / 1e3
+            tr["times"][how] = {"wall_ms": wall_ms, "profile": pr,
+                                "peak_bytes": peaks[how]}
+            log(f"time train {name} {how} (2L-768H CTC, "
+                f"B={bt['features'].shape[1]}, T={bt['features'].shape[0]})"
+                f": {wall_ms:.3f} ms a step wall (median of "
+                + ", ".join(f"{v:.3f}" for v in walls[how])
+                + f"), {1e3 * frames / wall_ms:.1f} frames/s; profiled "
+                f"step: {pr['kernels_per_step']:.0f} kernels, device busy "
+                f"{busy_ms:.3f} ms, idle share {pr['idle_share']:.4f} (wall "
+                f"{pr['wall_us_per_step'] / 1e3:.3f} ms under the profiler), "
+                f"{1 - busy_ms / wall_ms:.4f} against the unprofiled wall; "
+                f"fused Adam kernel {pr['match_us_per_step']:.1f} us; peak "
+                f"memory {peaks[how] / 2 ** 30:.3f} GiB ({peaks[how]} B) "
+                f"above what the loop began with [{smi}]")
+        pool = tr["pool_bytes"]
+        log(f"time train {name} eager step split (each part synchronised): "
             f"forward {split['forward_ms']:.3f} ms, backward "
-            f"{split['backward_ms']:.3f} ms, Adam {split['adam_ms']:.3f} ms; "
-            f"peak memory {tr['peak_bytes'] / 2 ** 30:.3f} GiB "
-            f"({tr['peak_bytes']} B) above the {tr['base_bytes']} B "
-            f"allocated before the loop [{smi}]")
+            f"{split['backward_ms']:.3f} ms, Adam (norm, schedule, fused "
+            f"kernel) {split['adam_ms']:.3f} ms; compiled: capture "
+            f"{1e3 * tr['capture_s']:.3f} ms (a warm-up step, then the "
+            f"capture), graph pool "
+            + (f"{pool / 2 ** 20:.1f} MiB ({pool} B)" if pool is not None
+               else "not measured (no pool ids in the snapshot)")
+            + f" [{smi}]")
+    # the fused Adam's two instances at their main paths' trees: fp32 at
+    # the 2L-768H GRU (5d: Adam 1e-3, clip 1.0, no decay), bf16 at
+    # llama3.2-1b's full size (5h: the launcher's AdamW, timed there)
+    adam_rows = {
+        ops.FUSED_ADAM_F32.name: adam_row(
+            ops.FUSED_ADAM_F32, train["dense"]["state"].params, TRAIN_STEPS,
+            1.0, 0.0, "the 2L-768H GRU tree", False, smi),
+        ops.FUSED_ADAM_BF16.name: lm_train["adam_row"]}
+    for name, row in adam_rows.items():
+        max_err[name] = max(max_err[name], row["max_err"])
     log(f"time train export: quantize_delta_model of the trained 2L-768H "
         f"stack {train['serve']['export_ms']:.3f} ms [{smi}]")
 
@@ -6122,6 +6703,26 @@ def main() -> int:
                                                      "plain_ms", "bound_ms",
                                                      "launches_per_step")}
                             for path, r in eng_rows[kinfo.name].items()}
+        entries.append(entry)
+    # the train steps' fused AdamW: launches of the main paths' runs (5d's
+    # stages, 5h (a)'s launcher), and those launches over the steps the
+    # runs took (eager steps, and each compiled step's warm-ups and
+    # replays)
+    adam_launches, adam_steps = {}, {}
+    for ph in (train, lm_train):
+        add_counts(adam_launches, ph["adam_launches"])
+        add_counts(adam_steps, ph["adam_steps"])
+    for kinfo in (ops.FUSED_ADAM_F32, ops.FUSED_ADAM_BF16):
+        row = adam_rows[kinfo.name]
+        entry = {"name": kinfo.name, "route": "cuda", "source": kinfo.source,
+                 "replaces": kinfo.replaces,
+                 "launches": launches.get(kinfo.name, 0),
+                 "max_abs_err": max_err[kinfo.name]}
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "norm_ms", "bytes", "elements", "shape"):
+            entry[key] = row[key]
+        entry["launches_per_step"] = (adam_launches.get(kinfo.name, 0)
+                                      / adam_steps[kinfo.name])
         entries.append(entry)
     if len(entries) != len(ops.KERNELS) or not all(
             e["launches"] > 0 for e in entries):

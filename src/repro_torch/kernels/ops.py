@@ -318,13 +318,22 @@ DELTA_UNIT_F32 = KernelInfo(
 ENGINE_EPILOGUE_F32 = KernelInfo(
     "engine_epilogue_f32", "src/repro_torch/csrc/engine_epilogue.cu",
     "none (XLA fusions: src/repro/serve/engine.py:315 _one_step)")
+# the train steps' AdamW update, which replaces no Pallas kernel: the JAX
+# package runs it as an XLA fusion inside its jitted steps; one instance a
+# parameter dtype (a tree of both launches each once)
+_ADAM_FUSION = ("none (XLA fusion: src/repro/train/trainer.py:122,149, "
+                "src/repro/launch/train.py:63)")
+FUSED_ADAM_F32 = KernelInfo(
+    "fused_adam_f32", "src/repro_torch/csrc/fused_adam.cu", _ADAM_FUSION)
+FUSED_ADAM_BF16 = KernelInfo(
+    "fused_adam_bf16", "src/repro_torch/csrc/fused_adam.cu", _ADAM_FUSION)
 KERNELS = (DELTAGRU_SEQ_F32, DELTA_Q8_GRU_I8, DELTA_Q8_GRU_I4,
            DELTALSTM_SEQ_F32, DELTA_Q8_LSTM_I8, DELTA_Q8_LSTM_I4,
            DELTA_Q8_GRU_DBUF_I8, DELTA_Q8_GRU_DBUF_I4,
            DELTA_Q8_LSTM_DBUF_I8, DELTA_Q8_LSTM_DBUF_I4,
            DELTA_SPMV_F32, DELTA_SPMV_BF16, RGLRU_SCAN_F32, RWKV6_SCAN_F32,
            RWKV6_SCAN_BF16, DELTAGRU_ACT_F32, DELTA_UNIT_F32,
-           ENGINE_EPILOGUE_F32)
+           ENGINE_EPILOGUE_F32, FUSED_ADAM_F32, FUSED_ADAM_BF16)
 
 
 def q8_kernel(gates: int, weight_bits: int, buffered: bool) -> KernelInfo:
@@ -362,6 +371,97 @@ def add_launches(counted: tuple) -> None:
     (:func:`take_back_launches`)."""
     for k, n in counted:
         k.launches += n
+
+
+# -- CUDA graphs --------------------------------------------------------------
+
+_AFTER_CAPTURE: list = []     # one record a capture_cuda_graph running
+
+# each capture's arena for the tables its launches read: the fused Adam's
+# rows are 80 bytes a leaf, at most two tables a step (one a parameter
+# dtype); 64 KiB holds 800 leaves (the registry's trees have at most 42)
+TABLE_ARENA_BYTES = 1 << 16
+
+
+def table_after_capture(host: torch.Tensor) -> torch.Tensor:
+    """A device tensor that holds ``host`` (a CPU tensor) once the capture
+    now running has ended: for what a launch in the graph reads and the
+    graph keeps fixed (a kernel's table of pointers). A copy made inside
+    the capture would be a node of the graph, run again at every replay;
+    so it is made once, after the capture. The tensor is a slice of the
+    capture's table arena (``TABLE_ARENA_BYTES``), allocated before the
+    capture: a block of the graph's own pool may be one that an
+    earlier node of the graph writes at every replay, and a new allocation
+    outside that pool is refused while a stream captures. Raises inside any
+    other capture (the graph would read a table nobody wrote) and when the
+    arena is full."""
+    if not _AFTER_CAPTURE:
+        raise RuntimeError(
+            "a kernel whose table is written after the capture was captured "
+            "outside repro_torch.kernels.ops.capture_cuda_graph")
+    rec = _AFTER_CAPTURE[-1]
+    nbytes = host.numel() * host.element_size()
+    start = -(-rec["used"] // 16) * 16
+    arena = rec["arena"]
+    if start + nbytes > arena.numel():
+        raise RuntimeError(
+            f"capture_cuda_graph: a table of {nbytes} B does not fit its "
+            f"table arena ({arena.numel()} B, {rec['used']} used); raise "
+            f"TABLE_ARENA_BYTES")
+    rec["used"] = start + nbytes
+    dst = arena[start:start + nbytes].view(host.dtype).view(host.shape)
+    rec["writes"].append((dst, host))
+    return dst
+
+
+def run_aside(device: torch.device, fn, *args) -> None:
+    """``fn(*args)`` on a side stream of a CUDA ``device``, which the
+    current stream then waits for (directly on the CPU): a warm-up before a
+    capture, whose first-use work must not run on the capturing stream."""
+    if device.type != "cuda":
+        fn(*args)
+        return
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream(device).wait_stream(side)
+
+
+def capture_cuda_graph(body):
+    """Capture ``body`` (work over fixed buffers, returning its output
+    buffers) into a CUDA graph on a side stream, without synchronising the
+    host (``torch.cuda.graph`` would). An arena of ``TABLE_ARENA_BYTES``,
+    allocated before the capture, holds the tables its launches read
+    (:func:`table_after_capture`); their copies go onto the current stream
+    after the capture, ahead of any replay, and the arena lives as long as
+    the graph. Returns ``replay() -> output``: one graph launch, then that
+    output."""
+    graph = torch.cuda.CUDAGraph()
+    arena = torch.empty(TABLE_ARENA_BYTES, dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    rec = {"arena": arena, "used": 0, "writes": []}
+    _AFTER_CAPTURE.append(rec)
+    try:
+        with torch.cuda.stream(stream):
+            graph.capture_begin()
+            try:
+                out = body()
+            finally:
+                graph.capture_end()
+    finally:
+        _AFTER_CAPTURE.pop()
+    torch.cuda.current_stream().wait_stream(stream)
+    for dst, host in rec["writes"]:
+        dst.copy_(host.pin_memory(), non_blocking=True)
+
+    def replay():
+        graph.replay()
+        return out
+
+    replay.arena = arena
+    return replay
 
 
 # -- the public kernel ops of the JAX package (repro.kernels.ops) ------------
@@ -424,6 +524,16 @@ def engine_epilogue(leaves, counts, cols, carry, x, finite, consts,
     engine_epilogue.engine_epilogue`."""
     from repro_torch.kernels.engine_epilogue import engine_epilogue as _ep
     return _ep(leaves, counts, cols, carry, x, finite, consts, workspace)
+
+
+def fused_adam(params, grads, mu, nu, *, scale, lr, corr1, corr2, b1,
+               b2, eps, weight_decay, out=None):
+    """The AdamW update of a tree's leaves in one launch a parameter
+    dtype; :func:`repro_torch.kernels.fused_adam.fused_adam`."""
+    from repro_torch.kernels.fused_adam import fused_adam as _adam
+    return _adam(params, grads, mu, nu, scale=scale, lr=lr, corr1=corr1,
+                 corr2=corr2, b1=b1, b2=b2, eps=eps,
+                 weight_decay=weight_decay, out=out)
 
 
 def rglru_scan(x, a, h0=None):

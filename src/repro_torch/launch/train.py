@@ -10,7 +10,11 @@ warmup-cosine schedule, ``--grad-accum`` microbatches, checkpoints through
 every ``--log-every`` steps. As in the reference, init and steps run
 under ``use_mesh(best_mesh(model_parallel=k, devices=[device]),
 AxisRules())``: the state is placed by ``specs.train_state_sharding`` and
-the stream by ``prefetch_to_mesh``. ``best_mesh`` clamps
+the stream by ``prefetch_to_mesh``. The step is compiled with donation, as
+the reference jits it (``donate_argnums=(0,)``): on the card each step is
+one CUDA-graph replay that updates the state in place
+(:class:`repro_torch.train.trainer.CompiledTrainStep`), ``--grad-accum``
+and ``--model-parallel`` included. ``best_mesh`` clamps
 ``--model-parallel`` to the one device, so any ``k`` gives a (1, 1) mesh
 and the same losses. Checkpoints hold numpy arrays, so a bf16 state does
 not save (as the reference's does not restore).
@@ -34,14 +38,15 @@ from repro_torch.kernels.ops import resolve_device
 from repro_torch.launch import specs
 from repro_torch.models.lm import init_lm, lm_dtype
 from repro_torch.train.optim import AdamConfig, warmup_cosine_schedule
-from repro_torch.train.trainer import init_train_state, make_lm_train_step_fn
+from repro_torch.train.trainer import (CompiledTrainStep, init_train_state,
+                                       make_lm_train_step_fn)
 
 
 def main(argv=None) -> dict:
     """Parse ``argv`` (default ``sys.argv[1:]``) and train. Returns
-    ``{"start": first step, "losses": [...], "step_ms": [...]}``, one
-    entry a step run, each loss read back as a float (which waits for the
-    step)."""
+    ``{"start": first step, "losses": [...], "step_ms": [...], "compiled":
+    the compiled step's stats}``, one entry a step run, each loss read back
+    as a float (which waits for the step)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, required=True)
     ap.add_argument("--reduced", action="store_true",
@@ -68,7 +73,9 @@ def main(argv=None) -> dict:
 
     opt = AdamConfig(schedule=warmup_cosine_schedule(args.lr, 20, args.steps),
                      weight_decay=0.1)
-    step_fn = make_lm_train_step_fn(cfg, opt, grad_accum=args.grad_accum)
+    step_fn = CompiledTrainStep(
+        make_lm_train_step_fn(cfg, opt, grad_accum=args.grad_accum),
+        donate=True)
 
     with use_mesh(mesh, rules):
         state = init_train_state(init_lm(0, cfg, device=dev))
@@ -114,7 +121,8 @@ def main(argv=None) -> dict:
     else:
         print(f"[train] done: step {start} of {args.steps} already reached")
     return {"start": start, "losses": losses,
-            "step_ms": [1e3 * t for t in t_hist]}
+            "step_ms": [1e3 * t for t in t_hist],
+            "compiled": dict(step_fn.stats)}
 
 
 if __name__ == "__main__":

@@ -383,8 +383,13 @@ def apply_blocks(entries: list, x: torch.Tensor, cfg: ModelConfig, mode: str,
         for i, p in enumerate(_periods(params_stacked, count)):
             c = tree_map(lambda t: t[i], cache_stacked)
             if remat:
+                # no block draws random numbers, so there is no RNG state
+                # to stash and restore for the recompute; restoring it sets
+                # the CUDA generator's state, which PyTorch refuses while a
+                # CUDA graph is being captured (a compiled train step)
                 x, total_aux = checkpoint(period, x, total_aux, p, c,
-                                          use_reentrant=False)
+                                          use_reentrant=False,
+                                          preserve_rng_state=False)
             else:
                 x, total_aux = period(x, total_aux, p, c)
     return x, caches, total_aux

@@ -162,43 +162,6 @@ def chunk_plan(t: int) -> list:
     return plan
 
 
-def _run_aside(device: torch.device, fn, *args) -> None:
-    """``fn(*args)`` on a side stream of a CUDA ``device``, which the
-    current stream then waits for (directly on the CPU): a warm-up before a
-    capture, whose first-use work must not run on the capturing stream."""
-    if device.type != "cuda":
-        fn(*args)
-        return
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        fn(*args)
-    torch.cuda.current_stream(device).wait_stream(side)
-
-
-def _capture_cuda_graph(body):
-    """Capture ``body`` (engine steps over the fixed buffers, returning
-    their output buffer) into a CUDA graph on a side stream, without
-    synchronising the host (``torch.cuda.graph`` would). Returns
-    ``replay() -> output``: one graph launch, then that output buffer."""
-    graph = torch.cuda.CUDAGraph()
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        graph.capture_begin()
-        try:
-            out = body()
-        finally:
-            graph.capture_end()
-    torch.cuda.current_stream().wait_stream(stream)
-
-    def replay():
-        graph.replay()
-        return out
-
-    return replay
-
-
 class LmEngine:
     """Prefill / decode engine over a fixed slot count (the decode batch).
 
@@ -229,7 +192,7 @@ class LmEngine:
         self._tokens = torch.zeros((batch, 1), dtype=torch.int64,
                                    device=self.device)
         # the captured decode step: on a CUDA device only
-        self._capture = (_capture_cuda_graph if self.device.type == "cuda"
+        self._capture = (ops.capture_cuda_graph if self.device.type == "cuda"
                          else None)
         self._decode = None     # (replay, launches of a replay)
         self._decode_key = self._decode_refs = None
@@ -274,7 +237,7 @@ class LmEngine:
         counts are taken back and added again at each replay."""
         t0 = time.perf_counter()
         self._decode = None                 # free the old graph first
-        _run_aside(self.device, lm_decode, self.params, self.cfg,
+        ops.run_aside(self.device, lm_decode, self.params, self.cfg,
                    self._tokens.clone(), tree_map(torch.clone, self._caches))
 
         def body():
@@ -493,7 +456,7 @@ class DeltaStreamEngine:
         self.state = None
         self.reset()
         # the captured steps: on a CUDA device only (the CPU steps eagerly)
-        self._capture = (_capture_cuda_graph if self.device.type == "cuda"
+        self._capture = (ops.capture_cuda_graph if self.device.type == "cuda"
                          else None)
         self._graphs = {}       # steps K -> (replay, launches of a replay)
         self.capture_s = {}     # steps K -> seconds its last capture took
@@ -568,13 +531,14 @@ class DeltaStreamEngine:
         graphs.pop(session or k, None)
         carry = {key: v.clone() for key, v in self._carry.items()}
         if session is None:
-            _run_aside(self.device, self._one_step, _clone(self.state), carry,
-                       self._x.clone())
+            ops.run_aside(self.device, self._one_step, _clone(self.state),
+                          carry, self._x.clone())
         else:
-            _run_aside(self.device, self._session, session,
-                       _clone(self.state), carry, _clone(self._snap_state),
-                       {key: v.clone() for key, v in self._snap_carry.items()},
-                       self._rows.clone(), self._slot.clone())
+            ops.run_aside(self.device, self._session, session,
+                          _clone(self.state), carry, _clone(self._snap_state),
+                          {key: v.clone()
+                           for key, v in self._snap_carry.items()},
+                          self._rows.clone(), self._slot.clone())
         del carry
 
         def body():

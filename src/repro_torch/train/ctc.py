@@ -28,6 +28,28 @@ def _shift_right(x: torch.Tensor, k: int, fill) -> torch.Tensor:
     return torch.cat([pad, x], dim=-1)[..., :x.shape[-1]]
 
 
+class _LabelColumns(torch.autograd.Function):
+    """``log_probs [T, B, C]`` at the extended label's classes ``ext [B,
+    S]``, ``[T, B, S]``: a gather. Its backward sums the gradients of a
+    class that ``ext`` repeats (the blank, at every other position) in a
+    fixed order; gather's own backward adds them with atomics, in an order
+    that changes from run to run on a GPU, so two runs of a train step
+    would differ in the last bits."""
+
+    @staticmethod
+    def forward(ctx, log_probs, ext):
+        ctx.save_for_backward(ext)
+        ctx.classes = log_probs.shape[-1]
+        return torch.gather(log_probs, 2,
+                            ext.expand(log_probs.shape[0], -1, -1))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ext,) = ctx.saved_tensors
+        onehot = torch.nn.functional.one_hot(ext, ctx.classes).to(grad.dtype)
+        return (grad[..., None] * onehot).sum(dim=2), None
+
+
 def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor,
              input_lengths: torch.Tensor, label_lengths: torch.Tensor,
              blank: int = 0) -> torch.Tensor:
@@ -56,10 +78,10 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor,
     can_skip = torch.zeros((b, s), dtype=torch.bool, device=dev)
     can_skip[:, 1::2] = labels != _shift_right(labels, 1, -1)
 
-    lp0 = log_probs[0]
-    first = torch.gather(lp0, 1, ext[:, 0:1])
-    second = torch.where(label_lengths[:, None] > 0,
-                         torch.gather(lp0, 1, ext[:, 1:2]), LOG_EPS)
+    lp_ext = _LabelColumns.apply(log_probs, ext)      # [T, B, S]
+    first = lp_ext[0, :, 0:1]
+    second = torch.where(label_lengths[:, None] > 0, lp_ext[0, :, 1:2],
+                         LOG_EPS)
     rest = torch.full((b, max(s - 2, 0)), LOG_EPS, dtype=log_probs.dtype,
                       device=dev)
     alpha = torch.cat([first, second, rest], dim=1)
@@ -69,8 +91,7 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor,
         prev = _shift_right(alpha, 1, LOG_EPS)
         prev2 = torch.where(can_skip, _shift_right(alpha, 2, LOG_EPS),
                             LOG_EPS)
-        new = (_logaddexp3(alpha, prev, prev2)
-               + torch.gather(log_probs[t], 1, ext))
+        new = _logaddexp3(alpha, prev, prev2) + lp_ext[t]
         # freeze alpha past each example's input length
         alpha = torch.where(t < running, new, alpha)
 

@@ -8,14 +8,25 @@ The state layout is the JAX package's, ``{"mu", "nu", "step"}`` with
 follows its order, so a checkpoint of either package's optimizer state
 restores into the other. Nothing here synchronises the host: the step
 count, learning rate and clip scale stay tensors on the device.
+
+``adam_update`` computes the global norm, the clip scale, the learning
+rate and the bias corrections in plain ops, then updates every leaf through
+:func:`repro_torch.kernels.ops.fused_adam`: one launch of the hand-written
+kernel a parameter dtype on a CUDA device, the same per-leaf ops as before
+the kernel (``fused_adam_ref``) on the CPU. Within :func:`updates_in_place`
+it writes the new parameters and moments into the tensors it was given (a
+compiled step's state buffers) instead of new ones.
 """
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
+
+from repro_torch.kernels import ops
 
 
 # ---------------------------------------------------------------------------
@@ -108,45 +119,69 @@ def global_norm(tree) -> torch.Tensor:
                           for leaf in tree_leaves(tree)))
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """``min(1, max_norm / (norm + 1e-9))``, a 0-d tensor beside ``norm``."""
+    # a true division: ``max_norm / tensor`` multiplies by a reciprocal
+    return torch.clamp(torch.full_like(norm, max_norm) / (norm + 1e-9),
+                       max=1.0)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
-    # a true division: ``max_norm / tensor`` multiplies by a reciprocal
-    scale = torch.clamp(torch.full_like(norm, max_norm) / (norm + 1e-9),
-                        max=1.0)
+    scale = clip_scale(norm, max_norm)
     # JAX promotes a bf16 gradient times the fp32 scale to fp32; PyTorch
     # would keep a 0-d operand from promoting and round the product to bf16
     return tree_map(lambda g: g.to(torch.promote_types(g.dtype, scale.dtype))
                     * scale, grads), norm
 
 
+_IN_PLACE = [False]
+
+
+@contextmanager
+def updates_in_place():
+    """Within this, :func:`adam_update` writes the new parameters, moments
+    and step count into the leaves of the ``params`` and ``state`` it is
+    given and returns those same tensors: what a compiled step does to its
+    state buffers. The caller must hold no other use for the old values."""
+    _IN_PLACE.append(True)
+    try:
+        yield
+    finally:
+        _IN_PLACE.pop()
+
+
 @torch.no_grad()
 def adam_update(grads, state, params, cfg: AdamConfig):
     """Returns (new_params, new_state, metrics)."""
     metrics = {}
+    scale = None
     if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        gnorm = global_norm(grads)
+        scale = clip_scale(gnorm, cfg.clip_norm)
         metrics["grad_norm"] = gnorm
-    step = state["step"] + 1
+    in_place = _IN_PLACE[-1]
+    step = state["step"].add_(1) if in_place else state["step"] + 1
     lr = cfg.schedule(step)
     metrics["lr"] = lr
-    b1, b2 = cfg.b1, cfg.b2
     t = step.to(torch.float32)
-    corr1, corr2 = 1 - b1 ** t, 1 - b2 ** t
+    corr1, corr2 = 1 - cfg.b1 ** t, 1 - cfg.b2 ** t
 
-    def upd(g, mu, nu, p):
-        g = g.to(torch.float32)
-        mu = b1 * mu + (1 - b1) * g
-        nu = b2 * nu + (1 - b2) * g * g
-        delta = (mu / corr1) / (torch.sqrt(nu / corr2) + cfg.eps)
-        if cfg.weight_decay:
-            delta = delta + cfg.weight_decay * p.to(torch.float32)
-        return (p.to(torch.float32) - lr * delta).to(p.dtype), mu, nu
+    flat = []         # (p, g, mu, nu) in tree_map's order
+    tree_map(lambda *leaves: flat.append(leaves), params, grads, state["mu"],
+             state["nu"])
+    p, g, mu, nu = (list(col) for col in zip(*flat)) if flat else ([],) * 4
+    out = (p, mu, nu) if in_place else None
+    new = ops.fused_adam(p, g, mu, nu, scale=scale, lr=lr, corr1=corr1,
+                         corr2=corr2, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                         weight_decay=cfg.weight_decay, out=out)
 
-    out = tree_map(lambda p, g, mu, nu: upd(g, mu, nu, p), params, grads,
-                   state["mu"], state["nu"])
-    return (_part(params, out, 0),
-            {"mu": _part(params, out, 1), "nu": _part(params, out, 2),
-             "step": step}, metrics)
+    def rebuild(leaves):
+        it = iter(leaves)
+        return tree_map(lambda _: next(it), params)
+    return (rebuild(new[0]),
+            {"mu": rebuild(new[1]), "nu": rebuild(new[2]), "step": step},
+            metrics)
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +205,8 @@ def init_sgd_state(params):
 def sgd_update(grads, state, params, cfg: SgdConfig):
     if cfg.clip_norm is not None:
         grads, _ = clip_by_global_norm(grads, cfg.clip_norm)
-    step = state["step"] + 1
+    in_place = _IN_PLACE[-1]
+    step = state["step"].add_(1) if in_place else state["step"] + 1
     lr = cfg.schedule(step)
 
     def upd(g, v, p):

@@ -10,10 +10,15 @@ Both are functional over the parameter trees: the forward (of
 :func:`repro_torch.models.gru_rnn.gru_model_forward` on the ``dense``
 backend), gradients by autograd's ``backward`` (the JAX package's
 ``jax.value_and_grad``), then :func:`repro_torch.train.optim.adam_update`.
-A step runs eagerly, one PyTorch op at a time, on the device of the
-parameters. Under autograd the LM blocks run the plain scans
-(:mod:`repro_torch.models.blocks`): the scan kernels have no backward. The
-loop handles checkpoint cadence and metric logging.
+``make_lm_train_step_fn`` is the un-compiled step, which runs eagerly, one
+PyTorch op at a time, on the device of the parameters.
+``make_lm_train_step``, ``make_gru_train_step`` and the launcher's step are
+what the reference jits: :class:`CompiledTrainStep` makes each one CUDA
+graph on a CUDA device, forward, backward, clip norm and the fused AdamW
+update in place over fixed state and batch buffers, replayed once a call
+(on the CPU the step stays eager). Under autograd the LM blocks run the
+plain scans (:mod:`repro_torch.models.blocks`): the scan kernels have no
+backward. The loop handles checkpoint cadence and metric logging.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.dist.sharding import (NamedSharding, current_mesh,
                                        infer_param_specs,
                                        with_sharding_constraint)
@@ -32,7 +38,8 @@ from repro_torch.models.lm import lm_forward
 from repro_torch.quant.qat import FP32, QatPolicy
 from repro_torch.train.losses import ctc_loss_mean, lm_loss, mse_loss
 from repro_torch.train.optim import (AdamConfig, adam_update,
-                                     init_adam_state, tree_leaves, tree_map)
+                                     init_adam_state, tree_leaves, tree_map,
+                                     updates_in_place)
 
 
 class TrainState(NamedTuple):
@@ -95,7 +102,11 @@ def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
             image_embeds=batch.get("image_embeds"),
             audio_frames=batch.get("audio_frames"))
         loss, metrics = lm_loss(logits, batch["tokens"])
-        aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+        if not isinstance(aux, torch.Tensor):
+            # a dense arch's aux is the float 0.0: filled on the device, as
+            # a copy from pageable host memory would break a graph capture
+            aux = torch.full((), aux, dtype=torch.float32, device=loss.device)
+        aux = aux.to(torch.float32)
         total = loss + aux_weight * aux
         metrics["aux"] = aux
         metrics["loss"] = total
@@ -149,28 +160,166 @@ def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
     return step
 
 
+# -- compiled steps ----------------------------------------------------------
+
+
+def _capture_for(device: torch.device):
+    """How a compiled step captures on ``device``: a CUDA graph
+    (:func:`repro_torch.kernels.ops.capture_cuda_graph`) on a CUDA device,
+    None elsewhere, where the step runs eagerly. The CPU tests put a stub
+    capture in its place."""
+    if device.type != "cuda":
+        return None
+    return ops.capture_cuda_graph
+
+
+def _layout(tree) -> list:
+    """What of a tree a captured step bakes in: its structure, and each
+    leaf's shape, dtype and device."""
+    if isinstance(tree, dict):
+        return [(k, _layout(tree[k])) for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return [type(tree).__name__, *(_layout(v) for v in tree)]
+    return (tuple(tree.shape), tree.dtype, tree.device)
+
+
+class CompiledTrainStep:
+    """A train step ``step(state, batch) -> (state, metrics)`` as one
+    captured program, the port's counterpart of ``jax.jit`` of a step.
+
+    On a CUDA device the first call captures one step (forward, backward,
+    the clip norm, the fused AdamW update in place and the step count) over
+    fixed buffers of the state and the batch as a CUDA graph, and every
+    call replays it: the batch is copied into its buffers device to device,
+    the state too unless it is the graph's own, then one replay, and the
+    metrics come back as copies (a later replay does not overwrite them).
+    A call after the first makes no host sync. A change of what the
+    capture bakes in (the layout of the batch or the state, the mesh, the
+    deterministic-algorithms switch) captures again. Before a capture one
+    eager step runs on a side stream (what runs at first use: cuBLAS's
+    handle and workspace, kernel builds), functional, so the state stays
+    as it was; its memory is freed before the capture.
+
+    ``donate=True`` is the reference's donation of the old state: the
+    returned state is the graph's own buffers, updated in place by the next
+    call, and the state handed in becomes them at a capture (no copy). The
+    caller must not read a state it passed in after the call: JAX raises on
+    a donated buffer, the port cannot and does not. ``donate=False`` copies
+    the caller's state into the buffers and returns copies; the caller's
+    state stays valid. On the CPU the step runs eagerly, exactly as
+    ``step``, and nothing is captured. ``eager`` is the step itself, the
+    eager twin a check compares against.
+    """
+
+    def __init__(self, step: Callable, donate: bool = False):
+        self.eager = step
+        self.donate = donate
+        self._graph = None          # (replay, launches of a replay)
+        self._key = self._refs = None
+        self._state = self._batch = None
+        self._metric_names = ()     # per metric vector, its keys
+        self.stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
+
+    def _capture_key(self, state, batch) -> tuple:
+        return (_layout(state), _layout(batch), id(current_mesh()),
+                torch.are_deterministic_algorithms_enabled())
+
+    def __call__(self, state: TrainState, batch: dict):
+        device = tree_leaves(state)[0].device
+        capture = _capture_for(device)
+        if capture is None:
+            return self.eager(state, batch)
+        away = sorted(k for k, v in batch.items() if v.device != device)
+        if away:
+            raise ValueError(f"compiled step on {device}: batch entries "
+                             f"{away} lie on another device")
+        key = self._capture_key(state, batch)
+        if key != self._key:
+            self._capture(capture, state, batch, key)
+        else:
+            self._load(state, batch)
+        replay, launches = self._graph
+        vectors = replay()
+        ops.add_launches(launches)
+        self.stats["replays"] += 1
+        metrics = {}
+        for names, vec in zip(self._metric_names, vectors):
+            vec = vec.clone()
+            metrics.update((k, vec[i]) for i, k in enumerate(names))
+        if self.donate:
+            return self._state, metrics
+        return tree_map(torch.clone, self._state), metrics
+
+    def _own(self, state) -> bool:
+        return all(a is b for a, b in zip(tree_leaves(state),
+                                          tree_leaves(self._state)))
+
+    def _load(self, state, batch) -> None:
+        if not self._own(state):
+            torch._foreach_copy_(tree_leaves(self._state), tree_leaves(state))
+        for k, v in batch.items():
+            self._batch[k].copy_(v, non_blocking=True)
+
+    def _capture(self, capture, state, batch, key) -> None:
+        t0 = time.perf_counter()
+        self._graph = None                  # free the old graph first
+        self._state = state if self.donate else tree_map(torch.clone, state)
+        self._batch = {k: v.clone() for k, v in batch.items()}
+        device = tree_leaves(state)[0].device
+        ops.run_aside(device, self.eager, self._state, self._batch)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        def body():
+            with updates_in_place():
+                new, metrics = self.eager(self._state, self._batch)
+            if not self._own(new):
+                raise RuntimeError(
+                    "compiled step: the step returned a state that is not "
+                    "its buffers (its update must run through adam_update, "
+                    "which writes them in place here)")
+            groups = {}
+            for k, v in metrics.items():
+                groups.setdefault(v.dtype, []).append(k)
+            self._metric_names = tuple(tuple(g) for g in groups.values())
+            return [torch.stack([metrics[k].reshape(()) for k in names])
+                    for names in self._metric_names]
+
+        before = ops.launch_counts()
+        replay = capture(body)
+        self._graph = (replay, ops.take_back_launches(before))
+        self._key = key
+        self._refs = current_mesh()     # keeps the id in the key unique
+        self.stats["captures"] += 1
+        self.stats["capture_s"] = time.perf_counter() - t0
+
+
 def make_lm_train_step(cfg: ModelConfig, opt_cfg: AdamConfig,
                        aux_weight: float = 0.01,
                        grad_transform: Callable | None = None,
-                       donate: bool = True):
-    """:func:`make_lm_train_step_fn` with one microbatch, the reference's
-    jitted convenience wrapper. ``donate`` is the reference's donation of
-    the old state to the step: the caller hands the state over and must
-    not read it after the call. The eager step writes a new state and
-    reuses no tensor of the old one, so the flag changes no computation;
-    the old state's memory goes when the caller drops it (as the launcher
-    does, rebinding ``state``)."""
-    del donate
-    return make_lm_train_step_fn(cfg, opt_cfg, aux_weight, grad_transform)
+                       donate: bool = True) -> CompiledTrainStep:
+    """:func:`make_lm_train_step_fn` with one microbatch, compiled (the
+    reference's jitted convenience wrapper). ``donate`` is the reference's
+    donation of the old state to the step: the caller hands the state over
+    and must not read it after the call; on a CUDA device the step then
+    returns its graph's own buffers, updated in place by the next call
+    (:class:`CompiledTrainStep`)."""
+    return CompiledTrainStep(
+        make_lm_train_step_fn(cfg, opt_cfg, aux_weight, grad_transform),
+        donate=donate)
 
 
 def make_gru_train_step(task: GruTaskConfig, opt_cfg: AdamConfig,
-                        qat: QatPolicy = FP32, use_delta: bool = True):
+                        qat: QatPolicy = FP32, use_delta: bool = True
+                        ) -> CompiledTrainStep:
     """Paper training step ``step(state, batch) -> (state, metrics)``.
     batch: ``{features [T,B,I], labels, in_lens, lab_lens}`` for CTC, or
     ``{features, targets [T,B,O]}`` for regression, on the parameters'
     device. Metrics are 0-d tensors on that device (``loss``, ``ctc`` or
-    ``mse``/``rmse``, ``grad_norm`` with clipping, ``lr``)."""
+    ``mse``/``rmse``, ``grad_norm`` with clipping, ``lr``). Compiled as the
+    reference jits it, without donation (:class:`CompiledTrainStep`: one
+    CUDA graph on a CUDA device, eager on the CPU; ``.eager`` is the
+    un-compiled step)."""
 
     def loss_fn(params, batch):
         out, _ = gru_model_forward(params, task, batch["features"],
@@ -195,7 +344,7 @@ def make_gru_train_step(task: GruTaskConfig, opt_cfg: AdamConfig,
         metrics.update(opt_metrics)
         return TrainState(new_params, opt), metrics
 
-    return step
+    return CompiledTrainStep(step)
 
 
 @dataclass

@@ -85,7 +85,7 @@ def buffer_ptrs(eng) -> list:
 
 
 def stub_capture(body):
-    """A stand-in for ``_capture_cuda_graph`` on the CPU. Capturing ``k``
+    """A stand-in for ``ops.capture_cuda_graph`` on the CPU. Capturing ``k``
     steps runs no kernel but calls every wrapper ``k`` times: here it runs
     nothing and counts ``k * STUB_LAUNCHES`` of ``STUB_KERNEL``. It records the engine's buffer
     pointers, and every replay fails if one moved: a CUDA graph replays

@@ -400,7 +400,7 @@ def test_the_fleet_open_is_a_reset_alone():
 # -- the LM engine's decode step -------------------------------------------
 
 def lm_stub(body):
-    """A stand-in for ``_capture_cuda_graph`` for ``LmEngine``: it records
+    """A stand-in for ``ops.capture_cuda_graph`` for ``LmEngine``: it records
     the pointers of the caches and the token buffer, and every replay fails
     if one moved (a CUDA graph would decode the old buffers); a replay
     reruns the decode and copies its logits into one tensor that every
