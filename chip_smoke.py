@@ -34,13 +34,17 @@ traceback and a non-zero exit):
    ``cp.async`` or 2-byte copies) bitwise equal to it, also launched after
    an L2 flush (copies that land late); then the engine step's two
    kernels (``engine_kernels_phase``): the Delta Unit at the main paths'
-   layer shapes, N in {1, 8, 9, 128}, θ 0 and 0.25 (a number and a device
-   tensor), the input on the Q8.8 grid or not, with steps exactly at θ,
-   NaN and ±inf inputs (deltas, memories and count totals bitwise), and
-   the epilogue over 2, 4 and 24 layers of those count rows at N in {1, 8,
-   128}, with non-finite values in a slot's first leaf and in another
-   slot's last leaf alone (flags, poison and bad-state sums and
-   ``last_x`` bitwise, the fp32 terms within ``TOL_EPILOGUE_REL``); then
+   layer shapes, N in {1, 3, 8, 9, 128}, θ 0 and 0.25 (a number and a
+   device tensor), the input on the Q8.8 grid or not, with steps exactly
+   at θ, NaN and ±inf inputs (deltas, memories and count totals bitwise),
+   with the frame guard folded in (finite and last_x bitwise too) and with
+   a host threshold of 0 on NaN memories; and the epilogue over 2, 4 and
+   24 layers of those count rows at N in {1, 3, 8, 128}, grids of 2 to
+   264 blocks, with non-finite values in a slot's first leaf and in
+   another slot's last leaf alone (flags, poison and bad-state sums and
+   ``last_x`` bitwise, over 2 layers the per-slot terms too, the slot sums
+   bitwise the fixed-order tree, the other fp32 terms within
+   ``TOL_EPILOGUE_REL``); then
    the train steps' fused AdamW (``adam_kernels_phase``): fp32 and bf16
    parameters (and bf16 with fp32 gradients, and a tree of both), leaves
    of 1, 3, 4095 and 2**20 + 1 elements aligned and 2-4 bytes off 16-byte
@@ -551,12 +555,23 @@ def step_latencies_us(step, frames) -> list:
     return lat
 
 
+PAD_KERNEL = "spin_kernel"   # torch.cuda._sleep's kernel
+
+
 def engine_profile(run, n: int, match: str | None = None) -> dict:
     """Kernels per step, device-busy time per step and the idle share of
     ``run()``, ``n`` steps (an engine's ``step_many``), from
     ``torch.profiler``; beside them the wall time and the device time
-    between two CUDA events around the run, per step; with ``match``, the
-    busy time per step of the kernels whose name holds it."""
+    between two CUDA events around the run, per step; the launches per
+    step of each kernel name (``by_name``; memory copies apart, under
+    ``copies_per_step``); with ``match``, the busy time per step of the
+    kernels whose name holds it.
+
+    A session has read fewer device events than the run launched (7.66
+    kernels a 2L-768H step, whose graph holds 8), so the session first
+    runs 64 short padding kernels (``torch.cuda._sleep``) and waits 2 ms:
+    what it loses at its start is padding, which every figure leaves out.
+    ``counted_kernels`` holds ``by_name`` to the wrappers' counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -564,24 +579,57 @@ def engine_profile(run, n: int, match: str | None = None) -> dict:
     stop = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.002)
         t0 = time.perf_counter()
         start.record()
         run()
         stop.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    out = {"kernels_per_step": len(kernels) / n,
+        time.sleep(0.002)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and PAD_KERNEL not in e.name]
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0) + 1
+    copies = sum(v for k, v in by_name.items() if k.startswith("Memcpy")
+                 or k.startswith("Memset"))
+    out = {"kernels_per_step": len(events) / n,
+           "copies_per_step": copies / n,
+           "by_name": {k[:90]: v / n for k, v in sorted(
+               by_name.items(), key=lambda kv: -kv[1])},
            "device_busy_us_per_step": busy_us / n,
            "wall_us_per_step": 1e6 * wall / n,
            "event_us_per_step": 1e3 * start.elapsed_time(stop) / n,
-           "idle_share": 1.0 - busy_us / (1e6 * wall) if kernels else None}
+           "idle_share": 1.0 - busy_us / (1e6 * wall) if events else None}
     if match is not None:
         out["match_us_per_step"] = sum(
-            e.time_range.elapsed_us() for e in kernels if match in e.name) / n
+            e.time_range.elapsed_us() for e in events if match in e.name) / n
     return out
+
+
+# the engine step's two kernels: KernelInfo name -> device kernel name
+STEP_KERNELS = {"delta_unit_f32": "delta_unit_kernel",
+                "engine_epilogue_f32": "engine_epilogue_kernel"}
+
+
+def counted_kernels(prof: dict, counted: dict, what: str) -> None:
+    """Hold an ``engine_profile`` of a run to the launches its kernel
+    wrappers counted in it (``counted``: ``{KernelInfo name: launches a
+    step}``): the engine step's two kernels' events a step by device
+    name; raises on a difference (the profile lost or added events)."""
+    for name, device_name in STEP_KERNELS.items():
+        want = counted.get(name, 0)
+        got = sum(v for k, v in prof["by_name"].items() if device_name in k)
+        if abs(got - want) > 1e-9:
+            raise AssertionError(
+                f"{what}: the profile read {got} launches a step of "
+                f"{device_name}, its wrapper counted {want}")
 
 
 def eager_steps(eng, frames):
@@ -987,6 +1035,7 @@ def device_ms_cold(fn, reps: int = 20) -> float:
     then the card sleeps while the host enqueues the timed replay, so
     neither the host's launch cost nor the flush is between the events."""
     import torch
+    from repro_torch.kernels import ops
     flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.float32, device="cuda")
     flush.fill_(1.0)
     sink = torch.empty((), dtype=torch.float32, device="cuda")
@@ -996,9 +1045,7 @@ def device_ms_cold(fn, reps: int = 20) -> float:
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
+    replay = ops.capture_cuda_graph(fn)
     torch.cuda.synchronize()
     events = []
     for _ in range(reps):
@@ -1007,7 +1054,7 @@ def device_ms_cold(fn, reps: int = 20) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        graph.replay()
+        replay()
         stop.record()
         events.append((start, stop))
     torch.cuda.synchronize()
@@ -1323,6 +1370,13 @@ def step_launches(layer_kernels: dict, units: int) -> dict:
             ops.ENGINE_EPILOGUE_F32.name: 1}
 
 
+def counted_per_step(before: dict, after: dict, steps: int) -> dict:
+    """The launches a step of each kernel between two
+    ``ops.launch_counts()`` over ``steps`` steps (those launched only)."""
+    return {k: (after[k] - before[k]) / steps for k in after
+            if after[k] != before[k]}
+
+
 def times(per_step: dict, steps: int) -> dict:
     return {k: v * steps for k, v in per_step.items()}
 
@@ -1379,22 +1433,29 @@ def du_streams(rng, n, widths, dev, theta, quant, strided):
 def engine_kernel_rows(dev, programs: dict, rng, floor_ms: float,
                        smi: str) -> dict:
     """Phase 6 for the engine step's two kernels at the main paths' shapes,
-    one stream, theta = 0.25: warm (CUDA-graph replay), with a cold L2,
-    launched from Python, and the plain version on the card; the bound is
-    the bytes each launch must move (each input read once, each output
-    written once) at 3.35 TB/s, beside the launch floor (no single
-    PyTorch call computes either: library_ms None). ``programs``: a
-    compiled program per path, ``{"gru fused_q8": ..., "rwkv6 fused":
-    ...}``; per path the Delta Unit launches of one step and the epilogue
-    over that step's state. Returns ``{kernel name: {path: row}}``."""
+    theta = 0.25, at one stream (B = 1) and at a fabric shard's N = 128:
+    warm (CUDA-graph replay), with a cold L2, launched from Python, and the
+    plain version on the card; the bound is the bytes each launch must
+    move (each input read once, each output written once) at 3.35 TB/s,
+    beside the launch floor (no single PyTorch call computes either:
+    library_ms None). ``programs``: a compiled program per path, ``{"gru
+    fused_q8": ..., "rwkv6 fused": ...}``; per path the Delta Unit launches
+    of one step (layer 0's with the frame guard on the GRU / LSTM paths
+    where the engine folds it: at B = 1, not at N = 128) and the epilogue
+    over that step's state (without last_x's copy where the guard wrote
+    it). Returns ``{kernel name: {path: row}}``, each row's ``n128`` the
+    same at N = 128."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.delta_unit import (DU_TILE, delta_unit,
-                                                delta_unit_ref)
+    from repro_torch.kernels.delta_unit import (FrameGuard, delta_unit,
+                                                delta_unit_ref, guard_fits,
+                                                tile_columns)
     from repro_torch.kernels.engine_epilogue import (AGGREGATES, PER_STREAM,
                                                      EpilogueConsts,
                                                      engine_epilogue,
-                                                     engine_epilogue_ref)
+                                                     engine_epilogue_ref,
+                                                     epilogue_table,
+                                                     epilogue_workspace_words)
     from repro_torch.core.sparsity import cell_dims
     th = torch.full((), THETA, dtype=torch.float32, device=dev)
     rows = {ops.DELTA_UNIT_F32.name: {}, ops.ENGINE_EPILOGUE_F32.name: {}}
@@ -1408,59 +1469,100 @@ def engine_kernel_rows(dev, programs: dict, rng, floor_ms: float,
         else:
             shapes = [([d_in if l == 0 else hid], [hid])
                       for l in range(n_layers)]
-        calls = [(du_streams(rng, 1, wx, dev, THETA, quant, False),
-                  du_streams(rng, 1, wh, dev, THETA, False, False))
-                 for wx, wh in shapes]
         grid = (256.0, -128.0, 128.0 - 1.0 / 256) if quant else None
+        for n in (1, 128):
+            # the guard in layer 0's launch where the engine folds it
+            guarded = prog.spec.frame_guard and guard_fits(n, d_in)
+            calls = [(du_streams(rng, n, wx, dev, THETA, quant, False),
+                      du_streams(rng, n, wh, dev, THETA, False, False))
+                     for wx, wh in shapes]
+            last_x = torch.zeros((n, d_in), device=dev)
+            finite = torch.ones((n,), dtype=torch.bool, device=dev)
+            guard = FrameGuard(last_x, finite) if guarded else None
 
-        def du_all(fn=delta_unit):
-            return [fn(xs, hs, THETA, th, act_grid=grid)[2]
-                    for xs, hs in calls]
+            def du_all(fn=delta_unit, calls=calls, guard=guard):
+                return [fn(xs, hs, THETA, th, act_grid=grid,
+                           guard=guard if l == 0 else None)[2]
+                        for l, (xs, hs) in enumerate(calls)]
 
-        du_bytes = sum(16 * (sum(wx) + sum(wh))
-                       + 4 * 3 * sum(-(-w // DU_TILE) for w in wx + wh)
-                       for wx, wh in shapes)
-        counts = [(l, c) for l, c in enumerate(du_all())]
-        cols = [(sum(wx), sum(wh)) for wx, wh in shapes]
-        state = prog.init_state((1,))
-        leaves = [t for t in tree_leaves(state)]
-        carry = {k: torch.zeros((1,), device=dev) for k in PER_STREAM}
-        carry.update({k: torch.zeros((), device=dev) for k in AGGREGATES})
-        carry["last_x"] = torch.zeros((1, d_in), device=dev)
-        x = torch.rand((1, d_in), device=dev)
-        finite = torch.ones((1,), dtype=torch.bool, device=dev)
-        consts = EpilogueConsts(cell_dims(cell, d_in, hid, n_layers),
-                                8.0 * 125e6, 8)
-        ws = torch.zeros((2,), dtype=torch.int32, device=dev)
-        ep_bytes = (sum(4 * t.numel() for t in leaves)
-                    + sum(4 * c.numel() for _, c in counts)
-                    + 4 * 2 * d_in + 1 + 4 * 2 * (len(PER_STREAM)
-                                                  + len(AGGREGATES)))
+            du_bytes = 0
+            for l, (wx, wh) in enumerate(shapes):
+                du_bytes += 16 * n * (sum(wx) + sum(wh))
+                du_bytes += 4 * (n + 2) * sum(   # a count row a block
+                    -(-w // tile_columns(n, w, guarded and l == 0 and j == 0))
+                    for j, w in enumerate(wx + wh))
+                if guarded and l == 0:
+                    du_bytes += 8 * n * d_in + n
+            counts = [(l, c) for l, c in enumerate(du_all())]
+            cols = [(sum(wx), sum(wh)) for wx, wh in shapes]
+            state = prog.init_state((n,))
+            leaves = [t for t in tree_leaves(state)]
+            carry = {k: torch.zeros((n,), device=dev) for k in PER_STREAM}
+            carry.update({k: torch.zeros((), device=dev)
+                          for k in AGGREGATES})
+            carry["last_x"] = torch.zeros((n, d_in), device=dev)
+            x = None if guarded else torch.rand((n, d_in), device=dev)
+            consts = EpilogueConsts(cell_dims(cell, d_in, hid, n_layers),
+                                    8.0 * 125e6, 8)
+            ws = torch.zeros((epilogue_workspace_words(n, n_layers),),
+                             dtype=torch.int32, device=dev)
+            table = epilogue_table(leaves, counts, cols, n)
+            ep_bytes = (sum(4 * t.numel() for t in leaves)
+                        + sum(4 * c.numel() for _, c in counts)
+                        + (0 if guarded else 4 * 2 * n * d_in) + n
+                        + 4 * 2 * (len(PER_STREAM) * n + len(AGGREGATES))
+                        + 4 + table.words.nbytes)
 
-        def ep(fn=engine_epilogue):
-            args = (leaves, counts, cols, carry, x, finite, consts)
-            return fn(*args, ws) if fn is engine_epilogue else fn(*args)
+            def ep(fn=engine_epilogue, leaves=leaves, counts=counts,
+                   cols=cols, carry=carry, x=x, finite=finite,
+                   consts=consts, ws=ws):
+                args = (leaves, counts, cols, carry, x, finite, consts)
+                return fn(*args, ws) if fn is engine_epilogue else fn(*args)
 
-        for kinfo, run, plain, nbytes, launches in (
-                (ops.DELTA_UNIT_F32, du_all,
-                 lambda: du_all(delta_unit_ref), du_bytes, n_layers),
-                (ops.ENGINE_EPILOGUE_F32, ep,
-                 lambda: ep(engine_epilogue_ref), ep_bytes, 1)):
-            row = {"ms": device_ms(run), "cold_ms": device_ms_cold(run),
-                   "eager_ms": eager_ms(run), "plain_ms": device_ms(plain),
-                   "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-                   "bound_by": "bytes", "library_ms": None, "bytes": nbytes,
-                   "launches_per_step": launches,
-                   "launch_floor_ms": floor_ms * launches / 2}
-            rows[kinfo.name][path] = row
-            log(f"time {kinfo.name} {path}, one step's {launches} "
-                f"launch{'es' if launches > 1 else ''} at B=1: kernel "
-                f"{row['ms']:.5f} ms warm, {row['cold_ms']:.5f} ms with a "
-                f"cold L2 ({row['eager_ms']:.4f} ms launched from Python), "
-                f"plain {row['plain_ms']:.5f} ms, bound "
-                f"{row['bound_ms']:.6f} ms ({nbytes} B), launch floor "
-                f"{row['launch_floor_ms']:.5f} ms [{smi}]")
+            for kinfo, run, plain, nbytes in (
+                    (ops.DELTA_UNIT_F32, du_all,
+                     lambda du_all=du_all: du_all(delta_unit_ref), du_bytes),
+                    (ops.ENGINE_EPILOGUE_F32, ep,
+                     lambda ep=ep: ep(engine_epilogue_ref), ep_bytes)):
+                before = kinfo.launches     # the launches of one timed call
+                run()
+                launches = kinfo.launches - before
+                row = {"ms": device_ms(run), "cold_ms": device_ms_cold(run),
+                       "eager_ms": eager_ms(run),
+                       "plain_ms": device_ms(plain),
+                       "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                       "bound_by": "bytes", "library_ms": None,
+                       "bytes": nbytes, "launches_timed": launches,
+                       "launch_floor_ms": floor_ms * launches / 2}
+                if n == 1:
+                    rows[kinfo.name][path] = row
+                else:
+                    rows[kinfo.name][path]["n128"] = row
+                log(f"time {kinfo.name} {path}, one step's {launches} "
+                    f"launch{'es' if launches > 1 else ''} at N={n}"
+                    f"{' (guard folded)' if guarded else ''}: kernel "
+                    f"{row['ms']:.5f} ms warm, {row['cold_ms']:.5f} ms with "
+                    f"a cold L2 ({row['eager_ms']:.4f} ms launched from "
+                    f"Python), plain {row['plain_ms']:.5f} ms, bound "
+                    f"{row['bound_ms']:.6f} ms ({nbytes} B), launch floor "
+                    f"{row['launch_floor_ms']:.5f} ms [{smi}]")
+            del calls, state, leaves, counts, carry
     return rows
+
+
+def guard_frames(rng, n, width, dev):
+    """A frame guard's operands: ``(s, memory)`` as ``du_streams`` draws
+    them (NaN and +-inf in ~3 % of the elements), the odd slots' rows made
+    finite and the even slots' last column NaN (so some slots pass and
+    some are guarded), and a finite ``last_x``."""
+    import numpy as np
+    import torch
+    (s, mem), = du_streams(rng, n, [width], dev, THETA, True, False)
+    s[1::2] = mem[1::2] + 0.5
+    s[0::2, -1] = float("nan")
+    last = torch.from_numpy(rng.normal(0, 1, (n, width)).astype(
+        np.float32)).to(dev)
+    return s, mem, last
 
 
 def engine_kernels_phase(dev, rng) -> dict:
@@ -1470,28 +1572,40 @@ def engine_kernels_phase(dev, rng) -> dict:
     The Delta Unit at the main paths' layer shapes (2L-768H's two GRU /
     LSTM layers, RWKV6's three input streams, row-strided, and its decay
     stream at D = 2048, RG-LRU's 4096-wide streams one group at a time) at
-    N in {1, 8, 9, 128}, theta 0 and 0.25 (a number, and a device tensor),
+    N in {1, 3, 8, 9, 128}, theta 0 and 0.25 (a number, and a device tensor),
     the input group on the Q8.8 grid or not: deltas and memories bitwise,
-    the count rows' totals exact.
+    the count rows' totals exact. Then the frame guard folded into layer
+    0's launch (frames of 40, 33 and 256 columns, half the slots holding
+    NaN / +-inf, on the grid or not): finite and last_x bitwise too; and a
+    host threshold of 0 (StepTheta) on NaN memories, which fires them.
 
-    The epilogue on count rows of those launches, over 2 and 24 layers,
-    with state leaves like the engines' (a [N, 32, 64, 64] WKV state past
-    one scan chunk, a row-strided [N, 3, W] slice of [N, 4, W], an empty
-    row), non-finite values in the first leaf of one slot and in the last
-    leaf alone of another, frames flagged non-finite: flags, counts,
-    poison and bad-state sums and last_x bitwise, the fp32 terms within
-    TOL_EPILOGUE_REL of the plain version, the workspace left zero.
+    The epilogue on count rows of those launches (N in {1, 3, 8, 128}), over
+    2 and 24 layers, with state leaves like the engines' (the GRU's small
+    leaves; a [N, 32, 64, 64] WKV state past one scan chunk, a
+    row-strided [N, 3, W] slice of [N, 4, W], an empty row),
+    non-finite values in the first leaf of one slot and in the last leaf
+    alone of another, frames flagged non-finite, last_x written by the
+    launch or already by the guard: flags, counts, poison and bad-state
+    sums and last_x bitwise, the fp32 terms within TOL_EPILOGUE_REL of
+    the plain version (bitwise per slot over 2 layers), the workspace left
+    zero; on a zeroed carry the aggregates bitwise the kernel's fixed-order
+    tree (tree_sum_ref) of its per-slot terms.
     Returns ``{"max_err": {name: max absolute error}, "cases": n}``."""
     import numpy as np
     import torch
+    from repro_torch.core.delta import StepTheta
     from repro_torch.core.sparsity import cell_dims
     from repro_torch.kernels import ops
-    from repro_torch.kernels.delta_unit import (count_totals, delta_unit,
-                                                delta_unit_ref)
+    from repro_torch.kernels.delta_unit import (FrameGuard, count_totals,
+                                                delta_unit, delta_unit_ref)
     from repro_torch.kernels.engine_epilogue import (AGGREGATES, PER_STREAM,
                                                      EpilogueConsts,
                                                      engine_epilogue,
-                                                     engine_epilogue_ref)
+                                                     engine_epilogue_ref,
+                                                     epilogue_grid,
+                                                     epilogue_table,
+                                                     epilogue_workspace_words,
+                                                     tree_sum_ref)
     du, ep = ops.DELTA_UNIT_F32, ops.ENGINE_EPILOGUE_F32
     err = {du.name: 0.0, ep.name: 0.0}
     grid = (256.0, -128.0, 128.0 - 1.0 / 256)
@@ -1500,7 +1614,24 @@ def engine_kernels_phase(dev, rng) -> dict:
               "rglru x": ([4096], []), "rglru u": ([], [4096])}
     n_cases = 0
     rows_for = {}
-    for n in (1, 8, 9, 128):
+
+    def same_du(runs, ref, desc, n, extra=()):
+        torch.cuda.synchronize()
+        outs = [[t for pair in r[0] + r[1] for t in pair]
+                for r in runs + [ref]]
+        same = all(torch.equal(bits(a), bits(b))
+                   for o in outs[1:] for a, b in zip(outs[0], o))
+        same = same and all(torch.equal(a, b) for a, b in extra)
+        totals = [count_totals(r[2]).cpu() for r in runs + [ref]]
+        exact = all(torch.equal(totals[0], t) for t in totals)
+        if not (same and exact):
+            raise AssertionError(
+                f"{du.name} disagrees with its plain version: {desc}; "
+                f"outputs bitwise {same}, counts {exact} "
+                f"({totals[0].tolist()} against {totals[-1].tolist()})")
+        return totals[0]
+
+    for n in (1, 3, 8, 9, 128):
         for what, (wx, wh) in shapes.items():
             for theta in (0.0, 0.25):
                 for quant in ((False, True) if what.startswith("gru")
@@ -1514,33 +1645,75 @@ def engine_kernels_phase(dev, rng) -> dict:
                     runs = [delta_unit(xs, hs, theta, th, act_grid=ag)
                             for _ in range(2)]
                     ref = delta_unit_ref(xs, hs, theta, th, act_grid=ag)
-                    torch.cuda.synchronize()
-                    outs = [[t for pair in r[0] + r[1] for t in pair]
-                            for r in runs + [ref]]
-                    same = all(torch.equal(bits(a), bits(b))
-                               for o in outs[1:] for a, b in zip(outs[0], o))
-                    totals = [count_totals(r[2]).cpu() for r in runs + [ref]]
-                    exact = all(torch.equal(totals[0], t) for t in totals)
-                    fired = int(totals[0][:, :n].sum())
                     desc = (f"{what} N={n} theta={theta}"
-                            f"{' Q8.8 input' if quant else ''}: {fired} "
-                            f"deltas fired, unions {totals[0][:, n].tolist()}")
-                    if not (same and exact):
-                        raise AssertionError(
-                            f"{du.name} disagrees with its plain version: "
-                            f"{desc}; outputs bitwise {same}, counts {exact}"
-                            f" ({totals[0].tolist()} against "
-                            f"{totals[-1].tolist()})")
+                            f"{' Q8.8 input' if quant else ''}")
+                    totals = same_du(runs, ref, desc, n)
                     n_cases += 1
                     if theta > 0 and not quant:
                         rows_for[(n, what)] = runs[0][2]
         log(f"kernel {du.name} N={n}: every shape, theta and grid bitwise "
             "its plain version (deltas, memories, count totals)")
+        # the frame guard folded into layer 0's launch
+        for width in (40, 33, 256):
+            for quant in (False, True):
+                s, mem, last = guard_frames(rng, n, width, dev)
+                hs = du_streams(rng, n, [768], dev, THETA, False, False)
+                ag = grid if quant else None
+                guards = [FrameGuard(last.clone(), torch.zeros(
+                    (n,), dtype=torch.bool, device=dev)) for _ in range(3)]
+                runs = [delta_unit([(s, mem)], hs, THETA, THETA, act_grid=ag,
+                                   guard=g) for g in guards[:2]]
+                ref = delta_unit_ref([(s, mem)], hs, THETA, THETA,
+                                     act_grid=ag, guard=guards[2])
+                passed = int(guards[2].finite.sum())
+                desc = (f"the frame guard, {width} columns, N={n}"
+                        f"{' Q8.8 input' if quant else ''}: {passed} slots "
+                        "finite")
+                same_du(runs, ref, desc, n, extra=[
+                    (bits(g.last_x), bits(guards[2].last_x))
+                    for g in guards[:2]] + [
+                    (g.finite.cpu(), guards[2].finite.cpu())
+                    for g in guards[:2]])
+                if n > 1 and not 0 < passed < n:
+                    raise AssertionError(f"{desc}: want some slots guarded")
+                n_cases += 1
+        # a host threshold of 0 fires NaN memories (the reference's jitted
+        # step folds |raw| >= 0); a tensor threshold of 0 does not
+        for wx, wh in (([40], [768]), ([2048] * 3, [2048])):
+            xs = du_streams(rng, n, wx, dev, 0.0, False, False)
+            hs = du_streams(rng, n, wh, dev, 0.0, False, False)
+            for _, mem in xs + hs:
+                mem[:, ::7] = float("nan")
+            th0 = torch.zeros((), dtype=torch.float32, device=dev)
+            runs = [delta_unit(xs, hs, StepTheta(0.0), th0)
+                    for _ in range(2)]
+            ref = delta_unit_ref(xs, hs, StepTheta(0.0), th0)
+            same_du(runs, ref, f"a host zero threshold, N={n}, {wx}", n)
+            fired = [int(torch.isnan(d).sum()) for d, _ in runs[0][0]]
+            kept = [int(torch.isnan(d).sum()) for d, _ in runs[0][1]]
+            if not (all(f > 0 for f in fired) and sum(kept) == 0):
+                raise AssertionError(
+                    f"{du.name}: a host 0 should fire NaN differences "
+                    f"({fired}), a tensor 0 none ({kept})")
+            n_cases += 1
+        log(f"kernel {du.name} N={n}: the folded frame guard (finite, "
+            "last_x) and the host zero threshold bitwise its plain version")
 
-    for n in (1, 8, 128):
-        for n_layers, kinds in ((2, ("gru layer 0", "gru layer 1")),
-                                (24, ("rwkv6 layer",) * 24),
-                                (4, ("rglru x", "rglru u") * 4)):
+    leaf_sets = {
+        # the 2L-768H GRU's state: h, x_mem, h_mem, M of two layers
+        "gru": lambda rand, n: [rand(n, 768), rand(n, 40), rand(n, 768),
+                                rand(n, 3072), rand(n, 768), rand(n, 768),
+                                rand(n, 768), rand(n, 3072)],
+        "lm": lambda rand, n: [rand(n, 768), rand(n, 32, 64, 64),
+                               rand(n, 4, 33)[:, 1:], rand(n, 0),
+                               rand(n, 3)],
+    }
+    for n in (1, 3, 8, 128):
+        for n_layers, kinds, leaf_set, folded in (
+                (2, ("gru layer 0", "gru layer 1"), "gru", True),
+                (2, ("gru layer 0", "gru layer 1"), "lm", False),
+                (24, ("rwkv6 layer",) * 24, "lm", False),
+                (4, ("rglru x", "rglru u") * 4, "lm", False)):
             i_dim = {"gru layer 0": 40}.get(kinds[0], 2048 if kinds[0]
                                             .startswith("rwkv6") else 4096)
             if kinds[0].startswith("rglru"):
@@ -1559,15 +1732,13 @@ def engine_kernels_phase(dev, rng) -> dict:
             def rand(*shape):
                 return torch.rand(shape, generator=g, device=dev)
 
-            conv = rand(n, 4, 33)[:, 1:]
-            leaves = [rand(n, 768), rand(n, 32, 64, 64), conv,
-                      rand(n, 0), rand(n, 3)]
+            leaves = leaf_sets[leaf_set](rand, n)
             leaves[0][0, 5] = float("nan")         # slot 0: the first leaf
             if n > 1:
                 leaves[-1][n - 1, 2] = float("inf")   # the last slot: last
             if n > 2:
-                leaves[1][1, 31, 63, 63] = float("-inf")  # past chunk 0
-            x = rand(n, i_dim)
+                leaves[1].view(n, -1)[1, -1] = float("-inf")  # a row's end
+            x = None if folded else rand(n, i_dim)
             finite = rand(n) > 0.3
             carry = {k: rand(n) for k in PER_STREAM}
             carry.update({k: rand() for k in AGGREGATES})
@@ -1575,18 +1746,35 @@ def engine_kernels_phase(dev, rng) -> dict:
             consts = EpilogueConsts(dims, 8.0 * 125e6, 8)
             got = [{k: v.clone() for k, v in carry.items()}
                    for _ in range(2)]
-            ws = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
+            ws = torch.zeros((epilogue_workspace_words(n, n_layers),),
+                             dtype=torch.int32, device=dev)
             fh = [engine_epilogue(leaves, counts, cols, c, x, finite,
                                   consts, ws) for c in got]
             want = {k: v.clone() for k, v in carry.items()}
             fh_ref = engine_epilogue_ref(leaves, counts, cols, want, x,
                                          finite, consts)
+            # on a zeroed carry the per-slot entries are the terms: the
+            # aggregates are their fixed-order tree sums
+            zero = {k: torch.zeros_like(v) for k, v in carry.items()}
+            engine_epilogue(leaves, counts, cols, zero, x, finite, consts, ws)
             torch.cuda.synchronize()
             exact_keys = ("poison_steps", "bad_state", "agg_poison_steps",
                           "agg_bad_state", "last_x")
+            if n_layers == 2:    # sums of at most two terms a slot
+                exact_keys += ("fired_x", "fired_h", "lat_s", "w_bytes",
+                               "agg_ufired_x", "agg_ufired_h",
+                               "agg_tile_lat_s", "agg_tile_w_bytes")
             twice = all(torch.equal(got[0][k], got[1][k]) for k in carry) \
                 and torch.equal(fh[0], fh[1])
-            exact = all(torch.equal(got[0][k], want[k]) for k in exact_keys)
+            exact = all(torch.equal(bits(got[0][k]), bits(want[k]))
+                        for k in exact_keys)
+            inv_n = 1.0 / n
+            tree = all(torch.equal(bits(zero[f"agg_{k}"]),
+                                   bits(tree_sum_ref(zero[k]) * inv_n))
+                       for k in ("fired_x", "fired_h", "lat_s", "w_bytes"))
+            tree = tree and all(
+                torch.equal(bits(zero[f"agg_{k}"]), bits(tree_sum_ref(
+                    zero[k]))) for k in ("poison_steps", "bad_state"))
             terms = [(got[0][k], want[k]) for k in carry
                      if k not in exact_keys] + [(fh[0], fh_ref)]
             rel = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
@@ -1594,18 +1782,23 @@ def engine_kernels_phase(dev, rng) -> dict:
             err[ep.name] = max([err[ep.name]] + [
                 float((a - b).abs().max()) for a, b in terms])
             flagged = got[0]["bad_state"] != carry["bad_state"]
-            desc = (f"N={n}, {n_layers} layers: slots flagged "
-                    f"{int(flagged.sum())}, fp32 terms {rel:.3e} relative")
-            if not (twice and exact and rel <= TOL_EPILOGUE_REL
+            items = epilogue_table(leaves, counts, cols, n).items
+            route = f"{epilogue_grid(items)} blocks"
+            desc = (f"N={n}, {n_layers} layers, {leaf_set} leaves ({route}"
+                    f"{', last_x by the guard' if folded else ''}): slots "
+                    f"flagged {int(flagged.sum())}, fp32 terms {rel:.3e} "
+                    "relative")
+            if not (twice and exact and tree and rel <= TOL_EPILOGUE_REL
                     and int(ws.abs().sum()) == 0
                     and bool(flagged[0]) and bool(flagged[n - 1])):
                 raise AssertionError(
                     f"{ep.name} disagrees with its plain version: {desc}; "
                     f"launched twice bitwise {twice}, exact entries {exact}, "
-                    f"workspace {ws.tolist()[:4]}")
+                    f"tree sums bitwise {tree}, workspace "
+                    f"{ws.tolist()[:4]}")
             n_cases += 1
             log(f"kernel {ep.name} {desc}: exact entries bitwise, fp32 "
-                f"within {TOL_EPILOGUE_REL}")
+                f"within {TOL_EPILOGUE_REL}, tree sums bitwise")
     return {"max_err": err, "cases": n_cases}
 
 
@@ -2729,6 +2922,9 @@ def fabric_phase(dev, model_768, kernel_q8, kernel_f32, smi) -> dict:
                                             layers), len(xs)):
                     raise AssertionError(f"fabric shard profile: launches "
                                          f"{n}")
+                res["shard_counted"] = {k: v / len(xs) for k, v in n.items()}
+                counted_kernels(res["shard_profile"], res["shard_counted"],
+                                "fabric shard profile")
                 add_counts(launches, n)
             del run, fleet, router, made, back, exported, cpu_ref, shard
 
@@ -5235,6 +5431,7 @@ def main() -> int:
                                                 pack_spmv_weights,
                                                 spmv_launch_plan)
     from repro_torch.kernels.delta_step_f32 import f32_step_plan
+    from repro_torch.kernels.delta_unit import guard_fits
     from repro_torch.kernels.deltagru_cell import (deltagru_act,
                                                    deltagru_act_plan,
                                                    deltagru_act_ref)
@@ -6484,11 +6681,10 @@ def main() -> int:
             f"deltagru_act) [{smi}]")
 
     # the engine step's Delta Unit and epilogue at the main paths' shapes
-    eng_rows = engine_kernel_rows(
-        dev, {"gru fused": progs[("gru", "fused")],
-              "gru fused_q8": progs[("gru", "fused_q8")],
-              "rwkv6 fused": lm["rwkv6"][0]},
-        rng, floor["ms"], smi)
+    eng_progs = {"gru fused": progs[("gru", "fused")],
+                 "gru fused_q8": progs[("gru", "fused_q8")],
+                 "rwkv6 fused": lm["rwkv6"][0]}
+    eng_rows = engine_kernel_rows(dev, eng_progs, rng, floor["ms"], smi)
     phase6 = ops.launch_counts()
     for name in ([k.name for k in buffered.values()]
                  + [ops.DELTA_SPMV_BF16.name, ops.DELTAGRU_ACT_F32.name]):
@@ -6503,14 +6699,26 @@ def main() -> int:
                     for (cell, be), prog in progs.items()]
     engine_paths += [(f"{cell} fused", lm_prog, lm_task, frames_lm, 10)
                      for cell, (lm_prog, lm_task, frames_lm) in lm.items()]
+    step_kernels, step_counted = {}, {}
     for path, prog, eng_task, fr, n_prof in engine_paths:
         eng = DeltaStreamEngine(prog, eng_task)
         warm_chunks(eng, fr)
+        before = ops.launch_counts()
         prof = engine_profile(lambda: eng.step_many(fr[:n_prof]), n_prof)
+        # the wrappers' launches a step in the profiled run, and the
+        # profile's kernels a step (its copies apart)
+        step_counted[path] = counted_per_step(before, ops.launch_counts(),
+                                              n_prof)
+        counted_kernels(prof, step_counted[path], f"engine {path} graph")
+        step_kernels[path] = prof["kernels_per_step"] - prof[
+            "copies_per_step"]
         lat = step_latencies_us(DeltaStreamEngine(prog, eng_task).step, fr)
         ref = DeltaStreamEngine(prog, eng_task)
+        before = ops.launch_counts()
         prof_e = engine_profile(lambda: eager_steps(ref, fr[:n_prof]),
                                 n_prof)
+        counted_kernels(prof_e, counted_per_step(
+            before, ops.launch_counts(), n_prof), f"engine {path} eager")
         lat_e = step_latencies_us(lambda x: eager_steps(ref, x[None]), fr)
         caps = {k: round(1e3 * v, 3) for k, v in sorted(eng.capture_s.items())}
         log(f"engine {path} graph: capture ms by steps a graph {caps}; "
@@ -6686,7 +6894,11 @@ def main() -> int:
             entry["path"] = "repro_torch.kernels.ops.deltagru_cell_fused"
         entries.append(entry)
     # the engine step's two kernels: the 2L-768H fused_q8 step's launches
-    # (the paper's deployment), the other paths' beside them
+    # (the paper's deployment), the other paths' beside them.
+    # launches_per_step: the wrappers' counted launches over the steps of
+    # phase 6's profiled step_many (B = 1) and of the fabric shard's
+    # profiled replays (n128, the 2L-768H fused_q8 shard), a Delta Unit a
+    # layer and one epilogue
     for kinfo in (ops.DELTA_UNIT_F32, ops.ENGINE_EPILOGUE_F32):
         main_row = eng_rows[kinfo.name]["gru fused_q8"]
         entry = {"name": kinfo.name, "route": "cuda", "source": kinfo.source,
@@ -6694,15 +6906,41 @@ def main() -> int:
                  "launches": launches[kinfo.name],
                  "max_abs_err": max_err[kinfo.name]}
         for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                    "eager_ms", "cold_ms", "launch_floor_ms",
-                    "launches_per_step"):
+                    "eager_ms", "cold_ms", "launch_floor_ms"):
             entry[key] = main_row[key]
+        per_layer = kinfo is ops.DELTA_UNIT_F32
+        by_path = {}
+        for path, prog in eng_progs.items():
+            by_path[path] = step_counted[path].get(kinfo.name, 0)
+            if by_path[path] != (prog.num_layers if per_layer else 1):
+                raise AssertionError(f"{path}: {by_path[path]} launches a "
+                                     f"step of {kinfo.name}")
+        shard = fabric["shard_counted"].get(kinfo.name, 0)
+        if shard != by_path["gru fused_q8"]:
+            raise AssertionError(f"fabric shard: {shard} launches a step "
+                                 f"of {kinfo.name}")
+        entry["launches_per_step"] = by_path["gru fused_q8"]
         entry["shape"] = ("one 2L-768H fused_q8 step at B = 1 (others: "
-                          "by_path)")
-        entry["by_path"] = {path: {k: r[k] for k in ("ms", "cold_ms",
-                                                     "plain_ms", "bound_ms",
-                                                     "launches_per_step")}
-                            for path, r in eng_rows[kinfo.name].items()}
+                          "by_path; n128: N = 128, a fabric shard's tile)")
+        keys = ("ms", "cold_ms", "plain_ms", "bound_ms", "bytes")
+        entry["n128"] = {**{k: main_row["n128"][k] for k in keys},
+                         "launches_per_step": shard}
+        entry["by_path"] = {
+            path: {**{k: r[k] for k in keys},
+                   "launches_per_step": by_path[path],
+                   "n128": {k: r["n128"][k] for k in keys},
+                   "step_kernels_per_step": step_kernels[path]}
+            for path, r in eng_rows[kinfo.name].items()}
+        # the engine step's kernels, read from the profiled run (its
+        # copies apart): the frame guard runs inside the first Delta Unit
+        # launch on this path
+        entry["step_kernels_per_step"] = step_kernels["gru fused_q8"]
+        q8_prog = progs[("gru", "fused_q8")]
+        entry["frame_guard"] = {
+            key: ("folded into layer 0's Delta Unit launch"
+                  if q8_prog.spec.frame_guard
+                  and guard_fits(n, q8_prog.input_size)
+                  else "plain ops") for key, n in (("B1", 1), ("n128", 128))}
         entries.append(entry)
     # the train steps' fused AdamW: launches of the main paths' runs (5d's
     # stages, 5h (a)'s launcher), and those launches over the steps the

@@ -47,6 +47,9 @@ class BackendSpec:
       weight_fetch: ``"stream"`` (one fetch per stream per step) or
         ``"tile"`` (one fetch per ``[B, ...]`` stream tile, compacted on
         the union of fired columns).
+      frame_guard: its step also takes ``guard=`` (a
+        :class:`repro_torch.kernels.delta_unit.FrameGuard`): the input is
+        the raw frame, guarded by the layer's Delta Unit launch.
     """
 
     name: str
@@ -56,6 +59,7 @@ class BackendSpec:
     m_init: str = "bias"
     weight_bits: int = 32
     weight_fetch: str = "stream"
+    frame_guard: bool = False
 
 
 def register_backend(spec: BackendSpec) -> BackendSpec:

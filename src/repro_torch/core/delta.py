@@ -10,6 +10,12 @@ propagated::
 
 The state memory is threaded explicitly (no hidden state), so the same
 functions serve a Python loop over time and autograd.
+
+A threshold that is a constant of a compiled step (:class:`StepTheta`, the
+streaming engine's host thresholds) follows the reference's jitted step:
+there XLA folds ``|raw| >= 0`` to true, so at exactly 0 every element
+fires, NaN included (ROADMAP R32). Everywhere else ``>=`` keeps IEEE's
+answer, under which a NaN never fires.
 """
 from __future__ import annotations
 
@@ -33,6 +39,33 @@ def init_delta_state(shape, dtype=torch.float32, device=None) -> DeltaState:
     return DeltaState(memory=torch.zeros(shape, dtype=dtype, device=device))
 
 
+class StepTheta(float):
+    """A host threshold baked into a compiled step as a constant, as the
+    reference's jitted engine step bakes its Python-float thresholds: at
+    exactly 0, ``|raw| >= theta`` is true for every element (XLA folds the
+    comparison), NaN included. A threshold given as a tensor is traced in
+    the reference and keeps ``>=``."""
+
+    __slots__ = ()
+
+
+def step_thetas(theta):
+    """``theta`` as the constants of a compiled step: a number (or each
+    number of a per-layer tuple) as a :class:`StepTheta`; a tensor as it
+    is."""
+    if isinstance(theta, (tuple, list)):
+        return type(theta)(step_thetas(t) for t in theta)
+    if isinstance(theta, torch.Tensor):
+        return theta
+    return StepTheta(theta)
+
+
+def fires_all(theta) -> bool:
+    """True when ``|raw| >= theta`` holds for every element: a
+    :class:`StepTheta` of exactly 0."""
+    return isinstance(theta, StepTheta) and theta == 0.0
+
+
 class DeltaEncodeOut(NamedTuple):
     delta: torch.Tensor   # sparse delta vector (exact value where fired)
     state: DeltaState     # updated state memory
@@ -43,10 +76,12 @@ def delta_encode(s: torch.Tensor, state: DeltaState, theta) -> DeltaEncodeOut:
     """Eq. 2: threshold-gated delta encoding of one timestep.
 
     ``theta`` is a scalar, a 0-d tensor or a broadcastable tensor (>= 0);
-    ``theta == 0`` degenerates to plain differencing.
+    ``theta == 0`` degenerates to plain differencing (a :class:`StepTheta`
+    of 0 fires NaN differences too).
     """
     raw = s - state.memory
-    fired = torch.abs(raw) >= theta
+    fired = (torch.ones_like(raw, dtype=torch.bool) if fires_all(theta)
+             else torch.abs(raw) >= theta)
     delta = torch.where(fired, raw, torch.zeros_like(raw))
     new_memory = torch.where(fired, s, state.memory)
     return DeltaEncodeOut(delta=delta, state=DeltaState(new_memory),

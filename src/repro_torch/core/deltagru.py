@@ -142,18 +142,21 @@ class DeltaGruStepOut(NamedTuple):
     counts: tuple = ()      # the Delta Unit's count rows (kernel backends)
 
 
-def layer_delta_unit(params, state, x, theta_x, theta_h, act_grid=None):
+def layer_delta_unit(params, state, x, theta_x, theta_h, act_grid=None,
+                     guard=None):
     """Eq. 2 on a GRU / LSTM layer's input ``x`` and hidden state through
     one :func:`repro_torch.kernels.ops.delta_unit` launch (batch dims
     flattened): ``((dx, x_mem), (dh, h_mem), counts)``, the deltas and
-    memories in the state's lead shape."""
+    memories in the state's lead shape. ``guard``: ``x`` is the raw frame,
+    guarded in the launch (:class:`repro_torch.kernels.delta_unit.
+    FrameGuard`)."""
     from repro_torch.kernels import ops
     h_dim, i_dim = params.hidden_size, params.input_size
     lead = state.h.shape[:-1]
     (xo,), (ho,), counts = ops.delta_unit(
         [(x.reshape(-1, i_dim), state.x_mem.memory.reshape(-1, i_dim))],
         [(state.h.reshape(-1, h_dim), state.h_mem.memory.reshape(-1, h_dim))],
-        theta_x, theta_h, act_grid=act_grid)
+        theta_x, theta_h, act_grid=act_grid, guard=guard)
     return (tuple(t.reshape(*lead, i_dim) for t in xo),
             tuple(t.reshape(*lead, h_dim) for t in ho), counts)
 
@@ -207,7 +210,7 @@ def _step_dense(params, state, x, theta_x, theta_h, *, layout,
 
 
 def _step_fused(params, state, x, theta_x, theta_h, *, layout,
-                sigmoid=torch.sigmoid, tanh=torch.tanh):
+                sigmoid=torch.sigmoid, tanh=torch.tanh, guard=None):
     from repro_torch.kernels import deltagru_seq as _seq
     require_default_acts(sigmoid, tanh, "fused backend hard-codes the "
                          "Fig. 7 activation pipeline; pass backend='dense' "
@@ -216,11 +219,11 @@ def _step_fused(params, state, x, theta_x, theta_h, *, layout,
         layout = _seq.pack_gru_layer(params.w_x, params.w_h)
     return _kernel_layer_step(_seq.deltagru_seq_step, layout, params, state,
                               *layer_delta_unit(params, state, x, theta_x,
-                                                theta_h))
+                                                theta_h, guard=guard))
 
 
 def _step_fused_quant(bits: int, params, state, x, theta_x, theta_h, *,
-                      layout, sigmoid, tanh):
+                      layout, sigmoid, tanh, guard=None):
     from repro_torch.kernels import delta_q8 as _q8
     require_default_acts(sigmoid, tanh, quant_acts_message(f"fused_q{bits}"))
     if layout is None:
@@ -230,21 +233,24 @@ def _step_fused_quant(bits: int, params, state, x, theta_x, theta_h, *,
     # inputs are already on-grid hidden states; re-rounding is exact).
     return _kernel_layer_step(_q8.deltagru_q8_step, layout, params, state,
                               *layer_delta_unit(params, state, x, theta_x,
-                                                theta_h, layout.act_grid))
+                                                theta_h, layout.act_grid,
+                                                guard))
 
 
 def _step_fused_q8(params, state, x, theta_x, theta_h, *, layout,
-                   sigmoid=torch.sigmoid, tanh=torch.tanh):
+                   sigmoid=torch.sigmoid, tanh=torch.tanh, guard=None):
     return _step_fused_quant(8, params, state, x, theta_x, theta_h,
-                             layout=layout, sigmoid=sigmoid, tanh=tanh)
+                             layout=layout, sigmoid=sigmoid, tanh=tanh,
+                             guard=guard)
 
 
 def _step_fused_q4(params, state, x, theta_x, theta_h, *, layout,
-                   sigmoid=torch.sigmoid, tanh=torch.tanh):
+                   sigmoid=torch.sigmoid, tanh=torch.tanh, guard=None):
     """The int4 twin of :func:`_step_fused_q8`; the kernel dispatches on
     ``layout.weight_bits``."""
     return _step_fused_quant(4, params, state, x, theta_x, theta_h,
-                             layout=layout, sigmoid=sigmoid, tanh=tanh)
+                             layout=layout, sigmoid=sigmoid, tanh=tanh,
+                             guard=guard)
 
 
 _step_fused_batch = batched_step("fused_batch", _step_fused)
@@ -282,34 +288,40 @@ register_backend(BackendSpec(
     m_init="bias", weight_bits=32))
 register_backend(BackendSpec(
     name="fused", cell="gru", pack=_pack_fused, step=_step_fused,
-    m_init="bias", weight_bits=32))
+    m_init="bias", weight_bits=32,
+    frame_guard=True))
 register_backend(BackendSpec(
     name="fused_q8", cell="gru", pack=_pack_fused_q8, step=_step_fused_q8,
-    m_init="zero", weight_bits=8))
+    m_init="zero", weight_bits=8,
+    frame_guard=True))
 # Batched tiles share their parent's pack fn (and so its layouts and m_init),
 # so DeltaProgram.with_backend swaps between the pair without repacking.
 register_backend(BackendSpec(
     name="fused_batch", cell="gru", pack=_pack_fused,
     step=_step_fused_batch, m_init="bias", weight_bits=32,
-    weight_fetch="tile"))
+    weight_fetch="tile",
+    frame_guard=True))
 register_backend(BackendSpec(
     name="fused_q8_batch", cell="gru", pack=_pack_fused_q8,
     step=_step_fused_q8_batch, m_init="zero", weight_bits=8,
-    weight_fetch="tile"))
+    weight_fetch="tile",
+    frame_guard=True))
 register_backend(BackendSpec(
     name="fused_q4", cell="gru", pack=_pack_fused_q4, step=_step_fused_q4,
-    m_init="zero", weight_bits=4))
+    m_init="zero", weight_bits=4,
+    frame_guard=True))
 register_backend(BackendSpec(
     name="fused_q4_batch", cell="gru", pack=_pack_fused_q4,
     step=_step_fused_q4_batch, m_init="zero", weight_bits=4,
-    weight_fetch="tile"))
+    weight_fetch="tile",
+    frame_guard=True))
 
 
 def deltagru_step(params: GruLayerParams, state: DeltaGruLayerState,
                   x: torch.Tensor, theta_x, theta_h,
                   sigmoid: Callable = torch.sigmoid,
                   tanh: Callable = torch.tanh, backend: str = "dense",
-                  layout=None) -> DeltaGruStepOut:
+                  layout=None, guard=None) -> DeltaGruStepOut:
     """One DeltaGRU timestep (Eq. 3) through the backend registry.
 
     ``state`` must follow the backend's ``m_init`` convention (``"zero"``
@@ -320,8 +332,9 @@ def deltagru_step(params: GruLayerParams, state: DeltaGruLayerState,
     on ``dense`` only; every kernel backend raises ``ValueError``.
     """
     spec = get_backend(backend, cell="gru")
+    guarded = {} if guard is None else {"guard": guard}
     return spec.step(params, state, x, theta_x, theta_h, layout=layout,
-                     sigmoid=sigmoid, tanh=tanh)
+                     sigmoid=sigmoid, tanh=tanh, **guarded)
 
 
 # ---------------------------------------------------------------------------
@@ -349,10 +362,12 @@ def deltagru_stack_step(params: Sequence[GruLayerParams],
                         state: DeltaGruStackState, x: torch.Tensor,
                         theta_x, theta_h, backend: str = "dense",
                         layouts=None, sigmoid: Callable = torch.sigmoid,
-                        tanh: Callable = torch.tanh):
+                        tanh: Callable = torch.tanh, guard=None):
     """One timestep through all layers. The input threshold of layers >= 2
     applies to the previous layer's output stream. ``theta_x`` /
-    ``theta_h`` are scalars, 0-d tensors or per-layer tuples."""
+    ``theta_h`` are scalars, 0-d tensors or per-layer tuples. ``guard``
+    (a backend with ``frame_guard``): ``x`` is the raw frame, guarded by
+    layer 0's Delta Unit."""
     new_layers = []
     deltas = []
     inp = x
@@ -360,7 +375,8 @@ def deltagru_stack_step(params: Sequence[GruLayerParams],
         out = deltagru_step(
             p, st, inp, layer_theta(theta_x, li), layer_theta(theta_h, li),
             sigmoid=sigmoid, tanh=tanh, backend=backend,
-            layout=layouts[li] if layouts is not None else None)
+            layout=layouts[li] if layouts is not None else None,
+            guard=guard if li == 0 else None)
         new_layers.append(out.state)
         deltas.append(LayerDeltas(out.delta_x, out.delta_h, out.counts))
         inp = out.h

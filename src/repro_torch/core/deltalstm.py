@@ -176,7 +176,7 @@ def _step_dense(params, state, x, theta_x, theta_h, *, layout,
 
 
 def _step_fused(params, state, x, theta_x, theta_h, *, layout,
-                sigmoid=torch.sigmoid, tanh=torch.tanh):
+                sigmoid=torch.sigmoid, tanh=torch.tanh, guard=None):
     from repro_torch.kernels import deltalstm_seq as _seq
     require_default_acts(sigmoid, tanh, "fused backend hard-codes the "
                          "i/f/g/o activation pipeline; pass "
@@ -185,11 +185,11 @@ def _step_fused(params, state, x, theta_x, theta_h, *, layout,
         layout = _seq.pack_lstm_layer(params.w_x, params.w_h)
     return _kernel_layer_step(_seq.deltalstm_seq_step, layout, params, state,
                               *layer_delta_unit(params, state, x, theta_x,
-                                                theta_h))
+                                                theta_h, guard=guard))
 
 
 def _step_fused_quant(bits: int, params, state, x, theta_x, theta_h, *,
-                      layout, sigmoid, tanh):
+                      layout, sigmoid, tanh, guard=None):
     from repro_torch.kernels import delta_q8 as _q8
     require_default_acts(sigmoid, tanh, quant_acts_message(f"fused_q{bits}"))
     if layout is None:
@@ -200,21 +200,24 @@ def _step_fused_quant(bits: int, params, state, x, theta_x, theta_h, *,
     # inputs are already on-grid hidden states; re-rounding is exact).
     return _kernel_layer_step(_q8.deltalstm_q8_step, layout, params, state,
                               *layer_delta_unit(params, state, x, theta_x,
-                                                theta_h, layout.act_grid))
+                                                theta_h, layout.act_grid,
+                                                guard))
 
 
 def _step_fused_q8(params, state, x, theta_x, theta_h, *, layout,
-                   sigmoid=torch.sigmoid, tanh=torch.tanh):
+                   sigmoid=torch.sigmoid, tanh=torch.tanh, guard=None):
     return _step_fused_quant(8, params, state, x, theta_x, theta_h,
-                             layout=layout, sigmoid=sigmoid, tanh=tanh)
+                             layout=layout, sigmoid=sigmoid, tanh=tanh,
+                             guard=guard)
 
 
 def _step_fused_q4(params, state, x, theta_x, theta_h, *, layout,
-                   sigmoid=torch.sigmoid, tanh=torch.tanh):
+                   sigmoid=torch.sigmoid, tanh=torch.tanh, guard=None):
     """The int4 twin of :func:`_step_fused_q8`; the kernel dispatches on
     ``layout.weight_bits``."""
     return _step_fused_quant(4, params, state, x, theta_x, theta_h,
-                             layout=layout, sigmoid=sigmoid, tanh=tanh)
+                             layout=layout, sigmoid=sigmoid, tanh=tanh,
+                             guard=guard)
 
 
 _step_fused_batch = batched_step("fused_batch", _step_fused)
@@ -252,27 +255,33 @@ register_backend(BackendSpec(
     m_init="bias", weight_bits=32))
 register_backend(BackendSpec(
     name="fused", cell="lstm", pack=_pack_fused, step=_step_fused,
-    m_init="bias", weight_bits=32))
+    m_init="bias", weight_bits=32,
+    frame_guard=True))
 register_backend(BackendSpec(
     name="fused_q8", cell="lstm", pack=_pack_fused_q8, step=_step_fused_q8,
-    m_init="zero", weight_bits=8))
+    m_init="zero", weight_bits=8,
+    frame_guard=True))
 # Batched tiles share their parent's pack fn (and so its layouts and m_init),
 # so DeltaProgram.with_backend swaps between the pair without repacking.
 register_backend(BackendSpec(
     name="fused_batch", cell="lstm", pack=_pack_fused,
     step=_step_fused_batch, m_init="bias", weight_bits=32,
-    weight_fetch="tile"))
+    weight_fetch="tile",
+    frame_guard=True))
 register_backend(BackendSpec(
     name="fused_q8_batch", cell="lstm", pack=_pack_fused_q8,
     step=_step_fused_q8_batch, m_init="zero", weight_bits=8,
-    weight_fetch="tile"))
+    weight_fetch="tile",
+    frame_guard=True))
 register_backend(BackendSpec(
     name="fused_q4", cell="lstm", pack=_pack_fused_q4, step=_step_fused_q4,
-    m_init="zero", weight_bits=4))
+    m_init="zero", weight_bits=4,
+    frame_guard=True))
 register_backend(BackendSpec(
     name="fused_q4_batch", cell="lstm", pack=_pack_fused_q4,
     step=_step_fused_q4_batch, m_init="zero", weight_bits=4,
-    weight_fetch="tile"))
+    weight_fetch="tile",
+    frame_guard=True))
 
 
 def lstm_stack_m_init(backend: str) -> str:
@@ -284,15 +293,16 @@ def deltalstm_step(params: LstmLayerParams, state: DeltaLstmLayerState,
                    x: torch.Tensor, theta_x, theta_h,
                    sigmoid: Callable = torch.sigmoid,
                    tanh: Callable = torch.tanh, backend: str = "dense",
-                   layout=None) -> DeltaLstmStepOut:
+                   layout=None, guard=None) -> DeltaLstmStepOut:
     """One DeltaLSTM timestep through the ``cell="lstm"`` registry.
     ``state`` must follow the backend's ``m_init`` convention; ``layout``
     is the pre-packed layer (packed on the fly otherwise). Custom
     ``sigmoid`` / ``tanh`` run on ``dense`` only; the kernel backends
     raise ``ValueError``."""
     spec = get_backend(backend, cell="lstm")
+    guarded = {} if guard is None else {"guard": guard}
     return spec.step(params, state, x, theta_x, theta_h, layout=layout,
-                     sigmoid=sigmoid, tanh=tanh)
+                     sigmoid=sigmoid, tanh=tanh, **guarded)
 
 
 # ---------------------------------------------------------------------------
@@ -316,9 +326,10 @@ def deltalstm_stack_step(params: Sequence[LstmLayerParams],
                          state: DeltaLstmStackState, x: torch.Tensor,
                          theta_x, theta_h, backend: str = "dense",
                          layouts=None, sigmoid: Callable = torch.sigmoid,
-                         tanh: Callable = torch.tanh):
+                         tanh: Callable = torch.tanh, guard=None):
     """One timestep through all layers; the input threshold of layers >= 2
-    applies to the previous layer's output stream, as in the GRU stack."""
+    applies to the previous layer's output stream, as in the GRU stack
+    (``guard`` too)."""
     new_layers = []
     deltas = []
     inp = x
@@ -326,7 +337,8 @@ def deltalstm_stack_step(params: Sequence[LstmLayerParams],
         out = deltalstm_step(
             p, st, inp, layer_theta(theta_x, li), layer_theta(theta_h, li),
             sigmoid=sigmoid, tanh=tanh, backend=backend,
-            layout=layouts[li] if layouts is not None else None)
+            layout=layouts[li] if layouts is not None else None,
+            guard=guard if li == 0 else None)
         new_layers.append(out.state)
         deltas.append(LayerDeltas(out.delta_x, out.delta_h, out.counts))
         inp = out.h

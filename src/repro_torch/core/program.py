@@ -151,13 +151,17 @@ class DeltaProgram:
     # -- execution --------------------------------------------------------
 
     def step(self, state: DeltaProgramState, x: torch.Tensor,
-             theta_x=0.0, theta_h=0.0):
+             theta_x=0.0, theta_h=0.0, guard=None):
         """One timestep through all layers: ``(y, new_state, deltas)`` with
-        ``deltas`` the per-layer sparse ``(delta_x, delta_h)`` pairs."""
+        ``deltas`` the per-layer sparse ``(delta_x, delta_h)`` pairs.
+        ``guard`` (a :class:`repro_torch.kernels.delta_unit.FrameGuard`, on
+        a backend whose spec has ``frame_guard``): ``x`` is the raw frame,
+        guarded by layer 0's Delta Unit launch."""
         self.check_state(state)
+        guarded = {} if guard is None else {"guard": guard}
         y, stack, deltas = _cell_ops(self.cell)["step"](
             self.layers, state.stack, x, theta_x, theta_h,
-            backend=self.backend, layouts=self.layouts)
+            backend=self.backend, layouts=self.layouts, **guarded)
         return y, DeltaProgramState(stack=stack, backend=self.backend,
                                     cell=self.cell), deltas
 

@@ -9,65 +9,69 @@
 // and every carry entry but theta_h updated in place: the per-slot sums
 // (fired_x, fired_h, lat_s, w_bytes, poison_steps, bad_state), the
 // lifetime aggregates (the slots' means, the union terms, the poison and
-// bad-state totals) and last_x (the guarded frame).
+// bad-state totals) and last_x (the guarded frame, unless the Delta Unit
+// wrote it).
 //
 // Replaces no Pallas kernel: the JAX engine runs this as XLA fusions of
 // its jitted step (src/repro/serve/engine.py:315 _one_step, jitted at
-// :468). Before this kernel the port ran it as ~90 small PyTorch kernels a
-// 2-layer step (a non-finite scan of each leaf, the fractions, the terms).
+// :468).
 //
 // What bounds it on this card: the launch, and at the LM widths the
 // non-finite scan's bytes (RWKV6 at 24 layers holds 12.6 MB of state a
-// slot, 3.8 us at 3.35 TB/s). The design: phase 1 spreads the scan over the
-// grid, one block a chunk of 4096 elements of one leaf row, the leaves
-// taken from a table of pointers, row lengths and row strides passed by
-// value (built once a capture: a captured graph keeps its kernel's
-// arguments, and the engine's leaves are its graph's own fixed buffers);
-// a row that holds a non-finite value sets its slot's flag with an atomic
-// OR. The grid also copies the guarded frame into last_x. The last block
-// to finish (a ticket counter) runs phase 2 for at most 1024 slots: its
-// threads sum the Delta Unit's count rows (exact integers) of each layer,
-// group and slot in parallel into a scratch of fractions, then one thread
-// a slot adds its layers' fractions and updates the slot's sums, and
-// thread 0 adds the aggregates in slot order. Every float operation is rounded on its own
-// in the order the plain version's ops take (no fused multiply-add; the
-// sums over layers and slots run in index order, where PyTorch's reduce
-// may pair them otherwise: R5's 1e-6 relative bound covers the sums over
-// more than two terms). The flags and the ticket live in a workspace of
-// N + 1 ints that the launch finds zero and leaves zero, so nothing is
-// cleared before it.
+// slot, 3.8 us at 3.35 TB/s). The design takes the dependent round trips
+// out of the launch's path:
+// * The tables (each leaf's pointer, row length, row stride and first scan
+//   item; each count tensor's pointer, rows, layer and first entry; each
+//   layer's 1 / columns) lie in device memory, written once a capture, so
+//   the arguments stay a few hundred bytes for any engine. Each block
+//   reads the table it needs into shared memory while the kernel before
+//   it drains, and looks a scan item's leaf up there.
+// * Block 0 is the accountant; the other blocks scan. Before the scan is
+//   done, block 0 loads finite, the per-slot sums and the aggregates into
+//   registers. The scanners sum the Delta Unit's count rows (exact integer
+//   atomics) into a workspace of N + 1 + 2 L (N + 1) ints (found zero,
+//   left zero), set the flag of a slot whose row holds a non-finite value
+//   there, and add one to its int N, the ticket, which block 0 waits for
+//   (no scanner waits on anything, so every order of the blocks on the
+//   card finishes); block 0 turns the sums into each slot's layer-mean
+//   firing fractions in its shared memory.
+// * Each scanner has kGroup scan items (chunks of 4096 elements of a leaf
+//   row) in flight at a time; the grid has a scanner an item, up to two
+//   blocks an SM.
+// * The sums over slots are a fixed-order tree in shared memory (v[i] +=
+//   v[i + s], s halving from the power of two below N), deterministic
+//   from run to run (tree_sum_ref in kernels/engine_epilogue.py is its
+//   plain twin).
+// * A programmatic dependent launch: the shared memory's set-up runs
+//   while the kernel before it drains; griddepcontrol.wait comes before
+//   the first read of the operands.
+// Every float operation is rounded on its own in the order the plain
+// version's ops take (no fused multiply-add; the sums over layers run in
+// layer order, where PyTorch's reduce may pair them otherwise: R5's 1e-6
+// relative bound covers the sums over more than two terms).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 4096;      // elements of a leaf row a block scans
+constexpr int kThreads = 512;
+constexpr int kChunk = 4096;      // elements of a leaf row a scan item
+constexpr int kPerThread = kChunk / kThreads;  // of an item, a thread's
+constexpr int kGroup = 4;         // scan items a scanner has in flight
 constexpr int kMaxN = 1024;
+constexpr int kSlots = kMaxN / kThreads;  // slots a thread of block 0
 constexpr int kPer = 6;           // per-slot carry entries
 constexpr int kAgg = 10;          // aggregate carry entries
+constexpr int kLeafWords = 4;     // ptr, row, ld, item0 * 2 + vec
+constexpr int kCountWords = 4;    // ptr, rows, layer, entry0
+constexpr long long kSpinMax = 1LL << 26;
 
-// The tables' capacity: a small instance whose argument block stays under
-// the 4 KB that a launch carries at no extra cost (a 2- to 8-layer GRU /
-// LSTM engine: 8 leaves and 2 count tensors a 2-layer step), and a large
-// one for the LM cells (RWKV6: 240 leaves, 24 count tensors), ~25 KB of
-// arguments, which CUDA 12.1 and later pass at a few us more a launch.
-template <int kLeaves, int kCounts, int kLayers>
 struct Args {
-  static constexpr int max_leaves = kLeaves, max_counts = kCounts,
-                       max_layers = kLayers;
-  int N, I, L, n_leaves, items;
-  const float* leaf[kLeaves];
-  int row[kLeaves];
-  int ld[kLeaves];
-  int item0[kLeaves + 1];
-  const int* cnt[kCounts];
-  int cnt_rows[kCounts];
-  int cnt_first[kLayers + 1];  // count tensors of layer l: [first[l], first[l+1])
-  float inv_cols[kLayers][2];
+  int N, I, L, n_leaves, n_counts, items, entries;
+  const long long* table;  // leaves, then counts, then layers' 1 / cols
   float inv_L, inv_N, xvol, hvol, inv_rate, wbits;
-  const float* x;
+  const float* x;          // the guarded frame, or null: last_x holds it
   const bool* finite;
   float* last_x;
   float* per[kPer];  // fired_x, fired_h, lat_s, w_bytes, poison_steps, bad_state
@@ -75,183 +79,339 @@ struct Args {
                      // agg_ufired_x, agg_ufired_h, agg_tile_lat_s,
                      // agg_tile_w_bytes, agg_poison_steps, agg_bad_state
   float* fh_mean;
-  int* ws;           // [N] flags, [N] the ticket
-  float* frac;       // [L, 2, N + 1] scratch: each layer's fractions
+  int* ws;           // [N] flags, [1] the ticket, [L, 2, N + 1] the count
+                     // sums
 };
-using SmallArgs = Args<48, 16, 16>;
-using LargeArgs = Args<1024, 256, 128>;
-static_assert(sizeof(SmallArgs) <= 4096, "the small instance's arguments");
 
 // surviving MACs of Eq. 7 at firing fractions (fx, fh), as the plain version
 // spells it: gamma = 1 - f, then 1 - gamma
-template <class A>
-__device__ __forceinline__ float surviving(const A& a, float fx, float fh) {
+__device__ __forceinline__ float surviving(const Args& a, float fx, float fh) {
   const float gx = __fsub_rn(1.0f, fx), gh = __fsub_rn(1.0f, fh);
   return __fadd_rn(__fmul_rn(a.xvol, __fsub_rn(1.0f, gx)),
                    __fmul_rn(a.hvol, __fsub_rn(1.0f, gh)));
 }
 
-template <class A>
-__device__ __forceinline__ float wbytes(const A& a, float surv) {
+__device__ __forceinline__ float wbytes(const Args& a, float surv) {
   return __fmul_rn(__fmul_rn(surv, a.wbits), 0.125f);
 }
 
-// each layer's firing fraction, count / cols, of every slot n (n == N: the
-// union column) and group g, into frac[(l * 2 + g) * (N + 1) + n]: the
-// block's threads take the (l, g, n) entries in turn, each summing its
-// layer's count rows of group g (exact integers)
-template <class A>
-__device__ void layer_fractions(const A& a, float* frac) {
-  const int N = a.N, w = N + 2, total = a.L * 2 * (N + 1);
-  for (int i = threadIdx.x; i < total; i += kThreads) {
-    const int n = i % (N + 1), g = (i / (N + 1)) & 1, l = i / (2 * (N + 1));
-    int c = 0;
-    for (int t = a.cnt_first[l]; t < a.cnt_first[l + 1]; ++t) {
-      const int* rows = a.cnt[t];
-      for (int r = 0; r < a.cnt_rows[t]; ++r) {
-        const int* row = rows + (size_t)r * w;
-        c += row[N + 1] == g ? row[n] : 0;
+__device__ __forceinline__ int sums_words(int L, int N) {
+  return max(L * 2 * (N + 1), kPer * N);
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Scan the items (leaf rows in chunks of kChunk) of scanner `s` of `S`,
+// the leaf table in shared memory, kGroup items at a time with their loads
+// in flight together; the flag of a slot whose chunk holds a non-finite
+// value is set in the workspace. Also copies the guarded frame into
+// last_x.
+__device__ void scan(const Args& a, const long long* leaves, int s, int S) {
+  if (a.x != nullptr) {
+    const size_t nx = (size_t)a.N * a.I;
+    for (size_t i = (size_t)s * kThreads + threadIdx.x; i < nx;
+         i += (size_t)S * kThreads)
+      a.last_x[i] = a.x[i];
+  }
+  for (int base = s; base < a.items; base += kGroup * S) {
+    float v[kGroup][kPerThread];
+    int slot[kGroup];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      const int item = base + g * S;
+      slot[g] = -1;
+#pragma unroll
+      for (int k = 0; k < kPerThread; ++k) v[g][k] = 0.0f;
+      if (item >= a.items) continue;
+      int lo = 0, hi = a.n_leaves - 1;  // the last leaf whose items start
+      while (lo < hi) {                 // at or before the item
+        const int mid = (lo + hi + 1) >> 1;
+        if ((int)(leaves[mid * kLeafWords + 3] >> 1) <= item) lo = mid;
+        else hi = mid - 1;
+      }
+      const long long* lf = leaves + lo * kLeafWords;
+      const int row = (int)lf[1];
+      const int chunks = (row + kChunk - 1) / kChunk;
+      const int local = item - (int)(lf[3] >> 1);
+      const int n = local / chunks, c = local % chunks;
+      const float* p = (const float*)lf[0] + (size_t)n * lf[2] +
+                       (size_t)c * kChunk;
+      const int len = min(kChunk, row - c * kChunk);
+      slot[g] = n;
+      if (lf[3] & 1) {  // 16-byte aligned rows: four floats a load
+#pragma unroll
+        for (int q = 0; q < kPerThread / 4; ++q) {
+          const int e = 4 * (threadIdx.x + q * kThreads);
+          if (e + 3 < len) {
+            const float4 x = *(const float4*)(p + e);
+            v[g][4 * q] = x.x, v[g][4 * q + 1] = x.y;
+            v[g][4 * q + 2] = x.z, v[g][4 * q + 3] = x.w;
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (e + i < len) v[g][4 * q + i] = p[e + i];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPerThread; ++k) {
+          const int e = threadIdx.x + k * kThreads;
+          if (e < len) v[g][k] = p[e];
+        }
       }
     }
-    frac[i] = __fmul_rn((float)c, a.inv_cols[l][g]);
-  }
-}
-
-// the layer-mean firing fraction of slot n (n == N: the union column) of
-// group g: sum over layers of count / cols, in layer order, times 1 / L
-template <class A>
-__device__ float layer_mean(const A& a, const float* frac, int n, int g) {
-  float f = 0.0f;
-  for (int l = 0; l < a.L; ++l) {
-    const float fl = frac[(l * 2 + g) * (a.N + 1) + n];
-    f = l == 0 ? fl : __fadd_rn(f, fl);
-  }
-  return __fmul_rn(f, a.inv_L);
-}
-
-template <class A>
-__global__ void __launch_bounds__(kThreads)
-    engine_epilogue_kernel(const __grid_constant__ A a) {
-  __shared__ float s_fx[kMaxN], s_fh[kMaxN], s_lat[kMaxN], s_wb[kMaxN],
-      s_poison[kMaxN], s_bad[kMaxN];
-  __shared__ int is_last;
-  const int N = a.N;
-
-  // phase 1: last_x, and the non-finite flags over the leaves' rows
-  const size_t nx = (size_t)N * a.I;
-  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < nx;
-       i += (size_t)gridDim.x * kThreads)
-    a.last_x[i] = a.x[i];
-  for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
-    int lo = 0, hi = a.n_leaves - 1;  // the last leaf whose items start <= item
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (a.item0[mid] <= item) lo = mid; else hi = mid - 1;
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      bool bad = false;
+#pragma unroll
+      for (int k = 0; k < kPerThread; ++k) bad |= !isfinite(v[g][k]);
+      if (bad) atomicOr(&a.ws[slot[g]], 1);
     }
-    const int row = a.row[lo];
-    const int chunks = (row + kChunk - 1) / kChunk;
-    const int local = item - a.item0[lo];
-    const int n = local / chunks, c = local % chunks;
-    const float* p = a.leaf[lo] + (size_t)n * a.ld[lo] + (size_t)c * kChunk;
-    const int len = min(kChunk, row - c * kChunk);
-    int bad = 0;
-    for (int e = threadIdx.x; e < len; e += kThreads) bad |= !isfinite(p[e]);
-    if (__syncthreads_or(bad) && threadIdx.x == 0) atomicOr(&a.ws[n], 1);
+  }
+}
+
+// The Delta Unit's count rows, entries first, first + stride, ... (an
+// entry: one slot's count, or the union's, of one count row), each added
+// into the workspace's sums[(l * 2 + g) * (N + 1) + n] (exact integers),
+// kGroup entries' loads in flight at a time.
+__device__ void count_entries(const Args& a, const long long* ctab,
+                              int first, int stride) {
+  int* sums = a.ws + a.N + 1;
+  const int N = a.N, W = N + 1;
+  for (int e0 = first; e0 < a.entries; e0 += kGroup * stride) {
+    int v[kGroup], at[kGroup];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      const int e = e0 + g * stride;
+      v[g] = 0, at[g] = 0;
+      if (e >= a.entries) continue;
+      int lo = 0, hi = a.n_counts - 1;  // the last tensor whose entries <= e
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if ((int)ctab[mid * kCountWords + 3] <= e) lo = mid;
+        else hi = mid - 1;
+      }
+      const long long* ct = ctab + lo * kCountWords;
+      const int local = e - (int)ct[3];
+      const int r = local / W, n = local % W;
+      const int* row = (const int*)ct[0] + (size_t)r * (N + 2);
+      v[g] = row[n];
+      at[g] = ((int)ct[2] * 2 + row[N + 1]) * W + n;
+    }
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g)
+      if (v[g]) atomicAdd(&sums[at[g]], v[g]);
+  }
+}
+
+// Each slot's layer-mean firing fraction of each group into
+// frac[g * (N + 1) + n] (n == N: the union column), from the sums and each
+// layer's (1 / input columns, 1 / hidden columns) in inv.
+__device__ void fractions(const Args& a, const int* sums, const float2* inv,
+                          float* frac) {
+  const int W = a.N + 1;
+  for (int i = threadIdx.x; i < 2 * W; i += kThreads) {
+    const int g = i / W, n = i % W;
+    float f = 0.0f;
+    for (int l = 0; l < a.L; ++l) {
+      const float2 ic = inv[l];
+      const float fl =
+          __fmul_rn((float)sums[(l * 2 + g) * W + n], g ? ic.y : ic.x);
+      f = l == 0 ? fl : __fadd_rn(f, fl);
+    }
+    frac[i] = __fmul_rn(f, a.inv_L);
+  }
+}
+
+// v[j * n] = the tree sum of v[j * n .. j * n + n), each j < kPer:
+// v[i] += v[i + s] for s halving from the largest power of two below n
+// (block-wide, a barrier a level)
+__device__ void tree_sums(float* v, int n) {
+  int s = 1;
+  while (2 * s < n) s *= 2;
+  for (; s >= 1; s >>= 1) {
+    for (int t = threadIdx.x; t < kPer * s; t += kThreads) {
+      const int j = t / s, i = t % s;
+      if (i + s < n) v[j * n + i] = __fadd_rn(v[j * n + i], v[j * n + i + s]);
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    engine_epilogue_kernel(const __grid_constant__ Args a) {
+  extern __shared__ long long smem[];
+  const int N = a.N, W = N + 1;
+  // shared memory: the leaf and count tables (the scanners'); block 0's
+  // layers' 1 / columns, sums (then the tree's terms) and fractions
+  long long* ltab = smem;
+  long long* ctab = ltab + a.n_leaves * kLeafWords;
+  float2* inv = (float2*)(ctab + a.n_counts * kCountWords);
+  int* sums = (int*)(inv + a.L);
+  float* red = (float*)sums;
+  float* frac = (float*)(sums + sums_words(a.L, N));
+  const int b = blockIdx.x;
+
+  // the tables are no operand of the kernel before this one: they are
+  // read while it drains
+  if (b == 0) {
+    const float2* layers = (const float2*)(a.table + a.n_leaves * kLeafWords +
+                                           a.n_counts * kCountWords);
+    for (int i = threadIdx.x; i < a.L; i += kThreads) inv[i] = layers[i];
+  } else {
+    const int words = a.n_leaves * kLeafWords + a.n_counts * kCountWords;
+    for (int i = threadIdx.x; i < words; i += kThreads) ltab[i] = a.table[i];
+  }
+  __syncthreads();
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+
+  if (b != 0) {
+    const int S = (int)gridDim.x - 1;
+    count_entries(a, ctab, (b - 1) * kThreads + threadIdx.x, S * kThreads);
+    scan(a, ltab, b - 1, S);
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) atomicAdd(&a.ws[N], 1);
+    return;
   }
 
-  // the last block to arrive runs phase 2
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(&a.ws[N], 1) == gridDim.x - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
+  // block 0: what does not depend on the scan first, its loads issued
+  // before the wait on the ticket
+  float per[kSlots][kPer];
+  bool fin[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int n = threadIdx.x + k * kThreads;
+    fin[k] = true;
+    if (n < N) {
+      fin[k] = a.finite[n];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) per[k][j] = a.per[j][n];
+    }
+  }
+  float agg[kAgg];
+  if (threadIdx.x == 0)
+#pragma unroll
+    for (int k = 0; k < kAgg; ++k) agg[k] = *a.agg[k];
 
-  layer_fractions(a, a.frac);
+  if (threadIdx.x == 0) {
+    long long spins = 0;
+    while (load_acquire(&a.ws[N]) != (int)gridDim.x - 1) {
+      __nanosleep(32);
+      if (++spins > kSpinMax) __trap();
+    }
+  }
   __syncthreads();
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    const float bad = atomicExch(&a.ws[n], 0) ? 1.0f : 0.0f;
-    const float fx = layer_mean(a, a.frac, n, 0);
-    const float fh = layer_mean(a, a.frac, n, 1);
+  // the scanners' sums, taken and left zero
+  for (int i = threadIdx.x; i < a.L * 2 * W; i += kThreads)
+    sums[i] = atomicExch(&a.ws[N + 1 + i], 0);
+  __syncthreads();
+  fractions(a, sums, inv, frac);
+  __syncthreads();   // the fractions' sums are read: red may take them
+
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int n = threadIdx.x + k * kThreads;
+    if (n >= N) continue;
+    const int flag = atomicExch(&a.ws[n], 0);
+    const float bad = flag ? 1.0f : 0.0f;
+    const float fx = frac[n], fh = frac[W + n];
     const float surv = surviving(a, fx, fh);
     const float lat = __fmul_rn(surv, a.inv_rate);
     const float wb = wbytes(a, surv);
-    const float poison = __fsub_rn(1.0f, a.finite[n] ? 1.0f : 0.0f);
-    a.per[0][n] = __fadd_rn(a.per[0][n], fx);
-    a.per[1][n] = __fadd_rn(a.per[1][n], fh);
-    a.per[2][n] = __fadd_rn(a.per[2][n], lat);
-    a.per[3][n] = __fadd_rn(a.per[3][n], wb);
-    a.per[4][n] = __fadd_rn(a.per[4][n], poison);
-    a.per[5][n] = __fadd_rn(a.per[5][n], bad);
-    s_fx[n] = fx, s_fh[n] = fh, s_lat[n] = lat, s_wb[n] = wb;
-    s_poison[n] = poison, s_bad[n] = bad;
+    const float poison = __fsub_rn(1.0f, fin[k] ? 1.0f : 0.0f);
+    const float v[kPer] = {fx, fh, lat, wb, poison, bad};
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      a.per[j][n] = __fadd_rn(per[k][j], v[j]);
+      red[j * N + n] = v[j];
+    }
   }
   __syncthreads();
+  tree_sums(red, N);
   if (threadIdx.x != 0) return;
-  float sum[6] = {0, 0, 0, 0, 0, 0};
-  for (int n = 0; n < N; ++n) {
-    sum[0] = __fadd_rn(sum[0], s_fx[n]);
-    sum[1] = __fadd_rn(sum[1], s_fh[n]);
-    sum[2] = __fadd_rn(sum[2], s_lat[n]);
-    sum[3] = __fadd_rn(sum[3], s_wb[n]);
-    sum[4] = __fadd_rn(sum[4], s_poison[n]);
-    sum[5] = __fadd_rn(sum[5], s_bad[n]);
-  }
-  const float ufx = layer_mean(a, a.frac, N, 0);
-  const float ufh = layer_mean(a, a.frac, N, 1);
+  const float ufx = frac[N], ufh = frac[W + N];
   const float usurv = surviving(a, ufx, ufh);
-  const float add[kAgg] = {__fmul_rn(sum[0], a.inv_N),
-                           __fmul_rn(sum[1], a.inv_N),
-                           __fmul_rn(sum[2], a.inv_N),
-                           __fmul_rn(sum[3], a.inv_N),
+  const float add[kAgg] = {__fmul_rn(red[0], a.inv_N),
+                           __fmul_rn(red[N], a.inv_N),
+                           __fmul_rn(red[2 * N], a.inv_N),
+                           __fmul_rn(red[3 * N], a.inv_N),
                            ufx,
                            ufh,
                            __fmul_rn(usurv, a.inv_rate),
                            wbytes(a, usurv),
-                           sum[4],
-                           sum[5]};
-  for (int k = 0; k < kAgg; ++k) *a.agg[k] = __fadd_rn(*a.agg[k], add[k]);
+                           red[4 * N],
+                           red[5 * N]};
+#pragma unroll
+  for (int k = 0; k < kAgg; ++k) *a.agg[k] = __fadd_rn(agg[k], add[k]);
   *a.fh_mean = add[1];
   a.ws[N] = 0;
 }
 
-template <class A>
-cudaError_t fill_and_launch(
-    A& a, int N, int I, int L, int n_leaves, const uint64_t* leaves,
-    const int* rows, const int* lds, int n_counts, const uint64_t* counts,
-    const int* count_rows, const int* cnt_first, const float* inv_cols,
-    float inv_L, float inv_N, float xvol, float hvol, float inv_rate,
-    float wbits, const uint64_t* io, int grid, cudaStream_t stream) {
-  a.N = N, a.I = I, a.L = L, a.n_leaves = n_leaves;
-  long long items = 0;
-  for (int i = 0; i < n_leaves; ++i) {
-    if (rows[i] < 0 || (rows[i] > 0 && lds[i] < rows[i]))
-      return cudaErrorInvalidValue;
-    a.leaf[i] = (const float*)leaves[i];
-    a.row[i] = rows[i];
-    a.ld[i] = lds[i];
-    a.item0[i] = (int)items;
-    items += (long long)N * ((rows[i] + kChunk - 1) / kChunk);
-    if (items > (1LL << 30)) return cudaErrorInvalidValue;
+// the dynamic shared memory of a launch
+size_t smem_bytes(int L, int N, int n_leaves, int n_counts) {
+  const size_t sums = (size_t)(L * 2 * (N + 1) > kPer * N ? L * 2 * (N + 1)
+                                                          : kPer * N);
+  return ((size_t)n_leaves * kLeafWords + (size_t)n_counts * kCountWords +
+          (size_t)L) * 8 + 4 * sums + 4 * 2 * (N + 1);
+}
+
+cudaError_t launch(const Args& a, int grid, size_t smem,
+                   cudaStream_t stream) {
+  auto kernel = engine_epilogue_kernel;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
   }
-  a.item0[n_leaves] = (int)items;
-  a.items = (int)items;
-  for (int t = 0; t < n_counts; ++t) {
-    if (count_rows[t] < 1) return cudaErrorInvalidValue;
-    a.cnt[t] = (const int*)counts[t];
-    a.cnt_rows[t] = count_rows[t];
-  }
-  if (cnt_first[0] != 0 || cnt_first[L] != n_counts)
-    return cudaErrorInvalidValue;
-  for (int l = 0; l <= L; ++l) {
-    if (l > 0 && cnt_first[l] < cnt_first[l - 1])
-      return cudaErrorInvalidValue;
-    a.cnt_first[l] = cnt_first[l];
-  }
-  for (int l = 0; l < L; ++l) {
-    a.inv_cols[l][0] = inv_cols[2 * l];
-    a.inv_cols[l][1] = inv_cols[2 * l + 1];
-  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
+}  // namespace
+
+// table (device int64 words): n_leaves rows of (pointer, row elements, row
+// stride, first scan item * 2 + 1 where the rows are 16-byte aligned),
+// then n_counts rows of (pointer to int32 [rows, N + 2] count rows, rows,
+// layer, first entry: the rows * (N + 1) of the tensors before it), the
+// tensors in layer order, then L words each of two fp32 (1 / input
+// columns, 1 / hidden columns) of a layer. items: the leaves' scan items
+// (N * ceil(row / 4096) a leaf); entries: the counts' rows * (N + 1).
+// The Eq. 7 constants; io[21]: x (null: last_x already holds the guarded
+// frame), finite (bool), last_x, the six per-slot entries, the ten
+// aggregates, fh_mean, ws (int32 [N + 1 + 2 L (N + 1)], zero, left zero).
+// Launches `grid` blocks (block 0 and grid - 1 scanners) on `stream` as a
+// programmatic dependent launch; returns its error (0 on success), or
+// cudaErrorInvalidValue for arguments it cannot take.
+extern "C" int engine_epilogue_f32(
+    int N, int I, int L, int n_leaves, int n_counts, int items, int entries,
+    const void* table, float inv_L, float inv_N, float xvol, float hvol,
+    float inv_rate, float wbits, const uint64_t* io, int grid,
+    void* stream) {
+  if (N < 1 || N > kMaxN || I < 0 || L < 1 || n_leaves < 0 ||
+      n_counts < 1 || items < 0 || entries < 0 || grid < 2 ||
+      (n_leaves == 0 && items != 0) || table == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(L, N, n_leaves, n_counts);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.N = N, a.I = I, a.L = L, a.n_leaves = n_leaves, a.n_counts = n_counts;
+  a.items = items, a.entries = entries;
+  a.table = (const long long*)table;
   a.inv_L = inv_L, a.inv_N = inv_N, a.xvol = xvol, a.hvol = hvol;
   a.inv_rate = inv_rate, a.wbits = wbits;
   int k = 0;
@@ -262,46 +422,5 @@ cudaError_t fill_and_launch(
   for (int j = 0; j < kAgg; ++j) a.agg[j] = (float*)io[k++];
   a.fh_mean = (float*)io[k++];
   a.ws = (int*)io[k++];
-  a.frac = (float*)io[k++];
-  engine_epilogue_kernel<A><<<grid, kThreads, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// The step's tables (host arrays, copied into the launch's arguments):
-// leaves[n_leaves] (fp32, slot-major: row `rows[i]` elements of slot n at
-// leaves[i] + n * lds[i]); counts[n_counts] (int32 [count_rows[t], N + 2]
-// count rows, in layer order, cnt_first[L + 1] the first of each layer);
-// inv_cols[2 L] (1 / columns of each layer's input and hidden group, as
-// fp32); the Eq. 7 constants; io[22]: x, finite (bool), last_x, the six
-// per-slot entries, the ten aggregates, fh_mean, ws (int32 [N + 1], zero),
-// frac (fp32 [L, 2, N + 1], scratch).
-// Launches `grid` blocks on `stream`; returns cudaGetLastError() (0 on
-// success), or cudaErrorInvalidValue for tables it cannot take.
-extern "C" int engine_epilogue_f32(
-    int N, int I, int L, int n_leaves, const uint64_t* leaves,
-    const int* rows, const int* lds, int n_counts, const uint64_t* counts,
-    const int* count_rows, const int* cnt_first, const float* inv_cols,
-    float inv_L, float inv_N, float xvol, float hvol, float inv_rate,
-    float wbits, const uint64_t* io, int grid, void* stream) {
-  if (N < 1 || N > kMaxN || I < 0 || L < 1 || L > LargeArgs::max_layers ||
-      n_leaves < 0 || n_leaves > LargeArgs::max_leaves || n_counts < 0 ||
-      n_counts > LargeArgs::max_counts || grid < 1)
-    return (int)cudaErrorInvalidValue;
-  static SmallArgs small;
-  static LargeArgs large;  // ~25 KB: kept off the host stack
-  const bool fits = n_leaves <= SmallArgs::max_leaves &&
-                    n_counts <= SmallArgs::max_counts &&
-                    L <= SmallArgs::max_layers;
-  const cudaError_t err =
-      fits ? fill_and_launch(small, N, I, L, n_leaves, leaves, rows, lds,
-                             n_counts, counts, count_rows, cnt_first,
-                             inv_cols, inv_L, inv_N, xvol, hvol, inv_rate,
-                             wbits, io, grid, (cudaStream_t)stream)
-           : fill_and_launch(large, N, I, L, n_leaves, leaves, rows, lds,
-                             n_counts, counts, count_rows, cnt_first,
-                             inv_cols, inv_L, inv_N, xvol, hvol, inv_rate,
-                             wbits, io, grid, (cudaStream_t)stream);
-  return (int)err;
+  return (int)launch(a, grid, smem, (cudaStream_t)stream);
 }

@@ -379,8 +379,9 @@ _AFTER_CAPTURE: list = []     # one record a capture_cuda_graph running
 
 # each capture's arena for the tables its launches read: the fused Adam's
 # rows are 80 bytes a leaf, at most two tables a step (one a parameter
-# dtype); 64 KiB holds 800 leaves (the registry's trees have at most 42)
-TABLE_ARENA_BYTES = 1 << 16
+# dtype); the engine epilogue's ~9 KB at RWKV6's 240 leaves (32 KB at its
+# 1024-leaf limit), one a step of a 16-step chunk graph; 1 MiB holds both
+TABLE_ARENA_BYTES = 1 << 20
 
 
 def table_after_capture(host: torch.Tensor) -> torch.Tensor:
@@ -509,12 +510,14 @@ def rwkv6_chunked(r, k, v, w, u, s0=None, *, chunk: int = 16):
     return y[:, :, :t], s_t
 
 
-def delta_unit(x_streams, h_streams, theta_x, theta_h, *, act_grid=None):
+def delta_unit(x_streams, h_streams, theta_x, theta_h, *, act_grid=None,
+               guard=None):
     """Eq. 2 over a layer step's input and hidden streams in one launch,
-    with the firing counts; :func:`repro_torch.kernels.delta_unit.
-    delta_unit`."""
+    with the firing counts (and the engine's frame guard on layer 0's
+    input); :func:`repro_torch.kernels.delta_unit.delta_unit`."""
     from repro_torch.kernels.delta_unit import delta_unit as _du
-    return _du(x_streams, h_streams, theta_x, theta_h, act_grid=act_grid)
+    return _du(x_streams, h_streams, theta_x, theta_h, act_grid=act_grid,
+               guard=guard)
 
 
 def engine_epilogue(leaves, counts, cols, carry, x, finite, consts,

@@ -54,11 +54,15 @@ shadow: the JAX engine's reset and snapshot dispatches in one.
 merge graph of their direction. These graphs are captured at their first
 use, under the step graphs' capture key; ``session_stats`` counts them.
 
-A step is the frame guard (four small kernels), the program's step (a Delta
-Unit launch and a layer kernel a layer for the GRU / LSTM kernel
-backends: :func:`repro_torch.kernels.ops.delta_unit`), the head and one
-epilogue launch that does the accounting below and updates the carry in
-place (:func:`repro_torch.kernels.ops.engine_epilogue`).
+A step is the program's step (a Delta Unit launch and a layer kernel a
+layer for the GRU / LSTM kernel backends: :func:`repro_torch.kernels.ops.
+delta_unit`), the head and one epilogue launch that does the accounting
+below and updates the carry in place (:func:`repro_torch.kernels.ops.
+engine_epilogue`). The frame guard runs inside layer 0's Delta Unit launch
+on the GRU / LSTM kernel backends (a frame of at most 256 columns); on the
+others it is four small kernels before the step. The host thresholds are
+the step's constants (:class:`repro_torch.core.delta.StepTheta`): at 0
+every element fires, NaN included, as in the reference's jitted step.
 
 ``mean_est_latency_us`` and the other Eq. 7 figures are the modelled
 latencies of the paper's FPGA (:class:`~repro_torch.core.perf_model.
@@ -83,6 +87,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from repro_torch.core.delta import step_thetas
 from repro_torch.core.perf_model import (EDGEDRNN, AcceleratorSpec,
                                          estimate_stack, spec_for_backend)
 from repro_torch.core.program import (DeltaProgram, DeltaProgramState,
@@ -93,8 +98,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import current_mesh
 from repro_torch.ft import checkpoint as ft_checkpoint
 from repro_torch.kernels import ops
-from repro_torch.kernels.delta_unit import count_rows_ref
-from repro_torch.kernels.engine_epilogue import EpilogueConsts
+from repro_torch.kernels.delta_unit import (FrameGuard, count_rows_ref,
+                                            guard_fits)
+from repro_torch.kernels.engine_epilogue import (EpilogueConsts,
+                                                 epilogue_workspace_words)
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.gru_rnn import GruTaskConfig
@@ -441,8 +448,11 @@ class DeltaStreamEngine:
         self._ys = torch.zeros((CHUNK_STEPS[0], n_streams,
                                 program.head.shape[-1]),
                                dtype=torch.float32, device=self.device)
-        self._epilogue_ws = torch.zeros((n_streams + 1,), dtype=torch.int32,
-                                        device=self.device)
+        self._epilogue_ws = torch.zeros(
+            (epilogue_workspace_words(n_streams, program.num_layers),),
+            dtype=torch.int32, device=self.device)
+        self._finite = torch.ones((n_streams,), dtype=torch.bool,
+                                  device=self.device)
         self._epilogue_consts = EpilogueConsts(
             self.dims, self.accel.k_pes * self.accel.f_pl_hz,
             self.accel.w_weight_bits)
@@ -470,17 +480,38 @@ class DeltaStreamEngine:
 
     # -- the step (tensor ops only: no host sync) --------------------------
 
+    @property
+    def guard_folds(self) -> bool:
+        """True when layer 0's Delta Unit launch runs the frame guard: a
+        backend whose step takes it (the GRU / LSTM kernel backends) at a
+        frame width and slot count that one block takes in one turn
+        (``guard_fits``: at I = 40, N <= 64)."""
+        return (self.program.spec.frame_guard
+                and guard_fits(self.n_streams, self.dims.input_size))
+
     def _one_step(self, state, carry: dict, x: torch.Tensor, out=None):
         """One timestep with the frame guard, firing statistics, Eq. 7
         terms and the Θ controller, all on the device. ``carry`` is updated
         in place and returned; the output goes to ``out`` when given."""
-        # the frame guard: x - x is 0 exactly where x is finite (NaN where
-        # it is not), two kernels where torch.isfinite takes four
-        finite = torch.all(x - x == 0, dim=-1)                    # [N]
-        x = torch.where(finite[:, None], x, carry["last_x"])
-        tx = self._theta_x_layers if self._per_layer else self.theta_x
-        th = self._theta_h_layers if self._per_layer else carry["theta_h"]
-        y, new_state, deltas = self.program.step(state, x, tx, th)
+        # the host thresholds are constants of the step, as in the
+        # reference's jitted step; theta_h of the carry is a buffer
+        tx = step_thetas(self._theta_x_layers if self._per_layer
+                         else self.theta_x)
+        th = (step_thetas(self._theta_h_layers) if self._per_layer
+              else carry["theta_h"])
+        if self.guard_folds:
+            # layer 0's Delta Unit guards the raw frame, writing finite and
+            # the guarded frame (into last_x) in the same pass
+            finite = self._finite
+            y, new_state, deltas = self.program.step(
+                state, x, tx, th, guard=FrameGuard(carry["last_x"], finite))
+            x = None
+        else:
+            # x - x is 0 exactly where x is finite (NaN where it is not),
+            # two kernels where torch.isfinite takes four
+            finite = torch.all(x - x == 0, dim=-1)                # [N]
+            x = torch.where(finite[:, None], x, carry["last_x"])
+            y, new_state, deltas = self.program.step(state, x, tx, th)
         out = torch.add(y @ self.head[0], self.head[1], out=out)
         # the Delta Unit's counts (a layer that encoded without it, on a
         # dense backend, is counted from its deltas)

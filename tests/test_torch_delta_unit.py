@@ -42,8 +42,8 @@ from repro_torch.core.sparsity import cell_dims, recip_mean
 from repro_torch.core.thresholds import ThresholdPolicy
 from repro_torch.kernels import ops
 from repro_torch.kernels import delta_q8 as tq8
-from repro_torch.kernels.delta_unit import (count_rows_ref, count_totals,
-                                            delta_unit_ref)
+from repro_torch.kernels.delta_unit import (FrameGuard, count_rows_ref,
+                                            count_totals, delta_unit_ref)
 from repro_torch.kernels.engine_epilogue import (AGGREGATES, PER_STREAM,
                                                  EpilogueConsts,
                                                  engine_epilogue_ref)
@@ -129,6 +129,124 @@ def test_delta_unit_ref_bitwise_against_jax(n, theta, bits):
     totals = count_totals(rows).numpy()
     np.testing.assert_array_equal(totals[:, :n], per)
     np.testing.assert_array_equal(totals[:, n], union)
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4])
+@pytest.mark.parametrize("kind", ["host", "tensor"])
+def test_a_zero_threshold_as_the_jitted_reference_takes_it(kind, bits):
+    """A host threshold of 0 is a constant of the reference's jitted step,
+    where XLA folds ``|raw| >= 0`` to true: NaN memories and NaN inputs
+    fire (``StepTheta``). A threshold given as a tensor is traced there and
+    keeps ``>=``, under which NaN never fires."""
+    from repro_torch.core.delta import StepTheta
+    rng = np.random.default_rng(11)
+    n = 8
+    xs = [_streams(rng, n, I, 0.0)]
+    hs = [_streams(rng, n, H, 0.0)]
+    for s, mem in xs + hs:
+        mem[rng.random(mem.shape) < 0.1] = np.nan
+    jl = grid = None
+    if bits is not None:
+        jl, tl = _layouts(bits)
+        grid = tl.act_grid
+    theta = StepTheta(0.0) if kind == "host" else torch.tensor(0.0)
+    x_out, h_out, rows = delta_unit_ref(
+        [tuple(map(torch.from_numpy, p)) for p in xs],
+        [tuple(map(torch.from_numpy, p)) for p in hs], theta, theta,
+        act_grid=grid)
+
+    def encode(s, mem, quantize, *t):
+        if quantize:
+            s = jl.quantize_act(s)
+        out = jdelta.delta_encode(s, jdelta.DeltaState(mem),
+                                  0.0 if kind == "host" else t[0])
+        return out.delta, out.state.memory
+
+    per = np.zeros((2, n), np.int64)
+    fired_nan = 0
+    for g, (streams, outs) in enumerate(((xs, x_out), (hs, h_out))):
+        for (s, mem), (d, m) in zip(streams, outs):
+            args = (jnp.asarray(s), jnp.asarray(mem))
+            if kind == "tensor":
+                args += (jnp.float32(0.0),)
+            fn = jax.jit(encode, static_argnums=2)
+            jd, jm = map(np.asarray, fn(args[0], args[1],
+                                        g == 0 and jl is not None,
+                                        *args[2:]))
+            np.testing.assert_array_equal(d.numpy(), jd)
+            np.testing.assert_array_equal(m.numpy(), jm)
+            fired_nan += int(np.isnan(jd).sum())
+            per[g] += (jd != 0).sum(-1)
+    # the host zero fires NaN differences; the tensor zero does not
+    assert (fired_nan > 0) == (kind == "host")
+    np.testing.assert_array_equal(count_totals(rows).numpy()[:, :n], per)
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4])
+@pytest.mark.parametrize("n", [1, 8, 128])
+def test_the_guard_in_delta_unit_ref_bitwise_against_jax(n, bits):
+    """Layer 0's Delta Unit with the frame guard folded in: ``finite``, the
+    guarded frame written into ``last_x`` and the deltas and memories of
+    the guarded (then rounded) frame, bitwise the reference's guard
+    (``jnp.all(jnp.isfinite(x))``, ``where``) and ``delta_encode``."""
+    rng = np.random.default_rng(100 + n)
+    s, mem = _streams(rng, n, I, 0.25)
+    s[rng.random(n) < 0.5] = rng.normal(0, 1, (I,)).astype(np.float32)
+    last = rng.normal(0, 1, (n, I)).astype(np.float32)
+    hs = [_streams(rng, n, H, 0.25)]
+    jl = grid = None
+    if bits is not None:
+        jl, tl = _layouts(bits)
+        grid = tl.act_grid
+    guard = FrameGuard(torch.from_numpy(last.copy()),
+                       torch.zeros((n,), dtype=torch.bool))
+    (xo,), (ho,), rows = delta_unit_ref(
+        [(torch.from_numpy(s), torch.from_numpy(mem))],
+        [tuple(map(torch.from_numpy, p)) for p in hs], 0.25, 0.25,
+        act_grid=grid, guard=guard)
+    finite = jnp.all(jnp.isfinite(jnp.asarray(s)), axis=-1)
+    xg = jnp.where(finite[:, None], jnp.asarray(s), jnp.asarray(last))
+    assert guard.finite.numpy().tolist() == np.asarray(finite).tolist()
+    assert 0 < int(finite.sum()) < n or n == 1
+    np.testing.assert_array_equal(guard.last_x.numpy(), np.asarray(xg))
+    je = jdelta.delta_encode(xg if jl is None else jl.quantize_act(xg),
+                             jdelta.DeltaState(jnp.asarray(mem)), 0.25)
+    assert xo[0].numpy().tobytes() == np.asarray(je.delta).tobytes()
+    assert xo[1].numpy().tobytes() == np.asarray(je.state.memory).tobytes()
+    jd = np.asarray(je.delta)
+    assert count_totals(rows).numpy()[0, :n].tolist() == \
+        (jd != 0).sum(-1).tolist()
+
+
+@pytest.mark.parametrize("n,width,guarded,tile", [
+    (1, 768, False, 256), (2, 768, False, 128), (3, 768, False, 64),
+    (8, 768, False, 32), (128, 768, False, 32), (1, 40, True, 256),
+    (128, 40, True, 64), (128, 33, True, 64), (128, 32, True, 32),
+    (128, 256, True, 256)])
+def test_the_delta_unit_tile(n, width, guarded, tile):
+    """A block: 8 warps as slot rows of ``tile`` columns, the fewest rows
+    that cover the slots (up to 8), and a guarded frame's whole row."""
+    from repro_torch.kernels.delta_unit import DU_THREADS, tile_columns
+    assert tile_columns(n, width, guarded) == tile
+    assert DU_THREADS % tile == 0 and tile % 32 == 0
+    assert not guarded or width <= tile
+
+
+@pytest.mark.parametrize("width,n,fits", [
+    (40, 1, True), (40, 64, True), (40, 65, False), (40, 128, False),
+    (16, 128, True), (16, 129, False), (256, 16, True), (256, 17, False),
+    (257, 1, False)])
+def test_the_guard_fits_one_turn_of_one_block(width, n, fits):
+    """Layer 0's launch takes the frame guard where one block holds the
+    frame's columns and every slot in one turn: its slot rows times 16
+    slots in flight; the engine folds the guard there only."""
+    from repro_torch.kernels.delta_unit import guard_fits
+    assert guard_fits(n, width) == fits
+    if width == I and n in (64, 65):
+        _, _, tprog, tcfg = _setup_cell("gru", "fused_q8", 0.25)
+        eng = tengine.DeltaStreamEngine(tprog, tcfg, n_streams=n,
+                                        device="cpu")
+        assert eng.guard_folds == fits
 
 
 def test_the_dispatch_runs_the_plain_version_on_the_cpu():
@@ -285,6 +403,8 @@ CASES = [
     ("fused_q8", 0.25, {}),
     ("fused_q4", 0.25, {}),
     ("fused", 0.0, {}),
+    ("fused_q8", 0.0, {}),
+    ("fused_q4", 0.0, {}),
     ("fused_q8", 0.25, {"thresholds": ThresholdPolicy(
         0.25, 0.25, per_layer_x=(0.125,), per_layer_h=(0.0625, 0.5))}),
     ("fused_q8", 0.25, {"dynamic_target_fired": 0.2}),
@@ -306,11 +426,9 @@ def test_engine_carry_after_steps_matches_jax(case, n):
         eng.step_many(xs[:6])
         eng.step(xs[6])
     _same_carry(je, te, exact)
-    if theta == 0.0:
-        # a NaN memory at theta = 0: the reference's jitted step folds
-        # |raw| >= 0 to true and refires it, the port keeps IEEE's false
-        # (ROADMAP R32); the corrupted slot is held at theta > 0
-        return
+    # at theta = 0 the reference's jitted step folds |raw| >= 0 to true, so
+    # a NaN memory of the host-threshold group fires: the port's engine
+    # step does the same (StepTheta)
     jfaults.corrupt_slot_state(je, 0)
     tfaults.corrupt_slot_state(te, 0)
     for eng in (je, te):
@@ -318,3 +436,63 @@ def test_engine_carry_after_steps_matches_jax(case, n):
     _same_carry(je, te, exact)
     assert float(te._carry["bad_state"][0]) == 5.0
     assert float(te._carry["agg_poison_steps"]) == 3.0
+
+
+# -- the frame guard folded into layer 0's Delta Unit, against the JAX step ---
+
+def _setup_cell(cell, backend, theta, seed=0):
+    jcfg = jmodels.GruTaskConfig(I, H, 2, 12, theta_x=theta, theta_h=theta)
+    tcfg = tmodels.GruTaskConfig(I, H, 2, 12, theta_x=theta, theta_h=theta)
+    init = (jmodels.init_gru_model if cell == "gru"
+            else jmodels.init_lstm_model)
+    jp = init(jax.random.PRNGKey(seed), jcfg)
+    tp = tmodels.model_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                  device="cpu")
+    return (jprogram.compile_delta_program(jp, backend, cell=cell), jcfg,
+            tprogram.compile_delta_program(tp, backend, cell=cell,
+                                           device="cpu"), tcfg)
+
+
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("backend", ["fused", "fused_q8", "fused_q4"])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_the_folded_guard_matches_the_jax_step(cell, backend, n):
+    """The port's engine runs the frame guard inside layer 0's Delta Unit
+    (``guard_folds``) on the GRU / LSTM kernel backends: on frames with
+    NaN and +-inf in some slots (a whole frame of -inf, single elements),
+    its carry (``poison_steps``, ``last_x`` bitwise) and state equal the
+    JAX engine's, whose ``_one_step`` guards the frame first."""
+    jprog, jcfg, tprog, tcfg = _setup_cell(cell, backend, 0.25)
+    je = jengine.DeltaStreamEngine(jprog, jcfg, n_streams=n)
+    te = tengine.DeltaStreamEngine(tprog, tcfg, n_streams=n, device="cpu")
+    assert te.guard_folds
+    xs = _frames(12, n, seed=5)
+    xs[9, n - 1, 3:7] = [np.nan, np.inf, -np.inf, np.nan]
+    for eng in (je, te):
+        eng.step_many(xs[:8])
+        for x in xs[8:]:
+            eng.step(x)
+    _same_carry(je, te, backend != "fused")
+    poisoned = float(te._carry["agg_poison_steps"])
+    assert poisoned == float(np.sum(~np.isfinite(xs).all(-1)))
+    assert np.isfinite(te._carry["last_x"].numpy()).all()
+
+
+def test_the_guard_stays_in_plain_ops_where_it_does_not_fold():
+    """The dense backend (its step takes no guard) and a frame wider than
+    one Delta Unit tile guard the frame in plain ops before the step."""
+    jprog, jcfg, tprog, tcfg = _setup_cell("gru", "dense", 0.25)
+    te = tengine.DeltaStreamEngine(tprog, tcfg, device="cpu")
+    assert not te.guard_folds
+    wide = tmodels.GruTaskConfig(300, H, 1, 12, theta_x=0.25, theta_h=0.25)
+    wide_prog = tprogram.compile_delta_program(
+        tmodels.init_gru_model(0, wide, device="cpu"), "fused",
+        device="cpu")
+    we = tengine.DeltaStreamEngine(wide_prog, wide, device="cpu")
+    assert not we.guard_folds
+    x = np.ones((300,), np.float32)
+    we.step(x)
+    x[7] = np.nan
+    we.step(x)
+    assert float(we._carry["agg_poison_steps"]) == 1.0
+    assert we._carry["last_x"].numpy().tolist() == [[1.0] * 300]

@@ -388,3 +388,112 @@ def test_cpu_engines_step_eagerly():
     te.step_many(_frames(3, 1)[:, 0])
     assert te.graph_stats == {"captures": 0, "capture_s": 0.0, "replays": 0,
                               "steps": 0}
+
+
+# -- the epilogue's tables in device memory (built on the host) --------------
+
+def test_the_epilogue_table_layout():
+    """A leaf a row of (pointer of its ``[N, row]`` view, row, row stride,
+    first scan item * 2 + 1 where its rows start on 16 bytes), a count
+    tensor a row of (pointer, rows, layer, first entry) in layer order,
+    then a word of two fp32 a layer: 1 / input and 1 / hidden columns."""
+    from repro_torch.kernels import engine_epilogue as ep
+    n = 3
+    wide = torch.zeros((n, 4, 5000))
+    leaves = [torch.zeros((n, 48)), wide[:, 1:], torch.zeros((n, 0)),
+              torch.zeros((n * 7 + 1,))[1:].reshape(n, 7)]
+    counts = [(1, torch.zeros((4, n + 2), dtype=torch.int32)),
+              (0, torch.zeros((2, n + 2), dtype=torch.int32)),
+              (1, torch.zeros((1, n + 2), dtype=torch.int32))]
+    cols = [(40, 48), (48, 0)]
+    t = ep.epilogue_table(leaves, counts, cols, n)
+    assert (t.n_leaves, t.n_counts) == (4, 3)
+    words = t.words.tolist()
+    rows = [words[4 * j:4 * j + 4] for j in range(4)]
+    assert [r[1] for r in rows] == [48, 15000, 0, 7]
+    assert [r[2] for r in rows] == [48, 20000, 0, 7]
+    assert rows[1][0] == wide[:, 1:].data_ptr()
+    chunks = [1, 4, 0, 1]
+    first = [0, n, n + 4 * n, n + 4 * n]
+    assert [r[3] >> 1 for r in rows] == first
+    assert t.items == n * sum(chunks)
+    assert [r[3] & 1 for r in rows] == [
+        int(v.data_ptr() % 16 == 0 and r[2] % 4 == 0)
+        for v, r in zip(t.views, rows)]
+    assert rows[3][3] & 1 == 0          # a row start 4 bytes in: no float4
+    crow = [words[16 + 4 * k:16 + 4 * k + 4] for k in range(3)]
+    assert [c[2] for c in crow] == [0, 1, 1]            # layer order
+    assert [c[1] for c in crow] == [2, 4, 1]
+    assert [c[3] for c in crow] == [0, 2 * (n + 1), 6 * (n + 1)]
+    assert t.entries == 7 * (n + 1)
+    inv = t.words[28:].view(np.float32).tolist()
+    assert inv == [np.float32(1 / 40), np.float32(1 / 48),
+                   np.float32(1 / 48), 0.0]
+
+
+def test_the_epilogue_table_refuses_what_the_kernel_cannot_take():
+    from repro_torch.kernels import engine_epilogue as ep
+    n = 2
+    ok_leaf = torch.zeros((n, 4))
+    ok_counts = [(0, torch.zeros((1, n + 2), dtype=torch.int32))]
+    for leaves, counts in (
+            ([ok_leaf.double()], ok_counts),
+            ([torch.zeros((n + 1, 4))], ok_counts),
+            ([ok_leaf], [(1, ok_counts[0][1])]),
+            ([ok_leaf], [(0, torch.zeros((1, n + 1), dtype=torch.int32))]),
+            ([ok_leaf], [(0, torch.zeros((1, n + 2)))])):
+        with pytest.raises(ValueError):
+            ep.epilogue_table(leaves, counts, [(4, 4)], n)
+
+
+@pytest.mark.parametrize("items,grid", [(0, 2), (1, 2), (7, 8), (28, 29),
+                                        (29, 30), (300, 264), (10 ** 6, 264)])
+def test_the_epilogue_grid(items, grid):
+    """Block 0 and a scanner a scan item (at least one): up to 263
+    scanners, 2 blocks an SM."""
+    from repro_torch.kernels import engine_epilogue as ep
+    assert ep.epilogue_grid(items) == grid
+    assert grid <= ep.EP_GRID
+
+
+def test_one_epilogue_instance_takes_240_leaves():
+    """RWKV6's 24 layers (10 state leaves and a Delta Unit launch a layer)
+    take the one instance: a table of a few KB in device memory, shared
+    memory within a block's, at 1 and at 1024 slots; 1025 slots are
+    refused by the wrapper's limit."""
+    from repro_torch.kernels import engine_epilogue as ep
+    for n in (1, ep.EP_MAX_N):
+        leaves = [torch.zeros((n, 4 if j % 2 else 64)) for j in range(240)]
+        counts = [(layer, torch.zeros((8, n + 2), dtype=torch.int32))
+                  for layer in range(24)]
+        t = ep.epilogue_table(leaves, counts, [(6144, 2048)] * 24, n)
+        assert t.words.nbytes == 8 * (4 * 240 + 4 * 24 + 24)
+        assert t.words.nbytes <= ops.TABLE_ARENA_BYTES // 16
+        assert ep.epilogue_smem_bytes(24, n, 240, 24) <= ep.EP_MAX_SMEM
+    assert ep.epilogue_smem_bytes(128, ep.EP_MAX_N, 240, 24) > ep.EP_MAX_SMEM
+
+
+def test_the_tree_sum_pairs_as_the_kernel():
+    """``tree_sum_ref``: v[i] += v[i + s], s halving from the largest power
+    of two below n (the kernel's fixed order), spelled out at n = 5."""
+    from repro_torch.kernels.engine_epilogue import tree_sum_ref
+    v = torch.tensor([1e8, 1.0, -1e8, 3.0, 0.5])
+    # s = 4: v0 += v4; s = 2: v0 += v2, v1 += v3; s = 1: v0 += v1
+    want = ((torch.tensor(1e8) + 0.5) + torch.tensor(-1e8)) \
+        + (torch.tensor(1.0) + 3.0)
+    assert tree_sum_ref(v).item() == want.item()
+    for n in (1, 2, 3, 8, 129):
+        x = torch.rand(n, generator=torch.Generator().manual_seed(n))
+        assert tree_sum_ref(x).item() == pytest.approx(float(x.sum()),
+                                                       rel=1e-6)
+
+
+def test_the_epilogue_workspace_holds_the_grids_count_sums():
+    """The workspace: a flag a slot, the ticket, and the large scan's
+    count sums, [layers, 2 groups, N + 1]; the engine allocates it once."""
+    from repro_torch.kernels import engine_epilogue as ep
+    assert ep.epilogue_workspace_words(3, 2) == 3 + 1 + 2 * 2 * 4
+    _, _, tprog, tcfg = _setup("fused_q8", 0.25)
+    te = tengine.DeltaStreamEngine(tprog, tcfg, n_streams=N, device="cpu")
+    assert tuple(te._epilogue_ws.shape) == (
+        ep.epilogue_workspace_words(N, 2),)
