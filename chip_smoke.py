@@ -49,8 +49,16 @@ traceback and a non-zero exit):
    parameters (and bf16 with fp32 gradients, and a tree of both), leaves
    of 1, 3, 4095 and 2**20 + 1 elements aligned and 2-4 bytes off 16-byte
    alignment, clipping and decay on and off, steps 1 and 1000, NaN and
-   +-inf gradients: ``p``, ``mu`` and ``nu`` bitwise the plain version on
-   the card, every case launched twice and once in place;
+   +-inf gradients, heads and tails around vector pieces at element
+   offsets 3 and 7 and operands at odd phases (all scalar): ``p``,
+   ``mu`` and ``nu`` bitwise the plain version on the card, every case
+   launched twice and once in place; then the clip's global norm
+   (``norm_kernels_phase``): leaves of 1, 7 and 4097 elements, misaligned
+   views bitwise their aligned copies, a mixed fp32 / bf16 tree, +inf and
+   NaN leaves, a square and a sum past the fp32 range (inf), a 2**22 + 3
+   element leaf and 300 leaves, within ``TOL_NORM_REL`` of the plain
+   version, every case twice bitwise, and one graph replayed twice bitwise
+   and once after its leaves doubled;
 4. the int8/int4 kernels' own activation stage over every Q8.8 input,
    bitwise against ``torch.sigmoid`` / ``torch.tanh`` on the CPU after the
    LUT rounding;
@@ -113,9 +121,9 @@ traceback and a non-zero exit):
    parameter within what Adam's first step makes of that; in (b) the CPU
    replays the card's LUT outputs where its own differ, each such flip
    within ``FLIP_MARGIN`` of a rounding boundary, and the flips are
-   counted. Training launches the fused Adam once a step (eager steps,
-   compiled steps' warm-ups and replays) and no other hand-written
-   kernel. (c) A ``CheckpointManager`` saves the compiled step's state
+   counted. Training launches the global norm and the fused Adam once a
+   step each (eager steps, compiled steps' warm-ups and replays) and no
+   other hand-written kernel. (c) A ``CheckpointManager`` saves the compiled step's state
    after step 5 of (b); it restores bitwise, and steps 6-10 from it and
    from the state in memory, both through the compiled step under
    ``torch.use_deterministic_algorithms(True)`` (a switch in the capture's
@@ -227,8 +235,8 @@ traceback and a non-zero exit):
    losses bitwise equal, and a run stopped at step 4 by its checkpoint
    and resumed to 6 bitwise an uninterrupted run's steps 5-6, through the
    launcher's compiled step. The blocks run the plain scans under
-   autograd: the only hand-written kernel launched is the fused Adam,
-   once a step and parameter dtype;
+   autograd: the only hand-written kernels launched are the global norm,
+   once a step, and the fused Adam, once a step and parameter dtype;
 5i. the mesh paths (``mesh_phase``) on a (4, 2) mesh over the card listed
    8 times (``best_mesh(devices=[card] * 8, model_parallel=2)``): (a) the
    expert-parallel forward of granite-moe-3b-a800m and
@@ -243,8 +251,8 @@ traceback and a non-zero exit):
    the CPU, every fed expert with a nonzero gradient; (d)
    ``pipeline_forward`` over 4 stages bitwise the stages applied in turn
    and within ``TOL_F32`` of the CPU; (e) ``--model-parallel 2`` bitwise
-   ``--model-parallel 1`` and ``prefetch_to_mesh``'s spec; the fused Adam
-   once a step and no other hand-written kernel;
+   ``--model-parallel 1`` and ``prefetch_to_mesh``'s spec; the global
+   norm and the fused Adam once a step and no other hand-written kernel;
 5j. the examples and the launch tooling (``examples_phase``): the card's
    HBM copy rate and bf16 matmul rate beside ``H100``'s data-sheet
    constants, and ``gpu_batch1_gru_roofline`` of 2L-768H at phase 5's
@@ -252,7 +260,8 @@ traceback and a non-zero exit):
    (``examples/*_torch.py``), two in this process with their launches
    counted (the quickstart launches rows 1, 2, 4, 6 and 7, the digits twin
    rows 1 and 2, the B = 4 tile under its batcher, exactly two a replay,
-   and row 13, the fused Adam, once a compiled training step)
+   and rows 13 and 14, the fused Adam and the global norm, once a
+   compiled training step each)
    and two as subprocesses, each printing its JAX example's labelled lines
    and holding its invariants (the quickstart and the decode twin also
    against ``--device cpu``); ``repro_torch.launch.dryrun --all`` over the
@@ -282,10 +291,10 @@ traceback and a non-zero exit):
    the wall, streams and frames a second, the steady tick p50 and p99
    (``loadgen_fabric``'s rule: ticks over 10 × the median dropped), replays
    a tick, kernels, device busy and idle share a profiled tick, and the
-   scale-down's time; the fused Adam's instances at their main paths'
-   trees (fp32: the 2L-768H GRU; bf16: llama3.2-1b, timed in 5h) beside
-   their plain version, ``torch._fused_adamw_``, the plain clip norm and
-   the bytes bound.
+   scale-down's time; the fused Adam's instances and the global norm at
+   their main paths' trees (fp32: the 2L-768H GRU; bf16: llama3.2-1b,
+   timed in 5h) beside their plain versions, ``torch._fused_adamw_`` and
+   ``torch.nn.utils.get_total_norm``, and the bytes bounds.
 
 The delta-ized LM cells run through the same phases: in phase 3
 ``delta_spmv`` with fp32 and with bf16 operands (the LM layer shapes, the
@@ -316,8 +325,9 @@ at the LM path's shapes.
 The line before the last is ``{"kernels": [...]}`` (every kernel instance;
 the ``launches`` of a main-path instance are those of phases 5, 5b, 5c, 5d,
 5e and 5f (the fabric's runs add to the int8 and fp32 GRU kernels', 5f to
-the scans'; 5g launches none; the fused Adam's are those of 5d's training
-runs (fp32) and 5h (a)'s launcher (bf16)), each run counted from zero; those of an
+the scans'; 5g launches none; the fused Adam's and the global norm's are
+those of 5d's training runs (fp32) and 5h (a)'s launcher (bf16)), each run
+counted from zero; those of an
 instance on no main path, a buffered one, ``delta_spmv_bf16`` or
 ``deltagru_act``, are those of phases 3 and 6, and its ``path`` names the
 entry that reaches it); the last line is ``{"ok": true, "device": {...}}``.
@@ -564,8 +574,9 @@ def engine_profile(run, n: int, match: str | None = None) -> dict:
     ``torch.profiler``; beside them the wall time and the device time
     between two CUDA events around the run, per step; the launches per
     step of each kernel name (``by_name``; memory copies apart, under
-    ``copies_per_step``); with ``match``, the busy time per step of the
-    kernels whose name holds it.
+    ``copies_per_step``); with ``match`` (a string or a tuple of them), the
+    busy time per step of the kernels whose name holds it (each string's
+    under ``match_us_by``, their sum under ``match_us_per_step``).
 
     A session has read fewer device events than the run launched (7.66
     kernels a 2L-768H step, whose graph holds 8), so the session first
@@ -608,11 +619,16 @@ def engine_profile(run, n: int, match: str | None = None) -> dict:
            "event_us_per_step": 1e3 * start.elapsed_time(stop) / n,
            "idle_share": 1.0 - busy_us / (1e6 * wall) if events else None}
     if match is not None:
-        out["match_us_per_step"] = sum(
-            e.time_range.elapsed_us() for e in events if match in e.name) / n
+        names = (match,) if isinstance(match, str) else match
+        out["match_us_by"] = {m: sum(e.time_range.elapsed_us()
+                                     for e in events if m in e.name) / n
+                              for m in names}
+        out["match_us_per_step"] = sum(out["match_us_by"].values())
     return out
 
 
+# the train steps' optimizer kernels, by device kernel name
+OPT_KERNELS = ("fused_adam", "global_norm")
 # the engine step's two kernels: KernelInfo name -> device kernel name
 STEP_KERNELS = {"delta_unit_f32": "delta_unit_kernel",
                 "engine_epilogue_f32": "engine_epilogue_kernel"}
@@ -1807,6 +1823,15 @@ def engine_kernels_phase(dev, rng) -> dict:
 # phase 3's leaves: one element, a few, one short of a 4096-element tile,
 # and past 2**20 (128 of the kernel's 8192-element chunks and a ragged one)
 ADAM_SIZES = (1, 3, 4095, 2 ** 20 + 1)
+# the plan's cases: a head, a piece and a tail; 16 elements; a tile and a
+# part of one; two chunks and a tail; three chunks and a tail, at each of
+# these offsets a leaf (in elements: heads of 5 and 1 elements of bf16, 1
+# and 1 of fp32)
+ADAM_PLAN_SIZES = (9, 16, 300, 8205, 3 * 8192 + 7)
+ADAM_PLAN_OFFSETS = (3, 7)
+# p, g, mu, nu at offsets of their own: no element starts all four on 16
+# bytes, so every element takes a scalar access
+ADAM_ODD_PHASES = (1, 2, 0, 3)
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
@@ -1849,21 +1874,23 @@ def adam_compare(got, ref, p_dtypes) -> tuple:
     return bad, err
 
 
-def adam_operands(dev, gen, sizes, p_dtypes, g_dtypes, misalign: int):
+def adam_operands(dev, gen, sizes, p_dtypes, g_dtypes, misalign):
     """Seeded leaves on the card, each a view ``misalign`` elements into a
     buffer of its own (1 puts every leaf 2 or 4 bytes off 16-byte
-    alignment): parameters N(0, 1), gradients N(0, 3), ``mu`` N(0, 1e-2),
-    ``nu`` |N(0, 1e-4)|, in the leaves' dtypes."""
+    alignment; a tuple gives p, g, mu and nu offsets of their own):
+    parameters N(0, 1), gradients N(0, 3), ``mu`` N(0, 1e-2), ``nu``
+    |N(0, 1e-4)|, in the leaves' dtypes."""
     import torch
     f32 = torch.float32
+    off = misalign if isinstance(misalign, tuple) else (misalign,) * 4
 
-    def leaf(n, dtype, scale, absval=False):
-        t = torch.randn(n + misalign, generator=gen) * scale
-        return (t.abs() if absval else t).to(dtype).to(dev)[misalign:]
-    p = [leaf(n, d, 1.0) for n, d in zip(sizes, p_dtypes)]
-    g = [leaf(n, d, 3.0) for n, d in zip(sizes, g_dtypes)]
-    mu = [leaf(n, f32, 1e-2) for n in sizes]
-    nu = [leaf(n, f32, 1e-4, absval=True) for n in sizes]
+    def leaf(n, dtype, scale, k, absval=False):
+        t = torch.randn(n + off[k], generator=gen) * scale
+        return (t.abs() if absval else t).to(dtype).to(dev)[off[k]:]
+    p = [leaf(n, d, 1.0, 0) for n, d in zip(sizes, p_dtypes)]
+    g = [leaf(n, d, 3.0, 1) for n, d in zip(sizes, g_dtypes)]
+    mu = [leaf(n, f32, 1e-2, 2) for n in sizes]
+    nu = [leaf(n, f32, 1e-4, 3, absval=True) for n in sizes]
     return p, g, mu, nu
 
 
@@ -1889,9 +1916,12 @@ def adam_kernels_phase(dev) -> dict:
     gives them, and a tree of both dtypes, two launches), leaves of
     ``ADAM_SIZES`` aligned and 2 or 4 bytes off 16-byte alignment, with and
     without clipping and decay, at steps 1 and 1000; a NaN and a +-inf
-    gradient with and without clipping; every case launched twice, the two
-    bitwise equal, and once in place on copies (``out`` the inputs),
-    bitwise the functional result."""
+    gradient with and without clipping; the kernel's plan in both
+    instances (leaves of ``ADAM_PLAN_SIZES`` at ``ADAM_PLAN_OFFSETS``:
+    scalar heads and tails around vector pieces; operands at
+    ``ADAM_ODD_PHASES``: scalar accesses alone); every case launched
+    twice, the two bitwise equal, and once in place on copies (``out`` the
+    inputs), bitwise the functional result."""
     import torch
     from repro_torch.kernels.fused_adam import fused_adam, fused_adam_ref
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1909,12 +1939,18 @@ def adam_kernels_phase(dev) -> dict:
     for pd in (f32, bf16):
         for clip in (None, 1.0):
             cases.append(((pd,) * 4, (pd,) * 4, 0, clip, 0.1, 3, "nonfinite"))
+    # the plan's heads, pieces and tails, and all-scalar leaves, in both
+    # instances
+    for pd, gd in ((f32, f32), (bf16, bf16), (bf16, f32)):
+        for misalign in ADAM_PLAN_OFFSETS + (ADAM_ODD_PHASES,):
+            cases.append(((pd,) * 4, (gd,) * 4, misalign, 1.0, 0.1, 7,
+                          "plan"))
     n_bad = []
     max_err = {"fused_adam_f32": 0.0, "fused_adam_bf16": 0.0}
     for p_dt, g_dt, misalign, clip, wd, step, special in cases:
-        p, g, mu, nu = adam_operands(dev, gen, ADAM_SIZES, p_dt, g_dt,
-                                     misalign)
-        if special:
+        sizes = ADAM_PLAN_SIZES if special == "plan" else ADAM_SIZES
+        p, g, mu, nu = adam_operands(dev, gen, sizes, p_dt, g_dt, misalign)
+        if special == "nonfinite":
             g[3][5] = float("nan")
             g[2][0] = float("inf")
             g[2][4094] = -float("inf")
@@ -1932,7 +1968,7 @@ def adam_kernels_phase(dev) -> dict:
             n_bad += [(p_dt, g_dt, misalign, clip, wd, step, special)] * bad
             for name, e in err.items():
                 max_err[name] = max(max_err[name], e)
-        if special and not (torch.isnan(a[0][3][5])
+        if special == "nonfinite" and not (torch.isnan(a[0][3][5])
                             and torch.isnan(a[0][2][0])):
             raise AssertionError(f"fused Adam {p_dt} clip {clip}: a "
                                  "non-finite gradient did not propagate")
@@ -1942,9 +1978,211 @@ def adam_kernels_phase(dev) -> dict:
     log(f"fused Adam: {len(cases)} cases (fp32 / bf16 / bf16 with fp32 "
         f"gradients / a mixed tree; leaves {ADAM_SIZES}, aligned and 2-4 "
         f"bytes off; clip and decay on and off; steps 1 and 1000; NaN and "
-        f"+-inf gradients), each launched twice and in place: p, mu and nu "
-        f"bitwise the plain version on the card")
+        f"+-inf gradients; leaves {ADAM_PLAN_SIZES} at element offsets "
+        f"{ADAM_PLAN_OFFSETS} (scalar heads and tails around vector "
+        f"pieces) and p, g, mu, nu at offsets {ADAM_ODD_PHASES} (all "
+        f"scalar)), each launched twice and in place: p, mu and nu bitwise "
+        f"the plain version on the card")
     return {"cases": len(cases), "max_err": max_err}
+
+
+# -- the clip's global norm -------------------------------------------------
+
+# The kernel against its plain version, relative: the plain version sums
+# each leaf in fp32 (PyTorch's reduction, up to ~2000 terms an accumulator
+# at llama3.2-1b's 262 M-element embedding), whose error on positive terms
+# is at most terms x 2**-24 of the sum, 1.2e-4 worst case, half that on the
+# root; the kernel sums in double. 1e-4 of the norm keeps a factor of ~1.7
+# over that worst case (random roundings stay near 1e-7).
+TOL_NORM_REL = 1e-4
+# phase 3's trees: leaf sizes, a multi-chunk leaf (grid-stride loop),
+# and 300 leaves (the last block's warps take several leaves each)
+NORM_SIZES = (1, 7, 4097)
+NORM_LONG = 2 ** 22 + 3
+NORM_MANY = 300
+
+
+def norm_close(got, ref, rel: float) -> bool:
+    """Two 0-d norms within ``rel`` of the larger, relative; both the same
+    infinity or both NaN count as equal."""
+    g, r = float(got), float(ref)
+    if math.isnan(g) or math.isnan(r):
+        return math.isnan(g) and math.isnan(r)
+    if math.isinf(g) or math.isinf(r):
+        return g == r
+    return abs(g - r) <= rel * max(abs(g), abs(r))
+
+
+def norm_kernels_phase(dev) -> dict:
+    """Phase 3's global norm cases: the kernel (``global_norm``) against its
+    plain version ``global_norm_ref`` on the card within ``TOL_NORM_REL``
+    and against ``global_norm_model`` (its order in plain ops) within an
+    fp32 rounding a leaf and two of the root (a leaf's double sum taken in
+    another order may round to a neighbouring fp32, the root then to a
+    neighbouring one): fp32 leaves of ``NORM_SIZES``; the same at
+    element offset 1 (2 or 4 bytes off 16), bitwise the aligned copies; a
+    mixed fp32 / bf16 tree; a +inf and a NaN leaf; a bf16 value whose fp32
+    square overflows and an fp32 leaf whose squares' sum does (inf, as the
+    plain version); one leaf of ``NORM_LONG`` elements; ``NORM_MANY``
+    leaves; every case called twice, bitwise equal. Then one graph of a
+    call over the mixed tree (``ops.capture_cuda_graph``, its table and
+    ticket written after the capture) replayed twice on a NaN-filled
+    output, bitwise the eager call each time, and once more after the
+    leaves doubled in place (the norm doubles exactly)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.global_norm import (global_norm,
+                                                 global_norm_model,
+                                                 global_norm_ref)
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 30)
+
+    def leaves(sizes, dtypes, off=0):
+        out = []
+        for n, dt in zip(sizes, dtypes):
+            t = (torch.randn(n + off, generator=gen) * 3).to(dt).to(dev)
+            out.append(t[off:])
+        return out
+
+    mixed_sizes = NORM_SIZES + (3 * 32768 + 5,)
+    mixed_dt = (f32, bf16) * 2
+    cases = {"fp32": leaves(NORM_SIZES, (f32,) * 3),
+             "bf16 offset 1": leaves(NORM_SIZES + (70001,), (bf16,) * 4, 1),
+             "fp32 offset 1": leaves(NORM_SIZES + (70001,), (f32,) * 4, 1),
+             "mixed": leaves(mixed_sizes, mixed_dt),
+             "long": leaves((NORM_LONG,), (bf16,)),
+             "many": leaves([int(v) for v in torch.randint(
+                 1, 5000, (NORM_MANY,), generator=gen)],
+                 (f32, bf16) * (NORM_MANY // 2))}
+    special = {"+inf": (2, 17, float("inf")), "nan": (3, 4096, float("nan")),
+               "square overflow": (1, 2, 3e19)}
+    for name, (leaf, i, v) in special.items():
+        cases[name] = [t.clone() for t in cases["mixed"]]
+        cases[name][leaf][i] = v
+    cases["sum overflow"] = [t.clone() for t in cases["mixed"]]
+    cases["sum overflow"][2].fill_(1.5e19)     # fp32: squares finite
+    want_inf = {"+inf", "square overflow", "sum overflow"}
+    max_rel = max_abs = 0.0
+    for name, lv in cases.items():
+        a, b = global_norm(lv), global_norm(lv)
+        ref, model = global_norm_ref(lv), global_norm_model(lv)
+        torch.cuda.synchronize()
+        n_leaves = sum(1 for t in lv if t.numel())
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"global norm {name}: two calls differ "
+                                 f"({float(a)!r}, {float(b)!r})")
+        if not (norm_close(a, ref, TOL_NORM_REL)
+                and norm_close(a, model, (n_leaves + 2) * 2.0 ** -24)):
+            raise AssertionError(f"global norm {name}: kernel {float(a)!r}, "
+                                 f"plain {float(ref)!r}, model "
+                                 f"{float(model)!r}")
+        if (name in want_inf) != math.isinf(float(a)) or (
+                (name == "nan") != math.isnan(float(a))):
+            raise AssertionError(f"global norm {name}: {float(a)!r}")
+        if math.isfinite(float(a)):
+            max_abs = max(max_abs, abs(float(a) - float(ref)))
+            max_rel = max(max_rel, abs(float(a) - float(ref)) / float(ref))
+        if "offset" in name:
+            copy = global_norm([t.clone() for t in lv])
+            if not torch.equal(a.view(torch.int32), copy.view(torch.int32)):
+                raise AssertionError(f"global norm {name}: {float(a)!r}, "
+                                     f"aligned copies {float(copy)!r}")
+    # one graph, replayed twice and after the leaves changed
+    lv = cases["mixed"]
+    eager = global_norm(lv)
+    before = ops.launch_counts()
+    replay = ops.capture_cuda_graph(lambda: global_norm(lv))
+    captured = ops.take_back_launches(before)
+    out = replay()
+    outs = [out.clone()]
+    out.fill_(float("nan"))
+    replay()
+    outs.append(out.clone())
+    for t in lv:
+        t.mul_(2)
+    out.fill_(float("nan"))
+    replay()
+    doubled = out.clone()
+    torch.cuda.synchronize()
+    if not (all(torch.equal(o.view(torch.int32), eager.view(torch.int32))
+                for o in outs) and float(doubled) == 2 * float(eager)):
+        raise AssertionError(f"global norm graph: eager {float(eager)!r}, "
+                             f"replays {[float(o) for o in outs]}, after "
+                             f"doubling {float(doubled)!r}")
+    if captured != ((ops.GLOBAL_NORM, 1),):
+        raise AssertionError(f"global norm graph: captured {captured}")
+    log(f"global norm: {len(cases)} cases (fp32 leaves {NORM_SIZES}, the "
+        f"same and 70001 at element offset 1 in fp32 and bf16, bitwise "
+        f"their aligned copies; a mixed tree; +inf, NaN, a square and a sum "
+        f"past fp32; {NORM_LONG} elements; {NORM_MANY} leaves), each "
+        f"called twice, bitwise equal, within {TOL_NORM_REL} of the plain "
+        f"version (largest {max_rel:.3e}, {max_abs:.3e} absolute) and an "
+        f"fp32 rounding a leaf of "
+        f"its model; a graph replayed twice bitwise the eager call and "
+        f"after the leaves doubled, its double")
+    return {"cases": len(cases) + 1,
+            "max_err": {ops.GLOBAL_NORM.name: max_abs}, "max_rel": max_rel}
+
+
+def norm_row(grads, where: str, large: bool, smi) -> dict:
+    """The global norm timed on ``grads`` (a main path's gradient leaves):
+    the kernel, its plain version, one PyTorch call for the same norm
+    (``torch.nn.utils.get_total_norm`` where this torch has it, else
+    ``torch._foreach_norm`` and one ``vector_norm``: norms in the leaves'
+    dtype, another rounding; a yardstick the port never calls), and the
+    bound: each gradient read once at ``HBM_BYTES_PER_S``. ``large``: CUDA
+    events over eager calls rather than graph replays. Before the timing
+    the kernel is held against the plain version within ``TOL_NORM_REL``
+    and against its order in plain ops (``global_norm_model``) within an
+    fp32 rounding a leaf and two of the root, as phase 3 holds it: at a
+    main path's shapes the second bound is the tight one (a dropped small
+    leaf or partial chunk moves the norm by less than ``TOL_NORM_REL``).
+    ``max_err`` and ``rel_err``: the kernel's distance from the plain
+    version, absolute and relative."""
+    import torch
+    from repro_torch.kernels.global_norm import (global_norm,
+                                                 global_norm_model,
+                                                 global_norm_ref)
+    got, ref = global_norm(grads), global_norm_ref(grads)
+    model = global_norm_model(grads)
+    model_rel = (sum(1 for t in grads if t.numel()) + 2) * 2.0 ** -24
+    if not (norm_close(got, ref, TOL_NORM_REL)
+            and norm_close(got, model, model_rel)):
+        raise AssertionError(f"global_norm at {where}: {float(got)!r}, plain "
+                             f"{float(ref)!r}, model {float(model)!r} "
+                             f"(within {model_rel:.3e})")
+    del model
+    max_err = abs(float(got) - float(ref))
+    total_norm = getattr(torch.nn.utils, "get_total_norm", None)
+    if total_norm is not None:
+        library_name = "torch.nn.utils.get_total_norm"
+
+        def library():
+            total_norm(grads, 2.0)
+    else:
+        library_name = "torch._foreach_norm + torch.linalg.vector_norm"
+
+        def library():
+            torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    timer = (lambda fn: events_ms(fn, 5)) if large else device_ms
+    ms = timer(lambda: global_norm(grads))
+    plain_ms = timer(lambda: global_norm_ref(grads))
+    library_ms = timer(library)
+    nbytes = sum(t.numel() * t.element_size() for t in grads)
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    n = sum(t.numel() for t in grads)
+    log(f"time global_norm at {where} ({n} elements in {len(grads)} leaves): "
+        f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, {library_name} "
+        f"{library_ms:.5f} ms; bound {bound_ms:.5f} ms ({nbytes} B at "
+        f"{HBM_BYTES_PER_S:.3e} B/s), the kernel at {bound_ms / ms:.3f} of "
+        f"it; norm {float(got)!r}, kernel against plain {max_err:.3e} "
+        f"({max_err / float(ref):.3e} relative), within {model_rel:.3e} of "
+        f"its model [{smi}]")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": library_name, "bound_ms": bound_ms,
+            "bound_by": "bytes", "bytes": nbytes, "elements": n,
+            "shape": where, "max_err": max_err,
+            "rel_err": max_err / float(ref)}
 
 
 def adam_bytes(params, grads) -> int:
@@ -1978,8 +2216,9 @@ def adam_row(kinfo, params, step: int, clip, wd, where: str, large: bool,
     and fp32 moments: the kernel (updating in place), its plain version,
     ``torch._fused_adamw_`` over the same leaves (PyTorch's fused AdamW,
     its moments in the parameters' dtype as ``torch.optim`` keeps them,
-    another rounding: a yardstick the port never calls), the plain clip
-    norm, and the bound (``adam_bytes`` at ``HBM_BYTES_PER_S``). ``large``:
+    another rounding: a yardstick the port never calls), and the bound
+    (``adam_bytes`` at ``HBM_BYTES_PER_S``); and the global norm's row on
+    the same gradients (``norm_row``, under ``"norm"``). ``large``:
     time eager calls between events (a llama-size update takes ~10 ms)
     rather than graph replays. Before the timing, one update of the kernel
     in place (as the compiled step makes it) is held bitwise against the
@@ -1987,7 +2226,7 @@ def adam_row(kinfo, params, step: int, clip, wd, where: str, large: bool,
     ``max_err`` is the largest difference measured."""
     import torch
     from repro_torch.kernels.fused_adam import fused_adam, fused_adam_ref
-    from repro_torch.train.optim import clip_scale, global_norm, tree_leaves
+    from repro_torch.train.optim import tree_leaves
     dev = tree_leaves(params)[0].device
     p = [t.detach().clone() for t in tree_leaves(params)]
     gen = torch.Generator(device=dev).manual_seed(SEED + 29)
@@ -2013,15 +2252,10 @@ def adam_row(kinfo, params, step: int, clip, wd, where: str, large: bool,
 
     def plain():
         fused_adam_ref(p, g, mu, nu, **kw)
-
-    def norm():
-        clip_scale(global_norm(g), 1.0)
     if large:
-        ms, plain_ms, norm_ms = (events_ms(kernel, 5), events_ms(plain, 2),
-                                 events_ms(norm, 5))
+        ms, plain_ms = events_ms(kernel, 5), events_ms(plain, 2)
     else:
-        ms, plain_ms, norm_ms = (device_ms(kernel), device_ms(plain, 5),
-                                 device_ms(norm))
+        ms, plain_ms = device_ms(kernel), device_ms(plain, 5)
     library_ms, library_note = None, ""
     try:
         lib_mu = [torch.zeros_like(t) for t in p]
@@ -2048,30 +2282,33 @@ def adam_row(kinfo, params, step: int, clip, wd, where: str, large: bool,
         f"clip {clip}, decay {wd}): kernel {ms:.5f} ms, plain "
         f"{plain_ms:.5f} ms, torch._fused_adamw_ "
         + (f"{library_ms:.5f} ms" if library_ms is not None else "n/a")
-        + f"{library_note}; the plain clip norm (global_norm, clip_scale) "
-        f"{norm_ms:.5f} ms; bound {bound_ms:.5f} ms ({nbytes} B at "
+        + f"{library_note}; bound {bound_ms:.5f} ms ({nbytes} B at "
         f"{HBM_BYTES_PER_S:.3e} B/s), the kernel at "
         f"{bound_ms / ms:.3f} of it [{smi}]")
-    del p, g, mu, nu
+    del mu, nu
+    norm = norm_row(g, where, large, smi)
+    del p, g
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "norm_ms": norm_ms,
-            "bytes": nbytes, "elements": n, "shape": where,
-            "max_err": max_err}
+            "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
+            "elements": n, "shape": where, "max_err": max_err,
+            "norm": norm}
 
 
 def adam_instances(dtypes) -> list:
-    """The fused Adam instances a step of parameters of ``dtypes`` launches,
-    each once."""
+    """The kernels a clipped step of parameters of ``dtypes`` launches, each
+    once: the global norm, and the fused Adam's instance of each dtype."""
     import torch
     from repro_torch.kernels import ops
-    return [k for dt, k in ((torch.float32, ops.FUSED_ADAM_F32),
-                            (torch.bfloat16, ops.FUSED_ADAM_BF16))
-            if dt in set(dtypes)]
+    return [ops.GLOBAL_NORM] + [
+        k for dt, k in ((torch.float32, ops.FUSED_ADAM_F32),
+                        (torch.bfloat16, ops.FUSED_ADAM_BF16))
+        if dt in set(dtypes)]
 
 
 def tally_adam(want: dict, dtypes, steps: int) -> None:
-    """Add ``steps`` steps' fused Adam launches to ``want`` (kernel name ->
-    launches)."""
+    """Add ``steps`` steps' optimizer launches to ``want`` (kernel name ->
+    launches): every step of these phases clips (``AdamConfig``'s
+    ``clip_norm=1.0``), so one global norm a step beside the fused Adam."""
     for k in adam_instances(dtypes):
         want[k.name] = want.get(k.name, 0) + steps
 
@@ -2083,14 +2320,15 @@ def compiled_steps(stats: dict) -> int:
 
 
 def check_adam_launches(what: str, want: dict) -> dict:
-    """The phase's launches since its reset: the fused Adam's instances
-    exactly ``want`` (its steps, one launch a parameter dtype each), and no
-    other hand-written kernel."""
+    """The phase's launches since its reset: the global norm and the fused
+    Adam's instances exactly ``want`` (its steps: one norm a clipped step,
+    one Adam launch a parameter dtype), and no other hand-written
+    kernel."""
     from repro_torch.kernels import ops
     n = {k: v for k, v in ops.launch_counts().items() if v}
     if n != {k: v for k, v in want.items() if v}:
-        raise AssertionError(f"{what}: launches {n}, want the fused Adam's "
-                             f"{want} alone")
+        raise AssertionError(f"{what}: launches {n}, want the global norm's "
+                             f"and the fused Adam's {want} alone")
     return n
 
 
@@ -2194,7 +2432,8 @@ def training_phase(dev, train_task, batch: int = 32, max_t: int = 96):
             peak = torch.cuda.max_memory_allocated() - base
             pool = new_pool_bytes(pools0)
             after = ops.launch_counts()
-            for k in (ops.FUSED_ADAM_F32, ops.FUSED_ADAM_BF16):
+            for k in (ops.FUSED_ADAM_F32, ops.FUSED_ADAM_BF16,
+                      ops.GLOBAL_NORM):
                 main_adam[k.name] = (main_adam.get(k.name, 0)
                                      + after[k.name] - before[k.name])
             tally_adam(adam_want, f32, 1 + compiled_steps(step.stats))
@@ -2314,9 +2553,9 @@ def training_phase(dev, train_task, batch: int = 32, max_t: int = 96):
         if not (same_restore and resume_bitwise):
             raise AssertionError("train resume is not bitwise")
         n_adam = check_adam_launches("phase 5d training", adam_want)
-        log(f"train launches: {n_adam}, exactly one fused_adam_f32 a step "
-            f"(eager steps, compiled steps' warm-ups and replays) and no "
-            f"other hand-written kernel")
+        log(f"train launches: {n_adam}, exactly one global_norm and one "
+            f"fused_adam_f32 a step (eager steps, compiled steps' warm-ups "
+            f"and replays) and no other hand-written kernel")
     # the CPU ran two forwards (gradients, then the step) over one log
     log(f"train qat first step: {qat_stats['sites'] // 2} LUT sites a "
         f"forward; {qat_stats['flips'] // 2} of the CPU's outputs differed "
@@ -4216,9 +4455,12 @@ def lm_step_split(cfg, state, batch, opt_cfg, steps: dict) -> dict:
                    if any(m in name.lower() for m in MATMUL_KERNELS))
         adam = sum(us for name, (_, us) in by_name.items()
                    if "fused_adam" in name)
-        rest = sum(us for _, us in by_name.values()) - gemm - adam
+        norm = sum(us for name, (_, us) in by_name.items()
+                   if "global_norm" in name)
+        rest = sum(us for _, us in by_name.values()) - gemm - adam - norm
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-        out[how] = {"gemm_us": gemm, "adam_us": adam, "other_us": rest,
+        out[how] = {"gemm_us": gemm, "adam_us": adam, "norm_us": norm,
+                    "other_us": rest,
                     "top": [(short(name), n, us) for name, (n, us) in top]}
     return out
 
@@ -4239,8 +4481,9 @@ def lm_train_phase(dev, smi) -> dict:
     llama3.2-1b and granite-moe-3b-a800m twice, losses bitwise equal; a run
     stopped at step 4 by its checkpoint and resumed to step 6 gives the
     losses of steps 5-6 of an uninterrupted run, bitwise. The only
-    hand-written kernel launched is the fused Adam, once a step and
-    parameter dtype: the blocks run the plain scans under autograd.
+    hand-written kernels launched are the global norm, once a step, and
+    the fused Adam, once a step and parameter dtype: the blocks run the
+    plain scans under autograd.
     Returns the numbers."""
     import numpy as np
     import torch
@@ -4345,7 +4588,7 @@ def lm_train_phase(dev, smi) -> dict:
                 into.append(float(mm["loss"]))
         return run2steps
     prof = {"compiled": engine_profile(two_steps(step, state, losses), 2,
-                                       match="fused_adam")}
+                                       match=OPT_KERNELS)}
     peak = {"compiled": (torch.cuda.max_memory_allocated() - base_c)
             / 2 ** 30}
     tally_adam(adam_want, bf16, compiled_steps(step.stats))
@@ -4363,7 +4606,7 @@ def lm_train_phase(dev, smi) -> dict:
         e_walls.append(1e3 * (time.perf_counter() - t0))
     del m
     prof["eager"] = engine_profile(two_steps(eager, twin, e_losses), 2,
-                                   match="fused_adam")
+                                   match=OPT_KERNELS)
     peak["eager"] = (torch.cuda.max_memory_allocated() - base_e) / 2 ** 30
     tally_adam(adam_want, bf16, LM_FIXED_STEPS + 3)
     same = e_losses == losses and state_bitwise(state["s"], twin["s"])
@@ -4418,7 +4661,8 @@ def lm_train_phase(dev, smi) -> dict:
             f"{pr['device_busy_us_per_step']:.1f} us, idle share "
             f"{pr['idle_share']:.4f} (wall {pr['wall_us_per_step']:.1f} us "
             f"under the profiler), fused Adam kernel "
-            f"{pr['match_us_per_step']:.1f} us; peak memory "
+            f"{pr['match_us_by']['fused_adam']:.1f} us, global norm kernel "
+            f"{pr['match_us_by']['global_norm']:.1f} us; peak memory "
             f"{peak[how]:.3f} GiB above the state and its copy (the state "
             f"{state_bytes / 2 ** 30:.3f} GiB, {state_bytes} B; peak with "
             f"the state {peak[how] + state_bytes / 2 ** 30:.3f} GiB) [{smi}]")
@@ -4439,7 +4683,8 @@ def lm_train_phase(dev, smi) -> dict:
         sp = split[how]
         log(f"time train {LM_TRAIN_ARCH} {how}: device time of one step: "
             f"matmul kernels {sp['gemm_us']:.1f} us, fused Adam "
-            f"{sp['adam_us']:.1f} us, the rest {sp['other_us']:.1f} us; the "
+            f"{sp['adam_us']:.1f} us, global norm {sp['norm_us']:.1f} us, "
+            f"the rest {sp['other_us']:.1f} us; the "
             f"six largest: " + "; ".join(f"{name} x{n} {us:.1f} us"
                                          for name, n, us in sp["top"])
             + f" [{smi}]")
@@ -4525,9 +4770,10 @@ def lm_train_phase(dev, smi) -> dict:
     res["adam_launches"] = main_adam
     res["adam_steps"] = main_steps
     res["seconds"] = time.perf_counter() - t_phase
-    log(f"phase 5h took {res['seconds']:.1f} s; launches {n}: the fused "
-        f"Adam once a step and parameter dtype, no other hand-written "
-        f"kernel (the blocks run the plain scans under autograd)")
+    log(f"phase 5h took {res['seconds']:.1f} s; launches {n}: the global "
+        f"norm once a step, the fused Adam once a step and parameter dtype, "
+        f"no other hand-written kernel (the blocks run the plain scans "
+        f"under autograd)")
     return res
 
 
@@ -4881,8 +5127,9 @@ def mesh_phase(dev, smi) -> dict:
     ``mesh_pipeline``. (e) ``launch.train --model-parallel 2 --reduced``
     repeats ``--model-parallel 1``'s losses bitwise, both through the
     launcher's compiled step; ``prefetch_to_mesh`` puts batches on the card
-    with the reference's spec. The only hand-written kernel launched is
-    the fused Adam, once a step (eager or compiled) and parameter dtype.
+    with the reference's spec. The only hand-written kernels launched are
+    the global norm, once a step (eager or compiled), and the fused Adam,
+    once a step and parameter dtype.
     Returns the numbers."""
     import numpy as np
     import torch
@@ -5007,9 +5254,9 @@ def mesh_phase(dev, smi) -> dict:
 
     n = check_adam_launches("phase 5i", adam_want)
     res["seconds"] = time.perf_counter() - t_phase
-    log(f"phase 5i took {res['seconds']:.1f} s; launches {n}: the fused "
-        f"Adam once a step and parameter dtype, no other hand-written "
-        f"kernel")
+    log(f"phase 5i took {res['seconds']:.1f} s; launches {n}: the global "
+        f"norm once a step, the fused Adam once a step and parameter dtype, "
+        f"no other hand-written kernel")
     return res
 
 
@@ -5287,7 +5534,7 @@ def examples_phase(dev, smi, main_gru: dict) -> dict:
         replays = {k: engine_steps(card_d[k])
                    for k in ("eng", "eng2", "eng_q", "eng_m")}
         # and its training: the compiled step's warm-up and a replay a
-        # step, one fused Adam launch each
+        # step, one global norm and one fused Adam launch each
         want_d = {ops.DELTAGRU_SEQ_F32.name:
                   2 * (replays["eng"] + replays["eng2"]),
                   ops.DELTA_Q8_GRU_I8.name:
@@ -5295,6 +5542,8 @@ def examples_phase(dev, smi, main_gru: dict) -> dict:
                   ops.DELTA_UNIT_F32.name: 2 * sum(replays.values()),
                   ops.ENGINE_EPILOGUE_F32.name: sum(replays.values()),
                   ops.FUSED_ADAM_F32.name: compiled_steps(
+                      card_d["step"].stats),
+                  ops.GLOBAL_NORM.name: compiled_steps(
                       card_d["step"].stats)}
         if card_d["step"].stats["replays"] != DIGITS_STEPS:
             raise AssertionError(f"digits training: {card_d['step'].stats}, "
@@ -5307,7 +5556,8 @@ def examples_phase(dev, smi, main_gru: dict) -> dict:
         log(f"examples (a) serve_stream_digits --steps {DIGITS_STEPS} on "
             f"{dev}: launches {n_d} = 2 layers x steps {replays} (the "
             f"int8 kernel's B=4 tile under the batcher: "
-            f"{2 * replays['eng_m']}), the fused Adam once a training step "
+            f"{2 * replays['eng_m']}), the global norm and the fused Adam "
+            f"once a training step "
             f"(compiled: {card_d['step'].stats}) ({res['digits_s']:.1f} s)")
         for k in set(n_q) | set(n_d):
             res["launches"][k] = n_q.get(k, 0) + n_d.get(k, 0)
@@ -6028,6 +6278,10 @@ def main() -> int:
     adam_k = adam_kernels_phase(dev)
     for name, e in adam_k["max_err"].items():
         max_err[name] = max(max_err[name], e)
+    # the clip's global norm
+    norm_k = norm_kernels_phase(dev)
+    for name, e in norm_k["max_err"].items():
+        max_err[name] = max(max_err[name], e)
     phase3 = ops.launch_counts()
 
     # -- 4. exhaustive activation grid ------------------------------------
@@ -6747,9 +7001,9 @@ def main() -> int:
         frames = bt["features"].shape[0] * bt["features"].shape[1]
         tr["step"](st, bt)   # captures again if (c) left its key switched
         prof = {"compiled": engine_profile(lambda: tr["step"](st, bt), 1,
-                                           match="fused_adam"),
+                                           match=OPT_KERNELS),
                 "eager": engine_profile(lambda: tr["step"].eager(st, bt), 1,
-                                        match="fused_adam")}
+                                        match=OPT_KERNELS)}
         split = train_split_ms(st.params, tr["task"], bt, tr["qat"],
                                tr["use_delta"], st.opt, opt_cfg)
         walls = {"compiled": tr["step_ms"][1:],
@@ -6771,7 +7025,9 @@ def main() -> int:
                 f"{busy_ms:.3f} ms, idle share {pr['idle_share']:.4f} (wall "
                 f"{pr['wall_us_per_step'] / 1e3:.3f} ms under the profiler), "
                 f"{1 - busy_ms / wall_ms:.4f} against the unprofiled wall; "
-                f"fused Adam kernel {pr['match_us_per_step']:.1f} us; peak "
+                f"fused Adam kernel {pr['match_us_by']['fused_adam']:.1f} "
+                f"us, global norm kernel "
+                f"{pr['match_us_by']['global_norm']:.1f} us; peak "
                 f"memory {peaks[how] / 2 ** 30:.3f} GiB ({peaks[how]} B) "
                 f"above what the loop began with [{smi}]")
         pool = tr["pool_bytes"]
@@ -6794,6 +7050,8 @@ def main() -> int:
         ops.FUSED_ADAM_BF16.name: lm_train["adam_row"]}
     for name, row in adam_rows.items():
         max_err[name] = max(max_err[name], row["max_err"])
+        max_err[ops.GLOBAL_NORM.name] = max(max_err[ops.GLOBAL_NORM.name],
+                                            row["norm"]["max_err"])
     log(f"time train export: quantize_delta_model of the trained 2L-768H "
         f"stack {train['serve']['export_ms']:.3f} ms [{smi}]")
 
@@ -6942,10 +7200,10 @@ def main() -> int:
                   and guard_fits(n, q8_prog.input_size)
                   else "plain ops") for key, n in (("B1", 1), ("n128", 128))}
         entries.append(entry)
-    # the train steps' fused AdamW: launches of the main paths' runs (5d's
-    # stages, 5h (a)'s launcher), and those launches over the steps the
-    # runs took (eager steps, and each compiled step's warm-ups and
-    # replays)
+    # the train steps' fused AdamW and global norm: launches of the main
+    # paths' runs (5d's stages, 5h (a)'s launcher), and those launches over
+    # the steps the runs took (eager steps, and each compiled step's
+    # warm-ups and replays)
     adam_launches, adam_steps = {}, {}
     for ph in (train, lm_train):
         add_counts(adam_launches, ph["adam_launches"])
@@ -6957,11 +7215,27 @@ def main() -> int:
                  "launches": launches.get(kinfo.name, 0),
                  "max_abs_err": max_err[kinfo.name]}
         for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                    "norm_ms", "bytes", "elements", "shape"):
+                    "bytes", "elements", "shape"):
             entry[key] = row[key]
         entry["launches_per_step"] = (adam_launches.get(kinfo.name, 0)
                                       / adam_steps[kinfo.name])
         entries.append(entry)
+    # the clip's global norm: its row at llama3.2-1b's bf16 gradients (5h),
+    # the 2L-768H GRU's fp32 ones beside it
+    kinfo = ops.GLOBAL_NORM
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library", "bytes", "elements", "shape", "rel_err")
+    norm_main = adam_rows[ops.FUSED_ADAM_BF16.name]["norm"]
+    norm_gru = adam_rows[ops.FUSED_ADAM_F32.name]["norm"]
+    entry = {"name": kinfo.name, "route": "cuda", "source": kinfo.source,
+             "replaces": kinfo.replaces,
+             "launches": launches.get(kinfo.name, 0),
+             "max_abs_err": max_err[kinfo.name],
+             **{key: norm_main[key] for key in keys},
+             "gru_tree": {key: norm_gru[key] for key in keys},
+             "launches_per_step": (adam_launches.get(kinfo.name, 0)
+                                   / adam_steps[kinfo.name])}
+    entries.append(entry)
     if len(entries) != len(ops.KERNELS) or not all(
             e["launches"] > 0 for e in entries):
         got = [(e["name"], e["launches"]) for e in entries]

@@ -27,7 +27,7 @@ BUILD_DIR = PACKAGE / "build"
 SOURCES = ("deltagru_seq.cu", "deltalstm_seq.cu", "delta_q8.cu",
            "delta_spmv.cu", "rwkv6_scan.cu", "rglru_scan.cu",
            "deltagru_cell.cu", "delta_unit.cu", "engine_epilogue.cu",
-           "fused_adam.cu")
+           "fused_adam.cu", "global_norm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -32,8 +32,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ops import (ENGINE_EPILOGUE_F32, cuda_stream,
-                                     launches_kernel, require,
-                                     table_after_capture)
+                                     device_table, launches_kernel, require)
 
 # Constants of csrc/engine_epilogue.cu.
 EP_CHUNK = 4096          # elements of a leaf row a scan item
@@ -195,15 +194,6 @@ def _fn():
     return fn
 
 
-def _device_table(words: np.ndarray, device) -> torch.Tensor:
-    """The table in device memory: written after the capture when one is
-    running (the graph keeps the address), else by a pinned copy now."""
-    host = torch.from_numpy(words)
-    if torch.cuda.is_current_stream_capturing():
-        return table_after_capture(host)
-    return host.pin_memory().to(device, non_blocking=True)
-
-
 def _launch(leaves, counts, cols, carry, x, finite, consts, workspace):
     f32 = torch.float32
     n = finite.shape[0]
@@ -228,7 +218,7 @@ def _launch(leaves, counts, cols, carry, x, finite, consts, workspace):
     require(carry["last_x"], "last_x", f32, (n, i_dim), align=4)
     table = epilogue_table(leaves, counts, cols, n)
     dev = finite.device
-    dev_table = _device_table(table.words, dev)
+    dev_table = device_table(table.words, dev)
     grid = epilogue_grid(table.items)
     fh_mean = torch.empty((), dtype=f32, device=dev)
     words = epilogue_workspace_words(n, n_layers)

@@ -13,10 +13,12 @@ kernel existed, in the same order. The kernel rounds every operation on
 its own, so on the card the two agree bitwise.
 
 The leaves' table (pointers, lengths, the gradient's dtype, each leaf's
-first chunk) is written to device memory before the launch: by a pinned
-copy on the stream in an eager call, and once after the capture in a CUDA
-graph (:func:`repro_torch.kernels.ops.table_after_capture`), whose
-replays then read the table written once after the capture.
+first chunk and its plan: a scalar head, whole pieces of ``FA_PIECE``
+elements that take vector accesses, a scalar tail; :func:`leaf_plan`) is
+written to device memory before the launch: by a pinned copy on the
+stream in an eager call, and once after the capture in a CUDA graph
+(:func:`repro_torch.kernels.ops.device_table`), whose replays then read
+the table written once after the capture.
 """
 from __future__ import annotations
 
@@ -27,15 +29,21 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ops import (FUSED_ADAM_BF16, FUSED_ADAM_F32,
-                                     H100_SMS, cuda_stream, launches_kernel,
-                                     table_after_capture)
+                                     H100_SMS, cuda_stream, device_table,
+                                     launches_kernel)
 
 # Constants of csrc/fused_adam.cu.
 FA_THREADS = 256
-FA_CHUNK = 8192          # elements of a leaf a block takes at a time
-FA_BLOCKS_PER_SM = 8     # 2048 threads an SM
-# a leaf's row: p, g, mu, nu, p_out, mu_out, nu_out, n, item0, g_bf16
-TABLE_WORDS = 10
+FA_WARPS = FA_THREADS // 32
+FA_CHUNK = 8192          # elements of a leaf a chunk
+FA_TILE = 256            # elements a warp's tile
+FA_PIECE = 4             # elements a lane's access (16 bytes of fp32)
+FA_ALIGN = 16            # bytes every operand starts on after the head
+FA_HEAD_MAX = 8          # elements a head search tries
+FA_BLOCKS_PER_SM = 2     # the kernel's launch bounds
+# a leaf's row: p, g, mu, nu, p_out, mu_out, nu_out, n, item0, g_bf16,
+# head, vec
+TABLE_WORDS = 12
 
 _INSTANCES = {torch.float32: FUSED_ADAM_F32, torch.bfloat16: FUSED_ADAM_BF16}
 _GRAD_DTYPES = (torch.float32, torch.bfloat16)
@@ -51,20 +59,80 @@ def host_constants(b1: float, b2: float, eps: float,
                  (b1, 1 - b1, b2, 1 - b2, eps, weight_decay))
 
 
-def leaf_table(rows) -> tuple:
+def leaf_plan(n: int, ptrs, sizes) -> tuple:
+    """How the kernel cuts a leaf of ``n`` elements whose operands start at
+    the addresses ``ptrs`` with elements of ``sizes`` bytes: ``(head,
+    body, tail, vec)``, a scalar head, a body of whole ``FA_PIECE``-element
+    pieces that take vector accesses, a scalar tail (``head + body + tail
+    == n``, ``tail < FA_PIECE``). With ``vec`` the head is the first
+    element at which every operand starts on ``FA_ALIGN`` bytes; a leaf
+    with no such element among the first ``FA_HEAD_MAX`` (operands at odd
+    phases) is all tail, taken element by element."""
+    for h in range(FA_HEAD_MAX):
+        if all((ptr + h * size) % FA_ALIGN == 0
+               for ptr, size in zip(ptrs, sizes)):
+            head = min(h, n)
+            body = (n - head) // FA_PIECE * FA_PIECE
+            return head, body, n - head - body, True
+    return 0, 0, n, False
+
+
+def leaf_table(rows, p_bf16: bool = False) -> tuple:
     """The kernel's leaf table of one launch. ``rows``: per leaf ``(ptrs,
     n, g_bf16)`` with ``ptrs`` the seven addresses (p, g, mu, nu, p_out,
-    mu_out, nu_out). Empty leaves are left out. Returns ``(table, items)``:
-    an int64 ``[leaves, TABLE_WORDS]`` array and the chunks of
-    ``FA_CHUNK`` elements over all leaves (``item0`` numbers each leaf's
-    first)."""
+    mu_out, nu_out); ``p_bf16``: the instance's parameter dtype. Empty
+    leaves are left out. Returns ``(table, items)``: an int64 ``[leaves,
+    TABLE_WORDS]`` array and the chunks of ``FA_CHUNK`` elements over all
+    leaves (``item0`` numbers each leaf's first; a chunk holds
+    ``FA_CHUNK / FA_TILE`` tile slots, :func:`tile_elements`)."""
     table, items = [], 0
+    p_size = 2 if p_bf16 else 4
     for ptrs, n, g_bf16 in rows:
         if n == 0:
             continue
-        table.append([*ptrs, n, items, int(g_bf16)])
+        sizes = (p_size, 2 if g_bf16 else 4, 4, 4, p_size, 4, 4)
+        head, _, _, vec = leaf_plan(n, ptrs, sizes)
+        table.append([*ptrs, n, items, int(g_bf16), head, int(vec)])
         items += -(-n // FA_CHUNK)
     return np.array(table, dtype=np.int64).reshape(-1, TABLE_WORDS), items
+
+
+def leaf_tiles(n: int, head: int) -> int:
+    """Tiles of ``FA_TILE`` elements the kernel gives a leaf after its
+    head: at least one, which also takes the head."""
+    return max(1, -(-(n - head) // FA_TILE))
+
+
+def tile_elements(n: int, head: int, r: int) -> list:
+    """The elements of a leaf's tile ``r`` as the kernel's warp takes them,
+    lane by lane: a lane's pieces of ``FA_PIECE`` elements (at ``head + r
+    * FA_TILE + FA_PIECE * lane`` and every ``32 * FA_PIECE`` after, up to
+    the tile's end) up to the leaf's end, then, in tile 0, the head."""
+    base = head + r * FA_TILE
+    out = []
+    for lane in range(32):
+        for q in range(0, FA_TILE, 32 * FA_PIECE):
+            i = base + q + FA_PIECE * lane
+            out.extend(range(i, min(i + FA_PIECE, n)))
+    if r == 0:
+        out.extend(range(head))
+    return out
+
+
+def warp_slots(slots: int, grid: int) -> list:
+    """Each warp's tile slots in the order it takes them, block by block
+    and warp by warp: one sweep of the grid over the launch's slots
+    (``FA_CHUNK / FA_TILE`` a chunk) in tree order, warp w of block b
+    taking slot ``b * FA_WARPS + w`` and then every ``grid * FA_WARPS``."""
+    stride = grid * FA_WARPS
+    return [list(range(b * FA_WARPS + w, slots, stride))
+            for b in range(grid) for w in range(FA_WARPS)]
+
+
+def adam_grid(items: int) -> int:
+    """Blocks of a launch over ``items`` chunks: every resident block the
+    card holds, or one a chunk."""
+    return max(1, min(items, H100_SMS * FA_BLOCKS_PER_SM))
 
 
 def launch_groups(params, grads, mu, nu, out) -> dict:
@@ -128,7 +196,7 @@ def fused_adam(params, grads, mu, nu, *, scale, lr, corr1, corr2, b1, b2,
     groups = launch_groups(params, grads, mu, nu, out)
     consts = host_constants(b1, b2, eps, weight_decay)
     for dtype, rows in groups.items():
-        table, items = leaf_table(rows)
+        table, items = leaf_table(rows, dtype == torch.bfloat16)
         if items:
             _launch(_INSTANCES[dtype], table, items, scale, lr, corr1, corr2,
                     consts, bool(weight_decay))
@@ -145,18 +213,9 @@ def _fn():
     return fn
 
 
-def _device_table(table: np.ndarray, device) -> torch.Tensor:
-    """The table in device memory: written after the capture when one is
-    running (the graph keeps the address), else by a pinned copy now."""
-    host = torch.from_numpy(table)
-    if torch.cuda.is_current_stream_capturing():
-        return table_after_capture(host)
-    return host.pin_memory().to(device, non_blocking=True)
-
-
 def _launch(kinfo, table, items, scale, lr, corr1, corr2, consts, decay):
-    dev_table = _device_table(table, lr.device)
-    grid = max(1, min(items, H100_SMS * FA_BLOCKS_PER_SM))
+    dev_table = device_table(table, lr.device)
+    grid = adam_grid(items)
     err = _fn()(
         int(kinfo is FUSED_ADAM_BF16), dev_table.data_ptr(), len(table),
         items, None if scale is None else scale.data_ptr(), lr.data_ptr(),

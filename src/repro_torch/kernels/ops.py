@@ -327,13 +327,20 @@ FUSED_ADAM_F32 = KernelInfo(
     "fused_adam_f32", "src/repro_torch/csrc/fused_adam.cu", _ADAM_FUSION)
 FUSED_ADAM_BF16 = KernelInfo(
     "fused_adam_bf16", "src/repro_torch/csrc/fused_adam.cu", _ADAM_FUSION)
+# the clip's global norm of the train steps, one instance for fp32 and bf16
+# leaves alike: an XLA fusion in the reference's jitted steps too
+GLOBAL_NORM = KernelInfo(
+    "global_norm", "src/repro_torch/csrc/global_norm.cu",
+    "none (XLA fusion: src/repro/train/optim.py:60 global_norm, called at "
+    ":67, :76)")
 KERNELS = (DELTAGRU_SEQ_F32, DELTA_Q8_GRU_I8, DELTA_Q8_GRU_I4,
            DELTALSTM_SEQ_F32, DELTA_Q8_LSTM_I8, DELTA_Q8_LSTM_I4,
            DELTA_Q8_GRU_DBUF_I8, DELTA_Q8_GRU_DBUF_I4,
            DELTA_Q8_LSTM_DBUF_I8, DELTA_Q8_LSTM_DBUF_I4,
            DELTA_SPMV_F32, DELTA_SPMV_BF16, RGLRU_SCAN_F32, RWKV6_SCAN_F32,
            RWKV6_SCAN_BF16, DELTAGRU_ACT_F32, DELTA_UNIT_F32,
-           ENGINE_EPILOGUE_F32, FUSED_ADAM_F32, FUSED_ADAM_BF16)
+           ENGINE_EPILOGUE_F32, FUSED_ADAM_F32, FUSED_ADAM_BF16,
+           GLOBAL_NORM)
 
 
 def q8_kernel(gates: int, weight_bits: int, buffered: bool) -> KernelInfo:
@@ -378,9 +385,10 @@ def add_launches(counted: tuple) -> None:
 _AFTER_CAPTURE: list = []     # one record a capture_cuda_graph running
 
 # each capture's arena for the tables its launches read: the fused Adam's
-# rows are 80 bytes a leaf, at most two tables a step (one a parameter
-# dtype); the engine epilogue's ~9 KB at RWKV6's 240 leaves (32 KB at its
-# 1024-leaf limit), one a step of a 16-step chunk graph; 1 MiB holds both
+# rows are 96 bytes a leaf, at most two tables a step (one a parameter
+# dtype), the global norm's 32 bytes a leaf and its ticket, one a step; the
+# engine epilogue's ~9 KB at RWKV6's 240 leaves (32 KB at its 1024-leaf
+# limit), one a step of a 16-step chunk graph; 1 MiB holds them all
 TABLE_ARENA_BYTES = 1 << 20
 
 
@@ -413,6 +421,17 @@ def table_after_capture(host: torch.Tensor) -> torch.Tensor:
     dst = arena[start:start + nbytes].view(host.dtype).view(host.shape)
     rec["writes"].append((dst, host))
     return dst
+
+
+def device_table(words, device) -> torch.Tensor:
+    """A kernel's table (a numpy array of words) in device memory: written
+    after the capture when one is running (the graph keeps the address,
+    :func:`table_after_capture`), else by a pinned copy on the current
+    stream now."""
+    host = torch.from_numpy(words)
+    if torch.cuda.is_current_stream_capturing():
+        return table_after_capture(host)
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def run_aside(device: torch.device, fn, *args) -> None:
@@ -537,6 +556,13 @@ def fused_adam(params, grads, mu, nu, *, scale, lr, corr1, corr2, b1,
     return _adam(params, grads, mu, nu, scale=scale, lr=lr, corr1=corr1,
                  corr2=corr2, b1=b1, b2=b2, eps=eps,
                  weight_decay=weight_decay, out=out)
+
+
+def global_norm(leaves):
+    """``sqrt`` of the sum of every leaf's squares (fp32 and bf16 leaves)
+    in one launch; :func:`repro_torch.kernels.global_norm.global_norm`."""
+    from repro_torch.kernels.global_norm import global_norm as _norm
+    return _norm(leaves)
 
 
 def rglru_scan(x, a, h0=None):

@@ -9,11 +9,13 @@ follows its order, so a checkpoint of either package's optimizer state
 restores into the other. Nothing here synchronises the host: the step
 count, learning rate and clip scale stay tensors on the device.
 
-``adam_update`` computes the global norm, the clip scale, the learning
-rate and the bias corrections in plain ops, then updates every leaf through
-:func:`repro_torch.kernels.ops.fused_adam`: one launch of the hand-written
-kernel a parameter dtype on a CUDA device, the same per-leaf ops as before
-the kernel (``fused_adam_ref``) on the CPU. Within :func:`updates_in_place`
+``adam_update`` computes the global norm through
+:func:`repro_torch.kernels.ops.global_norm` (one launch of the hand-written
+kernel on a CUDA device, ``global_norm_ref``'s ops on the CPU), the clip
+scale, the learning rate and the bias corrections in plain ops, then
+updates every leaf through :func:`repro_torch.kernels.ops.fused_adam`: one
+launch of the hand-written kernel a parameter dtype on a CUDA device, the
+same per-leaf ops as before the kernel (``fused_adam_ref``) on the CPU. Within :func:`updates_in_place`
 it writes the new parameters and moments into the tensors it was given (a
 compiled step's state buffers) instead of new ones.
 """
@@ -115,8 +117,10 @@ def init_adam_state(params):
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
-                          for leaf in tree_leaves(tree)))
+    """``sqrt`` of the sum of the squares of every leaf, in fp32: one launch
+    of the hand-written kernel on a CUDA device, the JAX package's ops on
+    the CPU (:func:`repro_torch.kernels.ops.global_norm`)."""
+    return ops.global_norm(tree_leaves(tree))
 
 
 def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:

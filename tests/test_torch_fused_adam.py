@@ -276,3 +276,106 @@ def test_a_table_outside_the_repos_capture_raises():
     with pytest.raises(RuntimeError, match="capture_cuda_graph"):
         ops.table_after_capture(torch.zeros((2, fa.TABLE_WORDS),
                                             dtype=torch.int64))
+
+
+# -- the kernel's plan: a scalar head, vector pieces, a scalar tail -----------
+
+_SIZES = {"f32": (4, 4, 4, 4, 4, 4, 4), "bf16": (2, 2, 4, 4, 2, 4, 4),
+          "bf16_g32": (2, 4, 4, 4, 2, 4, 4)}
+
+
+def _ptrs(sizes, offset, base=1 << 20):
+    """Seven operands, each ``offset`` elements past a 16-byte boundary
+    (a view that many elements into a buffer of its own)."""
+    return tuple(base + 4096 * k + offset * s for k, s in enumerate(sizes))
+
+
+def _leaf_elements(n, head):
+    """Every element the kernel's tiles of a leaf take, tile by tile, and
+    the tiles fit the leaf's tile slots (32 a chunk)."""
+    tiles = fa.leaf_tiles(n, head)
+    assert tiles <= -(-n // fa.FA_CHUNK) * (fa.FA_CHUNK // fa.FA_TILE)
+    return [i for r in range(tiles) for i in fa.tile_elements(n, head, r)]
+
+
+@pytest.mark.parametrize("kind", sorted(_SIZES))
+@pytest.mark.parametrize("offset", range(8))
+def test_plan_covers_every_element_exactly_once(kind, offset):
+    sizes = _SIZES[kind]
+    ptrs = _ptrs(sizes, offset)
+    for n in [*range(1, 41), 255, 256, 257, 8 * 3 + 5, fa.FA_CHUNK - 1,
+              fa.FA_CHUNK, fa.FA_CHUNK + 1, 2 * fa.FA_CHUNK + 13]:
+        head, body, tail, vec = fa.leaf_plan(n, ptrs, sizes)
+        assert vec                   # one offset a leaf: always alignable
+        assert head + body + tail == n and body % fa.FA_PIECE == 0
+        assert 0 <= head < 8 and 0 <= tail < fa.FA_PIECE
+        if body:                     # every piece starts each operand on 16
+            assert all((p + head * s) % fa.FA_ALIGN == 0
+                       for p, s in zip(ptrs, sizes))
+            # the first such element: 4 fp32 or 8 bf16 elements a 16 bytes
+            assert head == (-offset) % (4 if kind == "f32" else 8)
+        elements = _leaf_elements(n, head)
+        assert sorted(elements) == list(range(n))
+        # the body's pieces: whole, each lane's on 16 (fp32) or 8 bytes
+        for r in range(fa.leaf_tiles(n, head)):
+            for lane in range(32):
+                for q in range(0, fa.FA_TILE, 32 * fa.FA_PIECE):
+                    i = head + r * fa.FA_TILE + q + fa.FA_PIECE * lane
+                    if i + fa.FA_PIECE <= n:
+                        assert i < head + body
+                        assert all((p + i * sz) % (4 * sz) == 0
+                                   for p, sz in zip(ptrs, sizes))
+
+
+def test_plan_of_operands_at_odd_phases_is_all_tail():
+    sizes = _SIZES["f32"]
+    # p 4 bytes off, g 8 bytes off: no element starts both on 16 bytes
+    ptrs = (1 << 20) + 4, (1 << 21) + 8, *_ptrs(sizes, 0)[2:]
+    for n in (1, 7, 8, 9, 100, 600):
+        assert fa.leaf_plan(n, ptrs, sizes) == (0, 0, n, False)
+        assert sorted(_leaf_elements(n, 0)) == list(range(n))
+
+
+def test_leaf_table_carries_each_leafs_plan():
+    rows = [(_ptrs(_SIZES["bf16"], off), n, True)
+            for off, n in ((0, 5), (3, 100), (7, 9))]
+    table, _ = fa.leaf_table(rows, p_bf16=True)
+    for row, (ptrs, n, _) in zip(table, rows):
+        head, _, _, vec = fa.leaf_plan(n, ptrs, _SIZES["bf16"])
+        assert (row[10], row[11]) == (head, int(vec))
+    assert list(table[:, 10]) == [0, 5, 1]
+
+
+@pytest.mark.parametrize("items", [1, 7, 263, 264, 265, 661, 5000])
+def test_the_sweep_hands_each_tile_slot_to_one_warp(items):
+    grid = fa.adam_grid(items)
+    assert grid == min(items, ops.H100_SMS * fa.FA_BLOCKS_PER_SM)
+    slots = items * (fa.FA_CHUNK // fa.FA_TILE)
+    per_warp = fa.warp_slots(slots, grid)
+    assert len(per_warp) == grid * fa.FA_WARPS
+    assert sorted(s for w in per_warp for s in w) == list(range(slots))
+    # in tree order: each warp's slots rise, and the grid's first sweep
+    # takes the first grid * FA_WARPS slots
+    assert all(w == sorted(w) for w in per_warp)
+    assert [w[0] for w in per_warp if w] == list(range(min(
+        slots, grid * fa.FA_WARPS)))
+
+
+@pytest.mark.parametrize("r", [0, 1, 31])
+def test_each_access_of_a_warp_covers_consecutive_elements(r):
+    """A warp's accesses to one operand: lane after lane, each lane's piece
+    follows the one before, so one instruction reads ``32 * FA_PIECE``
+    consecutive elements (whole 32-byte sectors once the head is done),
+    and the tile's pieces follow one another up to ``FA_TILE``."""
+    head, n = 3, fa.FA_CHUNK + 7
+    got = fa.tile_elements(n, head, r)
+    base = head + r * fa.FA_TILE
+    per_lane = fa.FA_TILE // 32
+    pieces = [got[k:k + fa.FA_PIECE] for k in range(0, 32 * per_lane,
+                                                    fa.FA_PIECE)]
+    step = 32 * fa.FA_PIECE
+    for q in range(fa.FA_TILE // step):
+        access = [i for lane in range(32)
+                  for i in pieces[lane * (per_lane // fa.FA_PIECE) + q]]
+        assert access == list(range(base + q * step, base + (q + 1) * step))
+    assert got[32 * per_lane:] == (list(range(head)) if r == 0 else [])

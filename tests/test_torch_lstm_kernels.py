@@ -424,12 +424,13 @@ def test_lstm_unfired_blocks_do_not_reach_the_sum(fire):
 
 def test_every_kernel_instance_is_listed_once():
     names = [k.name for k in ops.KERNELS]
-    assert len(names) == len(set(names)) == 20
+    assert len(names) == len(set(names)) == 21
     assert names[10:] == ["delta_spmv_f32", "delta_spmv_bf16",
                           "rglru_scan_f32", "rwkv6_scan_f32",
                           "rwkv6_scan_bf16", "deltagru_act_f32",
                           "delta_unit_f32", "engine_epilogue_f32",
-                          "fused_adam_f32", "fused_adam_bf16"]
+                          "fused_adam_f32", "fused_adam_bf16",
+                          "global_norm"]
     for gates in (3, 4):
         for bits in (8, 4):
             for buffered in (False, True):

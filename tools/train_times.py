@@ -28,8 +28,16 @@ Per tree, with the helpers of this checkout's ``chip_smoke.py``:
   the launcher's AdamW (warmup to 3e-4 over 20 steps, decay 0.1): 2 warm
   steps, 6 timed (p50, tokens a second), 2 profiled, the Adam update alone
   (``chip_smoke.lm_step_split``), the steps' peak memory above the state.
+- The optimizer's two calls alone, at both trees (the 2L-768H GRU's fp32
+  leaves, llama3.2-1b's bf16 ones), on seeded gradients and fp32 moments:
+  the clip norm (``optim.global_norm``: the kernel where the tree has it,
+  plain ops where not) and the fused AdamW update in place
+  (``kernels.fused_adam.fused_adam``), each beside its bytes bound; graph
+  replays at the GRU tree, CUDA events over eager calls at llama's.
 
-One JSON line per tree and path, with the card's name and power limit.
+In the profiles, ``match_us_by`` holds the device time a step of the
+fused Adam's and the global norm's kernels. One JSON line per tree and
+path, with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -90,7 +98,7 @@ def gru_times(cs, dev, smi, tree: str) -> None:
         state, walls, peak = timed_steps(step, state, batches, GRU_WARM)
         bt = batches[-1]
         prof = cs.engine_profile(lambda: step(state, bt), 1,
-                                 match="fused_adam")
+                                 match=cs.OPT_KERNELS)
         split = cs.train_split_ms(state.params, task_s, bt, qat, use_delta,
                                   state.opt, opt)
         p50 = float(np.median(walls))
@@ -134,7 +142,7 @@ def lm_times(cs, dev, smi, tree: str) -> None:
         for _ in range(2):
             state["s"], m = step(state["s"], batches[-1])
         float(m["loss"])
-    prof = cs.engine_profile(two_steps, 2, match="fused_adam")
+    prof = cs.engine_profile(two_steps, 2, match=cs.OPT_KERNELS)
     split = cs.lm_step_split(cfg, state, batches[-1], opt, {})
     p50 = float(np.median(walls))
     tokens = cs.LM_TRAIN_BATCH * cs.LM_TRAIN_SEQ
@@ -152,6 +160,46 @@ def lm_times(cs, dev, smi, tree: str) -> None:
     torch.cuda.empty_cache()
 
 
+def optimizer_times(cs, dev, smi, tree: str) -> None:
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.fused_adam import fused_adam
+    from repro_torch.models.gru_rnn import PAPER_NETWORKS, init_gru_model
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.optim import global_norm, tree_leaves
+    trees = (("gru 2L-768H fp32", 0.0, False, lambda: init_gru_model(
+                 cs.SEED, PAPER_NETWORKS["2L-768H"], device=dev)),
+             (f"{cs.LM_TRAIN_ARCH} full size bf16", 0.1, True,
+              lambda: init_lm(cs.SEED, get_config(cs.LM_TRAIN_ARCH),
+                              device=dev)))
+    for name, wd, large, init in trees:
+        p = tree_leaves(init())
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED + 29)
+        g = [torch.randn(t.shape, generator=gen, device=dev).mul_(1e-3).to(
+            t.dtype) for t in p]
+        mu = [torch.zeros_like(t, dtype=torch.float32) for t in p]
+        nu = [torch.zeros_like(t, dtype=torch.float32) for t in p]
+        kw = dict(cs.adam_scalars(g, 8, 1.0, dev), b1=cs.ADAM_B1,
+                  b2=cs.ADAM_B2, eps=cs.ADAM_EPS, weight_decay=wd)
+        timer = (lambda fn: cs.events_ms(fn, 5)) if large else cs.device_ms
+        adam_ms = timer(lambda: fused_adam(p, g, mu, nu, out=(p, mu, nu),
+                                           **kw))
+        norm_ms = timer(lambda: global_norm(g))
+        g_bytes = sum(t.numel() * t.element_size() for t in g)
+        adam_bytes = cs.adam_bytes(p, g)
+        print(json.dumps({
+            "tree": tree, "path": f"optimizer {name}",
+            "elements": sum(t.numel() for t in p), "leaves": len(p),
+            "adam_ms": adam_ms, "norm_ms": norm_ms,
+            "adam_bound_ms": 1e3 * adam_bytes / cs.HBM_BYTES_PER_S,
+            "norm_bound_ms": 1e3 * g_bytes / cs.HBM_BYTES_PER_S,
+            "adam_bytes": adam_bytes, "norm_bytes": g_bytes,
+            "timed_by": "CUDA events over eager calls" if large
+            else "CUDA graph replays", "card": smi}), flush=True)
+        del p, g, mu, nu
+        torch.cuda.empty_cache()
+
+
 def time_tree(src: Path) -> None:
     sys.path.insert(0, str(src))
     sys.path.insert(1, str(ROOT))
@@ -167,6 +215,7 @@ def time_tree(src: Path) -> None:
     smi = cs.nvidia_smi_line()
     gru_times(cs, dev, smi, str(src))
     lm_times(cs, dev, smi, str(src))
+    optimizer_times(cs, dev, smi, str(src))
 
 
 def main(argv: list) -> int:
