@@ -163,51 +163,67 @@ traceback and a non-zero exit):
    every shard's state and outputs bitwise a standalone 8-stream engine,
    with exact launches of the fp32 GRU kernel;
 5f. the LM zoo's serving path (``lm_phase``), from seeded weights drawn
-   on the card by ``init_lm``: (a) llama3.2-1b at full size in bf16, an
-   ``LmEngine(batch=4, max_len=256)`` under a ``ContinuousBatcher``
-   draining 12 prompts of 16-96 tokens, 32 new tokens each, twice with the
-   same tokens, a staggered admission that leaves the live request's
-   tokens those of its solo run, and no hand-written kernel; (b)
-   rwkv6-1.6b at full size in bf16, ``generate_greedy`` on 4 prompts of
-   128 tokens for 32 steps, ``rwkv6_scan_bf16`` launched exactly 24 times
-   by the prefill and by each decode step and no other kernel, each launch
-   of the prefill and the first decode step held against its plain version
-   on the inputs the path gave it (within ``TOL_F32``; the decode step's
-   launches on its eager twin, since a replay calls no wrapper); (c)
-   recurrentgemma-9b at full width, reduced to 3 of its 38 layers (one
-   rglru, rglru, local_attn period), prefill at T = 128 and 32 decode
-   steps, ``rglru_scan`` launched twice by the prefill and never by a
-   decode step, bitwise its plain version; the bf16 prefill-then-decode
-   logits of (a) and (c) within ``TOL_LM_BF16_RMS`` of the teacher-forced
-   forward; (d) llama3.2-1b and rwkv6-1.6b in fp32 at full width and 2
-   layers, the card against the CPU within ``TOL_LM`` and prefill-then-
-   decode against the forward within ``TOL_F32``; (e) rwkv6-1.6b's fp32
-   2-layer prefill [2, 32] under ``REPRO_RWKV_CHUNKED=1`` (the
-   chunk-parallel route, plain PyTorch, no kernel) within ``TOL_LM`` of
-   the same prefill through ``rwkv6_scan_f32``; with each model's init,
-   prefill and
-   decode times, kernels a decode step and idle share, peak memory, and the
-   drain's tokens a second. Every ``LmEngine`` decode step is one replay of
-   its CUDA graph; in each model's timed run every step's logits and caches
-   are held bitwise against ``lm_decode`` run op by op on copies of the
-   same caches (``eager_twin``), and the graph's capture ms and private
-   pool (``graph_pool_bytes``) are printed;
+   on the card by ``init_lm``. Every ``LmEngine`` prefill and decode step
+   is one replay of a CUDA graph (the prefill's captured at its
+   signature's first use: a warm-up prefill, then the capture); each
+   model's timed run holds every prefill and decode replay's logits and
+   caches bitwise against ``lm_prefill`` / ``lm_decode`` run op by op on
+   copies of the same caches and inputs (``eager_twin``). (a) llama3.2-1b
+   at full size in bf16, an ``LmEngine(batch=4, max_len=256)`` under a
+   ``ContinuousBatcher`` draining 12 prompts of 16-96 tokens, 32 new
+   tokens each, twice with the same tokens (the first run's prefills held
+   against their eager twins), one prefill capture a distinct wave length
+   (``check_waves``), a staggered admission that leaves the live
+   request's tokens those of its solo run, and no hand-written kernel;
+   (b) rwkv6-1.6b at full size in bf16, a prefill of 4 prompts of 128
+   tokens (its capture: ``rwkv6_scan_bf16`` launched 24 times by the
+   warm-up and 24 by the replay), then ``generate_greedy`` on them for 32
+   steps, ``rwkv6_scan_bf16`` launched exactly 24 times by the prefill's
+   replay and by each decode step and no other kernel, each launch of the
+   prefill and the first decode step held against its plain version on
+   the inputs the path gave it (within ``TOL_F32``; recorded on the
+   replays' eager twins, since a replay calls no wrapper); (c)
+   recurrentgemma-9b at full size, all 38 layers (26 RG-LRU), the same,
+   ``rglru_scan`` launched 26 times by the prefill's replay (52 by the
+   capturing call) and never by a decode step, each launch bitwise its
+   plain version; the bf16 prefill-then-decode logits of (a) and (c)
+   within ``TOL_LM_BF16_RMS`` of the teacher-forced forward; (d)
+   llama3.2-1b and rwkv6-1.6b in fp32 at full width and 2 layers, the card
+   against the CPU within ``TOL_LM`` and prefill-then-decode against the
+   forward within ``TOL_F32``; (e) rwkv6-1.6b's fp32 2-layer prefill
+   [2, 32] under ``REPRO_RWKV_CHUNKED=1`` (the chunk-parallel route, plain
+   PyTorch, no kernel) within ``TOL_LM`` of the same prefill through
+   ``rwkv6_scan_f32``, and an engine's prefill graph captured again under
+   that route; then ``PREFILL_GRAPHS + 1`` prompt lengths swept three
+   times through one engine of that model (``bound_sweep``: evictions, one
+   shared pool, no memory kept by an evicted graph); with each model's
+   init, prefill (graph replay and eager, the capture's ms split into
+   warm-up, body and end, the prefill graphs' shared pool, a profiled
+   replay's kernels,
+   busy time and idle share, host syncs: none) and decode times, kernels
+   a decode step and idle share, peak memory, the decode graph's capture
+   ms and private pool (``graph_pool_bytes``), and the drain's tokens a
+   second;
 5g. the rest of the LM zoo (``zoo_phase``), seeded ``init_lm`` on the
-   card, bf16, full size: (a) deepseek-v2-lite-16b (MLA, MoE) under the
-   batcher as (a) of 5f (two drains the same tokens, a staggered
+   card, bf16, full size, through the same graphs and eager twins: (a)
+   deepseek-v2-lite-16b (MLA, MoE) under the batcher as (a) of 5f (two
+   drains the same tokens, one prefill capture a wave length, a staggered
    admission that leaves the live request's tokens those of its run with
    the same waves); (b) granite-moe-3b-a800m, (c) llama-3.2-vision-11b
-   with seeded image embeddings [4, 1601, 7680] and (d)
-   seamless-m4t-large-v2 with seeded audio frames [4, 1536, 160], through
-   ``generate_greedy`` on 4 prompts of 128 tokens for 32 steps; each
-   model's prefill-then-decode logits within ``TOL_LM_BF16_RMS`` of its
-   teacher-forced forward (MoE with capacity for every token; routing
-   flips held to ``ROUTE_MARGIN_BF16``); (e) the four in fp32 at full
-   width and the fewest layers that hold each block kind, card against
-   CPU within ``TOL_LM`` (a flip within ``ROUTE_MARGIN_F32`` replayed)
-   and decode against forward within ``TOL_F32``; no hand-written kernel
-   launched; per model the times of 5f (the decode steps held against
-   their eager twin), the init's peak and the host RSS;
+   with seeded image embeddings [4, 1601, 7680], (d)
+   seamless-m4t-large-v2 with seeded audio frames [4, 1536, 160], (e)
+   qwen2.5-32b (its init's peak beside the card's memory), (f) olmo-1b
+   and (g) smollm-360m, through ``generate_greedy`` on 4 prompts of 128
+   tokens for 32 steps; each model's prefill-then-decode logits within
+   ``TOL_LM_BF16_RMS`` of its teacher-forced forward (MoE with capacity
+   for every token; routing flips held to ``ROUTE_MARGIN_BF16``); phases
+   5f and 5g together must have served every arch of the registry at full
+   size (``check_served``); (h) all seven in fp32 at full width and the
+   fewest layers that hold each block kind, card against CPU within
+   ``TOL_LM`` (a flip within ``ROUTE_MARGIN_F32`` replayed) and decode
+   against forward within ``TOL_F32``; no hand-written kernel launched;
+   per model the times of 5f, the init's peak and the host RSS; then one
+   line of every served model's prefill rows (``lm_prefill_rows``);
 5h. LM training (``lm_train_phase``): (a) ``repro_torch.launch.train``
    trains llama3.2-1b at full size (the registry config: bf16 weights,
    fp32 Adam moments, remat) for 8 steps of [8, 128], every loss finite,
@@ -321,6 +337,8 @@ v with fp32 w, u and state, the bf16 RWKV6 models' operands), is held in
 phase 3 at B in {1, 4, 9}, T in {1, 37, 128}, H in {32, 3}, with and
 without s0 and with r 2-byte aligned, within ``TOL_F32``, and timed in 5f
 at the LM path's shapes.
+
+Each phase's seconds are logged where the next one starts.
 
 The line before the last is ``{"kernels": [...]}`` (every kernel instance;
 the ``launches`` of a main-path instance are those of phases 5, 5b, 5c, 5d,
@@ -3235,9 +3253,6 @@ LM_MAX_LEN = 256
 LM_REQUESTS = 12
 LM_NEW = 32            # new tokens a request, and decode steps of (b), (c)
 LM_T = 128             # the prompt length of (b) and (c)
-# recurrentgemma-9b cut to one (rglru, rglru, local_attn) period of its 38
-# layers, at its full width (time and host memory)
-RG_LAYERS = 3
 # prefill-then-decode logits against the teacher-forced forward of the same
 # model on the card, relative RMS over a step's logits. One function over
 # other matmul shapes (one row a decode step, 72 rows in the forward): on
@@ -3418,6 +3433,12 @@ def lm_forced(params, cfg, dev, rng, what, tol=TOL_LM_BF16_RMS,
     return {"err": max(errs), "flips": n, "gap": gap}
 
 
+# the warning of torch.cuda.set_sync_debug_mode("warn") at a host sync
+# (its first use also warns that the mode is a prototype, "does not yet
+# detect all synchronizing operations": not a sync)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
 def host_syncs(fn) -> int:
     """Host synchronisations (each a wait for the card) while ``fn()``
     runs, counted by ``torch.cuda.set_sync_debug_mode("warn")``."""
@@ -3429,7 +3450,7 @@ def host_syncs(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum(SYNC_WARNING in str(w.message) for w in caught)
 
 
 def graph_pools() -> dict | None:
@@ -3465,50 +3486,255 @@ def graph_pool_bytes() -> int | None:
     return None if pools is None else sum(pools.values())
 
 
-def eager_twin(eng) -> list:
-    """Wrap ``eng.decode_step`` (an ``LmEngine`` on the card: one graph
-    replay a step): each call first copies the caches and the tokens, and
-    after the replay ``lm_decode`` runs op by op on the copies; its logits
-    and every cache leaf must equal the replay's bit for bit. Returns the
-    list that counts the steps so held."""
+def eager_twin(eng, which=("prefill", "decode")) -> dict:
+    """Wrap ``eng.prefill`` and ``eng.decode_step`` (an ``LmEngine`` on the
+    card: one graph replay a call), those named in ``which``: each call
+    first copies the caches, the tokens and the modality inputs, and after
+    the replay ``lm_prefill`` / ``lm_decode`` runs op by op on the copies;
+    its logits and every cache leaf must equal the replay's bit for bit.
+    Returns ``{"prefill": n, "decode": n}``, the calls so held, counted as
+    they come."""
     import torch
     from repro_torch.models.common import tree_leaves as lm_leaves
     from repro_torch.models.common import tree_map
-    from repro_torch.models.lm import lm_decode
-    step, held = eng.decode_step, []
+    from repro_torch.models.lm import lm_decode, lm_prefill
+    held = {"prefill": 0, "decode": 0}
+    fns = {"prefill": (eng.prefill, lm_prefill),
+           "decode": (eng.decode_step, lm_decode)}
 
-    def call(tokens):
-        caches = tree_map(torch.clone, eng.caches)
-        toks = torch.as_tensor(tokens).to(eng.device, torch.int64, copy=True)
-        out = step(tokens)
-        with torch.no_grad():
-            want, caches = lm_decode(eng.params, eng.cfg, toks, caches)
-        if not (torch.equal(out, want) and all(
-                torch.equal(a, b) for a, b in zip(lm_leaves(eng.caches),
-                                                  lm_leaves(caches)))):
-            raise AssertionError(f"{eng.cfg.name}: decode step {len(held)}: "
-                                 "the replay differs from lm_decode op by "
-                                 "op on copies of its caches")
-        held.append(1)
-        return out
+    def wrap(what):
+        graph, eager = fns[what]
 
-    eng.decode_step = call
+        def call(tokens, **mod):
+            caches = tree_map(torch.clone, eng.caches)
+            toks = torch.as_tensor(tokens).to(eng.device, torch.int64,
+                                              copy=True)
+            ins = {k: torch.as_tensor(v).to(eng.device, copy=True)
+                   for k, v in mod.items()}
+            out = graph(tokens, **mod)
+            with torch.no_grad():
+                want, caches = eager(eng.params, eng.cfg, toks, caches,
+                                     **ins)
+            if not (torch.equal(out, want) and all(
+                    torch.equal(a, b) for a, b in zip(lm_leaves(eng.caches),
+                                                      lm_leaves(caches)))):
+                raise AssertionError(
+                    f"{eng.cfg.name}: {what} {held[what]} "
+                    f"{list(toks.shape)}: the replay differs from "
+                    f"lm_{what} op by op on copies of its caches")
+            held[what] += 1
+            return out
+        return call
+
+    if "prefill" in which:
+        eng.prefill = wrap("prefill")
+    if "decode" in which:
+        eng.decode_step = wrap("decode")
     return held
+
+
+def record_waves(eng) -> list:
+    """Wrap ``eng.prefill`` to keep each call's prompt length (a batcher's
+    wave length); returns the list."""
+    waves, prefill = [], eng.prefill
+
+    def call(tokens, **mod):
+        waves.append(tokens.shape[1])
+        return prefill(tokens, **mod)
+
+    eng.prefill = call
+    return waves
+
+
+def check_waves(what, eng, waves) -> str:
+    """Hold an engine's prefill graphs to the prompt lengths it was given
+    (one signature a length): one capture a distinct length, one replay a
+    call, none evicted. Returns a summary."""
+    from repro_torch.serve.engine import PREFILL_GRAPHS
+    st = eng.prefill_stats
+    distinct = len(set(waves))
+    if (distinct > PREFILL_GRAPHS or st["captures"] != distinct
+            or st["replays"] != len(waves) or st["evictions"]):
+        raise AssertionError(f"{what}: prefill graphs {st} over waves of "
+                             f"{waves}")
+    held = eng.prefill_graphs()
+    graphs = "; ".join(f"{sig[0][1]}: {capture_split(g)}"
+                       for sig, g in held.items())
+    return (f"{len(waves)} waves of {distinct} lengths "
+            f"{sorted(set(waves))}: {st['captures']} prefill captures, "
+            f"{st['replays']} replays (a length's capture: {graphs}; "
+            f"{pools_held(held)})")
+
+
+def capture_split(g: dict) -> str:
+    """A prefill graph's capture ms (``LmEngine.prefill_graphs()``): in
+    all, and its warm-up, body and end."""
+    return (f"{1e3 * g['capture_s']:.1f} ms (warm-up "
+            f"{1e3 * g['warmup_s']:.1f}, body {1e3 * g['body_s']:.1f}, end "
+            f"{1e3 * g['end_s']:.1f})")
+
+
+def pools_held(held: dict) -> str:
+    """The pools of the prefill graphs held and their MiB."""
+    pools = {g["pool"]: g["pool_bytes"] for g in held.values()}
+    return f"{len(held)} graphs in {len(pools)} pool(s) of " + ", ".join(
+        "not measured" if b is None else f"{b / 2 ** 20:.1f} MiB"
+        for b in pools.values())
+
+
+def bound_sweep(params, cfg, dev, rng, smi) -> dict:
+    """``PREFILL_GRAPHS + 1`` prompt lengths, 1 to ``PREFILL_GRAPHS + 1``,
+    swept three times in that order through one ``LmEngine(batch=2)`` on
+    the card, each prefill held bitwise against its eager twin. The first
+    sweep captures each length and evicts the least recently used graph
+    once; the later ones evict each graph just before its length comes
+    back, so every call captures. After each sweep the engine holds
+    ``PREFILL_GRAPHS`` graphs in one pool, the evicted lengths not among
+    them; an evicted graph is freed: the third sweep repeats the second's
+    evictions and captures, so its caching allocator's reserved bytes are
+    not above the second's, and the driver's used bytes not above by more
+    than one 2 MiB page (the second may grow the pool over the first,
+    whose captures met no eviction). Returns the sweeps' counts and
+    bytes."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import PREFILL_GRAPHS, LmEngine
+    n = PREFILL_GRAPHS
+    eng = LmEngine(params, cfg, 2, n + 8, device=dev)
+    held = eager_twin(eng, ("prefill",))
+    lengths = list(range(1, n + 2))
+    toks = {t: torch.from_numpy(rng.integers(1, cfg.vocab, (2, t)))
+            for t in lengths}
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info()
+    out = {0: {"reserved": torch.cuda.memory_reserved(),
+               "used": total - free}}
+    ends = []
+    for k in (1, 2, 3):
+        for t in lengths:
+            eng.prefill(toks[t])
+            ends.append(next(reversed(eng.prefill_graphs().values()))[
+                "end_s"])
+        torch.cuda.synchronize()
+        graphs = eng.prefill_graphs()
+        free, total = torch.cuda.mem_get_info()
+        out[k] = {"stats": dict(eng.prefill_stats),
+                  "held": [sig[0][1] for sig in graphs],
+                  "pools": {g["pool"]: g["pool_bytes"]
+                            for g in graphs.values()},
+                  "reserved": torch.cuda.memory_reserved(),
+                  "used": total - free,
+                  "split_ms": {key: 1e3 * float(sum(
+                      g[key] for g in graphs.values()) / len(graphs))
+                      for key in ("warmup_s", "body_s", "end_s")}}
+    s1, s3 = out[1]["stats"], out[3]["stats"]
+    want = {k: {"captures": k * (n + 1), "replays": k * (n + 1),
+                "evictions": 1 + (k - 1) * (n + 1), "held": n}
+            for k in (1, 2, 3)}
+    if (any(out[k]["stats"][key] != v for k in want
+            for key, v in want[k].items())
+            or any(out[k]["held"] != lengths[1:] or len(out[k]["pools"]) != 1
+                   for k in want)
+            or held["prefill"] != 3 * (n + 1)
+            or out[3]["reserved"] > out[2]["reserved"]
+            or out[3]["used"] > out[2]["used"] + 2 ** 21):
+        raise AssertionError(f"{cfg.name} prefill bound {n}: sweeps {out}, "
+                             f"{held} held against their eager twins")
+    pools = [next(iter(out[k]["pools"].values())) for k in want]
+    # what the driver holds for a graph beside the caching allocator
+    outside = ((out[1]["used"] - out[0]["used"])
+               - (out[1]["reserved"] - out[0]["reserved"])) / n
+    out["outside_mib_a_graph"] = outside / 2 ** 20
+    # a capture's end (the instantiation) with few graphs held and with
+    # the bound's worth: the median of the first sweep's first and last 8
+    out["end_ms"] = [1e3 * float(np.median(ends[:8])),
+                     1e3 * float(np.median(ends[n - 7:n + 1]))]
+    log(f"lm {cfg.name} ({cfg.dtype}, full width, {cfg.n_layers} layers) "
+        f"prefill bound: lengths 1-{n + 1} swept three times through one "
+        f"engine (PREFILL_GRAPHS = {n}), every call bitwise its eager twin: "
+        f"{s1['captures']} captures and {s1['evictions']} eviction, then "
+        f"{s3['captures'] - s1['captures']} captures and "
+        f"{s3['evictions'] - s1['evictions']} evictions (every call a "
+        f"capture); {n} graphs held after each, lengths 2-{n + 1}, in one "
+        f"pool of "
+        + ("not measured" if None in pools
+           else " / ".join(f"{b / 2 ** 20:.2f}" for b in pools) + " MiB")
+        + "; caching allocator reserved "
+        + " / ".join(str(out[k]["reserved"]) for k in want)
+        + " B, the driver's used "
+        + " / ".join(str(out[k]["used"]) for k in want)
+        + " B after each sweep (the "
+        f"driver's beside the allocator {out['outside_mib_a_graph']:.3f} "
+        f"MiB a graph held); a capture's end, median of the first sweep's "
+        f"first 8 / last 8: {out['end_ms'][0]:.2f} / {out['end_ms'][1]:.2f} "
+        f"ms; a held "
+        f"graph's capture, mean ms: warm-up "
+        f"{out[3]['split_ms']['warmup_s']:.2f}, body "
+        f"{out[3]['split_ms']['body_s']:.2f}, end "
+        f"{out[3]['split_ms']['end_s']:.2f} [{smi}]")
+    del eng
+    return out
+
+
+def drains(make_engine, prompts, what) -> list:
+    """Three ``ContinuousBatcher`` drains of ``prompts``, ``LM_NEW`` new
+    tokens each: on a fresh engine whose prefills are held against their
+    eager twins, on a second fresh engine (its prefill captures in the
+    wall) and on that engine again (its graphs replayed). Each drain's
+    waves are held to its engine's captures (``check_waves``) and the
+    three give the same tokens. Returns ``(outputs, wall s, summary)`` a
+    drain."""
+    import torch
+    from repro_torch.serve.scheduler import ContinuousBatcher
+    twin_eng, eng = make_engine(), make_engine()
+    held = eager_twin(twin_eng, ("prefill",))
+    waves = {id(twin_eng): record_waves(twin_eng), id(eng): record_waves(eng)}
+    runs = []
+    for e in (twin_eng, eng, eng):
+        cb = ContinuousBatcher(e)
+        for p in prompts:
+            cb.submit(p, max_new_tokens=LM_NEW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = cb.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append([{r.uid: r.output for r in done}, wall,
+                     check_waves(f"{what} drain {len(runs)}", e,
+                                 waves[id(e)])])
+    outs = runs[0][0]
+    if (held["prefill"] != len(waves[id(twin_eng)])
+            or any(r[0] != outs for r in runs)
+            or sorted(outs) != list(range(len(prompts)))
+            or any(len(o) != LM_NEW for o in outs.values())):
+        raise AssertionError(f"{what} drains: {held} held, {len(outs)} "
+                             f"requests, the same tokens "
+                             f"{[r[0] == outs for r in runs]}")
+    return runs
 
 
 def lm_timed(name, cfg, params, init_s, t_prompt, dev, rng, base, smi,
              extra="", modality=None) -> dict:
-    """Prefill ms at [4, t_prompt] (median of 3 after a warm one, the last
-    the prefill of ``generate_greedy``), decode ms a step (each
-    synchronised) over ``generate_greedy``'s LM_NEW steps, each of them
-    held bitwise against its eager twin (``eager_twin``, outside the
-    clock), the profiled decode step (5 steps: kernels, idle share,
-    replays a step), the decode graph's capture and private pool, peak
-    memory; ``"tokens"``: the greedy tokens."""
+    """The engine's graphs at [4, t_prompt]: the first prefill captures its
+    graph (its call timed, ``capture_call_ms``), then three more and
+    ``generate_greedy``'s, each timed between synchronisations (graph
+    ``prefill_ms``: the median of the four replays) and held bitwise
+    against its eager twin (``eager_twin``, outside the clock); the eager
+    ``lm_prefill`` on copies of the caches and the same inputs, three times
+    (``eager_prefill_ms``: median); decode ms a step (each synchronised)
+    over ``generate_greedy``'s LM_NEW steps, each held against its eager
+    twin; one profiled prefill replay and 5 profiled decode steps
+    (kernels, busy, idle share, replays a call), host syncs a prefill
+    replay and a decode step (none), both graphs' capture ms (the
+    prefill's split into warm-up, body and end) and pools (the decode
+    graph's private, the prefill graphs' shared), peak memory;
+    ``"tokens"``: the greedy tokens."""
     import numpy as np
     import torch
     from repro_torch.models.common import count_params
     from repro_torch.models.common import tree_leaves as lm_leaves
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.lm import lm_prefill
     from repro_torch.serve.engine import LmEngine
     pools = graph_pool_bytes()
     eng = LmEngine(params, cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
@@ -3534,23 +3760,57 @@ def lm_timed(name, cfg, params, init_s, t_prompt, dev, rng, base, smi,
     prefill, decode = eng.prefill, eng.decode_step
     eng.prefill, eng.decode_step = timing(prefill, pre), timing(decode, dec)
     held = eager_twin(eng)
-    for _ in range(3):
+    for _ in range(4):
         eng.prefill(toks, **mod)
     new = eng.generate_greedy(toks, LM_NEW, **mod)
     eng.prefill, eng.decode_step = prefill, decode
-    if len(held) != LM_NEW:
-        raise AssertionError(f"{name}: {len(held)} decode steps held "
-                             f"against their eager twin, want {LM_NEW}")
+    if held != {"prefill": 5, "decode": LM_NEW}:
+        raise AssertionError(f"{name}: {held} calls held against their "
+                             f"eager twin, want 5 prefills, {LM_NEW} steps")
+    eager = []
+    for _ in range(3):
+        caches = tree_map(torch.clone, eng.caches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lm_prefill(params, cfg, torch.as_tensor(toks, device=dev),
+                       caches, **mod)
+        torch.cuda.synchronize()
+        eager.append(1e3 * (time.perf_counter() - t0))
+        del caches
+    (sig, graph), = eng.prefill_graphs().items()
+    replays = eng.prefill_stats["replays"]
+    pre_prof = engine_profile(lambda: eng.prefill(toks, **mod), 1)
+    pre_prof["replays_per_call"] = eng.prefill_stats["replays"] - replays
+    pre_prof["syncs_per_call"] = host_syncs(lambda: eng.prefill(toks, **mod))
     cur = new[:, -1:]
     replays = eng.decode_stats["replays"]
     prof = engine_profile(lambda: [eng.decode_step(cur)
                                    for _ in range(5)], 5)
     prof["replays_per_step"] = (eng.decode_stats["replays"] - replays) / 5
     prof["syncs_per_step"] = host_syncs(lambda: eng.decode_step(cur))
-    if prof["replays_per_step"] != 1 or eng.decode_stats["captures"] != 1:
-        raise AssertionError(f"{name}: decode graph {eng.decode_stats}, "
-                             f"{prof['replays_per_step']} replays a step")
+    if (prof["replays_per_step"] != 1 or eng.decode_stats["captures"] != 1
+            or pre_prof["replays_per_call"] != 1
+            or eng.prefill_stats["captures"] != 1
+            or prof["syncs_per_step"] or pre_prof["syncs_per_call"]):
+        raise AssertionError(
+            f"{name}: decode graph {eng.decode_stats}, {prof['replays_per_step']}"
+            f" replays and {prof['syncs_per_step']} host syncs a step; "
+            f"prefill graphs {eng.prefill_stats}, "
+            f"{pre_prof['replays_per_call']} replays and "
+            f"{pre_prof['syncs_per_call']} host syncs a call")
+    pre_pool = graph["pool_bytes"]
     out = {"init_s": init_s, "prefill_ms": float(np.median(pre[1:])),
+           "prefill_each_ms": pre,
+           "capture_call_ms": pre[0],
+           "eager_prefill_ms": float(np.median(eager)),
+           "eager_prefill_each_ms": eager,
+           "prefill_capture_ms": 1e3 * graph["capture_s"],
+           "prefill_capture_split_ms": {
+               k: 1e3 * graph[k] for k in ("warmup_s", "body_s", "end_s")},
+           "prefill_pool_mib": (None if pre_pool is None
+                                else pre_pool / 2 ** 20),
+           "prefill_profile": pre_prof,
            "tokens": new,
            "decode_p50_ms": float(np.percentile(dec, 50)),
            "decode_p95_ms": float(np.percentile(dec, 95)),
@@ -3560,10 +3820,24 @@ def lm_timed(name, cfg, params, init_s, t_prompt, dev, rng, base, smi,
            "peak_gib": (torch.cuda.max_memory_allocated()
                         - base["bytes"]) / 2 ** 30}
     log(f"time lm {name}: {out['params']} parameters, init "
-        f"{init_s:.3f} s; prefill [{LM_SLOTS}, {t_prompt}] "
-        f"{out['prefill_ms']:.3f} ms (each "
-        + ", ".join(f"{v:.3f}" for v in pre)
-        + f"); decode a step at B={LM_SLOTS} p50 "
+        f"{init_s:.3f} s; prefill [{LM_SLOTS}, {t_prompt}] one graph "
+        f"replay {out['prefill_ms']:.3f} ms (each "
+        + ", ".join(f"{v:.3f}" for v in pre[1:])
+        + f"; the capturing call {pre[0]:.3f} ms), eager lm_prefill "
+        f"{out['eager_prefill_ms']:.3f} ms (each "
+        + ", ".join(f"{v:.3f}" for v in eager)
+        + f"), every replay bitwise lm_prefill op by op on copies of its "
+        f"caches; the prefill graph's capture {capture_split(graph)}, the "
+        f"prefill graphs' pool "
+        + ("not measured" if pre_pool is None
+           else f"{out['prefill_pool_mib']:.2f} MiB")
+        + f"; profiled prefill: {pre_prof['replays_per_call']} replay, "
+        f"{pre_prof['kernels_per_step']:.0f} kernels, device busy "
+        f"{pre_prof['device_busy_us_per_step']:.1f} us, idle share "
+        f"{pre_prof['idle_share']:.4f} (wall "
+        f"{pre_prof['wall_us_per_step']:.1f} us under the profiler), "
+        f"{pre_prof['syncs_per_call']} host syncs a call; decode a step at "
+        f"B={LM_SLOTS} p50 "
         f"{out['decode_p50_ms']:.3f} ms, p95 {out['decode_p95_ms']:.3f} "
         f"ms over {LM_NEW} steps, each bitwise lm_decode op by op on "
         f"copies of its caches; profiled decode step: "
@@ -3584,32 +3858,44 @@ def lm_timed(name, cfg, params, init_s, t_prompt, dev, rng, base, smi,
 
 def lm_phase(dev, smi) -> dict:
     """Phase 5f: the LM zoo's serving path on the card, from seeded random
-    weights drawn on the card (``init_lm``). (a) llama3.2-1b at full size in
-    bf16: an ``LmEngine(batch=4, max_len=256)`` and a ``ContinuousBatcher``
-    drain 12 prompts of 16-96 tokens, 32 new tokens each, twice with the
-    same tokens; a staggered admission leaves the live request's tokens
+    weights drawn on the card (``init_lm``). Every ``LmEngine`` prefill and
+    decode step is one replay of a CUDA graph. (a) llama3.2-1b at full size
+    in bf16: an ``LmEngine(batch=4, max_len=256)`` and a
+    ``ContinuousBatcher`` drain 12 prompts of 16-96 tokens, 32 new tokens
+    each, twice with the same tokens (the first run's prefills held
+    bitwise against their eager twins), one prefill capture a distinct
+    wave length; a staggered admission leaves the live request's tokens
     those of its solo run; prefill-then-decode logits within
     ``TOL_LM_BF16_RMS`` of the teacher-forced forward. (b) rwkv6-1.6b at
-    full size in bf16: ``generate_greedy`` on 4 prompts of 128 tokens for
-    32 steps, row 9b (``rwkv6_scan_bf16``) launched exactly 24 times by the
-    prefill and by each decode step and no other kernel, each launch of the
-    prefill and of the first decode step held against the plain version on
-    the card at the inputs the path gave it. (c) recurrentgemma-9b at full
-    width, 3 of its 38 layers: prefill at T = 128 then 32 decode steps,
-    ``rglru_scan`` launched twice by the prefill and never by a decode
-    step, each launch bitwise its plain version. (d) llama3.2-1b and
-    rwkv6-1.6b in fp32 at full width and 2 layers: the prefill's and the
-    first decode step's logits and the caches on the card within
-    ``TOL_LM`` of the same weights on the CPU, and their prefill-then-decode
-    logits within ``TOL_F32`` (relative RMS) of their teacher-forced
-    forward. The bf16 prefill-then-decode logits of (a) and (c) are held
+    full size in bf16: one prefill of 4 prompts of 128 tokens (its
+    capture: row 9b, ``rwkv6_scan_bf16``, launched 24 times by the warm-up
+    and 24 by the replay), then ``generate_greedy`` on them for 32 steps,
+    row 9b launched exactly 24 times by the prefill's replay and by each
+    decode step and no other kernel, each launch of the prefill and of the
+    first decode step held against the plain version on the card at the
+    inputs the path gave it (recorded on the replays' eager twins, which
+    the replays equal bitwise). (c) recurrentgemma-9b at full size, all 38
+    layers (26 RG-LRU): the same, ``rglru_scan`` launched 26 times by the
+    prefill (52 by the capturing call) and never by a decode step, each
+    launch bitwise its plain version. (d) llama3.2-1b and rwkv6-1.6b in
+    fp32 at full width and 2 layers: the prefill's and the first decode
+    step's logits and the caches on the card within ``TOL_LM`` of the same
+    weights on the CPU, and their prefill-then-decode logits within
+    ``TOL_F32`` (relative RMS) of their teacher-forced forward. (e)
+    rwkv6-1.6b's fp32 2-layer prefill under ``REPRO_RWKV_CHUNKED=1``
+    against the same prefill through row 9, and an engine's prefill graph
+    captured again under the other route, each replay bitwise its eager
+    twin; ``bound_sweep`` on that model (``PREFILL_GRAPHS + 1`` lengths,
+    three times). The bf16 prefill-then-decode logits of (a) and (c) are held
     within ``TOL_LM_BF16_RMS`` of their teacher-forced forward; (b)'s are
-    measured (R20). Times per model: init, prefill at T = 128,
-    decode a step (p50 / p95), kernels a decode step and idle share, peak
-    memory after the init; the second drain's tokens a second; rows 8 and
-    9b (and 9's fp32 instance) at the path's shapes, on the inputs the path
-    gave them. Returns the launches and errors of the kernels and their
-    time rows."""
+    measured (R20). Times per model (``lm_timed``): init, prefill at
+    T = 128 (graph and eager), the prefill graph's capture (warm-up, body,
+    end) and the prefill graphs' pool, a profiled prefill, decode a step (p50 / p95), kernels a decode step and
+    idle share, peak memory after the init; the second drain's tokens a
+    second; rows 8 and 9b (and 9's fp32 instance) at the path's shapes, on
+    the inputs the path gave them. Returns the launches and errors of the
+    kernels, their time rows, the archs served at full size
+    (``"served"``) and each model's times."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
@@ -3620,12 +3906,14 @@ def lm_phase(dev, smi) -> dict:
                                                 rwkv6_scan_batched_ref)
     from repro_torch.models.common import tree_map
     from repro_torch.models.common import tree_leaves as lm_leaves
+    from repro_torch.models.blocks import make_schedule
     from repro_torch.models.lm import init_lm_caches, lm_decode, lm_prefill
     from repro_torch.serve.engine import LmEngine
     from repro_torch.serve.scheduler import ContinuousBatcher
 
     rng = np.random.default_rng(SEED)
-    res = {"launches": {}, "max_err": {}, "rows": {}}
+    res = {"launches": {}, "max_err": {}, "rows": {}, "served": [],
+           "times": {}}
     wkv16, wkv32, lru = (ops.RWKV6_SCAN_BF16, ops.RWKV6_SCAN_F32,
                          ops.RGLRU_SCAN_F32)
 
@@ -3669,11 +3957,38 @@ def lm_phase(dev, smi) -> dict:
         setattr(ops, name, call)
         return orig, kept
 
-    def timed(name, cfg, params, init_s, t_prompt, extra=""):
-        out = lm_timed(name, cfg, params, init_s, t_prompt, dev, rng, base,
-                       smi, extra)
+    def served(arch, cfg, out):
         del out["tokens"]
+        res["times"][arch] = out
+        res["served"].append(arch)
         return out
+
+    def scan_path(params, cfg, name, keep, toks):
+        """The engine's prefill at ``toks`` captured (a first call, its
+        launches counted), then ``generate_greedy`` on the same prompts,
+        each call one replay held bitwise against its eager twin, with
+        ``ops.<name>`` recording the calls ``keep`` selects (those of the
+        twins). Returns the launches of each call and the records."""
+        eng = LmEngine(params, cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+        per_call = counting(eng)
+        held = eager_twin(eng)
+        eng.prefill(toks)
+        orig, kept = recording(name, keep)
+        try:
+            new = eng.generate_greedy(toks, LM_NEW)
+            torch.cuda.synchronize()
+        finally:
+            setattr(ops, name, orig)
+        if held != {"prefill": 2, "decode": LM_NEW} or (
+                eng.prefill_stats["captures"], eng.prefill_stats["replays"],
+                eng.decode_stats["captures"]) != (1, 2, 1):
+            raise AssertionError(f"{cfg.name}: {held} held against their "
+                                 f"eager twins; {eng.prefill_stats}, "
+                                 f"{eng.decode_stats}")
+        if new.shape != (LM_SLOTS, LM_NEW) or not (0 <= new).all() or not (
+                new < cfg.vocab).all():
+            raise AssertionError(f"{cfg.name} tokens {new.shape}")
+        return per_call, kept
 
     # (a) llama3.2-1b, full size, bf16
     cfg = get_config("llama3.2-1b")
@@ -3681,26 +3996,13 @@ def lm_phase(dev, smi) -> dict:
     prompts = [rng.integers(1, cfg.vocab, int(n)).tolist()
                for n in rng.integers(16, 97, LM_REQUESTS)]
 
-    def drain():
-        cb = ContinuousBatcher(LmEngine(params, cfg, LM_SLOTS, LM_MAX_LEN,
-                                        device=dev))
-        for p in prompts:
-            cb.submit(p, max_new_tokens=LM_NEW)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        done = cb.run_until_drained()
-        torch.cuda.synchronize()
-        return {r.uid: r.output for r in done}, time.perf_counter() - t0
-
     ops.reset_launch_counts()
-    outs, wall = drain()
-    outs2, wall2 = drain()
+    (outs, wall, waves1), (outs2, wall2, waves2), (outs3, wall3, waves3) = (
+        drains(lambda: LmEngine(params, cfg, LM_SLOTS, LM_MAX_LEN,
+                                device=dev), prompts, "llama3.2-1b"))
     n = {k: v for k, v in ops.launch_counts().items() if v}
-    if n or outs != outs2 or sorted(outs) != list(range(LM_REQUESTS)) or any(
-            len(o) != LM_NEW for o in outs.values()):
-        raise AssertionError(f"llama3.2-1b drain: launches {n} (want none), "
-                             f"{len(outs)} requests, two runs equal "
-                             f"{outs == outs2}")
+    if n:
+        raise AssertionError(f"llama3.2-1b drain: launches {n} (want none)")
 
     def staggered(stagger):
         cb = ContinuousBatcher(LmEngine(params, cfg, LM_SLOTS, LM_MAX_LEN,
@@ -3725,39 +4027,38 @@ def lm_phase(dev, smi) -> dict:
     log(f"lm llama3.2-1b (bf16, full size) batcher: {LM_REQUESTS} prompts "
         f"of {min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
         f"{LM_NEW} new each, {LM_SLOTS} slots: {n_tok} tokens in "
-        f"{wall2:.3f} s ({n_tok / wall2:.1f} tokens/s; the first run, warm-up "
-        f"included, {wall:.3f} s, the same tokens); staggered admission: the "
-        f"live "
-        f"request's tokens equal its solo run's; prefill-then-decode "
+        f"{wall3:.3f} s on a warm engine ({n_tok / wall3:.1f} tokens/s; on "
+        f"a fresh one, its prefill captures included, {wall2:.3f} s, "
+        f"{n_tok / wall2:.1f} tokens/s; the first run, its captures and its "
+        f"prefills' eager twins included, {wall:.3f} s; the same tokens in "
+        f"all three, every prefill of the first bitwise its eager twin); "
+        f"{waves1}; fresh engine {waves2}, then warm {waves3}; staggered "
+        f"admission: the live request's tokens equal its solo run's; "
+        f"prefill-then-decode "
         f"against the teacher-forced forward: relative RMS {err_a:.3e} "
         f"(within {TOL_LM_BF16_RMS}); no hand-written kernel launched "
         f"[{smi}]")
-    res["llama"] = timed("llama3.2-1b", cfg, params, init_s, LM_T,
-                         f"; drain {n_tok / wall2:.1f} tokens/s")
-    res["llama"]["tokens_per_s"] = n_tok / wall2
+    served("llama3.2-1b", cfg, lm_timed(
+        "llama3.2-1b", cfg, params, init_s, LM_T, dev, rng, base, smi,
+        f"; drain {n_tok / wall3:.1f} tokens/s warm, {n_tok / wall2:.1f} "
+        f"fresh"))
+    res["times"]["llama3.2-1b"].update(tokens_per_s=n_tok / wall3,
+                                       fresh_tokens_per_s=n_tok / wall2)
     del params
 
     # (b) rwkv6-1.6b, full size, bf16
     cfg = get_config("rwkv6-1.6b")
     params, init_s = build(cfg)
     toks = rng.integers(1, cfg.vocab, (LM_SLOTS, LM_T))
-    eng = LmEngine(params, cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
-    per_call = counting(eng)
-    # the replays call no wrapper: the first decode step's launches are
-    # recorded on its eager twin, on the same inputs
-    eager_twin(eng)
-    orig, kept = recording("rwkv6_scan",
-                           lambda args, k: k < 2 * cfg.n_layers)
-    try:
-        ops.reset_launch_counts()
-        new = eng.generate_greedy(toks, LM_NEW)
-        torch.cuda.synchronize()
-    finally:
-        ops.rwkv6_scan = orig
+    per_call, kept = scan_path(params, cfg, "rwkv6_scan",
+                               lambda args, k: k < 2 * cfg.n_layers, toks)
     want = {wkv16.name: cfg.n_layers}
-    if len(per_call) != 1 + LM_NEW or any(c != want for c in per_call):
-        raise AssertionError(f"rwkv6-1.6b generate_greedy: launches a call "
-                             f"{per_call}, want {want} each of {1 + LM_NEW}")
+    if (len(per_call) != 2 + LM_NEW
+            or per_call[0] != {wkv16.name: 2 * cfg.n_layers}
+            or any(c != want for c in per_call[1:])):
+        raise AssertionError(f"rwkv6-1.6b: launches a call {per_call}, want "
+                             f"{2 * cfg.n_layers} for the capturing prefill "
+                             f"then {want} each of {1 + LM_NEW}")
     res["launches"][wkv16.name] = sum(c[wkv16.name] for c in per_call)
     errs = {}
     for args, out in kept:
@@ -3772,22 +4073,23 @@ def lm_phase(dev, smi) -> dict:
             or not all(a[0].dtype == torch.bfloat16 for a, _ in kept)):
         raise AssertionError(f"rwkv6_scan_bf16 on the path against its "
                              f"plain version: scaled {errs}")
-    if new.shape != (LM_SLOTS, LM_NEW) or not (0 <= new).all() or not (
-            new < cfg.vocab).all():
-        raise AssertionError(f"rwkv6-1.6b tokens {new.shape}")
     err_b = forced(params, cfg, "rwkv6-1.6b", None)
-    log(f"lm rwkv6-1.6b (bf16, full size) generate_greedy: {LM_SLOTS} "
-        f"prompts of {LM_T}, {LM_NEW} steps; {wkv16.name} launched "
-        f"{cfg.n_layers} times by the prefill and by each decode step "
+    log(f"lm rwkv6-1.6b (bf16, full size): a prefill of {LM_SLOTS} "
+        f"prompts of {LM_T} (its capture: {wkv16.name} launched "
+        f"{cfg.n_layers} times by the warm-up and {cfg.n_layers} by the "
+        f"replay), then generate_greedy on them, {LM_NEW} steps; "
+        f"{wkv16.name} launched {cfg.n_layers} times by the prefill's "
+        f"replay and by each decode step's "
         f"({res['launches'][wkv16.name]} in all) and no other kernel; the "
         f"{len(kept)} launches of the prefill [{LM_SLOTS}, 32, {LM_T}, 64] "
-        f"and the first decode step's eager twin [{LM_SLOTS}, 32, 1, 64] "
-        f"(each step one replay, bitwise its twin) against the "
-        f"plain version on the card: scaled {errs[LM_T]:.3e} / {errs[1]:.3e}"
-        f" (within {TOL_F32}); prefill-then-decode against the "
+        f"and the first decode step [{LM_SLOTS}, 32, 1, 64] (each call one "
+        f"replay, bitwise its eager twin, whose launches were recorded) "
+        f"against the plain version on the card: scaled {errs[LM_T]:.3e} / "
+        f"{errs[1]:.3e} (within {TOL_F32}); prefill-then-decode against the "
         f"teacher-forced forward: relative RMS {err_b:.3e} (not held: the "
         f"random 24-layer RWKV6 amplifies rounding, R20) [{smi}]")
-    res["rwkv6"] = timed("rwkv6-1.6b", cfg, params, init_s, LM_T)
+    served("rwkv6-1.6b", cfg, lm_timed("rwkv6-1.6b", cfg, params, init_s,
+                                       LM_T, dev, rng, base, smi))
     # rows 9b and 9 at the path's shapes, on the inputs the path gave them
     prefill_args = next(a for a, _ in kept if a[0].shape[2] == LM_T)
     decode_args = next(a for a, _ in kept if a[0].shape[2] == 1)
@@ -3812,26 +4114,23 @@ def lm_phase(dev, smi) -> dict:
                 f"({r['bytes']} B, {r['ops']} operations, {r['bound_by']}) "
                 f"[{smi}]")
         res["rows"][kinfo.name] = shapes
-    del params, eng, kept, prefill_args, decode_args
+    del params, kept, prefill_args, decode_args
 
-    # (c) recurrentgemma-9b at full width, one period of 3 layers
-    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
-                              n_layers=RG_LAYERS)
+    # (c) recurrentgemma-9b at full size, all 38 layers
+    cfg = get_config("recurrentgemma-9b")
+    n_lru = sum(pattern.count("rglru") * count
+                for pattern, count in make_schedule(cfg))
     params, init_s = build(cfg)
     toks = rng.integers(1, cfg.vocab, (LM_SLOTS, LM_T))
-    eng = LmEngine(params, cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
-    per_call = counting(eng)
-    orig, kept = recording("rglru_scan", lambda args, k: True)
-    try:
-        new = eng.generate_greedy(toks, LM_NEW)
-        torch.cuda.synchronize()
-    finally:
-        ops.rglru_scan = orig
-    if (per_call[0] != {lru.name: 2} or any(per_call[1:])
-            or len(per_call) != 1 + LM_NEW or len(kept) != 2):
+    per_call, kept = scan_path(params, cfg, "rglru_scan",
+                               lambda args, k: True, toks)
+    if (per_call[0] != {lru.name: 2 * n_lru} or per_call[1] != {
+            lru.name: n_lru} or any(per_call[2:])
+            or len(per_call) != 2 + LM_NEW or len(kept) != n_lru):
         raise AssertionError(f"recurrentgemma-9b: launches a call {per_call}"
-                             f", want {{{lru.name}: 2}} then nothing")
-    res["launches"][lru.name] = 2
+                             f", want {2 * n_lru} for the capturing prefill, "
+                             f"{n_lru} for the next, then nothing")
+    res["launches"][lru.name] = per_call[0][lru.name] + n_lru
     same = True
     for args, out in kept:
         want_out = rglru_scan_batched_ref(*args)
@@ -3842,16 +4141,22 @@ def lm_phase(dev, smi) -> dict:
                              "version")
     res["max_err"][lru.name] = 0.0
     err_c = forced(params, cfg, "recurrentgemma-9b")
-    log(f"lm recurrentgemma-9b (bf16, D={cfg.d_model}, {cfg.n_heads} "
-        f"heads, {cfg.n_kv_heads} kv head, window {cfg.attn_window}; "
-        f"reduced: {RG_LAYERS} of 38 layers) prefill [{LM_SLOTS}, {LM_T}] "
-        f"then {LM_NEW} decode steps: {lru.name} launched 2 times by the "
-        f"prefill and 0 by each decode step, no other kernel; both launches "
-        f"[{LM_SLOTS}, {LM_T}, {cfg.d_model}] bitwise their plain version on "
-        f"the card; prefill-then-decode against the teacher-forced forward: "
-        f"relative RMS {err_c:.3e} [{smi}]")
-    res["recurrentgemma"] = timed(
-        f"recurrentgemma-9b ({RG_LAYERS} layers)", cfg, params, init_s, LM_T)
+    log(f"lm recurrentgemma-9b (bf16, full size: {cfg.n_layers} layers, "
+        f"{n_lru} of them RG-LRU, D={cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads} kv head, window {cfg.attn_window}): a prefill "
+        f"[{LM_SLOTS}, {LM_T}] (its capture: {lru.name} launched {n_lru} "
+        f"times by the warm-up and {n_lru} by the replay), then "
+        f"generate_greedy on the same prompts, {LM_NEW} steps: {lru.name} "
+        f"launched {n_lru} times by the prefill's replay and 0 by each "
+        f"decode step, no other kernel; all {len(kept)} launches "
+        f"[{LM_SLOTS}, {LM_T}, {cfg.d_model}] (recorded on the prefill's "
+        f"eager twin, which the replay equals bitwise) bitwise their plain "
+        f"version on the card; prefill-then-decode against the "
+        f"teacher-forced forward: relative RMS {err_c:.3e} (within "
+        f"{TOL_LM_BF16_RMS}) [{smi}]")
+    served("recurrentgemma-9b", cfg, lm_timed(
+        "recurrentgemma-9b", cfg, params, init_s, LM_T, dev, rng, base,
+        smi))
     args = kept[0][0]
     b, t, w = args[0].shape
     res["rows"][lru.name] = {"t128": scan_row(
@@ -3863,7 +4168,7 @@ def lm_phase(dev, smi) -> dict:
         f"({r['eager_ms']:.4f} ms launched from Python), plain "
         f"{r['plain_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms ({r['bytes']} "
         f"B, {r['bound_by']}) [{smi}]")
-    del params, eng, kept, args
+    del params, kept, args
 
     # (d) fp32 at full width, 2 layers: the card against the CPU, and the
     # prefill-then-decode logits against the teacher-forced forward
@@ -3905,7 +4210,9 @@ def lm_phase(dev, smi) -> dict:
 
     # (e) the chunk-parallel route: rwkv6-1.6b's fp32 2-layer prefill
     # [2, 32] under REPRO_RWKV_CHUNKED=1 (ops.rwkv6_chunked, plain
-    # PyTorch, no kernel) against the same prefill through row 9
+    # PyTorch, no kernel) against the same prefill through row 9; then an
+    # engine's prefill graph under each route: the route is part of the
+    # graph's signature, so the second captures a graph of its own
     cfg = dataclasses.replace(get_config("rwkv6-1.6b"), n_layers=2,
                               dtype="float32")
     params, _ = build(cfg)
@@ -3928,13 +4235,36 @@ def lm_phase(dev, smi) -> dict:
         raise AssertionError(f"rwkv6 chunked prefill: against row 9 "
                              f"{err:.3e}; launches {n_c} (row 9's {n_k})")
     res["launches"][wkv32.name] += n_k[wkv32.name]
+    eng = LmEngine(params, cfg, 2, 64, device=dev)
+    held = eager_twin(eng, ("prefill",))
+    route_n = []
+    for value in ("0", "1", "0"):
+        ops.reset_launch_counts()
+        with env_var("REPRO_RWKV_CHUNKED", value):
+            eng.prefill(toks)
+        route_n.append({k: v for k, v in ops.launch_counts().items() if v})
+    st = eng.prefill_stats
+    # the twins' eager runs launch row 9 on the default route (2 a call)
+    want_route = [{wkv32.name: 2 + 2 + 2}, {}, {wkv32.name: 2 + 2}]
+    if (held["prefill"] != 3 or (st["captures"], st["replays"]) != (2, 3)
+            or route_n != want_route):
+        raise AssertionError(f"rwkv6 fp32 engine across routes: {st}, "
+                             f"launches {route_n} (want {want_route}), "
+                             f"{held} held")
     log(f"lm rwkv6-1.6b (fp32, full width, 2 layers) prefill [2, 32] under "
         f"REPRO_RWKV_CHUNKED=1 against the same prefill through row 9: "
         f"logits and every cache leaf within {err:.3e} of max(1, |row 9|) "
         f"(tolerance {TOL_LM}); launches {n_c or 'none'} (row 9's run "
-        f"{n_k}) [{smi}]")
-    del params, caches_k, caches_c
+        f"{n_k}); an LmEngine's prefill under the routes 0, 1, 0: "
+        f"{st['captures']} captures, {st['replays']} replays, each bitwise "
+        f"its eager twin under the same route, launches {route_n} (the "
+        f"warm-up, the replay and the twin's run on row 9's route; none on "
+        f"the chunked one) [{smi}]")
+    del caches_k, caches_c, eng
+    res["bound"] = bound_sweep(params, cfg, dev, rng, smi)
+    del params
     torch.cuda.empty_cache()
+    log(f"phase 5f served at full size: {res['served']}")
     return res
 
 
@@ -3964,7 +4294,28 @@ ZOO_F32_LAYERS = {"deepseek-v2-lite-16b": {"n_layers": 2},
                   "granite-moe-3b-a800m": {"n_layers": 2},
                   "llama-3.2-vision-11b": {"n_layers": 5},
                   "seamless-m4t-large-v2": {"n_layers": 2,
-                                            "n_encoder_layers": 2}}
+                                            "n_encoder_layers": 2},
+                  "qwen2.5-32b": {"n_layers": 2},
+                  "olmo-1b": {"n_layers": 2},
+                  "smollm-360m": {"n_layers": 2}}
+# (b)-(g): the archs served through generate_greedy at full size, qwen's
+# 65.5 GB of bf16 weights among them
+ZOO_GREEDY = ("granite-moe-3b-a800m", "llama-3.2-vision-11b",
+              "seamless-m4t-large-v2", "qwen2.5-32b", "olmo-1b",
+              "smollm-360m")
+
+
+def check_served(served_5f, served_5g) -> None:
+    """Phases 5f and 5g together serve every arch of the registry at full
+    size, each once: an arch added to the registry and to neither phase
+    fails here."""
+    from repro_torch.configs.registry import ARCH_IDS
+    both = list(served_5f) + list(served_5g)
+    if sorted(both) != sorted(ARCH_IDS):
+        raise AssertionError(f"phases 5f {list(served_5f)} and 5g "
+                             f"{list(served_5g)} serve at full size "
+                             f"{sorted(both)}; the registry holds "
+                             f"{sorted(ARCH_IDS)}")
 
 
 def modality_inputs(cfg, b: int, dev, dtype, gen) -> dict:
@@ -3995,28 +4346,62 @@ def host_rss_gib() -> tuple:
     return now / 2 ** 20, peak / 2 ** 20
 
 
-def zoo_phase(dev, smi) -> dict:
+def lm_prefill_rows(times: dict, smi: str) -> dict:
+    """One line of every served model's prefill at [4, 128] (phases 5f and
+    5g's ``lm_timed``): the graph's replay and the eager ``lm_prefill``
+    (ms), the capturing call, the capture (warm-up, body, end) and the
+    prefill graphs' pool, and the
+    profiled replay's kernels, busy µs and idle share; the decode step's
+    p50 beside them."""
+    rows = {}
+    for arch, t in times.items():
+        prof = t["prefill_profile"]
+        rows[arch] = {
+            "prefill_ms": t["prefill_ms"],
+            "eager_prefill_ms": t["eager_prefill_ms"],
+            "capture_call_ms": t["capture_call_ms"],
+            "capture_ms": t["prefill_capture_ms"],
+            "capture_split_ms": t["prefill_capture_split_ms"],
+            "pool_mib": t["prefill_pool_mib"],
+            "kernels": prof["kernels_per_step"],
+            "busy_us": prof["device_busy_us_per_step"],
+            "idle_share": prof["idle_share"],
+            "decode_p50_ms": t["decode_p50_ms"]}
+    log("lm prefill rows [4, 128] " + json.dumps(rows) + f" [{smi}]")
+    return rows
+
+
+def zoo_phase(dev, smi, served_5f) -> dict:
     """Phase 5g: the rest of the LM zoo on the card, seeded ``init_lm`` on
-    the card, bf16, at full size. (a) deepseek-v2-lite-16b (MLA, 64 routed
-    experts top-6 and 2 shared): an ``LmEngine(4, 256)`` under a
-    ``ContinuousBatcher`` drains 12 prompts of 16-96 tokens, 32 new each,
-    twice with the same tokens, and a staggered admission leaves the live
-    request's tokens those of a run with the same waves; (b)
-    granite-moe-3b-a800m (40 experts padded to 48, top-8), (c)
-    llama-3.2-vision-11b (8 cross layers of 40, image embeddings [4, 1601,
-    7680]) and (d) seamless-m4t-large-v2 (24 encoder and 24 decoder layers,
-    audio frames [4, 1536, 160]): ``generate_greedy`` on 4 prompts of 128
-    tokens for 32 steps. For each, the prefill-then-decode logits within
+    the card, bf16, at full size; every prefill and decode step one graph
+    replay. (a) deepseek-v2-lite-16b (MLA, 64 routed experts top-6 and 2
+    shared): an ``LmEngine(4, 256)`` under a ``ContinuousBatcher`` drains
+    12 prompts of 16-96 tokens, 32 new each, twice with the same tokens
+    (the first run's prefills held bitwise against their eager twins), one
+    prefill capture a distinct wave length, and a staggered admission
+    leaves the live request's tokens those of a run with the same waves;
+    then ``ZOO_GREEDY``: (b) granite-moe-3b-a800m (40 experts padded to
+    48, top-8), (c) llama-3.2-vision-11b (8 cross layers of 40, image
+    embeddings [4, 1601, 7680]), (d) seamless-m4t-large-v2 (24 encoder and
+    24 decoder layers, audio frames [4, 1536, 160]), (e) qwen2.5-32b
+    (64 layers, QKV bias, 40 query heads over 8 KV heads; its init's peak
+    beside the card's memory), (f) olmo-1b (non-parametric LayerNorm, tied
+    embeddings) and (g) smollm-360m (15 query heads over 5 KV heads, tied
+    embeddings): ``generate_greedy`` on 4 prompts of 128 tokens for 32
+    steps. For each, the prefill-then-decode logits within
     ``TOL_LM_BF16_RMS`` of the teacher-forced forward (``lm_forced``; MoE
     at a capacity for every token, routing flips within
-    ``ROUTE_MARGIN_BF16``). (e) all four in fp32 at full width and the
+    ``ROUTE_MARGIN_BF16``). (h) all of them in fp32 at full width and the
     fewest layers that hold each block kind (``ZOO_F32_LAYERS``): prefill
     [2, 32] and a decode step on the card and on the CPU within ``TOL_LM``
     (the CPU takes the card's expert choices; flips within
     ``ROUTE_MARGIN_F32``),
     and prefill-then-decode against the forward within ``TOL_F32``. No
     hand-written kernel is launched. Times per model as phase 5f's
-    (``lm_timed``), with the init's peak memory. Returns the time rows."""
+    (``lm_timed``), with the init's peak memory. With ``served_5f``, the
+    archs phase 5f served, every arch of the registry must have been
+    served at full size once (``check_served``). Returns the time rows
+    and ``"served"``."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
@@ -4029,9 +4414,9 @@ def zoo_phase(dev, smi) -> dict:
 
     rng = np.random.default_rng(SEED + 7)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    base, res = {}, {}
+    base, res, served = {}, {}, []
     ops.reset_launch_counts()
-    t_phase = time.perf_counter()
+    card_gib = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
 
     def no_kernels(what):
         n = {k: v for k, v in ops.launch_counts().items() if v}
@@ -4048,15 +4433,6 @@ def zoo_phase(dev, smi) -> dict:
         return ContinuousBatcher(LmEngine(params, cfg, LM_SLOTS, LM_MAX_LEN,
                                           device=dev))
 
-    def drain():
-        cb = batcher()
-        for p in prompts:
-            cb.submit(p, max_new_tokens=LM_NEW)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        done = cb.run_until_drained()
-        torch.cuda.synchronize()
-        return {r.uid: r.output for r in done}, time.perf_counter() - t0
 
     def staggered(stagger):
         cb = batcher()
@@ -4071,12 +4447,9 @@ def zoo_phase(dev, smi) -> dict:
                 submitted = True
         return {r.uid: r.output for r in done}
 
-    outs, wall = drain()
-    outs2, wall2 = drain()
-    if outs != outs2 or sorted(outs) != list(range(LM_REQUESTS)) or any(
-            len(o) != LM_NEW for o in outs.values()):
-        raise AssertionError(f"deepseek-v2-lite-16b drain: {len(outs)} "
-                             f"requests, two runs equal {outs == outs2}")
+    (outs, wall, waves1), (outs2, wall2, waves2), (outs3, wall3, waves3) = (
+        drains(lambda: LmEngine(params, cfg, LM_SLOTS, LM_MAX_LEN,
+                                device=dev), prompts, "deepseek-v2-lite-16b"))
     solo, mixed = staggered(False), staggered(True)
     if mixed[0] != solo[0] or len(mixed) != 4:
         raise AssertionError("deepseek-v2-lite-16b: a staggered admission "
@@ -4090,8 +4463,12 @@ def zoo_phase(dev, smi) -> dict:
         f"{cfg.n_shared_experts} shared) batcher: {LM_REQUESTS} prompts of "
         f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
         f"{LM_NEW} new each, {LM_SLOTS} slots: {n_tok} tokens in "
-        f"{wall2:.3f} s ({n_tok / wall2:.1f} tokens/s; the first run, "
-        f"warm-up included, {wall:.3f} s, the same tokens); staggered "
+        f"{wall3:.3f} s on a warm engine ({n_tok / wall3:.1f} tokens/s; on "
+        f"a fresh one, its prefill captures included, {wall2:.3f} s, "
+        f"{n_tok / wall2:.1f} tokens/s; the first run, its captures and its "
+        f"prefills' eager twins included, {wall:.3f} s; the same tokens in "
+        f"all three, every prefill of the first bitwise its eager twin); "
+        f"{waves1}; fresh engine {waves2}, then warm {waves3}; staggered "
         f"admission: the live request's tokens equal those of its run with "
         f"the same waves; prefill-then-decode against the teacher-forced "
         f"forward: relative RMS {f['err']:.3e} (within {TOL_LM_BF16_RMS}), "
@@ -4101,16 +4478,18 @@ def zoo_phase(dev, smi) -> dict:
         f"launched [{smi}]")
     res["deepseek-v2-lite-16b"] = lm_timed(
         "deepseek-v2-lite-16b", cfg, params, init_s, LM_T, dev, rng, base,
-        smi, f"; drain {n_tok / wall2:.1f} tokens/s")
+        smi, f"; drain {n_tok / wall3:.1f} tokens/s warm, "
+        f"{n_tok / wall2:.1f} fresh")
     del res["deepseek-v2-lite-16b"]["tokens"]
     res["deepseek-v2-lite-16b"].update(
-        tokens_per_s=n_tok / wall2, init_peak_gib=init_peak / 2 ** 30,
+        tokens_per_s=n_tok / wall3, fresh_tokens_per_s=n_tok / wall2,
+        init_peak_gib=init_peak / 2 ** 30,
         forced=f)
+    served.append("deepseek-v2-lite-16b")
     del params
 
-    # (b)-(d): generate_greedy on 4 prompts of 128 tokens, 32 steps
-    for arch in ("granite-moe-3b-a800m", "llama-3.2-vision-11b",
-                 "seamless-m4t-large-v2"):
+    # (b)-(g): generate_greedy on 4 prompts of 128 tokens, 32 steps
+    for arch in ZOO_GREEDY:
         cfg = get_config(arch)
         params, init_s, init_peak = lm_build(cfg, dev, base)
         mod = modality_inputs(cfg, LM_SLOTS, dev, torch.bfloat16, gen)
@@ -4130,12 +4509,19 @@ def zoo_phase(dev, smi) -> dict:
             f"forward: relative RMS {f['err']:.3e} (within "
             f"{TOL_LM_BF16_RMS}), "
             + flips_allowed(arch, f["flips"], f["gap"], ROUTE_MARGIN_BF16)
-            + f"; init peak {init_peak / 2 ** 30:.3f} GiB; no hand-written "
-            f"kernel launched [{smi}]")
-        res[arch].update(init_peak_gib=init_peak / 2 ** 30, forced=f)
+            + f"; init peak {init_peak / 2 ** 30:.3f} GiB above the "
+            f"{base['bytes'] / 2 ** 30:.3f} GiB held before, of the card's "
+            f"{card_gib:.3f} GiB; no hand-written kernel launched [{smi}]")
+        res[arch].update(init_peak_gib=init_peak / 2 ** 30,
+                         held_before_gib=base["bytes"] / 2 ** 30,
+                         card_gib=card_gib, forced=f)
+        served.append(arch)
         del params, mod, new
 
-    # (e) fp32 at full width and few layers: the card against the CPU
+    check_served(served_5f, served)
+    res["served"] = served
+
+    # (h) fp32 at full width and few layers: the card against the CPU
     cpu = torch.device("cpu")
     for arch, layers in ZOO_F32_LAYERS.items():
         cfg = dataclasses.replace(get_config(arch), dtype="float32",
@@ -4191,7 +4577,8 @@ def zoo_phase(dev, smi) -> dict:
         del params, cpu_params, caches, c_caches, mod, mod2
         gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 5g took {time.perf_counter() - t_phase:.1f} s")
+    log(f"phase 5g served at full size: {served}, with phase 5f's "
+        f"{list(served_5f)} every arch of the registry")
     return res
 
 
@@ -5710,6 +6097,15 @@ def main() -> int:
     from repro_torch.serve.engine import DeltaStreamEngine
     from repro_torch.serve.scheduler import GruStreamBatcher
 
+    # each phase's seconds, logged where the next one starts
+    marks = [("1", time.perf_counter())]
+
+    def phase(name):
+        prev, t = marks[-1]
+        now = time.perf_counter()
+        log(f"phase {prev} took {now - t:.1f} s")
+        marks.append((name, now))
+
     # -- 1. environment ---------------------------------------------------
     smi = nvidia_smi_line()
     log(smi)
@@ -5720,6 +6116,7 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda")
 
+    phase("2")
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     logs = _build.build()
@@ -5766,6 +6163,7 @@ def main() -> int:
                      "lstm": "repro_torch.kernels.delta_q8.deltalstm_q8_step"
                              "(buffered=True)"}
 
+    phase("3")
     # -- 3. kernels against their plain versions --------------------------
     rng = np.random.default_rng(SEED)
     max_err = {k.name: 0.0 for k in ops.KERNELS}
@@ -6284,6 +6682,7 @@ def main() -> int:
         max_err[name] = max(max_err[name], e)
     phase3 = ops.launch_counts()
 
+    phase("4")
     # -- 4. exhaustive activation grid ------------------------------------
     lay_q = progs[("gru", "fused_q8")].layouts[0]
     sig, tnh = lut_activation_grid(lay_q, dev)
@@ -6294,6 +6693,7 @@ def main() -> int:
     if n_bad:
         raise AssertionError(f"{n_bad} activation-grid mismatches")
 
+    phase("5")
     # -- 5. main path -----------------------------------------------------
     task = GruTaskConfig(cfg.input_size, cfg.hidden_size, cfg.num_layers,
                          cfg.output_size, theta_x=THETA, theta_h=THETA)
@@ -6429,6 +6829,7 @@ def main() -> int:
         if not torch.isfinite(outs).all():
             raise AssertionError(f"{path}: non-finite outputs")
 
+    phase("5b")
     # -- 5b. main path of the delta-ized LM cells -------------------------
     lm_specs = {"rwkv6": (init_deltarwkv_model, RWKV6_CONFIG.d_model,
                           RWKV6_CONFIG.n_layers, ops.RWKV6_SCAN_F32),
@@ -6542,6 +6943,7 @@ def main() -> int:
         lm[cell] = (lm_prog, lm_task, frames_lm)
         del lm_cpu, ge, ce
 
+    phase("5c")
     # -- 5c. resilience ---------------------------------------------------
     # (a) a checkpoint/restore round trip on each path's 1-stream engine,
     # then corruption and rollback on the restored one; each engine's exact
@@ -6642,17 +7044,20 @@ def main() -> int:
             f"{soak_err:.3e}")
         del runs, cpu_run, soak_cpu
 
+    phase("5d")
     # -- 5d. training: the paper's recipe at 2L-768H ----------------------
     train, batches, opt_cfg = training_phase(dev, PAPER_NETWORKS["2L-768H"])
     add_counts(launches, train["serve"]["launches"])
     add_counts(launches, train["adam_launches"])
 
+    phase("5e")
     # -- 5e. the serving fabric -------------------------------------------
     fabric = fabric_phase(dev, models["gru"], ops.DELTA_Q8_GRU_I8,
                           ops.DELTAGRU_SEQ_F32, smi)
     for name, n in fabric["launches"].items():
         launches[name] += n
 
+    phase("5f")
     # -- 5f. the LM zoo's serving path ------------------------------------
     zoo = lm_phase(dev, smi)
     for name, n in zoo["launches"].items():
@@ -6660,22 +7065,29 @@ def main() -> int:
     for name, err in zoo["max_err"].items():
         max_err[name] = max(max_err[name], err)
 
+    phase("5g")
     # -- 5g. the rest of the LM zoo: MLA, MoE, cross-attention ------------
-    zoo_phase(dev, smi)
+    zoo_rest = zoo_phase(dev, smi, zoo["served"])
+    lm_prefill_rows(zoo["times"] | {k: v for k, v in zoo_rest.items()
+                                    if k in zoo_rest["served"]}, smi)
 
+    phase("5h")
     # -- 5h. LM training --------------------------------------------------
     lm_train = lm_train_phase(dev, smi)
     add_counts(launches, lm_train["adam_launches"])
 
+    phase("5i")
     # -- 5i. the mesh paths -------------------------------------------------
     mesh_phase(dev, smi)
 
+    phase("5j")
     # -- 5j. the examples and the launch tooling ------------------------------
     ex = examples_phase(dev, smi, {be: main_rates[f"gru {be}"]
                                    for be in ("fused", "fused_q8")})
     for name, n in ex["launches"].items():
         launches[name] = launches.get(name, 0) + n
 
+    phase("6")
     # -- 6. times on the card ---------------------------------------------
     ops.reset_launch_counts()
     instances = [(kernel_of[key], key, *step_of[key]) for key in progs]
@@ -7240,6 +7652,7 @@ def main() -> int:
             e["launches"] > 0 for e in entries):
         got = [(e["name"], e["launches"]) for e in entries]
         raise AssertionError(f"kernel line incomplete: {got}")
+    phase("end")
     log(f"chip_smoke took {time.perf_counter() - t_script:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": entries}))

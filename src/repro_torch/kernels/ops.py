@@ -24,6 +24,8 @@ adds them once per replay (:func:`add_launches`).
 """
 from __future__ import annotations
 
+import gc
+import time
 from dataclasses import dataclass
 
 import torch
@@ -448,29 +450,52 @@ def run_aside(device: torch.device, fn, *args) -> None:
     torch.cuda.current_stream(device).wait_stream(side)
 
 
-def capture_cuda_graph(body):
+def capture_cuda_graph(body, pool=None, stream=None):
     """Capture ``body`` (work over fixed buffers, returning its output
     buffers) into a CUDA graph on a side stream, without synchronising the
     host (``torch.cuda.graph`` would). An arena of ``TABLE_ARENA_BYTES``,
     allocated before the capture, holds the tables its launches read
     (:func:`table_after_capture`); their copies go onto the current stream
     after the capture, ahead of any replay, and the arena lives as long as
-    the graph. Returns ``replay() -> output``: one graph launch, then that
-    output."""
+    the graph. ``pool``: the memory pool id of a live graph to share (a
+    private pool of its own by default); ``stream``: the side stream (a new
+    one by default; the caching allocator hands a block freed on one
+    stream only to work on that stream, so graphs that share a pool reuse
+    each other's freed blocks only when captured on one stream). Returns
+    ``replay() -> output``: one graph launch, then that output;
+    ``replay.pool`` is the id of the graph's memory pool
+    (``CUDAGraph.pool()``, as ``torch.cuda.memory_snapshot()`` names a
+    segment's pool) and ``replay.split`` the host seconds of the capture's
+    body and of its end (the graph's instantiation)."""
     graph = torch.cuda.CUDAGraph()
     arena = torch.empty(TABLE_ARENA_BYTES, dtype=torch.uint8, device="cuda")
-    stream = torch.cuda.Stream()
+    if stream is None:
+        stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     rec = {"arena": arena, "used": 0, "writes": []}
     _AFTER_CAPTURE.append(rec)
+    # No garbage collection while the stream captures: an object freed in
+    # a collection there (an engine dropped in a reference cycle) may
+    # destroy its CUDA graphs, which CUDA forbids during a capture, and
+    # the capture fails.
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         with torch.cuda.stream(stream):
-            graph.capture_begin()
+            if pool is None:
+                graph.capture_begin()
+            else:
+                graph.capture_begin(pool=pool)
+            t0 = time.perf_counter()
             try:
                 out = body()
             finally:
+                t1 = time.perf_counter()
                 graph.capture_end()
+                t2 = time.perf_counter()
     finally:
+        if collecting:
+            gc.enable()
         _AFTER_CAPTURE.pop()
     torch.cuda.current_stream().wait_stream(stream)
     for dst, host in rec["writes"]:
@@ -481,6 +506,8 @@ def capture_cuda_graph(body):
         return out
 
     replay.arena = arena
+    replay.pool = tuple(graph.pool())
+    replay.split = {"body_s": t1 - t0, "end_s": t2 - t1}
     return replay
 
 

@@ -60,6 +60,15 @@ def init_rglru_block(generator: torch.Generator, d_model: int,
     }
 
 
+def assoc_route() -> bool:
+    """True when ``REPRO_RGLRU_ASSOC=1`` is in the environment: the blocks
+    then take the associative scan at T > 1. Read at each call; a captured
+    prefill keeps the route that was live at its capture, so
+    :class:`repro_torch.serve.engine.LmEngine` keys its prefill graphs on
+    this."""
+    return os.environ.get("REPRO_RGLRU_ASSOC", "0") == "1"
+
+
 class RglruState(NamedTuple):
     h: torch.Tensor      # [B, W] recurrent state
     conv: torch.Tensor   # [B, CONV_WIDTH-1, W] trailing inputs of the conv
@@ -106,7 +115,7 @@ def rglru_block_apply(params: dict, x: torch.Tensor,
     u, new_hist = _causal_conv(u, params["conv_w"], params["conv_b"], hist)
     a, gated = _gates(params, u)
     h0 = state.h if state is not None else None
-    if x.shape[1] > 1 and os.environ.get("REPRO_RGLRU_ASSOC", "0") == "1":
+    if x.shape[1] > 1 and assoc_route():
         scan = rglru_assoc_ref
     else:
         scan = ops.rglru_scan if use_kernel else rglru_scan_batched_ref

@@ -97,6 +97,15 @@ def init_rwkv_state(batch: int, d_model: int, dtype=torch.float32,
                         device=device))
 
 
+def chunked_route() -> bool:
+    """True when ``REPRO_RWKV_CHUNKED=1`` is in the environment: the blocks
+    then take the chunk-parallel route at T > 1. Read at each call; a
+    captured prefill keeps the route that was live at its capture, so
+    :class:`repro_torch.serve.engine.LmEngine` keys its prefill graphs on
+    this."""
+    return os.environ.get("REPRO_RWKV_CHUNKED", "0") == "1"
+
+
 def _token_shift(x: torch.Tensor, last: torch.Tensor):
     """``shift(x)_t = x_{t-1}`` with ``last`` filling t = 0. Returns
     ``(xx, new_last)``."""
@@ -135,7 +144,7 @@ def rwkv_time_mix(params: dict, x: torch.Tensor, state: RwkvState,
     def tr(z):                      # [B, T, H, D] -> [B, H, T, D]
         return torch.movedim(z, 2, 1)
 
-    if t > 1 and os.environ.get("REPRO_RWKV_CHUNKED", "0") == "1":
+    if t > 1 and chunked_route():
         scan = ops.rwkv6_chunked
     else:
         scan = ops.rwkv6_scan if use_kernel else rwkv6_scan_batched_ref

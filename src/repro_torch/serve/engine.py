@@ -2,10 +2,14 @@
 
 ``LmEngine`` — batched prefill and decode for a registry arch over a fixed
 slot count, with ring caches of per-slot lengths for continuous batching.
-The prefill runs eagerly (the JAX engine re-traces its jitted prefill for
-every prompt shape); on a CUDA device the decode step is one CUDA graph
-over the engine's caches and token buffer (the JAX engine's jitted
-decode).
+On a CUDA device both are the JAX engine's jitted programs as CUDA graphs
+over the engine's caches: the decode step one graph over a ``[B, 1]``
+token buffer, the prefill one graph a prompt signature (the tokens' shape
+and each modality input's name, shape and dtype), over fixed input
+buffers of that signature, captured at its first use as JAX traces its
+jitted prefill once a shape. At most ``PREFILL_GRAPHS`` prefill graphs are
+held, in one memory pool, the least recently used evicted first. On the
+CPU both run eagerly.
 
 ``DeltaStreamEngine`` — streaming delta-RNN inference with live
 temporal-sparsity accounting and the Eq. 7 latency model.
@@ -81,6 +85,7 @@ captured, and would not see a tensor put in their place.
 """
 from __future__ import annotations
 
+import collections
 import time
 from dataclasses import dataclass, replace
 
@@ -106,6 +111,8 @@ from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.gru_rnn import GruTaskConfig
 from repro_torch.models.lm import init_lm_caches, lm_decode, lm_prefill
+from repro_torch.models.rglru import assoc_route
+from repro_torch.models.rwkv import chunked_route
 
 
 def _map2(fn, a, b):
@@ -169,6 +176,55 @@ def chunk_plan(t: int) -> list:
     return plan
 
 
+# The prefill graphs an LmEngine holds at once; the least recently used is
+# evicted first. They share one memory pool, captured on one stream, so a
+# capture reuses the blocks of the activations the others freed: the pool
+# holds about one prefill's activations at the longest prompt held (the
+# blocks free a layer's intermediates before the next), and a held graph
+# adds its logits there and no device memory the driver keeps beside the
+# caching allocator that an H100 run could see (PERF.md §5). A
+# ContinuousBatcher captures one graph a distinct wave length, and a wave
+# is as long as its longest prompt; a bound under the lengths a load
+# cycles through evicts each graph before its length comes back, and
+# every wave then pays a capture (PERF.md §5: a drain's second run at 8
+# graphs replays 14 % of its waves, at 64 all). 128 hold every length of
+# a load of prompts spread over up to 128 lengths (16-96 tokens: 81).
+PREFILL_GRAPHS = 128
+
+
+def _put(buf: torch.Tensor, x: torch.Tensor) -> None:
+    """Copy ``x`` into the buffer ``buf`` without a host sync: a CPU tensor
+    through pinned memory, a device tensor device to device. ``x`` must
+    have ``buf``'s shape; it is cast to its dtype."""
+    x = x.to(buf.dtype)
+    if x.device.type == "cpu" and buf.device.type == "cuda":
+        x = x.pin_memory()
+    buf.copy_(x, non_blocking=True)
+
+
+def _host_or_device(x) -> torch.Tensor:
+    """``x`` as a tensor where it lies (a host array as a CPU tensor)."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(np.array(x))
+    return torch.as_tensor(x)
+
+
+@dataclass
+class _PrefillGraph:
+    """One captured prefill: its replay, the launches a replay adds, its
+    fixed input buffers, the host seconds of its warm-up (0 where none
+    ran) and of its whole capture (the warm-up included), and its
+    replays."""
+
+    replay: object
+    launches: tuple
+    tokens: torch.Tensor
+    inputs: dict
+    warmup_s: float
+    capture_s: float
+    replays: int = 0
+
+
 class LmEngine:
     """Prefill / decode engine over a fixed slot count (the decode batch).
 
@@ -177,12 +233,18 @@ class LmEngine:
     ``device`` (default ``"cuda"``), where the engine keeps its caches.
     Prefill and decode write the caches in place. On a CUDA device the
     decode step is a CUDA graph over the caches, a ``[B, 1]`` token buffer
-    and the logits it writes, captured at construction and again when a
-    value it bakes in changes (:meth:`_capture_key`); a capture or replay
-    that fails raises. On the CPU the step runs eagerly. Assigning
-    ``caches`` (the JAX engine's style) copies the new values into the
-    engine's buffers, leaf by leaf: a captured step reads those buffers, and
-    would not see a tree put in their place."""
+    and the logits it writes, captured at construction; the prefill is one
+    CUDA graph a prompt signature over the caches, a ``[B, S]`` token
+    buffer and one buffer a modality input, captured at the signature's
+    first use (at most ``PREFILL_GRAPHS`` held, in one memory pool,
+    least recently used evicted). Every graph is captured again when a value it bakes in
+    changes (:meth:`_capture_key`; a prefill graph also keys on the scan
+    routes, :func:`repro_torch.models.rwkv.chunked_route` and
+    :func:`repro_torch.models.rglru.assoc_route`); a capture or replay that
+    fails raises. On the CPU both run eagerly. Assigning ``caches`` (the
+    JAX engine's style) copies the new values into the engine's buffers,
+    leaf by leaf: a captured graph reads those buffers, and would not see a
+    tree put in their place."""
 
     def __init__(self, params: dict, cfg: ModelConfig, batch: int,
                  max_len: int, device=None):
@@ -198,12 +260,21 @@ class LmEngine:
         self._caches = init_lm_caches(cfg, batch, max_len, self.device)
         self._tokens = torch.zeros((batch, 1), dtype=torch.int64,
                                    device=self.device)
-        # the captured decode step: on a CUDA device only
+        # the captured decode step and prefills: on a CUDA device only
         self._capture = (ops.capture_cuda_graph if self.device.type == "cuda"
                          else None)
         self._decode = None     # (replay, launches of a replay)
         self._decode_key = self._decode_refs = None
         self.decode_stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
+        # signature -> _PrefillGraph, least recently used first; the
+        # prefill graphs' one capture stream; the warm-ups run
+        self._prefill = collections.OrderedDict()
+        self._prefill_key = self._prefill_refs = None
+        self._prefill_stream = (torch.cuda.Stream(self.device)
+                                if self._capture is not None else None)
+        self._prefill_warm = set()
+        self.prefill_stats = {"captures": 0, "capture_s": 0.0, "replays": 0,
+                              "evictions": 0, "held": 0}
         if self._capture is not None:
             self._capture_decode()
 
@@ -226,8 +297,8 @@ class LmEngine:
         _copy_into(dst, src)
 
     def _capture_key(self) -> tuple:
-        """What the captured decode step bakes in: the batch and ring sizes,
-        the config, the parameters (by identity: a tree whose leaves are
+        """What the captured graphs bake in: the batch and ring sizes, the
+        config, the parameters (by identity: a tree whose leaves are
         replaced must be a new tree) and the mesh, on which the blocks
         branch when they run (``lm._embed``, ``moe.moe_apply``)."""
         return (self.batch, self.max_len, self.cfg, id(self.params),
@@ -261,16 +332,133 @@ class LmEngine:
         self.decode_stats["captures"] += 1
         self.decode_stats["capture_s"] = time.perf_counter() - t0
 
+    def _capture_prefill(self, sig: tuple, tokens: torch.Tensor,
+                         modality: dict) -> _PrefillGraph:
+        """Capture the prefill of signature ``sig`` over new input buffers
+        holding ``tokens`` and ``modality``, into the pool of the graphs
+        held, on the prefill graphs' stream. The least recently used graphs
+        go first, down to ``PREFILL_GRAPHS - 1``. As in
+        :meth:`_capture_decode`, a prefill first runs on a scratch copy of
+        the caches on a side stream, its launches counted, so first-use
+        work runs outside the capture; it runs once a signature but for
+        the prompt's length (the modality inputs and the scan routes: what
+        runs), as a prompt of a new length calls the ops of the last. The
+        capture's launches are taken back and added again at each
+        replay."""
+        t0 = time.perf_counter()
+        while len(self._prefill) >= PREFILL_GRAPHS:
+            self._prefill.popitem(last=False)
+            self.prefill_stats["evictions"] += 1
+        tok_buf = torch.empty(tokens.shape, dtype=torch.int64,
+                              device=self.device)
+        _put(tok_buf, tokens)
+        bufs = {}
+        for name, x in modality.items():
+            bufs[name] = torch.empty(x.shape, dtype=x.dtype,
+                                     device=self.device)
+            _put(bufs[name], x)
+        warmup_s = 0.0
+        if sig[1:] not in self._prefill_warm:
+            t1 = time.perf_counter()
+            ops.run_aside(self.device, lambda: lm_prefill(
+                self.params, self.cfg, tok_buf,
+                tree_map(torch.clone, self._caches), **bufs))
+            self._prefill_warm.add(sig[1:])
+            warmup_s = time.perf_counter() - t1
+
+        def body():
+            logits, _ = lm_prefill(self.params, self.cfg, tok_buf,
+                                   self._caches, **bufs)
+            return logits
+
+        pool = next((getattr(g.replay, "pool", None)
+                     for g in self._prefill.values()), None)
+        before = ops.launch_counts()
+        replay = self._capture(body, pool=pool, stream=self._prefill_stream)
+        graph = _PrefillGraph(replay, ops.take_back_launches(before),
+                              tok_buf, bufs, warmup_s,
+                              time.perf_counter() - t0)
+        self._prefill[sig] = graph
+        self.prefill_stats["captures"] += 1
+        self.prefill_stats["capture_s"] += graph.capture_s
+        self.prefill_stats["held"] = len(self._prefill)
+        return graph
+
     @torch.no_grad()
     def prefill(self, tokens, **modality) -> torch.Tensor:
         """Prefill all slots with (left-padded) prompts ``[B, S]``; returns
-        the last logits ``[B, 1, V]``. The VLM takes ``image_embeds=``, the
-        encoder-decoder ``audio_frames=`` (arrays in the model's dtype)."""
-        logits, self.caches = lm_prefill(
-            self.params, self.cfg, torch.as_tensor(tokens, device=self.device),
-            self.caches, **{k: torch.as_tensor(v, device=self.device)
-                            for k, v in modality.items()})
-        return logits
+        the last logits ``[B, 1, V]``, a tensor of its own. The VLM takes
+        ``image_embeds=``, the encoder-decoder ``audio_frames=`` (arrays in
+        the model's dtype). On a CUDA device the inputs go into the
+        buffers of their signature's graph without a host sync (host arrays
+        through pinned memory), then one replay; a new signature captures
+        its graph first."""
+        if self._capture is None:
+            logits, _ = lm_prefill(
+                self.params, self.cfg,
+                torch.as_tensor(tokens, device=self.device), self._caches,
+                **{k: torch.as_tensor(v, device=self.device)
+                   for k, v in modality.items()})
+            return logits
+        tokens = _host_or_device(tokens)
+        if tokens.ndim != 2 or tokens.shape[0] != self.batch:
+            raise ValueError(f"prefill takes a prompt a slot, [{self.batch}, "
+                             f"S]; got {tuple(tokens.shape)}")
+        modality = {k: _host_or_device(v)
+                    for k, v in sorted(modality.items())}
+        if self._prefill_key != self._capture_key():
+            self._prefill.clear()
+            self._prefill_warm.clear()
+            self.prefill_stats["held"] = 0
+            self._prefill_key = self._capture_key()
+            # keeps the ids in the key unique while the graphs live
+            self._prefill_refs = (self.params, current_mesh())
+        sig = (tuple(tokens.shape),
+               tuple((k, tuple(v.shape), v.dtype)
+                     for k, v in modality.items()),
+               chunked_route(), assoc_route())
+        graph = self._prefill.get(sig)
+        if graph is None:
+            graph = self._capture_prefill(sig, tokens, modality)
+        else:
+            self._prefill.move_to_end(sig)
+            _put(graph.tokens, tokens)
+            for name, x in modality.items():
+                _put(graph.inputs[name], x)
+        logits = graph.replay()
+        ops.add_launches(graph.launches)
+        graph.replays += 1
+        self.prefill_stats["replays"] += 1
+        # the graphs share a pool: another's replay may overwrite this
+        # one's logits, so they are copied out (on the stream of the
+        # replay, ahead of any later one) before the call returns
+        return logits.clone()
+
+    def prefill_graphs(self) -> dict:
+        """The prefill graphs held, least recently used first: per
+        signature its warm-up's and its capture's seconds (the capture's
+        body and end, ``capture_cuda_graph``'s ``split``, where it has
+        one), its replays, its memory pool's id and that pool's bytes (the
+        caching allocator's segments of the pool, which the graphs share,
+        ``torch.cuda.memory_snapshot()``; ``None`` where the snapshot does
+        not name the pools, or the capture has no pool)."""
+        sizes = None
+        if self.device.type == "cuda" and self._prefill:
+            segments = torch.cuda.memory_snapshot()
+            if all("segment_pool_id" in seg for seg in segments):
+                sizes = collections.Counter()
+                for seg in segments:
+                    sizes[tuple(seg["segment_pool_id"])] += seg["total_size"]
+        out = {}
+        for sig, graph in self._prefill.items():
+            pool = getattr(graph.replay, "pool", None)
+            out[sig] = {"warmup_s": graph.warmup_s,
+                        "capture_s": graph.capture_s,
+                        **getattr(graph.replay, "split", {}),
+                        "replays": graph.replays, "pool": pool,
+                        "pool_bytes": (None if sizes is None or pool is None
+                                       else sizes[pool])}
+        return out
 
     @torch.no_grad()
     def decode_step(self, tokens) -> torch.Tensor:
@@ -284,15 +472,11 @@ class LmEngine:
                 self.params, self.cfg,
                 torch.as_tensor(tokens, device=self.device), self._caches)
             return logits
-        if isinstance(tokens, np.ndarray):
-            tokens = torch.from_numpy(np.array(tokens))
-        tokens = torch.as_tensor(tokens).to(torch.int64)
+        tokens = _host_or_device(tokens)
         if tuple(tokens.shape) != (self.batch, 1):
             raise ValueError(f"decode_step takes one token a slot, "
                              f"[{self.batch}, 1]; got {tuple(tokens.shape)}")
-        if tokens.device.type == "cpu" and self.device.type == "cuda":
-            tokens = tokens.pin_memory()
-        self._tokens.copy_(tokens, non_blocking=True)
+        _put(self._tokens, tokens)
         if self._decode_key != self._capture_key():
             self._capture_decode()
         replay, launches = self._decode

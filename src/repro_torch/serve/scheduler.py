@@ -6,8 +6,12 @@ whenever slots free up, the newest wave of queued prompts is left-padded to
 a common length and prefilled through the whole-batch prefill (which
 attends over the pads, as the reference does); the live slots' cache rows
 are merged back, in place, from a copy taken before the wave, so in-flight
-requests are untouched. Every tick decodes all slots; finished slots (EOS or
-budget) are harvested and recycled.
+requests are untouched. On a CUDA device the prefill is one graph replay,
+and each distinct wave length captures its graph once (lengths are not
+bucketed: a longer pad is another prompt, with another result); the copy
+and the merge run eagerly, as the reference jits neither. Every tick
+decodes all slots; finished slots (EOS or budget) are harvested and
+recycled.
 
 ``GruStreamBatcher`` (alias ``DeltaStreamBatcher``) — admission/harvest
 scheduling of streaming requests over
@@ -47,8 +51,9 @@ class ContinuousBatcher:
     the batch prefill and then restores the live slots' cache rows:
     prefill writes every slot's cache, so without the slotwise merge an
     admission into a partly occupied batch would corrupt the in-flight
-    requests. The engine writes its caches in place, so the rows kept are
-    a copy taken before the wave."""
+    requests. The engine writes its caches in place (its captured prefill
+    and decode graphs read and write those buffers), so the rows kept are
+    a copy taken before the wave, and the merge writes into the caches."""
 
     def __init__(self, engine: LmEngine, pad_id: int = 0):
         self.engine = engine

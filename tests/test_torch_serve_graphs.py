@@ -399,12 +399,13 @@ def test_the_fleet_open_is_a_reset_alone():
 
 # -- the LM engine's decode step -------------------------------------------
 
-def lm_stub(body):
+def lm_stub(body, pool=None, stream=None):
     """A stand-in for ``ops.capture_cuda_graph`` for ``LmEngine``: it records
     the pointers of the caches and the token buffer, and every replay fails
     if one moved (a CUDA graph would decode the old buffers); a replay
     reruns the decode and copies its logits into one tensor that every
-    replay overwrites, as a graph's static output is."""
+    replay overwrites, as a graph's static output is. ``pool`` and
+    ``stream`` (a prefill capture's) have no meaning on the CPU."""
     eng = inspect.getclosurevars(body).nonlocals["self"]
 
     def ptrs():
