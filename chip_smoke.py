@@ -336,7 +336,12 @@ profile of both paths. Row 9b, ``rwkv6_scan``'s bf16 instance (bf16 r, k,
 v with fp32 w, u and state, the bf16 RWKV6 models' operands), is held in
 phase 3 at B in {1, 4, 9}, T in {1, 37, 128}, H in {32, 3}, with and
 without s0 and with r 2-byte aligned, within ``TOL_F32``, and timed in 5f
-at the LM path's shapes.
+at the LM path's shapes. Both instances are also held at the chunked
+kernel's edges (``rwkv6_scan`` at T > 1 stages ``RWKV6_CHUNK`` steps at a
+time): T in {2, chunk - 1, chunk, chunk + 1}, B in {1, 4, 9}, H in {32, 3},
+with s0 and without, with r one element into its buffer, on a grid of a
+third of the units, and with r, k, v, w in the model's [B, T, H, D]
+memory, from a generator of their own.
 
 Each phase's seconds are logged where the next one starts.
 
@@ -3391,6 +3396,43 @@ def no_drop(cfg):
                                capacity_factor=cfg.n_experts / cfg.top_k)
 
 
+# an fp32 sum of 512 bf16 products is off by ~1e-7 to 1e-6 of its scale;
+# a term rounded to bf16 moves by up to 2**-9 of itself (R21)
+TOL_SCORES_F64 = 1e-5
+SCORE_CACHE_ROWS = 32768   # the dry-run's decode_32k cache
+
+
+def mla_scores_err(cfg, dev) -> float:
+    """R21 on the card: ``absorbed_scores`` (the absorbed MLA decode's two
+    score terms, one fp32-output matmul each) over bf16 ``q_eff``,
+    ``q_rope`` and a bf16 cache of ``SCORE_CACHE_ROWS`` rows at ``cfg``'s
+    widths and ``LM_SLOTS`` streams, against fp64 sums over the same
+    values: the largest error over the largest |score|. Seeded inputs from
+    a generator of their own (the other phases' inputs stay)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.mla import absorbed_scores
+    rng = np.random.default_rng(SEED + 31)
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(
+            np.float32)).to(dev, torch.bfloat16)
+
+    q, q_rope = (bf16(LM_SLOTS, 1, cfg.n_heads, n)
+                 for n in (cfg.kv_lora, cfg.qk_rope))
+    c_kv, k_rope = (bf16(LM_SLOTS, SCORE_CACHE_ROWS, n)
+                    for n in (cfg.kv_lora, cfg.qk_rope))
+    got = absorbed_scores(q, q_rope, c_kv, k_rope)
+    want = (torch.einsum("bshl,btl->bhst", q.double(), c_kv.double())
+            + torch.einsum("bshr,btr->bhst", q_rope.double(),
+                           k_rope.double()))
+    if got.dtype != torch.float32 or got.shape != want.shape:
+        raise AssertionError(f"absorbed_scores: {got.dtype} "
+                             f"{tuple(got.shape)}, want fp32 "
+                             f"{tuple(want.shape)}")
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
 def lm_forced(params, cfg, dev, rng, what, tol=TOL_LM_BF16_RMS,
               modality=None, margin=None) -> dict:
     """Prefill 64 tokens and decode 8 greedy ones, against the
@@ -3834,7 +3876,7 @@ def lm_timed(name, cfg, params, init_s, t_prompt, dev, rng, base, smi,
         + f"; profiled prefill: {pre_prof['replays_per_call']} replay, "
         f"{pre_prof['kernels_per_step']:.0f} kernels, device busy "
         f"{pre_prof['device_busy_us_per_step']:.1f} us, idle share "
-        f"{pre_prof['idle_share']:.4f} (wall "
+        f"{idle_share(pre_prof)} (wall "
         f"{pre_prof['wall_us_per_step']:.1f} us under the profiler), "
         f"{pre_prof['syncs_per_call']} host syncs a call; decode a step at "
         f"B={LM_SLOTS} p50 "
@@ -3844,7 +3886,7 @@ def lm_timed(name, cfg, params, init_s, t_prompt, dev, rng, base, smi,
         f"{prof['replays_per_step']:.0f} replay, "
         f"{prof['kernels_per_step']:.1f} kernels, device busy "
         f"{prof['device_busy_us_per_step']:.1f} us, idle share "
-        f"{prof['idle_share']:.4f} (wall {prof['wall_us_per_step']:.1f} "
+        f"{idle_share(prof)} (wall {prof['wall_us_per_step']:.1f} "
         f"us under the profiler), {prof['syncs_per_step']} host syncs a "
         f"step; the decode graph's capture {out['capture_ms']:.1f} ms, its "
         f"private pool "
@@ -3854,6 +3896,15 @@ def lm_timed(name, cfg, params, init_s, t_prompt, dev, rng, base, smi,
         f"{base['bytes']} B held before the model, {out['peak_gib']:.3f} "
         f"GiB{extra} [{smi}]")
     return out
+
+
+def idle_share(prof: dict) -> str:
+    """``engine_profile``'s idle share as printed: "not measured" where the
+    profiler session recorded no device event (seen once, on one of
+    phase 5g's decode sessions)."""
+    share = prof["idle_share"]
+    return ("not measured (no device event recorded)" if share is None
+            else f"{share:.4f}")
 
 
 def lm_phase(dev, smi) -> dict:
@@ -3886,8 +3937,10 @@ def lm_phase(dev, smi) -> dict:
     against the same prefill through row 9, and an engine's prefill graph
     captured again under the other route, each replay bitwise its eager
     twin; ``bound_sweep`` on that model (``PREFILL_GRAPHS + 1`` lengths,
-    three times). The bf16 prefill-then-decode logits of (a) and (c) are held
-    within ``TOL_LM_BF16_RMS`` of their teacher-forced forward; (b)'s are
+    three times, the scan's shared memory setting of the device made
+    again from the first length, as in a new process). The bf16
+    prefill-then-decode logits of (a) and (c) are held within
+    ``TOL_LM_BF16_RMS`` of their teacher-forced forward; (b)'s are
     measured (R20). Times per model (``lm_timed``): init, prefill at
     T = 128 (graph and eager), the prefill graph's capture (warm-up, body,
     end) and the prefill graphs' pool, a profiled prefill, decode a step (p50 / p95), kernels a decode step and
@@ -3902,6 +3955,7 @@ def lm_phase(dev, smi) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.rglru_scan import (rglru_scan,
                                                 rglru_scan_batched_ref)
+    from repro_torch.kernels import rwkv6_scan as wkv_mod
     from repro_torch.kernels.rwkv6_scan import (rwkv6_scan,
                                                 rwkv6_scan_batched_ref)
     from repro_torch.models.common import tree_map
@@ -4261,6 +4315,11 @@ def lm_phase(dev, smi) -> dict:
         f"warm-up, the replay and the twin's run on row 9's route; none on "
         f"the chunked one) [{smi}]")
     del caches_k, caches_c, eng
+    # the sweep's lengths come as in a new process: the chunked scan's
+    # shared memory limit not yet raised, the first prompt one token (its
+    # warm-up the only launch outside a capture), the longer ones captured
+    # with no warm-up of their own and past 48 KB from T = 27 at 32 columns
+    wkv_mod._PREPARED.clear()
     res["bound"] = bound_sweep(params, cfg, dev, rng, smi)
     del params
     torch.cuda.empty_cache()
@@ -4380,7 +4439,8 @@ def zoo_phase(dev, smi, served_5f) -> dict:
     (the first run's prefills held bitwise against their eager twins), one
     prefill capture a distinct wave length, and a staggered admission
     leaves the live request's tokens those of a run with the same waves;
-    then ``ZOO_GREEDY``: (b) granite-moe-3b-a800m (40 experts padded to
+    its decode's scores (``mla_scores_err``) within ``TOL_SCORES_F64`` of
+    fp64; then ``ZOO_GREEDY``: (b) granite-moe-3b-a800m (40 experts padded to
     48, top-8), (c) llama-3.2-vision-11b (8 cross layers of 40, image
     embeddings [4, 1601, 7680]), (d) seamless-m4t-large-v2 (24 encoder and
     24 decoder layers, audio frames [4, 1536, 160]), (e) qwen2.5-32b
@@ -4457,6 +4517,11 @@ def zoo_phase(dev, smi, served_5f) -> dict:
     f = lm_forced(params, cfg, dev, rng, "deepseek-v2-lite-16b",
                   margin=ROUTE_MARGIN_BF16)
     no_kernels("deepseek-v2-lite-16b")
+    score_err = mla_scores_err(cfg, dev)
+    if not score_err <= TOL_SCORES_F64:
+        raise AssertionError(f"deepseek-v2-lite-16b: the absorbed decode's "
+                             f"scores {score_err:.3e} from fp64 (tolerance "
+                             f"{TOL_SCORES_F64})")
     n_tok = LM_REQUESTS * LM_NEW
     log(f"lm deepseek-v2-lite-16b (bf16, full size: MLA kv_lora "
         f"{cfg.kv_lora}, {cfg.n_experts} experts top-{cfg.top_k} + "
@@ -4473,7 +4538,10 @@ def zoo_phase(dev, smi, served_5f) -> dict:
         f"the same waves; prefill-then-decode against the teacher-forced "
         f"forward: relative RMS {f['err']:.3e} (within {TOL_LM_BF16_RMS}), "
         + flips_allowed("deepseek", f["flips"], f["gap"], ROUTE_MARGIN_BF16)
-        + f"; init {init_s:.3f} s, its peak {init_peak / 2 ** 30:.3f} GiB "
+        + f"; the absorbed decode's scores over a bf16 cache of "
+        f"{SCORE_CACHE_ROWS} rows within {score_err:.3e} of fp64 sums of "
+        f"the same values (tolerance {TOL_SCORES_F64}); init {init_s:.3f} s,"
+        f" its peak {init_peak / 2 ** 30:.3f} GiB "
         f"above the {base['bytes']} B held before; no hand-written kernel "
         f"launched [{smi}]")
     res["deepseek-v2-lite-16b"] = lm_timed(
@@ -6075,6 +6143,7 @@ def main() -> int:
     from repro_torch.kernels.rglru_scan import (rglru_scan,
                                                 rglru_scan_batched_ref,
                                                 rglru_scan_plan)
+    from repro_torch.kernels.rwkv6_scan import RWKV6_CHUNK
     from repro_torch.kernels.rwkv6_scan import (rwkv6_scan,
                                                 rwkv6_scan_batched_ref,
                                                 rwkv6_scan_plan)
@@ -6665,6 +6734,52 @@ def main() -> int:
                               f"aligned (scalar loads), within {TOL_F32} on "
                               "the card and the CPU")
                     n_scan += 1
+    # the chunked kernel's edges (rwkv6_scan at T > 1 stages RWKV6_CHUNK
+    # steps at a time; T in {37, 128} are above): T in {2, chunk - 1,
+    # chunk, chunk + 1} for both instances at B in {1, 4, 9} x H in {32, 3},
+    # with s0 and without, with r one element into its buffer (element
+    # copies in place of 16-byte ones) and with r, k, v, w in the model's
+    # [B, T, H, D] memory (read in place); at B = 9, H = 32 the blocks
+    # walk the units (more units than the SMs hold blocks); within TOL_F32
+    # of the plain version on the card and the CPU, two launches bitwise
+    # equal. From a generator of their own: the other phases' inputs stay
+    wkv_rng = np.random.default_rng(SEED + 7)
+    chunk = RWKV6_CHUNK
+    for kinfo, in_dt in ((ops.RWKV6_SCAN_F32, torch.float32),
+                         (ops.RWKV6_SCAN_BF16, bf16)):
+        for b in (1, 4, 9):
+            for t in (2, chunk - 1, chunk, chunk + 1):
+                for h in (32, 3):
+                    shape = (b, h, t, 64)
+                    wkv = [torch.from_numpy(wkv_rng.normal(0, 1, shape).astype(
+                        np.float32)).to(in_dt) for _ in range(3)]
+                    wkv += [torch.from_numpy(a.astype(np.float32)) for a in (
+                        np.exp(-np.exp(wkv_rng.normal(-3, 1.5, shape))),
+                        wkv_rng.normal(0, 0.1, (h, 64)),
+                        wkv_rng.normal(0, 1, (b, h, 64, 64)))]
+                    gpu = [a.to(dev) for a in wkv]
+                    plan = rwkv6_scan_plan(b, h, t, 64, in_dt)
+                    # r, k, v, w as the model hands them: [B, H, T, D]
+                    # views of contiguous [B, T, H, D] tensors
+                    tmajor = [z.movedim(2, 1).contiguous().movedim(1, 2)
+                              for z in gpu[:4]] + gpu[4:]
+                    cases = [
+                        (rwkv6_scan, gpu, "with s0"),
+                        (rwkv6_scan, gpu[:5], "s0=None"),
+                        (rwkv6_scan, [offset_view(gpu[0])] + gpu[1:],
+                         "r one element into its buffer (element copies)"),
+                        (rwkv6_scan, tmajor,
+                         "r k v w views of [B, T, H, D] (read in place)")]
+                    for kern, dev_args, what in cases:
+                        scan_case(kinfo, kern, rwkv6_scan_batched_ref,
+                                  wkv[:len(dev_args)], dev_args, False,
+                                  f"{in_dt} r k v [{b}, {h}, {t}, 64] {what} "
+                                  f"(chunk {plan.chunk}, {plan.cols} columns "
+                                  f"a block, grid {plan.grid} for "
+                                  f"{plan.units} units), within {TOL_F32} "
+                                  "of max(1, "
+                                  "|plain|) on the card and the CPU")
+                        n_scan += 1
     log(f"scan cases: {n_scan}, each launched twice")
     # the engine step's Delta Unit and epilogue (inputs from a generator of
     # their own: the other phases' inputs stay)
@@ -7544,7 +7659,8 @@ def main() -> int:
         if kinfo in spmv_kinfo_all:
             entry["cold_ms"] = row["cold_ms"]
         if kinfo.name in scans:
-            for key in ("cold_ms", "launch_floor_ms", "tile_ms", "t128_ms"):
+            for key in ("cold_ms", "launch_floor_ms", "tile_ms", "t128_ms",
+                        "t128_bound_ms"):
                 entry[key] = row[key]
             # at the LM path's prefill shape (phase 5f)
             lm_row = zrows[kinfo.name]["t128"]

@@ -134,7 +134,10 @@ class _CostMode(TorchDispatchMode):
         trips = trip_count()
         packet = func.overloadpacket
         if packet in flop_registry:
-            self.flops += trips * flop_registry[packet](*args, **kwargs,
+            # an overload with an output type (``bmm.dtype``) counts as
+            # the product it is: its type argument is no operand's shape
+            fargs = [a for a in args if not isinstance(a, torch.dtype)]
+            self.flops += trips * flop_registry[packet](*fargs, **kwargs,
                                                         out_val=out)
         name = _base(packet.__name__)
         ins = _tensors(kwargs, _tensors(args, []))

@@ -111,6 +111,42 @@ def mla_prefill(params: dict, x: torch.Tensor, cache: MlaCache, *,
     return y, cache
 
 
+# cache rows whose fp32 upcast one step of absorbed_scores holds at once
+# on the CPU
+SCORE_ROWS = 1024
+
+
+def absorbed_scores(q_eff: torch.Tensor, q_rope: torch.Tensor,
+                    c_kv: torch.Tensor, k_rope: torch.Tensor) -> torch.Tensor:
+    """The absorbed decode's scores before scaling, ``[B, H, 1, S]`` fp32:
+    ``q_eff · c_kv + q_rope · k_rope`` over ``q_eff: [B, 1, H, kv_lora]``,
+    ``q_rope: [B, 1, H, qk_rope]`` and the cache's ``c_kv: [B, S,
+    kv_lora]``, ``k_rope: [B, S, qk_rope]``, all of the cache's storage
+    type. Each term is an fp32 sum of the products of those values (exact
+    in fp32 for bf16 operands), and the two fp32 terms are added, as the
+    reference's einsums with ``preferred_element_type=jnp.float32`` do.
+    No fp32 copy of the whole cache is made: on the card (and the meta
+    device) each term is one batched matmul of the storage-type operands
+    into an fp32 output, which reads the cache once; the CPU has no such
+    matmul, and upcasts the cache ``SCORE_ROWS`` rows at a time."""
+    if c_kv.device.type != "cpu":
+        def term(q, rows):
+            return torch.bmm(q[:, 0], rows.transpose(1, 2),
+                             out_dtype=torch.float32)
+        return (term(q_eff, c_kv) + term(q_rope, k_rope))[:, :, None, :]
+    b, _, h, _ = q_eff.shape
+    s_max = c_kv.shape[1]
+    q_eff, q_rope = q_eff.float(), q_rope.float()
+    scores = torch.empty((b, h, 1, s_max), dtype=torch.float32,
+                         device=c_kv.device)
+    for t0 in range(0, s_max, SCORE_ROWS):
+        rows = slice(t0, t0 + SCORE_ROWS)
+        scores[..., rows] = (
+            torch.einsum("bshl,btl->bhst", q_eff, c_kv[:, rows].float())
+            + torch.einsum("bshr,btr->bhst", q_rope, k_rope[:, rows].float()))
+    return scores
+
+
 def mla_decode(params: dict, x: torch.Tensor, cache: MlaCache, *,
                n_heads: int, kv_lora: int = 512, qk_nope: int = 128,
                qk_rope: int = 64, v_dim: int = 128,
@@ -120,10 +156,10 @@ def mla_decode(params: dict, x: torch.Tensor, cache: MlaCache, *,
 
     Each slot writes its latent at its own index; at ``index >= S_max`` the
     write is dropped (JAX's out-of-bounds scatter), and the slot attends
-    over every row. The einsums over the cache run in its storage dtype
-    (fp32 sums of the products), so no fp32 copy of the cache is made: in
-    bf16 the two score terms are each rounded to bf16 once, where the
-    reference keeps them fp32 (its other casts to bf16 are the same)."""
+    over every row. The two score terms are fp32 sums of the cache's
+    storage-type products (:func:`absorbed_scores`), as the reference's
+    ``preferred_element_type=jnp.float32``, without an fp32 copy of the
+    whole cache; its casts to bf16 are the reference's."""
     b, s, _ = x.shape
     if s != 1:
         raise ValueError(f"mla_decode takes one token a slot, got {s}")
@@ -145,9 +181,7 @@ def mla_decode(params: dict, x: torch.Tensor, cache: MlaCache, *,
     w_k, w_v = kv_b[..., :qk_nope], kv_b[..., qk_nope:]
     # absorb: q_eff[b, h, l] = sum_d q_nope[b, h, d] * w_k[l, h, d]
     q_eff = torch.einsum("bshd,lhd->bshl", q_nope, w_k).to(dt)
-    scores = (torch.einsum("bshl,btl->bhst", q_eff, cache.c_kv).float()
-              + torch.einsum("bshr,btr->bhst", q_rope.to(dt),
-                             cache.k_rope).float())
+    scores = absorbed_scores(q_eff, q_rope.to(dt), cache.c_kv, cache.k_rope)
     scores = scores * (qk_nope + qk_rope) ** -0.5
     valid = torch.arange(s_max, device=x.device)[None] <= idx[:, None]
     scores = scores + torch.where(valid, 0.0, NEG_INF)[:, None, None, :]

@@ -189,6 +189,78 @@ def test_mla_decode_bf16_matches_jax():
     assert _rel_rms(tc.k_rope, cache.k_rope) <= TOL_BF16_RMS
 
 
+# the bf16 absorbed decode's scores against fp64 over the same bf16 values,
+# relative to the largest: fp32 sums of 32 exact products stay within a
+# few ulps (~1e-7); a term rounded to bf16 moves by up to 2**-9 of itself
+TOL_SCORES_F64 = 1e-6
+
+
+@pytest.mark.parametrize("rows", [None, 5])
+def test_mla_decode_bf16_scores_sum_in_fp32(monkeypatch, rows):
+    """R21: with a bf16 cache the decode's two score terms are fp32 sums of
+    the bf16 products, added in fp32, as the reference's
+    ``preferred_element_type=jnp.float32`` keeps them; neither is rounded
+    to bf16. The scores ``mla_decode`` hands its softmax are held to an
+    fp64 computation over the same bf16 ``q_eff``, ``q_rope`` and cache
+    within ``TOL_SCORES_F64``. ``rows``: the cache rows the CPU upcasts
+    at once (``SCORE_ROWS``; 5 splits the 12 rows into chunks of 5, 5 and
+    2)."""
+    _, tp = _mla(jnp.bfloat16)
+    if rows is not None:
+        monkeypatch.setattr(tmla, "SCORE_ROWS", rows, raising=False)
+    cache = tmla.MlaCache.zeros(2, 12, 32, 8, torch.bfloat16)
+    _, cache = tmla.mla_prefill(tp, _t(_x(3, 2, 6)).bfloat16(), cache, **MLA)
+    cache.index.copy_(torch.tensor([6, 4], dtype=torch.int32))
+    idx = cache.index.clone()
+    x = _t(_x(8, 2, 1)).bfloat16()
+    seen, softmax = [], torch.softmax
+
+    def spy(scores, dim):
+        seen.append(scores.clone())
+        return softmax(scores, dim=dim)
+
+    monkeypatch.setattr(torch, "softmax", spy)
+    _, cache = tmla.mla_decode(tp, x, cache, **MLA)
+    (got,) = seen
+    assert got.dtype == torch.float32
+    h, lora, nope, rope = (MLA[k] for k in ("n_heads", "kv_lora", "qk_nope",
+                                            "qk_rope"))
+    q_nope, q_rope, _, _ = tmla._project(tp, x, h, lora, nope, rope, 1e4,
+                                         idx[:, None])
+    w_k = tp["kv_b"].reshape(lora, h, nope + MLA["v_dim"])[..., :nope]
+    q_eff = torch.einsum("bshd,lhd->bshl", q_nope, w_k).to(torch.bfloat16)
+    want = (torch.einsum("bshl,btl->bhst", q_eff.double(),
+                         cache.c_kv.double())
+            + torch.einsum("bshr,btr->bhst", q_rope.double(),
+                           cache.k_rope.double())) * (nope + rope) ** -0.5
+    valid = torch.arange(12)[None] <= idx[:, None]            # [B, S]
+    valid = valid[:, None, None, :].expand_as(got)
+    err = (got.double() - want)[valid].abs().max() / want[valid].abs().max()
+    assert err <= TOL_SCORES_F64, f"scaled error {err:.3e}"
+
+
+def test_absorbed_scores_off_the_cpu_are_fp32_matmuls_of_the_cache(
+        monkeypatch):
+    """Off the CPU (here the meta device, as the dry-run traces it) each
+    score term is one batched matmul of the bf16 operands into an fp32
+    output: the cache goes in as it is stored, never upcast."""
+    calls, bmm = [], torch.bmm
+
+    def spy(a, b, **kw):
+        calls.append((a.dtype, b.dtype, kw.get("out_dtype")))
+        return bmm(a, b, **kw)
+
+    monkeypatch.setattr(torch, "bmm", spy)
+    bf16 = torch.bfloat16
+    q, q_rope = (torch.empty((2, 1, 4, n), dtype=bf16, device="meta")
+                 for n in (32, 8))
+    c_kv, k_rope = (torch.empty((2, 12, n), dtype=bf16, device="meta")
+                    for n in (32, 8))
+    got = tmla.absorbed_scores(q, q_rope, c_kv, k_rope)
+    assert got.shape == (2, 4, 1, 12) and got.dtype == torch.float32
+    assert calls == [(bf16, bf16, torch.float32)] * 2
+
+
 def test_absorbed_decode_matches_uncompressed_forward():
     """Prefill 5 tokens, decode 4 one by one: each decode output equals the
     uncompressed causal forward over the 9 at that position."""

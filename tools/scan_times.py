@@ -11,12 +11,15 @@ Run from the root of a checkout on a host with a CUDA card and ``nvcc``:
   of its own, since the package name is the same, and builds its own
   kernels; give the trees as ``A B B A`` to compare two on one card in one
   call. Per tree it times ``rwkv6_scan`` (H = 32 heads of 64, RWKV6 at
-  D = 2048) and ``rglru_scan`` (W = 4096) at B = 1 and 8 and T = 1 and
-  128, warm and with a cold L2, with the device timers of ``chip_smoke.py``
-  (CUDA-graph replay). Every tree draws the same inputs from the same seed.
+  D = 2048) with fp32 and with bf16 ``r, k, v`` at [B, T] = [4, 128] (the
+  LM prefill), [2, 32], [4, 1] (the LM decode), [1, 1] and [8, 1], and
+  ``rglru_scan`` (W = 4096) at B = 1 and 8 and T = 1 and 128, warm and
+  with a cold L2, with the device timers of ``chip_smoke.py`` (CUDA-graph
+  replay), and prints a digest of each call's output bits. Every tree
+  draws the same inputs from the same seed, so equal digests across trees
+  are equal bits.
 * ``python3 tools/scan_times.py --breakdown``: this checkout's scans split
-  into three parts, at B = 1 and 8, T = 1 (at T = 128 only the plans): an
-  empty kernel at the same grid
+  into three parts, at B = 1 and 8, T = 1: an empty kernel at the same grid
   launched as the scan is (the launch; also launched the ordinary way), a
   cut build that keeps every load and store of the kernel but none of its
   arithmetic, shuffles or barriers (the round trip), and the full kernel;
@@ -24,8 +27,24 @@ Run from the root of a checkout on a host with a CUDA card and ``nvcc``:
   launch in place of the programmatic dependent one and with write-back
   stores of the state in place of streaming ones, and the other shapes
   (cut builds with 32 or 64 value columns a block for ``rwkv6_scan``, 32
-  to 256 threads a block for ``rglru_scan``, 4-byte loads), each checked
-  against the plain version before it is timed.
+  to 256 threads a block for ``rglru_scan``, 4-byte loads). At T > 1
+  (``rwkv6_scan`` at [4, 128] and [2, 32], fp32 and bf16) the chunked
+  kernel against the one-step kernel on the same operands (plan chunk 0,
+  a cut build whose C entry takes it at T > 1), the chunked kernel at 16,
+  32 and 64 value columns a block, at chunks of 8 and 16 steps (plans of
+  this build) and of 64 (a cut build whose kChunk is 64), with y collected
+  in shared memory and stored a chunk at a time (a cut build), with
+  element copies in place of 16-byte ones, and with the y stores cut (a
+  cut build that keeps the key sums: the most the stores cost), and the
+  public call on contiguous operands against the model's [B, H, T, D]
+  views of [B, T, H, D] tensors (read in place). Each but the last cut is
+  checked against the plain version before it is timed.
+
+* ``python3 tools/scan_times.py --mutants``: ``chip_smoke.py`` run in a
+  copy of this checkout (its built kernels kept) once for each of
+  ``MUTANTS``, faults of ``csrc/rwkv6_scan.cu``'s chunked kernel; each
+  must fail phase 3 on an ``rwkv6_scan`` case. One line per mutant with
+  the run's exit code, the phase it reached and its failure.
 
 One line per measurement, microseconds per call, with the card's name and
 power limit.
@@ -33,13 +52,17 @@ power limit.
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SHAPES = [(1, 1), (8, 1), (1, 128), (8, 128)]   # (B, T)
+SHAPES = [(1, 1), (8, 1), (1, 128), (8, 128)]   # (B, T) of rglru_scan
+WKV_SHAPES = [(4, 128), (2, 32), (4, 1), (1, 1), (8, 1)]  # rwkv6_scan's
 
 # cut builds of this checkout's sources: {cut: {source: [(old, new), ...]}}
 _PLAIN_LAUNCH = ("  cfg.numAttrs = 1;", "  cfg.numAttrs = 0;")
@@ -51,7 +74,7 @@ CUTS = {
             """      float p[kVec];
 #pragma unroll
       for (int c = 0; c < kVec; ++c) {
-        const float kv = ki * v[c];
+        const float kv = outer(ki, v[c], TI{});
         p[c] = ri * (s[c] + ui * kv);
         s[c] = wi * s[c] + kv;
       }""", """#pragma unroll
@@ -77,6 +100,78 @@ CUTS = {
                                    "constexpr int kCols = 32;")]},
     "cols=64": {"rwkv6_scan.cu": [("constexpr int kCols = 16;",
                                    "constexpr int kCols = 64;")]},
+    # chunks of up to 64 steps for the chunked rwkv6_scan
+    "chunk=64": {"rwkv6_scan.cu": [("constexpr int kChunk = 32;",
+                                    "constexpr int kChunk = 64;")]},
+    # the one-step rwkv6_scan kernel taken at any T (the C entry refuses it
+    # at T > 1)
+    "one-step at any T": {"rwkv6_scan.cu": [(
+        ": (cols != kCols || T > 1))", ": cols != kCols)")]},
+    # the chunked rwkv6_scan's y collected in shared memory (`chunk` rows
+    # of `cols` fp32 beside the two buffers) and stored a chunk at a time,
+    # 16 bytes a thread along the rows, behind one more barrier a chunk
+    "y staged": {"rwkv6_scan.cu": [
+        ("      float* y = a.y + base + (size_t)c * chunk * rs + c0 + y_col;",
+         "      float* y = reinterpret_cast<float*>(\n"
+         "          smem + chunk_smem(chunk, cols, sizeof(TI))) + y_col;"),
+        ("sum_keys(prev, hi, mid, y + (size_t)(t - 1) * rs);",
+         "sum_keys(prev, hi, mid, y + (t - 1) * cols);"),
+        ("      sum_keys(prev, hi, mid, y + (size_t)(n - 1) * rs);\n",
+         """      sum_keys(prev, hi, mid, y + (n - 1) * cols);
+      __syncthreads();
+      const float* ys = y - y_col;
+      float* yg = a.y + base + (size_t)c * chunk * rs + c0;
+      for (int q = threadIdx.x; q < n * cols / 4; q += blockDim.x) {
+        const int t = q / (cols / 4), jj = (q % (cols / 4)) * 4;
+        if constexpr (VEC) {
+          *reinterpret_cast<float4*>(yg + (size_t)t * rs + jj) =
+              *reinterpret_cast<const float4*>(ys + t * cols + jj);
+        } else {
+          for (int e = 0; e < 4; ++e)
+            yg[(size_t)t * rs + jj + e] = ys[t * cols + jj + e];
+        }
+      }
+"""),
+        ("                           chunk_smem(chunk, cols, sizeof(TI)),",
+         "                           chunk_smem(chunk, cols, sizeof(TI)) +\n"
+         "                               (size_t)chunk * cols * 4,"),
+        ("const int bytes = (int)chunk_smem(kChunk, kD, sizeof(float));",
+         "const int bytes = (int)(chunk_smem(kChunk, kD, sizeof(float))\n"
+         "                         + kChunk * kD * 4);"),
+    ]},
+    # the chunked rwkv6_scan's y stores cut: each step's key sum is added
+    # into a register instead, stored once a chunk under a test that never
+    # holds (the sums stay live): what the stores cost at most
+    "no y store": {"rwkv6_scan.cu": [
+        ("bool mid, float* y) {", "bool mid, float* y, float& sink) {"),
+        ("  *y = sum;\n", "  sink += sum;\n"),
+        ("      float acc[kVec], prev[kVec];",
+         "      float acc[kVec], prev[kVec], sink = 0.0f;"),
+        ("sum_keys(prev, hi, mid, y + (size_t)(t - 1) * rs);",
+         "sum_keys(prev, hi, mid, y + (size_t)(t - 1) * rs, sink);"),
+        ("      sum_keys(prev, hi, mid, y + (size_t)(n - 1) * rs);\n",
+         "      sum_keys(prev, hi, mid, y + (size_t)(n - 1) * rs, sink);\n"
+         "      if (sink == 1.2345e-30f) *y = sink;\n")]},
+}
+
+# faults of the chunked kernel phase 3 must catch: {name: (old, new)}
+MUTANTS = {
+    # the last, ragged chunk of a call dropped
+    "dropped chunk tail": ("const int nchunks = (a.T + chunk - 1) / chunk;",
+                           "const int nchunks = a.T / chunk;"),
+    # a chunk's steps read from the buffer the next chunk is staged into
+    "chunk buffers swapped": (
+        "const Staged<TI> b = staged<TI>(smem, c & 1, chunk, cols);\n"
+        "      const Rows rows",
+        "const Staged<TI> b = staged<TI>(smem, (c + 1) & 1, chunk, cols);\n"
+        "      const Rows rows"),
+    # bf16 k v products kept in fp32, not rounded to bf16
+    "k v unrounded in bf16": (
+        "  lo = __uint_as_float(d << 16);\n"
+        "  hi = __uint_as_float(d & 0xffff0000u);",
+        "  lo = __uint_as_float(k2 << 16) * __uint_as_float(v2 << 16);\n"
+        "  hi = __uint_as_float(k2 & 0xffff0000u) *\n"
+        "       __uint_as_float(v2 & 0xffff0000u);"),
 }
 
 
@@ -100,6 +195,12 @@ def _inputs(rng, b, t):
     return wkv, lru
 
 
+def _bf16(wkv):
+    """The same operands with bf16 ``r, k, v`` (the bf16 models')."""
+    import torch
+    return [a.to(torch.bfloat16) for a in wkv[:3]] + wkv[3:]
+
+
 def time_tree(src: Path) -> None:
     """Time both scans of the package under ``src``."""
     sys.path.insert(0, str(src))
@@ -114,14 +215,25 @@ def time_tree(src: Path) -> None:
         raise RuntimeError(f"imported {repro_torch.__file__}, not {src}")
     smi = cs.nvidia_smi_line()
     rng = np.random.default_rng(cs.SEED)
+
+    def report(name, b, t, fn):
+        warm = 1e3 * cs.device_ms(fn)
+        cold = 1e3 * cs.device_ms_cold(fn)
+        # the outputs' bits: equal digests across trees, equal bits
+        bits = hashlib.sha256(b"".join(
+            z.contiguous().cpu().numpy().tobytes() for z in fn()))
+        print(f"{src}: {name} B={b} T={t}: {warm:.3f} us warm, "
+              f"{cold:.3f} us cold, outputs {bits.hexdigest()[:16]} "
+              f"[{smi}]", flush=True)
+
+    for b, t in WKV_SHAPES:
+        wkv, _ = _inputs(rng, b, t)
+        wkv16 = _bf16(wkv)
+        report("rwkv6_scan", b, t, lambda: rwkv6_scan(*wkv))
+        report("rwkv6_scan bf16", b, t, lambda: rwkv6_scan(*wkv16))
     for b, t in SHAPES:
-        wkv, lru = _inputs(rng, b, t)
-        for name, fn in (("rwkv6_scan", lambda: rwkv6_scan(*wkv)),
-                         ("rglru_scan", lambda: rglru_scan(*lru))):
-            warm = 1e3 * cs.device_ms(fn)
-            cold = 1e3 * cs.device_ms_cold(fn)
-            print(f"{src}: {name} B={b} T={t}: {warm:.3f} us warm, "
-                  f"{cold:.3f} us cold [{smi}]", flush=True)
+        _, lru = _inputs(rng, b, t)
+        report("rglru_scan", b, t, lambda: rglru_scan(*lru))
 
 
 def _build_cuts(out_dir: Path) -> dict:
@@ -175,15 +287,21 @@ def breakdown() -> None:
         libs.update({("committed", s): _build.load(s)
                      for s in ("rwkv6_scan.cu", "rglru_scan.cu")})
         for lib in libs.values():
-            for entry in ("rwkv6_scan_f32", "rglru_scan_f32"):
+            for entry, args in (
+                    ("rwkv6_scan_f32", [ctypes.c_void_p] * 8
+                     + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+                    ("rwkv6_scan_bf16", [ctypes.c_void_p] * 8
+                     + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+                    ("rglru_scan_f32", [ctypes.c_void_p] * 5
+                     + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
+                    ("rwkv6_scan_prepare", [])):
                 if hasattr(lib, entry):
                     fn = getattr(lib, entry)
-                    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                                   + [ctypes.c_void_p]
-                                   if entry == "rwkv6_scan_f32" else
-                                   [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                                   + [ctypes.c_void_p])
+                    fn.argtypes = args
                     fn.restype = ctypes.c_int
+            # every build's chunked kernel may take its largest chunk
+            if hasattr(lib, "rwkv6_scan_prepare") and lib.rwkv6_scan_prepare():
+                raise RuntimeError("rwkv6_scan_prepare failed")
 
         def stream():
             """The current stream (a CUDA graph captures on its own)."""
@@ -192,11 +310,13 @@ def breakdown() -> None:
         def wkv_call(lib, plan, ops_, out):
             r, k, v, w, u, s0 = ops_
             b, h, t, d = r.shape
-            return lambda: lib.rwkv6_scan_f32(
+            fn = (lib.rwkv6_scan_bf16 if r.dtype == torch.bfloat16
+                  else lib.rwkv6_scan_f32)
+            return lambda: fn(
                 r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                 u.data_ptr(), s0.data_ptr(), out[0].data_ptr(),
-                out[1].data_ptr(), b, h, t, d, plan.cols, plan.vec, plan.grid,
-                stream())
+                out[1].data_ptr(), b, h, t, d, plan.cols, plan.chunk, 0,
+                plan.vec, plan.grid, stream())
 
         def lru_call(lib, plan, ops_, out):
             x, a, h0 = ops_
@@ -206,6 +326,42 @@ def breakdown() -> None:
                 out[1].data_ptr(), b, t, w, plan.vec, plan.threads, plan.grid,
                 stream())
 
+        def timer(name, label_of, ops_, ref):
+            """``timed(label, fn, check)`` for one scan's operands: each
+            launch checked against the plain version (``check``), then
+            timed warm."""
+            want = ref(*ops_)
+            out = [torch.empty_like(z) for z in want]
+
+            def timed(label, fn, check=True):
+                if check:
+                    out[0].fill_(float("nan"))
+                    if fn():
+                        raise RuntimeError(f"{label}: launch refused")
+                    torch.cuda.synchronize()
+                    err = max(cs.scaled_err(a, bb)
+                              for a, bb in zip(out, want))
+                    if not err <= cs.TOL_F32:
+                        raise AssertionError(f"{label}: error {err}")
+                us = 1e3 * cs.device_ms(fn)
+                print(f"breakdown {name} {label_of} {label}: {us:.3f} us "
+                      f"warm [{smi}]", flush=True)
+            return timed, out
+
+        def chunk_plan(plan, dtype, **kw):
+            """``plan`` (chunked, ``r, k, v`` of ``dtype``) with other
+            columns or chunk; units, smem and grid to match."""
+            p = dataclasses.replace(plan, **kw)
+            units = plan.units * plan.cols // p.cols
+            smem = wkv_mod.rwkv6_chunk_smem(p.chunk, p.cols, dtype)
+            threads = 16 * p.cols // wkv_mod.RWKV6_KEYS
+            return dataclasses.replace(
+                p, threads=threads, units=units, smem=smem,
+                grid=min(units, wkv_mod.rwkv6_chunk_resident_blocks(
+                    threads, smem)))
+
+        # T = 1 (and rglru_scan at T = 128): the launch, the round trip,
+        # the design's choices
         for b, t in SHAPES:
             wkv, lru = _inputs(rng, b, t)
             wkv_plan = wkv_mod.rwkv6_scan_plan(b, 32, t, 64)
@@ -226,34 +382,19 @@ def breakdown() -> None:
                                lru_mod.rglru_resident_blocks(n))))
                           for n in lru_mod.RGLRU_THREADS]
             cases = {
-                "rwkv6_scan": (wkv, wkv_plan, wkv_call,
-                               wkv_mod.rwkv6_scan_batched_ref,
-                               "rwkv6_scan.cu", "rwkv6_scan_empty",
-                               wkv_others),
                 "rglru_scan": (lru, lru_plan, lru_call,
                                lru_mod.rglru_scan_batched_ref,
                                "rglru_scan.cu", "rglru_scan_empty",
                                lru_others),
             }
+            if t == 1:           # rwkv6_scan at T > 1: below
+                cases["rwkv6_scan"] = (wkv, wkv_plan, wkv_call,
+                                       wkv_mod.rwkv6_scan_batched_ref,
+                                       "rwkv6_scan.cu", "rwkv6_scan_empty",
+                                       wkv_others)
             for name, (ops_, plan, call, ref, src, empty,
                        others) in cases.items():
-                want = ref(*ops_)
-                out = [torch.empty_like(z) for z in want]
-
-                def timed(label, fn, check=True):
-                    if check:
-                        out[0].fill_(float("nan"))
-                        if fn():
-                            raise RuntimeError(f"{label}: launch refused")
-                        torch.cuda.synchronize()
-                        err = max(cs.scaled_err(a, bb)
-                                  for a, bb in zip(out, want))
-                        if not err <= cs.TOL_F32:
-                            raise AssertionError(f"{label}: error {err}")
-                    us = 1e3 * cs.device_ms(fn)
-                    print(f"breakdown {name} B={b} T={t} {label}: {us:.3f} "
-                          f"us warm [{smi}]", flush=True)
-
+                timed, out = timer(name, f"B={b} T={t}", ops_, ref)
                 lib = libs[("committed", src)]
 
                 def time_others():
@@ -285,11 +426,107 @@ def breakdown() -> None:
                 timed("4-byte loads", call(
                     lib, dataclasses.replace(plan, vec=1), ops_, out))
 
+        # rwkv6_scan at T > 1, fp32 and bf16 r, k, v: the chunked kernel
+        # against the one-step kernel, other columns a block, other chunks,
+        # element copies
+        lib = libs[("committed", "rwkv6_scan.cu")]
+        for b, t in ((4, 128), (2, 32)):
+            wkv, _ = _inputs(rng, b, t)
+            for ops_ in (wkv, _bf16(wkv)):
+                dtype = ops_[0].dtype
+                plan = wkv_mod.rwkv6_scan_plan(b, 32, t, 64, dtype)
+                step_units = b * 32 * 64 // wkv_mod.RWKV6_COLS
+                step = dataclasses.replace(
+                    plan, chunk=0, cols=wkv_mod.RWKV6_COLS, threads=256,
+                    units=step_units, smem=0, grid=min(
+                        step_units, wkv_mod.rwkv6_resident_blocks(256)))
+                variants = [("full kernel", lib, plan),
+                            ("one-step kernel", libs[("one-step at any T",
+                                                      "rwkv6_scan.cu")],
+                             step),
+                            ("y staged in shared memory (chunk x columns "
+                             "x 4 B more than shown)",
+                             libs[("y staged", "rwkv6_scan.cu")], plan)]
+                variants += [(f"{c} columns a block", lib,
+                              chunk_plan(plan, dtype, cols=c))
+                             for c in wkv_mod.RWKV6_CHUNK_COLS
+                             if c != plan.cols]
+                variants += [(f"chunks of {n}", lib,
+                              chunk_plan(plan, dtype, chunk=n))
+                             for n in (8, 16) if n < plan.chunk]
+                if t > plan.chunk:
+                    variants.append(("chunks of 64 (kChunk = 64)",
+                                     libs[("chunk=64", "rwkv6_scan.cu")],
+                                     chunk_plan(plan, dtype,
+                                                chunk=min(t, 64))))
+                variants.append(("element copies", lib,
+                                 dataclasses.replace(plan, vec=1)))
+                timed, out = timer("rwkv6_scan", f"{dtype} B={b} T={t}",
+                                   ops_, wkv_mod.rwkv6_scan_batched_ref)
+                for label, vlib, vplan in variants:
+                    timed(f"{label} (chunk {vplan.chunk}, {vplan.cols} "
+                          f"columns, {vplan.grid} x {vplan.threads}, "
+                          f"{vplan.smem} B shared)",
+                          wkv_call(vlib, vplan, ops_, out))
+                timed("y stores cut, the sums kept (unchecked)", wkv_call(
+                    libs[("no y store", "rwkv6_scan.cu")], plan, ops_, out),
+                    check=False)
+                # the public call on contiguous operands and on the model's
+                # [B, H, T, D] views of [B, T, H, D] (read in place)
+                tm = [z.movedim(2, 1).contiguous().movedim(1, 2)
+                      for z in ops_[:4]] + ops_[4:]
+                want = wkv_mod.rwkv6_scan_batched_ref(*ops_)
+                for label, args in (("contiguous", ops_),
+                                    ("views of [B, T, H, D]", tm)):
+                    got = wkv_mod.rwkv6_scan(*args)
+                    err = max(cs.scaled_err(a, bb) for a, bb in zip(got, want))
+                    if not err <= cs.TOL_F32:
+                        raise AssertionError(f"{label}: error {err}")
+                    us = 1e3 * cs.device_ms(
+                        lambda: wkv_mod.rwkv6_scan(*args))
+                    print(f"breakdown rwkv6_scan {dtype} B={b} T={t} "
+                          f"rwkv6_scan on {label} operands: {us:.3f} us "
+                          f"warm [{smi}]", flush=True)
+
+
+def mutants() -> int:
+    """``chip_smoke.py`` in a copy of this checkout for each of
+    ``MUTANTS``; 1 if one was not caught by phase 3."""
+    missed = 0
+    for name, (old, new) in MUTANTS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            tree = Path(tmp) / "tree"
+            shutil.copytree(ROOT, tree, ignore=shutil.ignore_patterns(
+                ".git", "chiprun_out", "_checkout", ".checkout",
+                "__pycache__", "artifacts"))
+            src = tree / "src" / "repro_torch" / "csrc" / "rwkv6_scan.cu"
+            text = src.read_text()
+            if text.count(old) != 1:
+                raise RuntimeError(f"mutant {name}: {old!r} is not once in "
+                                   "rwkv6_scan.cu")
+            src.write_text(text.replace(old, new))
+            proc = subprocess.run([sys.executable, "chip_smoke.py"],
+                                  cwd=tree, capture_output=True, text=True,
+                                  timeout=1200)
+        out = proc.stdout + proc.stderr
+        phases = re.findall(r"phase (\S+) took", out)
+        failure = re.findall(r"AssertionError: (.*)", out)
+        caught = (proc.returncode != 0 and phases[-1:] == ["2"]
+                  and bool(failure) and "rwkv6_scan" in failure[-1])
+        missed += not caught
+        print(f"mutant {name}: exit {proc.returncode}, last phase done "
+              f"{phases[-1] if phases else None}, "
+              f"{'caught in phase 3' if caught else 'MISSED'}: "
+              f"{failure[-1] if failure else out[-2000:]}", flush=True)
+    return 1 if missed else 0
+
 
 def main(argv: list) -> int:
     if argv == ["--breakdown"]:
         breakdown()
         return 0
+    if argv == ["--mutants"]:
+        return mutants()
     if len(argv) == 2 and argv[0] == "--one":
         time_tree(Path(argv[1]).resolve())
         return 0

@@ -27,7 +27,8 @@ Per tree, with the helpers of this checkout's ``chip_smoke.py``:
   (seeded ``init_lm`` on the card), ``LmEngine(batch=4, max_len=256)``, a
   prefill of 4 prompts of 128 random tokens, 3 warm decode steps, then 32
   greedy steps each between two synchronisations (p50, p95), and 5 more
-  under ``torch.profiler`` (kernels, device busy and idle share a step).
+  under ``torch.profiler`` (kernels, device busy and idle share a step);
+  deepseek-v2-lite-16b again at ``max_len=32768`` (``DECODE_LONG``).
 - prefill: llama3.2-1b and rwkv6-1.6b at full size in bf16, the same
   engine, 4 prompts of 128 random tokens: the first prefill (a tree whose
   prefill is a CUDA graph captures it here) timed on its own, then 10
@@ -71,6 +72,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 DECODE_ARCHS = ("llama3.2-1b", "deepseek-v2-lite-16b")
 DECODE_STEPS = 32
+# longer caches a model's decode is also timed at: the absorbed MLA decode
+# scores every row of its cache (the dry-run's decode_32k length)
+DECODE_LONG = {"deepseek-v2-lite-16b": (32768,)}
 PREFILL_ARCHS = ("llama3.2-1b", "rwkv6-1.6b")
 PREFILL_CALLS = 10
 PATHS = ("fabric", "decode", "prefill", "capture")
@@ -133,30 +137,33 @@ def decode_times(cs, dev, smi, tree: str) -> None:
     for arch in DECODE_ARCHS:
         cfg = get_config(arch)
         params, init_s, _ = cs.lm_build(cfg, dev, {})
-        eng = LmEngine(params, cfg, cs.LM_SLOTS, cs.LM_MAX_LEN, device=dev)
-        toks = rng.integers(1, cfg.vocab, (cs.LM_SLOTS, cs.LM_T))
-        logits = eng.prefill(toks)
-        cur = torch.argmax(logits[:, -1:], dim=-1)
-        for _ in range(3):
-            cur = torch.argmax(eng.decode_step(cur)[:, -1:], dim=-1)
-        walls = []
-        for _ in range(DECODE_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            cur = torch.argmax(eng.decode_step(cur)[:, -1:], dim=-1)
-            torch.cuda.synchronize()
-            walls.append(1e3 * (time.perf_counter() - t0))
-        prof = cs.engine_profile(lambda: [eng.decode_step(cur)
-                                          for _ in range(5)], 5)
-        print(json.dumps({
-            "tree": tree, "path": f"decode {arch} B={cs.LM_SLOTS} bf16",
-            "init_s": init_s,
-            "decode_p50_ms": float(np.percentile(walls, 50)),
-            "decode_p95_ms": float(np.percentile(walls, 95)),
-            "decode_ms": walls, **prof,
-            "decode_stats": getattr(eng, "decode_stats", None),
-            "card": smi}), flush=True)
-        del params, eng, logits, cur
+        for max_len in (cs.LM_MAX_LEN, *DECODE_LONG.get(arch, ())):
+            eng = LmEngine(params, cfg, cs.LM_SLOTS, max_len, device=dev)
+            toks = rng.integers(1, cfg.vocab, (cs.LM_SLOTS, cs.LM_T))
+            logits = eng.prefill(toks)
+            cur = torch.argmax(logits[:, -1:], dim=-1)
+            for _ in range(3):
+                cur = torch.argmax(eng.decode_step(cur)[:, -1:], dim=-1)
+            walls = []
+            for _ in range(DECODE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cur = torch.argmax(eng.decode_step(cur)[:, -1:], dim=-1)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            prof = cs.engine_profile(lambda: [eng.decode_step(cur)
+                                              for _ in range(5)], 5)
+            print(json.dumps({
+                "tree": tree, "path": f"decode {arch} B={cs.LM_SLOTS} bf16",
+                "max_len": max_len, "init_s": init_s,
+                "decode_p50_ms": float(np.percentile(walls, 50)),
+                "decode_p95_ms": float(np.percentile(walls, 95)),
+                "decode_ms": walls, **prof,
+                "decode_stats": getattr(eng, "decode_stats", None),
+                "card": smi}), flush=True)
+            del eng, logits, cur
+            torch.cuda.empty_cache()
+        del params
         torch.cuda.empty_cache()
 
 
