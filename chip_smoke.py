@@ -282,6 +282,24 @@ traceback and a non-zero exit):
    and holding its invariants (the quickstart and the decode twin also
    against ``--device cpu``); ``repro_torch.launch.dryrun --all`` over the
    (16, 16) mesh over the card, every runnable cell ok;
+5k. the mesh paths over ranks (``rank_phase``), one process a card over
+   NCCL: with one card this process is the one rank of a group over a
+   ``file://`` store, with more ``spawn_ranks`` starts one a card. (a)
+   llama3.2-1b's compiled ``make_lm_train_step`` at full size, bf16, [8,
+   128] over the ranks against the same step in one process: at world 1
+   every metric of 3 steps and the state after a fourth, profiled step
+   bitwise (beyond: every loss within ``TOL_RANK_BF16_REL`` and clip norm
+   within ``TOL_RANK_NORM_REL``, the ranks' states equal), the gradients'
+   all-reduces captured in the graph (NCCL's kernels a replay printed),
+   the replays' wall p50, and the first call's peak memory beside
+   ``dryrun.run_cell``'s per-device peak; (b)
+   ``moe_apply_ep`` at granite-moe-3b-a800m's full width in fp32 over the
+   ranks' experts axis, bitwise the one-process loop, its two all-to-alls
+   and three sums counted; (c) ``launch.train --reduced`` under
+   ``torch.distributed.run --nproc-per-node <cards>``, its losses bitwise
+   the one-process launcher's at world 1 (within ``TOL_RANK_REL``
+   beyond); the global norm and the fused Adam once a step, no other
+   hand-written kernel;
 6. times on the card: each kernel instance at B = 1 and its plain version
    (device time from CUDA-graph replay between CUDA events, also with the
    L2 flushed before each call, and the kernel's time per call launched
@@ -5236,8 +5254,8 @@ def lm_train_phase(dev, smi) -> dict:
 
 # The phase's mesh: (data, model) = (4, 2) over the card listed 8 times
 # (best_mesh(devices=[card] * 8, model_parallel=2)), and its twin over the
-# CPU. The port's mesh lists one device: GSPMD over several cards is
-# ROADMAP.md Queue 1 item 9.
+# CPU. A mesh over ranks (one process a card) is phase 5k's; GSPMD over
+# several cards in one process is ROADMAP.md Queue 1, "Multi-card GSPMD".
 MESH_DEVICES, MESH_MODEL = 8, 2
 # (a) the expert-parallel forward at full width and 2 layers in fp32, at a
 # capacity that drops nothing (no_drop: the local capacity is then the
@@ -5712,6 +5730,397 @@ def mesh_phase(dev, smi) -> dict:
     log(f"phase 5i took {res['seconds']:.1f} s; launches {n}: the global "
         f"norm once a step, the fused Adam once a step and parameter dtype, "
         f"no other hand-written kernel")
+    return res
+
+
+# -- phase 5k: the mesh paths over ranks ------------------------------------
+
+# (a) llama3.2-1b's compiled step at full size over the ranks, [8, 128] as
+# 5h; (b) the expert-parallel exchange at granite's full width, 2 layers,
+# fp32, [8, 32]; (c) the launcher under torchrun, 3 --reduced steps
+RANK_STEPS = 3
+RANK_EP_ARCH = "granite-moe-3b-a800m"
+RANK_EP_LAYERS = 2
+RANK_EP_SHAPE = (8, 32)
+RANK_LAUNCH = ["--arch", LM_TRAIN_ARCH, "--reduced", "--steps", "3",
+               "--batch", "8", "--seq", "32", "--log-every", "1"]
+RANK_LAUNCH_TIMEOUT_S = 300
+RANK_SPAWN_TIMEOUT_S = 600
+# at world > 1: the launcher's fp32 losses, as the CPU rank tests hold
+# them; the bf16 step's losses and clip norms (the ranks' matmuls over
+# 1 / world of the rows round their bf16 gradients once a rank, and the
+# reduction adds them in bf16 at each hop, as the reference's psum adds
+# bf16 gradients: four cards gave 9.3e-5 between the losses and 3.5e-3
+# between the first step's clip norms). The clip norm is what a wrong
+# scale of the reduction moves (by the data extent), which Adam's update
+# hides from the losses.
+TOL_RANK_REL = 1e-5
+TOL_RANK_BF16_REL = 1e-3
+TOL_RANK_NORM_REL = 1e-2
+
+
+def new_in(prof: dict, base: dict) -> dict:
+    """The device work a profiled replay has that ``base``'s has not:
+    kernel or copy name -> launches a step more."""
+    return {k: v - base["by_name"].get(k, 0) for k, v in
+            prof["by_name"].items() if v > base["by_name"].get(k, 0)}
+
+
+def rank_train(dev, smi) -> dict:
+    """5k (a): llama3.2-1b at full size in bf16, ``make_lm_train_step(...,
+    donate=True)`` on [8, 128] under the mesh over the ranks, against the
+    same compiled step in one process under a (1, 1) mesh that lists the
+    card, from one state and batch: ``RANK_STEPS`` steps each, every metric
+    and then the whole state (parameters and moments, after one more
+    profiled step each) bitwise at world 1 (the average over one rank is
+    exact); at world > 1 every loss within ``TOL_RANK_BF16_REL`` relative,
+    every clip norm within ``TOL_RANK_NORM_REL`` and the ranks' states
+    bitwise equal. The first rank call's peak memory (the warm-up's
+    eager step and the capture, the state and batch counted, other memory
+    not) beside ``dryrun.run_cell``'s per-device peak at the same shape on
+    a (1, 1) mesh; the profiled replay's NCCL work, as the nodes it has
+    that the one-process replay has not."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.lm_data import lm_batch
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.dist import ranks
+    from repro_torch.dist.elastic import best_mesh
+    from repro_torch.dist.sharding import (P, AxisRules, NamedSharding,
+                                           device_put, use_mesh)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.optim import (AdamConfig, constant_schedule,
+                                         tree_leaves as leaves, tree_map)
+    from repro_torch.train.trainer import (init_train_state,
+                                           make_lm_train_step)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    cfg = get_config(LM_TRAIN_ARCH)
+    rules = AxisRules()
+    opt = AdamConfig(schedule=constant_schedule(TRAIN_LR))
+    ops.reset_launch_counts()
+    adam_want = {}
+    state_r = init_train_state(init_lm(SEED, cfg, device=dev))
+    grad_dtypes = {t.dtype for t in leaves(state_r.params)}
+    state_p = tree_map(torch.clone, state_r)
+    batch = lm_batch((SEED, 13), cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                     device=dev)
+    meshes = {"rank": best_mesh(), "one": best_mesh(devices=[dev])}
+    steps = {k: make_lm_train_step(cfg, opt, donate=True) for k in meshes}
+    states = {"rank": state_r, "one": state_p}
+    del state_r, state_p
+    placed = {k: shard_batch(batch, m, rules) for k, m in meshes.items()}
+    states["rank"] = device_put(states["rank"],
+                                NamedSharding(meshes["rank"], P()))
+    walls = {k: [] for k in meshes}
+    metrics = {k: [] for k in meshes}
+    peak = {}
+    before = dict(ranks.COLLECTIVES)
+    for i in range(RANK_STEPS):
+        for k in ("rank", "one"):
+            with use_mesh(meshes[k], rules):
+                if i == 0:
+                    # the first call's peak: the warm-up's eager step and
+                    # the capture, with the step's state and batch and
+                    # without the other memory held
+                    args = sum(t.numel() * t.element_size() for t in
+                               leaves(states[k]) + leaves(placed[k]))
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    other = torch.cuda.memory_allocated() - args
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                states[k], m = steps[k](states[k], placed[k])
+                float(m["loss"])
+                walls[k].append(1e3 * (time.perf_counter() - t0))
+                if i == 0:
+                    peak[k] = torch.cuda.max_memory_allocated() - other
+            metrics[k].append(m)
+    profs = {}
+    for k in ("one", "rank"):
+        with use_mesh(meshes[k], rules):
+            def replay(k=k):
+                states[k], mm = steps[k](states[k], placed[k])
+                float(mm["loss"])
+            profs[k] = engine_profile(replay, 1, match=("nccl",))
+        walls[k].append(profs[k]["wall_us_per_step"] / 1e3)
+    issued = {k: v - before[k] for k, v in ranks.COLLECTIVES.items() if v
+              - before[k]}
+    extra = new_in(profs["rank"], profs["one"])
+    extra_us = (profs["rank"]["device_busy_us_per_step"]
+                - profs["one"]["device_busy_us_per_step"])
+    nccl = {k: v for k, v in profs["rank"]["by_name"].items()
+            if "nccl" in k.lower()}
+    nccl_us = profs["rank"]["match_us_by"]["nccl"]
+    losses = {k: [float(m["loss"]) for m in v] for k, v in metrics.items()}
+    if world == 1:
+        same_metrics = all(torch.equal(a[key], b[key])
+                           for a, b in zip(metrics["rank"], metrics["one"])
+                           for key in a)
+        same_state = state_bitwise(states["rank"], states["one"])
+        ok = same_metrics and same_state
+        how = (f"every metric of the {RANK_STEPS} steps bitwise "
+               f"{same_metrics}, the state after the profiled step bitwise "
+               f"{same_state}")
+    else:
+        tols = {"loss": TOL_RANK_BF16_REL, "grad_norm": TOL_RANK_NORM_REL}
+        gaps = {key: [abs(float(a[key]) - float(b[key])) / abs(float(b[key]))
+                      for a, b in zip(metrics["rank"], metrics["one"])]
+                for key in tols}
+        near = all(g <= tols[k] for k, v in gaps.items() for g in v)
+        flat = torch.cat([t.float().reshape(-1)[:4096]
+                          for t in leaves(states["rank"])])
+        first = flat.clone()
+        ranks.broadcast_(first, 0)
+        replicas = torch.equal(flat, first)
+        ok = near and replicas and all(np.isfinite(losses["rank"]))
+        norms = {k: [float(m["grad_norm"]) for m in v]
+                 for k, v in metrics.items()}
+        how = (f"every loss and clip norm of the {RANK_STEPS} steps within "
+               f"{TOL_RANK_BF16_REL} and {TOL_RANK_NORM_REL} relative {near} "
+               f"(relative gaps {gaps}; "
+               f"one process's losses {losses['one']}, clip norms "
+               f"{norms['one']} against {norms['rank']}), the ranks' "
+               f"states bitwise equal {replicas}")
+    for k in meshes:
+        tally_adam(adam_want, {torch.bfloat16},
+                   compiled_steps(steps[k].stats))
+    launches = check_adam_launches("phase 5k (a)", adam_want)
+    captures = {k: dict(v.stats) for k, v in steps.items()}
+    del states, steps, placed, metrics
+    free_card()
+    # the dry-run's estimate of the same step on a (1, 1) mesh
+    rec = dryrun.run_cell(LM_TRAIN_ARCH, ShapeConfig(
+        "train_8x128", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train"),
+        mesh=best_mesh(devices=[dev]), grad_accum=1)
+    if not rec["ok"]:
+        raise AssertionError(f"dryrun.run_cell: {rec['error']}")
+    mem = rec["memory"]
+    est = mem["argument_bytes"] + mem["peak_live_bytes_per_device"]
+    report = (f"train {LM_TRAIN_ARCH} (full size, bf16) make_lm_train_step("
+              f"donate=True) on [{LM_TRAIN_BATCH}, {LM_TRAIN_SEQ}] over "
+              f"{world} rank(s), mesh {meshes['rank'].shape} (rank {rank}, "
+              f"NCCL), against the one-process compiled step under a (1, 1) "
+              f"mesh: {how}; losses " + ", ".join(
+                  repr(v) for v in losses["rank"]))
+    if not ok:
+        raise AssertionError(report)
+    # the collectives are in the capture: the warm-up's and the capture's
+    # all-reduce of each bucket (one a gradient dtype, the fp32 metrics in
+    # their own where no gradient is fp32) issued, nothing at a replay;
+    # over several ranks NCCL's kernels run in each replay (over one rank
+    # its in-place all-reduce moves nothing, and launches nothing)
+    buckets = len(grad_dtypes | {torch.float32})
+    if issued != {"all_reduce": 2 * buckets} or (world > 1 and not nccl):
+        raise AssertionError(f"the rank step's collectives: issued {issued}, "
+                             f"NCCL kernels in its replay {nccl}")
+    out = {"world": world, "losses": losses["rank"],
+           "p50_ms": {k: float(np.median(v[1:])) for k, v in walls.items()},
+           "walls_ms": walls,
+           "peak_gib": {k: v / 2 ** 30 for k, v in peak.items()},
+           "dryrun_gib": est / 2 ** 30, "dryrun_argument_gib":
+           mem["argument_bytes"] / 2 ** 30, "dryrun_live_gib":
+           mem["peak_live_bytes_per_device"] / 2 ** 30,
+           "nccl_kernels": nccl, "nccl_us": nccl_us,
+           "extra_nodes": extra, "extra_busy_us": extra_us,
+           "kernels": {k: p["kernels_per_step"] for k, p in profs.items()},
+           "busy_us": {k: p["device_busy_us_per_step"]
+                       for k, p in profs.items()},
+           "issued": issued, "launches": launches, "captures": captures}
+    log(report + f" [{smi}]")
+    log(f"rank (a) the captured rank step's replay: NCCL kernels "
+        f"{nccl or 'none'} ({nccl_us:.1f} us a step); the device work it has "
+        f"beyond the one-process replay's (the buckets' copies, NCCL's "
+        f"kernels and, over several ranks, the matmuls of 1 / world of the "
+        f"rows): {extra}, busy {extra_us:.1f} us more a step; kernels a "
+        f"step {out['kernels']}; collectives issued from the host {issued} "
+        f"(the warm-up's and the capture's) [{smi}]")
+    log(f"time rank (a) wall p50 of the replays (steps 2-{RANK_STEPS} and the "
+        f"profiled one): over the ranks {out['p50_ms']['rank']:.3f} ms, one "
+        f"process {out['p50_ms']['one']:.3f} ms (each: rank "
+        + ", ".join(f"{v:.3f}" for v in walls["rank"]) + "; one "
+        + ", ".join(f"{v:.3f}" for v in walls["one"])
+        + f"); device busy {out['busy_us']['rank']:.1f} / "
+        f"{out['busy_us']['one']:.1f} us a step [{smi}]")
+    pk = out["peak_gib"]
+    log(f"rank (a) memory: the measured peak of the first call (the "
+        f"warm-up's eager step and the capture, with the state and batch, "
+        f"{args / 2 ** 30:.3f} GiB) over the rank(s) {pk['rank']:.3f} GiB, "
+        f"in one process {pk['one']:.3f} GiB, against dryrun.run_cell's "
+        f"per-device peak {out['dryrun_gib']:.3f} GiB (arguments "
+        f"{out['dryrun_argument_gib']:.3f} + live "
+        f"{out['dryrun_live_gib']:.3f}) on a (1, 1) mesh: ratio measured / "
+        f"estimate {pk['rank'] / out['dryrun_gib']:.4f} over the ranks, "
+        f"{pk['one'] / out['dryrun_gib']:.4f} in one process [{smi}]")
+    return out
+
+
+def rank_exchange(dev, smi) -> dict:
+    """5k (b): ``moe_apply_ep`` at granite-moe-3b-a800m's full width (its
+    first MoE layer of a 2-layer fp32 model) on [8, 32] over the mesh of
+    all the ranks on the experts axis (at world 1 the (1, 1) mesh, where
+    the all-to-all runs on one rank), against the one-process loop on the
+    same mesh shape listing the card: output and aux bitwise, the
+    collectives of the exchange counted."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import ranks
+    from repro_torch.dist.elastic import best_mesh
+    from repro_torch.dist.sharding import AxisRules, use_mesh
+    from repro_torch.ft.checkpoint import tree_paths
+    from repro_torch.models.lm import init_lm
+    from repro_torch.models.moe_ep import moe_apply_ep
+    world = dist.get_world_size()
+    cfg = dataclasses.replace(get_config(RANK_EP_ARCH), dtype="float32",
+                              n_layers=RANK_EP_LAYERS)
+    params = init_lm(SEED, cfg, device=dev)
+    path = next(p for p, _ in tree_paths(params) if p.endswith("/router"))
+    node = params
+    for key in path.split("/")[:-1]:
+        node = node[int(key) if isinstance(node, list) else key]
+    moe = {k: v[0] for k, v in node.items() if isinstance(v, torch.Tensor)}
+    del params
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(*RANK_EP_SHAPE, cfg.d_model, generator=gen, device=dev)
+    rules = AxisRules()
+    meshes = {"rank": best_mesh(model_parallel=world),
+              "one": best_mesh(devices=[dev] * world, model_parallel=world)}
+    out, walls = {}, {}
+    for k, mesh in meshes.items():
+        with use_mesh(mesh, rules):
+            before = dict(ranks.COLLECTIVES)
+            y, aux = moe_apply_ep(moe, x, top_k=cfg.top_k,
+                                  capacity_factor=cfg.capacity_factor,
+                                  activation=cfg.activation)
+            torch.cuda.synchronize()
+            issued = {n: v - before[n] for n, v in ranks.COLLECTIVES.items()
+                      if v - before[n]}
+            ts = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                moe_apply_ep(moe, x, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor,
+                             activation=cfg.activation)
+                torch.cuda.synchronize()
+                ts.append(1e3 * (time.perf_counter() - t0))
+        out[k] = (y, aux, issued)
+        walls[k] = float(np.median(ts))
+    (y_r, aux_r, issued), (y_p, aux_p, none) = out["rank"], out["one"]
+    same = torch.equal(y_r, y_p) and torch.equal(aux_r, aux_p)
+    want = {"all_to_all": 2, "all_reduce": 3}
+    report = (f"rank (b) moe_apply_ep {RANK_EP_ARCH} (full width, D = "
+              f"{cfg.d_model}, {moe['router'].shape[-1]} experts, top "
+              f"{cfg.top_k}, fp32) on [{RANK_EP_SHAPE[0]}, "
+              f"{RANK_EP_SHAPE[1]}] over the {meshes['rank'].shape} mesh of "
+              f"{world} rank(s): output and aux bitwise the one-process loop "
+              f"{same}; collectives issued {issued} (want {want}: the two "
+              f"exchanges, the router statistics' two sums and the token "
+              f"slices' sum), one-process {none or 'none'}; wall (median of "
+              f"5) {walls['rank']:.3f} ms, one process {walls['one']:.3f} ms")
+    if not same or issued != want or none:
+        raise AssertionError(report)
+    log(report + f" [{smi}]")
+    return {"issued": issued, "walls_ms": walls}
+
+
+def rank_checks(rank, smi) -> dict:
+    """5k (a) and (b) on this process's group of ranks (only rank 0
+    logs)."""
+    from repro_torch.dist import ranks
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    dev = ranks.rank_device()
+    res = {"a": rank_train(dev, smi)}
+    free_card()
+    res["b"] = rank_exchange(dev, smi)
+    free_card()
+    return res
+
+
+def rank_launcher(dev, world, smi) -> dict:
+    """5k (c): ``launch.train`` under ``python -m torch.distributed.run
+    --standalone --nproc-per-node <cards>`` (NCCL, one rank a card),
+    against the one-process launcher in this process: the losses bitwise at
+    world 1, within ``TOL_RANK_REL`` beyond; one set of lines, rank 0's."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import main as train_main
+    ops.reset_launch_counts()
+    run = train_main(RANK_LAUNCH)
+    adam_want = {}
+    tally_adam(adam_want, {torch.float32}, compiled_steps(run["compiled"]))
+    check_adam_launches("phase 5k (c)", adam_want)
+    one = run["losses"]
+    free_card()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(world), "-m", "repro_torch.launch.train",
+           *RANK_LAUNCH]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        text = finish(start(cmd, env, tmp, "torchrun"), "torchrun launcher",
+                      RANK_LAUNCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = [line for line in text.splitlines()
+             if line.startswith("[train] ")]
+    got = [json.loads(line[len("[train] losses "):]) for line in lines
+           if line.startswith("[train] losses ")]
+    mesh_line = f"{{'data': {world}, 'model': 1}}"
+    ok = (len(got) == 1 and lines[0].endswith(mesh_line)
+          and (got[0] == one if world == 1 else all(
+              abs(a - b) <= TOL_RANK_REL * abs(b)
+              for a, b in zip(got[0], one))) and len(got[0]) == len(one))
+    report = (f"rank (c) python -m torch.distributed.run --standalone "
+              f"--nproc-per-node {world} -m repro_torch.launch.train "
+              + " ".join(RANK_LAUNCH) + f": losses {got} against the "
+              f"one-process launcher's {one} "
+              f"({'bitwise' if world == 1 else f'within {TOL_RANK_REL}'}: "
+              f"{ok}); {wall:.1f} s of wall with torchrun's start-up")
+    if not ok:
+        raise AssertionError(report + "\n" + text)
+    log(report + f" [{smi}]")
+    return {"losses": got[0], "wall_s": wall}
+
+
+def rank_phase(dev, smi) -> dict:
+    """Phase 5k: the mesh paths over ranks, one process a card (NCCL). On
+    a machine with one card the script's own process is the one rank of a
+    group over a ``file://`` store in a temporary directory, left at the
+    end of the phase; with more cards ``spawn_ranks`` starts one process a
+    card. (a) ``rank_train``, (b) ``rank_exchange`` (in the ranks), (c)
+    ``rank_launcher`` (here, once the group is left)."""
+    import shutil
+    import torch
+    from repro_torch.dist import ranks
+    t_phase = time.perf_counter()
+    world = torch.cuda.device_count()
+    free_card()
+    if world == 1:
+        tmp = tempfile.mkdtemp(prefix="ranks-")
+        ranks.init_ranks(dev, rank=0, world_size=1,
+                         init_method=f"file://{os.path.join(tmp, 'store')}")
+        try:
+            res = rank_checks(0, smi)
+        finally:
+            ranks.destroy_ranks()
+            shutil.rmtree(tmp, ignore_errors=True)
+    else:
+        res = ranks.spawn_ranks(rank_checks, world, "cuda",
+                                timeout=RANK_SPAWN_TIMEOUT_S,
+                                args=(smi,))[0]
+    free_card()
+    res["c"] = rank_launcher(dev, world, smi)
+    free_card()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 5k took {res['seconds']:.1f} s over {world} rank(s) "
+        f"[{smi}]")
     return res
 
 
@@ -7201,6 +7610,10 @@ def main() -> int:
                                    for be in ("fused", "fused_q8")})
     for name, n in ex["launches"].items():
         launches[name] = launches.get(name, 0) + n
+
+    phase("5k")
+    # -- 5k. the mesh paths over ranks ----------------------------------------
+    rank_phase(dev, smi)
 
     phase("6")
     # -- 6. times on the card ---------------------------------------------

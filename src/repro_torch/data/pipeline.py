@@ -2,10 +2,11 @@
 PyTorch port of :mod:`repro.data.pipeline`.
 
 ``shard_batch`` puts each leaf of a batch on the mesh with the reference's
-spec (the batch dim on the ``batch`` axes, the rest replicated); the port's
-mesh lists one device, so a leaf lies whole on it and carries its spec as
-``.sharding``. ``prefetch_to_mesh`` is that placement behind a
-``Prefetcher``, the launcher's input pipeline.
+spec (the batch dim on the ``batch`` axes, the rest replicated), and the
+leaf carries its spec as ``.sharding``. On a mesh that lists one device a
+leaf lies whole on it; on a mesh over ranks each rank keeps its rows of
+the global batch (``device_put``). ``prefetch_to_mesh`` is that placement
+behind a ``Prefetcher``, the launcher's input pipeline.
 """
 from __future__ import annotations
 
@@ -67,7 +68,8 @@ def shard_batch(batch, mesh: Mesh, rules: AxisRules | None = None):
     """Place a batch (a tree of ``[B, ...]`` tensors) on the mesh: each
     leaf's spec is the batch dim on the ``batch`` axes and the rest
     replicated, as the reference resolves it, and the leaf goes to the
-    mesh's device (``device_put``)."""
+    mesh's device (``device_put``): on a mesh over ranks, this rank's
+    rows of the global batch."""
     rules = rules or AxisRules()
 
     def sharding(x):

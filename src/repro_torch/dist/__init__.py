@@ -6,7 +6,9 @@ elastic meshes, delta gradient compression
 Everything is mesh-optional: with no active mesh the sharding helpers are
 no-ops, so single-device code paths (the DeltaGRU streaming engine, unit
 tests) never pay for the machinery. The port's mesh lists one device k
-times (a device listed k times hosts k shards).
+times (a device listed k times hosts k shards), or is laid over ranks,
+one process a device (:mod:`repro_torch.dist.ranks`: ``init_ranks``,
+then ``best_mesh()``), where the mesh paths issue their collectives.
 
 The serving-fabric entry points re-exported here:
 

@@ -9,15 +9,19 @@ devices from a list, by default every visible CUDA device; a device that
 appears in the list more than once hosts that many shards
 (``devices=[torch.device("cuda:0")] * 8`` puts 8 shards on one card, as
 ``--xla_force_host_platform_device_count=8`` puts 8 "devices" on one CPU
-for the JAX package).
+for the JAX package). Once this process has joined a group of ranks
+(:func:`repro_torch.dist.ranks.init_ranks`), ``best_mesh()`` without
+devices lays the mesh over the ranks instead, one process a device: each
+position is a rank, and its device that rank's.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from repro_torch.dist.ranks import rank_devices, ranks_ready
 from repro_torch.kernels.ops import resolve_device
 
 __all__ = ["Mesh", "best_mesh", "scale_event"]
@@ -29,10 +33,17 @@ class Mesh:
 
     ``devices`` is a numpy object array of ``torch.device``\\ s with one
     dimension per name in ``axis_names``; ``shape`` maps each axis name to
-    its size, as JAX's ``dict(mesh.shape)`` does."""
+    its size, as JAX's ``dict(mesh.shape)`` does.
+
+    A mesh over ranks also has ``ranks``, an int array of the same shape:
+    the global rank of the process at each position, whose device is the
+    position's. ``groups`` caches its process groups
+    (:func:`repro_torch.dist.ranks.axis_group`)."""
 
     devices: np.ndarray
     axis_names: tuple = ("data", "model")
+    ranks: np.ndarray | None = None
+    groups: dict = field(default_factory=dict, repr=False, compare=False)
 
     def __post_init__(self):
         self.devices = np.asarray(self.devices, dtype=object)
@@ -41,6 +52,27 @@ class Mesh:
             raise ValueError(
                 f"mesh devices of shape {self.devices.shape} do not match "
                 f"the axis names {self.axis_names}")
+        if self.ranks is not None:
+            self.ranks = np.asarray(self.ranks, dtype=np.int64)
+            if self.ranks.shape != self.devices.shape:
+                raise ValueError(f"ranks of shape {self.ranks.shape} for "
+                                 f"devices of shape {self.devices.shape}")
+
+    @property
+    def on_ranks(self) -> bool:
+        """True for a mesh over ranks, one process a position."""
+        return self.ranks is not None
+
+    def coords(self, rank: int | None = None) -> dict:
+        """The position of global ``rank`` (this process's by default) on a
+        mesh over ranks: ``{axis name: coordinate}``."""
+        if rank is None:
+            rank = torch.distributed.get_rank()
+        at = np.argwhere(self.ranks == rank)
+        if len(at) != 1:
+            raise ValueError(f"rank {rank} holds {len(at)} positions of the "
+                             f"mesh over ranks {self.ranks.tolist()}")
+        return dict(zip(self.axis_names, (int(i) for i in at[0])))
 
     @property
     def shape(self) -> dict:
@@ -75,12 +107,24 @@ def best_mesh(n_devices: int | None = None, model_parallel: int = 1, *,
               devices=None) -> Mesh:
     """A ``("data", "model")`` mesh over ``n_devices`` of ``devices``
     (default: every visible CUDA device; a device listed k times hosts k
-    shards). ``n_devices=None`` takes the whole list.
+    shards). ``n_devices=None`` takes the whole list. Without ``devices``
+    in a process that has joined a group of ranks, the mesh is over the
+    ranks, ``(world // mp, mp)`` in rank order, and ``n_devices`` may only
+    be the world's size.
 
     The requested model-parallel degree is clamped to a divisor of the
     device count, so an elastic scale-down never produces a ragged mesh.
     Scaling to zero devices is a fleet death, not a mesh: ``ValueError``.
     """
+    if devices is None and ranks_ready():
+        devs = rank_devices()
+        if n_devices not in (None, len(devs)):
+            raise ValueError(f"a mesh over {n_devices} of {len(devs)} ranks: "
+                             "a mesh over ranks holds every rank")
+        data, mp = _factorize(len(devs), model_parallel)
+        return Mesh(np.array(devs, dtype=object).reshape(data, mp),
+                    ("data", "model"),
+                    ranks=np.arange(len(devs)).reshape(data, mp))
     devs = _cuda_devices() if devices is None else list(devices)
     avail = len(devs)
     n = avail if n_devices is None else min(n_devices, avail)

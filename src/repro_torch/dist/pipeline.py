@@ -13,14 +13,21 @@ made explicit.
 
 The mesh may list one device k times or distinct devices: the stages'
 copies are then transfers between cards (written, not measured: the
-machine this port is measured on has one card).
+machine this port is measured on has one card). On a mesh over ranks (one
+process a position, :mod:`repro_torch.dist.ranks`) stage ``s`` is the
+rank at stage coordinate ``s`` (one pipeline for each coordinate of the
+other axes), each hop a send / recv pair between neighbouring stages in
+the same tick schedule, and the last stage's outputs are broadcast, so
+every rank returns them, as the reference's global array is readable
+anywhere.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.dist.elastic import Mesh
-from repro_torch.dist.sharding import mesh_coords
+from repro_torch.dist.ranks import broadcast_, send_recv
+from repro_torch.dist.sharding import mesh_coords, mesh_device
 from repro_torch.train.optim import tree_map
 
 
@@ -41,6 +48,8 @@ def pipeline_forward(stage_fn, mesh: Mesh, axis: str, n_micro: int):
     ``n_micro`` is the reference's argument; as there, the schedule takes
     the count of microbatches from ``xs``."""
     n_stages = mesh.shape[axis]
+    if mesh.on_ranks:
+        return _rank_pipeline(stage_fn, mesh, axis)
     devs = [None] * n_stages
     for at, dev in mesh_coords(mesh):
         if devs[at[axis]] is None:
@@ -68,5 +77,44 @@ def pipeline_forward(stage_fn, mesh: Mesh, axis: str, n_micro: int):
                     outs[t - (n_stages - 1)] = out
             buf = nxt
         return torch.stack(outs)
+
+    return fwd
+
+
+def _rank_pipeline(stage_fn, mesh: Mesh, axis: str):
+    """:func:`pipeline_forward` on a mesh over ranks: this rank runs its
+    stage and trades each tick's activations with its neighbours."""
+    n_stages = mesh.shape[axis]
+    at = mesh.coords()
+    s = at[axis]
+    dev = mesh_device(mesh)
+
+    def rank_at(stage: int, where: dict) -> int:
+        return int(mesh.ranks[tuple(stage if n == axis else where[n]
+                                    for n in mesh.axis_names)])
+    nxt = rank_at(s + 1, at) if s + 1 < n_stages else None
+    prev = rank_at(s - 1, at) if s > 0 else None
+    # the first pipeline's last stage
+    src = rank_at(n_stages - 1, dict.fromkeys(mesh.axis_names, 0))
+
+    def fwd(ws, xs):
+        if ws.shape[0] != n_stages:
+            raise ValueError(f"{ws.shape[0]} stage weights for a stage axis "
+                             f"of {n_stages}")
+        w = ws[s].to(dev)
+        xs_in = xs.to(dev)
+        m = xs.shape[0]
+        buf = torch.zeros_like(xs_in[0])
+        outs = []
+        for t in range(m + n_stages - 1):
+            out = stage_fn(w, xs_in[min(t, m - 1)] if s == 0 else buf)
+            got = torch.empty_like(buf) if prev is not None else None
+            send_recv(out if nxt is not None else None, nxt, got, prev)
+            if nxt is None and t >= n_stages - 1:
+                outs.append(out)
+            if got is not None:
+                buf = got
+        ys = torch.stack(outs) if outs else torch.empty_like(xs_in)
+        return broadcast_(ys, src)
 
     return fwd

@@ -16,13 +16,17 @@ one-hot (:func:`repro_torch.models.lm._embed`), and the layout of the
 ZeRO-1 gradient accumulator.
 
 A GSPMD layout spreads one tensor over several cards; a single PyTorch
-process has no such tensor. So :func:`use_mesh` takes a mesh whose devices
-are all one device (``best_mesh(devices=[dev] * k)``, a device listed k
-times), on which :func:`shard` and :func:`with_sharding_constraint` check
-the spec as ``NamedSharding`` would and return the tensor unchanged, as
-``with_sharding_constraint`` returns its value. A mesh over distinct cards
-raises ``NotImplementedError`` (multi-card GSPMD: ``ROADMAP.md`` Queue 1
-item 9).
+process has no such tensor. So :func:`use_mesh` takes one of two meshes.
+A mesh whose devices are all one device (``best_mesh(devices=[dev] * k)``,
+a device listed k times) runs every position in this process. A mesh over
+ranks (``best_mesh()`` after :func:`repro_torch.dist.ranks.init_ranks`)
+runs one process a position: each rank holds its block of a sharded
+tensor (:func:`device_put`), and the mesh paths issue the collectives that
+GSPMD would. On both, :func:`shard` and :func:`with_sharding_constraint`
+check the spec as ``NamedSharding`` would and return the tensor unchanged,
+as ``with_sharding_constraint`` returns its value. A mesh over distinct
+devices within one process raises ``NotImplementedError`` (``ROADMAP.md``
+Queue 1, "Multi-card GSPMD").
 """
 from __future__ import annotations
 
@@ -209,21 +213,27 @@ def current_rules() -> AxisRules:
 
 
 def mesh_device(mesh: Mesh) -> torch.device:
-    """The one device every position of ``mesh`` lists; a mesh over
-    distinct devices raises ``NotImplementedError``."""
+    """This process's device on ``mesh``: on a mesh over ranks this rank's,
+    else the one device every position lists; a mesh over distinct devices
+    within one process raises ``NotImplementedError``."""
+    if mesh.on_ranks:
+        return torch.device(mesh.devices[tuple(mesh.coords().values())])
     devs = {str(torch.device(d)) for d in mesh.devices.flat}
     if len(devs) != 1:
         raise NotImplementedError(
-            f"a mesh over the distinct devices {sorted(devs)}: GSPMD over "
-            "several cards is multi-card GSPMD (ROADMAP.md Queue 1 item 9); "
-            "the port's mesh lists one device k times")
+            f"a mesh over the distinct devices {sorted(devs)} within one "
+            "process: GSPMD over several cards in one process is not "
+            "ported (ROADMAP.md Queue 1, \"Multi-card GSPMD\"); the port's "
+            "mesh lists one device k times, or holds one process a device "
+            "(init_ranks, then best_mesh())")
     return torch.device(devs.pop())
 
 
 class use_mesh:
     """``with use_mesh(mesh, rules):`` installs the sharding context, so
     that :func:`shard` checks its specs and the mesh paths take their
-    branches. ``mesh`` must list one device (:func:`mesh_device`)."""
+    branches. ``mesh`` lists one device or is a mesh over ranks
+    (:func:`mesh_device`)."""
 
     def __init__(self, mesh: Mesh, rules: AxisRules | None = None):
         mesh_device(mesh)
@@ -252,7 +262,8 @@ def with_sharding_constraint(x: torch.Tensor, sharding: NamedSharding):
 def shard(x: torch.Tensor, *axes) -> torch.Tensor:
     """Constrain ``x`` to the resolved logical sharding (no-op without a
     mesh; entries that don't divide fall back to replicated). Returns
-    ``x``: the mesh lists one device, which holds every shard."""
+    ``x``: on a mesh that lists one device that device holds every shard,
+    and on a mesh over ranks ``x`` is already this rank's tensor."""
     mesh = current_mesh()
     if mesh is None:
         return x
@@ -298,7 +309,11 @@ def device_put(tree, shardings):
     like ``tree``), as ``jax.device_put``. Each placed tensor is a new
     tensor object (a copy, or a view of the caller's when it already lies
     there) that carries its sharding as ``.sharding``. A spec is checked
-    as a constraint's, and each sharded dim must divide by its extent."""
+    as a constraint's, and each sharded dim must divide by its extent. On
+    a mesh over ranks ``x`` is the global tensor and this rank keeps its
+    block: along each sharded dim, the slice at its coordinate on the
+    entry's mesh axes (row-major over them, as GSPMD numbers the
+    shards)."""
     def put(_, x, s):
         dev = mesh_device(s.mesh)
         with_sharding_constraint(x, s)
@@ -310,6 +325,8 @@ def device_put(tree, shardings):
                     f"{d} should be divisible by {_axis_extent(s.mesh, e)}, "
                     f"but it is equal to {x.shape[d]} (full shape: "
                     f"{tuple(x.shape)})")
+        if s.mesh.on_ranks:
+            x = _local_block(x, s)
         y = x.to(dev)
         if y is x:
             y = x.detach()
@@ -318,6 +335,24 @@ def device_put(tree, shardings):
     if isinstance(shardings, NamedSharding):
         return _map_with_path(lambda p, x: put(p, x, shardings), tree)
     return _map_with_path(put, tree, shardings)
+
+
+def _local_block(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's block of the global ``x`` under ``sharding`` (a mesh over
+    ranks): a view, each sharded dim cut to the slice at the rank's shard
+    index, its coordinates on the entry's mesh axes taken row-major."""
+    at = sharding.mesh.coords()
+    sizes = sharding.mesh.shape
+    for d, e in enumerate(sharding.spec):
+        names = _names(e)
+        if not names:
+            continue
+        i, n = 0, 1
+        for name in names:
+            i, n = i * sizes[name] + at[name], n * sizes[name]
+        step = x.shape[d] // n
+        x = x.narrow(d, i * step, step)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -28,9 +28,13 @@ over time (``kernels/ops.py::scan_trips``) runs one trip whose ops count
 
 Two of the reference's outputs have no counterpart, and are ``None``:
 
-* ``collective_bytes_per_device`` and ``collectives``: one process has no
-  partitioned program (the mesh lists one card; multi-card GSPMD is
-  ``ROADMAP.md`` Queue 1 item 9), so the step issues no collective;
+* ``collective_bytes_per_device`` and ``collectives``: the step counted
+  here runs in one process over a mesh that lists one device, and issues
+  no collective (GSPMD over several cards in one process is ``ROADMAP.md``
+  Queue 1, "Multi-card GSPMD"). A step on a mesh over ranks, one process
+  a card (``repro_torch.dist.ranks``), does issue collectives, the data
+  group's all-reduce of the gradients among them; the dry-run does not
+  count them;
 * ``cpu_bf16_upcast_bytes``: an artifact of XLA's CPU backend, which has
   no counterpart in an eager PyTorch program.
 

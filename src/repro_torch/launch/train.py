@@ -21,18 +21,36 @@ not save (as the reference's does not restore).
 
 The batch of step ``i`` is seeded ``(1, i)`` whether the run started at 0
 or resumed (:mod:`repro_torch.data.lm_data`), so a resumed run repeats the
-losses of an uninterrupted one.
+losses of an uninterrupted one. The last line lists the losses run, each a
+JSON number that reads back as the same float.
+
+Under torchrun (``python -m torch.distributed.run --nproc-per-node N -m
+repro_torch.launch.train ...``, whose ``RANK`` / ``WORLD_SIZE`` /
+``LOCAL_RANK`` it reads) each process is a rank
+(:func:`repro_torch.dist.ranks.init_ranks`): on ``cuda:<LOCAL_RANK>``, or
+the CPU with ``--device cpu``, and the mesh is ``best_mesh(model_parallel=
+k)`` over the ranks. Every rank draws the same seeded global batch and
+keeps its rows; the state is replicated, so rank 0 alone prints and writes
+checkpoints, and every rank restores on a resume. A caller that joined a
+group itself (``init_ranks``) gets the same run from ``main``.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
+
+import torch.distributed as dist
 
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.data.lm_data import lm_batch_stream
 from repro_torch.data.pipeline import prefetch_to_mesh
 from repro_torch.dist.elastic import best_mesh
-from repro_torch.dist.sharding import AxisRules, device_put, use_mesh
+from repro_torch.dist.ranks import (destroy_ranks, init_ranks, rank_device,
+                                    ranks_ready)
+from repro_torch.dist.sharding import (P, AxisRules, NamedSharding,
+                                       device_put, use_mesh)
 from repro_torch.ft.checkpoint import CheckpointManager, latest_step, restore
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.launch import specs
@@ -63,13 +81,32 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    if ranks_ready():           # a caller that joined the group itself
+        dev = rank_device()
+        if dev.type != resolve_device(args.device).type:
+            raise ValueError(f"--device {args.device} on a rank of {dev}")
+        return _train(args, dev, best_mesh(
+            model_parallel=args.model_parallel))
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dev = init_ranks(args.device)
+        try:
+            return _train(args, dev, best_mesh(
+                model_parallel=args.model_parallel))
+        finally:
+            destroy_ranks()
     dev = resolve_device(args.device)
+    return _train(args, dev, best_mesh(model_parallel=args.model_parallel,
+                                       devices=[dev]))
+
+
+def _train(args, dev, mesh) -> dict:
+    lead = not mesh.on_ranks or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    mesh = best_mesh(model_parallel=args.model_parallel, devices=[dev])
     rules = AxisRules()
-    print(f"[train] {cfg.name} on mesh {mesh.shape}")
+    say(f"[train] {cfg.name} on mesh {mesh.shape}")
 
     opt = AdamConfig(schedule=warmup_cosine_schedule(args.lr, 20, args.steps),
                      weight_decay=0.1)
@@ -79,18 +116,22 @@ def main(argv=None) -> dict:
 
     with use_mesh(mesh, rules):
         state = init_train_state(init_lm(0, cfg, device=dev))
-        st_sh = specs.train_state_sharding(state, mesh, rules)
+        # over ranks the state is replicated: its FSDP / tensor-parallel
+        # specs stay layouts that this port does not take
+        st_sh = (NamedSharding(mesh, P()) if mesh.on_ranks
+                 else specs.train_state_sharding(state, mesh, rules))
         state = device_put(state, st_sh)
 
         mgr = None
         start = 0
         if args.ckpt_dir:
-            mgr = CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
+            if lead:
+                mgr = CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
             if latest_step(args.ckpt_dir):
                 state = device_put(restore(args.ckpt_dir, state, device=dev),
                                    st_sh)
                 start = int(state.step)
-                print(f"[train] resumed from step {start}")
+                say(f"[train] resumed from step {start}")
 
         stream = prefetch_to_mesh(
             lm_batch_stream((1, start), cfg, args.batch, args.seq,
@@ -105,7 +146,7 @@ def main(argv=None) -> dict:
             losses.append(loss)
             t_hist.append(dt)
             if (i + 1) % args.log_every == 0:
-                print(f"step {i + 1:5d} loss {loss:8.4f} "
+                say(f"step {i + 1:5d} loss {loss:8.4f} "
                       f"{dt * 1e3:7.1f} ms/step "
                       f"acc {float(metrics['accuracy']):.3f}")
             if mgr:
@@ -116,10 +157,11 @@ def main(argv=None) -> dict:
         if mgr:
             mgr.wait()
     if t_hist:
-        print(f"[train] done: final loss {losses[-1]:.4f}; median step "
-              f"{sorted(t_hist)[len(t_hist) // 2] * 1e3:.1f} ms")
+        say(f"[train] done: final loss {losses[-1]:.4f}; median step "
+            f"{sorted(t_hist)[len(t_hist) // 2] * 1e3:.1f} ms")
     else:
-        print(f"[train] done: step {start} of {args.steps} already reached")
+        say(f"[train] done: step {start} of {args.steps} already reached")
+    say(f"[train] losses {json.dumps(losses)}")
     return {"start": start, "losses": losses,
             "step_ms": [1e3 * t for t in t_hist],
             "compiled": dict(step_fn.stats)}

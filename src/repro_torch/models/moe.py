@@ -197,11 +197,13 @@ def moe_apply_auto(params: dict, x: torch.Tensor, *, top_k: int,
     (``moe_ep.moe_apply_ep``, then the shared experts) when a mesh is
     active whose ``experts`` extent ``ep`` is above 1 and divides the
     physical experts and whose ``batch`` extent divides ``x.shape[0]``,
-    exactly the reference's condition; the sorted path otherwise. The
-    sorted path carries none of the reference's activation annotations, so
-    under a mesh it runs where the reference's raises (``ROADMAP.md``
-    R29a: its ``shard(h, "experts", None, "ff")`` names the model axis
-    twice)."""
+    exactly the reference's condition (over the global batch); the sorted
+    path otherwise, over the global batch (on a mesh over ranks,
+    ``moe_ep.moe_apply_gathered``). The sorted path carries none of the
+    reference's
+    activation annotations, so under a mesh it runs where the reference's
+    raises (``ROADMAP.md`` R29a: its ``shard(h, "experts", None, "ff")``
+    names the model axis twice)."""
     mesh = current_mesh()
     if mesh is not None:
         from repro_torch.models.moe_ep import moe_apply_ep
@@ -209,10 +211,17 @@ def moe_apply_auto(params: dict, x: torch.Tensor, *, top_k: int,
         ep = _axis_extent(mesh, rules.resolve("experts", mesh=mesh)[0])
         dp = _axis_extent(mesh, rules.resolve("batch", mesh=mesh)[0])
         e_phys = params["experts_gate"].shape[0]
-        if ep > 1 and e_phys % ep == 0 and x.shape[0] % max(dp, 1) == 0:
+        # on a mesh over ranks x holds this rank's rows of the batch
+        b = x.shape[0] * (dp if mesh.on_ranks else 1)
+        if ep > 1 and e_phys % ep == 0 and b % max(dp, 1) == 0:
             y, aux = moe_apply_ep(params, x, top_k=top_k,
                                   capacity_factor=capacity_factor,
                                   activation=activation)
             return _with_shared(params, y, x, activation), aux
+        if mesh.on_ranks:
+            from repro_torch.models.moe_ep import moe_apply_gathered
+            return moe_apply_gathered(params, x, top_k=top_k,
+                                      capacity_factor=capacity_factor,
+                                      activation=activation)
     return moe_apply(params, x, top_k=top_k, capacity_factor=capacity_factor,
                      activation=activation)

@@ -19,6 +19,16 @@ update in place over fixed state and batch buffers, replayed once a call
 (on the CPU the step stays eager). Under autograd the LM blocks run the
 plain scans (:mod:`repro_torch.models.blocks`): the scan kernels have no
 backward. The loop handles checkpoint cadence and metric logging.
+
+On a mesh over ranks (one process a device, :mod:`repro_torch.dist.ranks`)
+each rank holds the whole state and its rows of the batch. After the
+microbatch loop the LM step sums the gradients over the ``batch`` axes'
+group in one all-reduce of a flat bucket a dtype (bf16 gradients in
+bf16, as the reference's psum adds them; the fp32 metrics ride at the end
+of the fp32 bucket) and divides by the group's size, so each rank updates
+the same state with the global batch's gradient; the expert stacks that
+the expert-parallel MoE splits over the ranks are first summed over the
+experts group. The compiled step captures those collectives in its graph.
 """
 from __future__ import annotations
 
@@ -27,14 +37,18 @@ from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.dist.sharding import (NamedSharding, current_mesh,
-                                       infer_param_specs,
+from repro_torch.dist.ranks import all_reduce_, axis_group
+from repro_torch.dist.sharding import (NamedSharding, _axis_extent,
+                                       _map_with_path, _names, current_mesh,
+                                       current_rules, infer_param_specs,
                                        with_sharding_constraint)
 from repro_torch.models.gru_rnn import GruTaskConfig, gru_model_forward
 from repro_torch.models.lm import lm_forward
+from repro_torch.models.moe_ep import expert_parallel_leaf
 from repro_torch.quant.qat import FP32, QatPolicy
 from repro_torch.train.losses import ctc_loss_mean, lm_loss, mse_loss
 from repro_torch.train.optim import (AdamConfig, adam_update,
@@ -66,6 +80,61 @@ def _grads(live, what: str):
     return tree_map(lambda p: p.grad, live)
 
 
+def _in_order(tree) -> list:
+    """The leaves of ``tree`` in the order :func:`tree_map` visits them."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _summed(tensors: list, group) -> list:
+    """``tensors`` summed over ``group`` in one all-reduce of a flat bucket
+    a dtype, in the order the dtypes first appear (the same on every
+    rank); each returned as a view of its bucket, in its own dtype."""
+    at: dict = {}
+    for i, t in enumerate(tensors):
+        at.setdefault(t.dtype, []).append(i)
+    views = [None] * len(tensors)
+    for dtype, idx in at.items():
+        sizes = [tensors[i].numel() for i in idx]
+        flat = torch.empty(sum(sizes), dtype=dtype,
+                           device=tensors[0].device)
+        for i, v in zip(idx, flat.split(sizes)):
+            views[i] = v.view(tensors[i].shape)
+            views[i].copy_(tensors[i])
+        all_reduce_(flat, group)
+    return views
+
+
+def _reduce_over_ranks(grads, metrics: dict, mesh, rules):
+    """The global batch's gradients and metrics on every rank of a mesh
+    over ranks: the expert stacks split over the experts group summed
+    there, then every gradient and metric summed over the data group and
+    divided by its size (``tokens`` summed), each in its own dtype."""
+    data_axes = _names(rules.resolve("batch", mesh=mesh)[0])
+    ep_axes = _names(rules.resolve("experts", mesh=mesh)[0])
+    dp, ep = _axis_extent(mesh, data_axes), _axis_extent(mesh, ep_axes)
+    leaves = _in_order(grads)
+    split = _in_order(_map_with_path(
+        lambda path, g: expert_parallel_leaf(path, g, ep), grads))
+    if any(split):
+        summed = iter(_summed([g for g, e in zip(leaves, split) if e],
+                              axis_group(mesh, ep_axes)))
+        leaves = [next(summed) if e else g for g, e in zip(leaves, split)]
+    names = sorted(metrics)
+    vec = torch.stack([metrics[k].reshape(()).to(torch.float32)
+                       for k in names])
+    *sums, vec = _summed(leaves + [vec], axis_group(mesh, data_axes))
+
+    def mean(x):        # x / 1 is x: no pass over the bucket for it
+        return x / dp if dp > 1 else x
+    it = iter(sums)
+    grads = tree_map(lambda g: mean(next(it)), grads)
+    metrics = {k: (vec[i] if k == "tokens" else mean(vec[i])).to(
+        metrics[k].dtype) for i, k in enumerate(names)}
+    return grads, metrics
+
+
 def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
                           aux_weight: float = 0.01,
                           grad_transform: Callable | None = None,
@@ -89,6 +158,12 @@ def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
     (``infer_param_specs``, each spec checked as a sharding constraint);
     without a mesh, or with one microbatch, it is ignored, as in the
     reference.
+
+    On a mesh over ranks ``batch`` is this rank's rows of the global batch
+    (``shard_batch``), and the gradients and metrics are those of the
+    global batch, reduced over the ranks after the microbatch loop (see
+    the module's docstring); the clip norm and the update then run alike
+    on every rank.
 
     Every parameter leaf must get a gradient from autograd: a leaf that
     does not (``None``, cut off from the loss) raises (``jax.grad`` would
@@ -150,6 +225,10 @@ def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
 
     def step(state: TrainState, batch):
         grads, metrics = compute_grads(state.params, batch)
+        mesh = current_mesh()
+        if mesh is not None and mesh.on_ranks:
+            grads, metrics = _reduce_over_ranks(grads, metrics, mesh,
+                                                current_rules())
         if grad_transform is not None:
             grads = grad_transform(grads)
         params, opt, opt_metrics = adam_update(grads, state.opt,
@@ -195,7 +274,10 @@ class CompiledTrainStep:
     metrics come back as copies (a later replay does not overwrite them).
     A call after the first makes no host sync. A change of what the
     capture bakes in (the layout of the batch or the state, the mesh, the
-    deterministic-algorithms switch) captures again. Before a capture one
+    deterministic-algorithms switch, the process group) captures again.
+    On a mesh over ranks the step's collectives are captured too; a
+    capture that fails there raises with the reason and never falls back
+    to eager steps. Before a capture one
     eager step runs on a side stream (what runs at first use: cuBLAS's
     handle and workspace, kernel builds), functional, so the state stays
     as it was; its memory is freed before the capture.
@@ -221,8 +303,9 @@ class CompiledTrainStep:
         self.stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
 
     def _capture_key(self, state, batch) -> tuple:
+        group = dist.group.WORLD if dist.is_initialized() else None
         return (_layout(state), _layout(batch), id(current_mesh()),
-                torch.are_deterministic_algorithms_enabled())
+                torch.are_deterministic_algorithms_enabled(), id(group))
 
     def __call__(self, state: TrainState, batch: dict):
         device = tree_leaves(state)[0].device
@@ -286,10 +369,23 @@ class CompiledTrainStep:
                     for names in self._metric_names]
 
         before = ops.launch_counts()
-        replay = capture(body)
+        mesh = current_mesh()
+        try:
+            replay = capture(body)
+        except RuntimeError as err:
+            if mesh is None or not mesh.on_ranks:
+                raise
+            # no eager fallback: the step's collectives did not capture
+            raise RuntimeError(
+                f"compiled step on a mesh over ranks: the capture of the "
+                f"step and its collectives failed ({err}); .eager is the "
+                f"un-compiled step") from err
         self._graph = (replay, ops.take_back_launches(before))
         self._key = key
-        self._refs = current_mesh()     # keeps the id in the key unique
+        # keep the mesh and the group alive, so the ids in the key stay
+        # unique
+        self._refs = (mesh, dist.group.WORLD if dist.is_initialized()
+                      else None)
         self.stats["captures"] += 1
         self.stats["capture_s"] = time.perf_counter() - t0
 

@@ -223,7 +223,7 @@ def test_shard_is_the_identity_and_raises_where_jax_does():
 
 def test_use_mesh_refuses_distinct_devices_and_nests():
     two = best_mesh(devices=[CPU, torch.device("meta")])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="Multi-card GSPMD"):
         tsh.use_mesh(two)
     _, tm = _meshes("4x2")
     _, t1 = _meshes("1x1")
