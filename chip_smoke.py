@@ -299,7 +299,20 @@ traceback and a non-zero exit):
    ``torch.distributed.run --nproc-per-node <cards>``, its losses bitwise
    the one-process launcher's at world 1 (within ``TOL_RANK_REL``
    beyond); the global norm and the fused Adam once a step, no other
-   hand-written kernel;
+   hand-written kernel; (d) the train state sharded over the ranks as the
+   reference lays it out (``launch.train.init_state``,
+   ``make_lm_train_step_fn(..., state_sharding=)``): llama3.2-1b at full
+   size, bf16, [8, 128] under FSDP and ZeRO-1, 3 steps and a profiled
+   replay each, against (a)'s one-process step (metrics and state bitwise
+   at world 1, where every extent is 1; losses and clip norms within
+   ``TOL_RANK_BF16_REL`` / ``TOL_RANK_NORM_REL`` beyond), every leaf the
+   block of its spec, the collectives issued at the warm-up and the
+   capture and none at a replay, each rank's state bytes, the first
+   call's peak beside ``dryrun.run_cell``'s, the replays' wall p50, busy
+   and idle share; over four cards also at (2, 2), and
+   llama-3.2-vision-11b at full size under FSDP at (4, 1) (its state fits
+   no one card: losses finite, a rank's bytes at most a quarter of the
+   whole plus the replicated leaves);
 6. times on the card: each kernel instance at B = 1 and its plain version
    (device time from CUDA-graph replay between CUDA events, also with the
    L2 flushed before each call, and the kernel's time per call launched
@@ -2069,7 +2082,12 @@ def norm_kernels_phase(dev) -> dict:
     call over the mixed tree (``ops.capture_cuda_graph``, its table and
     ticket written after the capture) replayed twice on a NaN-filled
     output, bitwise the eager call each time, and once more after the
-    leaves doubled in place (the norm doubles exactly)."""
+    leaves doubled in place (the norm doubles exactly). The sum-of-squares
+    form (``squares=True``, the same launch's total before the root) in
+    every case: twice bitwise equal, within ``TOL_NORM_REL`` of the plain
+    version's sum and its root (``torch.sqrt``, correctly rounded as the
+    kernel's ``__fsqrt_rn``) bitwise the norm; and captured in a graph
+    beside the norm, its replays bitwise the eager call."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.global_norm import (global_norm,
@@ -2103,7 +2121,7 @@ def norm_kernels_phase(dev) -> dict:
     cases["sum overflow"] = [t.clone() for t in cases["mixed"]]
     cases["sum overflow"][2].fill_(1.5e19)     # fp32: squares finite
     want_inf = {"+inf", "square overflow", "sum overflow"}
-    max_rel = max_abs = 0.0
+    max_rel = max_abs = max_sq_rel = 0.0
     for name, lv in cases.items():
         a, b = global_norm(lv), global_norm(lv)
         ref, model = global_norm_ref(lv), global_norm_model(lv)
@@ -2128,6 +2146,22 @@ def norm_kernels_phase(dev) -> dict:
             if not torch.equal(a.view(torch.int32), copy.view(torch.int32)):
                 raise AssertionError(f"global norm {name}: {float(a)!r}, "
                                      f"aligned copies {float(copy)!r}")
+        sa, sb = global_norm(lv, squares=True), global_norm(lv, squares=True)
+        sref = global_norm_ref(lv, squares=True)
+        torch.cuda.synchronize()
+        root = torch.sqrt(sa)
+        if not (torch.equal(sa.view(torch.int32), sb.view(torch.int32))
+                and norm_close(sa, sref, TOL_NORM_REL)
+                and (torch.equal(root.view(torch.int32), a.view(torch.int32))
+                     if math.isfinite(float(a))
+                     else norm_close(root, a, TOL_NORM_REL))):
+            raise AssertionError(
+                f"global norm {name}, sum of squares: kernel {float(sa)!r} "
+                f"then {float(sb)!r}, plain {float(sref)!r}, its root "
+                f"{float(torch.sqrt(sa))!r} against the norm {float(a)!r}")
+        if math.isfinite(float(sa)):
+            max_sq_rel = max(max_sq_rel,
+                             abs(float(sa) - float(sref)) / float(sref))
     # one graph, replayed twice and after the leaves changed
     lv = cases["mixed"]
     eager = global_norm(lv)
@@ -2152,6 +2186,25 @@ def norm_kernels_phase(dev) -> dict:
                              f"doubling {float(doubled)!r}")
     if captured != ((ops.GLOBAL_NORM, 1),):
         raise AssertionError(f"global norm graph: captured {captured}")
+    # the sum-of-squares form in a graph beside the norm
+    for t in lv:
+        t.div_(2)
+    eager_sq = global_norm(lv, squares=True)
+    replay = ops.capture_cuda_graph(
+        lambda: (global_norm(lv), global_norm(lv, squares=True)))
+    got = []
+    for _ in range(2):
+        norm_out, sq_out = replay()
+        got.append((norm_out.clone(), sq_out.clone()))
+        norm_out.fill_(float("nan"))
+        sq_out.fill_(float("nan"))
+    torch.cuda.synchronize()
+    if not all(torch.equal(n.view(torch.int32), eager.view(torch.int32))
+               and torch.equal(q.view(torch.int32), eager_sq.view(torch.int32))
+               for n, q in got):
+        raise AssertionError(f"global norm graph, sum of squares: eager "
+                             f"{float(eager)!r} / {float(eager_sq)!r}, "
+                             f"replays {[(float(n), float(q)) for n, q in got]}")
     log(f"global norm: {len(cases)} cases (fp32 leaves {NORM_SIZES}, the "
         f"same and 70001 at element offset 1 in fp32 and bf16, bitwise "
         f"their aligned copies; a mixed tree; +inf, NaN, a square and a sum "
@@ -2160,7 +2213,10 @@ def norm_kernels_phase(dev) -> dict:
         f"version (largest {max_rel:.3e}, {max_abs:.3e} absolute) and an "
         f"fp32 rounding a leaf of "
         f"its model; a graph replayed twice bitwise the eager call and "
-        f"after the leaves doubled, its double")
+        f"after the leaves doubled, its double; the sum-of-squares form in "
+        f"every case twice bitwise, within {TOL_NORM_REL} of the plain sum "
+        f"(largest {max_sq_rel:.3e}), its root bitwise the norm, and "
+        f"replayed in a graph beside the norm bitwise the eager calls")
     return {"cases": len(cases) + 1,
             "max_err": {ops.GLOBAL_NORM.name: max_abs}, "max_rel": max_rel}
 
@@ -5745,7 +5801,7 @@ RANK_EP_SHAPE = (8, 32)
 RANK_LAUNCH = ["--arch", LM_TRAIN_ARCH, "--reduced", "--steps", "3",
                "--batch", "8", "--seq", "32", "--log-every", "1"]
 RANK_LAUNCH_TIMEOUT_S = 300
-RANK_SPAWN_TIMEOUT_S = 600
+RANK_SPAWN_TIMEOUT_S = 900
 # at world > 1: the launcher's fp32 losses, as the CPU rank tests hold
 # them; the bf16 step's losses and clip norms (the ranks' matmuls over
 # 1 / world of the rows round their bf16 gradients once a rank, and the
@@ -5891,6 +5947,10 @@ def rank_train(dev, smi) -> dict:
                    compiled_steps(steps[k].stats))
     launches = check_adam_launches("phase 5k (a)", adam_want)
     captures = {k: dict(v.stats) for k, v in steps.items()}
+    # (d) holds its sharded steps to the one-process step's metrics and
+    # state after the same steps from the same state and batch
+    one = {"metrics": metrics["one"], "state": states["one"],
+           "batch": batch}
     del states, steps, placed, metrics
     free_card()
     # the dry-run's estimate of the same step on a (1, 1) mesh
@@ -5930,7 +5990,8 @@ def rank_train(dev, smi) -> dict:
            "kernels": {k: p["kernels_per_step"] for k, p in profs.items()},
            "busy_us": {k: p["device_busy_us_per_step"]
                        for k, p in profs.items()},
-           "issued": issued, "launches": launches, "captures": captures}
+           "issued": issued, "launches": launches, "captures": captures,
+           "one": one}
     log(report + f" [{smi}]")
     log(f"rank (a) the captured rank step's replay: NCCL kernels "
         f"{nccl or 'none'} ({nccl_us:.1f} us a step); the device work it has "
@@ -6030,6 +6091,259 @@ def rank_exchange(dev, smi) -> dict:
     return {"issued": issued, "walls_ms": walls}
 
 
+# (d) the train state sharded over the ranks as the reference lays it out:
+# llama3.2-1b at full size under FSDP and ZeRO-1 on the mesh of all ranks
+# (and (2, 2) over four), and over four cards llama-3.2-vision-11b, whose
+# state fits no one card, under FSDP at (4, 1)
+RANK_LAYOUTS = ("fsdp", "zero1")
+RANK_VLM_ARCH = "llama-3.2-vision-11b"
+
+
+def sharded_steps(cfg, mesh, layout, batch, dev, one=None) -> dict:
+    """``RANK_STEPS`` compiled steps of ``cfg`` (``make_lm_train_step_fn``
+    with ``state_sharding``, donated) from ``launch.train.init_state``'s
+    state under ``layout`` on ``mesh`` (over the ranks), then one profiled
+    replay: the state's bytes on this rank beside the whole and the
+    replicated leaves', whether every leaf is the block its spec gives,
+    the first call's peak, the collectives issued at each call, the walls,
+    the profile and the metrics; with ``one`` (5k (a)'s one-process step
+    from the same state and batch), the metrics against its and, at world
+    1, the state too."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.dist import ranks
+    from repro_torch.dist.sharding import (AxisRules, block_shape,
+                                           sharded_dims, use_mesh)
+    from repro_torch.launch import specs
+    from repro_torch.launch.dryrun import RULE_VARIANTS
+    from repro_torch.launch.train import init_state
+    from repro_torch.train.optim import (AdamConfig, constant_schedule,
+                                         tree_leaves as leaves)
+    from repro_torch.train.trainer import (CompiledTrainStep,
+                                           make_lm_train_step_fn)
+    rules = AxisRules()
+    # ZeRO-1 is the dry-run's variant: the parameters' rules only differ
+    param_rules = (rules.with_overrides(**RULE_VARIANTS["zero1"])
+                   if layout == "zero1" else rules)
+    opt = AdamConfig(schedule=constant_schedule(TRAIN_LR))
+    world = dist.get_world_size()
+    free_card()
+    with use_mesh(mesh, rules):
+        t0 = time.perf_counter()
+        state, st_sh = init_state(cfg, SEED, dev, mesh, param_rules, rules)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        abstract = specs.abstract_train_state(cfg)
+        trip = list(zip(leaves(state), leaves(abstract), leaves(st_sh)))
+        held = sum(t.numel() * t.element_size() for t in leaves(state))
+        whole = sum(a.numel() * a.element_size() for a in leaves(abstract))
+        repl = sum(a.numel() * a.element_size() for _, a, sh in trip
+                   if not sharded_dims(sh.spec, mesh))
+        blocks = all(tuple(t.shape) == block_shape(a.shape, sh.spec, mesh)
+                     for t, a, sh in trip)
+        share = specs.per_device_bytes(abstract, st_sh)
+        del abstract, trip
+        step = CompiledTrainStep(make_lm_train_step_fn(
+            cfg, opt, state_sharding=st_sh), donate=True)
+        placed = shard_batch(batch, mesh, rules)
+        args = held + sum(t.numel() * t.element_size()
+                          for t in placed.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        other = torch.cuda.memory_allocated() - args
+        walls, metrics, issued = [], [], []
+        for i in range(RANK_STEPS):
+            before = dict(ranks.COLLECTIVES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, placed)
+            float(m["loss"])
+            walls.append(1e3 * (time.perf_counter() - t0))
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated() - other
+            issued.append({k: v - before[k] for k, v in
+                           ranks.COLLECTIVES.items() if v - before[k]})
+            metrics.append(m)
+
+        def replay():
+            nonlocal state
+            state, mm = step(state, placed)
+            float(mm["loss"])
+        before = dict(ranks.COLLECTIVES)
+        prof = engine_profile(replay, 1, match=("nccl",))
+        issued.append({k: v - before[k] for k, v in
+                       ranks.COLLECTIVES.items() if v - before[k]})
+        walls.append(prof["wall_us_per_step"] / 1e3)
+    per_rank = [None] * world
+    dist.all_gather_object(per_rank, held)
+    out = {"arch": cfg.name, "layout": layout, "mesh": mesh.shape,
+           "held": held, "held_by_rank": per_rank, "whole": whole,
+           "replicated": repl, "share": share, "blocks": blocks, "peak": peak,
+           "init_s": init_s, "walls_ms": walls,
+           "p50_ms": float(np.median(walls[1:])),
+           "busy_us": prof["device_busy_us_per_step"],
+           "idle": idle_share(prof), "nccl_us": prof["match_us_by"]["nccl"],
+           "kernels": prof["kernels_per_step"], "issued": issued,
+           "captures": dict(step.stats),
+           "losses": [float(m["loss"]) for m in metrics],
+           "norms": [float(m["grad_norm"]) for m in metrics]}
+    if one is not None and world == 1:
+        out["same_metrics"] = all(
+            torch.equal(a[k], b[k]) for a, b in zip(metrics, one["metrics"])
+            for k in a)
+        out["same_state"] = state_bitwise(state, one["state"])
+    elif one is not None:
+        ref = {k: [float(m[k]) for m in one["metrics"]]
+               for k in ("loss", "grad_norm")}
+        out["gaps"] = {k: [abs(a - b) / abs(b) for a, b in zip(
+            out["losses" if k == "loss" else "norms"], ref[k])]
+            for k in ref}
+    del state, step, placed, metrics
+    free_card()
+    return out
+
+
+def check_sharded(r: dict, world: int) -> str:
+    """``sharded_steps``' checks, raising on the first that fails; the
+    line that reports them."""
+    first, later = r["issued"][0], r["issued"][1:]
+    # the warm-up's eager step and the capture issue the same collectives;
+    # a replay issues none
+    captured = bool(first) and all(v % 2 == 0 for v in first.values()) and (
+        not any(later))
+    moved = world == 1 or (first.get("all_gather", 0) > 0
+                           and first.get("reduce_scatter", 0) > 0)
+    if world == 1:
+        # every extent is 1: the step is the replicated one, whose two
+        # buckets (bf16 gradients, fp32 metrics) are all-reduced
+        moved = first == {"all_reduce": 4}
+    # the bytes the layout gives a rank (``specs.per_device_bytes``), and
+    # under FSDP at most a 1 / world share of the leaves it shards
+    bound = r["held"] == r["share"] and (
+        r["layout"] != "fsdp"
+        or r["held"] <= r["whole"] / world + r["replicated"])
+    near = True
+    if "same_metrics" in r:
+        near = r["same_metrics"] and r["same_state"]
+        how = (f"metrics of the {RANK_STEPS} steps bitwise the one-process "
+               f"compiled step {r['same_metrics']}, the state after the "
+               f"profiled step bitwise {r['same_state']}")
+    elif "gaps" in r:
+        tols = {"loss": TOL_RANK_BF16_REL, "grad_norm": TOL_RANK_NORM_REL}
+        near = all(g <= tols[k] for k, v in r["gaps"].items() for g in v)
+        how = (f"every loss and clip norm within {TOL_RANK_BF16_REL} and "
+               f"{TOL_RANK_NORM_REL} relative of the one-process step's "
+               f"{near} (gaps {r['gaps']})")
+    else:
+        how = "no one-process step (the state fits no one card)"
+    finite = all(math.isfinite(v) for v in r["losses"] + r["norms"])
+    line = (f"rank (d) {r['arch']} {r['layout']} over the mesh {r['mesh']} "
+            f"of {world} rank(s): {how}; losses {r['losses']}, all finite "
+            f"{finite}; each leaf the block of its spec {r['blocks']}; state "
+            f"bytes a rank {r['held_by_rank']} of {r['whole']} "
+            f"({r['held'] / r['whole']:.4f}; replicated leaves "
+            f"{r['replicated']}; the layout's share "
+            f"(specs.per_device_bytes) {r['share']}, and under FSDP at most "
+            f"a 1 / {world} share of the rest: {bound}); collectives issued at the first call (warm-up and "
+            f"capture) {first}, at the later calls and the profiled replay "
+            f"{later} (captured: {captured})")
+    if not (captured and moved and bound and near and finite
+            and r["blocks"]):
+        raise AssertionError(line)
+    return line
+
+
+def rank_sharded(dev, smi, one, a) -> dict:
+    """5k (d): the train state sharded over the ranks (``sharded_steps``
+    under each of ``RANK_LAYOUTS``): llama3.2-1b at full size in bf16 on
+    [8, 128] on the mesh of all ranks, against 5k (a)'s one-process step
+    ``one`` (metrics and state bitwise at world 1); over four ranks also at
+    (2, 2), and ``RANK_VLM_ARCH`` at full size under FSDP at (4, 1). The
+    fused Adam and the global norm launch once a step and nothing else
+    does; the first call's peak beside ``dryrun.run_cell``'s per-device
+    peak for the same mesh shape and layout (at world 1, 5k (a)'s)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.lm_data import lm_batch
+    from repro_torch.dist.elastic import best_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    world = dist.get_world_size()
+    t_part = time.perf_counter()
+    ops.reset_launch_counts()
+    adam_want = {}
+    shapes = [1] + ([2] if world == 4 else [])
+    runs = []
+    for mp in shapes:
+        mesh = best_mesh(model_parallel=mp)
+        for layout in RANK_LAYOUTS:
+            r = sharded_steps(get_config(LM_TRAIN_ARCH), mesh, layout,
+                              one["batch"], dev, one)
+            tally_adam(adam_want, {torch.bfloat16},
+                       compiled_steps(r["captures"]))
+            r["line"] = check_sharded(r, world)
+            runs.append(r)
+    one.clear()
+    free_card()
+    if world == 4:
+        vcfg = get_config(RANK_VLM_ARCH)
+        vbatch = lm_batch((SEED, 13), vcfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                          dtype=torch.bfloat16, device=dev)
+        r = sharded_steps(vcfg, best_mesh(), "fsdp", vbatch, dev)
+        del vbatch
+        tally_adam(adam_want, {torch.bfloat16},
+                   compiled_steps(r["captures"]))
+        r["line"] = check_sharded(r, world)
+        runs.append(r)
+    launches = check_adam_launches("phase 5k (d)", adam_want)
+    steps_s = time.perf_counter() - t_part
+    # every rank estimates (only rank 0 prints), so no rank leaves the
+    # group while another still works
+    for r in runs:
+        if world == 1:
+            est = a["dryrun_gib"]
+        else:
+            rec = dryrun.run_cell(
+                RANK_VLM_ARCH if r["arch"] == RANK_VLM_ARCH
+                else LM_TRAIN_ARCH,
+                ShapeConfig("train_8x128", LM_TRAIN_SEQ,
+                            LM_TRAIN_BATCH, "train"),
+                mesh=best_mesh(devices=[dev] * world,
+                               model_parallel=r["mesh"]["model"]),
+                grad_accum=1, variant=("zero1" if r["layout"] == "zero1"
+                                       else "baseline"))
+            if not rec["ok"]:
+                raise AssertionError(f"dryrun.run_cell: {rec['error']}")
+            mem = rec["memory"]
+            est = (mem["argument_bytes"]
+                   + mem["peak_live_bytes_per_device"]) / 2 ** 30
+        r["dryrun_gib"] = est
+        log(r["line"] + f" [{smi}]")
+        log(f"time rank (d) {r['arch']} {r['layout']} {r['mesh']}: the "
+            f"replays' wall p50 {r['p50_ms']:.3f} ms (each "
+            + ", ".join(f"{v:.3f}" for v in r["walls_ms"])
+            + f" ms, the first the warm-up and the capture), device busy "
+            f"{r['busy_us']:.1f} us a step, idle share {r['idle']}, NCCL "
+            f"kernels {r['nccl_us']:.1f} us a step, {r['kernels']:.0f} "
+            f"kernels a step; init {r['init_s']:.2f} s [{smi}]")
+        log(f"rank (d) memory {r['arch']} {r['layout']} {r['mesh']}: the "
+            f"state {r['held'] / 2 ** 30:.3f} GiB on rank 0 (whole "
+            f"{r['whole'] / 2 ** 30:.3f} GiB), the first call's peak "
+            f"{r['peak'] / 2 ** 30:.3f} GiB against dryrun.run_cell's "
+            f"per-device peak {est:.3f} GiB (ratio "
+            f"{r['peak'] / 2 ** 30 / est:.4f}) [{smi}]")
+    seconds = time.perf_counter() - t_part
+    log(f"rank (d) took {seconds:.1f} s over {world} rank(s) ({steps_s:.1f} "
+        f"s of steps and checks); launches {launches} [{smi}]")
+    return {"runs": [{k: v for k, v in r.items() if k != "line"}
+                     for r in runs], "seconds": seconds,
+            "launches": launches}
+
+
 def rank_checks(rank, smi) -> dict:
     """5k (a) and (b) on this process's group of ranks (only rank 0
     logs)."""
@@ -6040,6 +6354,10 @@ def rank_checks(rank, smi) -> dict:
     res = {"a": rank_train(dev, smi)}
     free_card()
     res["b"] = rank_exchange(dev, smi)
+    free_card()
+    one = res["a"].pop("one")
+    res["d"] = rank_sharded(dev, smi, one, res["a"])
+    del one
     free_card()
     return res
 
@@ -6094,8 +6412,9 @@ def rank_phase(dev, smi) -> dict:
     a machine with one card the script's own process is the one rank of a
     group over a ``file://`` store in a temporary directory, left at the
     end of the phase; with more cards ``spawn_ranks`` starts one process a
-    card. (a) ``rank_train``, (b) ``rank_exchange`` (in the ranks), (c)
-    ``rank_launcher`` (here, once the group is left)."""
+    card. (a) ``rank_train``, (b) ``rank_exchange``, (d) ``rank_sharded``
+    (in the ranks), (c) ``rank_launcher`` (here, once the group is
+    left)."""
     import shutil
     import torch
     from repro_torch.dist import ranks

@@ -14,6 +14,9 @@
 //   3. each leaf's sum rounded to fp32;
 //   4. the leaves' sums added in tree order in fp32 (__fadd_rn);
 //   5. __fsqrt_rn of that.
+// Where the caller asks for it, the kernel also writes the total of step 4
+// before the root (the sum of squares): a train state sharded over ranks
+// adds the ranks' sums and takes the root of that.
 // Rounding to fp32 before the root keeps the plain version's overflow: a
 // total past the fp32 range is inf there and here, not a finite root of a
 // double (a group's fp32 sum past the range is inf, and so is any total
@@ -172,7 +175,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                        long long items, double* __restrict__ partial,
                        float* __restrict__ leaf_sum,
                        unsigned int* __restrict__ ticket,
-                       float* __restrict__ out) {
+                       float* __restrict__ out,
+                       float* __restrict__ squares) {
   __shared__ double warp_part[kWarps];
   __shared__ bool last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -220,6 +224,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     float total = n_leaves ? __ldcg(leaf_sum) : 0.0f;
     for (int j = 1; j < n_leaves; ++j)
       total = __fadd_rn(total, __ldcg(leaf_sum + j));
+    if (squares != nullptr) *squares = total;
     *out = __fsqrt_rn(total);
     *ticket = 0u;   // ready for the next call or replay
   }
@@ -230,11 +235,12 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 // table: the device leaf table, n_leaves rows (no empty leaf), items
 // chunks in all, followed by the ticket word (0 before the first launch;
 // the kernel leaves it 0). workspace: items doubles, then n_leaves
-// floats. out: one fp32. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for arguments it cannot run.
+// floats. out: one fp32, the norm. squares: one fp32, the sum of squares
+// before the root, or null. Returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue for arguments it cannot run.
 extern "C" int global_norm(const void* table, int n_leaves, long long items,
-                           void* workspace, float* out, int grid,
-                           void* stream) {
+                           void* workspace, float* out, float* squares,
+                           int grid, void* stream) {
   if (table == nullptr || workspace == nullptr || out == nullptr ||
       n_leaves < 0 || items < 0 || grid <= 0 || (n_leaves == 0) != (items == 0)
       || (reinterpret_cast<uintptr_t>(table) & 7) ||
@@ -246,6 +252,6 @@ extern "C" int global_norm(const void* table, int n_leaves, long long items,
   double* partial = static_cast<double*>(workspace);
   float* leaf_sum = reinterpret_cast<float*>(partial + items);
   global_norm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      leaves, n_leaves, items, partial, leaf_sum, ticket, out);
+      leaves, n_leaves, items, partial, leaf_sum, ticket, out, squares);
   return static_cast<int>(cudaGetLastError());
 }

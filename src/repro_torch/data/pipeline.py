@@ -15,7 +15,8 @@ import threading
 from typing import Iterator
 
 from repro_torch.dist.elastic import Mesh
-from repro_torch.dist.sharding import AxisRules, NamedSharding, device_put
+from repro_torch.dist.sharding import (P, AxisRules, NamedSharding,
+                                       device_put)
 from repro_torch.train.optim import tree_map
 
 
@@ -64,22 +65,44 @@ class Prefetcher:
         self._done.set()
 
 
-def shard_batch(batch, mesh: Mesh, rules: AxisRules | None = None):
+def shard_batch(batch, mesh: Mesh, rules: AxisRules | None = None,
+                grad_accum: int = 1):
     """Place a batch (a tree of ``[B, ...]`` tensors) on the mesh: each
     leaf's spec is the batch dim on the ``batch`` axes and the rest
     replicated, as the reference resolves it, and the leaf goes to the
     mesh's device (``device_put``): on a mesh over ranks, this rank's
-    rows of the global batch."""
+    rows of the global batch.
+
+    ``grad_accum > 1``: the rows a train step of that many microbatches
+    takes. The reference's step splits the global batch into
+    ``grad_accum`` microbatches of consecutive rows and lays each out over
+    the ``batch`` axes, so a rank's rows are its block of microbatch 0,
+    then of microbatch 1, and so on (``[grad_accum, B / grad_accum, ...]``
+    placed with the batch spec on its second dim, then flattened); the
+    step's split of those rows into ``grad_accum`` equal parts gives it
+    its block of each. In one process that is the whole batch as it was."""
     rules = rules or AxisRules()
 
-    def sharding(x):
+    def sharding(x, lead=()):
         spec = rules.resolve(*(["batch"] + [None] * (x.ndim - 1)), mesh=mesh)
-        return NamedSharding(mesh, spec)
+        return NamedSharding(mesh, P(*lead, *spec))
 
-    return device_put(batch, tree_map(sharding, batch))
+    if grad_accum == 1:
+        return device_put(batch, tree_map(sharding, batch))
+
+    def put(x):
+        if x.shape[0] % grad_accum:
+            raise ValueError(f"a batch of {x.shape[0]} does not split into "
+                             f"{grad_accum} microbatches")
+        mb = x.reshape(grad_accum, x.shape[0] // grad_accum, *x.shape[1:])
+        y = device_put(mb, sharding(x, (None,)))
+        return y.reshape(-1, *y.shape[2:])
+    return tree_map(put, batch)
 
 
 def prefetch_to_mesh(it: Iterator, mesh: Mesh,
-                     rules: AxisRules | None = None, depth: int = 2):
+                     rules: AxisRules | None = None, depth: int = 2,
+                     grad_accum: int = 1):
     """Prefetch + shard: the standard input pipeline composition."""
-    return Prefetcher((shard_batch(b, mesh, rules) for b in it), depth=depth)
+    return Prefetcher((shard_batch(b, mesh, rules, grad_accum) for b in it),
+                      depth=depth)

@@ -18,7 +18,13 @@ device, NCCL on a card and gloo on the CPU, and nothing else chooses it.
   a mesh over the ranks once the group is up);
 * the differentiable collectives (:func:`all_gather`, :func:`all_to_all`,
   :func:`psum`, :func:`psum_disjoint`, :func:`psum_grads`) are what the
-  mesh paths call.
+  mesh paths call;
+* :func:`gather_block` turns a rank's block of a sharded parameter into the
+  global tensor (``all_gather_into_tensor`` along each sharded dim), and
+  its backward hands the block of the reduced gradient back
+  (``reduce_scatter_tensor``), as :class:`BlockPlan` says;
+  :func:`reduce_scatter_bucket` and :func:`all_gather_bucket` do the same
+  for many tensors in one collective a dtype.
 
 Two conventions hold for gradients. Over the ``batch`` axes each rank holds
 its own rows and the train step averages the ranks' gradients. Over the
@@ -38,9 +44,11 @@ import multiprocessing
 import os
 import pickle
 import shutil
+import sys
 import tempfile
 import time
 import traceback
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -50,7 +58,8 @@ from repro_torch.kernels.ops import resolve_device
 __all__ = ["DEFAULT_TIMEOUT_S", "COLLECTIVES", "init_ranks", "destroy_ranks",
            "ranks_ready", "rank_device", "rank_devices", "spawn_ranks",
            "axis_group", "all_gather", "all_to_all", "psum", "psum_disjoint",
-           "psum_grads",
+           "psum_grads", "BlockPlan", "cut", "gather_block", "gather_dim",
+           "reduce_scatter_dim", "reduce_scatter_bucket", "all_gather_bucket",
            "all_reduce_", "send_recv", "broadcast_"]
 
 # a collective that waits longer than this fails (the process group's
@@ -58,7 +67,7 @@ __all__ = ["DEFAULT_TIMEOUT_S", "COLLECTIVES", "init_ranks", "destroy_ranks",
 DEFAULT_TIMEOUT_S = 300.0
 
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0,
-               "send_recv": 0, "broadcast": 0}
+               "reduce_scatter": 0, "send_recv": 0, "broadcast": 0}
 
 _RANKS: dict = {}       # "device": this rank's, "devices": every rank's
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
@@ -145,6 +154,7 @@ def destroy_ranks() -> None:
 def _child(fn, rank, world_size, device, workdir, timeout, args):
     torch.set_num_threads(1)
     out = os.path.join(workdir, f"rank{rank}")
+    code = 0
     try:
         init_ranks(device, rank=rank, world_size=world_size,
                    init_method=f"file://{os.path.join(workdir, 'store')}",
@@ -157,9 +167,17 @@ def _child(fn, rank, world_size, device, workdir, timeout, args):
         with open(out + ".tmp", "w") as f:
             f.write(traceback.format_exc())
         os.replace(out + ".tmp", out + ".error")
-        raise SystemExit(1)
+        code = 1
     finally:
         destroy_ranks()
+    # The outcome is on disk: leave without the interpreter's teardown. A
+    # rank's process was seen to abort there ("terminate called without an
+    # active exception", no Python frame left) after its result was
+    # written, under load, as objects of the process group's backend were
+    # torn down.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
 
 
 def _raise_first_error(root: str, world_size: int) -> None:
@@ -365,3 +383,141 @@ def psum_grads(x: torch.Tensor, group) -> torch.Tensor:
     computes the gradient of only its part of the use: the backward sums
     the gradients over the group."""
     return _PsumGrads.apply(x, group)
+
+
+# -- blocks of sharded tensors -----------------------------------------------
+
+def _gather_into(out, x, group) -> None:
+    COLLECTIVES["all_gather"] += 1
+    dist.all_gather_into_tensor(out, x, group=group)
+
+
+def _scatter_into(out, x, group) -> None:
+    COLLECTIVES["reduce_scatter"] += 1
+    dist.reduce_scatter_tensor(out, x, group=group)
+
+
+def cut(x: torch.Tensor, cuts) -> torch.Tensor:
+    """A view of ``x`` with each ``(dim, index, parts)`` of ``cuts`` cut to
+    its ``index``-th of ``parts`` equal slices: a rank's block of a global
+    tensor (``sharding.shard_cuts`` builds the triples)."""
+    for dim, index, parts in cuts:
+        step = x.shape[dim] // parts
+        x = x.narrow(dim, index * step, step)
+    return x
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's blocks of ``x`` concatenated along ``dim`` in the group's
+    order, on every rank of ``group``: one ``all_gather_into_tensor``. The
+    result is contiguous (a gather along a later dim is copied into
+    place), so an op reading it sees the layout of the global tensor."""
+    n = dist.get_world_size(group)
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _gather_into(out, src, group)
+    return out if dim == 0 else out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (in its dtype), and of the sum this rank's
+    block along ``dim`` (the group's order): one ``reduce_scatter_tensor``."""
+    n = dist.get_world_size(group)
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _scatter_into(out, src, group)
+    return out.movedim(0, dim)
+
+
+def _by_dtype(tensors) -> dict:
+    at: dict = {}
+    for i, t in enumerate(tensors):
+        at.setdefault(t.dtype, []).append(i)
+    return at
+
+
+def reduce_scatter_bucket(tensors: list, dims: list, group) -> list:
+    """:func:`reduce_scatter_dim` of each ``tensors[i]`` along ``dims[i]``,
+    in one ``reduce_scatter_tensor`` of a flat bucket a dtype (in the order
+    the dtypes first appear, the same on every rank). Each result is a view
+    of its bucket."""
+    n = dist.get_world_size(group)
+    out = [None] * len(tensors)
+    for dtype, idx in _by_dtype(tensors).items():
+        moved = [tensors[i].movedim(dims[i], 0) for i in idx]
+        # row j of the bucket holds every tensor's block j
+        flat = torch.cat([m.reshape(n, -1) for m in moved], dim=1)
+        mine = torch.empty(flat.shape[1], dtype=dtype, device=flat.device)
+        _scatter_into(mine, flat.reshape(-1), group)
+        sizes = [m.numel() // n for m in moved]
+        for i, m, v in zip(idx, moved, mine.split(sizes)):
+            v = v.view((m.shape[0] // n,) + tuple(m.shape[1:]))
+            out[i] = v.movedim(0, dims[i])
+    return out
+
+
+def all_gather_bucket(blocks: list, dims: list, group) -> list:
+    """The group's ``blocks[i]`` concatenated along ``dims[i]`` in the
+    group's order, in one ``all_gather_into_tensor`` of a flat bucket a
+    dtype. Each result is a view of its bucket."""
+    n = dist.get_world_size(group)
+    out = [None] * len(blocks)
+    for dtype, idx in _by_dtype(blocks).items():
+        moved = [blocks[i].movedim(dims[i], 0) for i in idx]
+        flat = torch.cat([m.reshape(-1) for m in moved])
+        got = torch.empty(n * flat.numel(), dtype=dtype, device=flat.device)
+        _gather_into(got, flat, group)
+        got = got.view(n, -1)
+        at = 0
+        for i, m in zip(idx, moved):
+            piece = got[:, at:at + m.numel()].reshape(n, *m.shape)
+            at += m.numel()
+            out[i] = piece.reshape(n * m.shape[0], *m.shape[1:]).movedim(
+                0, dims[i])
+    return out
+
+
+class BlockPlan(NamedTuple):
+    """How :func:`gather_block` turns a rank's block into the global tensor
+    and the global tensor's gradient into the block's.
+
+    ``gathers``: ``(dim, group)`` a sharded dim, gathered in turn.
+    ``scatters``: ``(dim, group)`` a reduction of the gradient over a group
+    whose ranks shard ``dim``, reduce-scattered in turn. ``divide``: the
+    sum is then divided by it (the data extent, where the data group's
+    reduction is among the scatters; 1 otherwise). ``slices``: the
+    :func:`cut` of each sharded dim whose group no reduction covers, to
+    the rank's slice."""
+
+    gathers: tuple
+    scatters: tuple
+    divide: int
+    slices: tuple
+
+
+class _GatherBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        for dim, group in plan.gathers:
+            x = gather_dim(x, dim, group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        for dim, group in plan.scatters:
+            g = reduce_scatter_dim(g, dim, group)
+        if plan.divide > 1:
+            g = g / plan.divide
+        return cut(g, plan.slices), None
+
+
+def gather_block(x: torch.Tensor, plan: BlockPlan) -> torch.Tensor:
+    """The global tensor of this rank's block ``x`` (``plan.gathers``, at
+    least one). Differentiable: the backward takes the gradient that this
+    rank computed for the global tensor, reduces it over the ranks as
+    ``plan`` says and returns this rank's block of the result."""
+    return _GatherBlock.apply(x, plan)

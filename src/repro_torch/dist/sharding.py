@@ -27,6 +27,13 @@ check the spec as ``NamedSharding`` would and return the tensor unchanged,
 as ``with_sharding_constraint`` returns its value. A mesh over distinct
 devices within one process raises ``NotImplementedError`` (``ROADMAP.md``
 Queue 1, "Multi-card GSPMD").
+
+A train state laid out over the ranks (FSDP parameters, ZeRO-1 moments)
+holds blocks; the model reads global tensors. :func:`gather_tree` gathers a
+subtree of blocks into them at use (``ranks.gather_block``), and the
+backward of each gather reduce-scatters the gradient into the block
+(:func:`block_plan`). GSPMD inserts the same collectives into the
+reference's jitted step.
 """
 from __future__ import annotations
 
@@ -36,11 +43,14 @@ import numpy as np
 import torch
 
 from repro_torch.dist.elastic import Mesh
+from repro_torch.dist.ranks import BlockPlan, axis_group, cut, gather_block
 
 __all__ = ["P", "NamedSharding", "DuplicateSpecError", "AxisRules",
            "enforce_divisibility", "use_mesh", "current_mesh",
            "current_rules", "shard", "with_sharding_constraint",
-           "device_put", "infer_param_specs"]
+           "device_put", "infer_param_specs", "EXPERT_LEAVES",
+           "expert_parallel_leaf", "sharded_dims", "block_shape",
+           "global_shape", "block_plan", "gather_tree"]
 
 
 class P:
@@ -325,11 +335,16 @@ def device_put(tree, shardings):
                     f"{d} should be divisible by {_axis_extent(s.mesh, e)}, "
                     f"but it is equal to {x.shape[d]} (full shape: "
                     f"{tuple(x.shape)})")
-        if s.mesh.on_ranks:
-            x = _local_block(x, s)
-        y = x.to(dev)
-        if y is x:
-            y = x.detach()
+        if s.mesh.on_ranks and sharded_dims(s.spec, s.mesh):
+            # the block in storage of its own: a view would keep the
+            # global tensor alive
+            block = _local_block(x, s)
+            y = torch.empty(block.shape, dtype=x.dtype, device=dev)
+            y.copy_(block)
+        else:
+            y = x.to(dev)
+            if y is x:
+                y = x.detach()
         y.sharding = s
         return y
     if isinstance(shardings, NamedSharding):
@@ -337,22 +352,133 @@ def device_put(tree, shardings):
     return _map_with_path(put, tree, shardings)
 
 
+def _shard_index(mesh: Mesh, names) -> int:
+    """This rank's shard index over the mesh axes ``names``: its
+    coordinates on them taken row-major, as GSPMD numbers the shards."""
+    at, i = mesh.coords(), 0
+    for name in names:
+        i = i * mesh.shape[name] + at[name]
+    return i
+
+
+def shard_cuts(dims, mesh: Mesh) -> tuple:
+    """``ranks.cut``'s ``(dim, index, parts)`` for each ``(dim, mesh axis
+    names)`` of ``dims``: the slice at this rank's shard index
+    (:func:`_shard_index`) of the names' extent."""
+    return tuple((d, _shard_index(mesh, n), _axis_extent(mesh, n))
+                 for d, n in dims)
+
+
 def _local_block(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     """This rank's block of the global ``x`` under ``sharding`` (a mesh over
-    ranks): a view, each sharded dim cut to the slice at the rank's shard
-    index, its coordinates on the entry's mesh axes taken row-major."""
-    at = sharding.mesh.coords()
-    sizes = sharding.mesh.shape
-    for d, e in enumerate(sharding.spec):
-        names = _names(e)
-        if not names:
-            continue
-        i, n = 0, 1
-        for name in names:
-            i, n = i * sizes[name] + at[name], n * sizes[name]
-        step = x.shape[d] // n
-        x = x.narrow(d, i * step, step)
-    return x
+    ranks): a view, each sharded dim cut to the rank's slice."""
+    return cut(x, shard_cuts(sharded_dims(sharding.spec, sharding.mesh),
+                             sharding.mesh))
+
+
+def sharded_dims(spec: P, mesh: Mesh) -> list:
+    """``[(dim, mesh axis names), ...]``: the dims that ``spec`` spreads
+    over more than one position of ``mesh``."""
+    return [(d, _names(e)) for d, e in enumerate(spec)
+            if _axis_extent(mesh, e) > 1]
+
+
+def block_shape(shape, spec: P, mesh: Mesh) -> tuple:
+    """The shape of one rank's block of a global ``shape`` under ``spec``."""
+    shape = list(shape)
+    for d, names in sharded_dims(spec, mesh):
+        shape[d] //= _axis_extent(mesh, names)
+    return tuple(shape)
+
+
+def global_shape(shape, spec: P, mesh: Mesh) -> tuple:
+    """The global shape of a block of ``shape`` under ``spec``."""
+    shape = list(shape)
+    for d, names in sharded_dims(spec, mesh):
+        shape[d] *= _axis_extent(mesh, names)
+    return tuple(shape)
+
+
+# the expert stacks that the expert-parallel dispatch splits over the
+# experts axis (repro_torch.models.moe_ep)
+EXPERT_LEAVES = ("experts_gate", "experts_up", "experts_down")
+
+
+def expert_parallel_leaf(path, leaf, ep: int) -> bool:
+    """Whether the expert-parallel dispatch splits the experts of this
+    parameter leaf (at ``path``; a global tensor, or its shape) over an
+    experts extent ``ep``: an expert stack ``[..., E, D, F]`` whose ``E``
+    divides by ``ep > 1``, ``moe_apply_auto``'s condition. On a mesh over
+    ranks such a leaf's gradient lies on the ranks that run its experts."""
+    name = str(path[-1]) if path else ""
+    shape = tuple(getattr(leaf, "shape", leaf))
+    return (ep > 1 and name in EXPERT_LEAVES and len(shape) >= 3
+            and shape[-3] % ep == 0)
+
+
+def block_plan(path, shape, spec: P, mesh: Mesh, rules: AxisRules):
+    """``(plan, pending)`` for a leaf of global ``shape`` at ``path`` laid
+    out by ``spec`` on a mesh over ranks. ``plan``, a
+    :class:`~repro_torch.dist.ranks.BlockPlan`, gathers each sharded dim;
+    of the leaf's sums over the ranks (below) its backward
+    reduce-scatters each whose axes shard a dim (dividing by the data
+    extent once the data group's sum is among them), then cuts the other
+    sharded dims to the rank's slice: a dim sharded over ``model`` takes no sum over
+    ``model``, whose ranks compute the same gradient. ``pending``: the
+    groups left to sum the block over (an all-reduce after the backward,
+    the train step's bucket).
+
+    A leaf's gradient takes these sums after the backward, in order: over
+    the experts axes for a stack the expert-parallel dispatch splits
+    (:func:`expert_parallel_leaf`), then over the ``batch`` axes, whose
+    sum is divided by their extent."""
+    dims = sharded_dims(spec, mesh)
+    data = _names(rules.resolve("batch", mesh=mesh)[0])
+    experts = _names(rules.resolve("experts", mesh=mesh)[0])
+    split = expert_parallel_leaf(path, shape, _axis_extent(mesh, experts))
+    scatters, pending, done = [], [], set()
+    for names in ([experts] if split else []) + [data]:
+        d = next((d for d, n in dims if n == names and d not in done), None)
+        if d is None:
+            pending.append(names)
+        else:
+            scatters.append((d, axis_group(mesh, names)))
+            done.add(d)
+    dp = _axis_extent(mesh, data)
+    plan = BlockPlan(
+        gathers=tuple((d, axis_group(mesh, n)) for d, n in dims),
+        scatters=tuple(scatters),
+        divide=dp if data not in pending else 1,
+        slices=shard_cuts([(d, n) for d, n in dims if d not in done], mesh))
+    return plan, tuple(pending)
+
+
+def gather_tree(blocks, specs):
+    """The global tensors of a subtree of blocks laid out by ``specs`` (a
+    tree of :class:`P` shaped like it) on the active mesh over ranks,
+    each through ``ranks.gather_block`` (:func:`block_plan`). The identity
+    without a mesh, without ``specs``, and for a leaf whose spec shards no
+    dim over more than one position (``P()``, or extent 1). A spec that
+    does on a mesh that lists one device raises: such a mesh holds every
+    tensor whole, so a state laid out by it would be replicated, not
+    sharded."""
+    mesh = current_mesh()
+    if mesh is None or specs is None:
+        return blocks
+    rules = current_rules()
+
+    def one(path, x, spec):
+        if not sharded_dims(spec, mesh):
+            return x
+        if not mesh.on_ranks:
+            raise ValueError(
+                f"a parameter laid out by {spec} over the mesh {mesh.shape} "
+                "that lists one device: a sharded state needs a mesh over "
+                "ranks (init_ranks, then best_mesh())")
+        shape = global_shape(x.shape, spec, mesh)
+        plan, _ = block_plan(path, shape, spec, mesh, rules)
+        return gather_block(x, plan)
+    return _map_with_path(one, blocks, specs)
 
 
 # ---------------------------------------------------------------------------

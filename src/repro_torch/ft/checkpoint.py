@@ -17,8 +17,12 @@ stack) as ``0``. For example ``state/0/.layers/1/.x_mem/.memory``.
 
 Leaves are written as host arrays: a tensor is copied to the host before
 the write starts, so the write sees the state of the call even when it runs
-on a background thread. The write publishes atomically through a directory
-rename; a crash mid-write never corrupts ``LATEST``.
+on a background thread. A state that the ranks hold in blocks (a sharded
+train state) is gathered to its global leaves first, leaf by leaf
+(:func:`host_state`, which every rank calls): the files hold global leaves
+in the same format, and restore over any number of ranks. The write
+publishes atomically through a directory rename; a crash mid-write never
+corrupts ``LATEST``.
 """
 from __future__ import annotations
 
@@ -33,6 +37,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.program import DeltaProgramState
+from repro_torch.dist.ranks import axis_group, gather_dim
+from repro_torch.dist.sharding import _map_with_path as _map_pairs
+from repro_torch.dist.sharding import device_put, sharded_dims
 from repro_torch.kernels.ops import resolve_device
 
 
@@ -85,6 +92,24 @@ def _to_host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
+
+
+def host_state(state, shardings, lead: bool = True):
+    """The global leaves of ``state`` as host arrays, on the ``lead``
+    (None elsewhere). ``shardings``: a tree of ``NamedSharding`` shaped
+    like ``state`` (``specs.train_state_sharding``). A leaf that the ranks
+    of a mesh over ranks hold in blocks is gathered along each sharded dim
+    first (a collective: every rank calls this, in the same order), one
+    leaf at a time, so the card never holds a second copy of the whole
+    state."""
+    def one(_, leaf, sh):
+        mesh = sh.mesh
+        if mesh.on_ranks:
+            for d, names in sharded_dims(sh.spec, mesh):
+                leaf = gather_dim(leaf, d, axis_group(mesh, names))
+        return _to_host(leaf) if lead else None
+    tree = _map_pairs(one, state, shardings)
+    return tree if lead else None
 
 
 def _checksum(arr: np.ndarray) -> str:
@@ -163,7 +188,7 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 def restore(ckpt_dir: str, target_tree, step: int | None = None,
-            device=None, verify: bool = True):
+            device=None, verify: bool = True, shardings=None):
     """Restore into the structure of ``target_tree``.
 
     Every tensor leaf comes back on ``device`` (default ``"cuda"``; raises
@@ -172,8 +197,15 @@ def restore(ckpt_dir: str, target_tree, step: int | None = None,
     of its dtype. A path the checkpoint lacks raises ``KeyError``, a
     checksum that does not match ``IOError`` (with ``verify``), a shape
     other than the target's ``ValueError``.
+
+    ``shardings``: a tree of ``NamedSharding`` shaped like the target
+    (``specs.train_state_sharding``). Each tensor leaf is then placed by
+    ``device_put`` on its sharding's mesh as soon as it is read, in place
+    of ``device``: on a mesh over ranks the rank keeps its block, and the
+    host holds one global leaf at a time.
     """
-    dev = resolve_device(device)
+    dev = None if shardings is not None else resolve_device(device)
+    placing = dict(tree_paths(shardings)) if shardings is not None else {}
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -197,10 +229,21 @@ def restore(ckpt_dir: str, target_tree, step: int | None = None,
         # cast to the TARGET dtype: an fp32 save restored onto an int8
         # layout must not flow wrong-width arrays into the kernels
         if isinstance(tgt, torch.Tensor):
+            if p in placing:
+                return device_put(torch.from_numpy(arr).to(tgt.dtype),
+                                  placing[p])
             return torch.from_numpy(arr).to(device=dev, dtype=tgt.dtype)
         return arr.astype(np.asarray(tgt).dtype)
 
     return _map_with_path(load, target_tree)
+
+
+def due(step: int, every: int) -> bool:
+    """Whether a cadence of a save every ``every`` steps saves at ``step``:
+    :meth:`CheckpointManager.maybe_save`'s test, and the one the ranks that
+    hold no manager take to gather a state in blocks with the lead
+    (:func:`host_state`)."""
+    return step % every == 0
 
 
 class CheckpointManager:
@@ -216,7 +259,8 @@ class CheckpointManager:
         self._pending: list[WriteHandle] = []
 
     def maybe_save(self, step: int, state) -> bool:
-        if step % self.every:
+        """Save ``state`` for ``step`` if the cadence is :func:`due` there."""
+        if not due(step, self.every):
             return False
         handle = WriteHandle(threading.Event())
         save(self.dir, step, state, async_write=self.async_write,

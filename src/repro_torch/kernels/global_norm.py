@@ -14,6 +14,10 @@ tree, the groups in double), rounds each leaf's sum to fp32 and adds the
 leaves in tree order in fp32, as :func:`global_norm_model` does in plain
 ops with an exact sum of each leaf.
 
+With ``squares=True`` each returns the sum of the squares before the
+root instead (the kernel writes it beside the norm, from the same launch):
+a train state sharded over ranks adds the ranks' sums, then takes the root.
+
 The table (each leaf's pointer, length, dtype word and first chunk) and a
 trailing ticket word are written to device memory before the launch: by a
 pinned copy on the stream in an eager call, once after the capture in a
@@ -96,12 +100,13 @@ def norm_grid(items: int) -> int:
     return max(1, min(items, H100_SMS * NORM_BLOCKS_PER_SM))
 
 
-def global_norm(leaves) -> torch.Tensor:
+def global_norm(leaves, squares: bool = False) -> torch.Tensor:
     """``sqrt`` of the sum over ``leaves`` (a list of fp32 or bf16 tensors)
-    of each leaf's squares in fp32: a 0-d fp32 tensor on their device."""
+    of each leaf's squares in fp32: a 0-d fp32 tensor on their device.
+    ``squares``: the sum before the root, from the same launch."""
     leaves = list(leaves)
     if not launches_kernel(*leaves):
-        return global_norm_ref(leaves)
+        return global_norm_ref(leaves, squares)
     refuse_autograd("global_norm", *leaves)
     rows = []
     for j, t in enumerate(leaves):
@@ -117,32 +122,35 @@ def global_norm(leaves) -> torch.Tensor:
     dev_table = device_table(words, dev)
     workspace = torch.empty(max(8, 8 * items + 4 * len(table)),
                             dtype=torch.uint8, device=dev)
-    out = torch.empty((), dtype=torch.float32, device=dev)
+    out = torch.empty(2 if squares else 1, dtype=torch.float32, device=dev)
     err = _fn()(dev_table.data_ptr(), len(table), items,
-                workspace.data_ptr(), out.data_ptr(), norm_grid(items),
+                workspace.data_ptr(), out.data_ptr(),
+                out[1].data_ptr() if squares else None, norm_grid(items),
                 cuda_stream(out))
     if err:
         raise RuntimeError(f"{GLOBAL_NORM.name} launch failed: CUDA error "
                            f"{err}")
     GLOBAL_NORM.launches += 1
-    return out
+    return out[1] if squares else out[0]
 
 
 def _fn():
     fn = _build.load("global_norm.cu").global_norm
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, ci, ctypes.c_longlong, vp, vp, ci, vp]
+        fn.argtypes = [vp, ci, ctypes.c_longlong, vp, vp, vp, ci, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
-def global_norm_ref(leaves) -> torch.Tensor:
+def global_norm_ref(leaves, squares: bool = False) -> torch.Tensor:
     """Plain version: the ops ``optim.global_norm`` ran before the kernel
     (the JAX package's order): each leaf cast to fp32, squared and summed,
-    the sums added over the leaves in order, the root taken."""
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
-                          for leaf in leaves))
+    the sums added over the leaves in order, the root taken (not with
+    ``squares``)."""
+    total = sum(torch.sum(torch.square(leaf.to(torch.float32)))
+                for leaf in leaves)
+    return total if squares else torch.sqrt(total)
 
 
 def global_norm_model(leaves) -> torch.Tensor:

@@ -585,11 +585,12 @@ def fused_adam(params, grads, mu, nu, *, scale, lr, corr1, corr2, b1,
                  weight_decay=weight_decay, out=out)
 
 
-def global_norm(leaves):
+def global_norm(leaves, squares: bool = False):
     """``sqrt`` of the sum of every leaf's squares (fp32 and bf16 leaves)
-    in one launch; :func:`repro_torch.kernels.global_norm.global_norm`."""
+    in one launch, or with ``squares`` the sum before the root;
+    :func:`repro_torch.kernels.global_norm.global_norm`."""
     from repro_torch.kernels.global_norm import global_norm as _norm
-    return _norm(leaves)
+    return _norm(leaves, squares)
 
 
 def rglru_scan(x, a, h0=None):

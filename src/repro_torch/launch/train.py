@@ -30,9 +30,17 @@ repro_torch.launch.train ...``, whose ``RANK`` / ``WORLD_SIZE`` /
 (:func:`repro_torch.dist.ranks.init_ranks`): on ``cuda:<LOCAL_RANK>``, or
 the CPU with ``--device cpu``, and the mesh is ``best_mesh(model_parallel=
 k)`` over the ranks. Every rank draws the same seeded global batch and
-keeps its rows; the state is replicated, so rank 0 alone prints and writes
-checkpoints, and every rank restores on a resume. A caller that joined a
-group itself (``init_ranks``) gets the same run from ``main``.
+keeps its rows (with ``--grad-accum``, its block of each microbatch). The
+state is laid out as the reference's launcher lays it out
+(:func:`init_state` under ``AxisRules()``, FSDP): every parameter of 2
+dims or more and both moments sharded over the ``data`` axis. Each rank
+holds its blocks (``device_put``); over one rank, or in one process, every
+block is the whole leaf. Rank 0 alone prints and writes checkpoints, of
+global leaves that every rank gathers to it leaf by leaf
+(:func:`repro_torch.ft.checkpoint.host_state`); a resume reads the global
+leaves one at a time and places each rank's blocks, so a checkpoint
+restores over any number of ranks. A caller that joined a group itself
+(``init_ranks``) gets the same run from ``main``.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ import json
 import os
 import time
 
+import torch
 import torch.distributed as dist
 
 from repro_torch.configs.registry import ARCH_IDS, get_config
@@ -49,15 +58,44 @@ from repro_torch.data.pipeline import prefetch_to_mesh
 from repro_torch.dist.elastic import best_mesh
 from repro_torch.dist.ranks import (destroy_ranks, init_ranks, rank_device,
                                     ranks_ready)
-from repro_torch.dist.sharding import (P, AxisRules, NamedSharding,
-                                       device_put, use_mesh)
-from repro_torch.ft.checkpoint import CheckpointManager, latest_step, restore
+from repro_torch.dist.sharding import (AxisRules, block_shape, device_put,
+                                       use_mesh)
+from repro_torch.ft.checkpoint import (CheckpointManager, due, host_state,
+                                       latest_step, restore)
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.launch import specs
 from repro_torch.models.lm import init_lm, lm_dtype
-from repro_torch.train.optim import AdamConfig, warmup_cosine_schedule
-from repro_torch.train.trainer import (CompiledTrainStep, init_train_state,
+from repro_torch.train.optim import (AdamConfig, tree_map,
+                                     warmup_cosine_schedule)
+from repro_torch.train.trainer import (CompiledTrainStep, TrainState,
                                        make_lm_train_step_fn)
+
+
+def init_state(cfg, seed: int, device, mesh, param_rules: AxisRules,
+               opt_rules: AxisRules | None = None):
+    """``(state, state_sharding)``: the train state of ``init_lm(seed, cfg)``
+    laid out by ``specs.train_state_sharding(..., mesh, param_rules,
+    opt_rules)`` on ``device``. On a mesh over ranks each rank holds its
+    blocks: the parameters are drawn whole, placed (``device_put``) and the
+    whole tree dropped; the moments are zeros of the blocks' shapes, so
+    the whole state is never held. The values are those of
+    ``init_train_state(init_lm(seed, cfg))``."""
+    abstract = specs.abstract_train_state(cfg)
+    st_sh = specs.train_state_sharding(abstract, mesh, param_rules,
+                                       opt_rules)
+    params = device_put(init_lm(seed, cfg, device=device), st_sh.params)
+
+    def zeros(p, sh):
+        z = torch.zeros(block_shape(p.shape, sh.spec, mesh) if
+                        mesh.on_ranks else p.shape, dtype=torch.float32,
+                        device=device)
+        z.sharding = sh
+        return z
+    opt = {k: tree_map(zeros, abstract.opt[k], st_sh.opt[k])
+           for k in ("mu", "nu")}
+    opt["step"] = device_put(torch.zeros((), dtype=torch.int32),
+                             st_sh.opt["step"])
+    return TrainState(params, opt), st_sh
 
 
 def main(argv=None) -> dict:
@@ -110,17 +148,13 @@ def _train(args, dev, mesh) -> dict:
 
     opt = AdamConfig(schedule=warmup_cosine_schedule(args.lr, 20, args.steps),
                      weight_decay=0.1)
-    step_fn = CompiledTrainStep(
-        make_lm_train_step_fn(cfg, opt, grad_accum=args.grad_accum),
-        donate=True)
 
     with use_mesh(mesh, rules):
-        state = init_train_state(init_lm(0, cfg, device=dev))
-        # over ranks the state is replicated: its FSDP / tensor-parallel
-        # specs stay layouts that this port does not take
-        st_sh = (NamedSharding(mesh, P()) if mesh.on_ranks
-                 else specs.train_state_sharding(state, mesh, rules))
-        state = device_put(state, st_sh)
+        state, st_sh = init_state(cfg, 0, dev, mesh, rules)
+        step_fn = CompiledTrainStep(
+            make_lm_train_step_fn(cfg, opt, grad_accum=args.grad_accum,
+                                  state_sharding=st_sh),
+            donate=True)
 
         mgr = None
         start = 0
@@ -128,14 +162,17 @@ def _train(args, dev, mesh) -> dict:
             if lead:
                 mgr = CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
             if latest_step(args.ckpt_dir):
-                state = device_put(restore(args.ckpt_dir, state, device=dev),
-                                   st_sh)
+                # each global leaf read on the host, this rank's block kept
+                state = restore(args.ckpt_dir,
+                                specs.abstract_train_state(cfg),
+                                shardings=st_sh)
                 start = int(state.step)
                 say(f"[train] resumed from step {start}")
 
         stream = prefetch_to_mesh(
             lm_batch_stream((1, start), cfg, args.batch, args.seq,
-                            dtype=lm_dtype(cfg), device=dev), mesh, rules)
+                            dtype=lm_dtype(cfg), device=dev), mesh, rules,
+            grad_accum=args.grad_accum)
         losses, t_hist = [], []
         for i in range(start, args.steps):
             batch = next(stream)
@@ -149,8 +186,11 @@ def _train(args, dev, mesh) -> dict:
                 say(f"step {i + 1:5d} loss {loss:8.4f} "
                       f"{dt * 1e3:7.1f} ms/step "
                       f"acc {float(metrics['accuracy']):.3f}")
-            if mgr:
-                mgr.maybe_save(i + 1, state)
+            if args.ckpt_dir and due(i + 1, args.ckpt_every):
+                # every rank gathers, the lead writes
+                host = host_state(state, st_sh, lead)
+                if mgr:
+                    mgr.maybe_save(i + 1, host)
         stream.close()
         for _ in stream:      # the worker stops at its next batch and exits
             pass

@@ -39,6 +39,16 @@ In ``train`` mode with ``cfg.remat == "full"`` and grad mode on,
 ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
 reference's ``jax.checkpoint`` on its scan body: the period's activations
 are recomputed in the backward instead of kept.
+
+Given the specs of a parameter state laid out over ranks (FSDP),
+:func:`apply_blocks` takes each period's blocks and gathers them as the
+first thing in the period's body (``sharding.gather_tree``), inside the
+checkpoint: the recompute gathers again, so nothing gathered is kept, and
+the backward of each gather reduce-scatters the period's gradients as soon
+as they exist. A stacked leaf whose period dim is itself sharded (a norm's
+``[count, D]`` scale, which the layout spreads over ``data``) has period
+``i`` on one rank only: such leaves are gathered whole, once an entry,
+before the periods.
 """
 from __future__ import annotations
 
@@ -46,6 +56,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import (P, _map_with_path, current_mesh,
+                                       gather_tree, sharded_dims)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models.attention import KVCache
@@ -353,13 +365,33 @@ def _periods(stacked, count: int) -> list:
     return periods
 
 
+def _period_specs(stacked, specs):
+    """``(stacked, period specs)`` of a schedule entry laid out by
+    ``specs``: a leaf whose stacked dim is sharded gathered whole (its
+    periods then need no gather), every other leaf as it is with its
+    spec less the stacked dim."""
+    mesh = current_mesh()
+    whole = _map_with_path(
+        lambda _, x, s: mesh is not None and any(
+            d == 0 for d, _ in sharded_dims(s, mesh)), stacked, specs)
+    stacked = _map_with_path(
+        lambda path, x, s, w: gather_tree(x, s) if w else x, stacked, specs,
+        whole)
+    return stacked, _map_with_path(
+        lambda _, s, w: P() if w else P(*list(s)[1:]), specs, whole)
+
+
 def apply_blocks(entries: list, x: torch.Tensor, cfg: ModelConfig, mode: str,
                  caches: list | None = None,
-                 cross_kv: torch.Tensor | None = None, schedule=None):
+                 cross_kv: torch.Tensor | None = None, schedule=None,
+                 specs: list | None = None):
     """Run the whole schedule. Returns ``(x, caches, total_aux)``: the
     caches given, written in place (``None`` without caches). In ``train``
     mode with ``cfg.remat == "full"`` and grad mode on, each period runs
-    under ``torch.utils.checkpoint`` (the module docstring)."""
+    under ``torch.utils.checkpoint`` (the module docstring). ``specs``:
+    the entries' layout over the ranks (one tree of specs an entry) when
+    ``entries`` holds this rank's blocks of it; their periods are gathered
+    (the module docstring)."""
     schedule = schedule or make_schedule(cfg)
     remat = (mode == "train" and cfg.remat == "full"
              and torch.is_grad_enabled())
@@ -367,10 +399,15 @@ def apply_blocks(entries: list, x: torch.Tensor, cfg: ModelConfig, mode: str,
     for e, ((pattern, count), params_stacked) in enumerate(
             zip(schedule, entries)):
         cache_stacked = caches[e] if caches is not None else None
+        period_specs = None
+        if specs is not None:
+            params_stacked, period_specs = _period_specs(params_stacked,
+                                                         specs[e])
 
         # ``pattern`` bound now: the checkpoint recomputes a period in the
         # backward, after the loop has moved on to the next entry
-        def period(x, aux, p, c, pattern=pattern):
+        def period(x, aux, p, c, pattern=pattern, sp=period_specs):
+            p = gather_tree(p, sp)
             for j, kind in enumerate(pattern):
                 sub_c = c[f"sub{j}"] if c is not None else None
                 x, new_c, a = apply_block(kind, p[f"sub{j}"], x, cfg, mode,

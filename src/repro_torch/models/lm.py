@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import (_axis_extent, current_mesh,
-                                       current_rules, shard)
+                                       current_rules, gather_tree, shard)
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.attention import KVCache
 from repro_torch.models.blocks import apply_blocks, init_blocks, init_caches
@@ -144,7 +144,7 @@ def _embed(params: dict, tokens: torch.Tensor,
 
 
 def _cross_stream(params: dict, cfg: ModelConfig, image_embeds,
-                  audio_frames):
+                  audio_frames, specs=None):
     """The modality stream in the backbone's width: the projected image
     embeddings, or the encoder's output over the projected audio frames
     (``None`` without one)."""
@@ -153,25 +153,56 @@ def _cross_stream(params: dict, cfg: ModelConfig, image_embeds,
     if cfg.encdec and audio_frames is not None:
         h = audio_frames @ params["audio_proj"]
         enc_cfg = dataclasses.replace(cfg, n_experts=0, use_mla=False)
-        h, _, _ = apply_blocks(params["encoder"]["blocks"], h, enc_cfg,
-                               "train", schedule=_encoder_schedule(cfg))
+        h, _, _ = apply_blocks(
+            params["encoder"]["blocks"], h, enc_cfg, "train",
+            schedule=_encoder_schedule(cfg),
+            specs=specs["encoder"]["blocks"] if specs is not None else None)
         return apply_norm(cfg.norm, params["encoder"]["final_norm"], h)
     return None
 
 
+def _gather_outside_blocks(params: dict, specs: dict) -> dict:
+    """``params`` with every leaf read outside the periods (the embedding
+    and a tied head, the final norms, the projections, an untied head)
+    gathered from this rank's blocks (``sharding.gather_tree``), once: a
+    leaf read twice, as a tied embedding, has one gather whose backward
+    takes both uses' gradient."""
+    out = dict(params)
+    for k, v in params.items():
+        if k == "blocks":
+            continue
+        if k == "encoder":
+            out[k] = dict(v, final_norm=gather_tree(
+                v["final_norm"], specs[k]["final_norm"]))
+        else:
+            out[k] = gather_tree(v, specs[k])
+    return out
+
+
 def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                image_embeds: torch.Tensor | None = None,
-               audio_frames: torch.Tensor | None = None):
+               audio_frames: torch.Tensor | None = None,
+               specs: dict | None = None):
     """Teacher-forced forward. Returns ``(logits [B, S, V], aux_loss)``
     (the MoE load-balance loss summed over the layers; 0 without MoE).
 
     The VLM's ``cross`` blocks attend to ``image_embeds [B, N, vision_dim]``
     projected, the encoder-decoder's to the encoder's output over
-    ``audio_frames [B, N, audio_dim]``."""
+    ``audio_frames [B, N, audio_dim]``.
+
+    ``specs``: the parameters' layout over the ranks (a tree of specs
+    shaped like ``params``, ``infer_param_specs`` of the global tree) when
+    ``params`` holds this rank's blocks of it: each leaf is gathered where
+    it is read (the blocks' in their periods, ``apply_blocks``), and the
+    backward hands each block its reduced gradient. ``None``: ``params``
+    is the global tree."""
+    if specs is not None:
+        params = _gather_outside_blocks(params, specs)
     x = _embed(params, tokens, "train")
-    cross_kv = _cross_stream(params, cfg, image_embeds, audio_frames)
-    x, _, aux = apply_blocks(params["blocks"], x, cfg, "train",
-                             cross_kv=cross_kv)
+    cross_kv = _cross_stream(params, cfg, image_embeds, audio_frames, specs)
+    x, _, aux = apply_blocks(
+        params["blocks"], x, cfg, "train", cross_kv=cross_kv,
+        specs=specs["blocks"] if specs is not None else None)
     return _logits(params, cfg, x), aux
 
 

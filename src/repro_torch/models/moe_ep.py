@@ -45,27 +45,15 @@ import torch
 
 from repro_torch.dist.ranks import (all_gather, all_to_all, axis_group, psum,
                                     psum_disjoint, psum_grads)
-from repro_torch.dist.sharding import (_axis_extent, _names, current_mesh,
-                                       current_rules, mesh_coords, shard)
+from repro_torch.dist.sharding import (EXPERT_LEAVES, _axis_extent, _names,
+                                       current_mesh, current_rules,
+                                       expert_parallel_leaf, mesh_coords,
+                                       shard)
 from repro_torch.models.moe import (_combine, _expert_ffn, _fill_buffer,
                                     _sort_assignments, moe_apply,
                                     moe_capacity)
 
 __all__ = ["moe_apply_ep", "moe_apply_gathered", "expert_parallel_leaf"]
-
-EXPERT_LEAVES = ("experts_gate", "experts_up", "experts_down")
-
-
-def expert_parallel_leaf(path, leaf, ep: int) -> bool:
-    """Whether the expert-parallel dispatch splits the experts of this
-    parameter leaf (at ``path``) over an experts extent ``ep``: an expert
-    stack ``[..., E, D, F]`` whose ``E`` divides by ``ep > 1``,
-    ``moe_apply_auto``'s condition. On a mesh over ranks such a leaf's
-    gradient lies on the ranks that run its experts."""
-    name = str(path[-1]) if path else ""
-    return (ep > 1 and name in EXPERT_LEAVES and leaf.ndim >= 3
-            and leaf.shape[-3] % ep == 0)
-
 
 def _route_local(router_w: torch.Tensor, xt: torch.Tensor, top_k: int):
     """One data shard's router over ``xt: [T, D]`` in fp32: ``(gate_vals

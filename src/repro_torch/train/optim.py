@@ -15,7 +15,11 @@ kernel on a CUDA device, ``global_norm_ref``'s ops on the CPU), the clip
 scale, the learning rate and the bias corrections in plain ops, then
 updates every leaf through :func:`repro_torch.kernels.ops.fused_adam`: one
 launch of the hand-written kernel a parameter dtype on a CUDA device, the
-same per-leaf ops as before the kernel (``fused_adam_ref``) on the CPU. Within :func:`updates_in_place`
+same per-leaf ops as before the kernel (``fused_adam_ref``) on the CPU.
+Over a state sharded over ranks the leaves are each rank's blocks: the
+norm adds the ranks' sums of squares before the root
+(:func:`global_norm`'s ``over``), and the update runs on the blocks.
+Within :func:`updates_in_place`
 it writes the new parameters and moments into the tensors it was given (a
 compiled step's state buffers) instead of new ones.
 """
@@ -28,6 +32,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.dist.ranks import all_reduce_
 from repro_torch.kernels import ops
 
 
@@ -116,11 +121,27 @@ def init_adam_state(params):
             "step": _zero_step(params)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, over=None) -> torch.Tensor:
     """``sqrt`` of the sum of the squares of every leaf, in fp32: one launch
     of the hand-written kernel on a CUDA device, the JAX package's ops on
-    the CPU (:func:`repro_torch.kernels.ops.global_norm`)."""
-    return ops.global_norm(tree_leaves(tree))
+    the CPU (:func:`repro_torch.kernels.ops.global_norm`).
+
+    ``over``: ``(mine, group)`` where ``tree`` holds this rank's blocks of
+    a tree sharded over the ranks of ``group``; ``mine``, a tree of bools
+    shaped like it, marks the leaves this rank adds (each block of a
+    sharded leaf on one rank of the group, a replicated leaf on one rank).
+    The rank's sum of squares over them (one launch, the kernel's fp32
+    total before its root) is summed over the group, then the root is
+    taken."""
+    if over is None:
+        return ops.global_norm(tree_leaves(tree))
+    mine, group = over
+    leaves = tree_leaves(tree)
+    picked = [x for x, m in zip(leaves, tree_leaves(mine)) if m]
+    # a rank that adds no leaf sums an empty one: its launch writes 0
+    squares = ops.global_norm(picked or [leaves[0].new_zeros(0)],
+                              squares=True)
+    return torch.sqrt(all_reduce_(squares.clone(), group))
 
 
 def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -155,13 +176,20 @@ def updates_in_place():
         _IN_PLACE.pop()
 
 
+def in_place() -> bool:
+    """Whether the caller is within :func:`updates_in_place`."""
+    return _IN_PLACE[-1]
+
+
 @torch.no_grad()
-def adam_update(grads, state, params, cfg: AdamConfig):
-    """Returns (new_params, new_state, metrics)."""
+def adam_update(grads, state, params, cfg: AdamConfig, norm_over=None):
+    """Returns (new_params, new_state, metrics). ``norm_over``: the clip
+    norm's ``over`` where the leaves are blocks of a sharded tree
+    (:func:`global_norm`)."""
     metrics = {}
     scale = None
     if cfg.clip_norm is not None:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, norm_over)
         scale = clip_scale(gnorm, cfg.clip_norm)
         metrics["grad_norm"] = gnorm
     in_place = _IN_PLACE[-1]

@@ -41,17 +41,20 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.dist.ranks import all_reduce_, axis_group
+from repro_torch.dist.ranks import (all_gather_bucket, all_reduce_,
+                                    axis_group, cut, reduce_scatter_bucket)
 from repro_torch.dist.sharding import (NamedSharding, _axis_extent,
-                                       _map_with_path, _names, current_mesh,
-                                       current_rules, infer_param_specs,
+                                       _map_with_path, _names, block_plan,
+                                       block_shape, current_mesh,
+                                       current_rules, expert_parallel_leaf,
+                                       global_shape, infer_param_specs,
+                                       shard_cuts, sharded_dims,
                                        with_sharding_constraint)
 from repro_torch.models.gru_rnn import GruTaskConfig, gru_model_forward
 from repro_torch.models.lm import lm_forward
-from repro_torch.models.moe_ep import expert_parallel_leaf
 from repro_torch.quant.qat import FP32, QatPolicy
 from repro_torch.train.losses import ctc_loss_mean, lm_loss, mse_loss
-from repro_torch.train.optim import (AdamConfig, adam_update,
+from repro_torch.train.optim import (AdamConfig, adam_update, in_place,
                                      init_adam_state, tree_leaves, tree_map,
                                      updates_in_place)
 
@@ -106,40 +109,201 @@ def _summed(tensors: list, group) -> list:
     return views
 
 
-def _reduce_over_ranks(grads, metrics: dict, mesh, rules):
+def _reduce_over_ranks(grads, metrics: dict, mesh, rules, pending=None):
     """The global batch's gradients and metrics on every rank of a mesh
     over ranks: the expert stacks split over the experts group summed
     there, then every gradient and metric summed over the data group and
-    divided by its size (``tokens`` summed), each in its own dtype."""
+    divided by its size (``tokens`` summed), each in its own dtype.
+
+    ``pending``: per leaf (in ``tree_map``'s order) the groups, as mesh
+    axis names, that its gradient still has to be summed over (a
+    reduce-scatter summed the others, and divided where it summed the
+    data group); by default every leaf's sums
+    (:func:`~repro_torch.dist.sharding.block_plan`'s order: the experts
+    group for an expert stack the expert-parallel dispatch splits, then
+    the data group)."""
     data_axes = _names(rules.resolve("batch", mesh=mesh)[0])
     ep_axes = _names(rules.resolve("experts", mesh=mesh)[0])
     dp, ep = _axis_extent(mesh, data_axes), _axis_extent(mesh, ep_axes)
     leaves = _in_order(grads)
-    split = _in_order(_map_with_path(
-        lambda path, g: expert_parallel_leaf(path, g, ep), grads))
-    if any(split):
-        summed = iter(_summed([g for g, e in zip(leaves, split) if e],
+    if pending is None:
+        split = _in_order(_map_with_path(
+            lambda path, g: expert_parallel_leaf(path, g, ep), grads))
+        pending = [((ep_axes,) if e else ()) + (data_axes,) for e in split]
+    on_ep = [ep_axes in p for p in pending]
+    if any(on_ep):
+        summed = iter(_summed([g for g, e in zip(leaves, on_ep) if e],
                               axis_group(mesh, ep_axes)))
-        leaves = [next(summed) if e else g for g, e in zip(leaves, split)]
+        leaves = [next(summed) if e else g for g, e in zip(leaves, on_ep)]
+    on_data = [data_axes in p for p in pending]
     names = sorted(metrics)
     vec = torch.stack([metrics[k].reshape(()).to(torch.float32)
                        for k in names])
-    *sums, vec = _summed(leaves + [vec], axis_group(mesh, data_axes))
+    *sums, vec = _summed([g for g, d in zip(leaves, on_data) if d] + [vec],
+                         axis_group(mesh, data_axes))
 
     def mean(x):        # x / 1 is x: no pass over the bucket for it
         return x / dp if dp > 1 else x
-    it = iter(sums)
-    grads = tree_map(lambda g: mean(next(it)), grads)
+    sums = iter(sums)
+    it = iter(mean(next(sums)) if d else g for g, d in zip(leaves, on_data))
+    grads = tree_map(lambda g: next(it), grads)
     metrics = {k: (vec[i] if k == "tokens" else mean(vec[i])).to(
         metrics[k].dtype) for i, k in enumerate(names)}
     return grads, metrics
+
+
+class StateLayout:
+    """A train state laid out over the ranks of ``mesh`` by
+    ``state_sharding`` (a :class:`TrainState` of ``NamedSharding``, as
+    ``specs.train_state_sharding`` builds it): what the LM step does with
+    each parameter leaf, in ``tree_map``'s order. Built from this rank's
+    blocks (``params``); everything here is a function of the specs, the
+    global shapes and the mesh, the same at every step.
+
+    * ``p_specs``: the parameters' specs, the tree the forward gathers by;
+    * ``scatters``: per leaf, ``(mesh axis names, dim)`` of each
+      reduce-scatter that takes a gradient from the parameters' layout to
+      the moments' (a sum that the moments' spec shards a dim over and the
+      parameters' does not), in the order of the sums;
+    * ``cuts``: per leaf, the ``ranks.cut`` of the moments' other
+      sharded dims that the parameters' do not shard: the gradient (and
+      the parameter, for the update) cut to the rank's slice;
+    * ``extra``: per leaf, ``(dim, mesh axis names)`` of every dim the
+      moments shard and the parameters do not (the scatters' and the
+      cuts'): the parameter is cut to them for the update and all-gathered
+      back over them after it;
+    * ``pending``: per leaf, the sums left for the step's bucket;
+    * ``norm_over``: the clip norm's leaves and group where a moment leaf
+      is sharded (``optim.global_norm``), else None."""
+
+    def __init__(self, params, state_sharding, mesh, rules):
+        self.mesh = mesh
+        p_sh = state_sharding.params
+        mu_sh, nu_sh = state_sharding.opt["mu"], state_sharding.opt["nu"]
+        # keyed by the parameters' tree: the trees may list their keys in
+        # other orders
+        self.p_specs = tree_map(lambda _, s: s.spec, params, p_sh)
+        sp = _in_order(self.p_specs)
+        so = _in_order(tree_map(lambda _, s: s.spec, params, mu_sh))
+        if _in_order(tree_map(lambda _, s: s.spec, params, nu_sh)) != so:
+            raise NotImplementedError("the two moments laid out apart")
+        paths = []
+        _map_with_path(lambda path, x: paths.append(path), params)
+        blocks = _in_order(params)
+        self.shapes = [global_shape(b.shape, s, mesh)
+                       for b, s in zip(blocks, sp)]
+        data = _names(rules.resolve("batch", mesh=mesh)[0])
+        self.dp = _axis_extent(mesh, data)
+        self.data = data
+        self.so = so
+        self.scatters, self.cuts, self.pending, self.extra = [], [], [], []
+        for path, shape, a, b in zip(paths, self.shapes, sp, so):
+            have = dict(sharded_dims(a, mesh))
+            want = dict(sharded_dims(b, mesh))
+            if any(want.get(d) != n for d, n in have.items()):
+                raise NotImplementedError(
+                    f"{'/'.join(map(str, path))}: moments laid out by {b} "
+                    f"do not refine the parameters' {a}")
+            extra = {d: n for d, n in want.items() if d not in have}
+            self.extra.append(sorted(extra.items()))
+            _, pending = block_plan(path, shape, a, mesh, rules)
+            scat, left = [], []
+            for names in pending:
+                d = next((d for d, n in extra.items() if n == names), None)
+                if d is None:
+                    left.append(names)
+                else:
+                    scat.append((names, d))
+                    del extra[d]
+            self.scatters.append(tuple(scat))
+            self.cuts.append(shard_cuts(sorted(extra.items()), mesh))
+            self.pending.append(tuple(left))
+        self.refine = [bool(e) for e in self.extra]
+        self.norm_over = None
+        if any(sharded_dims(b, mesh) for b in so):
+            at = mesh.coords()
+            mine = []
+            for b in so:
+                axes = {n for _, ns in sharded_dims(b, mesh) for n in ns}
+                mine.append(all(at[a] == 0 for a in mesh.axis_names
+                                if a not in axes))
+            it = iter(mine)
+            self.norm_over = (tree_map(lambda _: next(it), params),
+                              axis_group(mesh, mesh.axis_names))
+
+    def to_moments(self, grads):
+        """The gradients (this rank's, each in its parameter's layout after
+        the backward) in the moments' layout: reduce-scattered in one
+        bucket a group and dtype where the moments shard a dim the
+        parameters do not, then cut to the rank's slice; a sum over the
+        data group divided by its extent."""
+        leaves = _in_order(grads)
+        if not any(self.refine):
+            return grads
+        for names in dict.fromkeys(n for sc in self.scatters for n, _ in sc):
+            idx = [(i, d) for i, sc in enumerate(self.scatters)
+                   for n, d in sc if n == names]
+            outs = reduce_scatter_bucket([leaves[i] for i, _ in idx],
+                                         [d for _, d in idx],
+                                         axis_group(self.mesh, names))
+            for (i, _), g in zip(idx, outs):
+                leaves[i] = (g / self.dp if names == self.data
+                             and self.dp > 1 else g)
+        for i, cuts in enumerate(self.cuts):
+            leaves[i] = cut(leaves[i], cuts)
+        it = iter(g.contiguous() for g in leaves)
+        return tree_map(lambda _: next(it), grads)
+
+    def params_for_update(self, params):
+        """The parameters in the moments' layout: a leaf the moments shard
+        further, this rank's slice of it (a copy); every other leaf
+        itself."""
+        it = iter(cut(p, shard_cuts(e, self.mesh)).contiguous() if e else p
+                  for p, e in zip(_in_order(params), self.extra))
+        return tree_map(lambda _: next(it), params)
+
+    def params_back(self, new, params):
+        """The updated parameters in their own layout: the leaves the
+        moments shard further all-gathered, one bucket a group and dtype,
+        into ``params``' leaves in place within ``updates_in_place`` (new
+        tensors otherwise)."""
+        if not any(self.refine):
+            return new
+        leaves = _in_order(new)
+        stages = {}
+        for i, extra in enumerate(self.extra):
+            for d, names in extra:
+                stages.setdefault(names, []).append((i, d))
+        for names, idx in stages.items():
+            got = all_gather_bucket([leaves[i] for i, _ in idx],
+                                    [d for _, d in idx],
+                                    axis_group(self.mesh, names))
+            for (i, _), g in zip(idx, got):
+                leaves[i] = g
+        it = iter(g if not r else p.copy_(g) if in_place()
+                  else g.contiguous() for g, p, r in zip(
+                      leaves, _in_order(params), self.refine))
+        return tree_map(lambda _: next(it), params)
+
+    def global_meta(self, params):
+        """``params``' global tree, as tensors on the ``meta`` device."""
+        it = iter(self.shapes)
+        return tree_map(lambda p: torch.empty(next(it), dtype=p.dtype,
+                                              device="meta"), params)
+
+    def accum_zeros(self, params):
+        """An fp32 accumulator of zeros in the moments' layout."""
+        it = iter(block_shape(shape, b, self.mesh)
+                  for shape, b in zip(self.shapes, self.so))
+        return tree_map(lambda p: torch.zeros(next(it), dtype=torch.float32,
+                                              device=p.device), params)
 
 
 def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
                           aux_weight: float = 0.01,
                           grad_transform: Callable | None = None,
                           grad_accum: int = 1,
-                          accum_rules=None):
+                          accum_rules=None, state_sharding=None):
     """``step(state, batch) -> (state, metrics)`` for any registry arch.
 
     ``batch``: dict with ``tokens [B, S]`` (+ ``image_embeds`` /
@@ -163,7 +327,19 @@ def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
     (``shard_batch``), and the gradients and metrics are those of the
     global batch, reduced over the ranks after the microbatch loop (see
     the module's docstring); the clip norm and the update then run alike
-    on every rank.
+    on every rank. With ``grad_accum > 1`` the rows are
+    ``shard_batch(..., grad_accum=grad_accum)``'s, the rank's block of
+    each of the reference's microbatches in turn, so microbatch ``m``
+    here is the rank's block of the global batch's microbatch ``m``.
+
+    ``state_sharding``: the layout of the state on a mesh over ranks (a
+    :class:`TrainState` of ``NamedSharding``, ``specs.
+    train_state_sharding``), when the state holds this rank's blocks of it
+    (``device_put``); the step then gathers, reduce-scatters and updates
+    blocks (:class:`StateLayout`; the accumulator lies in the moments'
+    layout, ``accum_rules`` only checked as constraints). None: the state
+    is the global one on every rank. A layout that shards a leaf on a mesh
+    that lists one device raises (such a mesh holds every tensor whole).
 
     Every parameter leaf must get a gradient from autograd: a leaf that
     does not (``None``, cut off from the loss) raises (``jax.grad`` would
@@ -171,11 +347,11 @@ def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, specs):
         logits, aux = lm_forward(
             params, cfg, batch["tokens"],
             image_embeds=batch.get("image_embeds"),
-            audio_frames=batch.get("audio_frames"))
+            audio_frames=batch.get("audio_frames"), specs=specs)
         loss, metrics = lm_loss(logits, batch["tokens"])
         if not isinstance(aux, torch.Tensor):
             # a dense arch's aux is the float 0.0: filled on the device, as
@@ -187,34 +363,47 @@ def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
         metrics["loss"] = total
         return total, metrics
 
-    def value_and_grad(params, batch):
+    def value_and_grad(params, batch, lay):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        total, metrics = loss_fn(live, batch)
+        total, metrics = loss_fn(live, batch,
+                                 lay.p_specs if lay is not None else None)
         total.backward()
-        return (_grads(live, cfg.name),
-                {k: v.detach() for k, v in metrics.items()})
+        grads = _grads(live, cfg.name)
+        if lay is not None:
+            grads = lay.to_moments(grads)
+        return grads, {k: v.detach() for k, v in metrics.items()}
 
-    def compute_grads(params, batch):
+    def compute_grads(params, batch, lay):
         if grad_accum == 1:
-            return value_and_grad(params, batch)
+            return value_and_grad(params, batch, lay)
         b = batch["tokens"].shape[0]
         if b % grad_accum:
             raise ValueError(f"a batch of {b} does not split into "
                              f"{grad_accum} microbatches")
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
         mesh = current_mesh()
-        if accum_rules is not None and mesh is not None:
+        if lay is not None:
+            # blocks in the moments' layout (the reference's ZeRO-1 and
+            # FSDP accumulators); accum_rules' specs, where they differ,
+            # are checked as constraints and not taken (ROADMAP.md R40)
+            acc = lay.accum_zeros(params)
+            specs = infer_param_specs(lay.global_meta(params),
+                                      rules=accum_rules, mesh=mesh) if (
+                accum_rules is not None) else None
+        else:
+            acc = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            specs = infer_param_specs(acc, rules=accum_rules, mesh=mesh) if (
+                accum_rules is not None and mesh is not None) else None
+        if specs is not None:
             # ZeRO-1: the fp32 accumulator sharded like the optimizer
             # state even when the params are data-replicated
-            specs = infer_param_specs(acc, rules=accum_rules, mesh=mesh)
-            acc = tree_map(lambda z, sp: with_sharding_constraint(
+            tree_map(lambda z, sp: with_sharding_constraint(
                 z, NamedSharding(mesh, sp)), acc, specs)
         per_mb = []
         for m in range(grad_accum):
             micro = {k: v.reshape(grad_accum, b // grad_accum,
                                   *v.shape[1:])[m] for k, v in batch.items()}
-            grads, metrics = value_and_grad(params, micro)
+            grads, metrics = value_and_grad(params, micro, lay)
             tree_map(lambda a, g: a.add_(g.to(torch.float32)), acc, grads)
             per_mb.append(metrics)
             del grads
@@ -224,15 +413,33 @@ def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
         return grads, metrics
 
     def step(state: TrainState, batch):
-        grads, metrics = compute_grads(state.params, batch)
         mesh = current_mesh()
+        lay = None
+        if state_sharding is not None and mesh is not None:
+            if mesh.on_ranks:
+                lay = StateLayout(state.params, state_sharding, mesh,
+                                  current_rules())
+            elif any(sharded_dims(s.spec, mesh)
+                     for s in tree_leaves(state_sharding)):
+                raise ValueError(
+                    f"a train state sharded over the mesh {mesh.shape} that "
+                    "lists one device: a sharded state needs a mesh over "
+                    "ranks (init_ranks, then best_mesh())")
+        grads, metrics = compute_grads(state.params, batch, lay)
         if mesh is not None and mesh.on_ranks:
-            grads, metrics = _reduce_over_ranks(grads, metrics, mesh,
-                                                current_rules())
+            grads, metrics = _reduce_over_ranks(
+                grads, metrics, mesh, current_rules(),
+                lay.pending if lay is not None else None)
         if grad_transform is not None:
             grads = grad_transform(grads)
-        params, opt, opt_metrics = adam_update(grads, state.opt,
-                                               state.params, opt_cfg)
+        if lay is None:
+            params, opt, opt_metrics = adam_update(grads, state.opt,
+                                                   state.params, opt_cfg)
+        else:
+            params, opt, opt_metrics = adam_update(
+                grads, state.opt, lay.params_for_update(state.params),
+                opt_cfg, lay.norm_over)
+            params = lay.params_back(params, state.params)
         metrics.update(opt_metrics)
         return TrainState(params, opt), metrics
 

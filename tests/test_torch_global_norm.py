@@ -82,6 +82,41 @@ def test_plain_version_is_the_ops_before_and_near_jax(kind, seed):
     assert _ulps(joptim.global_norm(jtree), got.numpy()) <= 2
 
 
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "mixed"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sum_of_squares_form_is_the_total_before_the_root(kind, seed):
+    """``squares=True``: the plain version's fp32 total of the squares,
+    whose root is the norm bitwise, from ``ops.global_norm`` and
+    ``global_norm_ref`` alike; near JAX's sum of squares."""
+    rng = np.random.default_rng(seed)
+    tree = _tree(rng, kind, scale=10.0 ** (seed - 1))
+    leaves = toptim.tree_leaves(tree)
+    squares = ops.global_norm(leaves, squares=True)
+    assert squares.dtype == torch.float32 and squares.shape == ()
+    assert torch.equal(_bits(squares),
+                       _bits(gn.global_norm_ref(leaves, squares=True)))
+    assert torch.equal(_bits(torch.sqrt(squares)),
+                       _bits(ops.global_norm(leaves)))
+    want = sum(float(np.sum(np.square(t.float().numpy(), dtype=np.float64)))
+               for t in leaves)
+    assert abs(float(squares) - want) <= 1e-6 * want
+
+
+def test_sharded_norm_adds_each_block_once():
+    """``optim.global_norm(tree, over=(mine, group))`` on one gloo rank
+    (``spawn_ranks``): the leaves ``mine`` marks, summed before the root;
+    all marked is the unsharded norm bitwise, none marked is 0."""
+    from repro_torch.dist import ranks
+    import torch_rank_workers as workers
+    tree = _tree(np.random.default_rng(3), "mixed")
+    got = ranks.spawn_ranks(workers.sharded_norm, 1, "cpu", timeout=120,
+                            args=(tree, ("l1", "l2")))[0]
+    assert torch.equal(_bits(got["every"]), _bits(toptim.global_norm(tree)))
+    want = toptim.global_norm({k: tree[k] for k in ("l1", "l2")})
+    assert torch.equal(_bits(got["some"]), _bits(want))
+    assert float(got["none"]) == 0.0
+
+
 def test_meta_leaves_give_a_meta_norm():
     leaves = [torch.empty(5, 3, device="meta"),
               torch.empty(7, dtype=torch.bfloat16, device="meta")]

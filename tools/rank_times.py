@@ -25,7 +25,7 @@ import sys
 import time
 from pathlib import Path
 
-TIMEOUT_S = 900
+TIMEOUT_S = 1500
 
 
 def one(root: Path) -> None:
