@@ -309,10 +309,20 @@ traceback and a non-zero exit):
    block of its spec, the collectives issued at the warm-up and the
    capture and none at a replay, each rank's state bytes, the first
    call's peak beside ``dryrun.run_cell``'s, the replays' wall p50, busy
-   and idle share; over four cards also at (2, 2), and
-   llama-3.2-vision-11b at full size under FSDP at (4, 1) (its state fits
-   no one card: losses finite, a rank's bytes at most a quarter of the
-   whole plus the replicated leaves);
+   and idle share; over four cards also llama-3.2-vision-11b at full size
+   under FSDP at (4, 1) (its state fits no one card: losses finite, a
+   rank's bytes at most a quarter of the whole plus the replicated
+   leaves); over several cards the ranks that hold a block alike hold it
+   bitwise; (e) the work split over the ``model`` axis (tensor
+   parallelism): at world 1 every extent is 1, no leaf splits and (d)'s
+   FSDP step at (1, 1) is bitwise (a)'s one-process step with no
+   collective added; over several cards llama3.2-1b at full size under
+   FSDP at (1, world) and, from four cards, under FSDP and ZeRO-1 at (2,
+   world / 2), and granite-moe-3b-a800m at full size under FSDP at (2,
+   world / 2) against its one-process eager step (updated in place)
+   under a mesh of that shape listing the card, as (d) holds and times
+   its runs, but for the losses after the first step, held within
+   ``TOL_RANK_SPLIT_STEP_REL``;
 6. times on the card: each kernel instance at B = 1 and its plain version
    (device time from CUDA-graph replay between CUDA events, also with the
    L2 flushed before each call, and the kernel's time per call launched
@@ -5813,6 +5823,14 @@ RANK_SPAWN_TIMEOUT_S = 900
 TOL_RANK_REL = 1e-5
 TOL_RANK_BF16_REL = 1e-3
 TOL_RANK_NORM_REL = 1e-2
+# (e)'s losses after the first step. The first is the forward alone and
+# keeps TOL_RANK_BF16_REL (four cards, tools/split_gap.py over 4 seeds:
+# within 1e-4 split or not). Adam's first update, lr times the gradient's
+# sign, turns the ranks' bf16 sums into later losses that differ by more,
+# split or not: at steps 2 and 3 the data-parallel (4, 1) step reached
+# 1.0e-3, the split (2, 2) and (1, 4) steps 1.9e-3 and 2.9e-3, granite's
+# (2, 2) 1.9e-3; the bound is 1.75 times the largest.
+TOL_RANK_SPLIT_STEP_REL = 5e-3
 
 
 def new_in(prof: dict, base: dict) -> dict:
@@ -6092,9 +6110,9 @@ def rank_exchange(dev, smi) -> dict:
 
 
 # (d) the train state sharded over the ranks as the reference lays it out:
-# llama3.2-1b at full size under FSDP and ZeRO-1 on the mesh of all ranks
-# (and (2, 2) over four), and over four cards llama-3.2-vision-11b, whose
-# state fits no one card, under FSDP at (4, 1)
+# llama3.2-1b at full size under FSDP and ZeRO-1 on the (world, 1) mesh of
+# all ranks, and over four cards llama-3.2-vision-11b, whose state fits no
+# one card, under FSDP at (4, 1); the meshes with a model axis are (e)'s
 RANK_LAYOUTS = ("fsdp", "zero1")
 RANK_VLM_ARCH = "llama-3.2-vision-11b"
 
@@ -6141,6 +6159,15 @@ def sharded_steps(cfg, mesh, layout, batch, dev, one=None) -> dict:
         whole = sum(a.numel() * a.element_size() for a in leaves(abstract))
         repl = sum(a.numel() * a.element_size() for _, a, sh in trip
                    if not sharded_dims(sh.spec, mesh))
+        # a leaf spread over fewer ranks than the world (a dim the mesh's
+        # extent does not divide stays whole): its block's bytes beyond a
+        # 1 / world share
+        uneven = sum(
+            t.numel() * t.element_size() - a.numel() * a.element_size()
+            / world for t, a, sh in trip
+            if sharded_dims(sh.spec, mesh) and math.prod(
+                mesh.shape[n] for _, ns in sharded_dims(sh.spec, mesh)
+                for n in ns) < world)
         blocks = all(tuple(t.shape) == block_shape(a.shape, sh.spec, mesh)
                      for t, a, sh in trip)
         share = specs.per_device_bytes(abstract, st_sh)
@@ -6178,9 +6205,12 @@ def sharded_steps(cfg, mesh, layout, batch, dev, one=None) -> dict:
         walls.append(prof["wall_us_per_step"] / 1e3)
     per_rank = [None] * world
     dist.all_gather_object(per_rank, held)
+    replicas = world == 1 or replicas_equal(state, st_sh, mesh)
     out = {"arch": cfg.name, "layout": layout, "mesh": mesh.shape,
+           "replicas": replicas,
            "held": held, "held_by_rank": per_rank, "whole": whole,
-           "replicated": repl, "share": share, "blocks": blocks, "peak": peak,
+           "replicated": repl, "uneven": uneven, "share": share,
+           "blocks": blocks, "peak": peak,
            "init_s": init_s, "walls_ms": walls,
            "p50_ms": float(np.median(walls[1:])),
            "busy_us": prof["device_busy_us_per_step"],
@@ -6205,25 +6235,64 @@ def sharded_steps(cfg, mesh, layout, batch, dev, one=None) -> dict:
     return out
 
 
-def check_sharded(r: dict, world: int) -> str:
+def replicas_equal(state, st_sh, mesh) -> bool:
+    """Whether the ranks that hold the same block of a leaf of ``state``
+    (laid out by ``st_sh`` on ``mesh``, over the ranks) hold it bitwise
+    alike: each block's bits summed plain and weighted by position (int64)
+    on the card, gathered to every rank beside its coordinates on the
+    leaf's sharded axes, and compared within each set of ranks that share
+    them."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import sharded_dims
+    from repro_torch.train.optim import tree_leaves as leaves
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    at = mesh.coords()
+    keys, prints = [], []
+    for t, sh in zip(leaves(state), leaves(st_sh)):
+        axes = sorted({n for _, ns in sharded_dims(sh.spec, mesh)
+                       for n in ns})
+        keys.append(tuple(at[a] for a in axes))
+        bits = t.detach().reshape(-1).view(ints[t.element_size()]).to(
+            torch.int64)
+        weight = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        prints.append(torch.stack([bits.sum(), (bits * weight).sum()]))
+        del bits, weight
+    mine = (keys, torch.stack(prints).cpu().tolist())
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    for i in range(len(keys)):
+        seen = {}
+        for k, p in every:
+            if seen.setdefault(k[i], p[i]) != p[i]:
+                return False
+    return True
+
+
+def check_sharded(r: dict, world: int, tag: str = "d") -> str:
     """``sharded_steps``' checks, raising on the first that fails; the
-    line that reports them."""
+    line that reports them (phase 5k ``tag``)."""
     first, later = r["issued"][0], r["issued"][1:]
     # the warm-up's eager step and the capture issue the same collectives;
     # a replay issues none
     captured = bool(first) and all(v % 2 == 0 for v in first.values()) and (
         not any(later))
-    moved = world == 1 or (first.get("all_gather", 0) > 0
-                           and first.get("reduce_scatter", 0) > 0)
+    # a gather a sharded leaf; a reduce-scatter a leaf the data axis
+    # shards; where model splits the work, the row-parallel weights' swap
+    moved = world == 1 or (
+        first.get("all_gather", 0) > 0
+        and (r["mesh"]["data"] == 1 or first.get("reduce_scatter", 0) > 0)
+        and (r["mesh"]["model"] == 1 or first.get("all_to_all", 0) > 0))
     if world == 1:
         # every extent is 1: the step is the replicated one, whose two
         # buckets (bf16 gradients, fp32 metrics) are all-reduced
         moved = first == {"all_reduce": 4}
     # the bytes the layout gives a rank (``specs.per_device_bytes``), and
-    # under FSDP at most a 1 / world share of the leaves it shards
+    # under FSDP at most a 1 / world share of the leaves it shards over
+    # every rank (``uneven``: the rest's bytes beyond that share)
     bound = r["held"] == r["share"] and (
-        r["layout"] != "fsdp"
-        or r["held"] <= r["whole"] / world + r["replicated"])
+        r["layout"] != "fsdp" or r["held"] <= r["whole"] / world
+        + r["replicated"] + r["uneven"])
     near = True
     if "same_metrics" in r:
         near = r["same_metrics"] and r["same_state"]
@@ -6231,63 +6300,108 @@ def check_sharded(r: dict, world: int) -> str:
                f"compiled step {r['same_metrics']}, the state after the "
                f"profiled step bitwise {r['same_state']}")
     elif "gaps" in r:
-        tols = {"loss": TOL_RANK_BF16_REL, "grad_norm": TOL_RANK_NORM_REL}
-        near = all(g <= tols[k] for k, v in r["gaps"].items() for g in v)
-        how = (f"every loss and clip norm within {TOL_RANK_BF16_REL} and "
+        # (e): the losses after the first step within the split's bound
+        later = TOL_RANK_SPLIT_STEP_REL if tag == "e" else TOL_RANK_BF16_REL
+        near = (all(g <= TOL_RANK_NORM_REL for g in r["gaps"]["grad_norm"])
+                and r["gaps"]["loss"][0] <= TOL_RANK_BF16_REL
+                and all(g <= later for g in r["gaps"]["loss"][1:]))
+        how = (f"the first loss within {TOL_RANK_BF16_REL}, the later "
+               f"within {later} and every clip norm within "
                f"{TOL_RANK_NORM_REL} relative of the one-process step's "
                f"{near} (gaps {r['gaps']})")
     else:
         how = "no one-process step (the state fits no one card)"
     finite = all(math.isfinite(v) for v in r["losses"] + r["norms"])
-    line = (f"rank (d) {r['arch']} {r['layout']} over the mesh {r['mesh']} "
-            f"of {world} rank(s): {how}; losses {r['losses']}, all finite "
-            f"{finite}; each leaf the block of its spec {r['blocks']}; state "
+    line = (f"rank ({tag}) {r['arch']} {r['layout']} over the mesh "
+            f"{r['mesh']} of {world} rank(s): {how}; losses {r['losses']}, "
+            f"all finite {finite}; the ranks that hold a block alike hold "
+            f"it bitwise {r['replicas']}; each leaf the block of its spec "
+            f"{r['blocks']}; state "
             f"bytes a rank {r['held_by_rank']} of {r['whole']} "
             f"({r['held'] / r['whole']:.4f}; replicated leaves "
             f"{r['replicated']}; the layout's share "
             f"(specs.per_device_bytes) {r['share']}, and under FSDP at most "
-            f"a 1 / {world} share of the rest: {bound}); collectives issued at the first call (warm-up and "
+            f"a 1 / {world} share of the rest, beside {r['uneven']:.0f} of "
+            f"leaves spread over fewer ranks: {bound}); collectives issued "
+            f"at the first call (warm-up and "
             f"capture) {first}, at the later calls and the profiled replay "
             f"{later} (captured: {captured})")
     if not (captured and moved and bound and near and finite
-            and r["blocks"]):
+            and r["blocks"] and r["replicas"]):
         raise AssertionError(line)
     return line
+
+
+def dryrun_gib(arch: str, world: int, mp: int, layout: str, dev) -> float:
+    """``dryrun.run_cell``'s per-device peak (arguments and live bytes,
+    GiB) of ``arch``'s train step at [8, 128], one microbatch, on the
+    (world / mp, mp) mesh over the card listed ``world`` times, under the
+    layout's rule variant."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.elastic import best_mesh
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(
+        arch, ShapeConfig("train_8x128", LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                          "train"),
+        mesh=best_mesh(devices=[dev] * world, model_parallel=mp),
+        grad_accum=1, variant="zero1" if layout == "zero1" else "baseline")
+    if not rec["ok"]:
+        raise AssertionError(f"dryrun.run_cell: {rec['error']}")
+    mem = rec["memory"]
+    return (mem["argument_bytes"] + mem["peak_live_bytes_per_device"]) / 2 ** 30
+
+
+def log_sharded(r: dict, tag: str, smi: str, line: bool = True) -> None:
+    """``sharded_steps``' lines: the checks' (unless ``line`` is false:
+    logged already), the times', the memory's."""
+    if line:
+        log(r["line"] + f" [{smi}]")
+    log(f"time rank ({tag}) {r['arch']} {r['layout']} {r['mesh']}: the "
+        f"replays' wall p50 {r['p50_ms']:.3f} ms (each "
+        + ", ".join(f"{v:.3f}" for v in r["walls_ms"])
+        + f" ms, the first the warm-up and the capture), device busy "
+        f"{r['busy_us']:.1f} us a step, idle share {r['idle']}, NCCL "
+        f"kernels {r['nccl_us']:.1f} us a step, {r['kernels']:.0f} "
+        f"kernels a step; init {r['init_s']:.2f} s [{smi}]")
+    log(f"rank ({tag}) memory {r['arch']} {r['layout']} {r['mesh']}: the "
+        f"state {r['held'] / 2 ** 30:.3f} GiB on rank 0 (whole "
+        f"{r['whole'] / 2 ** 30:.3f} GiB), the first call's peak "
+        f"{r['peak'] / 2 ** 30:.3f} GiB against dryrun.run_cell's "
+        f"per-device peak {r['dryrun_gib']:.3f} GiB at the same mesh shape "
+        f"(ratio {r['peak'] / 2 ** 30 / r['dryrun_gib']:.4f}) [{smi}]")
 
 
 def rank_sharded(dev, smi, one, a) -> dict:
     """5k (d): the train state sharded over the ranks (``sharded_steps``
     under each of ``RANK_LAYOUTS``): llama3.2-1b at full size in bf16 on
-    [8, 128] on the mesh of all ranks, against 5k (a)'s one-process step
-    ``one`` (metrics and state bitwise at world 1); over four ranks also at
-    (2, 2), and ``RANK_VLM_ARCH`` at full size under FSDP at (4, 1). The
-    fused Adam and the global norm launch once a step and nothing else
-    does; the first call's peak beside ``dryrun.run_cell``'s per-device
-    peak for the same mesh shape and layout (at world 1, 5k (a)'s)."""
+    [8, 128] on the (world, 1) mesh of all ranks, against 5k (a)'s
+    one-process step ``one`` (metrics and state bitwise at world 1); over
+    four ranks also ``RANK_VLM_ARCH`` at full size under FSDP at (4, 1).
+    The fused Adam and the global norm launch once a step and nothing
+    else does; the first call's peak beside ``dryrun.run_cell``'s
+    per-device peak for the same mesh shape and layout (at world 1, 5k
+    (a)'s). ``one``'s state is dropped after; its metrics and batch stay
+    for (e)."""
     import torch
     import torch.distributed as dist
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.data.lm_data import lm_batch
     from repro_torch.dist.elastic import best_mesh
     from repro_torch.kernels import ops
-    from repro_torch.launch import dryrun
     world = dist.get_world_size()
     t_part = time.perf_counter()
     ops.reset_launch_counts()
     adam_want = {}
-    shapes = [1] + ([2] if world == 4 else [])
     runs = []
-    for mp in shapes:
-        mesh = best_mesh(model_parallel=mp)
-        for layout in RANK_LAYOUTS:
-            r = sharded_steps(get_config(LM_TRAIN_ARCH), mesh, layout,
-                              one["batch"], dev, one)
-            tally_adam(adam_want, {torch.bfloat16},
-                       compiled_steps(r["captures"]))
-            r["line"] = check_sharded(r, world)
-            runs.append(r)
-    one.clear()
+    mesh = best_mesh()
+    for layout in RANK_LAYOUTS:
+        r = sharded_steps(get_config(LM_TRAIN_ARCH), mesh, layout,
+                          one["batch"], dev, one)
+        tally_adam(adam_want, {torch.bfloat16},
+                   compiled_steps(r["captures"]))
+        r["line"] = check_sharded(r, world)
+        runs.append(r)
+    one.pop("state")
     free_card()
     if world == 4:
         vcfg = get_config(RANK_VLM_ARCH)
@@ -6304,38 +6418,10 @@ def rank_sharded(dev, smi, one, a) -> dict:
     # every rank estimates (only rank 0 prints), so no rank leaves the
     # group while another still works
     for r in runs:
-        if world == 1:
-            est = a["dryrun_gib"]
-        else:
-            rec = dryrun.run_cell(
-                RANK_VLM_ARCH if r["arch"] == RANK_VLM_ARCH
-                else LM_TRAIN_ARCH,
-                ShapeConfig("train_8x128", LM_TRAIN_SEQ,
-                            LM_TRAIN_BATCH, "train"),
-                mesh=best_mesh(devices=[dev] * world,
-                               model_parallel=r["mesh"]["model"]),
-                grad_accum=1, variant=("zero1" if r["layout"] == "zero1"
-                                       else "baseline"))
-            if not rec["ok"]:
-                raise AssertionError(f"dryrun.run_cell: {rec['error']}")
-            mem = rec["memory"]
-            est = (mem["argument_bytes"]
-                   + mem["peak_live_bytes_per_device"]) / 2 ** 30
-        r["dryrun_gib"] = est
-        log(r["line"] + f" [{smi}]")
-        log(f"time rank (d) {r['arch']} {r['layout']} {r['mesh']}: the "
-            f"replays' wall p50 {r['p50_ms']:.3f} ms (each "
-            + ", ".join(f"{v:.3f}" for v in r["walls_ms"])
-            + f" ms, the first the warm-up and the capture), device busy "
-            f"{r['busy_us']:.1f} us a step, idle share {r['idle']}, NCCL "
-            f"kernels {r['nccl_us']:.1f} us a step, {r['kernels']:.0f} "
-            f"kernels a step; init {r['init_s']:.2f} s [{smi}]")
-        log(f"rank (d) memory {r['arch']} {r['layout']} {r['mesh']}: the "
-            f"state {r['held'] / 2 ** 30:.3f} GiB on rank 0 (whole "
-            f"{r['whole'] / 2 ** 30:.3f} GiB), the first call's peak "
-            f"{r['peak'] / 2 ** 30:.3f} GiB against dryrun.run_cell's "
-            f"per-device peak {est:.3f} GiB (ratio "
-            f"{r['peak'] / 2 ** 30 / est:.4f}) [{smi}]")
+        r["dryrun_gib"] = (a["dryrun_gib"] if world == 1 else dryrun_gib(
+            RANK_VLM_ARCH if r["arch"] == RANK_VLM_ARCH else LM_TRAIN_ARCH,
+            world, r["mesh"]["model"], r["layout"], dev))
+        log_sharded(r, "d", smi)
     seconds = time.perf_counter() - t_part
     log(f"rank (d) took {seconds:.1f} s over {world} rank(s) ({steps_s:.1f} "
         f"s of steps and checks); launches {launches} [{smi}]")
@@ -6344,9 +6430,152 @@ def rank_sharded(dev, smi, one, a) -> dict:
             "launches": launches}
 
 
+# (e) tensor parallelism over the model axis: over several cards
+# llama3.2-1b at (1, world) and (2, world / 2), granite at (2, world / 2)
+RANK_TP_MOE_ARCH = "granite-moe-3b-a800m"
+
+
+def one_process_steps(cfg, mesh, batch, dev) -> dict:
+    """``RANK_STEPS`` eager steps (``make_lm_train_step_fn``) of ``cfg``
+    from ``init_lm(SEED)``'s state on ``batch``, in this process under
+    ``mesh`` (a mesh listing the card), the update written into the state
+    (``optim.updates_in_place``, as a compiled step writes its buffers: a
+    state that fills most of the card, as granite's 3.98 G parameters
+    with their fp32 moments do, leaves no room for a functional update's
+    copy of it, which a compiled step's eager warm-up makes): their metrics
+    and the batch, as 5k (a)'s one-process step gives them to
+    ``sharded_steps``. A compiled step is bitwise its eager step (phase
+    5h)."""
+    import torch
+    from repro_torch.dist.sharding import AxisRules, use_mesh
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.optim import (AdamConfig, constant_schedule,
+                                         updates_in_place)
+    from repro_torch.train.trainer import (init_train_state,
+                                           make_lm_train_step_fn)
+    free_card()
+    step = make_lm_train_step_fn(cfg, AdamConfig(schedule=constant_schedule(
+        TRAIN_LR)))
+    state = init_train_state(init_lm(SEED, cfg, device=dev))
+    metrics = []
+    with use_mesh(mesh, AxisRules()), updates_in_place():
+        for _ in range(RANK_STEPS):
+            state, m = step(state, batch)
+            metrics.append(m)
+    torch.cuda.synchronize()
+    del state, step
+    free_card()
+    return {"metrics": metrics, "batch": batch}
+
+
+def rank_split(dev, smi, one, d) -> dict:
+    """5k (e): the work split over the ``model`` axis (tensor
+    parallelism: each rank its heads, FFN columns and vocabulary slice).
+    At world 1 every extent is 1 and the split is the identity: the
+    ``heads``, ``kv_heads``, ``ff`` and ``vocab`` extents of the (1, 1)
+    mesh over the rank are 1, ``lm.lm_splits`` finds no leaf to split, and
+    (d)'s FSDP step at (1, 1), which runs this code, is bitwise 5k (a)'s
+    one-process step with (d)'s two all-reduces a call and no other
+    collective. Over several cards ``sharded_steps`` of llama3.2-1b at
+    full size under FSDP at (1, world), and, where world / 2 > 1, under
+    FSDP and ZeRO-1 at (2, world / 2), against ``one`` (5k (a)'s
+    one-process step), and ``RANK_TP_MOE_ARCH`` at full size under FSDP at
+    (2, world / 2) against its one-process eager step
+    (``one_process_steps``) under a (2, world / 2) mesh listing the card
+    (the expert-parallel loop, the same capacity a data
+    shard): the first loss within ``TOL_RANK_BF16_REL``, the later ones
+    within ``TOL_RANK_SPLIT_STEP_REL`` and clip norms within
+    ``TOL_RANK_NORM_REL``, the ranks holding a block alike, collectives at
+    the warm-up and the capture only; each run's replay p50, busy, idle
+    share, NCCL time, state bytes a rank and first-call peak beside
+    ``dryrun.run_cell``'s at the same mesh shape."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.lm_data import lm_batch
+    from repro_torch.dist.elastic import best_mesh
+    from repro_torch.dist.sharding import AxisRules, split_extent, use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import init_lm_abstract, lm_splits
+    from repro_torch.train.optim import tree_leaves as leaves
+    world = dist.get_world_size()
+    t_part = time.perf_counter()
+    cfg = get_config(LM_TRAIN_ARCH)
+    if world == 1:
+        with use_mesh(best_mesh(model_parallel=world), AxisRules()):
+            extents = {ax: split_extent(ax, n) for ax, n in (
+                ("heads", cfg.n_heads), ("kv_heads", cfg.n_kv_heads),
+                ("ff", cfg.d_ff), ("vocab", cfg.vocab))}
+            none = lm_splits(init_lm_abstract(cfg), cfg) is None
+        r = next(r for r in d["runs"] if r["layout"] == "fsdp")
+        ok = (all(v == 1 for v in extents.values()) and none
+              and r["same_metrics"] and r["same_state"]
+              and r["issued"][0] == {"all_reduce": 4}
+              and not any(r["issued"][1:]))
+        line = (f"rank (e) the split over model at world 1, mesh "
+                f"{r['mesh']}: extents {extents}, no leaf split {none}; "
+                f"(d)'s FSDP step there bitwise 5k (a)'s one-process step "
+                f"(metrics {r['same_metrics']}, state {r['same_state']}), "
+                f"collectives {r['issued'][0]} at the first call and none "
+                f"after (no collective added): {ok}")
+        if not ok:
+            raise AssertionError(line)
+        log(line + f" [{smi}]")
+        one.clear()
+        return {"world": 1, "extents": extents, "ok": ok,
+                "seconds": time.perf_counter() - t_part}
+    ops.reset_launch_counts()
+    adam_want = {}
+    plan = [(LM_TRAIN_ARCH, world, "fsdp")]
+    if world // 2 > 1:
+        plan += [(LM_TRAIN_ARCH, world // 2, "fsdp"),
+                 (LM_TRAIN_ARCH, world // 2, "zero1"),
+                 (RANK_TP_MOE_ARCH, world // 2, "fsdp")]
+    runs, missed = [], []
+    for arch, mp, layout in plan:
+        acfg = get_config(arch)
+        ref = one
+        # granite's router is fp32 in every dtype: a second Adam instance
+        dtypes = {t.dtype for t in leaves(init_lm_abstract(acfg))}
+        if arch != LM_TRAIN_ARCH:
+            batch = lm_batch((SEED, 13), acfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                             dtype=torch.bfloat16, device=dev)
+            ref = one_process_steps(acfg, best_mesh(
+                devices=[dev] * world, model_parallel=mp), batch, dev)
+            tally_adam(adam_want, dtypes, RANK_STEPS)
+        r = sharded_steps(acfg, best_mesh(model_parallel=mp), layout,
+                          ref["batch"], dev, ref)
+        del ref
+        tally_adam(adam_want, dtypes, compiled_steps(r["captures"]))
+        try:
+            r["line"] = check_sharded(r, world, "e")
+        except AssertionError as e:     # raised below, after every run
+            r["line"] = f"FAILED {e}"
+            missed.append(r["line"])
+        log(r["line"] + f" [{smi}]")
+        runs.append(r)
+    one.clear()
+    free_card()
+    launches = check_adam_launches("phase 5k (e)", adam_want)
+    steps_s = time.perf_counter() - t_part
+    for r in runs:
+        r["dryrun_gib"] = dryrun_gib(
+            LM_TRAIN_ARCH if r["arch"] == cfg.name else RANK_TP_MOE_ARCH,
+            world, r["mesh"]["model"], r["layout"], dev)
+        log_sharded(r, "e", smi, line=False)
+    seconds = time.perf_counter() - t_part
+    log(f"rank (e) took {seconds:.1f} s over {world} rank(s) ({steps_s:.1f} "
+        f"s of steps and checks); launches {launches} [{smi}]")
+    if missed:
+        raise AssertionError("phase 5k (e): " + "\n".join(missed))
+    return {"runs": [{k: v for k, v in r.items() if k != "line"}
+                     for r in runs], "seconds": seconds,
+            "launches": launches}
+
+
 def rank_checks(rank, smi) -> dict:
-    """5k (a) and (b) on this process's group of ranks (only rank 0
-    logs)."""
+    """5k (a), (b), (d) and (e) on this process's group of ranks (only
+    rank 0 logs)."""
     from repro_torch.dist import ranks
     if rank:
         sys.stdout = open(os.devnull, "w")
@@ -6357,6 +6586,8 @@ def rank_checks(rank, smi) -> dict:
     free_card()
     one = res["a"].pop("one")
     res["d"] = rank_sharded(dev, smi, one, res["a"])
+    free_card()
+    res["e"] = rank_split(dev, smi, one, res["d"])
     del one
     free_card()
     return res
@@ -6412,9 +6643,9 @@ def rank_phase(dev, smi) -> dict:
     a machine with one card the script's own process is the one rank of a
     group over a ``file://`` store in a temporary directory, left at the
     end of the phase; with more cards ``spawn_ranks`` starts one process a
-    card. (a) ``rank_train``, (b) ``rank_exchange``, (d) ``rank_sharded``
-    (in the ranks), (c) ``rank_launcher`` (here, once the group is
-    left)."""
+    card. (a) ``rank_train``, (b) ``rank_exchange``, (d) ``rank_sharded``,
+    (e) ``rank_split`` (in the ranks), (c) ``rank_launcher`` (here, once
+    the group is left)."""
     import shutil
     import torch
     from repro_torch.dist import ranks

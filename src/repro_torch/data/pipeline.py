@@ -71,7 +71,10 @@ def shard_batch(batch, mesh: Mesh, rules: AxisRules | None = None,
     leaf's spec is the batch dim on the ``batch`` axes and the rest
     replicated, as the reference resolves it, and the leaf goes to the
     mesh's device (``device_put``): on a mesh over ranks, this rank's
-    rows of the global batch.
+    rows of the global batch. The rows follow the rank's coordinates on
+    the ``batch`` axes only, so the ranks of a ``model`` group (which
+    split the work of one set of rows, tensor parallelism) hold the same
+    rows.
 
     ``grad_accum > 1``: the rows a train step of that many microbatches
     takes. The reference's step splits the global batch into

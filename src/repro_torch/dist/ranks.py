@@ -18,11 +18,13 @@ device, NCCL on a card and gloo on the CPU, and nothing else chooses it.
   a mesh over the ranks once the group is up);
 * the differentiable collectives (:func:`all_gather`, :func:`all_to_all`,
   :func:`psum`, :func:`psum_disjoint`, :func:`psum_grads`) are what the
-  mesh paths call;
+  mesh paths call, and :func:`pmax` (no gradient) the split loss;
 * :func:`gather_block` turns a rank's block of a sharded parameter into the
   global tensor (``all_gather_into_tensor`` along each sharded dim), and
   its backward hands the block of the reduced gradient back
-  (``reduce_scatter_tensor``), as :class:`BlockPlan` says;
+  (``reduce_scatter_tensor``), as :class:`BlockPlan` says; where the rank
+  computes only its slice of the tensor it takes that slice instead, by a
+  cut or by :func:`swap_dims` (one all-to-all);
   :func:`reduce_scatter_bucket` and :func:`all_gather_bucket` do the same
   for many tensors in one collective a dtype.
 
@@ -31,7 +33,10 @@ its own rows and the train step averages the ranks' gradients. Over the
 other axes the ranks hold the same rows and compute one loss between them,
 each rank a copy of it: there a gradient that a rank computes only a part
 of is summed (:func:`psum_grads`), and an output that every rank holds in
-full needs no reduction backward (:func:`psum_disjoint`).
+full needs no reduction backward (:func:`psum_disjoint`). The tensor
+parallelism of the ``model`` axis is these two operators around the work
+a rank splits: Megatron's "f" (:func:`psum_grads`) on the way in, its "g"
+(:func:`psum_disjoint`) on the way out.
 
 ``COLLECTIVES`` counts the collectives issued from the host by kind; a
 captured step issues its collectives once, at the capture.
@@ -58,7 +63,8 @@ from repro_torch.kernels.ops import resolve_device
 __all__ = ["DEFAULT_TIMEOUT_S", "COLLECTIVES", "init_ranks", "destroy_ranks",
            "ranks_ready", "rank_device", "rank_devices", "spawn_ranks",
            "axis_group", "all_gather", "all_to_all", "psum", "psum_disjoint",
-           "psum_grads", "BlockPlan", "cut", "gather_block", "gather_dim",
+           "psum_grads", "pmax", "swap_dims", "BlockPlan", "cut",
+           "gather_block", "gather_dim",
            "reduce_scatter_dim", "reduce_scatter_bucket", "all_gather_bucket",
            "all_reduce_", "send_recv", "broadcast_"]
 
@@ -385,6 +391,32 @@ def psum_grads(x: torch.Tensor, group) -> torch.Tensor:
     return _PsumGrads.apply(x, group)
 
 
+def pmax(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over ``group`` on every rank, with
+    no gradient (a new tensor; an all-reduce, counted as one)."""
+    out = x.detach().clone()
+    COLLECTIVES["all_reduce"] += 1
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def swap_dims(x: torch.Tensor, split: int, cat: int, group) -> torch.Tensor:
+    """A tensor the group's ranks hold in blocks along ``cat`` turned into
+    blocks along ``split``: ``x`` cut into the group's size of slices along
+    ``split``, slice ``j`` sent to the group's rank ``j``, and the slices
+    received concatenated along ``cat`` in the group's order (one
+    ``all_to_all_single``). Rank ``j`` then holds the ``j``-th slice of
+    ``split`` of the whole tensor, whole along ``cat``; the same call with
+    ``split`` and ``cat`` exchanged undoes it (:func:`gather_block`'s
+    backward)."""
+    n = dist.get_world_size(group)
+    src = torch.stack(x.chunk(n, dim=split)).contiguous()
+    out = torch.empty_like(src)
+    COLLECTIVES["all_to_all"] += 1
+    dist.all_to_all_single(out, src, group=group)
+    return torch.cat(out.unbind(0), dim=cat)
+
+
 # -- blocks of sharded tensors -----------------------------------------------
 
 def _gather_into(out, x, group) -> None:
@@ -480,21 +512,27 @@ def all_gather_bucket(blocks: list, dims: list, group) -> list:
 
 
 class BlockPlan(NamedTuple):
-    """How :func:`gather_block` turns a rank's block into the global tensor
-    and the global tensor's gradient into the block's.
+    """How :func:`gather_block` turns a rank's block into the tensor the
+    rank computes with, and that tensor's gradient into the block's.
 
     ``gathers``: ``(dim, group)`` a sharded dim, gathered in turn.
-    ``scatters``: ``(dim, group)`` a reduction of the gradient over a group
-    whose ranks shard ``dim``, reduce-scattered in turn. ``divide``: the
-    sum is then divided by it (the data extent, where the data group's
-    reduction is among the scatters; 1 otherwise). ``slices``: the
-    :func:`cut` of each sharded dim whose group no reduction covers, to
-    the rank's slice."""
+    ``swap``: ``(split, cat, group)`` of a :func:`swap_dims` after them,
+    or None: the rank takes its slice of ``split`` and the whole of
+    ``cat``, which the group shards. ``take``: the :func:`cut` of a dim to
+    the rank's slice after them, or ``()``; its backward pads the
+    gradient with zeros. ``scatters``: ``(dim, group)`` a reduction of the
+    gradient over a group whose ranks shard ``dim``, reduce-scattered in
+    turn. ``divide``: the sum is then divided by it (the data extent,
+    where the data group's reduction is among the scatters; 1 otherwise).
+    ``slices``: the :func:`cut` of each sharded dim whose group no
+    reduction covers, to the rank's slice."""
 
     gathers: tuple
     scatters: tuple
     divide: int
     slices: tuple
+    swap: tuple | None = None
+    take: tuple = ()
 
 
 class _GatherBlock(torch.autograd.Function):
@@ -503,11 +541,24 @@ class _GatherBlock(torch.autograd.Function):
         ctx.plan = plan
         for dim, group in plan.gathers:
             x = gather_dim(x, dim, group)
+        if plan.swap is not None:
+            x = swap_dims(x, *plan.swap)
+        ctx.shape = x.shape
+        if plan.take:
+            # a copy: the slice in storage of its own
+            x = cut(x, plan.take).clone(memory_format=torch.contiguous_format)
         return x
 
     @staticmethod
     def backward(ctx, g):
         plan = ctx.plan
+        if plan.take:
+            whole = g.new_zeros(ctx.shape)
+            cut(whole, plan.take).copy_(g)
+            g = whole
+        if plan.swap is not None:
+            split, cat, group = plan.swap
+            g = swap_dims(g, cat, split, group)
         for dim, group in plan.scatters:
             g = reduce_scatter_dim(g, dim, group)
         if plan.divide > 1:
@@ -516,8 +567,10 @@ class _GatherBlock(torch.autograd.Function):
 
 
 def gather_block(x: torch.Tensor, plan: BlockPlan) -> torch.Tensor:
-    """The global tensor of this rank's block ``x`` (``plan.gathers``, at
-    least one). Differentiable: the backward takes the gradient that this
-    rank computed for the global tensor, reduces it over the ranks as
-    ``plan`` says and returns this rank's block of the result."""
+    """The tensor this rank computes with, from its block ``x``: the global
+    tensor (``plan.gathers``), or this rank's slice of it where it
+    computes only that (``plan.swap`` or ``plan.take``). Differentiable:
+    the backward takes the gradient that this rank computed for that
+    tensor, reduces it over the ranks as ``plan`` says and returns this
+    rank's block of the result."""
     return _GatherBlock.apply(x, plan)

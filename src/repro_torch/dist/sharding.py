@@ -12,32 +12,53 @@ The active (mesh, rules) pair is installed with :func:`use_mesh`; with no
 context installed every helper is a no-op. The rules decide what the mesh
 paths do: whether ``moe_apply_auto`` takes the expert-parallel dispatch
 (:mod:`repro_torch.models.moe_ep`), whether the embedding contracts a
-one-hot (:func:`repro_torch.models.lm._embed`), and the layout of the
-ZeRO-1 gradient accumulator.
+one-hot (:func:`repro_torch.models.lm._embed`), the layout of the ZeRO-1
+gradient accumulator, and which work the ranks split.
 
 A GSPMD layout spreads one tensor over several cards; a single PyTorch
 process has no such tensor. So :func:`use_mesh` takes one of two meshes.
 A mesh whose devices are all one device (``best_mesh(devices=[dev] * k)``,
-a device listed k times) runs every position in this process. A mesh over
-ranks (``best_mesh()`` after :func:`repro_torch.dist.ranks.init_ranks`)
-runs one process a position: each rank holds its block of a sharded
-tensor (:func:`device_put`), and the mesh paths issue the collectives that
-GSPMD would. On both, :func:`shard` and :func:`with_sharding_constraint`
-check the spec as ``NamedSharding`` would and return the tensor unchanged,
-as ``with_sharding_constraint`` returns its value. A mesh over distinct
-devices within one process raises ``NotImplementedError`` (``ROADMAP.md``
-Queue 1, "Multi-card GSPMD").
+a device listed k times) runs every position in this process, and
+:func:`shard` and :func:`with_sharding_constraint` check the spec as
+``NamedSharding`` would and return the tensor unchanged, as
+``with_sharding_constraint`` returns its value. A mesh over ranks
+(``best_mesh()`` after :func:`repro_torch.dist.ranks.init_ranks`) runs one
+process a position: each rank holds its block of a sharded tensor
+(:func:`device_put`), and the mesh paths issue the collectives that GSPMD
+would. A mesh over distinct devices within one process raises
+``NotImplementedError`` (``ROADMAP.md`` Queue 1, "Multi-card GSPMD").
+
+On a mesh over ranks the teacher-forced forward splits the work of the
+dense layers over the mesh axes that the ``heads``, ``kv_heads``, ``ff``
+and ``vocab`` rules name (``model``), as the reference's annotations make
+GSPMD split it: each rank computes its own query and key / value heads,
+its own FFN columns and its own vocabulary slice of the embedding, the
+logits and the loss, and the model code issues the sums GSPMD inserts
+(``ranks.psum_grads`` on the way in, ``ranks.psum_disjoint`` on the way
+out). :func:`split_extent` is the extent of such a split for a dim of a
+given size: 1 where the extent does not divide the dim, as the reference's
+:func:`enforce_divisibility` keeps such a dim whole, and 1 on a mesh that
+lists one device. A parameter leaf's part in the split is a
+:class:`Split`, which the model code gives beside the parameters.
 
 A train state laid out over the ranks (FSDP parameters, ZeRO-1 moments)
-holds blocks; the model reads global tensors. :func:`gather_tree` gathers a
-subtree of blocks into them at use (``ranks.gather_block``), and the
-backward of each gather reduce-scatters the gradient into the block
-(:func:`block_plan`). GSPMD inserts the same collectives into the
-reference's jitted step.
+holds blocks; the model reads global tensors, or the rank's slice where it
+computes only that. :func:`gather_tree` gathers a subtree of blocks at use
+(``ranks.gather_block``), and the backward of each gather reduce-scatters
+the gradient into the block (:func:`block_plan`). GSPMD inserts the same
+collectives into the reference's jitted step. A ``model`` dim that the
+rank computes its slice of is not gathered: where the layout shards that
+dim over ``model`` the block is the slice already; where it shards
+another dim over ``model`` (the row-parallel ``w_o`` and ``w_down``, whose
+output dim the layout puts on ``model``) one all-to-all over ``model``
+trades the rank's columns for its rows (``ranks.swap_dims``), and its
+backward trades the gradient back; where it shards none, the rank cuts
+its slice, and the gradient, zero elsewhere, is summed over ``model``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,7 +71,8 @@ __all__ = ["P", "NamedSharding", "DuplicateSpecError", "AxisRules",
            "current_rules", "shard", "with_sharding_constraint",
            "device_put", "infer_param_specs", "EXPERT_LEAVES",
            "expert_parallel_leaf", "sharded_dims", "block_shape",
-           "global_shape", "block_plan", "gather_tree"]
+           "global_shape", "Split", "split_extent", "split_names",
+           "tp_group", "block_plan", "gather_tree", "replicated_specs"]
 
 
 class P:
@@ -283,6 +305,74 @@ def shard(x: torch.Tensor, *axes) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The split of the work over the ranks (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+def split_names(axis: str, size: int) -> tuple | None:
+    """The mesh axes over which the ranks split a dim of ``size`` that the
+    model annotates with the logical ``axis`` (``"heads"``, ``"kv_heads"``,
+    ``"ff"``, ``"vocab"``): the axes the active rules give it, on the
+    active mesh over ranks, where their extent is above 1 and divides
+    ``size``; else None. Axes that hold the ``batch`` rows raise: the ranks
+    of a split hold the same rows."""
+    mesh = current_mesh()
+    if mesh is None or not mesh.on_ranks:
+        return None
+    rules = current_rules()
+    names = _names(rules.resolve(axis, mesh=mesh)[0])
+    ext = _axis_extent(mesh, names)
+    if ext <= 1 or size % ext:
+        return None
+    batch = _names(rules.resolve("batch", mesh=mesh)[0])
+    if set(names) & set(batch):
+        raise NotImplementedError(
+            f"the {axis!r} work split over {names}, which also hold the "
+            f"batch rows ({batch})")
+    return names
+
+
+def split_extent(axis: str, size: int) -> int:
+    """The number of ranks that split a dim of ``size`` annotated with the
+    logical ``axis`` on the active mesh (:func:`split_names`): 1 without a
+    mesh over ranks, or where the extent does not divide ``size``."""
+    names = split_names(axis, size)
+    return 1 if names is None else _axis_extent(current_mesh(), names)
+
+
+class TpGroup(NamedTuple):
+    """A split's ranks: the mesh axes, this rank's slice among ``parts``,
+    and the process group."""
+
+    names: tuple
+    index: int
+    parts: int
+    group: object
+
+
+class Split(NamedTuple):
+    """A parameter leaf's part in the work the ranks of ``tp`` split: each
+    computes with its slice of dim ``dim`` (counted from the end, so that
+    a stacked leaf and its period agree), or, with ``dim`` None, with the
+    whole leaf on the split side, so that its gradient there is the rank's
+    part, summed over ``tp.names``. The model code reads ``tp`` from its
+    leaves' splits: the split is resolved once (``lm.lm_splits``)."""
+
+    dim: int | None
+    tp: TpGroup
+
+
+def tp_group(axis: str, size: int) -> TpGroup | None:
+    """:func:`split_names` of ``axis`` with this rank's slice and the
+    group, or None where the ranks do not split it."""
+    names = split_names(axis, size)
+    if names is None:
+        return None
+    mesh = current_mesh()
+    return TpGroup(names, _shard_index(mesh, names),
+                   _axis_extent(mesh, names), axis_group(mesh, names))
+
+
+# ---------------------------------------------------------------------------
 # Trees with paths
 # ---------------------------------------------------------------------------
 
@@ -416,29 +506,60 @@ def expert_parallel_leaf(path, leaf, ep: int) -> bool:
             and shape[-3] % ep == 0)
 
 
-def block_plan(path, shape, spec: P, mesh: Mesh, rules: AxisRules):
+def block_plan(path, shape, spec: P, mesh: Mesh, rules: AxisRules,
+               split: Split | None = None):
     """``(plan, pending)`` for a leaf of global ``shape`` at ``path`` laid
-    out by ``spec`` on a mesh over ranks. ``plan``, a
-    :class:`~repro_torch.dist.ranks.BlockPlan`, gathers each sharded dim;
-    of the leaf's sums over the ranks (below) its backward
-    reduce-scatters each whose axes shard a dim (dividing by the data
-    extent once the data group's sum is among them), then cuts the other
-    sharded dims to the rank's slice: a dim sharded over ``model`` takes no sum over
-    ``model``, whose ranks compute the same gradient. ``pending``: the
-    groups left to sum the block over (an all-reduce after the backward,
-    the train step's bucket).
+    out by ``spec`` on a mesh over ranks, which the model computes with as
+    ``split`` says (None: whole, off the split side). ``plan``, a
+    :class:`~repro_torch.dist.ranks.BlockPlan`, gathers each sharded dim
+    but a split dim that the rank computes its slice of: where ``spec``
+    shards that dim over the split's axes the block is the slice; where it
+    shards another dim over them the plan swaps the two
+    (``ranks.swap_dims``); where it shards none the plan cuts the slice.
+    Of the leaf's sums over the ranks (below) its backward reduce-scatters
+    each whose axes shard a dim (dividing by the data extent once the data
+    group's sum is among them), then cuts the other sharded dims to the
+    rank's slice: a dim sharded over ``model`` that no split computes
+    takes no sum over ``model``, whose ranks compute the same gradient.
+    ``pending``: the groups left to sum the block over (an all-reduce
+    after the backward, the train step's bucket).
 
     A leaf's gradient takes these sums after the backward, in order: over
     the experts axes for a stack the expert-parallel dispatch splits
-    (:func:`expert_parallel_leaf`), then over the ``batch`` axes, whose
-    sum is divided by their extent."""
+    (:func:`expert_parallel_leaf`); over the split's axes where the rank's
+    gradient is its part (a leaf used whole on the split side, or cut to
+    the slice); then over the ``batch`` axes, whose sum is divided by
+    their extent."""
     dims = sharded_dims(spec, mesh)
     data = _names(rules.resolve("batch", mesh=mesh)[0])
     experts = _names(rules.resolve("experts", mesh=mesh)[0])
-    split = expert_parallel_leaf(path, shape, _axis_extent(mesh, experts))
+    sums = ([experts] if expert_parallel_leaf(
+        path, shape, _axis_extent(mesh, experts)) else [])
+    held, swap, take = set(), None, ()
+    if split is not None:
+        names = split.tp.names
+        if any(set(n) & set(names) and n != names for _, n in dims):
+            raise NotImplementedError(
+                f"{'/'.join(map(str, path))}: a layout {spec} that shards a "
+                f"dim over part of the split's axes {names}")
+        on = [d for d, n in dims if n == names]
+        if split.dim is None:
+            sums.append(names)
+        else:
+            d = split.dim % len(shape)
+            if d in on:
+                held.add(d)
+            elif on:
+                held.add(on[0])
+                swap = (d, on[0], split.tp.group)
+            else:
+                take = shard_cuts([(d, names)], mesh)
+                sums.append(names)
+    sums.append(data)
     scatters, pending, done = [], [], set()
-    for names in ([experts] if split else []) + [data]:
-        d = next((d for d, n in dims if n == names and d not in done), None)
+    for names in sums:
+        d = next((d for d, n in dims if n == names and d not in done
+                  and d not in held), None)
         if d is None:
             pending.append(names)
         else:
@@ -446,29 +567,35 @@ def block_plan(path, shape, spec: P, mesh: Mesh, rules: AxisRules):
             done.add(d)
     dp = _axis_extent(mesh, data)
     plan = BlockPlan(
-        gathers=tuple((d, axis_group(mesh, n)) for d, n in dims),
+        gathers=tuple((d, axis_group(mesh, n)) for d, n in dims
+                      if d not in held),
         scatters=tuple(scatters),
         divide=dp if data not in pending else 1,
-        slices=shard_cuts([(d, n) for d, n in dims if d not in done], mesh))
+        slices=shard_cuts([(d, n) for d, n in dims
+                           if d not in done and d not in held], mesh),
+        swap=swap, take=take)
     return plan, tuple(pending)
 
 
-def gather_tree(blocks, specs):
-    """The global tensors of a subtree of blocks laid out by ``specs`` (a
-    tree of :class:`P` shaped like it) on the active mesh over ranks,
-    each through ``ranks.gather_block`` (:func:`block_plan`). The identity
-    without a mesh, without ``specs``, and for a leaf whose spec shards no
-    dim over more than one position (``P()``, or extent 1). A spec that
-    does on a mesh that lists one device raises: such a mesh holds every
-    tensor whole, so a state laid out by it would be replicated, not
-    sharded."""
+def gather_tree(blocks, specs, splits=None):
+    """What the model computes with, from a subtree of blocks laid out by
+    ``specs`` (a tree of :class:`P` shaped like it) on the active mesh over
+    ranks: each leaf's global tensor, or its slice where ``splits`` (a tree
+    of :class:`Split` or None shaped like it) says the rank computes only
+    that, each through ``ranks.gather_block`` (:func:`block_plan`). The
+    identity without a mesh, without ``specs``, and for a leaf whose spec
+    shards no dim over more than one position (``P()``, or extent 1) and
+    that the rank does not cut. A spec that shards a dim on a mesh that
+    lists one device raises: such a mesh holds every tensor whole, so a
+    state laid out by it would be replicated, not sharded."""
     mesh = current_mesh()
     if mesh is None or specs is None:
         return blocks
     rules = current_rules()
 
-    def one(path, x, spec):
-        if not sharded_dims(spec, mesh):
+    def one(path, x, spec, split=None):
+        if not sharded_dims(spec, mesh) and (split is None
+                                             or split.dim is None):
             return x
         if not mesh.on_ranks:
             raise ValueError(
@@ -476,9 +603,19 @@ def gather_tree(blocks, specs):
                 "that lists one device: a sharded state needs a mesh over "
                 "ranks (init_ranks, then best_mesh())")
         shape = global_shape(x.shape, spec, mesh)
-        plan, _ = block_plan(path, shape, spec, mesh, rules)
+        plan, _ = block_plan(path, shape, spec, mesh, rules, split)
+        if not plan.gathers and plan.swap is None and not plan.take:
+            return x        # the block is what the rank computes with
         return gather_block(x, plan)
-    return _map_with_path(one, blocks, specs)
+    if splits is None:
+        return _map_with_path(one, blocks, specs)
+    return _map_with_path(one, blocks, specs, splits)
+
+
+def replicated_specs(tree):
+    """A tree of ``P()`` shaped like ``tree``: every leaf whole on every
+    rank."""
+    return _map_with_path(lambda _, x: P(*([None] * x.ndim)), tree)
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,8 @@ one CUDA-graph replay that updates the state in place
 (:class:`repro_torch.train.trainer.CompiledTrainStep`), ``--grad-accum``
 and ``--model-parallel`` included. ``best_mesh`` clamps
 ``--model-parallel`` to the one device, so any ``k`` gives a (1, 1) mesh
-and the same losses. Checkpoints hold numpy arrays, so a bf16 state does
-not save (as the reference's does not restore).
+and the same losses in one process. Checkpoints hold numpy arrays, so a
+bf16 state does not save (as the reference's does not restore).
 
 The batch of step ``i`` is seeded ``(1, i)`` whether the run started at 0
 or resumed (:mod:`repro_torch.data.lm_data`), so a resumed run repeats the
@@ -29,8 +29,13 @@ repro_torch.launch.train ...``, whose ``RANK`` / ``WORLD_SIZE`` /
 ``LOCAL_RANK`` it reads) each process is a rank
 (:func:`repro_torch.dist.ranks.init_ranks`): on ``cuda:<LOCAL_RANK>``, or
 the CPU with ``--device cpu``, and the mesh is ``best_mesh(model_parallel=
-k)`` over the ranks. Every rank draws the same seeded global batch and
-keeps its rows (with ``--grad-accum``, its block of each microbatch). The
+k)`` over the ranks, ``(N / k, k)``: ``--model-parallel k`` splits the
+work of the dense layers over the ``model`` axis, as the reference's GSPMD
+splits it (each rank its attention heads, FFN columns and vocabulary slice
+of the embedding, the logits and the loss; ``repro_torch.models.lm.
+lm_splits``), and the ranks of a ``model`` group hold the same rows. Every
+rank draws the same seeded global batch and keeps its rows (with
+``--grad-accum``, its block of each microbatch). The
 state is laid out as the reference's launcher lays it out
 (:func:`init_state` under ``AxisRules()``, FSDP): every parameter of 2
 dims or more and both moments sharded over the ``data`` axis. Each rank

@@ -8,6 +8,15 @@ float32 softmax under the additive ``NEG_INF`` mask. A fully masked row is
 therefore uniform, as in the reference (``scaled_dot_product_attention``
 would differ there).
 
+Under a mesh over ranks the teacher-forced forward splits the heads
+(``attention_apply(..., tp=)``), as the reference's ``shard(q, ...,
+"heads", None)`` / ``"kv_heads"`` annotations make GSPMD split them: each
+rank of the ``heads`` group computes its query heads from its columns of
+``w_q``, its key / value heads from its columns of ``w_k`` / ``w_v`` (all
+of them where ``kv_heads`` does not divide), and its rows of ``w_o``; the
+output is summed over the group. :func:`attention_splits` names each
+leaf's part.
+
 The cache is written in place: :func:`cache_write_prefill` and
 :func:`cache_write_decode` put the new keys, values and positions into the
 cache's own tensors and return the cache. A caller that needs the cache as
@@ -19,7 +28,9 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.dist.ranks import psum_grads
+from repro_torch.dist.sharding import Split, tp_group
+from repro_torch.models.common import apply_rope, dense_init, row_parallel
 
 NEG_INF = -1e30
 
@@ -152,17 +163,75 @@ def _qkv(params: dict, x: torch.Tensor, n_heads: int, n_kv_heads: int,
             v.reshape(b, sk, n_kv_heads, head_dim))
 
 
+def _kv_heads_of(k: torch.Tensor, v: torch.Tensor, first: int, heads: int,
+                 group: int):
+    """The key / value heads (all ``Hkv`` of them in ``k`` / ``v``) that
+    the query heads ``first .. first + heads - 1`` read, GQA's ``group``
+    query heads a KV head, as ``sdpa``'s grouping wants them: a run of
+    whole groups, one head that every local query head shares, or else
+    one KV head a query head."""
+    if heads % group == 0 or group % heads == 0:
+        lo = first // group
+        n = max(heads // group, 1)
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    idx = (first + torch.arange(heads, device=k.device)) // group
+    return k[:, :, idx], v[:, :, idx]
+
+
+def attention_splits(params: dict, n_heads: int, n_kv_heads: int) -> dict:
+    """Each leaf's :class:`~repro_torch.dist.sharding.Split` in
+    ``attention_apply`` on the active mesh, or None for every leaf where
+    the ranks do not split the heads: ``w_q`` / ``b_q`` by columns and
+    ``w_o`` by rows over the ``heads`` group; ``w_k``, ``w_v``, ``b_k``,
+    ``b_v`` by columns where ``kv_heads`` splits over the same axes, else
+    whole on the split side."""
+    heads = tp_group("heads", n_heads)
+    kv = tp_group("kv_heads", n_kv_heads)
+
+    def one(name):
+        if heads is None:
+            return None
+        if name in ("w_q", "b_q"):
+            return Split(-1, heads)
+        if name == "w_o":
+            return Split(-2, heads)
+        if kv is not None and kv.names == heads.names:
+            return Split(-1, kv)
+        return Split(None, heads)
+    return {k: one(k) for k in params}
+
+
 def attention_apply(params: dict, x: torch.Tensor, *, n_heads: int,
                     n_kv_heads: int, head_dim: int, causal: bool = True,
                     window: int | None = None,
                     rope_theta: float | None = 10000.0, q_chunk: int = 512,
                     positions: torch.Tensor | None = None,
-                    kv_x: torch.Tensor | None = None) -> torch.Tensor:
+                    kv_x: torch.Tensor | None = None,
+                    tp=None) -> torch.Tensor:
     """Full-sequence attention (the teacher-forced forward and the encoder,
     ``causal=False``). ``kv_x`` switches to cross-attention: keys and values
-    from the other stream, no RoPE and no mask (still q-chunked)."""
+    from the other stream, no RoPE and no mask (still q-chunked).
+
+    ``tp`` (a ``sharding.TpGroup``, the ``heads`` split of
+    :func:`attention_splits`): ``params`` holds this rank's slices, and the
+    rank computes its ``n_heads / parts`` query heads, local head ``j``
+    being global head ``index * H / parts + j`` and reading the KV head of
+    its global index (its slice of the KV heads, or all of them where
+    ``w_k`` holds all); ``x`` and ``kv_x`` go through ``ranks.psum_grads``
+    and the output through ``ranks.psum_disjoint``."""
     b, s, _ = x.shape
-    q, k, v = _qkv(params, x, n_heads, n_kv_heads, head_dim, kv_x)
+    heads, kv_heads = n_heads, n_kv_heads
+    if tp is not None:
+        heads = n_heads // tp.parts
+        kv_heads = params["w_k"].shape[-1] // head_dim
+        x = psum_grads(x, tp.group)
+        if kv_x is not None:
+            kv_x = psum_grads(kv_x, tp.group)
+    q, k, v = _qkv(params, x, heads, kv_heads, head_dim, kv_x)
+    if heads < n_heads and kv_heads == n_kv_heads:
+        # every KV head: those the rank's query heads read
+        k, v = _kv_heads_of(k, v, tp.index * heads, heads,
+                            n_heads // n_kv_heads)
     if kv_x is not None:
         causal, window = False, None
     elif rope_theta is not None:
@@ -172,7 +241,8 @@ def attention_apply(params: dict, x: torch.Tensor, *, n_heads: int,
         k = apply_rope(k, pos, rope_theta)
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             q_chunk=q_chunk)
-    return out.reshape(b, s, n_heads * head_dim) @ params["w_o"]
+    return row_parallel(out.reshape(b, s, heads * head_dim), params["w_o"],
+                        tp)
 
 
 def cache_write_prefill(cache: KVCache, k: torch.Tensor,

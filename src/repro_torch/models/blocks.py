@@ -49,6 +49,15 @@ as they exist. A stacked leaf whose period dim is itself sharded (a norm's
 ``[count, D]`` scale, which the layout spreads over ``data``) has period
 ``i`` on one rank only: such leaves are gathered whole, once an entry,
 before the periods.
+
+Given the leaves' splits (:func:`entry_splits`; ``lm.lm_forward`` gives
+them on a mesh over ranks), :func:`apply_blocks` runs the tensor-parallel
+``train`` forward: each period's gather hands the blocks the rank's
+slices of the split leaves (the heads of self, local, encoder and cross
+attention, the FFN columns, the MoE's shared experts) and gathers none of
+them over the split's axes, and the blocks compute with them over the
+groups the splits carry. The MLA, RWKV6 and RG-LRU mixers, the routers and the
+routed experts run whole on every rank of the split, as before.
 """
 from __future__ import annotations
 
@@ -63,7 +72,7 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (apply_norm, init_norm, tree_leaves,
                                        tree_map)
-from repro_torch.models.ffn import ffn_apply, init_ffn
+from repro_torch.models.ffn import ffn_apply, ffn_splits, init_ffn
 from repro_torch.models.mla import MlaCache
 from repro_torch.models.moe import init_moe, moe_apply_auto
 from repro_torch.models.rglru import (init_rglru_block, init_rglru_state,
@@ -180,17 +189,19 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
 # Per-kind apply
 # ---------------------------------------------------------------------------
 
-def _ffn_or_moe(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str):
-    """The block's FFN, or its MoE; returns ``(y, aux_loss)``."""
+def _ffn_or_moe(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                tp=None):
+    """The block's FFN, or its MoE; returns ``(y, aux_loss)``. ``tp``: the
+    FFN's (or the shared experts') ``ff`` group, or None."""
     if _uses_moe(cfg, kind):
         return moe_apply_auto(params["moe"], x, top_k=cfg.top_k,
                               capacity_factor=cfg.capacity_factor,
-                              activation=cfg.activation)
-    return ffn_apply(params["ffn"], x, activation=cfg.activation), 0.0
+                              activation=cfg.activation, tp=tp)
+    return ffn_apply(params["ffn"], x, activation=cfg.activation, tp=tp), 0.0
 
 
 def _self_attn(params: dict, h: torch.Tensor, cfg: ModelConfig, kind: str,
-               mode: str, cache):
+               mode: str, cache, tp=None):
     if cfg.use_mla and kind != "cross":
         kw = dict(n_heads=cfg.n_heads, kv_lora=cfg.kv_lora,
                   qk_nope=cfg.qk_nope, qk_rope=cfg.qk_rope,
@@ -208,7 +219,8 @@ def _self_attn(params: dict, h: torch.Tensor, cfg: ModelConfig, kind: str,
               rope_theta=cfg.rope_theta)
     if mode == "train":
         return attn_mod.attention_apply(params["attn"], h,
-                                        causal=(kind != "enc"), **kw), cache
+                                        causal=(kind != "enc"), tp=tp,
+                                        **kw), cache
     if mode == "prefill":
         return attn_mod.attention_prefill(params["attn"], h, cache, **kw)
     if mode == "decode":
@@ -217,7 +229,7 @@ def _self_attn(params: dict, h: torch.Tensor, cfg: ModelConfig, kind: str,
 
 
 def _cross_attn(params: dict, h: torch.Tensor, cfg: ModelConfig, mode: str,
-                cache, cross_kv):
+                cache, cross_kv, tp=None):
     """The cross-attention of a ``cross`` block. Prefill computes the
     stream's keys and values and writes them into ``cache["ck"]`` /
     ``["cv"]``; decode attends over those (no mask, no RoPE). Returns
@@ -234,7 +246,8 @@ def _cross_attn(params: dict, h: torch.Tensor, cfg: ModelConfig, mode: str,
         raise ValueError("a cross block's prefill needs the cross stream "
                          "(cross_kv)")
     y = attn_mod.attention_apply(xp, h, n_heads=hq, n_kv_heads=hkv,
-                                 head_dim=hd, rope_theta=None, kv_x=cross_kv)
+                                 head_dim=hd, rope_theta=None, kv_x=cross_kv,
+                                 tp=tp)
     if cache is None:
         return y, None, None
     n = cross_kv.shape[1]
@@ -254,15 +267,27 @@ def _records_grad(params: dict, x: torch.Tensor) -> bool:
         t.requires_grad for t in tree_leaves(params)))
 
 
+def _tp(splits, *path):
+    """The group of the :class:`~repro_torch.dist.sharding.Split` at
+    ``path`` in a block's splits, or None."""
+    for k in path:
+        splits = splits.get(k) if isinstance(splits, dict) else None
+    return None if splits is None else splits.tp
+
+
 def apply_block(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
-                mode: str, cache, cross_kv: torch.Tensor | None = None):
+                mode: str, cache, cross_kv: torch.Tensor | None = None,
+                splits: dict | None = None):
     """Returns ``(x, new_cache, aux_loss)``; the new cache is ``None`` in
     ``train`` mode. ``cross_kv`` is the modality stream a ``cross`` block
     attends to in ``train`` and ``prefill`` (without it, in ``train``, the
     block's cross-attention attends to ``x`` itself, as the reference's
     does). An ``rwkv`` or ``rglru`` block calls the plain scan where
     autograd would record it, and the kernel's entry otherwise (the module
-    docstring)."""
+    docstring). ``splits`` (``train`` mode): the block's
+    :func:`block_splits`; ``params`` holds the rank's slices of the leaves
+    they split, and the attention and FFN compute theirs over the groups
+    the splits carry."""
     use_kernel = (kind in ("rwkv", "rglru")
                   and not _records_grad(params, x))
     if kind == "rwkv":
@@ -287,19 +312,53 @@ def apply_block(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
         new = None if mode == "train" else new
     elif kind == "cross":
         y, sa = _self_attn(params, h, cfg, "attn", mode,
-                           cache["self"] if cache is not None else None)
+                           cache["self"] if cache is not None else None,
+                           _tp(splits, "attn", "w_q"))
         x = x + y
         h = apply_norm(cfg.norm, params["norm_x"], x)
-        y, ck, cv = _cross_attn(params, h, cfg, mode, cache, cross_kv)
+        y, ck, cv = _cross_attn(params, h, cfg, mode, cache, cross_kv,
+                                _tp(splits, "xattn", "w_q"))
         new = None if cache is None else {"ck": ck, "cv": cv, "self": sa}
     elif kind in ("attn", "local_attn", "enc"):
-        y, new = _self_attn(params, h, cfg, kind, mode, cache)
+        y, new = _self_attn(params, h, cfg, kind, mode, cache,
+                            _tp(splits, "attn", "w_q"))
     else:
         raise ValueError(f"unknown block kind {kind!r}")
     x = x + y
     h = apply_norm(cfg.norm, params["norm2"], x)
-    y, aux = _ffn_or_moe(params, h, cfg, kind)
+    y, aux = _ffn_or_moe(params, h, cfg, kind,
+                         _tp(splits, "ffn", "w_up")
+                         or _tp(splits, "moe", "shared", "w_up"))
     return x + y, new, aux
+
+
+def block_splits(kind: str, params: dict, cfg: ModelConfig) -> dict:
+    """Each leaf's :class:`~repro_torch.dist.sharding.Split` (or None) in
+    ``apply_block(kind, params, ...)`` on the active mesh, a tree shaped
+    like ``params`` (a block's leaves, or its stacked ones)."""
+    out = tree_map(lambda _: None, params)
+    if kind == "cross" or (kind in ("attn", "local_attn", "enc")
+                           and not cfg.use_mla):
+        out["attn"] = attn_mod.attention_splits(params["attn"], cfg.n_heads,
+                                                cfg.n_kv_heads)
+    if kind == "cross":
+        out["xattn"] = attn_mod.attention_splits(
+            params["xattn"], cfg.n_heads, cfg.n_kv_heads)
+    if "ffn" in params:
+        out["ffn"] = ffn_splits(params["ffn"], cfg.d_ff)
+    if "moe" in params and "shared" in params["moe"]:
+        out["moe"]["shared"] = ffn_splits(
+            params["moe"]["shared"], cfg.n_shared_experts * cfg.expert_d_ff)
+    return out
+
+
+def entry_splits(entries: list, cfg: ModelConfig, schedule=None) -> list:
+    """:func:`block_splits` of every block of a schedule's stacked entries
+    (``init_blocks``' tree, or this rank's blocks of it)."""
+    schedule = schedule or make_schedule(cfg)
+    return [{f"sub{j}": block_splits(kind, entry[f"sub{j}"], cfg)
+             for j, kind in enumerate(pattern)}
+            for (pattern, _), entry in zip(schedule, entries)]
 
 
 # ---------------------------------------------------------------------------
@@ -365,33 +424,48 @@ def _periods(stacked, count: int) -> list:
     return periods
 
 
-def _period_specs(stacked, specs):
-    """``(stacked, period specs)`` of a schedule entry laid out by
-    ``specs``: a leaf whose stacked dim is sharded gathered whole (its
-    periods then need no gather), every other leaf as it is with its
-    spec less the stacked dim."""
+def _period_specs(stacked, specs, splits=None):
+    """``(stacked, period specs, period splits)`` of a schedule entry laid
+    out by ``specs``: a leaf whose stacked dim is sharded gathered whole
+    (to the rank's slice where ``splits`` cuts it; its periods then need no
+    gather), every other leaf as it is with its spec less the stacked
+    dim. The period splits are None without ``splits``."""
     mesh = current_mesh()
     whole = _map_with_path(
         lambda _, x, s: mesh is not None and any(
             d == 0 for d, _ in sharded_dims(s, mesh)), stacked, specs)
-    stacked = _map_with_path(
-        lambda path, x, s, w: gather_tree(x, s) if w else x, stacked, specs,
-        whole)
+    if splits is None:
+        stacked = _map_with_path(
+            lambda path, x, s, w: gather_tree(x, s) if w else x, stacked,
+            specs, whole)
+        period_splits = None
+    else:
+        stacked = _map_with_path(
+            lambda path, x, s, w, sp: gather_tree(x, s, sp) if w else x,
+            stacked, specs, whole, splits)
+        period_splits = _map_with_path(
+            lambda _, x, w, sp: None if w else sp, stacked, whole, splits)
     return stacked, _map_with_path(
-        lambda _, s, w: P() if w else P(*list(s)[1:]), specs, whole)
+        lambda _, s, w: P() if w else P(*list(s)[1:]), specs, whole), \
+        period_splits
 
 
 def apply_blocks(entries: list, x: torch.Tensor, cfg: ModelConfig, mode: str,
                  caches: list | None = None,
                  cross_kv: torch.Tensor | None = None, schedule=None,
-                 specs: list | None = None):
+                 specs: list | None = None, splits: list | None = None):
     """Run the whole schedule. Returns ``(x, caches, total_aux)``: the
     caches given, written in place (``None`` without caches). In ``train``
     mode with ``cfg.remat == "full"`` and grad mode on, each period runs
     under ``torch.utils.checkpoint`` (the module docstring). ``specs``:
     the entries' layout over the ranks (one tree of specs an entry) when
     ``entries`` holds this rank's blocks of it; their periods are gathered
-    (the module docstring)."""
+    (the module docstring). ``splits`` (``train`` mode, with ``specs``):
+    :func:`entry_splits` on a mesh over ranks, the tensor-parallel
+    forward."""
+    if splits is not None and (mode != "train" or specs is None):
+        raise ValueError("the split forward is the train mode's, over a "
+                         "layout (specs)")
     schedule = schedule or make_schedule(cfg)
     remat = (mode == "train" and cfg.remat == "full"
              and torch.is_grad_enabled())
@@ -399,19 +473,23 @@ def apply_blocks(entries: list, x: torch.Tensor, cfg: ModelConfig, mode: str,
     for e, ((pattern, count), params_stacked) in enumerate(
             zip(schedule, entries)):
         cache_stacked = caches[e] if caches is not None else None
-        period_specs = None
+        period_specs = period_splits = None
         if specs is not None:
-            params_stacked, period_specs = _period_specs(params_stacked,
-                                                         specs[e])
+            params_stacked, period_specs, period_splits = _period_specs(
+                params_stacked, specs[e],
+                splits[e] if splits is not None else None)
 
         # ``pattern`` bound now: the checkpoint recomputes a period in the
         # backward, after the loop has moved on to the next entry
-        def period(x, aux, p, c, pattern=pattern, sp=period_specs):
-            p = gather_tree(p, sp)
+        def period(x, aux, p, c, pattern=pattern, sp=period_specs,
+                   ss=period_splits,
+                   bs=splits[e] if splits is not None else None):
+            p = gather_tree(p, sp, ss)
             for j, kind in enumerate(pattern):
                 sub_c = c[f"sub{j}"] if c is not None else None
-                x, new_c, a = apply_block(kind, p[f"sub{j}"], x, cfg, mode,
-                                          sub_c, cross_kv)
+                x, new_c, a = apply_block(
+                    kind, p[f"sub{j}"], x, cfg, mode, sub_c, cross_kv,
+                    bs[f"sub{j}"] if bs is not None else None)
                 if sub_c is not None:
                     _write_back(sub_c, new_c)
                 aux = aux + a

@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.ranks import psum_disjoint
+
 # ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
@@ -39,6 +41,49 @@ def embed_init(generator: torch.Generator, vocab: int, dim: int,
     w = torch.randn((vocab, dim), generator=generator, dtype=torch.float32,
                     device=generator.device)
     return w.mul_(0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# The row-parallel product of the split over ranks
+# ---------------------------------------------------------------------------
+
+class _WideProduct(torch.autograd.Function):
+    """``h @ w`` of bf16 or fp16 operands with its fp32 accumulation
+    returned unrounded (cuBLAS's ``mm`` with ``out_dtype``; on the CPU the
+    product of the operands widened to fp32). The backward is the
+    narrow product's: the incoming gradient in the operands' dtype, then
+    ``g @ w.T`` and ``h.T @ g``, as autograd differentiates ``h @ w``."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        rows = h.reshape(-1, h.shape[-1])
+        y = (torch.mm(rows, w, out_dtype=torch.float32) if h.is_cuda
+             else rows.float() @ w.float())
+        return y.reshape(*h.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g = g.to(h.dtype)
+        gw = h.reshape(-1, h.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return g @ w.T, gw
+
+
+def row_parallel(h: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
+    """``h @ w``; ``tp`` (a ``sharding.TpGroup``): ``h`` and ``w`` are the
+    rank's columns and rows of a product that the group splits along its
+    contraction, and the parts are summed over the group
+    (``ranks.psum_disjoint``). In bf16 or fp16 each part stays in fp32
+    until the sum, which is rounded once to the operands' dtype, as one
+    process rounds the whole product (GSPMD rounds each part first: the
+    split step then lies further from one process's, ``ROADMAP.md``
+    R44)."""
+    if tp is None:
+        return h @ w
+    if h.dtype in (torch.bfloat16, torch.float16):
+        return psum_disjoint(_WideProduct.apply(h, w), tp.group).to(h.dtype)
+    return psum_disjoint(h @ w, tp.group)
 
 
 # ---------------------------------------------------------------------------

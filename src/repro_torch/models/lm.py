@@ -12,6 +12,14 @@ precomputed, in the model's dtype. :func:`init_lm` and
 :func:`init_lm_caches` run on the card unless given ``device="cpu"``.
 :func:`lm_params_from_numpy` carries a JAX ``init_lm`` tree (or a cache
 tree) across leaf for leaf, so the two packages can run the same weights.
+
+On a mesh over ranks the teacher-forced forward is tensor-parallel over
+the ``model`` axis, as the reference's GSPMD splits it
+(:func:`lm_splits`): the blocks' heads and FFN columns
+(:mod:`repro_torch.models.blocks`), and the vocabulary: each rank embeds
+through its rows of the table (a one-hot of its vocabulary slice, summed
+over the group) and computes its columns of the logits, which the split
+loss reads (``train.losses.softmax_cross_entropy(..., vocab=)``).
 """
 from __future__ import annotations
 
@@ -21,13 +29,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import (_axis_extent, current_mesh,
-                                       current_rules, gather_tree, shard)
+from repro_torch.dist.ranks import psum_disjoint, psum_grads
+from repro_torch.dist.sharding import (Split, _axis_extent, current_mesh,
+                                       current_rules, gather_tree,
+                                       replicated_specs, shard, tp_group)
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.attention import KVCache
-from repro_torch.models.blocks import apply_blocks, init_blocks, init_caches
+from repro_torch.models.blocks import (apply_blocks, entry_splits,
+                                      init_blocks, init_caches)
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
-                                       init_norm)
+                                       init_norm, tree_map)
 from repro_torch.models.mla import MlaCache
 from repro_torch.models.rglru import RglruState
 from repro_torch.models.rwkv import RwkvState
@@ -107,8 +118,17 @@ def _init_params(gen: torch.Generator, cfg: ModelConfig,
     return params
 
 
-def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor,
+            vocab=None) -> torch.Tensor:
+    """The logits; ``vocab`` (a ``sharding.TpGroup``): the rank's columns
+    of them, from its slice of the head (``x`` through
+    ``ranks.psum_grads``)."""
     x = apply_norm(cfg.norm, params["final_norm"], x)
+    if vocab is not None:
+        x = psum_grads(x, vocab.group)
+        head = (params["embedding"].T if cfg.tie_embeddings
+                else params["lm_head"])
+        return x @ head
     if cfg.tie_embeddings:
         logits = x @ params["embedding"].T
     else:
@@ -116,16 +136,30 @@ def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return shard(logits, "batch", "seq", "vocab")
 
 
-def _embed(params: dict, tokens: torch.Tensor,
-           mode: str = "train") -> torch.Tensor:
+def _embed(params: dict, tokens: torch.Tensor, mode: str = "train",
+           vocab=None) -> torch.Tensor:
     """Embedding lookup, sharding-aware, as the reference's.
 
     Training with a vocab-sharded table (a mesh whose ``vocab`` extent is
     above 1 and divides the vocabulary) contracts a one-hot: its gradient
     is then a matmul, not a scatter. A one-hot row picks its embedding row
     exactly, so the forward equals the gather's bitwise. Otherwise, and in
-    the no-grad modes (``"prefill"`` / ``"decode"``), a gather."""
+    the no-grad modes (``"prefill"`` / ``"decode"``), a gather.
+
+    ``vocab`` (a ``sharding.TpGroup``, ``train`` mode on a mesh over
+    ranks): ``params["embedding"]`` is the rank's rows of the table, and
+    the one-hot of the rank's vocabulary slice contracts them; the parts
+    are summed over the group (``ranks.psum_disjoint``), the token's row
+    and zeros."""
     emb = params["embedding"]
+    if vocab is not None:
+        if mode != "train":
+            raise ValueError("the vocabulary splits in train mode only")
+        rows = emb.shape[0]
+        local = tokens.long() - vocab.index * rows
+        onehot = (torch.arange(rows, device=emb.device)
+                  == local[..., None]).to(emb.dtype)
+        return psum_disjoint(onehot @ emb, vocab.group)
     v = emb.shape[0]
     mesh = current_mesh()
     vocab_sharded = False
@@ -144,7 +178,7 @@ def _embed(params: dict, tokens: torch.Tensor,
 
 
 def _cross_stream(params: dict, cfg: ModelConfig, image_embeds,
-                  audio_frames, specs=None):
+                  audio_frames, specs=None, splits=None):
     """The modality stream in the backbone's width: the projected image
     embeddings, or the encoder's output over the projected audio frames
     (``None`` without one)."""
@@ -152,21 +186,59 @@ def _cross_stream(params: dict, cfg: ModelConfig, image_embeds,
         return image_embeds @ params["img_proj"]
     if cfg.encdec and audio_frames is not None:
         h = audio_frames @ params["audio_proj"]
-        enc_cfg = dataclasses.replace(cfg, n_experts=0, use_mla=False)
+        enc_cfg = _encoder_cfg(cfg)
         h, _, _ = apply_blocks(
             params["encoder"]["blocks"], h, enc_cfg, "train",
             schedule=_encoder_schedule(cfg),
-            specs=specs["encoder"]["blocks"] if specs is not None else None)
+            specs=specs["encoder"]["blocks"] if specs is not None else None,
+            splits=splits["encoder"]["blocks"] if splits is not None
+            else None)
         return apply_norm(cfg.norm, params["encoder"]["final_norm"], h)
     return None
 
 
-def _gather_outside_blocks(params: dict, specs: dict) -> dict:
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, n_experts=0, use_mla=False)
+
+
+def lm_splits(params: dict, cfg: ModelConfig) -> dict | None:
+    """Each parameter leaf's :class:`~repro_torch.dist.sharding.Split` (or
+    None) in the tensor-parallel forward on the active mesh, a tree shaped
+    like ``params`` (the global tree, or this rank's blocks of it): the
+    embedding's rows and an untied head's columns over the ``vocab`` axes,
+    the blocks' (``blocks.entry_splits``). None where no leaf splits
+    (without a mesh over ranks, or at a ``model`` extent of 1). Each split
+    carries its group (``sharding.tp_group``), resolved here once."""
+    vocab = tp_group("vocab", cfg.vocab)
+    out = tree_map(lambda _: None, params)
+    if vocab is not None:
+        out["embedding"] = Split(-2, vocab)
+        if "lm_head" in params:
+            out["lm_head"] = Split(-1, vocab)
+    out["blocks"] = entry_splits(params["blocks"], cfg)
+    if "encoder" in params:
+        out["encoder"]["blocks"] = entry_splits(
+            params["encoder"]["blocks"], _encoder_cfg(cfg),
+            _encoder_schedule(cfg))
+    found = []
+    tree_map(lambda _, s: found.append(s), params, out)
+    return out if any(s is not None for s in found) else None
+
+
+def vocab_group(splits: dict | None):
+    """The ``sharding.TpGroup`` that splits the vocabulary in
+    :func:`lm_splits`' tree (the embedding's), or None."""
+    s = splits["embedding"] if splits is not None else None
+    return None if s is None else s.tp
+
+
+def _gather_outside_blocks(params: dict, specs: dict, splits=None) -> dict:
     """``params`` with every leaf read outside the periods (the embedding
     and a tied head, the final norms, the projections, an untied head)
-    gathered from this rank's blocks (``sharding.gather_tree``), once: a
-    leaf read twice, as a tied embedding, has one gather whose backward
-    takes both uses' gradient."""
+    gathered from this rank's blocks (``sharding.gather_tree``; to the
+    rank's slice where ``splits`` cuts it), once: a leaf read twice, as a
+    tied embedding, has one gather whose backward takes both uses'
+    gradient."""
     out = dict(params)
     for k, v in params.items():
         if k == "blocks":
@@ -175,14 +247,15 @@ def _gather_outside_blocks(params: dict, specs: dict) -> dict:
             out[k] = dict(v, final_norm=gather_tree(
                 v["final_norm"], specs[k]["final_norm"]))
         else:
-            out[k] = gather_tree(v, specs[k])
+            out[k] = gather_tree(v, specs[k],
+                                 splits[k] if splits is not None else None)
     return out
 
 
 def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                image_embeds: torch.Tensor | None = None,
                audio_frames: torch.Tensor | None = None,
-               specs: dict | None = None):
+               specs: dict | None = None, splits: dict | None = None):
     """Teacher-forced forward. Returns ``(logits [B, S, V], aux_loss)``
     (the MoE load-balance loss summed over the layers; 0 without MoE).
 
@@ -195,15 +268,32 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``params`` holds this rank's blocks of it: each leaf is gathered where
     it is read (the blocks' in their periods, ``apply_blocks``), and the
     backward hands each block its reduced gradient. ``None``: ``params``
-    is the global tree."""
+    is the global tree.
+
+    On a mesh over ranks whose ``model`` axis splits the work
+    (:func:`lm_splits`) the forward is tensor-parallel: every leaf that
+    splits is read as the rank's slice (cut from the global tree, or from
+    the blocks without a gather over ``model``), and the logits are the
+    rank's vocabulary columns, ``[B, S, V / parts]`` of
+    :func:`vocab_group`, where the vocabulary splits. ``splits``:
+    :func:`lm_splits`' tree where the caller has resolved it (the train
+    step); resolved here otherwise."""
+    mesh = current_mesh()
+    if splits is None and mesh is not None and mesh.on_ranks:
+        splits = lm_splits(params, cfg)
+    if splits is not None and specs is None:
+        specs = replicated_specs(params)
     if specs is not None:
-        params = _gather_outside_blocks(params, specs)
-    x = _embed(params, tokens, "train")
-    cross_kv = _cross_stream(params, cfg, image_embeds, audio_frames, specs)
+        params = _gather_outside_blocks(params, specs, splits)
+    vocab = vocab_group(splits)
+    x = _embed(params, tokens, "train", vocab)
+    cross_kv = _cross_stream(params, cfg, image_embeds, audio_frames, specs,
+                             splits)
     x, _, aux = apply_blocks(
         params["blocks"], x, cfg, "train", cross_kv=cross_kv,
-        specs=specs["blocks"] if specs is not None else None)
-    return _logits(params, cfg, x), aux
+        specs=specs["blocks"] if specs is not None else None,
+        splits=splits["blocks"] if splits is not None else None)
+    return _logits(params, cfg, x, vocab), aux
 
 
 def init_lm_caches(cfg: ModelConfig, batch: int, max_len: int,

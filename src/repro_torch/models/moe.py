@@ -192,7 +192,8 @@ def moe_apply_onehot(params: dict, x: torch.Tensor, *, top_k: int,
 
 
 def moe_apply_auto(params: dict, x: torch.Tensor, *, top_k: int,
-                   capacity_factor: float = 1.25, activation: str = "silu"):
+                   capacity_factor: float = 1.25, activation: str = "silu",
+                   tp=None):
     """The dispatch engine of the blocks: the expert-parallel dispatch
     (``moe_ep.moe_apply_ep``, then the shared experts) when a mesh is
     active whose ``experts`` extent ``ep`` is above 1 and divides the
@@ -203,7 +204,18 @@ def moe_apply_auto(params: dict, x: torch.Tensor, *, top_k: int,
     reference's
     activation annotations, so under a mesh it runs where the reference's
     raises (``ROADMAP.md`` R29a: its ``shard(h, "experts", None, "ff")``
-    names the model axis twice)."""
+    names the model axis twice).
+
+    ``tp`` (a ``sharding.TpGroup``): the shared experts' FFN splits its
+    columns over the group as ``ffn_apply(..., tp=)`` does (its leaves
+    this rank's slices), beside either dispatch of the routed experts."""
+    if tp is not None and "shared" in params:
+        routed = {k: v for k, v in params.items() if k != "shared"}
+        y, aux = moe_apply_auto(routed, x, top_k=top_k,
+                                capacity_factor=capacity_factor,
+                                activation=activation)
+        return y + ffn_apply(params["shared"], x, activation=activation,
+                             tp=tp), aux
     mesh = current_mesh()
     if mesh is not None:
         from repro_torch.models.moe_ep import moe_apply_ep

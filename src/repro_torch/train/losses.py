@@ -4,25 +4,64 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.ranks import pmax, psum_disjoint
 from repro_torch.train.ctc import ctc_loss
+
+
+def _split_terms(logits: torch.Tensor, labels: torch.Tensor, vocab):
+    """``(log-sum-exp, picked logit, argmax)`` over a vocabulary that the
+    ranks of ``vocab`` (a ``sharding.TpGroup``) split, ``logits`` the
+    rank's ``V / parts`` columns from global column ``index * V / parts``:
+    the maximum over the group with no gradient, the sums of exps and the
+    picked logit (the label compared against the global column) summed
+    over the group, and the argmax the lowest global column holding the
+    maximum, as ``torch.argmax`` and ``jnp.argmax`` break ties."""
+    cols = logits.shape[-1]
+    first = vocab.index * cols
+    top, at = logits.detach().max(dim=-1)
+    peak = pmax(top, vocab.group)
+    col = first + torch.arange(cols, device=logits.device)
+    picked = torch.where(col == labels[..., None], logits, 0.0)
+    sums = psum_disjoint(torch.stack([
+        torch.sum(torch.exp(logits - peak[..., None]), dim=-1),
+        torch.sum(picked, dim=-1)]), vocab.group)
+    lse = peak + torch.log(sums[0])
+    # the lowest global column at the maximum: a maximum over the negated
+    # columns, the ranks without it offering -V
+    mine = torch.where(top == peak, -(first + at), -cols * vocab.parts)
+    argmax = -pmax(mine, vocab.group)
+    return lse, sums[1], argmax
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: torch.Tensor | None = None,
-                          z_loss: float = 0.0):
+                          z_loss: float = 0.0, vocab=None):
     """Token-level CE. ``logits: [..., V]``, ``labels: [...]`` int.
 
     Returns (mean loss, metrics). ``z_loss`` regularizes the partition
     function (stabilizes large-vocab training).
+
+    ``vocab`` (a ``sharding.TpGroup``): ``logits`` are this rank's columns
+    of a vocabulary the group splits (``lm.lm_forward`` on a mesh over
+    ranks), and the log-sum-exp, the picked logit and the argmax are the
+    whole vocabulary's (:func:`_split_terms`); every rank of the group
+    returns the same loss and metrics.
     """
     logits = logits.to(torch.float32)
+    if vocab is not None:
+        lse, ll, argmax = _split_terms(logits, labels, vocab)
+        return _mean(lse - ll, lse, argmax, labels, mask, z_loss)
     lse = torch.logsumexp(logits, dim=-1)
     # label pick by comparing against the vocabulary index, as the JAX
     # package does (its spelling partitions over a vocab-sharded axis)
     vocab_iota = torch.arange(logits.shape[-1], device=logits.device)
     picked = torch.where(vocab_iota == labels[..., None], logits, 0.0)
     ll = torch.sum(picked, dim=-1)
-    loss = lse - ll
+    return _mean(lse - ll, lse, torch.argmax(logits, -1), labels, mask,
+                 z_loss)
+
+
+def _mean(loss, lse, argmax, labels, mask, z_loss):
     if z_loss:
         loss = loss + z_loss * torch.square(lse)
     if mask is None:
@@ -30,15 +69,18 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     mask = mask.to(torch.float32)
     denom = torch.clamp(torch.sum(mask), min=1.0)
     mean = torch.sum(loss * mask) / denom
-    acc = torch.sum((torch.argmax(logits, -1) == labels) * mask) / denom
+    acc = torch.sum((argmax == labels) * mask) / denom
     return mean, {"ce": mean, "accuracy": acc, "tokens": denom}
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
-            mask: torch.Tensor | None = None, z_loss: float = 1e-4):
-    """Next-token prediction: logits[:, :-1] vs tokens[:, 1:]."""
+            mask: torch.Tensor | None = None, z_loss: float = 1e-4,
+            vocab=None):
+    """Next-token prediction: logits[:, :-1] vs tokens[:, 1:] (``vocab``:
+    :func:`softmax_cross_entropy`'s)."""
     m = None if mask is None else mask[:, 1:]
-    return softmax_cross_entropy(logits[:, :-1], tokens[:, 1:], m, z_loss)
+    return softmax_cross_entropy(logits[:, :-1], tokens[:, 1:], m, z_loss,
+                                 vocab)
 
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor):

@@ -28,7 +28,15 @@ bf16, as the reference's psum adds them; the fp32 metrics ride at the end
 of the fp32 bucket) and divides by the group's size, so each rank updates
 the same state with the global batch's gradient; the expert stacks that
 the expert-parallel MoE splits over the ranks are first summed over the
-experts group. The compiled step captures those collectives in its graph.
+experts group. Where the mesh's ``model`` axis splits the work (tensor
+parallelism, :func:`repro_torch.models.lm.lm_splits`) the ranks of a
+``model`` group hold the same rows and compute one loss between them: a
+leaf's gradient that a rank computes only its part of (a leaf cut to the
+rank's slice, or used whole on the split side, as qwen2.5's ``b_k``
+where the KV heads do not split) is summed over ``model`` first, and a
+leaf whose gradient ``ranks.psum_grads`` already made whole (the norm
+scales) is not. The compiled step captures those collectives in its
+graph.
 """
 from __future__ import annotations
 
@@ -43,15 +51,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.dist.ranks import (all_gather_bucket, all_reduce_,
                                     axis_group, cut, reduce_scatter_bucket)
-from repro_torch.dist.sharding import (NamedSharding, _axis_extent,
+from repro_torch.dist.sharding import (P, NamedSharding, _axis_extent,
                                        _map_with_path, _names, block_plan,
                                        block_shape, current_mesh,
-                                       current_rules, expert_parallel_leaf,
-                                       global_shape, infer_param_specs,
-                                       shard_cuts, sharded_dims,
-                                       with_sharding_constraint)
+                                       current_rules, global_shape,
+                                       infer_param_specs, shard_cuts,
+                                       sharded_dims, with_sharding_constraint)
 from repro_torch.models.gru_rnn import GruTaskConfig, gru_model_forward
-from repro_torch.models.lm import lm_forward
+from repro_torch.models.lm import lm_forward, lm_splits, vocab_group
 from repro_torch.quant.qat import FP32, QatPolicy
 from repro_torch.train.losses import ctc_loss_mean, lm_loss, mse_loss
 from repro_torch.train.optim import (AdamConfig, adam_update, in_place,
@@ -111,30 +118,30 @@ def _summed(tensors: list, group) -> list:
 
 def _reduce_over_ranks(grads, metrics: dict, mesh, rules, pending=None):
     """The global batch's gradients and metrics on every rank of a mesh
-    over ranks: the expert stacks split over the experts group summed
-    there, then every gradient and metric summed over the data group and
-    divided by its size (``tokens`` summed), each in its own dtype.
+    over ranks: each gradient summed over the groups its ``pending`` names
+    but the data group's, in the order they first appear (the experts
+    group for an expert stack the expert-parallel dispatch splits, the
+    ``model`` group for a leaf whose gradient a rank computes only its
+    part of), one bucket a group and dtype; then every gradient and metric
+    summed over the data group and divided by its size (``tokens``
+    summed), each in its own dtype.
 
     ``pending``: per leaf (in ``tree_map``'s order) the groups, as mesh
     axis names, that its gradient still has to be summed over (a
     reduce-scatter summed the others, and divided where it summed the
-    data group); by default every leaf's sums
-    (:func:`~repro_torch.dist.sharding.block_plan`'s order: the experts
-    group for an expert stack the expert-parallel dispatch splits, then
-    the data group)."""
+    data group); by default those of a state that every rank holds whole
+    with no split of the work (:func:`_replicated_pending`)."""
     data_axes = _names(rules.resolve("batch", mesh=mesh)[0])
-    ep_axes = _names(rules.resolve("experts", mesh=mesh)[0])
-    dp, ep = _axis_extent(mesh, data_axes), _axis_extent(mesh, ep_axes)
+    dp = _axis_extent(mesh, data_axes)
     leaves = _in_order(grads)
     if pending is None:
-        split = _in_order(_map_with_path(
-            lambda path, g: expert_parallel_leaf(path, g, ep), grads))
-        pending = [((ep_axes,) if e else ()) + (data_axes,) for e in split]
-    on_ep = [ep_axes in p for p in pending]
-    if any(on_ep):
-        summed = iter(_summed([g for g, e in zip(leaves, on_ep) if e],
-                              axis_group(mesh, ep_axes)))
-        leaves = [next(summed) if e else g for g, e in zip(leaves, on_ep)]
+        pending = _replicated_pending(grads, None, mesh, rules)
+    for names in dict.fromkeys(n for p in pending for n in p
+                               if n != data_axes):
+        on = [names in p for p in pending]
+        summed = iter(_summed([g for g, o in zip(leaves, on) if o],
+                              axis_group(mesh, names)))
+        leaves = [next(summed) if o else g for g, o in zip(leaves, on)]
     on_data = [data_axes in p for p in pending]
     names = sorted(metrics)
     vec = torch.stack([metrics[k].reshape(()).to(torch.float32)
@@ -150,6 +157,30 @@ def _reduce_over_ranks(grads, metrics: dict, mesh, rules, pending=None):
     metrics = {k: (vec[i] if k == "tokens" else mean(vec[i])).to(
         metrics[k].dtype) for i, k in enumerate(names)}
     return grads, metrics
+
+
+def _leaf_splits(params, splits) -> list:
+    """Per leaf of ``params`` (``tree_map``'s order) its split in
+    ``splits`` (``lm.lm_splits``' tree), or None for every leaf without
+    ``splits``."""
+    if splits is None:
+        return [None] * len(_in_order(params))
+    out = []
+    tree_map(lambda _, sp: out.append(sp), params, splits)
+    return out
+
+
+def _replicated_pending(params, splits, mesh, rules) -> list:
+    """Per leaf (``tree_map``'s order) the sums its gradient takes after
+    the backward where every rank holds the whole state and the forward
+    splits the work as ``splits`` says (``block_plan`` of ``P()``, as
+    :class:`StateLayout` takes them from ``block_plan`` of its specs)."""
+    paths = []
+    _map_with_path(lambda path, x: paths.append(path), params)
+    return [block_plan(path, tuple(x.shape), P(*([None] * x.ndim)), mesh,
+                       rules, sp)[1]
+            for path, x, sp in zip(paths, _in_order(params),
+                                   _leaf_splits(params, splits))]
 
 
 class StateLayout:
@@ -174,9 +205,13 @@ class StateLayout:
       back over them after it;
     * ``pending``: per leaf, the sums left for the step's bucket;
     * ``norm_over``: the clip norm's leaves and group where a moment leaf
-      is sharded (``optim.global_norm``), else None."""
+      is sharded (``optim.global_norm``), else None.
 
-    def __init__(self, params, state_sharding, mesh, rules):
+    ``splits``: the forward's split of the work (``lm.lm_splits``, a tree
+    shaped like ``params``), which decides each leaf's gathers and sums
+    (``block_plan``); None: no split."""
+
+    def __init__(self, params, state_sharding, mesh, rules, splits=None):
         self.mesh = mesh
         p_sh = state_sharding.params
         mu_sh, nu_sh = state_sharding.opt["mu"], state_sharding.opt["nu"]
@@ -190,6 +225,7 @@ class StateLayout:
         paths = []
         _map_with_path(lambda path, x: paths.append(path), params)
         blocks = _in_order(params)
+        leaf_splits = _leaf_splits(params, splits)
         self.shapes = [global_shape(b.shape, s, mesh)
                        for b, s in zip(blocks, sp)]
         data = _names(rules.resolve("batch", mesh=mesh)[0])
@@ -197,7 +233,8 @@ class StateLayout:
         self.data = data
         self.so = so
         self.scatters, self.cuts, self.pending, self.extra = [], [], [], []
-        for path, shape, a, b in zip(paths, self.shapes, sp, so):
+        for path, shape, a, b, split in zip(paths, self.shapes, sp, so,
+                                            leaf_splits):
             have = dict(sharded_dims(a, mesh))
             want = dict(sharded_dims(b, mesh))
             if any(want.get(d) != n for d, n in have.items()):
@@ -206,7 +243,7 @@ class StateLayout:
                     f"do not refine the parameters' {a}")
             extra = {d: n for d, n in want.items() if d not in have}
             self.extra.append(sorted(extra.items()))
-            _, pending = block_plan(path, shape, a, mesh, rules)
+            _, pending = block_plan(path, shape, a, mesh, rules, split)
             scat, left = [], []
             for names in pending:
                 d = next((d for d, n in extra.items() if n == names), None)
@@ -327,7 +364,15 @@ def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
     (``shard_batch``), and the gradients and metrics are those of the
     global batch, reduced over the ranks after the microbatch loop (see
     the module's docstring); the clip norm and the update then run alike
-    on every rank. With ``grad_accum > 1`` the rows are
+    on every rank. Where the mesh's ``model`` axis splits the work,
+    ``lm_forward`` is tensor-parallel (each rank its heads, FFN columns and
+    vocabulary slice; its logits the rank's columns, which ``lm_loss``
+    reads with ``vocab=``), and each gradient takes the sums over
+    ``model`` that ``sharding.block_plan`` gives its leaf's split (a rank
+    whose leaf is its slice computes that slice's whole gradient; one
+    that cut its slice from a whole leaf, or used the whole leaf on the
+    split side, computes its part, summed over ``model``). With
+    ``grad_accum > 1`` the rows are
     ``shard_batch(..., grad_accum=grad_accum)``'s, the rank's block of
     each of the reference's microbatches in turn, so microbatch ``m``
     here is the rank's block of the global batch's microbatch ``m``.
@@ -347,12 +392,15 @@ def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
-    def loss_fn(params, batch, specs):
+    def loss_fn(params, batch, specs, splits):
         logits, aux = lm_forward(
             params, cfg, batch["tokens"],
             image_embeds=batch.get("image_embeds"),
-            audio_frames=batch.get("audio_frames"), specs=specs)
-        loss, metrics = lm_loss(logits, batch["tokens"])
+            audio_frames=batch.get("audio_frames"), specs=specs,
+            splits=splits)
+        # the rank's vocabulary columns where the forward splits them
+        loss, metrics = lm_loss(logits, batch["tokens"],
+                                vocab=vocab_group(splits))
         if not isinstance(aux, torch.Tensor):
             # a dense arch's aux is the float 0.0: filled on the device, as
             # a copy from pageable host memory would break a graph capture
@@ -363,19 +411,20 @@ def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
         metrics["loss"] = total
         return total, metrics
 
-    def value_and_grad(params, batch, lay):
+    def value_and_grad(params, batch, lay, splits):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         total, metrics = loss_fn(live, batch,
-                                 lay.p_specs if lay is not None else None)
+                                 lay.p_specs if lay is not None else None,
+                                 splits)
         total.backward()
         grads = _grads(live, cfg.name)
         if lay is not None:
             grads = lay.to_moments(grads)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
-    def compute_grads(params, batch, lay):
+    def compute_grads(params, batch, lay, splits):
         if grad_accum == 1:
-            return value_and_grad(params, batch, lay)
+            return value_and_grad(params, batch, lay, splits)
         b = batch["tokens"].shape[0]
         if b % grad_accum:
             raise ValueError(f"a batch of {b} does not split into "
@@ -403,7 +452,7 @@ def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
         for m in range(grad_accum):
             micro = {k: v.reshape(grad_accum, b // grad_accum,
                                   *v.shape[1:])[m] for k, v in batch.items()}
-            grads, metrics = value_and_grad(params, micro, lay)
+            grads, metrics = value_and_grad(params, micro, lay, splits)
             tree_map(lambda a, g: a.add_(g.to(torch.float32)), acc, grads)
             per_mb.append(metrics)
             del grads
@@ -414,22 +463,27 @@ def make_lm_train_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig,
 
     def step(state: TrainState, batch):
         mesh = current_mesh()
-        lay = None
+        lay = pending = None
+        splits = (lm_splits(state.params, cfg)
+                  if mesh is not None and mesh.on_ranks else None)
         if state_sharding is not None and mesh is not None:
             if mesh.on_ranks:
                 lay = StateLayout(state.params, state_sharding, mesh,
-                                  current_rules())
+                                  current_rules(), splits)
+                pending = lay.pending
             elif any(sharded_dims(s.spec, mesh)
                      for s in tree_leaves(state_sharding)):
                 raise ValueError(
                     f"a train state sharded over the mesh {mesh.shape} that "
                     "lists one device: a sharded state needs a mesh over "
                     "ranks (init_ranks, then best_mesh())")
-        grads, metrics = compute_grads(state.params, batch, lay)
+        grads, metrics = compute_grads(state.params, batch, lay, splits)
         if mesh is not None and mesh.on_ranks:
-            grads, metrics = _reduce_over_ranks(
-                grads, metrics, mesh, current_rules(),
-                lay.pending if lay is not None else None)
+            if lay is None:
+                pending = _replicated_pending(state.params, splits, mesh,
+                                              current_rules())
+            grads, metrics = _reduce_over_ranks(grads, metrics, mesh,
+                                                current_rules(), pending)
         if grad_transform is not None:
             grads = grad_transform(grads)
         if lay is None:

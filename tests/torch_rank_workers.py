@@ -551,3 +551,177 @@ def resume_sharded(rank, arch, layout, ckpt_dir):
             "peak": peak[0], "blocks": blocks,
             "largest": max(a.numel() * a.element_size() for a in abstract),
             "whole": sum(a.numel() * a.element_size() for a in abstract)}
+
+
+# -- tensor parallelism over the model axis (test_torch_tensor_parallel.py) --
+
+def _tensors(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def tp_steps(rank, arch, params, batch, lr, cases, count_flops):
+    """For each ``(model-parallel degree, microbatches)`` of ``cases``, on
+    the mesh over the ranks: one step of ``make_lm_train_step_fn`` from the
+    replicated state of ``params`` (``device_put`` of ``P()``, no layout)
+    and one from the same state laid out under FSDP
+    (``specs.train_state_sharding``, ``state_sharding=``), both splitting
+    the work over ``model``, on the rank's rows of ``batch`` (its block of
+    each microbatch): both steps' metrics, the gradients each hands the
+    update (the replicated step's as global leaves; the FSDP step's
+    largest error over each leaf's largest against the replicated step's
+    cut to this rank's blocks), both new states as global leaves, the
+    collectives the FSDP step issued, each of its all-gathers' group
+    (``"model"`` or ``"data"``) and gathered elements, and, where
+    ``count_flops`` names the degree, the FSDP step's matmul FLOPs under
+    ``FlopCounterMode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    cfg = get_config(arch).reduced()
+    rules = AxisRules()
+    out = {}
+    for mp, accum in cases:
+        mesh = best_mesh(model_parallel=mp)
+        kept = {}
+
+        def keep(name):
+            def fn(grads):
+                kept[name] = grads
+                return grads
+            return fn
+        gathered = []
+        orig = ranks._gather_into
+
+        def record(dst, x, group):
+            over = ("model" if group is ranks.axis_group(mesh, "model")
+                    else "data")
+            gathered.append((over, dst.numel()))
+            return orig(dst, x, group)
+        with use_mesh(mesh, rules):
+            whole = trainer.init_train_state(lm_params_from_numpy(
+                params, device="cpu"))
+            st_sh = specs.train_state_sharding(whole, mesh, rules)
+            placed = shard_batch(_tensors(batch), mesh, rules,
+                                 grad_accum=accum)
+            opt = AdamConfig(schedule=constant_schedule(lr))
+            step = trainer.make_lm_train_step_fn(
+                cfg, opt, grad_accum=accum, accum_rules=rules,
+                grad_transform=keep("repl"))
+            new_r, m_r = step(device_put(whole, NamedSharding(mesh, P())),
+                              placed)
+            step = trainer.make_lm_train_step_fn(
+                cfg, opt, grad_accum=accum, accum_rules=rules,
+                grad_transform=keep("fsdp"), state_sharding=st_sh)
+            before = dict(ranks.COLLECTIVES)
+            ranks._gather_into = record
+            try:
+                new, m = step(device_put(whole, st_sh), placed)
+            finally:
+                ranks._gather_into = orig
+            issued = {k: v - before[k] for k, v in ranks.COLLECTIVES.items()
+                      if v - before[k]}
+            want = device_put(kept["repl"], st_sh.opt["mu"])
+            gerr = [float((a - b).abs().max() / b.abs().max().clamp_min(
+                1e-30)) for a, b in zip(trainer._in_order(kept["fsdp"]),
+                                        trainer._in_order(want))]
+            flops = None
+            if mp == count_flops and accum == 1:
+                with FlopCounterMode(display=False) as fc:
+                    step(device_put(whole, st_sh), placed)
+                flops = fc.get_total_flops()
+            host = checkpoint.host_state(new, st_sh)
+        out[(mp, accum)] = {
+            "coords": mesh.coords(),
+            "metrics": {k: float(v) for k, v in m.items()},
+            "repl_metrics": {k: float(v) for k, v in m_r.items()},
+            "gerr": gerr,
+            "state": [np.asarray(x) for x in tree_leaves(host)],
+            "repl_state": [p.detach().numpy() for p in tree_leaves(new_r)],
+            "repl_grads": [g.numpy() for g in tree_leaves(kept["repl"])],
+            "issued": issued, "gathered": gathered, "flops": flops}
+    return out
+
+
+def row_products(rank, h, w, g, mp):
+    """``models.common.row_parallel`` in bf16 of this rank's columns of
+    ``h`` and rows of ``w`` over the ``ff`` split at ``model`` extent
+    ``mp``, and its backward of ``g``: the output and the two gradients
+    (fp32 arrays) and the rank's first column."""
+    from repro_torch.dist.sharding import tp_group
+    from repro_torch.models.common import row_parallel
+    mesh = best_mesh(model_parallel=mp)
+    with use_mesh(mesh, AxisRules()):
+        tp = tp_group("ff", h.shape[-1])
+        cols = h.shape[-1] // tp.parts
+        lo = tp.index * cols
+        hs = torch.from_numpy(h[..., lo:lo + cols]).bfloat16()
+        ws = torch.from_numpy(w[lo:lo + cols]).bfloat16()
+        hs.requires_grad_(True)
+        ws.requires_grad_(True)
+        y = row_parallel(hs, ws, tp)
+        y.backward(torch.from_numpy(g).bfloat16())
+    return {"lo": lo, "cols": cols, "dtype": str(y.dtype),
+            "y": y.detach().float().numpy(),
+            "dh": hs.grad.float().numpy(), "dw": ws.grad.float().numpy()}
+
+
+def tp_forward(rank, arch, params, batch, mp):
+    """``lm_forward`` of ``params`` on ``batch`` under the mesh over the
+    ranks with ``model`` extent ``mp`` (the rank's rows; the teacher-forced
+    forward, split where the arch splits), with grad mode off: its logits
+    gathered over ``model`` where the vocabulary splits, and the aux
+    loss."""
+    from repro_torch.models.lm import lm_forward
+    from repro_torch.dist.sharding import tp_group
+    cfg = get_config(arch).reduced()
+    mesh = best_mesh(model_parallel=mp)
+    rules = AxisRules()
+    with use_mesh(mesh, rules), torch.no_grad():
+        rows = shard_batch(_tensors(batch), mesh, rules)
+        logits, aux = lm_forward(
+            lm_params_from_numpy(params, device="cpu"), cfg, rows["tokens"],
+            image_embeds=rows.get("image_embeds"),
+            audio_frames=rows.get("audio_frames"))
+        vocab = tp_group("vocab", cfg.vocab)
+        cols = logits.shape[-1]
+        if vocab is not None:
+            logits = ranks.gather_dim(logits, logits.ndim - 1, vocab.group)
+    return {"coords": mesh.coords(), "cols": cols,
+            "logits": logits.numpy(), "aux": float(aux)}
+
+
+def tp_checkpoint(rank, arch, params, tokens, ckpt_dir, mp):
+    """Under FSDP at ``model`` extent ``mp`` over all the ranks: one split
+    step from the state of ``params``, gathered to global leaves and
+    saved by the lead at step 1; then the files restored into the blocks
+    of the (world, 1) mesh's FSDP layout, against those blocks of the
+    saved leaves (bitwise). Returns the saved leaves."""
+    cfg = get_config(arch).reduced()
+    rules = AxisRules()
+    mesh = best_mesh(model_parallel=mp)
+    with use_mesh(mesh, rules):
+        whole = trainer.init_train_state(lm_params_from_numpy(
+            params, device="cpu"))
+        st_sh = specs.train_state_sharding(whole, mesh, rules)
+        step = trainer.make_lm_train_step_fn(
+            cfg, AdamConfig(schedule=constant_schedule(1e-3)),
+            state_sharding=st_sh)
+        new, _ = step(device_put(whole, st_sh), shard_batch(
+            {"tokens": torch.from_numpy(tokens)}, mesh, rules))
+        host = checkpoint.host_state(new, st_sh)
+        if rank == 0:
+            checkpoint.save(ckpt_dir, 1, host)
+        dist.barrier()
+    flat = best_mesh()
+    with use_mesh(flat, rules):
+        abstract = specs.abstract_train_state(cfg)
+        sh = specs.train_state_sharding(abstract, flat, rules)
+        got = checkpoint.restore(ckpt_dir, abstract, shardings=sh)
+        want = device_put(tree_map(torch.as_tensor, host), sh)
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                     tree_leaves(want)))
+    return {"same": same, "mesh": mesh.shape,
+            "state": [np.asarray(x) for x in tree_leaves(host)]}
+
+
+def launches(rank, argvs):
+    """:func:`launch` of each of ``argvs`` in turn on the group."""
+    return [launch(rank, argv) for argv in argvs]

@@ -14,7 +14,11 @@ prints its lines. Give the roots as ``A B B A`` to compare two on one host
 in one call. After each root's lines, one JSON line: the root, the card's
 name and power limit, the phase's seconds and its results (the rank
 step's and the one-process step's replay walls, peaks, NCCL kernels and
-their device time, the exchange's walls, the launcher's losses).
+their device time, the exchange's walls, the sharded steps (d) and the
+steps that split the work over the ``model`` axis (e), the launcher's
+losses). On a host with four cards, (e) runs llama3.2-1b at (1, 4) and
+(2, 2) and granite-moe-3b-a800m at (2, 2):
+``python3 tools/rank_times.py .`` there times them.
 """
 from __future__ import annotations
 
